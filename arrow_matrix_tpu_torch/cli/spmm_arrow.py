@@ -1,14 +1,18 @@
-"""``spmm_arrow`` — the arrow SpMM benchmark, folded on one device.
+"""``spmm_arrow`` — the arrow SpMM benchmark on one device.
 
-The port's counterpart of ``arrow_matrix_tpu/cli/spmm_arrow.py`` for
-its single-device default, ``--fmt fold``: with no ``--path``, generate
-a Barabasi-Albert graph, decompose it and save the artifact; load it,
-fold it into one SELL operator on the device, and run the iteration
-loop, timing each step and (``--validate``) checking it against the
-host golden ``decomposition_spmm``.
+The port's counterpart of ``arrow_matrix_tpu/cli/spmm_arrow.py`` on a
+single device: with no ``--path``, generate a Barabasi-Albert graph,
+decompose it and save the artifact; load it, build the operator on the
+device, and run the iteration loop, timing each step and
+(``--validate``) checking it against the host golden
+``decomposition_spmm``.  ``--fmt fold`` (default) folds every level
+into one SELL operator; ``--fmt dense`` keeps each level's dense arrow
+blocks (banded tiling when ``--blocked false``, as in the JAX CLI).
 
     python -m arrow_matrix_tpu_torch.cli.spmm_arrow --vertices 100000 \\
         --width 512 --features 16 --iterations 10 --validate
+    python -m arrow_matrix_tpu_torch.cli.spmm_arrow --fmt dense \\
+        --vertices 65536 --ba_neighbors 8 --width 2048 --validate
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch version.
 """
@@ -34,7 +38,7 @@ def str2bool(v) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Arrow SpMM benchmark (folded, one device).")
+        description="Arrow SpMM benchmark (one device).")
     p.add_argument("-f", "--path", type=str, default=None,
                    help="Decomposition artifact base path (no extension). "
                         "Default: generate a random graph, decompose it "
@@ -52,11 +56,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--blocked", type=str2bool, nargs="?",
                    default=True, const=True,
                    help="Block-diagonal decomposition (default true).")
+    p.add_argument("--fmt", type=str, default="fold",
+                   choices=["fold", "dense"],
+                   help="Operator format: fold (every level in one SELL "
+                        "operator) or dense (each level's dense arrow "
+                        "blocks, through the column and head-row "
+                        "kernels).")
     p.add_argument("--feature_dtype", type=str, default=None,
                    choices=["f32", "bf16"],
-                   help="Carried-feature dtype: bf16 halves the gathered "
-                        "bytes, sums stay f32 (the --validate gate "
-                        "widens to 2e-2).")
+                   help="Carried-feature dtype of --fmt fold: bf16 "
+                        "halves the gathered bytes, sums stay f32 (the "
+                        "--validate gate widens to 2e-2).")
     p.add_argument("--fold_growth", type=float, default=1.2,
                    help="Tier growth factor: padded slots <= growth x "
                         "nnz.  1.1 with --fold_align 1 is the tight "
@@ -142,14 +152,25 @@ def main(argv=None) -> int:
     n = num_rows(levels[0].matrix)
 
     tic = time.perf_counter()
-    multi = MultiLevelArrow(levels, width, fmt="fold",
-                            feature_dtype=args.feature_dtype,
-                            fold_growth=args.fold_growth,
-                            fold_align=args.fold_align, device=device)
-    print(f"fold: {len(multi.sell.cols)} tiers, "
-          f"{len(multi.sell.live_tiers())} launched per step, "
-          f"{multi.sell.n_slots} slots for {multi.nnz} nnz "
-          f"({time.perf_counter() - tic:.3f} s)")
+    if args.fmt == "dense":
+        if args.feature_dtype is not None:
+            raise SystemExit("spmm_arrow: --feature_dtype is a --fmt fold "
+                             "option; the dense carriage is f32")
+        multi = MultiLevelArrow(levels, width, fmt="dense",
+                                banded=not args.blocked, device=device)
+        print(f"dense: {len(levels)} levels, widths {multi.widths}, "
+              f"{multi.total_rows} rows, "
+              f"{sum(b.device_nbytes() for b in multi.blocks)} B of "
+              f"blocks ({time.perf_counter() - tic:.3f} s)")
+    else:
+        multi = MultiLevelArrow(levels, width, fmt="fold",
+                                feature_dtype=args.feature_dtype,
+                                fold_growth=args.fold_growth,
+                                fold_align=args.fold_align, device=device)
+        print(f"fold: {len(multi.sell.cols)} tiers, "
+              f"{len(multi.sell.live_tiers())} launched per step, "
+              f"{multi.sell.n_slots} slots for {multi.nnz} nnz "
+              f"({time.perf_counter() - tic:.3f} s)")
 
     def sync():
         if device.type == "cuda":

@@ -1,13 +1,16 @@
 """Carry state across from the JAX package.
 
-The "weights" of this system are the packed fold operator: per-tier SELL
-arrays plus the carried permutation.  Two ways in:
+The "weights" of this system are its packed operators: the fold
+operator (per-tier SELL arrays plus the carried permutation) and the
+dense arrow blocks of each level.  Three ways in:
 
   * :func:`sell_from_numpy` turns the arrays of a JAX ``SellMatrix``
     (as numpy, via ``np.asarray``) into the port's ``SellMatrix``;
   * :func:`from_jax_export` loads a directory written by the JAX
     package's ``MultiLevelArrow.export_folded`` — the same format the
-    port writes, so this is ``MultiLevelArrow.load_folded``.
+    port writes, so this is ``MultiLevelArrow.load_folded``;
+  * :func:`arrow_blocks_from_numpy` turns the dense stacks of a JAX
+    ``ArrowBlocks`` into the port's ``ArrowBlocks``.
 
 Nothing here imports JAX: the caller hands over numpy arrays or a path.
 """
@@ -17,10 +20,12 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
+from arrow_matrix_tpu_torch.ops.arrow_blocks import ArrowBlocks
 from arrow_matrix_tpu_torch.ops.sell import SellMatrix, sell_from_arrays
 from arrow_matrix_tpu_torch.parallel.multi_level import MultiLevelArrow
-from arrow_matrix_tpu_torch.utils.device import DeviceLike
+from arrow_matrix_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def sell_from_numpy(cols: Sequence[np.ndarray],
@@ -47,3 +52,48 @@ def from_jax_export(in_dir: str, feature_dtype="keep",
     """A fold executor from a JAX ``export_folded`` directory."""
     return MultiLevelArrow.load_folded(in_dir, feature_dtype=feature_dtype,
                                        device=device)
+
+
+def _stack(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One dense stack: float32 as it is; bfloat16 given either as its
+    uint16 bit pattern or as an array whose dtype is named bfloat16
+    (``ml_dtypes``, which the port does not import)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.view(np.uint16)
+    if a.dtype not in (np.uint16, np.float32):
+        raise ValueError(f"dense stacks are float32 or bfloat16, got "
+                         f"{a.dtype}")
+    # A copy: the caller's array may be read-only (a JAX array's is).
+    t = torch.from_numpy(np.array(a, order="C"))
+    if a.dtype == np.uint16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
+def arrow_blocks_from_numpy(head: np.ndarray, diag: np.ndarray,
+                            col: np.ndarray, lo: Optional[np.ndarray] = None,
+                            hi: Optional[np.ndarray] = None, *, width: int,
+                            banded: bool,
+                            device: DeviceLike = None) -> ArrowBlocks:
+    """A port ``ArrowBlocks`` on ``device`` from a JAX dense
+    ``ArrowBlocks``'s stacks (``np.asarray`` of ``head_data``,
+    ``diag_data``, ``col_data`` and, banded, ``lo_data``/``hi_data``),
+    each ``(nb, w, w)`` float32 or bfloat16 (see :func:`_stack`)."""
+    if banded != (lo is not None) or (lo is None) != (hi is None):
+        raise ValueError("banded blocks need lo and hi; block-diagonal "
+                         "blocks take neither")
+    dev = resolve_device(device)
+    stacks = [None if a is None else _stack(a, dev)
+              for a in (head, diag, col, lo, hi)]
+    shape = tuple(stacks[0].shape)
+    if len(shape) != 3 or shape[1:] != (width, width) or any(
+            t is not None and (tuple(t.shape) != shape
+                               or t.dtype != stacks[0].dtype)
+            for t in stacks):
+        raise ValueError(f"stacks must all be (nb, {width}, {width}) of "
+                         f"one dtype")
+    head_t, diag_t, col_t, lo_t, hi_t = stacks
+    return ArrowBlocks(head_data=head_t, diag_data=diag_t, col_data=col_t,
+                       lo_data=lo_t, hi_data=hi_t, width=width,
+                       n_blocks=shape[0], banded=banded)

@@ -350,11 +350,71 @@ def num_rows(matrix: CsrLike) -> int:
     return len(matrix[2]) - 1
 
 
+def num_nonzeros(matrix: CsrLike) -> int:
+    """Stored-entry count for either CsrLike form: scipy ``.nnz``, or
+    the size of the triplet's indices array (data may be None for
+    binary matrices, so the indices array is the one reliable count)."""
+    if sparse.issparse(matrix):
+        return int(matrix.nnz)
+    return int(np.asarray(matrix[1]).size)
+
+
 def nnz_per_row(matrix: CsrLike) -> np.ndarray:
     if sparse.issparse(matrix):
         return np.diff(matrix.tocsr().indptr)
     indptr = matrix[2]
     return np.asarray(indptr[1:]) - np.asarray(indptr[:-1])
+
+
+def csr_row_range(matrix: CsrLike, row_start: int, row_stop: int,
+                  ncols: int, dtype=np.float32) -> sparse.csr_matrix:
+    """Rows [row_start, row_stop) of a CSR / (memmapped) triplet as a
+    (row_stop-row_start, ncols) CSR: only the touched row range is read;
+    rows past the matrix end come out empty; data None means implicit
+    ones.  Not canonicalized (the callers decide)."""
+    n = num_rows(matrix)
+    lo_r, hi_r = min(row_start, n), min(row_stop, n)
+    if sparse.issparse(matrix):
+        m = matrix.tocsr()
+        data, indices, indptr = m.data, m.indices, m.indptr
+    else:
+        data, indices, indptr = matrix
+    if lo_r >= hi_r:
+        return sparse.csr_matrix((row_stop - row_start, ncols),
+                                 dtype=dtype)
+    i0, i1 = int(indptr[lo_r]), int(indptr[hi_r])
+    ip = np.full(row_stop - row_start + 1, i1 - i0, dtype=np.int64)
+    ip[:hi_r - row_start + 1] = np.asarray(indptr[lo_r:hi_r + 1],
+                                           dtype=np.int64) - i0
+    idx = np.asarray(indices[i0:i1])
+    vals = (np.ones(i1 - i0, dtype=dtype) if data is None
+            else np.asarray(data[i0:i1], dtype=dtype))
+    return sparse.csr_matrix((vals, idx, ip),
+                             shape=(row_stop - row_start, ncols),
+                             dtype=dtype)
+
+
+def load_block(matrix: CsrLike, row_start: int, row_stop: int,
+               col_start: int, col_stop: int, block_size: int,
+               dtype=np.float32) -> sparse.csr_matrix:
+    """One width-by-width block of a CSR (possibly memmapped triplet),
+    padded with empty rows and columns to ``block_size`` square; only
+    the touched row range is read."""
+    n = num_rows(matrix)
+    row_stop = min(row_stop, n)
+    rows = csr_row_range(matrix, row_start, row_stop, n, dtype=dtype)
+    block = rows[:, col_start:min(col_stop, n)]
+
+    pad_rows = block_size - block.shape[0]
+    pad_cols = block_size - block.shape[1]
+    if pad_rows > 0 or pad_cols > 0:
+        indptr_padded = np.pad(block.indptr, (0, max(pad_rows, 0)),
+                               mode="edge")
+        block = sparse.csr_matrix((block.data, block.indices, indptr_padded),
+                                  shape=(block_size, block_size), dtype=dtype)
+    block.sum_duplicates()
+    block.sort_indices()
+    return block
 
 
 def number_of_blocks(matrix: CsrLike, width: int) -> int:

@@ -1,3 +1,13 @@
+from arrow_matrix_tpu_torch.ops.arrow_blocks import (
+    ArrowBlocks,
+    arrow_blocks_from_csr,
+    arrow_spmm,
+    block_features,
+    block_row_stats,
+    resolve_block_dtype,
+    unblock_features,
+)
+from arrow_matrix_tpu_torch.ops.cuda_blocks import arrow_spmm_cuda
 from arrow_matrix_tpu_torch.ops.cuda_sell import (
     quantize_features,
     sell_spmm_cuda,
@@ -6,6 +16,8 @@ from arrow_matrix_tpu_torch.ops.cuda_sell import (
 from arrow_matrix_tpu_torch.ops.ell import (
     SLOT_ALIGN,
     align_up,
+    dense_pack_stack,
+    dense_spmm_batched,
     ell_tier_spmm,
 )
 from arrow_matrix_tpu_torch.ops.sell import (
@@ -20,12 +32,21 @@ from arrow_matrix_tpu_torch.ops.sell import (
 )
 
 __all__ = [
+    "ArrowBlocks",
     "SLOT_ALIGN",
     "SellMatrix",
     "align_up",
+    "arrow_blocks_from_csr",
+    "arrow_spmm",
+    "arrow_spmm_cuda",
+    "block_features",
+    "block_row_stats",
+    "dense_pack_stack",
+    "dense_spmm_batched",
     "ell_tier_spmm",
     "quantize_features",
     "resolve_binary",
+    "resolve_block_dtype",
     "sell_from_arrays",
     "sell_from_csr",
     "sell_spmm",
@@ -34,4 +55,5 @@ __all__ = [
     "sell_stats",
     "sell_tier_spmm",
     "tier_boundaries",
+    "unblock_features",
 ]

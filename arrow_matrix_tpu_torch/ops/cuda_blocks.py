@@ -1,0 +1,186 @@
+"""The dense arrow-block kernels K2 and K3: wrapper of
+``csrc/arrow_blocks_spmm.cu``.
+
+Counterpart of ``arrow_matrix_tpu/ops/pallas_blocks.py``:
+:func:`column_spmm` launches K2 (every block row but the head),
+:func:`head_spmm` launches K3 (the head row), and
+:func:`arrow_spmm_cuda` composes them into one level's product, K3
+writing straight into block 0 of the output K2 fills.  Blocks are
+float32 or bfloat16, features and results float32, sums float32.
+
+For CUDA tensors the wrappers check device, dtype, shape and
+contiguity, launch on PyTorch's current stream, raise on a launch error
+and add one to :data:`LAUNCHES_K2` / :data:`LAUNCHES_K3`.  For CPU
+tensors they run the plain versions (``ops/arrow_blocks.py``).  There
+is no fallback: a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from arrow_matrix_tpu_torch.ops import _build
+from arrow_matrix_tpu_torch.ops import arrow_blocks as plain
+from arrow_matrix_tpu_torch.ops.arrow_blocks import ArrowBlocks
+from arrow_matrix_tpu_torch.ops.cuda_sell import check_operand
+
+#: K2 launches made by this process (one per level product with nb > 1).
+LAUNCHES_K2 = 0
+#: K3 launches made by this process (one per level product).
+LAUNCHES_K3 = 0
+
+#: Block-dtype code of the C interface.
+BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_LIB = "arrow_blocks_spmm"
+_FNS = {}
+
+
+def _kernel(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        lib = _build.load(_LIB)
+        fn = getattr(lib, name)
+        ptrs = 6 if name == "arrow_column_spmm" else 3
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * ptrs
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def _dims(x: torch.Tensor) -> tuple:
+    if x.dim() != 3:
+        raise ValueError(f"x must be (nb, w, k), got {tuple(x.shape)}")
+    nb, w, k = x.shape
+    if min(nb, w, k) < 1:
+        raise ValueError(f"empty operand x {tuple(x.shape)}")
+    if max(nb, w, k) > 2**31 - 1:
+        raise ValueError("nb, w and k must fit in int32")
+    return nb, w, k
+
+
+def _operands(x: torch.Tensor, blocks: dict, out: Optional[torch.Tensor],
+              out_shape: tuple):
+    """Validate a launch's operands (x already 3-D); returns (block
+    dtype code, vec, out), allocating ``out`` when it is None."""
+    nb, w, k = x.shape
+    dev = x.device
+    check_operand("x", x, torch.float32, (nb, w, k), dev)
+    dtype = next(iter(blocks.values())).dtype
+    if dtype not in BLOCK_DTYPES:
+        raise ValueError(f"unsupported block dtype {dtype}; the kernels "
+                         f"take {tuple(BLOCK_DTYPES)}")
+    for name, t in blocks.items():
+        check_operand(name, t, dtype, (nb, w, w), dev)
+    if out is None:
+        out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    else:
+        check_operand("out", out, torch.float32, out_shape, dev)
+    vec = int(w % (16 // dtype.itemsize) == 0
+              and all(t.data_ptr() % 16 == 0 for t in blocks.values()))
+    return BLOCK_DTYPES[dtype], vec, out
+
+
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        lib = _build.load(_LIB)
+        lib.arrow_blocks_error_string.restype = ctypes.c_char_p
+        lib.arrow_blocks_error_string.argtypes = [ctypes.c_int]
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.arrow_blocks_error_string(code).decode()} (code {code})")
+
+
+def column_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
+                lo: Optional[torch.Tensor] = None,
+                hi: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: ``out[b] = A_bb X_b + A_b0 X_0 [+ A_b,b-1 X_{b-1} +
+    A_b,b+1 X_{b+1}]`` for b >= 1 into ``out`` (nb, w, k) float32.
+
+    diag/col (and lo/hi, banded) ``(nb, w, w)`` float32 or bfloat16; x
+    ``(nb, w, k)`` float32.  Block 0 of ``out`` is the head row's: the
+    kernel leaves it as it finds it (zero when this function allocates
+    ``out``).  CPU tensors take the plain ``arrow_blocks.column_spmm``.
+    """
+    global LAUNCHES_K2
+    if x.device.type == "cpu":
+        res = plain.column_spmm(diag, col, x, lo, hi)
+        if out is None:
+            return res
+        out[1:] = res[1:]
+        return out
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if (lo is None) != (hi is None):
+        raise ValueError("pass both lo and hi (banded) or neither")
+    nb, w, k = _dims(x)
+    stacks = {"diag": diag, "col": col}
+    if lo is not None:
+        stacks.update(lo=lo, hi=hi)
+    fresh = out is None
+    code_dtype, vec, out = _operands(x, stacks, out, (nb, w, k))
+    if fresh:
+        out[0].zero_()
+    if nb == 1:
+        return out             # no block row besides the head
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = _kernel("arrow_column_spmm")(
+            code_dtype, vec, diag.data_ptr(), col.data_ptr(),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), x.data_ptr(),
+            out.data_ptr(), nb, w, k, stream)
+    _raise_on(code, f"column_blocks_spmm (nb={nb} w={w} k={k} "
+                    f"{diag.dtype})")
+    LAUNCHES_K2 += 1
+    return out
+
+
+def head_spmm(head: torch.Tensor, x: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: ``out = sum_b A_0b X_b`` into ``out`` (w, k) float32.
+
+    head ``(nb, w, w)`` float32 or bfloat16, x ``(nb, w, k)`` float32.
+    CPU tensors take the plain ``arrow_blocks.head_spmm``.
+    """
+    global LAUNCHES_K3
+    if x.device.type == "cpu":
+        res = plain.head_spmm(head, x)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    nb, w, k = _dims(x)
+    code_dtype, vec, out = _operands(x, {"head": head}, out, (w, k))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = _kernel("arrow_head_spmm")(
+            code_dtype, vec, head.data_ptr(), x.data_ptr(), out.data_ptr(),
+            nb, w, k, stream)
+    _raise_on(code, f"head_blocks_spmm (nb={nb} w={w} k={k} {head.dtype})")
+    LAUNCHES_K3 += 1
+    return out
+
+
+def arrow_spmm_cuda(blocks: ArrowBlocks, x: torch.Tensor) -> torch.Tensor:
+    """One level's product through K3 and K2: x ``(nb, w, k)`` float32
+    -> ``(nb, w, k)`` float32, one launch of each (K2 none when nb = 1).
+    CPU tensors take the plain ``arrow_blocks.arrow_spmm``."""
+    if x.device.type == "cpu":
+        return plain.arrow_spmm(blocks, x)
+    nb, w, k = x.shape
+    if nb != blocks.n_blocks or w != blocks.width:
+        raise ValueError(f"x must be ({blocks.n_blocks}, {blocks.width}, "
+                         f"k), got {tuple(x.shape)}")
+    out = torch.empty((nb, w, k), dtype=torch.float32, device=x.device)
+    head_spmm(blocks.head_data, x, out=out[0])
+    return column_spmm(blocks.diag_data, blocks.col_data, x,
+                       blocks.lo_data, blocks.hi_data, out=out)

@@ -46,8 +46,10 @@ def _kernel():
     return _FN
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
+def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
+                  shape: tuple, device: torch.device) -> None:
+    """Raise ValueError unless ``t`` is on ``device``, of ``dtype`` and
+    ``shape``, and contiguous (what a kernel's raw pointer needs)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
     if t.dtype != dtype:
@@ -90,14 +92,14 @@ def sell_tier_spmm(cols: torch.Tensor, x: torch.Tensor, out: torch.Tensor,
     if max(m_t, n_t, k, n) > _INT32_MAX:
         raise ValueError("tier dimensions must fit in int32")
     dev = x.device
-    _check("cols", cols, torch.int32, (m_t, n_t), dev)
-    _check("x", x, x.dtype, (n, k), dev)
-    _check("out", out, out_dtype_for(x.dtype), (n_t, k), dev)
+    check_operand("cols", cols, torch.int32, (m_t, n_t), dev)
+    check_operand("x", x, x.dtype, (n, k), dev)
+    check_operand("out", out, out_dtype_for(x.dtype), (n_t, k), dev)
     if data is not None:
-        _check("data", data, torch.float32, (m_t, n_t), dev)
+        check_operand("data", data, torch.float32, (m_t, n_t), dev)
         w = data
     else:
-        _check("deg", deg, torch.int32, (n_t,), dev)
+        check_operand("deg", deg, torch.int32, (n_t,), dev)
         w = deg
     vecload = int((k * x.element_size()) % 16 == 0
                   and x.data_ptr() % 16 == 0)

@@ -15,13 +15,19 @@ row-major ``(n, k)``; accumulation is float32 whatever the carriage.
 ``csrc/sell_tier_spmm.cu`` (wrapper: ``ops/cuda_sell.py``); the CPU
 tests run it, and ``chip_smoke.py`` holds the kernel against it on the
 card.
+
+The dense block format lives here too: :func:`dense_pack_stack` packs
+sparse blocks into one ``(b, w, w)`` stack and
+:func:`dense_spmm_batched` is its plain batched product.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
+from scipy import sparse
 
 # Pad the ELL slot axis to a multiple of this (the packing default the
 # JAX package uses; kept so both packages build identical operators).
@@ -78,3 +84,35 @@ def ell_tier_spmm(cols: torch.Tensor, x: torch.Tensor,
         return res
     out.copy_(res)
     return out
+
+
+def dense_pack_stack(mats: List[Optional[sparse.spmatrix]],
+                     dtype: torch.dtype = torch.float32,
+                     rows: Optional[int] = None) -> torch.Tensor:
+    """Pack sparse blocks (None = structurally empty) into one dense
+    ``(b, rows, rows)`` CPU tensor of ``dtype``.
+
+    Densifies at float32 in numpy, then rounds once to ``dtype``
+    (round to nearest even for bfloat16), as the JAX package's packer
+    does, so the stacks agree bit for bit.
+    """
+    shapes = [m.shape for m in mats if m is not None]
+    if not shapes and rows is None:
+        raise ValueError("no non-empty blocks and no explicit row count")
+    rows = rows if rows is not None else shapes[0][0]
+    out = np.zeros((len(mats), rows, rows), dtype=np.float32)
+    for i, m in enumerate(mats):
+        if m is None or m.nnz == 0:
+            continue
+        if m.dtype == np.float32:
+            m.toarray(out=out[i])     # no temporary block
+        else:
+            out[i] = m.toarray()
+    return torch.from_numpy(out).to(dtype)
+
+
+def dense_spmm_batched(data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain batched dense block product ``(b, w, w) @ (b, w, k) ->
+    (b, w, k)``: float32 sums whatever the block dtype, the result in
+    ``x``'s dtype."""
+    return torch.bmm(data.float(), x.float()).to(x.dtype)

@@ -1,5 +1,7 @@
 from arrow_matrix_tpu_torch.parallel.multi_level import (
     MultiLevelArrow,
+    compose_routing,
+    multi_level_spmm,
     pad_permutation,
     requantize,
     resolve_feature_dtype,
@@ -7,6 +9,8 @@ from arrow_matrix_tpu_torch.parallel.multi_level import (
 
 __all__ = [
     "MultiLevelArrow",
+    "compose_routing",
+    "multi_level_spmm",
     "pad_permutation",
     "requantize",
     "resolve_feature_dtype",

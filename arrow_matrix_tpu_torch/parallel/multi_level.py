@@ -1,19 +1,30 @@
-"""The folded single-device executor: iterated ``X := A @ X`` through a
+"""The single-device executors: iterated ``X := A @ X`` through a
 whole arrow decomposition.
 
-Counterpart of the ``fmt="fold"`` slice of
-``arrow_matrix_tpu/parallel/multi_level.py``.  On one device the
-inter-level permutation exchanges buy nothing, so the host composes
-every level into ONE operator in level-0 coordinates (exact:
-``A = sum_i P_i^T B_i P_i`` and the levels partition the edge set),
-sorts its rows by degree and packs it into SELL tiers
-(``ops/sell.py``).  A step is one product through that operator: one
-launch of the hand-written kernel per tier (``ops/cuda_sell.py``).
+Counterpart of the single-device ``fmt="fold"`` and ``fmt="dense"``
+slices of ``arrow_matrix_tpu/parallel/multi_level.py``.
+
+Fold.  On one device the inter-level permutation exchanges buy
+nothing, so the host composes every level into ONE operator in level-0
+coordinates (exact: ``A = sum_i P_i^T B_i P_i`` and the levels
+partition the edge set), sorts its rows by degree and packs it into
+SELL tiers (``ops/sell.py``).  A step is one product through that
+operator: one launch of the hand-written kernel per tier
+(``ops/cuda_sell.py``).
+
+Dense.  Every level keeps its own arrow blocks as dense ``(nb_i, w_i,
+w_i)`` stacks (``ops/arrow_blocks.py``).  A step routes the carriage
+forward from level to level with the composed permutation tables, runs
+each level's product through the hand-written kernels K3 (head row) and
+K2 (every other block row) (``ops/cuda_blocks.py``), and aggregates the
+partial products backward in the same order as the JAX package.  The
+routing gathers are plain ``index_select``.
 
 Carriage.  Features are carried **row-major** ``(total_rows, k)`` on
-the device, in sorted level-0 order: a gathered row is then one
-contiguous ``k * itemsize`` load.  (The JAX package carries ``(k,
-total_rows)`` because of the TPU's (8, 128) tiling.)  The public
+the device, in level-0 order (fold: sorted level-0 order): a gathered
+row is then one contiguous ``k * itemsize`` load.  (The JAX package's
+fold carries ``(k, total_rows)`` because of the TPU's (8, 128)
+tiling.)  The public
 comparison points keep the JAX shapes: ``gather_result`` returns a host
 ``(n, k)`` array in original row order, and ``export_folded`` writes
 the same directory as the JAX package.
@@ -29,14 +40,25 @@ from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from scipy import sparse
 
 from arrow_matrix_tpu_torch.decomposition.decompose import ArrowLevel
-from arrow_matrix_tpu_torch.io.graphio import number_of_blocks, num_rows
+from arrow_matrix_tpu_torch.io.graphio import (
+    num_nonzeros,
+    num_rows,
+    number_of_blocks,
+)
+from arrow_matrix_tpu_torch.ops.arrow_blocks import (
+    FORMATS_TODO,
+    ArrowBlocks,
+    arrow_blocks_from_csr,
+    resolve_block_dtype,
+)
+from arrow_matrix_tpu_torch.ops.cuda_blocks import arrow_spmm_cuda
 from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
 from arrow_matrix_tpu_torch.ops.ell import SLOT_ALIGN
 from arrow_matrix_tpu_torch.ops.sell import (
@@ -95,6 +117,50 @@ def pad_permutation(perm: np.ndarray, total: int) -> np.ndarray:
                            np.arange(n, total, dtype=np.int64)])
 
 
+def compose_routing(perms: Sequence[np.ndarray], total: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Routing tables between consecutive levels, each ``(K-1, total)``
+    int32 (``(0, total)`` for one level):
+
+      ``fwd[i-1]`` maps level-(i-1)-ordered rows to level-i order:
+          ``x_i = x_{i-1}[fwd[i-1]]``, ``fwd[i-1] = inv(s_{i-1})[s_i]``;
+      ``bwd[i-1]`` maps level-i-ordered rows to level-(i-1) order:
+          ``agg_{i-1} += agg_i[bwd[i-1]]``, ``bwd[i-1] = inv(s_i)[s_{i-1}]``.
+    """
+    padded = [pad_permutation(np.asarray(p), total) for p in perms]
+    fwd, bwd = [], []
+    for i in range(1, len(padded)):
+        inv_prev = np.argsort(padded[i - 1])
+        inv_cur = np.argsort(padded[i])
+        fwd.append(inv_prev[padded[i]])
+        bwd.append(inv_cur[padded[i - 1]])
+    if not fwd:
+        return (np.zeros((0, total), np.int32),) * 2
+    return (np.stack(fwd).astype(np.int32), np.stack(bwd).astype(np.int32))
+
+
+def multi_level_spmm(x: torch.Tensor, fwd: torch.Tensor, bwd: torch.Tensor,
+                     blocks: Sequence[ArrowBlocks],
+                     widths: Sequence[int]) -> torch.Tensor:
+    """One decomposition-wide product on the flat ``(total, k)`` carriage
+    in level-0 order: route forward (``x_i = x_{i-1}[fwd[i-1]]``), one
+    arrow product per level on its ``(total / w_i, w_i, k)`` view, then
+    aggregate backward (``agg = partial_{i-1} + agg[bwd[i-1]]``), in the
+    JAX package's order."""
+    total, k = x.shape
+    partials = []
+    x_cur = x
+    for i, (blk, w) in enumerate(zip(blocks, widths)):
+        if i > 0:
+            x_cur = x_cur.index_select(0, fwd[i - 1])
+        partials.append(
+            arrow_spmm_cuda(blk, x_cur.view(total // w, w, k)).view(total, k))
+    agg = partials[-1]
+    for i in range(len(blocks) - 1, 0, -1):
+        agg = partials[i - 1].add_(agg.index_select(0, bwd[i - 1]))
+    return agg
+
+
 def resolve_levels_binary(levels, binary) -> bool:
     """Decomposition-wide binary decision: "auto" is True iff every
     level is implicit-ones or all-ones."""
@@ -131,28 +197,46 @@ def requantize(z: torch.Tensor):
 
 
 class MultiLevelArrow:
-    """A whole decomposition folded into one SELL operator on a device.
+    """A whole decomposition on one device, folded or as dense blocks.
 
     ``MultiLevelArrow(levels, width, fmt="fold", feature_dtype=None,
-    fold_growth=1.2, fold_align=None, device=None)``; ``device=None``
-    means the card (raises without one), ``"cpu"`` runs the plain
-    PyTorch version of the kernel.  ``set_features`` -> ``step``/``run``
-    -> ``gather_result``.
+    fold_growth=1.2, fold_align=None, device=None, *, banded=False,
+    dtype=np.float32)``; ``device=None`` means the card (raises without
+    one), ``"cpu"`` runs the plain PyTorch versions of the kernels.
+    ``set_features`` -> ``step``/``run`` -> ``gather_result``.
 
-    The other options of the JAX class (other formats, a mesh, 2.5D
-    replication, overlap slabs, tune plans, kernel options) raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    ``fmt="fold"`` (default) folds every level into one SELL operator;
+    ``feature_dtype`` picks its carriage and ``fold_growth`` /
+    ``fold_align`` its packing.  ``fmt="dense"`` keeps each level's
+    dense arrow blocks, stored in ``dtype`` (float32, or "bf16" for
+    half the bytes; sums stay float32), tiled ``banded`` or
+    block-diagonal; a level whose achieved width exceeds ``width``, and
+    the last level, are tiled banded at their own width.  The dense
+    carriage is float32.
+
+    The other options of the JAX class (the ELL, HYB and auto formats,
+    a mesh, 2.5D replication, overlap slabs, tune plans, kernel
+    options) raise ``NotImplementedError`` naming the ROADMAP item that
+    ports them.
     """
 
     def __init__(self, levels: List[ArrowLevel], width: int,
                  fmt: str = "fold", feature_dtype=None,
                  fold_growth: float = 1.2,
                  fold_align: Optional[int] = None,
-                 device: DeviceLike = None, *, binary="auto",
+                 device: DeviceLike = None, *, banded: bool = False,
+                 dtype=np.float32, binary="auto",
                  mesh=None, repl: int = 1, overlap_slabs: int = 1,
                  plan=None, kernel_opts: Optional[dict] = None):
-        if fmt != "fold":
-            raise _todo(f"fmt={fmt!r}", "remaining single-device formats")
+        if feature_dtype is not None and fmt != "fold":
+            raise ValueError(
+                "feature_dtype is implemented for fmt='fold' (the "
+                "single-chip headline path); other formats carry f32")
+        if fmt in ("auto", "ell", "hyb"):
+            raise NotImplementedError(f"fmt={fmt!r} {FORMATS_TODO}")
+        if fmt not in ("fold", "dense"):
+            raise ValueError(f"unknown fmt {fmt!r} (expected 'fold' or "
+                             f"'dense')")
         if mesh is not None:
             raise _todo("a mesh", "multi-device executors")
         if repl != 1 or overlap_slabs != 1 or plan is not None \
@@ -163,22 +247,56 @@ class MultiLevelArrow:
             raise ValueError("empty decomposition")
         self.device = resolve_device(device)
         self.feature_dtype = resolve_feature_dtype(feature_dtype)
+        self.fmt = fmt
+        self.folded = fmt == "fold"
         self.width = width
         self.n = num_rows(levels[0].matrix)
 
-        # Same padded row count as the JAX executor on one device: a
-        # multiple of the widest level block width.
-        widths = []
+        # Per-level block widths as in the JAX executor: a level whose
+        # achieved width exceeds the base width, and the last level
+        # (whose structure is a band even in block-diagonal mode), are
+        # tiled banded at their achieved width rounded up to a multiple
+        # of the base width; banded tiling at block width W covers every
+        # |r - c| <= W entry.
+        widths, bandeds = [], []
         for i, lvl in enumerate(levels):
             if lvl.arrow_width > width or i == len(levels) - 1:
                 widths.append(-(-lvl.arrow_width // width) * width)
+                bandeds.append(True)
             else:
                 widths.append(width)
+                bandeds.append(banded)
+        self.widths = widths
+        # Same padded row count as the JAX executor on one device: a
+        # multiple of the widest level block width.
         max_rows = max(number_of_blocks(lvl.matrix, w) * w
                        for lvl, w in zip(levels, widths))
         self.total_rows = pad_to_multiple(max_rows, max(widths))
         self.binary = resolve_levels_binary(levels, binary)
-        self._init_folded(levels, fold_growth, fold_align)
+        if self.folded:
+            self._init_folded(levels, fold_growth, fold_align)
+        else:
+            self._init_dense(levels, bandeds, dtype)
+
+    def _init_dense(self, levels, bandeds, dtype) -> None:
+        """Tile every level into dense arrow blocks on the device, all
+        padded to the shared flat row count, and compose the routing
+        tables (the JAX single-device non-fold ``__init__``)."""
+        total = self.total_rows
+        self.dtype = resolve_block_dtype(dtype)
+        self.blocks: List[ArrowBlocks] = [
+            arrow_blocks_from_csr(lvl.matrix, w, pad_blocks_to=total // w,
+                                  banded=bd, dtype=self.dtype,
+                                  device=self.device)
+            for lvl, w, bd in zip(levels, self.widths, bandeds)]
+        fwd, bwd = compose_routing([lvl.permutation for lvl in levels],
+                                   total)
+        self.fwd = torch.from_numpy(fwd.astype(np.int64)).to(self.device)
+        self.bwd = torch.from_numpy(bwd.astype(np.int64)).to(self.device)
+        self.perm0 = pad_permutation(np.asarray(levels[0].permutation),
+                                     total)
+        self.inv_perm0 = np.argsort(self.perm0)
+        self.nnz = sum(num_nonzeros(lvl.matrix) for lvl in levels)
 
     def _init_folded(self, levels, growth: float,
                      slot_align: Optional[int]) -> None:
@@ -273,18 +391,38 @@ class MultiLevelArrow:
             arr = c.float().cpu().numpy()
         return arr[self.inv_perm0][:self.n]
 
-    def carried_mask(self) -> torch.Tensor:
-        """(total_rows, 1) f32 mask of the row-major carriage: 1 where a
-        position holds a real original row (``(1, total_rows)`` in the
-        JAX package's feature-major carriage)."""
+    def _row_mask(self) -> torch.Tensor:
         return torch.from_numpy(
             (self.perm0 < self.n).astype(np.float32)[:, None]).to(
                 self.device)
+
+    def carried_mask(self) -> torch.Tensor:
+        """(total_rows, 1) f32 mask of the folded row-major carriage: 1
+        where a position holds a real original row (``(1, total_rows)``
+        in the JAX package's feature-major carriage)."""
+        if not self.folded:
+            raise ValueError(
+                "carried_mask is defined for fmt='fold'; the dense "
+                "carriage uses real_row_mask")
+        return self._row_mask()
+
+    def real_row_mask(self) -> torch.Tensor:
+        """(total_rows, 1) f32 mask of the dense carriage: 1 for rows
+        backed by an original matrix row (``perm0[r] < n``), 0 for
+        padding."""
+        if self.folded:
+            raise ValueError(
+                "real_row_mask is defined for the dense carriage; "
+                "fmt='fold' uses carried_mask")
+        return self._row_mask()
 
     # -- iteration ---------------------------------------------------------
 
     def step(self, x):
         """One iteration ``X := A @ X`` on the carriage."""
+        if not self.folded:
+            return multi_level_spmm(x, self.fwd, self.bwd, self.blocks,
+                                    self.widths)
         if isinstance(x, tuple):
             q, scale = x
             return requantize(sell_spmm_cuda(self.sell, q) * scale)
@@ -302,6 +440,8 @@ class MultiLevelArrow:
         """Write the packed operator (per-tier SELL arrays, carried
         permutation, meta.json) in the JAX package's directory format,
         so either package's ``load_folded`` reads it."""
+        if not self.folded:
+            raise ValueError("export_folded requires fmt='fold'")
         os.makedirs(out_dir, exist_ok=True)
         sell = self.sell
         np.save(os.path.join(out_dir, "perm0.npy"), self.perm0)
@@ -333,6 +473,8 @@ class MultiLevelArrow:
             meta = json.load(f)
         self = cls.__new__(cls)
         self.device = resolve_device(device)
+        self.fmt = "fold"
+        self.folded = True
         self.n = meta["n"]
         self.total_rows = meta["total_rows"]
         self.binary = meta["binary"]

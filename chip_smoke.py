@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py              # the full run, n = 2^20
-    python3 chip_smoke.py --log2n 16   # a quicker run at a smaller graph
+    python3 chip_smoke.py              # the full run: fold n = 2^20, dense n = 2^16
+    python3 chip_smoke.py --log2n 14   # a quicker run at smaller graphs
 
 Phases, each fatal on failure:
 
@@ -23,7 +23,23 @@ Phases, each fatal on failure:
    20), its bound, the plain version's time, one PyTorch call computing
    the same product (``torch.sparse.mm``) as a yardstick, and for f32
    k=16 the same product replayed from one CUDA graph (no host work
-   between the launches).
+   between the launches);
+6. dense kernels vs plain: K2 (column blocks) and K3 (head row) against
+   their plain PyTorch versions on random stacks, (nb, w) in {(3, 48),
+   (5, 64), (4, 2048)}, k in {8, 16, 128}, banded and block-diagonal,
+   f32 and bf16 blocks;
+7. dense main path: Barabasi-Albert n=2^16 m=8 (dense stacks of 2^20
+   rows would not fit the card), decomposed at width 2048 to
+   convergence (max_levels=10, seed 7), saved and loaded, tiled into
+   dense arrow blocks on the card by ``MultiLevelArrow(fmt="dense")``
+   and stepped at k=16 and k=128 (f32 blocks, 10 chained iterations,
+   every step and the chain validated against the host golden; ms/iter
+   the median of 7 timed chains), one step with bf16 blocks at each k;
+   K2's and K3's launch counts must equal levels x iterations;
+8. per-kernel numbers at the dense path's shapes: K2 and K3 against
+   their plain versions on the real blocks, their time per step
+   (median of 20), bound, the plain versions' time, and the same
+   function through cuBLAS (f32 blocks) as a yardstick.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -43,8 +59,12 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32, outside the tensor cores
-SOURCE = "arrow_matrix_tpu_torch/csrc/sell_tier_spmm.cu"
-REPLACES = "arrow_matrix_tpu/ops/pallas_sell.py:298"
+SOURCES = {"K1": "arrow_matrix_tpu_torch/csrc/sell_tier_spmm.cu",
+           "K2": "arrow_matrix_tpu_torch/csrc/arrow_blocks_spmm.cu",
+           "K3": "arrow_matrix_tpu_torch/csrc/arrow_blocks_spmm.cu"}
+REPLACES = {"K1": "arrow_matrix_tpu/ops/pallas_sell.py:298",
+            "K2": "arrow_matrix_tpu/ops/pallas_blocks.py:175",
+            "K3": "arrow_matrix_tpu/ops/pallas_blocks.py:261"}
 REPS = 7                       # timed runs of each main-path chain
 
 T0 = time.perf_counter()
@@ -216,10 +236,335 @@ def sorted_csr(sell, dtype):
     return a.to_sparse_csr()
 
 
+def block_stack_names(banded: bool) -> tuple:
+    return ("diag", "col", "lo", "hi") if banded else ("diag", "col")
+
+
+def phase_block_kernels(dev) -> None:
+    """Phase 6: K2 and K3 against their plain versions on random stacks."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import arrow_blocks, cuda_blocks
+    from arrow_matrix_tpu_torch.utils import (
+        relative_error,
+        relative_tolerance,
+    )
+
+    rng = np.random.default_rng(1)
+    checks = 0
+    for nb, w in ((3, 48), (5, 64), (4, 2048)):
+        f32 = {name: torch.from_numpy(rng.uniform(
+            -1, 1, (nb, w, w)).astype(np.float32)).to(dev)
+            for name in ("head", "diag", "col", "lo", "hi")}
+        tol = relative_tolerance(w)
+        worst = {"f32": 0.0, "bf16": 0.0, "bf16_vs_f32": 0.0}
+        max_abs = 0.0
+        for k in (8, 16, 128):
+            x = torch.from_numpy(rng.uniform(-1, 1, (nb, w, k)).astype(
+                np.float32)).to(dev)
+            for banded in (False, True):
+                names = block_stack_names(banded)
+                want32 = (arrow_blocks.column_spmm(
+                    *(f32[n] for n in names[:2]), x,
+                    *(f32[n] for n in names[2:])),
+                    arrow_blocks.head_spmm(f32["head"], x))
+                for dtype, key in ((torch.float32, "f32"),
+                                   (torch.bfloat16, "bf16")):
+                    m = {n: t.to(dtype) for n, t in f32.items()}
+                    got = (cuda_blocks.column_spmm(
+                        *(m[n] for n in names[:2]), x,
+                        *(m[n] for n in names[2:])),
+                        cuda_blocks.head_spmm(m["head"], x))
+                    want = (arrow_blocks.column_spmm(
+                        *(m[n] for n in names[:2]), x,
+                        *(m[n] for n in names[2:])),
+                        arrow_blocks.head_spmm(m["head"], x))
+                    torch.cuda.synchronize()
+                    for g, wt, w32 in zip(got, want, want32):
+                        g, wt, w32 = (t.cpu().numpy() for t in (g, wt, w32))
+                        err = relative_error(g, wt)
+                        max_abs = max(max_abs, float(np.abs(g - wt).max()))
+                        worst[key] = max(worst[key], err)
+                        ok = bool(np.isfinite(g).all()) and err <= tol
+                        if key == "bf16":
+                            err32 = relative_error(g, w32)
+                            worst["bf16_vs_f32"] = max(
+                                worst["bf16_vs_f32"], err32)
+                            ok = ok and err32 <= 2e-2
+                        checks += 1
+                        if not ok:
+                            raise SystemExit(
+                                f"K2/K3 != plain: nb={nb} w={w} k={k} "
+                                f"banded={banded} {key}: rel err {err:.3e}"
+                                f" (gate {tol:.1e})")
+        log(f"dense kernels nb={nb} w={w}: worst rel err f32 "
+            f"{worst['f32']:.3e}, bf16 {worst['bf16']:.3e} (gate "
+            f"{tol:.1e}); bf16 blocks vs f32 blocks "
+            f"{worst['bf16_vs_f32']:.3e} (gate 2e-2); max abs err "
+            f"{max_abs:.3e}")
+    log(f"phase 6: {checks} K2/K3-vs-plain checks passed")
+
+
+def block_work(blocks, k: int, kernel: str) -> tuple:
+    """(bytes, operations) the function of K2 or K3 needs on one level:
+    each block it reads once, the features once, its output written
+    once; 2 w^2 k operations per block product."""
+    nb, w = blocks.n_blocks, blocks.width
+    item = blocks.dtype.itemsize
+    if kernel == "K3":
+        pairs, out_blocks = nb, 1
+    else:
+        pairs, out_blocks = 2 * (nb - 1), nb - 1
+        if blocks.banded:
+            pairs += (nb - 1) + max(nb - 2, 0)
+    bytes_ = pairs * w * w * item + (nb + out_blocks) * w * k * 4
+    return bytes_, pairs * 2 * w * w * k
+
+
+def dense_path(dev, n: int, work: str):
+    """Phases 7 and 8: the dense main path and its kernels' numbers.
+    Returns (results, kernel entries)."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.io import (
+        as_levels,
+        load_decomposition,
+        load_level_widths,
+        save_decomposition,
+    )
+    from arrow_matrix_tpu_torch.ops import arrow_blocks, cuda_blocks, cuda_sell
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.utils import (
+        barabasi_albert,
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
+
+    m, width, seed = 8, 2048, 7
+    base = os.path.join(work, f"ba_{n}_{m}_dense")
+    tic = time.perf_counter()
+    a = barabasi_albert(n, m, seed=seed)
+    t_gen = time.perf_counter() - tic
+    tic = time.perf_counter()
+    levels = arrow_decomposition(a, width, max_levels=10,
+                                 block_diagonal=True, seed=seed)
+    t_dec = time.perf_counter() - tic
+    save_decomposition(levels, base, block_diagonal=True)
+    levels = as_levels(load_decomposition(base, width, block_diagonal=True),
+                       load_level_widths(base, width, True))
+    del a
+    nnz = sum(int(lvl.matrix.nnz) for lvl in levels)
+    log(f"phase 7: BA n={n} m={m}: {nnz} nnz; generate {t_gen:.1f} s, "
+        f"decompose {t_dec:.1f} s ({len(levels)} levels, nnz "
+        f"{[int(lvl.matrix.nnz) for lvl in levels]}); artifact saved and "
+        f"loaded")
+
+    # The main path: every count at 0 just before, read just after.
+    cuda_sell.LAUNCHES = 0
+    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    exes = {}
+    for dtype in ("f32", "bf16"):
+        tic = time.perf_counter()
+        exe = MultiLevelArrow(levels, width, fmt="dense", dtype=dtype,
+                              device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - tic
+        exes[dtype] = exe
+        log(f"dense {dtype}: {len(exe.blocks)} levels, widths "
+            f"{exe.widths}, banded {[b.banded for b in exe.blocks]}, "
+            f"total_rows {exe.total_rows}, blocks "
+            f"{sum(b.device_nbytes() for b in exe.blocks)} B on the card; "
+            f"pack and upload {t_build:.1f} s; peak device memory so far "
+            f"{torch.cuda.max_memory_allocated()} B")
+    per_iter = (sum(b.n_blocks > 1 for b in exes["f32"].blocks),
+                len(exes["f32"].blocks))
+
+    def count(key, fn, iters):
+        before = (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3)
+        out = fn()
+        torch.cuda.synchronize()
+        delta = (cuda_blocks.LAUNCHES_K2 - before[0],
+                 cuda_blocks.LAUNCHES_K3 - before[1])
+        if delta != (per_iter[0] * iters, per_iter[1] * iters):
+            raise SystemExit(f"dense {key}: (K2, K3) launches {delta}, "
+                             f"expected {per_iter} per iteration x {iters}")
+        old = launches.get(key, (0, 0))
+        launches[key] = (old[0] + delta[0], old[1] + delta[1])
+        return out
+
+    row_nnz = nnz / n
+    tol1 = relative_tolerance(row_nnz, 1)
+    iters = 10
+    results = {}
+    ml = exes["f32"]
+    for k, xseed in ((16, 3), (128, 4)):
+        key = ("f32", k)
+        g = random_dense(n, k, seed=xseed)
+        x = ml.set_features(g)
+        worst = 0.0
+        for it in range(iters):
+            y = count(key, lambda: ml.step(ml.set_features(g)), 1)
+            g_next = host_golden(levels, g)
+            err = relative_error(ml.gather_result(y), g_next)
+            worst = max(worst, err)
+            if not err <= tol1:
+                raise SystemExit(f"dense k={k} step {it}: rel err "
+                                 f"{err:.3e} > gate {tol1:.1e}")
+            g = g_next
+        y = count(key, lambda: ml.run(x, iters), iters)
+        err10 = relative_error(ml.gather_result(y), g)
+        tol10 = relative_tolerance(row_nnz, iters)
+        if not err10 <= tol10:
+            raise SystemExit(f"dense k={k} 10-step chain: rel err "
+                             f"{err10:.3e} > gate {tol10:.1e}")
+        runs = [t / iters for t in count(
+            key, lambda: cuda_runs(lambda: ml.run(x, iters), REPS),
+            (1 + REPS) * iters)]
+        ms = statistics.median(runs)
+        results[f"f32_k{k}_ms_per_iter"] = ms
+        results[f"f32_k{k}_ms_per_iter_runs"] = runs
+        results[f"f32_k{k}_worst_step_rel_err"] = worst
+        results[f"f32_k{k}_chain_rel_err"] = err10
+        log(f"dense f32 k={k}: every step within {tol1:.1e} (worst "
+            f"{worst:.3e}); 10-step chain {err10:.3e} (gate {tol10:.1e}); "
+            f"{ms:.4f} ms/iter, median of {REPS} chains (min "
+            f"{min(runs):.4f}, max {max(runs):.4f})")
+    exe = exes["bf16"]
+    for k, xseed in ((16, 3), (128, 4)):
+        g = random_dense(n, k, seed=xseed)
+        y = count(("bf16", k), lambda: exe.step(exe.set_features(g)), 1)
+        err = relative_error(exe.gather_result(y), host_golden(levels, g))
+        if not err <= 2e-2:
+            raise SystemExit(f"dense bf16 blocks k={k}: rel err {err:.3e} "
+                             f"> 2e-2")
+        results[f"bf16_k{k}_rel_err"] = err
+        log(f"dense bf16 blocks k={k}: one step, rel err {err:.3e} "
+            f"(gate 2e-2)")
+    totals = (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3)
+    if totals != tuple(sum(v[i] for v in launches.values())
+                       for i in (0, 1)) or cuda_sell.LAUNCHES:
+        raise SystemExit("dense launch counts disagree with their parts")
+    log(f"dense main path: K2.LAUNCHES = {totals[0]}, K3.LAUNCHES = "
+        f"{totals[1]} ({', '.join(f'{k}: {v}' for k, v in launches.items())}"
+        f"); peak device memory {torch.cuda.max_memory_allocated()} B")
+    results.update(
+        n=n, nnz=nnz, levels=len(levels), widths=ml.widths,
+        total_rows=ml.total_rows, host_generate_s=t_gen,
+        host_decompose_s=t_dec,
+        blocks_bytes={d: sum(b.device_nbytes() for b in e.blocks)
+                      for d, e in exes.items()},
+        peak_device_bytes=int(torch.cuda.max_memory_allocated()))
+
+    # -- 8. per-kernel numbers at the dense path's shapes ----------------------
+    kernels = []
+    for dtype, k in launches:
+        exe = exes[dtype]
+        rng = np.random.default_rng(k)
+        xs = [torch.from_numpy(rng.uniform(-1, 1, (b.n_blocks, b.width, k))
+                               .astype(np.float32)).to(dev)
+              for b in exe.blocks]
+        outs = [torch.zeros_like(x) for x in xs]
+
+        def k2():
+            for b, x, o in zip(exe.blocks, xs, outs):
+                cuda_blocks.column_spmm(b.diag_data, b.col_data, x,
+                                        b.lo_data, b.hi_data, out=o)
+
+        def k3():
+            for b, x, o in zip(exe.blocks, xs, outs):
+                cuda_blocks.head_spmm(b.head_data, x, out=o[0])
+
+        def plain2():
+            return [arrow_blocks.column_spmm(b.diag_data, b.col_data, x,
+                                             b.lo_data, b.hi_data)
+                    for b, x in zip(exe.blocks, xs)]
+
+        def plain3():
+            return [arrow_blocks.head_spmm(b.head_data, x)
+                    for b, x in zip(exe.blocks, xs)]
+
+        def lib2():
+            res = []
+            for b, x in zip(exe.blocks, xs):
+                c = torch.baddbmm(torch.matmul(b.col_data[1:], x[0]),
+                                  b.diag_data[1:], x[1:])
+                if b.banded:
+                    c.baddbmm_(b.lo_data[1:], x[:-1])
+                    c[:-1].baddbmm_(b.hi_data[1:-1], x[2:])
+                res.append(c)
+            return res
+
+        def lib3():
+            return [torch.einsum("bij,bjk->ik", b.head_data, x)
+                    for b, x in zip(exe.blocks, xs)]
+
+        # Held against the plain versions on the real blocks.
+        k2()
+        k3()
+        want2, want3 = plain2(), plain3()
+        torch.cuda.synchronize()
+        errs = {}
+        tol = relative_tolerance(max(ml.widths))
+        for name, pairs in (
+                ("K2", [(o[1:], w[1:]) for o, w in zip(outs, want2)]),
+                ("K3", [(o[0], w) for o, w in zip(outs, want3)])):
+            err = 0.0
+            for got, want in pairs:
+                got, want = got.cpu().numpy(), want.cpu().numpy()
+                rel = relative_error(got, want)
+                if not (np.isfinite(got).all() and rel <= tol):
+                    raise SystemExit(f"{name} {dtype} k={k}: kernel != "
+                                     f"plain on the real blocks (rel err "
+                                     f"{rel:.3e} > {tol:.1e})")
+                err = max(err, float(np.abs(got - want).max()))
+            errs[name] = err
+        del want2, want3
+        for name, fn, plain_fn, lib_fn, idx in (
+                ("K2", k2, plain2, lib2, 0), ("K3", k3, plain3, lib3, 1)):
+            runs = cuda_runs(fn, 20)
+            ms = statistics.median(runs)
+            plain_ms = cuda_ms(plain_fn, 5)
+            library_ms = cuda_ms(lib_fn, 5) if dtype == "f32" else None
+            work_ = [block_work(b, k, name) for b in exe.blocks]
+            bytes_ = sum(b for b, _ in work_)
+            ops = sum(o for _, o in work_)
+            t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_FLOPS * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            kname = ("column_blocks_spmm" if name == "K2"
+                     else "head_blocks_spmm")
+            kernels.append({
+                "name": f"{kname}[dense,{dtype},k={k}]", "route": "cuda",
+                "source": SOURCES[name], "replaces": REPLACES[name],
+                "launches": launches[(dtype, k)][idx],
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
+                "library_ms": library_ms})
+            results[f"{name}_{dtype}_k{k}_ms_runs"] = runs
+            lib = ("n/a (no cuBLAS call takes bf16 blocks with f32 "
+                   "features)" if library_ms is None
+                   else f"{library_ms:.4f} ms")
+            log(f"phase 8 {name} {dtype} k={k}: {ms:.4f} ms/step (median "
+                f"of 20, min {min(runs):.4f}, max {max(runs):.4f}; "
+                f"{per_iter[idx]} launches), bound "
+                f"{max(t_bytes, t_ops):.4f} ms by {bound_by} ({bytes_} B, "
+                f"{ops} ops), plain {plain_ms:.4f} ms, cuBLAS {lib}; "
+                f"kernel vs plain max abs err {errs[name]:.3e}")
+        del xs, outs
+    return results, kernels
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
-                        help="log2 of the graph's vertex count (20)")
+                        help="log2 of the fold path's vertex count (20); "
+                             "the dense path takes min(16, log2n)")
     args = parser.parse_args()
 
     import torch
@@ -238,7 +583,7 @@ def main() -> int:
         load_level_widths,
         save_decomposition,
     )
-    from arrow_matrix_tpu_torch.ops import _build, cuda_sell
+    from arrow_matrix_tpu_torch.ops import _build, cuda_blocks, cuda_sell
     from arrow_matrix_tpu_torch.ops.sell import sell_spmm
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
@@ -301,6 +646,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     cuda_sell.LAUNCHES = 0
+    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
     launches = {}
 
     def count(key, fn, iters, live):
@@ -411,6 +757,8 @@ def main() -> int:
     total = cuda_sell.LAUNCHES
     if total != sum(launches.values()):
         raise SystemExit("launch count disagrees with its parts")
+    if cuda_blocks.LAUNCHES_K2 or cuda_blocks.LAUNCHES_K3:
+        raise SystemExit("the fold path launched a dense-block kernel")
     log(f"main path: K1.LAUNCHES = {total} "
         f"({', '.join(f'{k}: {v}' for k, v in launches.items())}); peak "
         f"device memory {torch.cuda.max_memory_allocated()} B")
@@ -468,7 +816,8 @@ def main() -> int:
         t_ops = flops / F32_FLOPS * 1e3
         kernels.append({
             "name": f"sell_tier_spmm[{op_name},{carriage},k={k}]",
-            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "route": "cuda", "source": SOURCES["K1"],
+            "replaces": REPLACES["K1"],
             "launches": launches[key], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -481,10 +830,18 @@ def main() -> int:
             f"{plain_ms:.4f} ms, torch.sparse.mm "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
             f"kernel vs plain max abs err {err:.3e}")
-    del lib_ops
+    del lib_ops, ml, tight, levels, loaded
+    torch.cuda.empty_cache()
+
+    # -- 6-8. the dense path ---------------------------------------------------
+    phase_block_kernels(dev)
+    results["dense"], dense_kernels = dense_path(
+        dev, 1 << min(16, args.log2n), work)
+    kernels += dense_kernels
     shutil.rmtree(work, ignore_errors=True)
 
-    print(json.dumps({"main": results["main"], "card": smi}))
+    print(json.dumps({"main": results["main"], "dense": results["dense"],
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

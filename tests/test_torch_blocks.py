@@ -1,0 +1,237 @@
+"""The port's dense arrow blocks against the JAX package: the same
+blocks cut out of the same matrix, stacks packed byte for byte, and the
+plain column / head / whole-level products against the JAX Pallas
+kernels (interpret mode on the CPU) and the JAX XLA product."""
+
+import numpy as np
+import jax.numpy as jnp
+import ml_dtypes
+import pytest
+import torch
+from scipy import sparse
+
+from arrow_matrix_tpu.io.graphio import load_block as jax_load_block
+from arrow_matrix_tpu.ops import arrow_blocks as jax_blocks
+from arrow_matrix_tpu.ops.pallas_blocks import (
+    arrow_spmm_pallas,
+    column_spmm_pallas,
+    head_spmm_pallas,
+)
+from arrow_matrix_tpu_torch.io import load_block, num_nonzeros
+from arrow_matrix_tpu_torch.ops import arrow_blocks, cuda_blocks
+from arrow_matrix_tpu_torch.ops.arrow_blocks import (
+    arrow_blocks_from_csr,
+    block_features,
+    block_row_stats,
+    resolve_block_dtype,
+    unblock_features,
+)
+from arrow_matrix_tpu_torch.ops.ell import dense_pack_stack
+from arrow_matrix_tpu_torch.utils import relative_error, relative_tolerance
+
+from helpers import arrow_csr
+
+torch.set_num_threads(2)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """Raw bytes of a port stack, comparable with a JAX stack's."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy().view(np.uint32)
+
+
+def _jax_bits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype == ml_dtypes.bfloat16 \
+        else a.view(np.uint32)
+
+
+def _weighted_arrow(nb, w, banded, seed):
+    """An arrow matrix with values off the bf16 grid (rounding shows)."""
+    a = arrow_csr(nb, w, banded=banded, seed=seed)
+    a.data = np.random.default_rng(seed).uniform(
+        -1.0, 1.0, a.nnz).astype(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_stacks_are_byte_equal_to_jax(banded, dtype):
+    a = _weighted_arrow(5, 16, banded, seed=2)
+    ours = arrow_blocks_from_csr(a, 16, banded=banded, pad_blocks_to=7,
+                                 dtype=dtype, device="cpu")
+    theirs = jax_blocks.arrow_blocks_from_csr(
+        a, 16, banded=banded, pad_blocks_to=7, fmt="dense",
+        dtype=np.float32 if dtype == "f32" else ml_dtypes.bfloat16)
+    assert (ours.n_blocks, ours.width, ours.banded) == \
+        (theirs.n_blocks, theirs.width, theirs.banded) == (7, 16, banded)
+    assert ours.dtype == resolve_block_dtype(dtype)
+    names = ("head", "diag", "col") + (("lo", "hi") if banded else ())
+    assert sorted(ours.stacks()) == sorted(names)
+    for name in names:
+        got = _bits(getattr(ours, f"{name}_data"))
+        want = _jax_bits(getattr(theirs, f"{name}_data"))
+        assert got.shape == want.shape == (7, 16, 16)
+        assert np.array_equal(got, want), name
+    assert ours.device_nbytes() == theirs.device_nbytes()
+    stats, jstats = block_row_stats(ours), jax_blocks.block_row_stats(theirs)
+    for key in ("rows", "nnz", "slots"):
+        assert np.array_equal(stats[key], jstats[key]), key
+
+
+def test_load_block_cuts_the_same_blocks_from_csr_and_triplet():
+    a = _weighted_arrow(4, 16, True, seed=3)
+    # A triplet as a memmapped artifact gives it; the last block is
+    # ragged (rows and columns past the end come out empty).
+    triplet = (a.data, a.indices, a.indptr)
+    for (r0, r1, c0, c1) in [(0, 16, 16, 32), (32, 48, 16, 32),
+                             (48, 64, 48, 64), (50, 66, 0, 16)]:
+        got = load_block(a, r0, r1, c0, c1, 16)
+        got_t = load_block(triplet, r0, r1, c0, c1, 16)
+        want = jax_load_block(a, r0, r1, c0, c1, 16)
+        assert got.shape == (16, 16)
+        for m in (got, got_t):
+            assert np.array_equal(m.toarray(), want.toarray())
+            assert np.array_equal(m.indptr, want.indptr)
+    assert num_nonzeros(a) == num_nonzeros(triplet) == a.nnz
+
+
+def test_dense_pack_stack_rounds_to_nearest_even_like_jax():
+    from arrow_matrix_tpu.ops.ell import dense_pack_stack as jax_pack
+
+    rng = np.random.default_rng(4)
+    mats = [None, sparse.random(8, 8, density=0.5, random_state=rng,
+                                dtype=np.float32).tocsr(),
+            sparse.csr_matrix((8, 8), dtype=np.float32)]
+    # Values exactly halfway between two bf16 neighbours round to even.
+    mats[1].data[:4] = np.array([1 + 2**-8, 1 + 3 * 2**-8,
+                                 -(1 + 2**-8), 2**-130], np.float32)
+    got = dense_pack_stack(mats, dtype=torch.bfloat16, rows=8)
+    want = jax_pack(mats, dtype=ml_dtypes.bfloat16, rows=8)
+    assert np.array_equal(_bits(got), want.view(np.uint16))
+    assert np.array_equal(dense_pack_stack(mats, rows=8).numpy(),
+                          jax_pack(mats, rows=8))
+
+
+def test_tiling_check_catches_entries_outside_the_pattern():
+    a = arrow_csr(4, 16, banded=True, seed=5)
+    with pytest.raises(ValueError, match="captured"):
+        arrow_blocks_from_csr(a, 16, banded=False, device="cpu")
+    blocks = arrow_blocks_from_csr(a, 16, banded=False, check=False,
+                                   device="cpu")
+    assert blocks.lo_data is None and blocks.hi_data is None
+
+
+@pytest.mark.parametrize("kwargs", [{"fmt": "ell"}, {"head_fmt": "flat"},
+                                    {"head_fmt": "gell"}])
+def test_unported_block_formats_raise_naming_the_roadmap(kwargs):
+    a = arrow_csr(3, 16, seed=6)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+        arrow_blocks_from_csr(a, 16, device="cpu", **kwargs)
+
+
+def test_block_dtype_names():
+    assert resolve_block_dtype(np.float32) == torch.float32
+    assert resolve_block_dtype(ml_dtypes.bfloat16) == torch.bfloat16
+    assert resolve_block_dtype("bfloat16") == torch.bfloat16
+    assert resolve_block_dtype(torch.float32) == torch.float32
+    for bad in ("f16", np.float64, torch.float16):
+        with pytest.raises(ValueError, match="unknown block dtype"):
+            resolve_block_dtype(bad)
+
+
+def _random_stacks(nb, w, k, seed):
+    rng = np.random.default_rng(seed)
+    mats = {name: rng.standard_normal((nb, w, w)).astype(np.float32)
+            for name in ("head", "diag", "col", "lo", "hi")}
+    x = rng.standard_normal((nb, w, k)).astype(np.float32)
+    return mats, x
+
+
+def _jax_shifted(x):
+    zeros = jnp.zeros((1,) + x.shape[1:], x.dtype)
+    return (jnp.concatenate([zeros, x[:-1]], axis=0),
+            jnp.concatenate([x[1:], zeros], axis=0))
+
+
+@pytest.mark.parametrize("w", [16, 64])
+@pytest.mark.parametrize("k", [4, 16])
+@pytest.mark.parametrize("banded", [False, True])
+def test_plain_products_match_jax_pallas_and_xla(w, k, banded):
+    nb = 4
+    mats, x = _random_stacks(nb, w, k, seed=w + k)
+    t = {name: torch.from_numpy(m) for name, m in mats.items()}
+    j = {name: jnp.asarray(m) for name, m in mats.items()}
+    xt, xj = torch.from_numpy(x), jnp.asarray(x)
+    tol = relative_tolerance(w * (4 if banded else 2))
+
+    # K3's function: the head row.
+    want_head = np.asarray(head_spmm_pallas(j["head"], xj))
+    got_head = arrow_blocks.head_spmm(t["head"], xt).numpy()
+    assert relative_error(got_head, want_head) <= tol
+    want_head_xla = np.asarray(jnp.einsum("bij,bjk->ik", j["head"], xj))
+    assert relative_error(got_head, want_head_xla) <= tol
+
+    # K2's function: every block row but the head (row 0 is K3's).
+    if banded:
+        x_lo, x_hi = _jax_shifted(xj)
+        want = column_spmm_pallas(j["diag"], j["col"], xj, xj[0],
+                                  j["lo"], j["hi"], x_lo, x_hi)
+        got = arrow_blocks.column_spmm(t["diag"], t["col"], xt, t["lo"],
+                                       t["hi"])
+    else:
+        want = column_spmm_pallas(j["diag"], j["col"], xj, xj[0])
+        got = arrow_blocks.column_spmm(t["diag"], t["col"], xt)
+    assert relative_error(got[1:].numpy(), np.asarray(want)[1:]) <= tol
+    assert not got[0].any()
+
+    # The whole level, on real arrow blocks.
+    a = _weighted_arrow(nb, w, banded, seed=k)
+    ours = arrow_blocks_from_csr(a, w, banded=banded, device="cpu")
+    theirs = jax_blocks.arrow_blocks_from_csr(a, w, banded=banded,
+                                              fmt="dense")
+    xb = block_features(x.reshape(nb * w, k), w, nb)
+    got_level = arrow_blocks.arrow_spmm(ours, torch.from_numpy(xb))
+    for want_level in (arrow_spmm_pallas(theirs, jnp.asarray(xb)),
+                       jax_blocks.arrow_spmm(theirs, jnp.asarray(xb))):
+        assert relative_error(got_level.numpy(),
+                              np.asarray(want_level)) <= tol
+    golden = a @ x.reshape(nb * w, k)
+    assert relative_error(unblock_features(got_level, nb * w),
+                          golden) <= tol
+
+
+def test_wrappers_take_the_plain_version_on_cpu_without_counting():
+    mats, x = _random_stacks(3, 16, 4, seed=9)
+    t = {name: torch.from_numpy(m) for name, m in mats.items()}
+    xt = torch.from_numpy(x)
+    before = (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3)
+    got = cuda_blocks.column_spmm(t["diag"], t["col"], xt, t["lo"], t["hi"])
+    assert torch.equal(got, arrow_blocks.column_spmm(
+        t["diag"], t["col"], xt, t["lo"], t["hi"]))
+    out = torch.full((3, 16, 4), 7.0)
+    cuda_blocks.head_spmm(t["head"], xt, out=out[0])
+    cuda_blocks.column_spmm(t["diag"], t["col"], xt, out=out)
+    blocks = arrow_blocks.ArrowBlocks(
+        head_data=t["head"], diag_data=t["diag"], col_data=t["col"],
+        width=16, n_blocks=3)
+    assert torch.equal(out, cuda_blocks.arrow_spmm_cuda(blocks, xt))
+    assert torch.equal(out, arrow_blocks.arrow_spmm(blocks, xt))
+    assert (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3) == before
+    with pytest.raises(ValueError, match=r"x must be \(3, 16, k\)"):
+        cuda_blocks.arrow_spmm_cuda(blocks, xt[:2])
+
+
+def test_blocks_move_between_devices_whole():
+    a = arrow_csr(3, 16, banded=True, seed=7)
+    blocks = arrow_blocks_from_csr(a, 16, banded=True, dtype="bf16",
+                                   device="cpu")
+    moved = blocks.to("cpu")
+    assert moved.banded and moved.width == 16 and moved.n_blocks == 3
+    assert moved.device_nbytes() == 5 * 3 * 16 * 16 * 2
+    for name, t in blocks.stacks().items():
+        assert torch.equal(getattr(moved, f"{name}_data"), t)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            arrow_blocks_from_csr(a, 16, banded=True)

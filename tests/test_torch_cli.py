@@ -39,6 +39,28 @@ def test_generate_decompose_fold_validate_on_cpu(tmp_path, extra):
     assert again.returncode == 0, again.stdout + again.stderr
 
 
+@pytest.mark.parametrize("blocked", ["true", "false"])
+def test_dense_format_validates_on_cpu(tmp_path, blocked):
+    proc = _run(["--fmt", "dense", "--device", "cpu", "--vertices", "1024",
+                 "--width", "64", "--features", "16", "--iterations", "2",
+                 "--validate", "--blocked", blocked], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert re.search(r"dense: \d+ levels, widths \[", proc.stdout)
+    errs = re.findall(r"rel err vs host (\S+) \(gate (\S+)\)", proc.stdout)
+    assert len(errs) == 2
+    for err, gate in errs:
+        assert float(err) <= float(gate)
+    bd = "_bd" if blocked == "true" else ""
+    assert os.path.exists(tmp_path / f"ba_1024_3_B_64{bd}_manifest.json")
+
+
+def test_dense_format_rejects_a_feature_dtype(tmp_path):
+    proc = _run(["--fmt", "dense", "--device", "cpu", "--vertices", "256",
+                 "--width", "32", "--feature_dtype", "bf16"], tmp_path)
+    assert proc.returncode != 0
+    assert "--feature_dtype is a --fmt fold option" in proc.stderr
+
+
 def test_without_a_device_it_fails_and_names_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -1,4 +1,5 @@
-"""The CUDA SELL tier kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card: K1 (SELL
+tier) and K2/K3 (dense arrow column blocks and head row).
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a
 card (and without JAX) run them as
@@ -14,7 +15,7 @@ from arrow_matrix_tpu_torch.decomposition import (
     arrow_decomposition,
     decomposition_spmm,
 )
-from arrow_matrix_tpu_torch.ops import cuda_sell
+from arrow_matrix_tpu_torch.ops import arrow_blocks, cuda_blocks, cuda_sell
 from arrow_matrix_tpu_torch.ops.ell import ell_tier_spmm, out_dtype_for
 from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
 from arrow_matrix_tpu_torch.utils import (
@@ -113,3 +114,80 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         cuda_sell.sell_tier_spmm(c, x, out)
     with pytest.raises(ValueError, match="is on"):
         cuda_sell.sell_tier_spmm(c, x, out, deg=deg.cpu())
+
+
+def _stacks(rng, nb, w, k, dev):
+    mats = {name: torch.from_numpy(
+        rng.uniform(-1, 1, (nb, w, w)).astype(np.float32)).to(dev)
+        for name in ("head", "diag", "col", "lo", "hi")}
+    x = torch.from_numpy(rng.uniform(-1, 1, (nb, w, k)).astype(
+        np.float32)).to(dev)
+    return mats, x
+
+
+# (3, 48) and k=8 / k=33 are off every tile; (5, 100) takes scalar loads
+# of A (100 is no multiple of 8 bf16 values).
+@pytest.mark.parametrize("nb,w", [(3, 48), (5, 64), (5, 100), (2, 2048)])
+@pytest.mark.parametrize("k", [8, 16, 33, 128])
+@pytest.mark.parametrize("banded", [False, True])
+def test_block_kernels_match_plain(cuda, nb, w, k, banded):
+    rng = np.random.default_rng(nb * w + k)
+    mats, x = _stacks(rng, nb, w, k, cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        m = {name: t.to(dtype) for name, t in mats.items()}
+        lohi = (m["lo"], m["hi"]) if banded else (None, None)
+        before = (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3)
+        got_col = cuda_blocks.column_spmm(m["diag"], m["col"], x, *lohi)
+        got_head = cuda_blocks.head_spmm(m["head"], x)
+        assert (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3) == \
+            (before[0] + 1, before[1] + 1)
+        want_col = arrow_blocks.column_spmm(m["diag"], m["col"], x, *lohi)
+        want_head = arrow_blocks.head_spmm(m["head"], x)
+        torch.cuda.synchronize()
+        tol = relative_tolerance(w * (4 if banded else 2))
+        assert relative_error(got_col.cpu().numpy(),
+                              want_col.cpu().numpy()) <= tol
+        assert not got_col[0].any()
+        assert relative_error(got_head.cpu().numpy(),
+                              want_head.cpu().numpy()) <= tol
+
+
+@pytest.mark.parametrize("banded", [False, True])
+def test_dense_executor_on_the_card_matches_the_cpu(cuda, banded):
+    a = barabasi_albert(4096, 4, seed=1)
+    levels = arrow_decomposition(a, 64, max_levels=10,
+                                 block_diagonal=not banded, seed=0)
+    x = random_dense(4096, 16, seed=2)
+    gpu = MultiLevelArrow(levels, 64, fmt="dense", banded=banded,
+                          device=cuda)
+    cpu = MultiLevelArrow(levels, 64, fmt="dense", banded=banded,
+                          device="cpu")
+    before = (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3)
+    got = gpu.gather_result(gpu.run(gpu.set_features(x), 3))
+    assert cuda_blocks.LAUNCHES_K3 - before[1] == 3 * len(levels)
+    assert cuda_blocks.LAUNCHES_K2 - before[0] == 3 * sum(
+        b.n_blocks > 1 for b in gpu.blocks)
+    want = cpu.gather_result(cpu.run(cpu.set_features(x), 3))
+    golden = x
+    for _ in range(3):
+        golden = decomposition_spmm(levels, golden)
+    tol = relative_tolerance(gpu.nnz / 4096, 3)
+    assert relative_error(got, want) <= tol
+    assert relative_error(got, golden) <= tol
+
+
+def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    a = torch.zeros((3, 16, 16), device=cuda)
+    x = torch.zeros((3, 16, 4), device=cuda)
+    with pytest.raises(ValueError, match="x must be torch.float32"):
+        cuda_blocks.head_spmm(a, x.double())
+    with pytest.raises(ValueError, match="unsupported block dtype"):
+        cuda_blocks.head_spmm(a.half(), x)
+    with pytest.raises(ValueError, match="must have shape"):
+        cuda_blocks.column_spmm(a, a[:, :8], x)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_blocks.column_spmm(a.transpose(1, 2), a, x)
+    with pytest.raises(ValueError, match="both lo and hi"):
+        cuda_blocks.column_spmm(a, a, x, lo=a)
+    with pytest.raises(ValueError, match="is on"):
+        cuda_blocks.head_spmm(a.cpu(), x)

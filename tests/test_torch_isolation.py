@@ -37,6 +37,9 @@ def _imported_modules(path):
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    names = {os.path.relpath(f, PORT) for f in files}
+    assert {os.path.join("ops", "arrow_blocks.py"),
+            os.path.join("ops", "cuda_blocks.py")} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -70,6 +73,11 @@ x = random_dense(400, 8, seed=1)
 err = relative_error(ml.gather_result(ml.step(ml.set_features(x))),
                      decomposition_spmm(levels, x))
 assert err < 1e-5, err
+dense = MultiLevelArrow(levels, 32, fmt="dense", device="cpu")
+err_dense = relative_error(
+    dense.gather_result(dense.step(dense.set_features(x))),
+    decomposition_spmm(levels, x))
+assert err_dense < 1e-5, err_dense
 assert not any(m.split(".")[0] in {"jax", "flax", "arrow_matrix_tpu"}
                for m in sys.modules)
 print("ok", err)
@@ -77,6 +85,8 @@ print("ok", err)
 
 
 def test_port_runs_a_fold_step_with_jax_blocked():
+    """A fold step and a dense step, with JAX and the JAX package
+    unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
