@@ -8,6 +8,7 @@ from arrow_matrix_tpu_torch.ops.arrow_blocks import (
     unblock_features,
 )
 from arrow_matrix_tpu_torch.ops.cuda_blocks import arrow_spmm_cuda
+from arrow_matrix_tpu_torch.ops.cuda_gather import granule_gather
 from arrow_matrix_tpu_torch.ops.cuda_sell import (
     quantize_features,
     sell_spmm_cuda,
@@ -19,6 +20,11 @@ from arrow_matrix_tpu_torch.ops.ell import (
     dense_pack_stack,
     dense_spmm_batched,
     ell_tier_spmm,
+)
+from arrow_matrix_tpu_torch.ops.gather import (
+    granule_gather_plain,
+    pack_granules,
+    take,
 )
 from arrow_matrix_tpu_torch.ops.sell import (
     SellMatrix,
@@ -44,6 +50,9 @@ __all__ = [
     "dense_pack_stack",
     "dense_spmm_batched",
     "ell_tier_spmm",
+    "granule_gather",
+    "granule_gather_plain",
+    "pack_granules",
     "quantize_features",
     "resolve_binary",
     "resolve_block_dtype",
@@ -54,6 +63,7 @@ __all__ = [
     "sell_spmm_t",
     "sell_stats",
     "sell_tier_spmm",
+    "take",
     "tier_boundaries",
     "unblock_features",
 ]

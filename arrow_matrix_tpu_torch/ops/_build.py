@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Kernel sources of the port, by library name.
 SOURCES = {"sell_tier_spmm": "sell_tier_spmm.cu",
-           "arrow_blocks_spmm": "arrow_blocks_spmm.cu"}
+           "arrow_blocks_spmm": "arrow_blocks_spmm.cu",
+           "granule_gather": "granule_gather.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: The compiler's report (``-Xptxas -v``: registers, spills) and build

@@ -1,4 +1,4 @@
-from arrow_matrix_tpu_torch.utils.device import resolve_device
+from arrow_matrix_tpu_torch.utils.device import card_report, resolve_device
 from arrow_matrix_tpu_torch.utils.graphs import (
     barabasi_albert,
     random_dense,
@@ -13,6 +13,7 @@ from arrow_matrix_tpu_torch.utils.numerics import (
 __all__ = [
     "barabasi_albert",
     "bf16_within_one_ulp",
+    "card_report",
     "random_dense",
     "relative_error",
     "relative_tolerance",

@@ -34,3 +34,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def card_report(device: torch.device) -> Optional[str]:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    for the card behind a CUDA ``device``; ``None`` on the CPU."""
+    if device.type != "cuda":
+        return None
+    import subprocess
+
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={device.index or 0}"],
+        capture_output=True, text=True, check=True).stdout.splitlines()
+    return lines[0].strip()

@@ -39,7 +39,18 @@ Phases, each fatal on failure:
 8. per-kernel numbers at the dense path's shapes: K2 and K3 against
    their plain versions on the real blocks, their time per step
    (median of 20), bound, the plain versions' time, and the same
-   function through cuBLAS (f32 blocks) as a yardstick.
+   function through cuBLAS (f32 blocks) as a yardstick;
+9. granule gather kernel vs plain: K4 against its plain PyTorch version
+   on random rows (with a row of -0.0 and the rows 0 and n - 1) at (n,
+   S, block, wave) in {(2^10, 256, 64, 16), (2^14, 2^12, 64, 16),
+   (2^20, 2^21, 1024, 32)} and two ragged cases with wave = block, equal
+   by value, and bit for bit equal to ``take``;
+10. the gather probes at full size (their main path): the granule probe's
+   three variants (``torch_take``, ``torch_granule``, K4) with K4's
+   bound, the gather rates of ``take`` (and of ``x[idx]`` beside it)
+   over k, dtype and index order, and the fold step at k = 16 and 128
+   for both carriages, on phase 4's fold (max_levels 10, where the JAX
+   probe decomposes again at 12).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -53,7 +64,6 @@ import json
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
@@ -61,10 +71,18 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32, outside the tensor cores
 SOURCES = {"K1": "arrow_matrix_tpu_torch/csrc/sell_tier_spmm.cu",
            "K2": "arrow_matrix_tpu_torch/csrc/arrow_blocks_spmm.cu",
-           "K3": "arrow_matrix_tpu_torch/csrc/arrow_blocks_spmm.cu"}
+           "K3": "arrow_matrix_tpu_torch/csrc/arrow_blocks_spmm.cu",
+           "K4": "arrow_matrix_tpu_torch/csrc/granule_gather.cu"}
 REPLACES = {"K1": "arrow_matrix_tpu/ops/pallas_sell.py:298",
             "K2": "arrow_matrix_tpu/ops/pallas_blocks.py:175",
-            "K3": "arrow_matrix_tpu/ops/pallas_blocks.py:261"}
+            "K3": "arrow_matrix_tpu/ops/pallas_blocks.py:261",
+            "K4": "tools/pallas_gather_probe.py:81"}
+#: Phase 9's (n, S, block, wave): the two shapes of the JAX package's CPU
+#: checks, the probe's full size, and two ragged cases with wave = block
+#: (the last stages 128 KB, over the 48 KB of static shared memory).
+K4_SHAPES = ((1 << 10, 256, 64, 16), (1 << 14, 1 << 12, 64, 16),
+             (1 << 20, 1 << 21, 1024, 32), (1000, 360, 40, 40),
+             (1 << 12, 1 << 12, 256, 256))
 REPS = 7                       # timed runs of each main-path chain
 
 T0 = time.perf_counter()
@@ -74,32 +92,12 @@ def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.1f}s] {msg}", flush=True)
 
 
-def cuda_runs(fn, reps: int) -> list:
-    """Milliseconds of each of ``reps`` calls of ``fn``, CUDA events
-    around each call, after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    marks = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for start, end in marks:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return [start.elapsed_time(end) for start, end in marks]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` calls."""
-    return statistics.median(cuda_runs(fn, reps))
-
-
 def graph_ms(fn, reps: int) -> tuple:
     """(median ms, result) of ``fn`` captured once in a CUDA graph and
     replayed: the same kernels with no host work between launches."""
     import torch
+
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -343,6 +341,7 @@ def dense_path(dev, n: int, work: str):
         relative_error,
         relative_tolerance,
     )
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
 
     m, width, seed = 8, 2048, 7
     base = os.path.join(work, f"ba_{n}_{m}_dense")
@@ -560,6 +559,112 @@ def dense_path(dev, n: int, work: str):
     return results, kernels
 
 
+def phase_granule_kernel(dev) -> float:
+    """Phase 9: K4 against its plain version.  Returns the max abs
+    error at the probe's full size (n = 2^20, S = 2^21)."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_gather
+    from arrow_matrix_tpu_torch.ops.gather import (
+        granule_gather_plain,
+        pack_granules,
+        take,
+    )
+
+    full_err = None
+    for n, s, block, wave in K4_SHAPES:
+        rng = np.random.default_rng(n + s)
+        x = rng.standard_normal((n, 16)).astype(np.float32)
+        x[5] = -0.0
+        idx = rng.integers(0, n, size=s, dtype=np.int32)
+        idx[:3] = (0, n - 1, 5)
+        xp = pack_granules(torch.from_numpy(x).to(dev))
+        it = torch.from_numpy(idx).to(dev)
+        got = cuda_gather.granule_gather(xp, it, block, wave)
+        want = granule_gather_plain(xp, it)
+        bits = take(xp.view(-1, 16), it).view(torch.int32)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise SystemExit(f"K4 != plain at n={n} S={s} block={block} "
+                             f"wave={wave}: max abs err {err:.3e}")
+        if not torch.equal(got.view(-1, 16).view(torch.int32), bits):
+            raise SystemExit(f"K4 did not copy the rows' bits at n={n} "
+                             f"S={s} block={block} wave={wave}")
+        if (n, s) == (1 << 20, 1 << 21):
+            full_err = err
+        log(f"K4 n={n} S={s} block={block} wave={wave}: equal to plain by "
+            f"value, to take bit for bit (the -0.0 row kept its sign)")
+    log(f"phase 9: {len(K4_SHAPES)} K4-vs-plain checks passed")
+    return full_err
+
+
+def phase_probes(dev, ml, k4_err: float) -> tuple:
+    """Phase 10: the gather probes at full size, their main path, on
+    phase 4's fold ``ml``.  Returns (results, K4's kernel entry)."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_gather, cuda_sell
+    from arrow_matrix_tpu_torch.tools import gather_probe, granule_gather_probe
+
+    # The main path: every count at 0 just before, read just after.
+    cuda_sell.LAUNCHES = cuda_gather.LAUNCHES = 0
+    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
+    probe = granule_gather_probe.run_probe(dev)
+    rates = gather_probe.gather_rates(device=dev)
+    folds = [gather_probe.fold_step(k, ml) for k in (16, 128)]
+    torch.cuda.synchronize()
+    k4_launches, k1_launches = cuda_gather.LAUNCHES, cuda_sell.LAUNCHES
+    if not k4_launches:
+        raise SystemExit("phase 10: the granule probe launched no K4")
+    if cuda_blocks.LAUNCHES_K2 or cuda_blocks.LAUNCHES_K3:
+        raise SystemExit("phase 10 launched a dense-block kernel")
+    v = probe["variants"]
+    if not all(r["exact"] for r in v.values()) or "verdict" not in probe:
+        raise SystemExit(f"granule probe: a variant was not exact: {v}")
+    bound = probe["bound_ms"]
+    log(f"phase 10 granule probe (n={probe['n']}, S={probe['slots']}, "
+        f"block {probe['block']}, wave {probe['wave']}; "
+        f"{probe['distinct_rows']} distinct rows): " + "; ".join(
+            f"{name} {r['ms']:.4f} ms ({r['mslots_s']:.1f} M slots/s, "
+            f"{100 * bound / r['ms']:.1f}% of bound)"
+            for name, r in v.items())
+        + f"; K4 bound {bound:.4f} ms ({probe['bytes']} B), line traffic "
+        f"{probe['line_bytes']} B; cuda_vs_torch "
+        f"{probe['cuda_vs_torch']:.3f}: {probe['verdict']}; "
+        f"K4.LAUNCHES = {k4_launches}")
+    for r in rates:
+        if not r["exact"]:
+            raise SystemExit(f"gather_rates: take was not exact: {r}")
+        log(f"phase 10 take k={r['k']:3d} {r['dtype']:4s} {r['order']:6s}: "
+            f"{r['ms']:.4f} ms ({r['mslots_s']:.1f} M slots/s, "
+            f"{r['slots']} slots); x[idx] {r['index_ms']:.4f} ms "
+            f"({r['index_mslots_s']:.1f} M slots/s)")
+    for rec in folds:
+        if not gather_probe.fold_gate(rec, ml.nnz / ml.n):
+            raise SystemExit(f"fold_step k={rec['k']}: kernel != plain "
+                             f"{rec['carriages']}")
+        log(f"phase 10 fold k={rec['k']} (phase 4's fold, max_levels 10): "
+            f"{rec['tiers']} tiers, {rec['slots']} slots "
+            f"({rec['slots_per_nnz']:.3f}x nnz), {rec['device_bytes']} B; "
+            + "; ".join(f"{name} {c['ms_per_iter']:.4f} ms/iter "
+                        f"({c['mslots_s']:.1f} M slots/s, vs plain "
+                        f"{c['rel_err_vs_plain']:.2e})"
+                        for name, c in rec["carriages"].items()))
+    log(f"probes' main path: K4.LAUNCHES = {k4_launches}, K1.LAUNCHES = "
+        f"{k1_launches}")
+    entry = {
+        "name": "granule_gather[probe,k=16]", "route": "cuda",
+        "source": SOURCES["K4"], "replaces": REPLACES["K4"],
+        "launches": k4_launches, "max_abs_err": k4_err,
+        "ms": v["cuda_granule"]["ms"], "plain_ms": v["torch_granule"]["ms"],
+        "bound_ms": bound, "bound_by": "bytes",
+        "library_ms": v["torch_take"]["ms"]}
+    return {"granule_probe": probe, "gather_rates": rates, "fold": folds,
+            "k1_launches": k1_launches}, entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -588,20 +693,19 @@ def main() -> int:
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
         barabasi_albert,
+        card_report,
         random_dense,
         relative_error,
         relative_tolerance,
     )
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. card -------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_report(dev)
     print(smi, flush=True)
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
@@ -830,7 +934,7 @@ def main() -> int:
             f"{plain_ms:.4f} ms, torch.sparse.mm "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
             f"kernel vs plain max abs err {err:.3e}")
-    del lib_ops, ml, tight, levels, loaded
+    del lib_ops, tight, levels, loaded      # phase 10 steps ml again
     torch.cuda.empty_cache()
 
     # -- 6-8. the dense path ---------------------------------------------------
@@ -839,9 +943,15 @@ def main() -> int:
         dev, 1 << min(16, args.log2n), work)
     kernels += dense_kernels
     shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()            # the dense blocks are gone
+
+    # -- 9-10. the granule gather kernel and the gather probes ---------------
+    k4_err = phase_granule_kernel(dev)
+    results["probes"], k4_entry = phase_probes(dev, ml, k4_err)
+    kernels.append(k4_entry)
 
     print(json.dumps({"main": results["main"], "dense": results["dense"],
-                      "card": smi}))
+                      "probes": results["probes"], "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: K1 (SELL
-tier) and K2/K3 (dense arrow column blocks and head row).
+tier), K2/K3 (dense arrow column blocks and head row) and K4 (granule
+gather).
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a
 card (and without JAX) run them as
@@ -15,7 +16,17 @@ from arrow_matrix_tpu_torch.decomposition import (
     arrow_decomposition,
     decomposition_spmm,
 )
-from arrow_matrix_tpu_torch.ops import arrow_blocks, cuda_blocks, cuda_sell
+from arrow_matrix_tpu_torch.ops import (
+    arrow_blocks,
+    cuda_blocks,
+    cuda_gather,
+    cuda_sell,
+)
+from arrow_matrix_tpu_torch.ops.gather import (
+    granule_gather_plain,
+    pack_granules,
+    take,
+)
 from arrow_matrix_tpu_torch.ops.ell import ell_tier_spmm, out_dtype_for
 from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
 from arrow_matrix_tpu_torch.utils import (
@@ -191,3 +202,46 @@ def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda_blocks.column_spmm(a, a, x, lo=a)
     with pytest.raises(ValueError, match="is on"):
         cuda_blocks.head_spmm(a.cpu(), x)
+
+
+# The shapes of chip_smoke.py phase 9: (n, S, block, wave), the last two
+# ragged with wave = block (the last over 48 KB of shared memory).
+K4_SHAPES = [(1 << 10, 256, 64, 16), (1 << 14, 1 << 12, 64, 16),
+             (1 << 20, 1 << 21, 1024, 32), (1000, 360, 40, 40),
+             (1 << 12, 1 << 12, 256, 256)]
+
+
+@pytest.mark.parametrize("n,s,block,wave", K4_SHAPES)
+def test_granule_kernel_matches_plain(cuda, n, s, block, wave):
+    rng = np.random.default_rng(n + s)
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    x[5] = -0.0
+    idx = rng.integers(0, n, size=s, dtype=np.int32)
+    idx[:3] = (0, n - 1, 5)
+    xp = pack_granules(torch.from_numpy(x).to(cuda))
+    it = torch.from_numpy(idx).to(cuda)
+    before = cuda_gather.LAUNCHES
+    got = cuda_gather.granule_gather(xp, it, block, wave)
+    assert cuda_gather.LAUNCHES == before + 1
+    want = granule_gather_plain(xp, it)
+    torch.cuda.synchronize()
+    assert got.shape == (s // 8, 128)
+    assert torch.equal(got, want)                     # by value
+    rows = got.view(-1, 16)
+    # The kernel copies bits: -0.0 stays -0.0, as in take.
+    assert torch.equal(rows.view(torch.int32),
+                       take(xp.view(-1, 16), it).view(torch.int32))
+    assert bool(torch.signbit(rows[2]).all())
+
+
+def test_granule_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    xp = torch.zeros((32, 128), device=cuda)
+    idx = torch.zeros(256, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        cuda_gather.granule_gather(xp, idx.cpu(), 64, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(33 * 128 + 1, device=cuda)
+        cuda_gather.granule_gather(flat[1:1 + 32 * 128].view(32, 128), idx,
+                                   64, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_gather.granule_gather(xp, idx, 64, 24)

@@ -39,7 +39,12 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(files) > 10
     names = {os.path.relpath(f, PORT) for f in files}
     assert {os.path.join("ops", "arrow_blocks.py"),
-            os.path.join("ops", "cuda_blocks.py")} <= names
+            os.path.join("ops", "cuda_blocks.py"),
+            os.path.join("ops", "gather.py"),
+            os.path.join("ops", "cuda_gather.py"),
+            os.path.join("tools", "gather_probe.py"),
+            os.path.join("tools", "granule_gather_probe.py"),
+            os.path.join("utils", "timing.py")} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -65,6 +70,9 @@ from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
 from arrow_matrix_tpu_torch.utils import (barabasi_albert, random_dense,
                                           relative_error)
 import arrow_matrix_tpu_torch.cli.spmm_arrow, arrow_matrix_tpu_torch.convert
+from arrow_matrix_tpu_torch.ops import cuda_gather, gather
+from arrow_matrix_tpu_torch.tools import gather_probe, granule_gather_probe
+from arrow_matrix_tpu_torch.utils import timing
 a = barabasi_albert(400, 3, seed=0)
 levels = arrow_decomposition(a, 32, max_levels=4, block_diagonal=True,
                              seed=0)
@@ -78,6 +86,12 @@ err_dense = relative_error(
     dense.gather_result(dense.step(dense.set_features(x))),
     decomposition_spmm(levels, x))
 assert err_dense < 1e-5, err_dense
+probe = granule_gather_probe.run_probe("cpu", 1024, 256, 64, 16, reps=1)
+assert all(v["exact"] for v in probe["variants"].values()), probe
+assert all(r["exact"] for r in gather_probe.gather_rates(
+    n=256, m=2, device="cpu", ks=(16,), reps=1))
+assert gather_probe.fold_gate(gather_probe.fold_step(16, ml, iters=1),
+                              ml.nnz / ml.n)
 assert not any(m.split(".")[0] in {"jax", "flax", "arrow_matrix_tpu"}
                for m in sys.modules)
 print("ok", err)
@@ -85,8 +99,8 @@ print("ok", err)
 
 
 def test_port_runs_a_fold_step_with_jax_blocked():
-    """A fold step and a dense step, with JAX and the JAX package
-    unimportable."""
+    """A fold step, a dense step and both gather probes, with JAX and
+    the JAX package unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
