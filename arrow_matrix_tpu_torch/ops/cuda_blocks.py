@@ -13,6 +13,11 @@ contiguity, launch on PyTorch's current stream, raise on a launch error
 and add one to :data:`LAUNCHES_K2` / :data:`LAUNCHES_K3`.  For CPU
 tensors they run the plain versions (``ops/arrow_blocks.py``).  There
 is no fallback: a failed build or launch raises.
+
+K3 splits the block axis into the contiguous chunks of
+:func:`head_chunks`, one partial sum each, added in chunk order by a
+second pass; :func:`head_split` picks the split from ``(nb, w, k)``
+alone, so the order of every sum is fixed by the shapes.
 """
 
 from __future__ import annotations
@@ -35,8 +40,23 @@ LAUNCHES_K3 = 0
 #: Block-dtype code of the C interface.
 BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: A CTA's tile by feature count: (largest k, rows, feature columns) of
+#: the kernels' Narrow, Mid and Wide configurations
+#: (``csrc/arrow_blocks_spmm.cu:column_for`` / ``head_for`` choose the
+#: same way).
+TILES = ((16, 64, 16), (64, 128, 64), (None, 128, 128))
+#: K3's split aims at this many CTAs: a Narrow CTA with f32 blocks holds
+#: 45 KB of shared memory, so about five fit an SM and some 660 fill the
+#: 132 SMs once.
+HEAD_CTAS = 1024
+#: K3's workspace of partial sums is at most this many bytes.
+HEAD_WORKSPACE_BYTES = 64 << 20
+
 _LIB = "arrow_blocks_spmm"
 _FNS = {}
+#: Pointer and int arguments of each C entry point (after the block
+#: dtype code and ``vec``; the stream comes last).
+_ARGS = {"arrow_column_spmm": (6, 3), "arrow_head_spmm": (4, 4)}
 
 
 def _kernel(name: str):
@@ -44,13 +64,44 @@ def _kernel(name: str):
     if fn is None:
         lib = _build.load(_LIB)
         fn = getattr(lib, name)
-        ptrs = 6 if name == "arrow_column_spmm" else 3
+        ptrs, ints = _ARGS[name]
         fn.argtypes = ([ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_void_p] * ptrs
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * ints + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_shape(k: int) -> tuple:
+    """(rows, feature columns) of a K2/K3 CTA at feature count ``k``."""
+    return next((bm, bn) for k_max, bm, bn in TILES
+                if k_max is None or k <= k_max)
+
+
+def head_split(nb: int, w: int, k: int) -> int:
+    """Partial sums S of K3 for ``(nb, w, k)``: enough CTAs of
+    ``S x tiles`` to reach :data:`HEAD_CTAS`, at most ``nb`` and at
+    most :data:`HEAD_WORKSPACE_BYTES` of partials, and no empty chunk
+    (``S = ceil(nb / ceil(nb / S))``).  S = 1 needs no workspace."""
+    bm, bn = tile_shape(k)
+    tiles = _ceil_div(w, bm) * _ceil_div(k, bn)
+    s = min(nb, _ceil_div(HEAD_CTAS, tiles),
+            HEAD_WORKSPACE_BYTES // (4 * w * k))
+    if s <= 1:
+        return 1
+    return _ceil_div(nb, _ceil_div(nb, s))
+
+
+def head_chunks(nb: int, w: int, k: int) -> list:
+    """The contiguous ranges of b whose products K3 sums into each
+    partial, in the order pass 2 adds them."""
+    chunk = _ceil_div(nb, head_split(nb, w, k))
+    return [range(lo, min(nb, lo + chunk)) for lo in range(0, nb, chunk)]
 
 
 def _dims(x: torch.Tensor) -> tuple:
@@ -81,8 +132,10 @@ def _operands(x: torch.Tensor, blocks: dict, out: Optional[torch.Tensor],
         out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     else:
         check_operand("out", out, torch.float32, out_shape, dev)
-    vec = int(w % (16 // dtype.itemsize) == 0
-              and all(t.data_ptr() % 16 == 0 for t in blocks.values()))
+    # 16-byte copies of every tile, and float4 stores of the output.
+    vec = int(w % (16 // dtype.itemsize) == 0 and k % 4 == 0
+              and all(t.data_ptr() % 16 == 0
+                      for t in (x, out, *blocks.values())))
     return BLOCK_DTYPES[dtype], vec, out
 
 
@@ -147,7 +200,10 @@ def head_spmm(head: torch.Tensor, x: torch.Tensor,
     """K3: ``out = sum_b A_0b X_b`` into ``out`` (w, k) float32.
 
     head ``(nb, w, w)`` float32 or bfloat16, x ``(nb, w, k)`` float32.
-    CPU tensors take the plain ``arrow_blocks.head_spmm``.
+    On the card the sum runs over the chunks of :func:`head_chunks`
+    into a ``(S, w, k)`` float32 workspace allocated here, then over the
+    partials in order.  CPU tensors take the plain
+    ``arrow_blocks.head_spmm``.
     """
     global LAUNCHES_K3
     if x.device.type == "cpu":
@@ -160,11 +216,18 @@ def head_spmm(head: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"unsupported device {x.device}")
     nb, w, k = _dims(x)
     code_dtype, vec, out = _operands(x, {"head": head}, out, (w, k))
+    parts = head_split(nb, w, k)
+    # Freed on return while the kernels may still run: the caching
+    # allocator hands it out again only to work queued after them on
+    # this stream.
+    part = (torch.empty((parts, w, k), dtype=torch.float32, device=x.device)
+            if parts > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = _kernel("arrow_head_spmm")(
             code_dtype, vec, head.data_ptr(), x.data_ptr(), out.data_ptr(),
-            nb, w, k, stream)
+            None if part is None else part.data_ptr(), nb, w, k,
+            _ceil_div(nb, parts), stream)
     _raise_on(code, f"head_blocks_spmm (nb={nb} w={w} k={k} {head.dtype})")
     LAUNCHES_K3 += 1
     return out

@@ -26,8 +26,9 @@ Phases, each fatal on failure:
    between the launches);
 6. dense kernels vs plain: K2 (column blocks) and K3 (head row) against
    their plain PyTorch versions on random stacks, (nb, w) in {(3, 48),
-   (5, 64), (4, 2048)}, k in {8, 16, 128}, banded and block-diagonal,
-   f32 and bf16 blocks;
+   (5, 64), (33, 200), (4, 2048)}, k in {8, 16, 128}, banded and
+   block-diagonal, f32 and bf16 blocks, and each bit for bit equal to a
+   second launch on the same inputs;
 7. dense main path: Barabasi-Albert n=2^16 m=8 (dense stacks of 2^20
    rows would not fit the card), decomposed at width 2048 to
    convergence (max_levels=10, seed 7), saved and loaded, tiled into
@@ -52,9 +53,10 @@ Phases, each fatal on failure:
    for both carriages, on phase 4's fold (max_levels 10, where the JAX
    probe decomposes again at 12).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits 2 and prints no result.
+``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
+kernels K2 and K3).  The line before the last is ``{"kernels": [...]}``;
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -90,6 +92,18 @@ T0 = time.perf_counter()
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.1f}s] {msg}", flush=True)
+
+
+def demangle(text: str) -> str:
+    """``text`` with C++ symbols demangled by ``c++filt`` where the
+    machine has it."""
+    import subprocess
+
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return text
+    return subprocess.run([tool], input=text, capture_output=True,
+                          text=True).stdout
 
 
 def graph_ms(fn, reps: int) -> tuple:
@@ -251,7 +265,8 @@ def phase_block_kernels(dev) -> None:
 
     rng = np.random.default_rng(1)
     checks = 0
-    for nb, w in ((3, 48), (5, 64), (4, 2048)):
+    # (33, 200): off every row and contraction tile, K3 split 33 ways.
+    for nb, w in ((3, 48), (5, 64), (33, 200), (4, 2048)):
         f32 = {name: torch.from_numpy(rng.uniform(
             -1, 1, (nb, w, w)).astype(np.float32)).to(dev)
             for name in ("head", "diag", "col", "lo", "hi")}
@@ -278,7 +293,15 @@ def phase_block_kernels(dev) -> None:
                         *(m[n] for n in names[:2]), x,
                         *(m[n] for n in names[2:])),
                         arrow_blocks.head_spmm(m["head"], x))
+                    again = (cuda_blocks.column_spmm(
+                        *(m[n] for n in names[:2]), x,
+                        *(m[n] for n in names[2:])),
+                        cuda_blocks.head_spmm(m["head"], x))
                     torch.cuda.synchronize()
+                    if not all(map(torch.equal, got, again)):
+                        raise SystemExit(
+                            f"K2/K3 not deterministic: nb={nb} w={w} k={k} "
+                            f"banded={banded} {key}: two launches differ")
                     for g, wt, w32 in zip(got, want, want32):
                         g, wt, w32 = (t.cpu().numpy() for t in (g, wt, w32))
                         err = relative_error(g, wt)
@@ -296,12 +319,15 @@ def phase_block_kernels(dev) -> None:
                                 f"K2/K3 != plain: nb={nb} w={w} k={k} "
                                 f"banded={banded} {key}: rel err {err:.3e}"
                                 f" (gate {tol:.1e})")
-        log(f"dense kernels nb={nb} w={w}: worst rel err f32 "
+        log(f"dense kernels nb={nb} w={w} (K3 split "
+            f"{cuda_blocks.head_split(nb, w, 16)} ways at k=16): every "
+            f"result bit for bit repeated; worst rel err f32 "
             f"{worst['f32']:.3e}, bf16 {worst['bf16']:.3e} (gate "
             f"{tol:.1e}); bf16 blocks vs f32 blocks "
             f"{worst['bf16_vs_f32']:.3e} (gate 2e-2); max abs err "
             f"{max_abs:.3e}")
-    log(f"phase 6: {checks} K2/K3-vs-plain checks passed")
+    log(f"phase 6: {checks} K2/K3-vs-plain checks passed, each "
+        f"repeated bit for bit")
 
 
 def block_work(blocks, k: int, kernel: str) -> tuple:
@@ -549,9 +575,12 @@ def dense_path(dev, n: int, work: str):
             lib = ("n/a (no cuBLAS call takes bf16 blocks with f32 "
                    "features)" if library_ms is None
                    else f"{library_ms:.4f} ms")
+            split = "" if name == "K2" else ", split " + "/".join(
+                str(cuda_blocks.head_split(b.n_blocks, b.width, k))
+                for b in exe.blocks)
             log(f"phase 8 {name} {dtype} k={k}: {ms:.4f} ms/step (median "
                 f"of 20, min {min(runs):.4f}, max {max(runs):.4f}; "
-                f"{per_iter[idx]} launches), bound "
+                f"{per_iter[idx]} launches{split}), bound "
                 f"{max(t_bytes, t_ops):.4f} ms by {bound_by} ({bytes_} B, "
                 f"{ops} ops), plain {plain_ms:.4f} ms, cuBLAS {lib}; "
                 f"kernel vs plain max abs err {errs[name]:.3e}")
@@ -670,6 +699,8 @@ def main() -> int:
     parser.add_argument("--log2n", type=int, default=20,
                         help="log2 of the fold path's vertex count (20); "
                              "the dense path takes min(16, log2n)")
+    parser.add_argument("--dense", action="store_true",
+                        help="run phases 1, 2 and 6-8 only (the dense path)")
     args = parser.parse_args()
 
     import torch
@@ -717,19 +748,26 @@ def main() -> int:
     log(f"phase 2: built {sorted(paths)} in "
         f"{time.perf_counter() - tic:.1f} s")
     for name, rec in _build.BUILD_LOG.items():
-        for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+        log(f"  {name}: nvcc {rec['seconds']:.1f} s")
+        for line in demangle(rec["ptxas"]).splitlines():
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 print(f"    ptxas {name}: {line.strip()}")
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "arrow_matrix_tpu_torch", "_build", "smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    n_dense = 1 << min(16, args.log2n)
+    if args.dense:
+        dense, kernels = dense_phases(dev, n_dense, work)
+        return finish({"dense": dense, "card": smi}, kernels)
 
     # -- 3. kernel vs plain on random tiers ------------------------------------
     phase_random_tiers(dev)
 
     # -- 4. main path ----------------------------------------------------------
     n, m, width, seed = 1 << args.log2n, 8, 2048, 7
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "arrow_matrix_tpu_torch", "_build", "smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
     base = os.path.join(work, f"ba_{n}_{m}")
 
     tic = time.perf_counter()
@@ -938,20 +976,34 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6-8. the dense path ---------------------------------------------------
-    phase_block_kernels(dev)
-    results["dense"], dense_kernels = dense_path(
-        dev, 1 << min(16, args.log2n), work)
+    results["dense"], dense_kernels = dense_phases(dev, n_dense, work)
     kernels += dense_kernels
-    shutil.rmtree(work, ignore_errors=True)
-    torch.cuda.empty_cache()            # the dense blocks are gone
 
     # -- 9-10. the granule gather kernel and the gather probes ---------------
     k4_err = phase_granule_kernel(dev)
     results["probes"], k4_entry = phase_probes(dev, ml, k4_err)
     kernels.append(k4_entry)
 
-    print(json.dumps({"main": results["main"], "dense": results["dense"],
-                      "probes": results["probes"], "card": smi}))
+    results["card"] = smi
+    return finish(results, kernels)
+
+
+def dense_phases(dev, n: int, work: str) -> tuple:
+    """Phases 6-8; the dense blocks are freed on return."""
+    import torch
+
+    phase_block_kernels(dev)
+    out = dense_path(dev, n, work)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def finish(results: dict, kernels: list) -> int:
+    """Print the results, the kernels' line and the last line."""
+    import torch
+
+    print(json.dumps(results))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -235,3 +235,105 @@ def test_blocks_move_between_devices_whole():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             arrow_blocks_from_csr(a, 16, banded=True)
+
+
+# -- the geometry of the kernels' launches (K3's split), on the CPU ----------
+
+SPLIT_SHAPES = [(1, 2048, 16), (2, 48, 8), (3, 64, 128), (5, 100, 33),
+                (32, 2048, 16), (32, 2048, 128), (33, 200, 16),
+                (33, 2048, 16), (65, 256, 1024), (512, 2048, 16),
+                (512, 2048, 128), (1000, 16, 4), (7, 4096, 4096)]
+
+
+@pytest.mark.parametrize("nb,w,k", SPLIT_SHAPES)
+def test_head_chunks_cover_every_block_once_in_order(nb, w, k):
+    chunks = cuda_blocks.head_chunks(nb, w, k)
+    assert len(chunks) == cuda_blocks.head_split(nb, w, k) >= 1
+    assert [b for c in chunks for b in c] == list(range(nb))
+    assert all(len(c) >= 1 for c in chunks)
+    # Equal chunks but the last, which may be shorter.
+    assert len({len(c) for c in chunks[:-1]}) <= 1
+    assert len(chunks[-1]) <= len(chunks[0])
+
+
+@pytest.mark.parametrize("w,k", [(16, 4), (2048, 16), (2048, 128),
+                                 (256, 1024)])
+def test_head_split_is_one_for_one_block(w, k):
+    assert cuda_blocks.head_split(1, w, k) == 1
+    assert cuda_blocks.head_chunks(1, w, k) == [range(1)]
+
+
+def test_head_split_is_a_function_of_the_shapes_alone():
+    import inspect
+
+    assert list(inspect.signature(cuda_blocks.head_split).parameters) == \
+        ["nb", "w", "k"]
+    first = [cuda_blocks.head_split(*s) for s in SPLIT_SHAPES]
+    torch.manual_seed(1)
+    np.random.seed(1)
+    assert [cuda_blocks.head_split(*s) for s in SPLIT_SHAPES] == first
+    # The dense cell (nb = 32, w = 2048): one chunk per block at both k.
+    assert cuda_blocks.head_split(32, 2048, 16) == 32
+    assert cuda_blocks.head_split(32, 2048, 128) == 32
+
+
+# The workspace of partials, (S, w, k) float32, at the dense cell (n =
+# 2^16, nb = 32) and at nb = 512 (n = 2^20), width 2048: 4 MiB at k=16,
+# 32 MiB and 64 MiB at k=128; never over HEAD_WORKSPACE_BYTES (64 MiB).
+@pytest.mark.parametrize("nb,k,mib", [(32, 16, 4), (32, 128, 32),
+                                      (512, 16, 4), (512, 128, 64)])
+def test_head_workspace_stays_bounded(nb, k, mib):
+    s = cuda_blocks.head_split(nb, 2048, k)
+    assert s * 2048 * k * 4 == mib << 20
+    assert s * 2048 * k * 4 <= cuda_blocks.HEAD_WORKSPACE_BYTES == 64 << 20
+
+
+def test_head_split_fills_the_card_when_it_can():
+    for nb, w, k in SPLIT_SHAPES:
+        bm, bn = cuda_blocks.tile_shape(k)
+        tiles = -(-w // bm) * -(-k // bn)
+        s = cuda_blocks.head_split(nb, w, k)
+        room = cuda_blocks.HEAD_WORKSPACE_BYTES // (4 * w * k)
+        if s < nb and s < room:
+            # Only the equal chunks cut the CTAs below about the target.
+            assert 2 * s * tiles >= cuda_blocks.HEAD_CTAS
+
+
+def test_tiles_mirror_the_kernel_source():
+    """ops/cuda_blocks.py:TILES names the kernel's configurations."""
+    import re
+    from pathlib import Path
+
+    import arrow_matrix_tpu_torch
+
+    src = (Path(arrow_matrix_tpu_torch.__file__).parent / "csrc"
+           / "arrow_blocks_spmm.cu").read_text()
+    cfg = {name: (int(bm), int(bn)) for name, bm, bn in re.findall(
+        r"using (\w+) = Cfg<(\d+), (\d+),", src)}
+    for fn in ("column_for", "head_for"):
+        body = src[src.index(f"cudaError_t {fn}("):]
+        body = body[:body.index("\n}\n")]
+        picks = re.findall(r"(?:if \(k <= (\d+)\) \{\s*)?return launch_\w+<"
+                           r"TA, VEC, (\w+)>", body)
+        assert [(None if not k_max else int(k_max), *cfg[name])
+                for k_max, name in picks] == list(cuda_blocks.TILES)
+    assert cuda_blocks.tile_shape(16) == (64, 16)
+    assert cuda_blocks.tile_shape(17) == (128, 64)
+    assert cuda_blocks.tile_shape(128) == (128, 128)
+
+
+@pytest.mark.parametrize("name", ["arrow_column_spmm", "arrow_head_spmm"])
+def test_ctypes_signatures_match_the_kernel_source(name):
+    """The wrapper's argument types for each C entry point: block dtype
+    and vec, then the pointers, then the ints, then the stream."""
+    import re
+    from pathlib import Path
+
+    import arrow_matrix_tpu_torch
+
+    src = (Path(arrow_matrix_tpu_torch.__file__).parent / "csrc"
+           / "arrow_blocks_spmm.cu").read_text()
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+    kinds = ["ptr" if "*" in p else "int" for p in params.split(",")]
+    ptrs, ints = cuda_blocks._ARGS[name]
+    assert kinds == ["int"] * 2 + ["ptr"] * ptrs + ["int"] * ints + ["ptr"]

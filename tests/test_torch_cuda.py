@@ -136,10 +136,14 @@ def _stacks(rng, nb, w, k, dev):
     return mats, x
 
 
-# (3, 48) and k=8 / k=33 are off every tile; (5, 100) takes scalar loads
-# of A (100 is no multiple of 8 bf16 values).
-@pytest.mark.parametrize("nb,w", [(3, 48), (5, 64), (5, 100), (2, 2048)])
-@pytest.mark.parametrize("k", [8, 16, 33, 128])
+# (3, 48), (33, 200) and k=8 / k=33 / k=160 are off every tile (k=160
+# takes two Wide column tiles, the second mostly masked); (5, 100) and
+# k=33 take the masked plain loads instead of cp.async (100 is no
+# multiple of 8 bf16 values, 33 no multiple of 4 floats); (33, 200)
+# splits K3 33 ways.
+@pytest.mark.parametrize("nb,w", [(3, 48), (5, 64), (5, 100), (33, 200),
+                                  (2, 2048)])
+@pytest.mark.parametrize("k", [8, 16, 33, 128, 160])
 @pytest.mark.parametrize("banded", [False, True])
 def test_block_kernels_match_plain(cuda, nb, w, k, banded):
     rng = np.random.default_rng(nb * w + k)
@@ -161,6 +165,41 @@ def test_block_kernels_match_plain(cuda, nb, w, k, banded):
         assert not got_col[0].any()
         assert relative_error(got_head.cpu().numpy(),
                               want_head.cpu().numpy()) <= tol
+
+
+# K3's split leaves a short last chunk: 65 blocks in 33 chunks of 2 (the
+# last holds one), and 33 blocks in 17.
+@pytest.mark.parametrize("nb,w,k", [(65, 256, 1024), (33, 2048, 16)])
+def test_head_kernel_with_a_short_last_chunk(cuda, nb, w, k):
+    chunks = cuda_blocks.head_chunks(nb, w, k)
+    assert len(chunks) > 1 and len(chunks[-1]) < len(chunks[0])
+    rng = np.random.default_rng(nb + w + k)
+    head = torch.from_numpy(rng.uniform(-1, 1, (nb, w, w)).astype(
+        np.float32)).to(cuda)
+    x = torch.from_numpy(rng.uniform(-1, 1, (nb, w, k)).astype(
+        np.float32)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        h = head.to(dtype)
+        got = cuda_blocks.head_spmm(h, x)
+        want = arrow_blocks.head_spmm(h, x)
+        torch.cuda.synchronize()
+        assert relative_error(got.cpu().numpy(), want.cpu().numpy()) <= \
+            relative_tolerance(nb * w)
+
+
+@pytest.mark.parametrize("nb,w,k", [(33, 200, 16), (9, 512, 128),
+                                    (5, 100, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernels_repeat_bit_for_bit(cuda, nb, w, k, dtype):
+    rng = np.random.default_rng(nb * w + k)
+    mats, x = _stacks(rng, nb, w, k, cuda)
+    m = {name: t.to(dtype) for name, t in mats.items()}
+    runs = [(cuda_blocks.column_spmm(m["diag"], m["col"], x, m["lo"],
+                                     m["hi"]),
+             cuda_blocks.head_spmm(m["head"], x)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 @pytest.mark.parametrize("banded", [False, True])
