@@ -1,43 +1,49 @@
-// SELL tier SpMM for NVIDIA Hopper (sm_90a): one tier of the folded
-// arrow operator,
+// K1: the folded SELL operator's SpMM for NVIDIA Hopper (sm_90a), every
+// tier of the operator in one launch,
 //
-//     out[r, :] = sum_{j < m_t} w[j, r] * x[cols[j, r], :]
+//     out[row0_t + r, :] = sum_{j < m_t} w_t[j, r] * x[cols_t[j, r], :]
 //
 // with w[j, r] = data[j, r] (weighted) or (j < deg[r]) (binary graph
 // adjacency, no value array).  Sums are taken in float32 whatever the
-// carriage of x (float32, bfloat16, or a pre-quantized int8 table).
+// carriage of x (float32, bfloat16, or a pre-quantized int8 table whose
+// scale the caller applies); a bfloat16 output is rounded once.
 //
 // Replaces the TPU kernel ops/pallas_sell.py:_make_slab_call (bodies
-// kernel_stream / kernel_vectorized) of the JAX package.  What that
-// kernel does for the TPU's sake -- granule lines of 8 packed rows,
-// column indices in SMEM by scalar prefetch, a ring of DMA waves -- is
-// not carried over: Hopper gathers a row with ordinary loads.
+// kernel_stream / kernel_vectorized) of the JAX package, which the JAX
+// package launches once per tier.  What that kernel does for the TPU's
+// sake -- granule lines of 8 packed rows, column indices in SMEM by
+// scalar prefetch, a ring of DMA waves -- is not carried over: Hopper
+// gathers a row with ordinary 16-byte loads from the row-major carriage.
 //
-// Design.  A group of G = min(32, k / VEC) threads owns one sorted row
-// (VEC = 16 bytes of x per thread: 4 f32, 8 bf16 or 16 int8), so a
-// gathered feature row is one run of 16-byte loads, contiguous because
-// the carriage is row-major (n, k).  Slot j's column index of
-// neighbouring rows lies at neighbouring addresses (slot-major layout),
-// so the index loads of a warp coalesce.  Wider rows than 32 * VEC
-// elements take more blocks along gridDim.y.  A long row (the hub tiers
-// hold few rows of thousands of slots) is split over several groups of
-// one block, each walking every split-th slot; their partial sums meet
-// in shared memory in a fixed order, so results stay deterministic.
-// Binary tiers stop at deg[r]: the padded slots that follow carry
-// weight 0.  All index
-// arithmetic on x and out is 64-bit: col * k passes 2^31 once n * k does.
+// Bound.  Bytes: a gathered row gets one multiply-add per element, far
+// below the card's operations per byte.  What held the per-tier design
+// back was latency, not bandwidth: one launch per tier, each ending in a
+// tail; hub rows of thousands of slots walked by the groups of one CTA;
+// four dependent index -> row loads in flight per group.
 //
-// Bound.  Bytes: a random row gather does one multiply-add per loaded
-// element, far below the card's operations-per-byte balance.  This
-// version relies on many rows in flight (and a 4-way unrolled slot
-// loop) to hide the latency of the gathers.  Later work:
-// cp.async / TMA pipelining of the gathered rows, all tiers in one
-// launch, and a CUDA graph over the iteration loop.
+// Design.  One launch walks a work list built on the host
+// (ops/worklist.py, which documents it): a table of tiers and one item
+// per CTA, the hub tiers' items first so the longest chains start
+// first.  A CTA of kThreads threads is cut into thread groups of
+// `group` lanes; a lane holds VEC features of a row (16 bytes when the
+// rows allow 16-byte loads), so a gathered row is one run of 16-byte
+// loads.  Each group walks one chunk of at most 128 slots of one row
+// (ops/worklist.py:CHUNK_SLOTS), BATCH slots at a time: first the BATCH
+// column indices (and weights), then the BATCH row gathers, all in
+// flight before the first add.  BATCH is 8, and 4 for int8, whose lanes
+// widen 16 values into 16 accumulators and so hold more registers a row.
+// The chunks of a row that one CTA holds are added in chunk order
+// through shared memory; a row with more chunks than a CTA holds is
+// split over several CTAs, each writing one float32 partial to a
+// workspace, and a second launch adds a row's partials in order.  No
+// atomics: two runs give the same bits.  Binary rows stop at deg[r].
+// All offsets into x and out are 64-bit.
 //
 // Interface: plain C, built with nvcc -shared and loaded with ctypes
-// (ops/_build.py, ops/cuda_sell.py).  The launch goes on the caller's
+// (ops/_build.py, ops/cuda_sell.py).  The launches go on the caller's
 // stream; nothing is allocated or synchronised here.  The return value
-// is cudaGetLastError() after the launch.
+// is cudaGetLastError() after the launches, or a negative code for
+// arguments the kernel does not take.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,7 +51,20 @@
 
 namespace {
 
-constexpr int kBlockThreads = 256;
+constexpr int kThreads = 256;
+constexpr int kSumThreads = 128;
+
+// One row of the tier table (ops/worklist.py:TIER_FIELDS), eight int64.
+struct Tier {
+  const int32_t* cols;   // (m_t, n_t) slot-major
+  const void* w;         // data (m_t, n_t) float32, or deg (n_t,) int32
+  int64_t row0;          // first output row
+  int64_t m_t, n_t;
+  int64_t chunk;         // L: slots of one chunk
+  int64_t split;         // S: chunks of one row
+  int64_t unused;
+};
+static_assert(sizeof(Tier) == 64, "eight int64 fields");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -60,167 +79,254 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Load VEC consecutive elements of x starting at p into f32 registers.
-// VECLOAD: p is 16-byte aligned and VEC * sizeof(TX) == 16.
-template <typename TX, int VEC, bool VECLOAD>
-__device__ __forceinline__ void load_row(const TX* __restrict__ p,
-                                         float (&v)[VEC]) {
+// A lane's VEC elements of one gathered row, as loaded: one 16-byte
+// vector (VECLOAD) or one element.
+template <typename TX, bool VECLOAD>
+struct Raw {
+  using type = TX;
+};
+template <typename TX>
+struct Raw<TX, true> {
+  using type = uint4;
+};
+
+template <typename TX, bool VECLOAD>
+__device__ __forceinline__ typename Raw<TX, VECLOAD>::type load_raw(
+    const TX* __restrict__ p) {
   if constexpr (VECLOAD) {
-    static_assert(VEC * sizeof(TX) == 16, "one 16-byte load");
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const TX* e = reinterpret_cast<const TX*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = to_f32(e[i]);
+    return __ldg(reinterpret_cast<const uint4*>(p));
   } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = to_f32(p[i]);
+    return *p;
   }
 }
 
-template <typename TX, typename TO, bool BINARY, int VEC, bool VECLOAD>
-__global__ void __launch_bounds__(kBlockThreads)
-sell_tier_kernel(const int32_t* __restrict__ cols,
-                 const float* __restrict__ data,
-                 const int32_t* __restrict__ deg,
-                 const TX* __restrict__ x,
-                 TO* __restrict__ out,
-                 int m_t, int n_t, int k, int group, int split) {
-  // Partial sums of the split slot ranges, reduced in a fixed order.
-  __shared__ float partial[kBlockThreads * VEC];
-  const int per_row = group * split;
-  const int rows_per_block = kBlockThreads / per_row;
-  const int local = threadIdx.x / per_row;
-  const int s = (threadIdx.x / group) % split;
+template <typename TX, int VEC, bool VECLOAD, bool BINARY>
+__device__ __forceinline__ void accumulate(
+    float (&acc)[VEC], const typename Raw<TX, VECLOAD>::type& raw,
+    float w) {
+  if constexpr (VECLOAD) {
+    static_assert(VEC * sizeof(TX) == 16, "one 16-byte load");
+    const TX* e = reinterpret_cast<const TX*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      acc[i] = BINARY ? acc[i] + to_f32(e[i]) : fmaf(w, to_f32(e[i]), acc[i]);
+    }
+  } else {
+    acc[0] = BINARY ? acc[0] + to_f32(raw) : fmaf(w, to_f32(raw), acc[0]);
+  }
+}
+
+// Grid (items, col_blocks).  Item (tier, row0, chunk0, part): part < 0,
+// the CTA holds rows row0 .. row0 + P / S - 1 whole and writes them;
+// else it holds chunks chunk0 .. chunk0 + P - 1 of row row0 and writes
+// their sum to part[part].
+template <typename TX, typename TO, bool BINARY, int VEC, bool VECLOAD,
+          int BATCH>
+__global__ void __launch_bounds__(kThreads, 2)
+sell_kernel(const Tier* __restrict__ tiers, const int4* __restrict__ items,
+            const TX* __restrict__ x, TO* __restrict__ out,
+            float* __restrict__ part, int k, int group) {
+  using RawT = typename Raw<TX, VECLOAD>::type;
+  __shared__ float red[VEC * kThreads];
+
+  const int4 item = items[blockIdx.x];
+  const Tier& tier = tiers[item.x];
+  const int64_t n_t = tier.n_t;
+  const int m_t = static_cast<int>(tier.m_t);
+  const int length = static_cast<int>(tier.chunk);
+  const int split = static_cast<int>(tier.split);
+  const bool direct = item.w < 0;
+
+  const int p = kThreads / group;
+  const int g = threadIdx.x / group;
   const int lane = threadIdx.x % group;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * rows_per_block + local;
+  // Chunks of a row in this CTA, the group's row and chunk.
+  const int cps = direct ? split : min(p, split - item.z);
+  const int rows_here = direct ? p / split : 1;
+  const int local = direct ? g / split : 0;
+  const int c_local = direct ? g - local * split : g;
+  const int64_t row = static_cast<int64_t>(item.y) + local;
   const int64_t col0 =
       (static_cast<int64_t>(blockIdx.y) * group + lane) * VEC;
-  const bool active = local < rows_per_block && row < n_t && col0 < k;
+  const bool row_ok = local < rows_here && row < n_t;
+  const bool work = row_ok && c_local < cps && col0 < k;
 
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
 
-  if (active) {
-    const int slots = BINARY ? deg[row] : m_t;
-    const int32_t* cptr = cols + row;
-    const float* wptr = BINARY ? nullptr : data + row;
-#pragma unroll 4
-    for (int j = s; j < slots; j += split) {
-      const int64_t off = static_cast<int64_t>(j) * n_t;
-      const int64_t c = __ldg(cptr + off);
-      float v[VEC];
-      load_row<TX, VEC, VECLOAD>(x + c * k + col0, v);
-      if constexpr (BINARY) {
+  if (work && m_t > 0) {
+    const int chunk = (direct ? 0 : item.z) + c_local;
+    int end = m_t;
+    if constexpr (BINARY) {
+      end = min(end, __ldg(static_cast<const int32_t*>(tier.w) + row));
+    }
+    const int lo = chunk * length;
+    const int hi = min(lo + length, end);
+    const int32_t* cptr = tier.cols + row;
+    const float* wptr = static_cast<const float*>(tier.w) + row;
+    const TX* xcol = x + col0;
+    for (int j = lo; j < hi; j += BATCH) {
+      int64_t off[BATCH];
+      float w[BATCH];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] += v[i];
-      } else {
-        const float w = __ldg(wptr + off);
+      for (int b = 0; b < BATCH; ++b) {
+        const bool live = j + b < hi;
+        const int64_t s = static_cast<int64_t>(j + b) * n_t;
+        off[b] = live ? static_cast<int64_t>(__ldg(cptr + s)) * k : -1;
+        w[b] = (BINARY || !live) ? 1.0f : __ldg(wptr + s);
+      }
+      RawT raw[BATCH];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] = fmaf(w, v[i], acc[i]);
+      for (int b = 0; b < BATCH; ++b) {
+        raw[b] = off[b] >= 0 ? load_raw<TX, VECLOAD>(xcol + off[b]) : RawT{};
+      }
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        // A slot past the chunk loaded zeros: adding them changes nothing.
+        accumulate<TX, VEC, VECLOAD, BINARY>(acc, raw[b], w[b]);
       }
     }
   }
 
-  if (split > 1) {  // uniform across the block: no divergent barrier
+  if (cps > 1) {  // uniform across the CTA: no divergent barrier
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) partial[threadIdx.x * VEC + i] = acc[i];
+    for (int i = 0; i < VEC; ++i) red[i * kThreads + threadIdx.x] = acc[i];
     __syncthreads();
-    if (s != 0) return;
-    for (int t = 1; t < split; ++t) {
-      const int src = threadIdx.x + t * group;
+    if (row_ok && c_local == 0) {
+      for (int t = 1; t < cps; ++t) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += partial[src * VEC + i];
+        for (int i = 0; i < VEC; ++i) {
+          acc[i] += red[i * kThreads + threadIdx.x + t * group];
+        }
+      }
     }
   }
-  if (!active) return;
+  if (!work || c_local != 0) return;
 
-  TO* o = out + row * static_cast<int64_t>(k) + col0;
   const int lim = (k - col0) < VEC ? static_cast<int>(k - col0) : VEC;
+  if (direct) {
+    TO* o = out + (tier.row0 + row) * static_cast<int64_t>(k) + col0;
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    if (i < lim) store(o + i, acc[i]);
+    for (int i = 0; i < VEC; ++i) {
+      if (i < lim) store(o + i, acc[i]);
+    }
+  } else {
+    float* o = part + static_cast<int64_t>(item.w) * k + col0;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      if (i < lim) o[i] = acc[i];
+    }
   }
 }
 
-// Groups per row: 1 for short rows; for long ones (the hub tiers, few
-// rows of thousands of slots) enough groups that each walks about 16
-// slots, as far as the block holds.
-inline int choose_split(int m_t, int group) {
-  const int cap = kBlockThreads / group;
-  int p = 1;
-  while (p * 2 <= m_t / 16 && p * 2 <= cap) p <<= 1;
-  return p;
+// Pass 2, one CTA per split row (out row, first partial, partials):
+// out[row] = part[first] + part[first + 1] + ... in order.
+template <typename TO>
+__global__ void __launch_bounds__(kSumThreads)
+sum_rows_kernel(const int32_t* __restrict__ rows,
+                const float* __restrict__ part, TO* __restrict__ out,
+                int k) {
+  const int64_t orow = rows[3 * blockIdx.x];
+  const int64_t first = rows[3 * blockIdx.x + 1];
+  const int parts = rows[3 * blockIdx.x + 2];
+  for (int c = threadIdx.x; c < k; c += kSumThreads) {
+    float s = __ldg(part + first * k + c);
+    for (int q = 1; q < parts; ++q) s += __ldg(part + (first + q) * k + c);
+    store(out + orow * k + c, s);
+  }
 }
 
 template <typename TX, typename TO, bool BINARY, bool VECLOAD>
-cudaError_t launch(const int32_t* cols, const float* data,
-                   const int32_t* deg, const TX* x, TO* out, int m_t,
-                   int n_t, int k, cudaStream_t stream) {
+cudaError_t launch(const void* tiers, const void* items, const void* rows,
+                   const void* x, void* out, void* part, int n_items,
+                   int n_rows, int k, int group, cudaStream_t s) {
   constexpr int VEC = VECLOAD ? static_cast<int>(16 / sizeof(TX)) : 1;
-  int per_row = (k + VEC - 1) / VEC;          // threads a full row needs
-  int group = 1;
-  while (group < per_row && group < 32) group <<= 1;
-  const int split = choose_split(m_t, group);
-  const int rows_per_block = kBlockThreads / (group * split);
-  dim3 grid(static_cast<unsigned>((static_cast<int64_t>(n_t) +
-                                   rows_per_block - 1) / rows_per_block),
-            static_cast<unsigned>((per_row + group - 1) / group));
-  sell_tier_kernel<TX, TO, BINARY, VEC, VECLOAD>
-      <<<grid, kBlockThreads, 0, stream>>>(cols, data, deg, x, out, m_t,
-                                           n_t, k, group, split);
+  constexpr int BATCH = sizeof(TX) == 1 ? 4 : 8;
+  const int per_row = (k + VEC - 1) / VEC;
+  const int col_blocks = (per_row + group - 1) / group;
+  if (col_blocks > 65535) return cudaErrorInvalidValue;
+  auto* o = static_cast<TO*>(out);
+  auto* p = static_cast<float*>(part);
+  if (n_items > 0) {
+    sell_kernel<TX, TO, BINARY, VEC, VECLOAD, BATCH>
+        <<<dim3(static_cast<unsigned>(n_items),
+                static_cast<unsigned>(col_blocks)),
+           kThreads, 0, s>>>(static_cast<const Tier*>(tiers),
+                             static_cast<const int4*>(items),
+                             static_cast<const TX*>(x), o, p, k, group);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (n_rows > 0) {
+    sum_rows_kernel<TO><<<static_cast<unsigned>(n_rows), kSumThreads, 0,
+                          s>>>(static_cast<const int32_t*>(rows), p, o, k);
+  }
   return cudaGetLastError();
 }
 
 template <typename TX, typename TO>
-cudaError_t dispatch(int binary, int vecload, const void* cols,
-                     const void* w, const void* x, void* out, int m_t,
-                     int n_t, int k, cudaStream_t stream) {
-  const auto* c = static_cast<const int32_t*>(cols);
-  const auto* xx = static_cast<const TX*>(x);
-  auto* o = static_cast<TO*>(out);
-  const auto* data = static_cast<const float*>(w);
-  const auto* deg = static_cast<const int32_t*>(w);
+cudaError_t dispatch(int binary, int vecload, const void* tiers,
+                     const void* items, const void* rows, const void* x,
+                     void* out, void* part, int n_items, int n_rows, int k,
+                     int group, cudaStream_t s) {
   if (binary) {
-    return vecload ? launch<TX, TO, true, true>(c, nullptr, deg, xx, o,
-                                                m_t, n_t, k, stream)
-                   : launch<TX, TO, true, false>(c, nullptr, deg, xx, o,
-                                                 m_t, n_t, k, stream);
+    return vecload ? launch<TX, TO, true, true>(tiers, items, rows, x, out,
+                                                part, n_items, n_rows, k,
+                                                group, s)
+                   : launch<TX, TO, true, false>(tiers, items, rows, x, out,
+                                                 part, n_items, n_rows, k,
+                                                 group, s);
   }
-  return vecload ? launch<TX, TO, false, true>(c, data, nullptr, xx, o,
-                                               m_t, n_t, k, stream)
-                 : launch<TX, TO, false, false>(c, data, nullptr, xx, o,
-                                                m_t, n_t, k, stream);
+  return vecload ? launch<TX, TO, false, true>(tiers, items, rows, x, out,
+                                               part, n_items, n_rows, k,
+                                               group, s)
+                 : launch<TX, TO, false, false>(tiers, items, rows, x, out,
+                                                part, n_items, n_rows, k,
+                                                group, s);
 }
 
 }  // namespace
 
 // carriage: 0 = float32 -> float32, 1 = bfloat16 -> bfloat16,
 //           2 = int8 -> float32.
-// w: deg (n_t,) int32 when binary, else data (m_t, n_t) float32.
-// vecload: x's rows are 16-byte aligned and k * itemsize % 16 == 0.
-// Returns a cudaError_t; 0 is success, -1 an unknown carriage.
-extern "C" int sell_tier_spmm(int carriage, int binary, int vecload,
-                              const void* cols, const void* w,
-                              const void* x, void* out, int m_t, int n_t,
-                              int k, void* stream) {
+// vecload: x is 16-byte aligned and k * itemsize % 16 == 0.
+// tiers: (T, 8) int64 tier table; items: (n_items, 4) int32; rows:
+// (n_rows, 3) int32 split rows; part: float32 workspace of the split
+// items (null when n_rows is 0).  group: lanes of a thread group, a
+// power of two up to 32 (ops/worklist.py:lanes).
+// Returns a cudaError_t (0 is success), -1 for an unknown carriage, -2
+// for a group the kernel does not take, -3 for split rows without a
+// workspace.
+extern "C" int sell_spmm(int carriage, int binary, int vecload,
+                         const void* tiers, const void* items,
+                         const void* rows, const void* x, void* out,
+                         void* part, int n_items, int n_rows, int k,
+                         int group, void* stream) {
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0) return -2;
+  if (n_rows > 0 && part == nullptr) return -3;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (carriage) {
     case 0:
       return static_cast<int>(dispatch<float, float>(
-          binary, vecload, cols, w, x, out, m_t, n_t, k, s));
+          binary, vecload, tiers, items, rows, x, out, part, n_items, n_rows,
+          k, group, s));
     case 1:
       return static_cast<int>(dispatch<__nv_bfloat16, __nv_bfloat16>(
-          binary, vecload, cols, w, x, out, m_t, n_t, k, s));
+          binary, vecload, tiers, items, rows, x, out, part, n_items, n_rows,
+          k, group, s));
     case 2:
       return static_cast<int>(dispatch<int8_t, float>(
-          binary, vecload, cols, w, x, out, m_t, n_t, k, s));
+          binary, vecload, tiers, items, rows, x, out, part, n_items, n_rows,
+          k, group, s));
     default:
       return -1;
   }
 }
 
 extern "C" const char* sell_error_string(int code) {
+  if (code == -1) return "unknown carriage";
+  if (code == -2) return "group the kernel does not take";
+  if (code == -3) return "split rows without a workspace";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

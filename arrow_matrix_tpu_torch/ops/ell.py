@@ -49,19 +49,14 @@ def out_dtype_for(x_dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if x_dtype == torch.int8 else x_dtype
 
 
-def ell_tier_spmm(cols: torch.Tensor, x: torch.Tensor,
+def ell_tier_sums(cols: torch.Tensor, x: torch.Tensor,
                   data: Optional[torch.Tensor] = None,
                   deg: Optional[torch.Tensor] = None,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain ``out[r] = sum_j w[j, r] * x[cols[j, r]]`` for one tier.
-
-    :param cols: (m, rows) int32 column indices, slot-major.
-    :param x:    (n, k) features, f32 / bf16 / int8, row-major.
-    :param data: (m, rows) f32 weights (0 in padding), or None.
-    :param deg:  (rows,) int32 valid-slot counts (binary mode).
-    :param out:  optional (rows, k) destination of the result dtype.
-    :returns: (rows, k) in :func:`out_dtype_for` ``(x.dtype)``.
-    """
+                  first_slot: int = 0) -> torch.Tensor:
+    """The float32 sums of :func:`ell_tier_spmm`, before the result is
+    rounded to its dtype.  ``cols`` (and ``data``) may be a run of slots
+    of a tier starting at slot ``first_slot``: a binary row then takes
+    its slots below ``deg[r]`` counted from the tier's first slot."""
     m, rows = cols.shape
     k = x.shape[1]
     if data is None and deg is None and m > 0:
@@ -76,10 +71,28 @@ def ell_tier_spmm(cols: torch.Tensor, x: torch.Tensor,
         if data is not None:
             w = data[lo:hi].float()
         else:
-            slot = torch.arange(lo, hi, device=x.device)[:, None]
+            slot = torch.arange(first_slot + lo, first_slot + hi,
+                                device=x.device)[:, None]
             w = (slot < deg[None, :]).float()
         acc += (g * w[:, :, None]).sum(dim=0)
-    res = acc.to(out_dtype_for(x.dtype))
+    return acc
+
+
+def ell_tier_spmm(cols: torch.Tensor, x: torch.Tensor,
+                  data: Optional[torch.Tensor] = None,
+                  deg: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain ``out[r] = sum_j w[j, r] * x[cols[j, r]]`` for one tier.
+
+    :param cols: (m, rows) int32 column indices, slot-major.
+    :param x:    (n, k) features, f32 / bf16 / int8, row-major.
+    :param data: (m, rows) f32 weights (0 in padding), or None.
+    :param deg:  (rows,) int32 valid-slot counts (binary mode).
+    :param out:  optional (rows, k) destination of the result dtype.
+    :returns: (rows, k) in :func:`out_dtype_for` ``(x.dtype)``.
+    """
+    res = ell_tier_sums(cols, x, data=data, deg=deg).to(
+        out_dtype_for(x.dtype))
     if out is None:
         return res
     out.copy_(res)

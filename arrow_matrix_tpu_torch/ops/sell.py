@@ -25,7 +25,7 @@ JAX package's signature).  The hand-written kernel is
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -49,6 +49,11 @@ class SellMatrix:
     column indices are remapped the same way.  Tier t covers sorted rows
     ``[row_starts[t], row_starts[t] + n_t)`` with ``m_t, n_t =
     cols[t].shape``.
+
+    ``plans`` caches K1's work lists on the device by (k, carriage,
+    vecload) (``ops/cuda_sell.py:plan_for``).  They hold pointers to the
+    tier tensors, so no constructor or ``dataclasses.replace`` takes
+    them: every new operator starts with none.
     """
 
     cols: Tuple[torch.Tensor, ...]                    # (m_t, n_t) int32
@@ -56,6 +61,8 @@ class SellMatrix:
     deg: Optional[Tuple[torch.Tensor, ...]] = None    # (n_t,) int32 binary
     n_rows: int = 0
     row_starts: Tuple[int, ...] = ()
+    plans: dict = field(default_factory=dict, init=False, repr=False,
+                        compare=False)
 
     @property
     def binary(self) -> bool:
@@ -268,7 +275,7 @@ def sell_spmm_t(m: SellMatrix, x_t: torch.Tensor) -> torch.Tensor:
 
 
 def sell_stats(m: SellMatrix) -> dict:
-    """Per-tier (rows, nnz, slots): each live tier is one kernel launch."""
+    """Per-tier (rows, nnz, slots)."""
     per_tier = []
     for t, c in enumerate(m.cols):
         m_t, n_t = int(c.shape[0]), int(c.shape[1])

@@ -1,0 +1,193 @@
+"""The work list of K1: every tier of a SELL operator in one launch.
+
+K1 (``csrc/sell_tier_spmm.cu``, wrapper ``ops/cuda_sell.py``) runs one
+CTA of :data:`THREADS` threads per *item* of a work list that
+:func:`build_worklist` makes once per (operator, k, carriage) on the
+host, as a pure function of the tier shapes.  A CTA is cut into thread
+groups of ``group`` lanes, each lane holding ``vec`` features of one
+row (16 bytes of x when the rows allow 16-byte loads); a group walks
+one *chunk* of one row's slots.
+
+Chunks.  A tier's rows of m_t slots are cut into ``S = ceil(m_t /
+CHUNK_SLOTS)`` chunks of ``L = ceil(m_t / S)`` slots, so no group walks
+more than :data:`CHUNK_SLOTS` slots, whatever the tier and whatever k.
+
+Items, hub tiers first (descending m_t, so the longest rows start
+first), each ``(tier, row0, chunk0, part)``.  With ``P = THREADS /
+group`` groups a CTA:
+
+* ``S <= P`` (direct, ``part = -1``): the item covers ``P // S`` rows
+  from ``row0``, the S chunks of a row on consecutive groups; they add
+  their sums in chunk order in shared memory and write the output row.
+* ``S > P`` (split): each row takes ``Q = ceil(S / P)`` items, item q
+  covering chunks ``[q P, min((q + 1) P, S))`` (``chunk0 = q P``); its
+  sum in chunk order goes to row ``part`` of a float32 workspace, and a
+  second pass adds a row's Q partials in order (table ``rows``: output
+  row, first partial, Q).
+
+No atomics: the order of every sum is fixed by the shapes, so two runs
+give the same bits.  Zero-slot tiers get direct items and write zeros.
+
+:func:`sell_spmm_worklist` is the plain twin: the same chunks, the same
+partials and the same order of the chunk sums, in PyTorch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from arrow_matrix_tpu_torch.ops.ell import ell_tier_sums, out_dtype_for
+
+#: Threads of a K1 CTA (``csrc/sell_tier_spmm.cu:kThreads``).
+THREADS = 256
+#: Most slots one thread group walks: longer rows are cut into chunks
+#: (chosen on the card among 64, 128 and 256; PERF.md).
+CHUNK_SLOTS = 128
+#: Columns of the tier table (int64 each; ``csrc``'s ``struct Tier``).
+TIER_FIELDS = ("cols", "w", "row0", "m_t", "n_t", "chunk", "split",
+               "unused")
+
+
+def lanes(k: int, itemsize: int, vecload: bool) -> Tuple[int, int, int]:
+    """``(vec, group, col_blocks)`` of a launch: features a lane holds
+    (16 bytes with 16-byte loads, else 1), lanes of a thread group (a
+    power of two up to 32 covering a row), and CTAs along the features
+    (more than one only when a row is wider than 32 lanes)."""
+    vec = 16 // itemsize if vecload else 1
+    per_row = -(-k // vec)
+    group = 1
+    while group < per_row and group < 32:
+        group *= 2
+    return vec, group, -(-per_row // group)
+
+
+def chunking(m_t: int) -> Tuple[int, int]:
+    """``(L, S)``: slots per chunk and chunks per row of a tier of m_t
+    slots (``(0, 1)`` for a zero-slot tier)."""
+    if m_t == 0:
+        return 0, 1
+    s = -(-m_t // CHUNK_SLOTS)
+    return -(-m_t // s), s
+
+
+@dataclass(frozen=True)
+class WorkList:
+    """K1's launch plan for one operator at one (k, carriage)."""
+
+    group: int             # lanes of a thread group
+    col_blocks: int        # CTAs along the features (grid y)
+    tiers: np.ndarray      # (T, 5) int64: row0, m_t, n_t, L, S
+    items: np.ndarray      # (I, 4) int32: tier, row0, chunk0, part
+    rows: np.ndarray       # (R, 3) int32: output row, first part, parts
+    n_parts: int           # rows of the float32 workspace
+
+    @property
+    def groups(self) -> int:
+        """Thread groups of a CTA (P)."""
+        return THREADS // self.group
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches of one product: the item pass, and the pass
+        over the split rows when there are any."""
+        return 1 + (len(self.rows) > 0)
+
+
+def build_worklist(shapes: Sequence[Tuple[int, int]],
+                   row_starts: Sequence[int], k: int, itemsize: int,
+                   vecload: bool = True) -> WorkList:
+    """The work list of an operator whose tier t has ``shapes[t] =
+    (m_t, n_t)`` and writes output rows ``row_starts[t] + [0, n_t)``,
+    at ``k`` features of ``itemsize`` bytes.  A pure function of its
+    arguments."""
+    if len(shapes) != len(row_starts):
+        raise ValueError("one row start per tier")
+    _, group, col_blocks = lanes(k, itemsize, vecload)
+    p = THREADS // group
+    tiers = np.zeros((len(shapes), 5), np.int64)
+    for t, ((m_t, n_t), r0) in enumerate(zip(shapes, row_starts)):
+        tiers[t] = (r0, m_t, n_t, *chunking(int(m_t)))
+    order = sorted(range(len(shapes)), key=lambda t: -int(tiers[t, 1]))
+    items, rows = [], []
+    n_parts = 0
+    for t in order:
+        row0, _, n_t, _, s = (int(v) for v in tiers[t])
+        if n_t == 0:
+            continue
+        if s <= p:
+            r0 = np.arange(0, n_t, p // s, dtype=np.int64)
+            it = np.zeros((r0.size, 4), np.int64)
+            it[:, 0], it[:, 1], it[:, 3] = t, r0, -1
+            items.append(it)
+            continue
+        q = -(-s // p)
+        r = np.repeat(np.arange(n_t, dtype=np.int64), q)
+        it = np.empty((r.size, 4), np.int64)
+        it[:, 0], it[:, 1] = t, r
+        it[:, 2] = np.tile(np.arange(q, dtype=np.int64) * p, n_t)
+        it[:, 3] = n_parts + np.arange(r.size)
+        items.append(it)
+        rw = np.empty((n_t, 3), np.int64)
+        rw[:, 0] = row0 + np.arange(n_t)
+        rw[:, 1] = n_parts + np.arange(n_t) * q
+        rw[:, 2] = q
+        rows.append(rw)
+        n_parts += r.size
+    cat = (lambda parts, width: np.concatenate(parts).astype(np.int32)
+           if parts else np.zeros((0, width), np.int32))
+    return WorkList(group=group, col_blocks=col_blocks,
+                    tiers=tiers, items=cat(items, 4), rows=cat(rows, 3),
+                    n_parts=n_parts)
+
+
+def sell_spmm_worklist(m, x: torch.Tensor, wl: WorkList) -> torch.Tensor:
+    """Plain twin of K1 over the work list ``wl`` of ``m`` at ``x``'s k
+    and carriage: ``m @ x`` row-major, ``x`` (n_rows, k) -> (n_rows, k)
+    in ``out_dtype_for(x.dtype)``.
+
+    Each chunk's float32 sum is taken by ``ell_tier_sums``; the chunks
+    of a direct row are added in chunk order; a split item adds its
+    chunks in order into its workspace row, and the rows table adds a
+    row's partials in order: the kernel's order of the chunk sums.
+    (Inside a chunk PyTorch sums in its own order.)"""
+    k = x.shape[1]
+    out = torch.zeros((m.n_rows, k), dtype=out_dtype_for(x.dtype),
+                      device=x.device)
+    part = torch.zeros((wl.n_parts, k), dtype=torch.float32,
+                       device=x.device)
+    items = torch.from_numpy(wl.items.astype(np.int64))
+    p = wl.groups
+    for t, (row0, m_t, n_t, length, s) in enumerate(wl.tiers.tolist()):
+        if n_t == 0 or m_t == 0:
+            continue
+        data = None if m.data is None else m.data[t]
+        deg = None if m.deg is None else m.deg[t]
+        sums = [ell_tier_sums(
+            m.cols[t][c * length:(c + 1) * length], x,
+            data=None if data is None
+            else data[c * length:(c + 1) * length],
+            deg=deg, first_slot=c * length) for c in range(s)]
+        if s <= p:
+            acc = sums[0].clone()
+            for c in range(1, s):
+                acc += sums[c]
+            out[row0:row0 + n_t] = acc.to(out.dtype)
+            continue
+        mine = items[items[:, 0] == t]
+        for chunk0 in torch.unique(mine[:, 2]).tolist():
+            sel = mine[mine[:, 2] == chunk0]
+            r = sel[:, 1]
+            acc = sums[chunk0][r].clone()
+            for c in range(chunk0 + 1, min(chunk0 + p, s)):
+                acc += sums[c][r]
+            part[sel[:, 3]] = acc
+    for orow, first, parts in wl.rows.tolist():
+        acc = part[first].clone()
+        for q in range(1, parts):
+            acc += part[first + q]
+        out[orow] = acc.to(out.dtype)
+    return out

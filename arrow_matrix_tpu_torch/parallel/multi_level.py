@@ -9,8 +9,10 @@ nothing, so the host composes every level into ONE operator in level-0
 coordinates (exact: ``A = sum_i P_i^T B_i P_i`` and the levels
 partition the edge set), sorts its rows by degree and packs it into
 SELL tiers (``ops/sell.py``).  A step is one product through that
-operator: one launch of the hand-written kernel per tier
-(``ops/cuda_sell.py``).
+operator: one launch of the hand-written kernel K1 over every tier, two
+when the operator has rows split across CTAs (``ops/cuda_sell.py``,
+``ops/worklist.py``; the work list is built at the first step at each
+k and carriage).
 
 Dense.  Every level keeps its own arrow blocks as dense ``(nb_i, w_i,
 w_i)`` stacks (``ops/arrow_blocks.py``).  A step routes the carriage

@@ -8,22 +8,28 @@ Phases, each fatal on failure:
 
 1. card: the card's name and power limit (nvidia-smi);
 2. build: compile every kernel of the port from ``csrc/`` (nvcc, sm_90a);
-3. kernel vs plain: the SELL tier kernel against its plain PyTorch
-   version on random ragged tiers, every carriage, binary and weighted;
+3. kernel vs plain: K1 against its plain PyTorch version on random
+   ragged single tiers (a one-tier work list), and on random multi-tier
+   operators through the all-tier launch (a zero-slot tier, bulk tiers
+   and a 6,000-slot hub row split across CTAs), against the plain
+   version and the work-list twin, each bit for bit equal to a second
+   launch; every carriage, binary and weighted;
 4. main path: Barabasi-Albert n=2^20 m=8, decomposed at width 2048 (10
    levels, seed 7), saved and loaded as an artifact, folded into one
-   SELL operator on the card, stepped through ``MultiLevelArrow`` at
-   k=16 and k=128 (f32, 10 chained iterations, every step and the chain
-   validated against the host golden), one bf16 and one int8 step, and
-   the tight packing (growth 1.1, align 1) for 3 iterations; ms/iter is
-   the median of 7 timed chains; the kernel's launch count must equal
-   live tiers x iterations;
-5. per-kernel numbers at the main path's shapes: the kernel against its
-   plain version on the real operator, its time per step (median of
-   20), its bound, the plain version's time, one PyTorch call computing
-   the same product (``torch.sparse.mm``) as a yardstick, and for f32
-   k=16 the same product replayed from one CUDA graph (no host work
-   between the launches);
+   SELL operator on the card (its tier ladder logged), stepped through
+   ``MultiLevelArrow`` at k=16 and k=128 (f32, 10 chained iterations,
+   every step and the chain validated against the host golden), one
+   bf16 and one int8 step, and the tight packing (growth 1.1, align 1)
+   for 3 iterations; ms/iter is the median of 7 timed chains; K1's
+   launch count must equal its launches per product (one, two with
+   split rows) x iterations, whatever the tier count;
+5. per-kernel numbers at the main path's shapes: K1 against its plain
+   version on the real operator, its time per product (median of 20)
+   eager and replayed from one CUDA graph (no host work between the
+   launches), its bound, the plain version's time, one PyTorch call
+   computing the same product (``torch.sparse.mm``) as a yardstick;
+   for f32 the bulk tiers (at most 48 slots a row) and the rest timed
+   apart (graph times); K1's registers and spills from ptxas;
 6. dense kernels vs plain: K2 (column blocks) and K3 (head row) against
    their plain PyTorch versions on random stacks, (nb, w) in {(3, 48),
    (5, 64), (33, 200), (4, 2048)}, k in {8, 16, 128}, banded and
@@ -86,6 +92,11 @@ K4_SHAPES = ((1 << 10, 256, 64, 16), (1 << 14, 1 << 12, 64, 16),
              (1 << 20, 1 << 21, 1024, 32), (1000, 360, 40, 40),
              (1 << 12, 1 << 12, 256, 256))
 REPS = 7                       # timed runs of each main-path chain
+#: K1's carriage dtypes by name (resolved when torch is imported).
+CARRIAGE_DTYPES = {}
+#: Phase 5 times K1 over the bulk tiers (rows of at most this many
+#: slots) and the rest apart.
+BULK_SLOTS = 48
 
 T0 = time.perf_counter()
 
@@ -148,12 +159,36 @@ def compare(got, want, row_nnz: float, exact: bool) -> tuple:
     return err, rel <= relative_tolerance(row_nnz)
 
 
+def random_tier(rng, m_t: int, n_t: int, n_table: int) -> tuple:
+    """(cols, deg, vals) of a random ragged tier: row r holds deg[r]
+    slots, the padding points at row 0 with weight 0, and slot 0 of row
+    0 gathers the last row of x."""
+    import numpy as np
+
+    deg = rng.integers(0, m_t + 1, n_t).astype(np.int32)
+    pad = np.arange(m_t)[:, None] >= deg[None, :]
+    cols = rng.integers(0, n_table, (m_t, n_t)).astype(np.int32)
+    cols[pad] = 0
+    if cols.size:
+        cols[0, 0] = n_table - 1
+    vals = np.where(pad, 0.0, rng.uniform(-1, 1, (m_t, n_t))
+                    ).astype(np.float32)
+    return cols, deg, vals
+
+
+#: Phase 3's multi-tier operators: a zero-slot tier, bulk tiers, a mid
+#: tier, hub tiers and a 6,000-slot hub row (split across CTAs).
+MULTI_TIER_SHAPES = ((0, 37), (8, 20_000), (16, 9_000), (40, 3_000),
+                     (72, 700), (700, 40), (2_000, 5), (6_000, 1))
+
+
 def phase_random_tiers(dev) -> None:
-    """The kernel against its plain version on random ragged tiers."""
+    """Phase 3: K1 against its plain version on random ragged tiers, one
+    at a time and all in one launch."""
     import numpy as np
     import torch
 
-    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.ops import cuda_sell, sell, worklist
     from arrow_matrix_tpu_torch.ops.ell import ell_tier_spmm, out_dtype_for
 
     rng = np.random.default_rng(0)
@@ -167,17 +202,10 @@ def phase_random_tiers(dev) -> None:
         xs = {"f32": x32, "bf16": x32.to(torch.bfloat16),
               "int8": torch.from_numpy(rng.integers(
                   -127, 128, (n_table, k)).astype(np.int8)).to(dev)}
-        # 700 slots: a hub-like tier, whose rows the kernel splits over
-        # several thread groups.
+        # 700 slots: a hub-like tier, whose rows K1 cuts into chunks.
         for m_t in (1, 5, 16, 40, 700):
             n_t = int(rng.integers(1, 3000 if m_t < 100 else 300))
-            deg = rng.integers(0, m_t + 1, n_t).astype(np.int32)
-            pad = np.arange(m_t)[:, None] >= deg[None, :]
-            cols = rng.integers(0, n_table, (m_t, n_t)).astype(np.int32)
-            cols[pad] = 0
-            cols[0, 0] = n_table - 1            # the last row of x
-            vals = np.where(pad, 0.0, rng.uniform(-1, 1, (m_t, n_t))
-                            ).astype(np.float32)
+            cols, deg, vals = random_tier(rng, m_t, n_t, n_table)
             c = torch.from_numpy(cols).to(dev)
             for binary in (True, False):
                 w = dict(deg=torch.from_numpy(deg).to(dev)) if binary \
@@ -196,9 +224,70 @@ def phase_random_tiers(dev) -> None:
                             f"kernel != plain on a random tier: k={k} "
                             f"m_t={m_t} n_t={n_t} binary={binary} "
                             f"{name}: max abs err {err:.3e}")
-            log(f"random tiers k={k:3d} m_t={m_t:2d} n_t={n_t:4d}: "
+            log(f"random tiers k={k:3d} m_t={m_t:3d} n_t={n_t:4d}: "
                 f"f32/bf16/int8 x binary/weighted agree")
+        n_m = sum(n_t for _, n_t in MULTI_TIER_SHAPES)
+        for binary in (True, False):
+            parts = [random_tier(rng, m_t, n_t, n_m)
+                     for m_t, n_t in MULTI_TIER_SHAPES]
+            starts = np.cumsum([0] + [n_t for _, n_t in
+                                      MULTI_TIER_SHAPES[:-1]])
+            m = sell.sell_from_arrays(
+                [p[0] for p in parts],
+                None if binary else [p[2] for p in parts],
+                [p[1] for p in parts] if binary else None,
+                n_m, starts, device=dev)
+            for name, x_all in xs.items():
+                x = x_all[:n_m]
+                before = cuda_sell.LAUNCHES
+                got = cuda_sell.sell_spmm_cuda(m, x)
+                again = cuda_sell.sell_spmm_cuda(m, x)
+                wl = next(iter(p.wl for key, p in m.plans.items()
+                               if key[:2] == (k, x.dtype)))
+                twin = worklist.sell_spmm_worklist(m, x, wl)
+                want = sell.sell_spmm(m, x)
+                torch.cuda.synchronize()
+                if cuda_sell.LAUNCHES - before != 2 * wl.launches:
+                    raise SystemExit("multi-tier product: launch count "
+                                     "is not the work list's")
+                if not torch.equal(got, again):
+                    raise SystemExit(
+                        f"K1 not deterministic: multi-tier k={k} "
+                        f"binary={binary} {name}: two launches differ")
+                for ref_name, ref in (("plain", want), ("twin", twin)):
+                    err, ok = compare(got, ref, 6000.0,
+                                      exact=name == "int8" and binary)
+                    checks += 1
+                    if not ok:
+                        raise SystemExit(
+                            f"K1 != {ref_name} on a multi-tier operator: "
+                            f"k={k} binary={binary} {name}: max abs err "
+                            f"{err:.3e}")
+            log(f"multi-tier k={k:3d} binary={binary}: "
+                f"{len(MULTI_TIER_SHAPES)} tiers in one launch "
+                f"(+{wl.launches - 1} split pass, {wl.n_parts} partials "
+                f"in the last carriage) agree with plain and twin, "
+                f"repeated bit for bit")
     log(f"phase 3: {checks} kernel-vs-plain checks passed")
+
+
+def ladder(sell) -> list:
+    """The operator's tier shapes ``(m_t, n_t)``, in tier order."""
+    return [tuple(int(d) for d in c.shape) for c in sell.cols]
+
+
+def k1_per_product(sell, k: int, dtype) -> int:
+    """K1's launches in one product of ``sell`` at ``k`` features of
+    ``dtype`` with 16-byte loads, stated from the kernel's contract and
+    not from its work list: a row takes one lane per 16 bytes, rounded
+    up to a power of two of at most 32 lanes, in a CTA of 256 threads,
+    and a lane walks at most 128 slots of its row.  A row longer than
+    ``256 / lanes * 128`` slots is split across CTAs, and then a second
+    launch adds its partials.  (At BA n = 2^20 the hub row of 5,792
+    slots gives one launch at k=16 and two at k=128, each carriage.)"""
+    lanes = min(32, 1 << (-(-k * dtype.itemsize // 16) - 1).bit_length())
+    hub = max(m_t for m_t, _ in ladder(sell))
+    return 1 + (hub > 256 // lanes * 128)
 
 
 def host_golden(levels, x):
@@ -246,6 +335,152 @@ def sorted_csr(sell, dtype):
     a = torch.sparse_coo_tensor(idx, torch.cat(vals).to(dtype),
                                 (sell.n_rows, sell.n_rows)).coalesce()
     return a.to_sparse_csr()
+
+
+def ptxas_registers(text: str) -> list:
+    """(entry, registers, spill store bytes) of each kernel instance in
+    a ``-Xptxas -v`` report, entries demangled where ``c++filt`` is."""
+    import re
+
+    out, entry = [], None
+    spill = 0
+    for line in demangle(text).splitlines():
+        m = re.search(r"Compiling entry function '(.+)' for", line)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append((entry, int(m.group(1)), spill))
+            entry = None
+    return out
+
+
+def k1_view(sell, tiers):
+    """The tiers ``tiers`` of ``sell`` as an operator of their own over
+    the same rows (for timing a part of the product apart)."""
+    from arrow_matrix_tpu_torch.ops.sell import SellMatrix
+
+    pick = lambda ts: None if ts is None else tuple(ts[t] for t in tiers)
+    return SellMatrix(cols=pick(sell.cols), data=pick(sell.data),
+                      deg=pick(sell.deg), n_rows=sell.n_rows,
+                      row_starts=tuple(sell.row_starts[t] for t in tiers))
+
+
+def k1_graph_ms(sell, x, reps: int = 20) -> float:
+    """Median ms of K1 over ``sell`` replayed from one CUDA graph, into
+    one preallocated output."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.ops.ell import out_dtype_for
+
+    vecload = (x.shape[1] * x.element_size()) % 16 == 0
+    plan = cuda_sell.build_plan(sell, x.shape[1], x.dtype, vecload)
+    out = torch.empty((sell.n_rows, x.shape[1]),
+                      dtype=out_dtype_for(x.dtype), device=x.device)
+    ms, _ = graph_ms(lambda: cuda_sell.launch(plan, sell.binary, x, out,
+                                              vecload), reps)
+    return ms
+
+
+def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
+                     main: dict) -> list:
+    """Phase 5: K1 at the main path's shapes, one entry of the kernels
+    line per (operator, carriage, k) the main path ran."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import _build, cuda_sell
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    regs = ptxas_registers(_build.BUILD_LOG.get("sell_tier_spmm", {}).get(
+        "ptxas", ""))
+    for entry, used, spill in regs:
+        log(f"phase 5 K1 ptxas: {used} registers, {spill} B spilled: "
+            f"{entry}")
+    main["k1_registers"] = regs
+    kernels = []
+    lib_ops = {}
+    for key in launches:
+        op_name, carriage, k = key
+        exe = ml if op_name == "fold" else tight
+        sell = exe.sell
+        exe.feature_dtype = CARRIAGE_DTYPES[carriage]
+        xt = exe.set_features(random_dense(n, k, seed=5))
+        x = xt[0] if carriage == "int8" else xt
+        got = cuda_sell.sell_spmm_cuda(sell, x)
+        want = sell_spmm(sell, x)
+        torch.cuda.synchronize()
+        err, ok = compare(got, want, row_nnz,
+                          exact=carriage == "int8" and sell.binary)
+        if not ok:
+            raise SystemExit(f"{key}: kernel != plain on the real "
+                             f"operator (max abs err {err:.3e})")
+        del got, want
+        runs = cuda_runs(lambda: cuda_sell.sell_spmm_cuda(sell, x), 20)
+        ms = statistics.median(runs)
+        g_ms, g_out = graph_ms(lambda: cuda_sell.sell_spmm_cuda(sell, x), 20)
+        if not torch.equal(g_out, cuda_sell.sell_spmm_cuda(sell, x)):
+            raise SystemExit(f"{key}: graph replay != eager product")
+        del g_out
+        tag = f"{op_name}_{carriage}_k{k}"
+        main[f"{tag}_k1_ms_runs"] = runs
+        main[f"{tag}_k1_graph_ms"] = g_ms
+        parts = ""
+        if carriage == "f32":
+            bulk = [t for t, c in enumerate(sell.cols)
+                    if c.shape[0] <= BULK_SLOTS]
+            rest = [t for t in range(len(sell.cols)) if t not in bulk]
+            bulk_ms = k1_graph_ms(k1_view(sell, bulk), x)
+            rest_ms = k1_graph_ms(k1_view(sell, rest), x)
+            main[f"{tag}_k1_bulk_graph_ms"] = bulk_ms
+            main[f"{tag}_k1_rest_graph_ms"] = rest_ms
+            parts = (f"; from graphs, the bulk tiers t{bulk[0]}-t{bulk[-1]} "
+                     f"(m_t <= {BULK_SLOTS}, "
+                     f"{sum(sell.cols[t].numel() for t in bulk)} slots) "
+                     f"{bulk_ms:.4f} ms, the other {len(rest)} tiers "
+                     f"{rest_ms:.4f} ms")
+        plain_ms = cuda_ms(lambda: sell_spmm(sell, x), 3)
+        library_ms = None
+        if carriage != "int8":
+            lib_key = (op_name, x.dtype)
+            if lib_key not in lib_ops:
+                lib_ops[lib_key] = sorted_csr(sell, x.dtype)
+            a_csr = lib_ops[lib_key]
+            library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 5)
+        item = x.element_size()
+        out_item = 4 if carriage in ("f32", "int8") else 2
+        op_bytes = 4 * exe.nnz + (4 * sell.n_rows if sell.binary
+                                  else 4 * exe.nnz)
+        bytes_ = op_bytes + sell.n_rows * k * (item + out_item)
+        flops = (1 if sell.binary else 2) * exe.nnz * k
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        kernels.append({
+            "name": f"sell_tier_spmm[{op_name},{carriage},k={k}]",
+            "route": "cuda", "source": SOURCES["K1"],
+            "replaces": REPLACES["K1"],
+            "launches": launches[key], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms})
+        per = k1_per_product(sell, k, x.dtype)
+        log(f"phase 5 {op_name} {carriage} k={k}: K1 {ms:.4f} ms/product "
+            f"eager (median of 20, min {min(runs):.4f}, max "
+            f"{max(runs):.4f}; {per} launch{'es' if per > 1 else ''}), "
+            f"{g_ms:.4f} ms from one CUDA graph{parts}; bound "
+            f"{bound:.4f} ms ({bytes_} B; {100 * bound / ms:.1f}% eager, "
+            f"{100 * bound / g_ms:.1f}% graph), plain {plain_ms:.4f} ms, "
+            f"torch.sparse.mm "
+            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
+            f"kernel vs plain max abs err {err:.3e}")
+    return kernels
 
 
 def block_stack_names(banded: bool) -> tuple:
@@ -647,6 +882,14 @@ def phase_probes(dev, ml, k4_err: float) -> tuple:
     k4_launches, k1_launches = cuda_gather.LAUNCHES, cuda_sell.LAUNCHES
     if not k4_launches:
         raise SystemExit("phase 10: the granule probe launched no K4")
+    # fold_step takes, per k and carriage, one step and 1 + 7 timed
+    # chains of 10 (chained_iteration_ms): 81 products of K1's launches.
+    k1_expected = sum(81 * k1_per_product(ml.sell, k, dtype)
+                      for k in (16, 128)
+                      for dtype in (torch.float32, torch.bfloat16))
+    if k1_launches != k1_expected:
+        raise SystemExit(f"phase 10: {k1_launches} K1 launches, expected "
+                         f"{k1_expected}")
     if cuda_blocks.LAUNCHES_K2 or cuda_blocks.LAUNCHES_K3:
         raise SystemExit("phase 10 launched a dense-block kernel")
     v = probe["variants"]
@@ -720,7 +963,6 @@ def main() -> int:
         save_decomposition,
     )
     from arrow_matrix_tpu_torch.ops import _build, cuda_blocks, cuda_sell
-    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
         barabasi_albert,
@@ -729,9 +971,11 @@ def main() -> int:
         relative_error,
         relative_tolerance,
     )
-    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+    from arrow_matrix_tpu_torch.utils.timing import cuda_runs
 
     dev = torch.device("cuda", 0)
+    CARRIAGE_DTYPES.update(f32=torch.float32, bf16=torch.bfloat16,
+                           int8=torch.int8)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -791,14 +1035,15 @@ def main() -> int:
     cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
     launches = {}
 
-    def count(key, fn, iters, live):
+    def count(key, fn, iters, sell):
+        per = k1_per_product(sell, key[2], CARRIAGE_DTYPES[key[1]])
         before = cuda_sell.LAUNCHES
         out = fn()
         torch.cuda.synchronize()
         delta = cuda_sell.LAUNCHES - before
-        if delta != live * iters:
-            raise SystemExit(f"{key}: {delta} launches, expected {live} "
-                             f"live tiers x {iters} iterations")
+        if delta != per * iters:
+            raise SystemExit(f"{key}: {delta} launches, expected {per} "
+                             f"per product x {iters} products")
         launches[key] = launches.get(key, 0) + delta
         return out
 
@@ -808,7 +1053,8 @@ def main() -> int:
     live = len(ml.sell.live_tiers())
     log(f"fold: {len(ml.sell.cols)} tiers ({live} live), "
         f"{ml.sell.n_slots} slots / {ml.nnz} nnz, operator "
-        f"{ml.sell.device_nbytes()} B on the card; fold {t_fold:.1f} s")
+        f"{ml.sell.device_nbytes()} B on the card; fold {t_fold:.1f} s; "
+        f"ladder (m_t, n_t): {ladder(ml.sell)}")
     row_nnz = ml.nnz / n
     tol1 = relative_tolerance(row_nnz, 1)
     results = {"main": {}}
@@ -821,7 +1067,7 @@ def main() -> int:
         worst = 0.0
         tic = time.perf_counter()
         for it in range(iters):
-            y = count(key, lambda: ml.step(ml.set_features(g)), 1, live)
+            y = count(key, lambda: ml.step(ml.set_features(g)), 1, ml.sell)
             g_next = host_golden(levels, g)
             err = relative_error(ml.gather_result(y), g_next)
             worst = max(worst, err)
@@ -830,7 +1076,7 @@ def main() -> int:
                                  f"gate {tol1:.1e}")
             g = g_next
         t_gold = time.perf_counter() - tic
-        y = count(key, lambda: ml.run(x, iters), iters, live)
+        y = count(key, lambda: ml.run(x, iters), iters, ml.sell)
         err10 = relative_error(ml.gather_result(y), g)
         tol10 = relative_tolerance(row_nnz, iters)
         if not err10 <= tol10:
@@ -838,7 +1084,7 @@ def main() -> int:
                              f"gate {tol10:.1e}")
         runs = [t / iters for t in count(
             key, lambda: cuda_runs(lambda: ml.run(x, iters), REPS),
-            (1 + REPS) * iters, live)]
+            (1 + REPS) * iters, ml.sell)]
         ms = statistics.median(runs)
         results["main"][f"f32_k{k}_ms_per_iter"] = ms
         results["main"][f"f32_k{k}_ms_per_iter_runs"] = runs
@@ -853,13 +1099,14 @@ def main() -> int:
         want = host_golden(levels, g)
         ml.feature_dtype = torch.bfloat16
         y = count(("fold", "bf16", k),
-                  lambda: ml.step(ml.set_features(g)), 1, live)
+                  lambda: ml.step(ml.set_features(g)), 1, ml.sell)
         err = relative_error(ml.gather_result(y), want)
         if not err <= max(tol1, 2e-2):
             raise SystemExit(f"bf16 k={k}: rel err {err:.3e} > 2e-2")
         ml.feature_dtype = torch.int8
         xq = ml.set_features(g)
-        q, scale = count(("fold", "int8", k), lambda: ml.step(xq), 1, live)
+        q, scale = count(("fold", "int8", k), lambda: ml.step(xq), 1,
+                             ml.sell)
         exact = host_golden(
             levels, ml.gather_result(xq).astype(np.float64))
         dev_err = np.abs(ml.gather_result((q, scale)) - exact)
@@ -879,7 +1126,7 @@ def main() -> int:
     g = random_dense(n, 16, seed=3)
     x = tight.set_features(g)
     y = count(("fold_tight", "f32", 16), lambda: tight.run(x, 3), 3,
-              live_tight)
+              tight.sell)
     for _ in range(3):
         g = host_golden(levels, g)
     err = relative_error(tight.gather_result(y), g)
@@ -888,14 +1135,15 @@ def main() -> int:
     runs = [t / 3 for t in count(
         ("fold_tight", "f32", 16),
         lambda: cuda_runs(lambda: tight.run(x, 3), REPS),
-        (1 + REPS) * 3, live_tight)]
+        (1 + REPS) * 3, tight.sell)]
     ms_tight = statistics.median(runs)
     results["main"]["fold_tight_f32_k16_ms_per_iter"] = ms_tight
     results["main"]["fold_tight_f32_k16_ms_per_iter_runs"] = runs
     log(f"fold_tight: {len(tight.sell.cols)} tiers ({live_tight} live), "
         f"{tight.sell.n_slots} slots; 3-step chain {err:.3e}; "
         f"{ms_tight:.4f} ms/iter, median of {REPS} chains (min "
-        f"{min(runs):.4f}, max {max(runs):.4f}); fold {t_tight:.1f} s")
+        f"{min(runs):.4f}, max {max(runs):.4f}); fold {t_tight:.1f} s; "
+        f"ladder (m_t, n_t): {ladder(tight.sell)}")
     total = cuda_sell.LAUNCHES
     if total != sum(launches.values()):
         raise SystemExit("launch count disagrees with its parts")
@@ -906,73 +1154,14 @@ def main() -> int:
         f"device memory {torch.cuda.max_memory_allocated()} B")
     results["main"].update(
         n=n, nnz=ml.nnz, tiers=len(ml.sell.cols), live_tiers=live,
+        ladder=ladder(ml.sell), ladder_tight=ladder(tight.sell),
         host_generate_s=t_gen, host_decompose_s=t_dec, host_fold_s=t_fold,
         peak_device_bytes=int(torch.cuda.max_memory_allocated()))
 
     # -- 5. per-kernel numbers at the main path's shapes -----------------------
-    kernels = []
-    lib_ops = {}
-    for key in launches:
-        op_name, carriage, k = key
-        exe = ml if op_name == "fold" else tight
-        sell = exe.sell
-        exe.feature_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
-                             "int8": torch.int8}[carriage]
-        xt = exe.set_features(random_dense(n, k, seed=5))
-        x = xt[0] if carriage == "int8" else xt
-        got = cuda_sell.sell_spmm_cuda(sell, x)
-        want = sell_spmm(sell, x)
-        torch.cuda.synchronize()
-        err, ok = compare(got, want, row_nnz,
-                          exact=carriage == "int8" and sell.binary)
-        if not ok:
-            raise SystemExit(f"{key}: kernel != plain on the real "
-                             f"operator (max abs err {err:.3e})")
-        del got, want
-        runs = cuda_runs(lambda: cuda_sell.sell_spmm_cuda(sell, x), 20)
-        ms = statistics.median(runs)
-        graph = ""
-        if carriage == "f32" and k == 16:
-            # The same product with no host work between its launches.
-            g_ms, g_out = graph_ms(
-                lambda: cuda_sell.sell_spmm_cuda(sell, x), 20)
-            if not torch.equal(g_out, cuda_sell.sell_spmm_cuda(sell, x)):
-                raise SystemExit(f"{key}: graph replay != eager product")
-            results["main"][f"{op_name}_f32_k16_graph_ms"] = g_ms
-            graph = f", from one CUDA graph {g_ms:.4f} ms"
-        plain_ms = cuda_ms(lambda: sell_spmm(sell, x), 3)
-        library_ms = None
-        if carriage != "int8":
-            lib_key = (op_name, x.dtype)
-            if lib_key not in lib_ops:
-                lib_ops[lib_key] = sorted_csr(sell, x.dtype)
-            a_csr = lib_ops[lib_key]
-            library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 5)
-        item = x.element_size()
-        out_item = 4 if carriage in ("f32", "int8") else 2
-        op_bytes = 4 * exe.nnz + (4 * sell.n_rows if sell.binary
-                                  else 4 * exe.nnz)
-        bytes_ = op_bytes + sell.n_rows * k * (item + out_item)
-        flops = (1 if sell.binary else 2) * exe.nnz * k
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        kernels.append({
-            "name": f"sell_tier_spmm[{op_name},{carriage},k={k}]",
-            "route": "cuda", "source": SOURCES["K1"],
-            "replaces": REPLACES["K1"],
-            "launches": launches[key], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms})
-        results["main"][f"{op_name}_{carriage}_k{k}_k1_ms_runs"] = runs
-        log(f"phase 5 {op_name} {carriage} k={k}: K1 {ms:.4f} ms/step "
-            f"(median of 20, min {min(runs):.4f}, max {max(runs):.4f}; "
-            f"{len(sell.live_tiers())} launches{graph}), bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({bytes_} B), plain "
-            f"{plain_ms:.4f} ms, torch.sparse.mm "
-            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
-            f"kernel vs plain max abs err {err:.3e}")
-    del lib_ops, tight, levels, loaded      # phase 10 steps ml again
+    kernels = phase_k1_numbers(ml, tight, launches, n, row_nnz,
+                               results["main"])
+    del tight, levels, loaded      # phase 10 steps ml again
     torch.cuda.empty_cache()
 
     # -- 6-8. the dense path ---------------------------------------------------

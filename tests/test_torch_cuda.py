@@ -21,6 +21,8 @@ from arrow_matrix_tpu_torch.ops import (
     cuda_blocks,
     cuda_gather,
     cuda_sell,
+    sell,
+    worklist,
 )
 from arrow_matrix_tpu_torch.ops.gather import (
     granule_gather_plain,
@@ -79,7 +81,13 @@ def test_kernel_matches_plain(cuda, k, binary, m_t):
                           device=cuda)
         before = cuda_sell.LAUNCHES
         got = cuda_sell.sell_tier_spmm(c, x, out, **w)
-        assert cuda_sell.LAUNCHES == before + 1
+        # One launch over the tier's work list, two when its rows are
+        # split across CTAs.
+        wl = worklist.build_worklist(
+            [(m_t, 1000)], [0], k, x.element_size(),
+            vecload=(k * x.element_size()) % 16 == 0)
+        assert cuda_sell.LAUNCHES == before + wl.launches
+        assert wl.launches == 1 + (worklist.chunking(m_t)[1] > wl.groups)
         want = ell_tier_spmm(c, x, **w)
         torch.cuda.synchronize()
         if x.dtype == torch.int8 and binary:
@@ -100,7 +108,10 @@ def test_fold_executor_on_the_card_matches_the_cpu(cuda):
     cpu = MultiLevelArrow(levels, 64, device="cpu")
     before = cuda_sell.LAUNCHES
     got = gpu.gather_result(gpu.run(gpu.set_features(x), 3))
-    assert cuda_sell.LAUNCHES - before == 3 * len(gpu.sell.live_tiers())
+    # One launch per product (two with split rows), whatever the tiers.
+    plan = gpu.sell.plans[(16, torch.float32, True)]
+    assert len(gpu.sell.cols) > 2 and plan.wl.launches in (1, 2)
+    assert cuda_sell.LAUNCHES - before == 3 * plan.wl.launches
     want = cpu.gather_result(cpu.run(cpu.set_features(x), 3))
     golden = x
     for _ in range(3):
@@ -108,6 +119,69 @@ def test_fold_executor_on_the_card_matches_the_cpu(cuda):
     tol = relative_tolerance(gpu.nnz / 4096, 3)
     assert relative_error(got, want) <= tol
     assert relative_error(got, golden) <= tol
+
+
+def _multi_tier(rng, binary, dev):
+    """A random operator of ragged tiers: a zero-slot tier, bulk tiers,
+    a mid tier, and a hub row of 6,000 slots that K1 splits across
+    CTAs; the last row of x is gathered."""
+    shapes = [(0, 37), (8, 3000), (16, 900), (72, 130), (700, 11),
+              (6000, 1)]
+    n = sum(n_t for _, n_t in shapes)
+    cols, data, deg, starts = [], [], [], []
+    for m_t, n_t in shapes:
+        d = rng.integers(m_t // 2, m_t + 1, n_t).astype(np.int32)
+        pad = np.arange(m_t)[:, None] >= d[None, :]
+        c = rng.integers(0, n, (m_t, n_t)).astype(np.int32)
+        c[pad] = 0
+        if c.size:
+            c[0, 0] = n - 1
+        cols.append(c)
+        data.append(np.where(pad, 0, rng.uniform(-1, 1, (m_t, n_t))
+                             ).astype(np.float32))
+        deg.append(d)
+        starts.append(sum(s[1] for s in shapes[:len(starts)]))
+    return sell.sell_from_arrays(cols, None if binary else data,
+                                 deg if binary else None, n, starts,
+                                 device=dev)
+
+
+@pytest.mark.parametrize("k", [16, 64, 128, 20])
+@pytest.mark.parametrize("binary", [True, False])
+def test_all_tier_launch_matches_twin_and_plain(cuda, k, binary):
+    rng = np.random.default_rng(k + binary)
+    m = _multi_tier(rng, binary, cuda)
+    n = m.n_rows
+    x32 = torch.from_numpy(rng.uniform(-1, 1, (n, k)).astype(
+        np.float32)).to(cuda)
+    q = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(
+        np.int8)).to(cuda)
+    row_nnz = 6000.0
+    for x in (x32, x32.to(torch.bfloat16), q):
+        before = cuda_sell.LAUNCHES
+        runs = [cuda_sell.sell_spmm_cuda(m, x) for _ in range(2)]
+        wl = m.plans[(k, x.dtype, (k * x.element_size()) % 16 == 0)].wl
+        # The hub's 47 chunks go across CTAs where a CTA holds fewer
+        # groups (f32 at k=128): then a second launch adds them.
+        split = worklist.chunking(6000)[1] > wl.groups
+        assert split or k != 128 or x.dtype != torch.float32
+        assert wl.launches == 1 + split and (wl.n_parts > 0) == split
+        assert cuda_sell.LAUNCHES == before + 2 * wl.launches
+        twin = worklist.sell_spmm_worklist(m, x, wl)
+        want = sell.sell_spmm(m, x)
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])           # bit for bit
+        got = runs[0]
+        for ref in (twin, want):
+            if x.dtype == torch.int8 and binary:
+                assert torch.equal(got, ref)
+            elif x.dtype == torch.bfloat16:
+                assert bf16_within_one_ulp(got, ref, row_nnz)
+            else:
+                assert relative_error(got.cpu().numpy(),
+                                      ref.cpu().numpy()) <= \
+                    relative_tolerance(row_nnz)
+        assert not got[:37].float().any()              # the zero tier
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
