@@ -5,14 +5,20 @@ single device: with no ``--path``, generate a Barabasi-Albert graph,
 decompose it and save the artifact; load it, build the operator on the
 device, and run the iteration loop, timing each step and
 (``--validate``) checking it against the host golden
-``decomposition_spmm``.  ``--fmt fold`` (default) folds every level
-into one SELL operator; ``--fmt dense`` keeps each level's dense arrow
-blocks (banded tiling when ``--blocked false``, as in the JAX CLI).
+``decomposition_spmm``.  ``--fmt fold`` (default on one device, as the
+JAX CLI picks it) folds every level into one SELL operator; ``--fmt
+dense``, ``ell`` and ``hyb`` keep one operator per level (dense or ELL
+arrow blocks, the ELL head in ``--head_fmt``, or split ELL), and
+``--fmt auto`` makes levels dense while they fit half the device's
+free memory and the rest ELL (banded tiling when ``--blocked false``,
+as in the JAX CLI).
 
     python -m arrow_matrix_tpu_torch.cli.spmm_arrow --vertices 100000 \\
         --width 512 --features 16 --iterations 10 --validate
     python -m arrow_matrix_tpu_torch.cli.spmm_arrow --fmt dense \\
         --vertices 65536 --ba_neighbors 8 --width 2048 --validate
+    python -m arrow_matrix_tpu_torch.cli.spmm_arrow --fmt ell \\
+        --head_fmt gell --vertices 65536 --width 2048 --validate
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch version.
 """
@@ -57,11 +63,22 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True, const=True,
                    help="Block-diagonal decomposition (default true).")
     p.add_argument("--fmt", type=str, default="fold",
-                   choices=["fold", "dense"],
+                   choices=["fold", "auto", "dense", "ell", "hyb"],
                    help="Operator format: fold (every level in one SELL "
-                        "operator) or dense (each level's dense arrow "
-                        "blocks, through the column and head-row "
-                        "kernels).")
+                        "operator, the default on one device); dense "
+                        "(each level's dense arrow blocks, through the "
+                        "column and head-row kernels); ell (ELL arrow "
+                        "blocks) and hyb (one split ELL per level), "
+                        "through the SELL kernel; auto (dense while the "
+                        "levels fit half the free device memory, then "
+                        "ell).")
+    p.add_argument("--head_fmt", type=str, default="auto",
+                   choices=["auto", "flat", "ell", "gell"],
+                   help="Head layout of ELL levels (--fmt ell/auto): "
+                        "flat COO, per-block ELL, or one ELL of the head "
+                        "rows over global columns (gell); auto: gell on "
+                        "the card while it fits, else the smaller of "
+                        "flat and ell.")
     p.add_argument("--feature_dtype", type=str, default=None,
                    choices=["f32", "bf16"],
                    help="Carried-feature dtype of --fmt fold: bf16 "
@@ -152,16 +169,18 @@ def main(argv=None) -> int:
     n = num_rows(levels[0].matrix)
 
     tic = time.perf_counter()
-    if args.fmt == "dense":
+    if args.fmt != "fold":
         if args.feature_dtype is not None:
-            raise SystemExit("spmm_arrow: --feature_dtype is a --fmt fold "
-                             "option; the dense carriage is f32")
-        multi = MultiLevelArrow(levels, width, fmt="dense",
+            raise SystemExit(f"spmm_arrow: --feature_dtype is a --fmt fold "
+                             f"option; the {args.fmt} carriage is f32")
+        multi = MultiLevelArrow(levels, width, fmt=args.fmt,
+                                head_fmt=args.head_fmt,
                                 banded=not args.blocked, device=device)
-        print(f"dense: {len(levels)} levels, widths {multi.widths}, "
+        print(f"{args.fmt}: {len(levels)} levels, widths {multi.widths}, "
+              f"formats {multi.fmts}, heads {multi.head_layouts()}, "
               f"{multi.total_rows} rows, "
-              f"{sum(b.device_nbytes() for b in multi.blocks)} B of "
-              f"blocks ({time.perf_counter() - tic:.3f} s)")
+              f"{sum(b.device_nbytes() for b in multi.blocks)} B on the "
+              f"device ({time.perf_counter() - tic:.3f} s)")
     else:
         multi = MultiLevelArrow(levels, width, fmt="fold",
                                 feature_dtype=args.feature_dtype,

@@ -8,6 +8,10 @@ from arrow_matrix_tpu_torch.ops.arrow_blocks import (
     unblock_features,
 )
 from arrow_matrix_tpu_torch.ops.cuda_blocks import arrow_spmm_cuda
+from arrow_matrix_tpu_torch.ops.cuda_ell import (
+    arrow_spmm_ell_cuda,
+    hyb_spmm_cuda,
+)
 from arrow_matrix_tpu_torch.ops.cuda_gather import granule_gather
 from arrow_matrix_tpu_torch.ops.cuda_sell import (
     quantize_features,
@@ -19,6 +23,10 @@ from arrow_matrix_tpu_torch.ops.ell import (
     align_up,
     dense_pack_stack,
     dense_spmm_batched,
+    ell_pack,
+    ell_pack_stack,
+    ell_spmm,
+    ell_spmm_batched,
     ell_tier_spmm,
 )
 from arrow_matrix_tpu_torch.ops.gather import (
@@ -26,6 +34,7 @@ from arrow_matrix_tpu_torch.ops.gather import (
     pack_granules,
     take,
 )
+from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_from_csr, hyb_spmm
 from arrow_matrix_tpu_torch.ops.sell import (
     SellMatrix,
     resolve_binary,
@@ -39,19 +48,28 @@ from arrow_matrix_tpu_torch.ops.sell import (
 
 __all__ = [
     "ArrowBlocks",
+    "HybLevel",
     "SLOT_ALIGN",
     "SellMatrix",
     "align_up",
     "arrow_blocks_from_csr",
     "arrow_spmm",
     "arrow_spmm_cuda",
+    "arrow_spmm_ell_cuda",
     "block_features",
     "block_row_stats",
     "dense_pack_stack",
     "dense_spmm_batched",
+    "ell_pack",
+    "ell_pack_stack",
+    "ell_spmm",
+    "ell_spmm_batched",
     "ell_tier_spmm",
     "granule_gather",
     "granule_gather_plain",
+    "hyb_from_csr",
+    "hyb_spmm",
+    "hyb_spmm_cuda",
     "pack_granules",
     "quantize_features",
     "resolve_binary",

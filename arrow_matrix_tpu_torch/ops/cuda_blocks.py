@@ -239,6 +239,10 @@ def arrow_spmm_cuda(blocks: ArrowBlocks, x: torch.Tensor) -> torch.Tensor:
     CPU tensors take the plain ``arrow_blocks.arrow_spmm``."""
     if x.device.type == "cpu":
         return plain.arrow_spmm(blocks, x)
+    if blocks.fmt != "dense":
+        raise ValueError(f"K2 and K3 take dense blocks, not "
+                         f"fmt={blocks.fmt!r} (ELL levels run through "
+                         f"ops/cuda_ell.py)")
     nb, w, k = x.shape
     if nb != blocks.n_blocks or w != blocks.width:
         raise ValueError(f"x must be ({blocks.n_blocks}, {blocks.width}, "

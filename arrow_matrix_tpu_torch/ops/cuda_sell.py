@@ -201,12 +201,13 @@ def launch(plan: DevicePlan, binary: bool, x: torch.Tensor,
 
 
 def sell_spmm_cuda(m: SellMatrix, x: torch.Tensor) -> torch.Tensor:
-    """``m @ x`` row-major through K1: ``x`` (n_rows, k) -> (n_rows, k)
+    """``m @ x`` row-major through K1: ``x`` (x_rows, k) -> (n_rows, k)
     in ``out_dtype_for(x.dtype)``, one launch over every tier (two with
-    split rows).  CPU tensors take the plain ``ops.sell.sell_spmm``."""
+    split rows); ``x_rows`` is ``m.n_rows`` unless the operator is
+    rectangular.  CPU tensors take the plain ``ops.sell.sell_spmm``."""
     if x.device.type == "cpu":
         return sell_spmm(m, x)
-    k = _check_x(x, m.n_rows)
+    k = _check_x(x, m.n_rows if m.x_rows is None else m.x_rows)
     if x.device != m.device:
         raise ValueError(f"x is on {x.device}, the operator on {m.device}")
     if k == 0:

@@ -50,6 +50,11 @@ class SellMatrix:
     ``[row_starts[t], row_starts[t] + n_t)`` with ``m_t, n_t =
     cols[t].shape``.
 
+    ``x_rows`` is the row count of the features the operator multiplies
+    (None: ``n_rows``, a square operator); a rectangular one (an ELL
+    stack of one arrow level, the arrow head) gathers from more rows
+    than it writes.
+
     ``plans`` caches K1's work lists on the device by (k, carriage,
     vecload) (``ops/cuda_sell.py:plan_for``).  They hold pointers to the
     tier tensors, so no constructor or ``dataclasses.replace`` takes
@@ -61,6 +66,7 @@ class SellMatrix:
     deg: Optional[Tuple[torch.Tensor, ...]] = None    # (n_t,) int32 binary
     n_rows: int = 0
     row_starts: Tuple[int, ...] = ()
+    x_rows: Optional[int] = None
     plans: dict = field(default_factory=dict, init=False, repr=False,
                         compare=False)
 
@@ -83,9 +89,7 @@ class SellMatrix:
                 if c.shape[0] > 0 and c.shape[1] > 0]
 
     def device_nbytes(self) -> int:
-        arrays = list(self.cols) + list(self.data or ()) + list(
-            self.deg or ())
-        return sum(a.numel() * a.element_size() for a in arrays)
+        return nbytes_of(self)
 
     def to(self, device: DeviceLike) -> "SellMatrix":
         dev = resolve_device(device)
@@ -93,7 +97,22 @@ class SellMatrix:
                 else tuple(t.to(dev) for t in ts))
         return SellMatrix(cols=move(self.cols), data=move(self.data),
                           deg=move(self.deg), n_rows=self.n_rows,
-                          row_starts=self.row_starts)
+                          row_starts=self.row_starts, x_rows=self.x_rows)
+
+
+def nbytes_of(*objs) -> int:
+    """Bytes of the arrays among ``objs`` (tensors, :class:`SellMatrix`
+    operators, None), each array counted once however often it
+    appears."""
+    seen = {}
+    for o in objs:
+        if isinstance(o, SellMatrix):
+            arrays = [t for ts in (o.cols, o.data, o.deg) if ts for t in ts]
+        else:
+            arrays = [o] if isinstance(o, torch.Tensor) else []
+        for t in arrays:
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
 
 
 def resolve_binary(binary: Union[str, bool], data,
@@ -149,10 +168,13 @@ def align_up_vec(x: np.ndarray, align: int) -> np.ndarray:
 
 def sell_pack_numpy(matrix: CsrLike, pad_rows_to: Optional[int] = None,
                     dtype=np.float32, binary: Union[str, bool] = "auto",
-                    growth: float = 1.2, slot_align: int = SLOT_ALIGN):
+                    growth: float = 1.2, slot_align: int = SLOT_ALIGN,
+                    conjugate: bool = True):
     """Host half of :func:`sell_from_csr`: returns ``(cols, data, deg,
     n_rows, row_starts, order)`` as numpy arrays (``data`` None when
-    binary, ``deg`` None when weighted)."""
+    binary, ``deg`` None when weighted).  ``conjugate=False`` sorts the
+    rows alone and keeps the column indices: the packing of a
+    rectangular operator, whose features are not carried sorted."""
     n = num_rows(matrix)
     total = max(pad_rows_to or n, n)
     if isinstance(matrix, sparse.csr_matrix):
@@ -171,7 +193,11 @@ def sell_pack_numpy(matrix: CsrLike, pad_rows_to: Optional[int] = None,
     starts = tier_boundaries(aligned, growth) + [total]
 
     nnz = int(indptr[-1])
-    all_cols = inv_order[np.asarray(indices[:nnz])]
+    all_cols = np.asarray(indices[:nnz])
+    if conjugate:
+        all_cols = inv_order[all_cols]
+    else:
+        all_cols = all_cols.astype(np.int32)
     all_data = (None if is_binary
                 else (np.ones(nnz, dtype=dtype) if data is None
                       else np.asarray(data[:nnz]).astype(dtype, copy=False)))

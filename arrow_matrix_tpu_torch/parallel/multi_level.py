@@ -1,8 +1,9 @@
 """The single-device executors: iterated ``X := A @ X`` through a
 whole arrow decomposition.
 
-Counterpart of the single-device ``fmt="fold"`` and ``fmt="dense"``
-slices of ``arrow_matrix_tpu/parallel/multi_level.py``.
+Counterpart of the single-device slices of
+``arrow_matrix_tpu/parallel/multi_level.py``: ``fmt`` "fold", "dense",
+"ell", "hyb" and "auto" (the default, as in the reference).
 
 Fold.  On one device the inter-level permutation exchanges buy
 nothing, so the host composes every level into ONE operator in level-0
@@ -14,13 +15,18 @@ when the operator has rows split across CTAs (``ops/cuda_sell.py``,
 ``ops/worklist.py``; the work list is built at the first step at each
 k and carriage).
 
-Dense.  Every level keeps its own arrow blocks as dense ``(nb_i, w_i,
-w_i)`` stacks (``ops/arrow_blocks.py``).  A step routes the carriage
-forward from level to level with the composed permutation tables, runs
-each level's product through the hand-written kernels K3 (head row) and
-K2 (every other block row) (``ops/cuda_blocks.py``), and aggregates the
-partial products backward in the same order as the JAX package.  The
-routing gathers are plain ``index_select``.
+Per level (dense, ELL, HYB).  Every level keeps its own operator: dense
+``(nb_i, w_i, w_i)`` arrow block stacks, ELL arrow block stacks
+(``ops/arrow_blocks.py``), or a whole-level split ELL
+(``ops/hyb.py``); "auto" makes levels dense while their cumulative
+footprint fits ``dense_budget`` and the rest ELL.  A step routes the
+carriage forward from level to level with the composed permutation
+tables, runs each level's product, and aggregates the partial products
+backward in the same order as the JAX package.  On the card a dense
+level runs the hand-written kernels K3 (head row) and K2 (every other
+block row) (``ops/cuda_blocks.py``), and every ELL stack, ELL head and
+HYB partition runs K1 (``ops/cuda_ell.py``).  The routing gathers are
+plain ``index_select``.
 
 Carriage.  Features are carried **row-major** ``(total_rows, k)`` on
 the device, in level-0 order (fold: sorted level-0 order): a gathered
@@ -55,21 +61,34 @@ from arrow_matrix_tpu_torch.io.graphio import (
     number_of_blocks,
 )
 from arrow_matrix_tpu_torch.ops.arrow_blocks import (
-    FORMATS_TODO,
+    HEAD_FORMATS,
     ArrowBlocks,
     arrow_blocks_from_csr,
     resolve_block_dtype,
 )
 from arrow_matrix_tpu_torch.ops.cuda_blocks import arrow_spmm_cuda
+from arrow_matrix_tpu_torch.ops.cuda_ell import (
+    arrow_spmm_ell_cuda,
+    hyb_spmm_cuda,
+    hyb_operands,
+    k1_operands,
+)
 from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
-from arrow_matrix_tpu_torch.ops.ell import SLOT_ALIGN
+from arrow_matrix_tpu_torch.ops.ell import SLOT_ALIGN, auto_chunk
+from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_from_csr
 from arrow_matrix_tpu_torch.ops.sell import (
-    SellMatrix,
     resolve_binary,
     sell_from_arrays,
     sell_pack_numpy,
 )
 from arrow_matrix_tpu_torch.utils.device import DeviceLike, resolve_device
+from arrow_matrix_tpu_torch.utils.platform import (
+    device_memory_budget,
+    gather_budget_for,
+)
+
+#: Executor formats: the fold, and the per-level ones.
+FORMATS = ("auto", "dense", "ell", "hyb", "fold")
 
 #: Carriage dtypes by name; None is f32.
 FEATURE_DTYPES = {None: torch.float32, "f32": torch.float32,
@@ -141,22 +160,61 @@ def compose_routing(perms: Sequence[np.ndarray], total: int
     return (np.stack(fwd).astype(np.int32), np.stack(bwd).astype(np.int32))
 
 
+def resolve_chunk(chunk, blk, total_rows: int, k: int,
+                  gather_budget: int) -> Optional[int]:
+    """A level's slot chunk for the plain ELL and HYB gathers: explicit
+    values pass through; "auto" is the largest that keeps the
+    intermediate in ``gather_budget`` (the reference's rule, with no
+    lane padding).  Dense levels take none; K1 on the card needs none
+    (it materializes no intermediate)."""
+    if chunk != "auto":
+        return chunk
+    if isinstance(blk, HybLevel):
+        return auto_chunk(total_rows, k, blk.light_cols.shape[0],
+                          gather_budget)
+    if blk.fmt != "ell":
+        return None
+    dims = [blk.diag_cols.shape[-1], blk.col_cols.shape[-1]]
+    if not blk.head_flat:
+        dims.append(blk.head_cols.shape[-1])
+    if blk.banded:
+        dims += [blk.lo_cols.shape[-1], blk.hi_cols.shape[-1]]
+    return auto_chunk(total_rows, k, max(dims), gather_budget)
+
+
+def level_spmm(blk, x: torch.Tensor, width: int,
+               chunk: Optional[int] = None) -> torch.Tensor:
+    """One level's product on the flat ``(total, k)`` carriage in the
+    level's order: a dense level through K2/K3, an ELL level or a HYB
+    level through K1 (plain versions for CPU tensors; ``chunk`` bounds
+    their gathers)."""
+    total, k = x.shape
+    if isinstance(blk, HybLevel):
+        return hyb_spmm_cuda(blk, x, chunk=chunk)
+    xb = x.view(total // width, width, k)
+    if blk.fmt == "dense":
+        return arrow_spmm_cuda(blk, xb).view(total, k)
+    return arrow_spmm_ell_cuda(blk, xb, chunk=chunk).view(total, k)
+
+
 def multi_level_spmm(x: torch.Tensor, fwd: torch.Tensor, bwd: torch.Tensor,
-                     blocks: Sequence[ArrowBlocks],
-                     widths: Sequence[int]) -> torch.Tensor:
+                     blocks: Sequence, widths: Sequence[int],
+                     chunk="auto", gather_budget: int = 1 << 30
+                     ) -> torch.Tensor:
     """One decomposition-wide product on the flat ``(total, k)`` carriage
     in level-0 order: route forward (``x_i = x_{i-1}[fwd[i-1]]``), one
-    arrow product per level on its ``(total / w_i, w_i, k)`` view, then
-    aggregate backward (``agg = partial_{i-1} + agg[bwd[i-1]]``), in the
-    JAX package's order."""
+    product per level (:func:`level_spmm`), then aggregate backward
+    (``agg = partial_{i-1} + agg[bwd[i-1]]``), in the JAX package's
+    order."""
     total, k = x.shape
     partials = []
     x_cur = x
     for i, (blk, w) in enumerate(zip(blocks, widths)):
         if i > 0:
             x_cur = x_cur.index_select(0, fwd[i - 1])
-        partials.append(
-            arrow_spmm_cuda(blk, x_cur.view(total // w, w, k)).view(total, k))
+        partials.append(level_spmm(
+            blk, x_cur, w,
+            resolve_chunk(chunk, blk, total, k, gather_budget)))
     agg = partials[-1]
     for i in range(len(blocks) - 1, 0, -1):
         agg = partials[i - 1].add_(agg.index_select(0, bwd[i - 1]))
@@ -199,52 +257,75 @@ def requantize(z: torch.Tensor):
 
 
 class MultiLevelArrow:
-    """A whole decomposition on one device, folded or as dense blocks.
+    """A whole decomposition on one device.
 
-    ``MultiLevelArrow(levels, width, fmt="fold", feature_dtype=None,
-    fold_growth=1.2, fold_align=None, device=None, *, banded=False,
-    dtype=np.float32)``; ``device=None`` means the card (raises without
-    one), ``"cpu"`` runs the plain PyTorch versions of the kernels.
-    ``set_features`` -> ``step``/``run`` -> ``gather_result``.
+    ``MultiLevelArrow(levels, width, *, fmt="auto", banded=False,
+    dtype=np.float32, chunk="auto", dense_budget=None, head_fmt="auto",
+    binary="auto", feature_dtype=None, fold_growth=1.2,
+    fold_align=None, device=None)``: the arguments after ``width`` are
+    keyword-only, in the JAX class's names.  ``device=None`` means the
+    card (raises without one); ``"cpu"`` runs the plain PyTorch versions
+    of the kernels.  ``set_features`` -> ``step``/``run`` ->
+    ``gather_result``.
 
-    ``fmt="fold"`` (default) folds every level into one SELL operator;
-    ``feature_dtype`` picks its carriage and ``fold_growth`` /
-    ``fold_align`` its packing.  ``fmt="dense"`` keeps each level's
-    dense arrow blocks, stored in ``dtype`` (float32, or "bf16" for
-    half the bytes; sums stay float32), tiled ``banded`` or
-    block-diagonal; a level whose achieved width exceeds ``width``, and
-    the last level, are tiled banded at their own width.  The dense
-    carriage is float32.
+    ``fmt``:
 
-    The other options of the JAX class (the ELL, HYB and auto formats,
-    a mesh, 2.5D replication, overlap slabs, tune plans, kernel
-    options) raise ``NotImplementedError`` naming the ROADMAP item that
-    ports them.
+    * "fold" folds every level into one SELL operator;
+      ``feature_dtype`` picks its carriage (f32, bf16, int8) and
+      ``fold_growth`` / ``fold_align`` its packing;
+    * "dense" keeps each level's dense arrow blocks, stored in ``dtype``
+      (float32, or "bf16" for half the bytes; sums stay float32);
+    * "ell" keeps each level's ELL arrow blocks, the head in
+      ``head_fmt`` ("flat", "ell", "gell"; "auto" is resolved per level
+      as the reference resolves it on its accelerator: on the card gell
+      while ``w * longest head row * (4 + itemsize)`` fits in
+      ``dense_budget // 8``, else, as on the CPU, flat when it is at
+      least 4x smaller than ELL);
+    * "hyb" keeps each level as one split ELL (light and heavy rows);
+    * "auto" (default) makes levels dense while the cumulative
+      ``total_rows * w * stacks * itemsize`` fits in ``dense_budget``
+      (default: half the device's free memory), the rest ELL.
+
+    Levels are tiled ``banded`` or block-diagonal; a level whose achieved
+    width exceeds ``width``, and the last level, are tiled banded at
+    their own width.  ``binary`` ("auto", True, False) drops the values
+    of an all-ones decomposition for degrees.  ``chunk`` ("auto", an int
+    or None) bounds the plain ELL/HYB gathers' intermediate; the kernels
+    need none.  Every format but the fold carries float32.
+
+    The JAX class's multi-device and fold tuning options (``mesh``,
+    ``routing``, ``layout``, ``kernel``, ``repl``, ``overlap_slabs``,
+    ``plan``, ``kernel_opts``) raise ``NotImplementedError`` naming the
+    ROADMAP item that ports them.
     """
 
-    def __init__(self, levels: List[ArrowLevel], width: int,
-                 fmt: str = "fold", feature_dtype=None,
+    def __init__(self, levels: List[ArrowLevel], width: int, *,
+                 mesh=None, banded: bool = False, dtype=np.float32,
+                 chunk="auto", fmt: str = "auto",
+                 dense_budget: Optional[int] = None, kernel: str = "xla",
+                 routing: str = "gather", head_fmt: str = "auto",
+                 binary="auto", feature_dtype=None, layout: str = "slim",
                  fold_growth: float = 1.2,
                  fold_align: Optional[int] = None,
-                 device: DeviceLike = None, *, banded: bool = False,
-                 dtype=np.float32, binary="auto",
-                 mesh=None, repl: int = 1, overlap_slabs: int = 1,
-                 plan=None, kernel_opts: Optional[dict] = None):
+                 overlap_slabs: int = 1, repl: int = 1, plan=None,
+                 kernel_opts: Optional[dict] = None,
+                 device: DeviceLike = None):
+        if fmt not in FORMATS:
+            raise ValueError(f"unknown fmt {fmt!r} (expected one of "
+                             f"{FORMATS})")
         if feature_dtype is not None and fmt != "fold":
             raise ValueError(
                 "feature_dtype is implemented for fmt='fold' (the "
                 "single-chip headline path); other formats carry f32")
-        if fmt in ("auto", "ell", "hyb"):
-            raise NotImplementedError(f"fmt={fmt!r} {FORMATS_TODO}")
-        if fmt not in ("fold", "dense"):
-            raise ValueError(f"unknown fmt {fmt!r} (expected 'fold' or "
-                             f"'dense')")
-        if mesh is not None:
-            raise _todo("a mesh", "multi-device executors")
-        if repl != 1 or overlap_slabs != 1 or plan is not None \
-                or kernel_opts:
-            raise _todo("repl / overlap_slabs / plan / kernel_opts",
-                        "fold executor options")
+        if mesh is not None or routing != "gather" or layout != "slim":
+            raise _todo("a mesh / routing / layout",
+                        "multi-device executors")
+        if kernel != "xla" or repl != 1 or overlap_slabs != 1 \
+                or plan is not None or kernel_opts:
+            raise _todo("kernel / repl / overlap_slabs / plan / "
+                        "kernel_opts", "fold executor options")
+        if head_fmt not in HEAD_FORMATS:
+            raise ValueError(f"unknown head_fmt {head_fmt!r}")
         if not levels:
             raise ValueError("empty decomposition")
         self.device = resolve_device(device)
@@ -252,7 +333,11 @@ class MultiLevelArrow:
         self.fmt = fmt
         self.folded = fmt == "fold"
         self.width = width
+        self.chunk = chunk
         self.n = num_rows(levels[0].matrix)
+        if dense_budget is None:
+            dense_budget = device_memory_budget(self.device)
+        self.dense_budget = int(dense_budget)
 
         # Per-level block widths as in the JAX executor: a level whose
         # achieved width exceeds the base width, and the last level
@@ -276,21 +361,75 @@ class MultiLevelArrow:
         self.total_rows = pad_to_multiple(max_rows, max(widths))
         self.binary = resolve_levels_binary(levels, binary)
         if self.folded:
+            self.fmts = ["fold"]
             self._init_folded(levels, fold_growth, fold_align)
         else:
-            self._init_dense(levels, bandeds, dtype)
+            self._init_levels(levels, bandeds, dtype, head_fmt)
 
-    def _init_dense(self, levels, bandeds, dtype) -> None:
-        """Tile every level into dense arrow blocks on the device, all
-        padded to the shared flat row count, and compose the routing
-        tables (the JAX single-device non-fold ``__init__``)."""
+    def _level_formats(self, bandeds, itemsize: int) -> List[str]:
+        """Each level's format: ``fmt`` itself, or for "auto" dense
+        while the cumulative dense footprint (``total_rows * w * stacks
+        * itemsize``; 3 stacks, 5 banded) fits ``dense_budget``, then
+        ELL (the reference's rule)."""
+        if self.fmt != "auto":
+            return [self.fmt] * len(self.widths)
+        left = self.dense_budget
+        fmts = []
+        for w, bd in zip(self.widths, bandeds):
+            need = self.total_rows * w * (5 if bd else 3) * itemsize
+            if need <= left:
+                left -= need
+                fmts.append("dense")
+            else:
+                fmts.append("ell")
+        return fmts
+
+    def _head_format(self, matrix, w: int, head_fmt: str,
+                     itemsize: int) -> str:
+        """``head_fmt`` of an ELL level: "auto" on the card is gell while
+        ``w * longest head row * (4 + itemsize)`` fits in
+        ``dense_budget // 8`` (a gather streams; the flat head is a
+        scatter), else the size rule; on the CPU the size rule, as the
+        reference resolves it off its accelerator."""
+        if head_fmt != "auto" or self.device.type != "cuda":
+            return head_fmt
+        indptr = (matrix.indptr if isinstance(matrix, sparse.csr_matrix)
+                  else matrix[2])
+        w_eff = min(w, indptr.shape[0] - 1)
+        counts = np.diff(np.asarray(indptr[:w_eff + 1]))
+        need = int(counts.max()) if counts.size else 0
+        gell_bytes = w * need * (4 + itemsize)
+        return "gell" if gell_bytes <= self.dense_budget // 8 else "auto"
+
+    def _init_levels(self, levels, bandeds, dtype, head_fmt) -> None:
+        """Build every level's operator on the device, all padded to the
+        shared flat row count, and compose the routing tables (the JAX
+        single-device non-fold ``__init__``).  One level is built,
+        uploaded and its host arrays dropped before the next; on the
+        card each ELL and HYB level's K1 operators are built here too,
+        so no step does set-up work."""
         total = self.total_rows
         self.dtype = resolve_block_dtype(dtype)
-        self.blocks: List[ArrowBlocks] = [
-            arrow_blocks_from_csr(lvl.matrix, w, pad_blocks_to=total // w,
-                                  banded=bd, dtype=self.dtype,
-                                  device=self.device)
-            for lvl, w, bd in zip(levels, self.widths, bandeds)]
+        itemsize = self.dtype.itemsize
+        self.fmts = self._level_formats(bandeds, itemsize)
+        self.blocks: list = []
+        for lvl, w, bd, f in zip(levels, self.widths, bandeds, self.fmts):
+            if f == "hyb":
+                blk = hyb_from_csr(lvl.matrix, pad_rows_to=total,
+                                   dtype=self.dtype, binary=self.binary,
+                                   device=self.device)
+            else:
+                hf = (self._head_format(lvl.matrix, w, head_fmt, itemsize)
+                      if f == "ell" else "auto")
+                blk = arrow_blocks_from_csr(
+                    lvl.matrix, w, pad_blocks_to=total // w, banded=bd,
+                    dtype=self.dtype, fmt=f, head_fmt=hf,
+                    binary=self.binary, device=self.device)
+            if self.device.type == "cuda" and f == "hyb":
+                hyb_operands(blk)
+            elif self.device.type == "cuda" and f == "ell":
+                k1_operands(blk)
+            self.blocks.append(blk)
         fwd, bwd = compose_routing([lvl.permutation for lvl in levels],
                                    total)
         self.fwd = torch.from_numpy(fwd.astype(np.int64)).to(self.device)
@@ -299,6 +438,7 @@ class MultiLevelArrow:
                                      total)
         self.inv_perm0 = np.argsort(self.perm0)
         self.nnz = sum(num_nonzeros(lvl.matrix) for lvl in levels)
+        self.gather_budget = gather_budget_for(self.dense_budget)
 
     def _init_folded(self, levels, growth: float,
                      slot_align: Optional[int]) -> None:
@@ -393,10 +533,9 @@ class MultiLevelArrow:
             arr = c.float().cpu().numpy()
         return arr[self.inv_perm0][:self.n]
 
-    def _row_mask(self) -> torch.Tensor:
+    def _row_mask(self, dtype=np.float32) -> torch.Tensor:
         return torch.from_numpy(
-            (self.perm0 < self.n).astype(np.float32)[:, None]).to(
-                self.device)
+            (self.perm0 < self.n).astype(dtype)[:, None]).to(self.device)
 
     def carried_mask(self) -> torch.Tensor:
         """(total_rows, 1) f32 mask of the folded row-major carriage: 1
@@ -404,19 +543,28 @@ class MultiLevelArrow:
         in the JAX package's feature-major carriage)."""
         if not self.folded:
             raise ValueError(
-                "carried_mask is defined for fmt='fold'; the dense "
-                "carriage uses real_row_mask")
+                "carried_mask is defined for fmt='fold'; the per-level "
+                "formats' carriage uses real_row_mask")
         return self._row_mask()
 
-    def real_row_mask(self) -> torch.Tensor:
-        """(total_rows, 1) f32 mask of the dense carriage: 1 for rows
-        backed by an original matrix row (``perm0[r] < n``), 0 for
-        padding."""
+    def real_row_mask(self, dtype=np.float32) -> torch.Tensor:
+        """(total_rows, 1) mask of the per-level formats' carriage (the
+        dense carriage of the JAX package: level-0 order), in the numpy
+        ``dtype``: 1 for rows backed by an original matrix row
+        (``perm0[r] < n``), 0 for padding."""
         if self.folded:
             raise ValueError(
-                "real_row_mask is defined for the dense carriage; "
-                "fmt='fold' uses carried_mask")
-        return self._row_mask()
+                "real_row_mask is defined for the dense carriage of the "
+                "per-level formats; fmt='fold' uses carried_mask")
+        return self._row_mask(dtype)
+
+    def head_layouts(self) -> List[Optional[str]]:
+        """Each level's head layout: "gell", "flat" or "ell" for an ELL
+        level, None for the others."""
+        return [None if not isinstance(b, ArrowBlocks) or b.fmt != "ell"
+                else "gell" if b.head_gell
+                else "flat" if b.head_flat else "ell"
+                for b in getattr(self, "blocks", ())]
 
     # -- iteration ---------------------------------------------------------
 
@@ -424,14 +572,18 @@ class MultiLevelArrow:
         """One iteration ``X := A @ X`` on the carriage."""
         if not self.folded:
             return multi_level_spmm(x, self.fwd, self.bwd, self.blocks,
-                                    self.widths)
+                                    self.widths, chunk=self.chunk,
+                                    gather_budget=self.gather_budget)
         if isinstance(x, tuple):
             q, scale = x
             return requantize(sell_spmm_cuda(self.sell, q) * scale)
         return sell_spmm_cuda(self.sell, x)
 
-    def run(self, x, iterations: int):
-        """``iterations`` chained steps."""
+    def run(self, x, iterations: int, donate: bool = False):
+        """``iterations`` chained steps.  ``donate`` is the reference's
+        signature: an eager loop holds each step's input only until the
+        next step has read it, whatever its value."""
+        del donate
         for _ in range(iterations):
             x = self.step(x)
         return x
@@ -476,6 +628,7 @@ class MultiLevelArrow:
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.fmt = "fold"
+        self.fmts = ["fold"]
         self.folded = True
         self.n = meta["n"]
         self.total_rows = meta["total_rows"]

@@ -142,7 +142,7 @@ def fold_executor(device=None, n: int = 1 << 20, width: int = 2048,
     dev = resolve_device(device)
     levels = cached_levels(n, 8, width, seed=7, max_levels=max_levels,
                            cache_dir=cache_dir)
-    return MultiLevelArrow(levels, width, device=dev)
+    return MultiLevelArrow(levels, width, fmt="fold", device=dev)
 
 
 def fold_step(k: int, multi: Optional[MultiLevelArrow] = None,

@@ -17,10 +17,11 @@ Phases, each fatal on failure:
 4. main path: Barabasi-Albert n=2^20 m=8, decomposed at width 2048 (10
    levels, seed 7), saved and loaded as an artifact, folded into one
    SELL operator on the card (its tier ladder logged), stepped through
-   ``MultiLevelArrow`` at k=16 and k=128 (f32, 10 chained iterations,
-   every step and the chain validated against the host golden), one
-   bf16 and one int8 step, and the tight packing (growth 1.1, align 1)
-   for 3 iterations; ms/iter is the median of 7 timed chains; K1's
+   ``MultiLevelArrow`` at k=16 and k=128 (f32; every step and the chain
+   of 10 iterations at k=16, of 3 at k=128, validated against the host
+   golden), one bf16 and one int8 step, and the tight packing (growth
+   1.1, align 1) for 3 iterations; ms/iter is the median of 7 timed
+   chains of 10; the host goldens are kept for phase 11; K1's
    launch count must equal its launches per product (one, two with
    split rows) x iterations, whatever the tier count;
 5. per-kernel numbers at the main path's shapes: K1 against its plain
@@ -29,7 +30,11 @@ Phases, each fatal on failure:
    launches), its bound, the plain version's time, one PyTorch call
    computing the same product (``torch.sparse.mm``) as a yardstick;
    for f32 the bulk tiers (at most 48 slots a row) and the rest timed
-   apart (graph times); K1's registers and spills from ptxas;
+   apart (graph times); K1's registers and spills from ptxas; beside
+   the bound that reads X once, the bound of a gather that reads every
+   gathered row (nnz rows and indices, and the output); and, run in
+   phase 11 where the operators exist, K1 on one ELL stack and on one
+   HYB light tier against its plain version, each repeated bit for bit;
 6. dense kernels vs plain: K2 (column blocks) and K3 (head row) against
    their plain PyTorch versions on random stacks, (nb, w) in {(3, 48),
    (5, 64), (33, 200), (4, 2048)}, k in {8, 16, 128}, banded and
@@ -57,7 +62,22 @@ Phases, each fatal on failure:
    bound, the gather rates of ``take`` (and of ``x[idx]`` beside it)
    over k, dtype and index order, and the fold step at k = 16 and 128
    for both carriages, on phase 4's fold (max_levels 10, where the JAX
-   probe decomposes again at 12).
+   probe decomposes again at 12);
+11. the other formats at full size, run right after phase 5 on phase
+   4's decomposition: ``MultiLevelArrow`` with ``fmt`` auto (dense while
+   the levels fit half the card's free memory, then ELL), ell (the head
+   resolved as on the card) and hyb, each built, stepped once at k=16
+   and k=128 and for a 3-step chain at k=16 against the host golden,
+   timed (median of 7 chains of 10 steps, eager and from one CUDA
+   graph; the levels' products and the routing apart), its K1, K2 and
+   K3 launches equal to the formats' per step, then K1 over all its
+   operators (and K2/K3 on auto's dense levels) against the plain
+   versions, with bounds and library calls;
+12. the ELL head layouts (gell, flat, per-block ELL) and the dense
+   format at ``bench.py``'s kernel-comparison shape (BA n = 2^16 m=8,
+   width 2048, 2 levels, seed 7): one validated step each, with its
+   launches, and ms/iter (the dense format is left out, and says so,
+   when its blocks would not fit the card's free memory).
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3).  The line before the last is ``{"kernels": [...]}``;
@@ -92,6 +112,10 @@ K4_SHAPES = ((1 << 10, 256, 64, 16), (1 << 14, 1 << 12, 64, 16),
              (1 << 20, 1 << 21, 1024, 32), (1000, 360, 40, 40),
              (1 << 12, 1 << 12, 256, 256))
 REPS = 7                       # timed runs of each main-path chain
+#: Steps of phase 4's fold validated one by one against the host golden
+#: and then as one chain, by k (the host golden at k=128 costs about 12
+#: s a step at n = 2^20, so its chain is cut to 3 steps).
+VALIDATED = {16: 10, 128: 3}
 #: K1's carriage dtypes by name (resolved when torch is imported).
 CARRIAGE_DTYPES = {}
 #: Phase 5 times K1 over the bulk tiers (rows of at most this many
@@ -143,7 +167,6 @@ def compare(got, want, row_nnz: float, exact: bool) -> tuple:
 
     from arrow_matrix_tpu_torch.utils import (
         bf16_within_one_ulp,
-        relative_error,
         relative_tolerance,
     )
 
@@ -155,7 +178,10 @@ def compare(got, want, row_nnz: float, exact: bool) -> tuple:
         return err, bool(torch.equal(got, want))
     if got.dtype == torch.bfloat16:
         return err, bf16_within_one_ulp(got, want, row_nnz)
-    rel = relative_error(got.cpu().numpy(), want.cpu().numpy())
+    # relative_error's float64 Frobenius norms, taken on the device.
+    diff = torch.linalg.vector_norm(got.double() - want.double())
+    rel = float(diff / torch.linalg.vector_norm(want.double()).clamp_min(
+        1e-30))
     return err, rel <= relative_tolerance(row_nnz)
 
 
@@ -311,11 +337,15 @@ def host_golden(levels, x):
 
 
 def sorted_csr(sell, dtype):
-    """The folded operator in sorted coordinates as a torch CSR on the
-    card (the ``library_ms`` yardstick's operand)."""
+    """A K1 operator (the fold in sorted coordinates, or a level's ELL
+    or HYB operator) as a torch CSR on the card (the ``library_ms``
+    yardstick's operand)."""
     import torch
 
-    rows, cols, vals = [], [], []
+    dev = sell.device
+    rows = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    cols = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    vals = [torch.zeros(0, dtype=torch.float32, device=dev)]
     for t in sell.live_tiers():
         c = sell.cols[t]
         m_t, n_t = c.shape
@@ -332,8 +362,9 @@ def sorted_csr(sell, dtype):
         cols.append(c[live].long())
         vals.append(v[live])
     idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    shape = (sell.n_rows, sell.x_rows or sell.n_rows)
     a = torch.sparse_coo_tensor(idx, torch.cat(vals).to(dtype),
-                                (sell.n_rows, sell.n_rows)).coalesce()
+                                shape).coalesce()
     return a.to_sparse_csr()
 
 
@@ -462,6 +493,13 @@ def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
+        # A gather reads a row per nonzero (binary rows stop at their
+        # degree; weighted padding multiplies row 0 by zero, counted
+        # here as not read), plus its column index, and writes the
+        # output once.
+        gathered = exe.nnz * (k * item + 4) + sell.n_rows * k * out_item
+        gather_ms = gathered / HBM_BYTES_PER_S * 1e3
+        main[f"{tag}_k1_gather_bound_ms"] = gather_ms
         kernels.append({
             "name": f"sell_tier_spmm[{op_name},{carriage},k={k}]",
             "route": "cuda", "source": SOURCES["K1"],
@@ -469,14 +507,17 @@ def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
             "launches": launches[key], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms})
+            "library_ms": library_ms, "gather_bound_ms": gather_ms})
         per = k1_per_product(sell, k, x.dtype)
         log(f"phase 5 {op_name} {carriage} k={k}: K1 {ms:.4f} ms/product "
             f"eager (median of 20, min {min(runs):.4f}, max "
             f"{max(runs):.4f}; {per} launch{'es' if per > 1 else ''}), "
             f"{g_ms:.4f} ms from one CUDA graph{parts}; bound "
-            f"{bound:.4f} ms ({bytes_} B; {100 * bound / ms:.1f}% eager, "
-            f"{100 * bound / g_ms:.1f}% graph), plain {plain_ms:.4f} ms, "
+            f"{bound:.4f} ms with X read once ({bytes_} B; "
+            f"{100 * bound / ms:.1f}% eager, {100 * bound / g_ms:.1f}% "
+            f"graph), {gather_ms:.4f} ms with every gathered row read "
+            f"({gathered} B; {100 * gather_ms / ms:.1f}% eager), plain "
+            f"{plain_ms:.4f} ms, "
             f"torch.sparse.mm "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
             f"kernel vs plain max abs err {err:.3e}")
@@ -581,10 +622,123 @@ def block_work(blocks, k: int, kernel: str) -> tuple:
     return bytes_, pairs * 2 * w * w * k
 
 
+def dense_kernel_numbers(blocks_list, k: int, launches: tuple, tag: str,
+                         tol: float, dev, phase: str) -> tuple:
+    """K2 and K3 at the shapes of ``blocks_list`` (the dense levels of one
+    executor) at ``k`` features: held against their plain versions on
+    the real blocks, timed (median of 20), with their bound, the plain
+    versions' time and the same function through cuBLAS (f32 blocks).
+    Returns (kernel entries, {name: runs})."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import arrow_blocks, cuda_blocks
+    from arrow_matrix_tpu_torch.utils import relative_error
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    dtype = "bf16" if blocks_list[0].dtype == torch.bfloat16 else "f32"
+    rng = np.random.default_rng(k)
+    xs = [torch.from_numpy(rng.uniform(-1, 1, (b.n_blocks, b.width, k))
+                           .astype(np.float32)).to(dev)
+          for b in blocks_list]
+    outs = [torch.zeros_like(x) for x in xs]
+
+    def k2():
+        for b, x, o in zip(blocks_list, xs, outs):
+            cuda_blocks.column_spmm(b.diag_data, b.col_data, x,
+                                    b.lo_data, b.hi_data, out=o)
+
+    def k3():
+        for b, x, o in zip(blocks_list, xs, outs):
+            cuda_blocks.head_spmm(b.head_data, x, out=o[0])
+
+    def plain2():
+        return [arrow_blocks.column_spmm(b.diag_data, b.col_data, x,
+                                         b.lo_data, b.hi_data)
+                for b, x in zip(blocks_list, xs)]
+
+    def plain3():
+        return [arrow_blocks.head_spmm(b.head_data, x)
+                for b, x in zip(blocks_list, xs)]
+
+    def lib2():
+        res = []
+        for b, x in zip(blocks_list, xs):
+            c = torch.baddbmm(torch.matmul(b.col_data[1:], x[0]),
+                              b.diag_data[1:], x[1:])
+            if b.banded:
+                c.baddbmm_(b.lo_data[1:], x[:-1])
+                c[:-1].baddbmm_(b.hi_data[1:-1], x[2:])
+            res.append(c)
+        return res
+
+    def lib3():
+        return [torch.einsum("bij,bjk->ik", b.head_data, x)
+                for b, x in zip(blocks_list, xs)]
+
+    # Held against the plain versions on the real blocks.
+    k2()
+    k3()
+    want2, want3 = plain2(), plain3()
+    torch.cuda.synchronize()
+    errs = {}
+    for name, pairs in (
+            ("K2", [(o[1:], w[1:]) for o, w in zip(outs, want2)]),
+            ("K3", [(o[0], w) for o, w in zip(outs, want3)])):
+        err = 0.0
+        for got, want in pairs:
+            got, want = got.cpu().numpy(), want.cpu().numpy()
+            rel = relative_error(got, want)
+            if not (np.isfinite(got).all() and rel <= tol):
+                raise SystemExit(f"{name} {tag}: kernel != plain on the "
+                                 f"real blocks (rel err {rel:.3e} > "
+                                 f"{tol:.1e})")
+            err = max(err, float(np.abs(got - want).max()))
+        errs[name] = err
+    del want2, want3
+    kernels, all_runs = [], {}
+    for name, fn, plain_fn, lib_fn, idx in (
+            ("K2", k2, plain2, lib2, 0), ("K3", k3, plain3, lib3, 1)):
+        runs = cuda_runs(fn, 20)
+        ms = statistics.median(runs)
+        plain_ms = cuda_ms(plain_fn, 5)
+        library_ms = cuda_ms(lib_fn, 5) if dtype == "f32" else None
+        work_ = [block_work(b, k, name) for b in blocks_list]
+        bytes_ = sum(b for b, _ in work_)
+        ops = sum(o for _, o in work_)
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_FLOPS * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        kname = ("column_blocks_spmm" if name == "K2"
+                 else "head_blocks_spmm")
+        kernels.append({
+            "name": f"{kname}[{tag}]", "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[idx], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
+            "library_ms": library_ms})
+        all_runs[name] = runs
+        lib = ("n/a (no cuBLAS call takes bf16 blocks with f32 "
+               "features)" if library_ms is None
+               else f"{library_ms:.4f} ms")
+        split = "" if name == "K2" else ", split " + "/".join(
+            str(cuda_blocks.head_split(b.n_blocks, b.width, k))
+            for b in blocks_list)
+        per_step = (sum(b.n_blocks > 1 for b in blocks_list)
+                    if name == "K2" else len(blocks_list))
+        log(f"{phase} {name} {tag}: {ms:.4f} ms/step (median of 20, min "
+            f"{min(runs):.4f}, max {max(runs):.4f}; {per_step} "
+            f"launches{split}), bound {max(t_bytes, t_ops):.4f} ms by "
+            f"{bound_by} ({bytes_} B, {ops} ops), plain {plain_ms:.4f} ms, "
+            f"cuBLAS {lib}; kernel vs plain max abs err {errs[name]:.3e}")
+    del xs, outs
+    return kernels, all_runs
+
+
 def dense_path(dev, n: int, work: str):
     """Phases 7 and 8: the dense main path and its kernels' numbers.
     Returns (results, kernel entries)."""
-    import numpy as np
     import torch
 
     from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
@@ -594,7 +748,7 @@ def dense_path(dev, n: int, work: str):
         load_level_widths,
         save_decomposition,
     )
-    from arrow_matrix_tpu_torch.ops import arrow_blocks, cuda_blocks, cuda_sell
+    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_sell
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
         barabasi_albert,
@@ -602,7 +756,7 @@ def dense_path(dev, n: int, work: str):
         relative_error,
         relative_tolerance,
     )
-    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+    from arrow_matrix_tpu_torch.utils.timing import cuda_runs
 
     m, width, seed = 8, 2048, 7
     base = os.path.join(work, f"ba_{n}_{m}_dense")
@@ -725,102 +879,460 @@ def dense_path(dev, n: int, work: str):
     kernels = []
     for dtype, k in launches:
         exe = exes[dtype]
-        rng = np.random.default_rng(k)
-        xs = [torch.from_numpy(rng.uniform(-1, 1, (b.n_blocks, b.width, k))
-                               .astype(np.float32)).to(dev)
-              for b in exe.blocks]
-        outs = [torch.zeros_like(x) for x in xs]
-
-        def k2():
-            for b, x, o in zip(exe.blocks, xs, outs):
-                cuda_blocks.column_spmm(b.diag_data, b.col_data, x,
-                                        b.lo_data, b.hi_data, out=o)
-
-        def k3():
-            for b, x, o in zip(exe.blocks, xs, outs):
-                cuda_blocks.head_spmm(b.head_data, x, out=o[0])
-
-        def plain2():
-            return [arrow_blocks.column_spmm(b.diag_data, b.col_data, x,
-                                             b.lo_data, b.hi_data)
-                    for b, x in zip(exe.blocks, xs)]
-
-        def plain3():
-            return [arrow_blocks.head_spmm(b.head_data, x)
-                    for b, x in zip(exe.blocks, xs)]
-
-        def lib2():
-            res = []
-            for b, x in zip(exe.blocks, xs):
-                c = torch.baddbmm(torch.matmul(b.col_data[1:], x[0]),
-                                  b.diag_data[1:], x[1:])
-                if b.banded:
-                    c.baddbmm_(b.lo_data[1:], x[:-1])
-                    c[:-1].baddbmm_(b.hi_data[1:-1], x[2:])
-                res.append(c)
-            return res
-
-        def lib3():
-            return [torch.einsum("bij,bjk->ik", b.head_data, x)
-                    for b, x in zip(exe.blocks, xs)]
-
-        # Held against the plain versions on the real blocks.
-        k2()
-        k3()
-        want2, want3 = plain2(), plain3()
-        torch.cuda.synchronize()
-        errs = {}
-        tol = relative_tolerance(max(ml.widths))
-        for name, pairs in (
-                ("K2", [(o[1:], w[1:]) for o, w in zip(outs, want2)]),
-                ("K3", [(o[0], w) for o, w in zip(outs, want3)])):
-            err = 0.0
-            for got, want in pairs:
-                got, want = got.cpu().numpy(), want.cpu().numpy()
-                rel = relative_error(got, want)
-                if not (np.isfinite(got).all() and rel <= tol):
-                    raise SystemExit(f"{name} {dtype} k={k}: kernel != "
-                                     f"plain on the real blocks (rel err "
-                                     f"{rel:.3e} > {tol:.1e})")
-                err = max(err, float(np.abs(got - want).max()))
-            errs[name] = err
-        del want2, want3
-        for name, fn, plain_fn, lib_fn, idx in (
-                ("K2", k2, plain2, lib2, 0), ("K3", k3, plain3, lib3, 1)):
-            runs = cuda_runs(fn, 20)
-            ms = statistics.median(runs)
-            plain_ms = cuda_ms(plain_fn, 5)
-            library_ms = cuda_ms(lib_fn, 5) if dtype == "f32" else None
-            work_ = [block_work(b, k, name) for b in exe.blocks]
-            bytes_ = sum(b for b, _ in work_)
-            ops = sum(o for _, o in work_)
-            t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / F32_FLOPS * 1e3
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
-            kname = ("column_blocks_spmm" if name == "K2"
-                     else "head_blocks_spmm")
-            kernels.append({
-                "name": f"{kname}[dense,{dtype},k={k}]", "route": "cuda",
-                "source": SOURCES[name], "replaces": REPLACES[name],
-                "launches": launches[(dtype, k)][idx],
-                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
-                "library_ms": library_ms})
-            results[f"{name}_{dtype}_k{k}_ms_runs"] = runs
-            lib = ("n/a (no cuBLAS call takes bf16 blocks with f32 "
-                   "features)" if library_ms is None
-                   else f"{library_ms:.4f} ms")
-            split = "" if name == "K2" else ", split " + "/".join(
-                str(cuda_blocks.head_split(b.n_blocks, b.width, k))
-                for b in exe.blocks)
-            log(f"phase 8 {name} {dtype} k={k}: {ms:.4f} ms/step (median "
-                f"of 20, min {min(runs):.4f}, max {max(runs):.4f}; "
-                f"{per_iter[idx]} launches{split}), bound "
-                f"{max(t_bytes, t_ops):.4f} ms by {bound_by} ({bytes_} B, "
-                f"{ops} ops), plain {plain_ms:.4f} ms, cuBLAS {lib}; "
-                f"kernel vs plain max abs err {errs[name]:.3e}")
-        del xs, outs
+        entries, runs = dense_kernel_numbers(
+            exe.blocks, k, launches[(dtype, k)], f"dense,{dtype},k={k}",
+            relative_tolerance(max(ml.widths)), dev, "phase 8")
+        kernels += entries
+        for name, r in runs.items():
+            results[f"{name}_{dtype}_k{k}_ms_runs"] = r
     return results, kernels
+
+
+#: Phase 11's formats at full size (``fmt``, ``head_fmt`` "auto":
+#: resolved as on the card) and phase 12's head layouts at the JAX
+#: package's kernel-comparison shape (``bench.py:COMPARE_VARIANTS``).
+FORMAT_CELLS = ("auto", "ell", "hyb")
+HEAD_CELLS = (("ell_headgell", dict(fmt="ell", head_fmt="gell")),
+              ("ell_headflat", dict(fmt="ell", head_fmt="flat")),
+              ("ell_headell", dict(fmt="ell", head_fmt="ell")),
+              ("dense", dict(fmt="dense")))
+CHAIN = 10                     # steps of a timed chain of a format
+
+
+def level_k1_ops(exe) -> list:
+    """``(level, name, operator)`` of every K1 operator one step of
+    ``exe`` runs: the ELL levels' stacks and heads, the HYB levels'
+    light and heavy tiers."""
+    from arrow_matrix_tpu_torch.ops.cuda_ell import hyb_operands, k1_operands
+    from arrow_matrix_tpu_torch.ops.hyb import HybLevel
+    from arrow_matrix_tpu_torch.ops.sell import SellMatrix
+
+    out = []
+    for i, blk in enumerate(exe.blocks):
+        if isinstance(blk, HybLevel):
+            ops = hyb_operands(blk)
+        elif blk.fmt == "ell":
+            ops = k1_operands(blk)
+        else:
+            continue
+        out += [(i, name, op) for name, op in ops.items()
+                if isinstance(op, SellMatrix)]
+    return out
+
+
+def step_launches(exe, k: int) -> tuple:
+    """(K1, K2, K3) launches of one step of ``exe`` at ``k`` f32
+    features, stated from the kernels' contracts: K1 one launch per
+    operator, two where its longest row is split across CTAs
+    (:func:`k1_per_product`); K2 one per dense level of more than one
+    block, K3 one per dense level."""
+    import torch
+
+    dense = [b for b, f in zip(exe.blocks, exe.fmts) if f == "dense"]
+    return (sum(k1_per_product(op, k, torch.float32)
+                for _, _, op in level_k1_ops(exe)),
+            sum(b.n_blocks > 1 for b in dense), len(dense))
+
+
+def level_inputs(exe, x) -> list:
+    """Each level's input of one step from the carriage ``x`` (the
+    forward routing)."""
+    xs = [x]
+    for i in range(len(exe.blocks) - 1):
+        xs.append(xs[-1].index_select(0, exe.fwd[i]))
+    return xs
+
+
+def split_ms(exe, x) -> tuple:
+    """(products, routing) ms of one step of ``exe`` on ``x``, each the
+    median of 7 CUDA-event timings: every level's product on its input,
+    and the forward ``index_select``s with the backward aggregation
+    (``index_select`` and add)."""
+    from arrow_matrix_tpu_torch.parallel.multi_level import level_spmm
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms
+
+    xs = level_inputs(exe, x)
+    parts = [level_spmm(b, xi, w) for b, xi, w in
+             zip(exe.blocks, xs, exe.widths)]
+
+    def products():
+        for b, xi, w in zip(exe.blocks, xs, exe.widths):
+            level_spmm(b, xi, w)
+
+    def routing():
+        cur = x
+        for i in range(len(exe.blocks) - 1):
+            cur = cur.index_select(0, exe.fwd[i])
+        agg = parts[-1]
+        for i in range(len(exe.blocks) - 1, 0, -1):
+            agg = parts[i - 1] + agg.index_select(0, exe.bwd[i - 1])
+
+    return cuda_ms(products, 7), cuda_ms(routing, 7)
+
+
+def op_nnz(op) -> int:
+    """Nonzeros of a K1 operator (degrees, or nonzero weights)."""
+    import torch
+
+    if op.deg is not None:
+        return int(sum(int(d.sum()) for d in op.deg))
+    return int(sum(int(torch.count_nonzero(d)) for d in op.data))
+
+
+def k1_format_numbers(exe, tag: str, k: int, launches: int, n: int
+                      ) -> dict:
+    """K1 at one format's shapes: every K1 product of one step (each
+    operator on its level's input) held against the plain version,
+    timed (median of 20) beside the plain version and
+    ``torch.sparse.mm`` over the same operators (one call each), with
+    the X-once bound and the gathered-bytes bound."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    ops = level_k1_ops(exe)
+    x = exe.set_features(random_dense(n, k, seed=5))
+    xs = level_inputs(exe, x)
+    err = 0.0
+    for i, name, op in ops:
+        got = sell_spmm_cuda(op, xs[i])
+        want = sell_spmm(op, xs[i])
+        torch.cuda.synchronize()
+        hub = max(int(c.shape[0]) for c in op.cols)
+        e, ok = compare(got, want, float(hub), exact=False)
+        if not ok:
+            raise SystemExit(f"K1 {tag} k={k} level {i} {name}: kernel != "
+                             f"plain (max abs err {e:.3e})")
+        err = max(err, e)
+    del got, want
+    csrs = [sorted_csr(op, torch.float32) for _, _, op in ops]
+
+    def k1():
+        for i, _, op in ops:
+            sell_spmm_cuda(op, xs[i])
+
+    def plain():
+        for i, _, op in ops:
+            sell_spmm(op, xs[i])
+
+    def library():
+        for (i, _, _), a in zip(ops, csrs):
+            torch.sparse.mm(a, xs[i])
+
+    runs = cuda_runs(k1, 20)
+    ms = statistics.median(runs)
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = cuda_ms(library, 5)
+    del csrs
+    nnz = [op_nnz(op) for _, _, op in ops]
+    levels_read = sorted({i for i, _, _ in ops})
+    out_bytes = sum(op.n_rows for _, _, op in ops) * k * 4
+    op_bytes = sum(4 * z + (4 * op.n_rows if op.deg is not None else 4 * z)
+                   for z, (_, _, op) in zip(nnz, ops))
+    x_bytes = len(levels_read) * exe.total_rows * k * 4
+    bytes_ = op_bytes + x_bytes + out_bytes
+    flops = sum((1 if op.deg is not None else 2) * z * k
+                for z, (_, _, op) in zip(nnz, ops))
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    gathered = sum(nnz) * (k * 4 + 4) + out_bytes
+    gather_ms = gathered / HBM_BYTES_PER_S * 1e3
+    log(f"phase 11 K1 {tag} k={k}: {len(ops)} operators, {sum(nnz)} nnz: "
+        f"{ms:.4f} ms/step (median of 20, min {min(runs):.4f}, max "
+        f"{max(runs):.4f}; {launches} launches in the main path), bound "
+        f"{max(t_bytes, t_ops):.4f} ms with X read once ({bytes_} B), "
+        f"{gather_ms:.4f} ms with every gathered row read ({gathered} B; "
+        f"{100 * gather_ms / ms:.1f}%), plain {plain_ms:.4f} ms, "
+        f"torch.sparse.mm {library_ms:.4f} ms; kernel vs plain max abs "
+        f"err {err:.3e}")
+    return {"name": f"sell_tier_spmm[{tag},f32,k={k}]", "route": "cuda",
+            "source": SOURCES["K1"], "replaces": REPLACES["K1"],
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "gather_bound_ms": gather_ms}
+
+
+def check_k1_forms(exe, tag: str, n: int) -> None:
+    """Phase 5's addition on phase 11's operators: K1 on the first K1
+    operator of level 0 (an ELL stack, or the HYB light tier) against
+    its plain version, and bit for bit equal to a second launch."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    i, name, op = level_k1_ops(exe)[0]
+    for k in (16, 128):
+        x = level_inputs(exe, exe.set_features(random_dense(n, k, seed=6)))[i]
+        got, again = sell_spmm_cuda(op, x), sell_spmm_cuda(op, x)
+        want = sell_spmm(op, x)
+        torch.cuda.synchronize()
+        err, ok = compare(got, want, float(op.cols[0].shape[0]), exact=False)
+        if not ok or not torch.equal(got, again):
+            raise SystemExit(f"K1 on {tag} level {i} {name} k={k}: "
+                             f"{'!= plain' if not ok else 'not repeated'} "
+                             f"(max abs err {err:.3e})")
+        log(f"phase 5 (on phase 11's operators) K1 {tag} level {i} {name} "
+            f"{tuple(op.cols[0].shape)} k={k}: agrees with plain (max abs "
+            f"err {err:.3e}), repeated bit for bit")
+
+
+def host_rss_peak() -> int:
+    """Peak resident bytes of this process so far."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def drive_format(exe, tag: str, goldens: dict, row_nnz: float,
+                 chain: bool, timed: bool) -> tuple:
+    """One format's main path, every count at 0 just before it and read
+    just after: one validated step at each k of ``goldens`` ({k: (x,
+    want)}), the 3-step chain at k=16 against ``goldens["chain"]`` (when
+    ``chain``), and (when ``timed``) ms/iter over 7 timed chains of
+    :data:`CHAIN` steps, eager and from one CUDA graph.  Launch counts
+    must be the formats' (:func:`step_launches`).  Returns (results,
+    {k: (K1, K2, K3) launches})."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_sell
+    from arrow_matrix_tpu_torch.utils import (
+        relative_error,
+        relative_tolerance,
+    )
+    from arrow_matrix_tpu_torch.utils.timing import cuda_runs
+
+    ks = [k for k in goldens if k != "chain"]
+    per = {k: step_launches(exe, k) for k in ks}
+    counts = {k: (0, 0, 0) for k in ks}
+    cuda_sell.LAUNCHES = 0
+    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
+
+    def count(k, fn, steps):
+        before = (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
+                  cuda_blocks.LAUNCHES_K3)
+        out = fn()
+        torch.cuda.synchronize()
+        delta = (cuda_sell.LAUNCHES - before[0],
+                 cuda_blocks.LAUNCHES_K2 - before[1],
+                 cuda_blocks.LAUNCHES_K3 - before[2])
+        if delta != tuple(p * steps for p in per[k]):
+            raise SystemExit(f"{tag} k={k}: (K1, K2, K3) launches {delta},"
+                             f" expected {per[k]} per step x {steps}")
+        counts[k] = tuple(a + b for a, b in zip(counts[k], delta))
+        return out
+
+    res = {}
+    tol1 = relative_tolerance(row_nnz, 1)
+    for k in ks:
+        g, want = goldens[k]
+        y = count(k, lambda: exe.step(exe.set_features(g)), 1)
+        err = relative_error(exe.gather_result(y), want)
+        if not err <= tol1:
+            raise SystemExit(f"{tag} k={k}: one step rel err {err:.3e} > "
+                             f"gate {tol1:.1e}")
+        res[f"k{k}_step_rel_err"] = err
+    if chain:
+        g, want = goldens["chain"]
+        y = count(16, lambda: exe.run(exe.set_features(g), 3), 3)
+        err3 = relative_error(exe.gather_result(y), want)
+        tol3 = relative_tolerance(row_nnz, 3)
+        if not err3 <= tol3:
+            raise SystemExit(f"{tag} 3-step chain: rel err {err3:.3e} > "
+                             f"gate {tol3:.1e}")
+        res["k16_chain3_rel_err"] = err3
+    log(f"{tag}: every step within {tol1:.1e} ("
+        + ", ".join(f"k={k} {res[f'k{k}_step_rel_err']:.3e}" for k in ks)
+        + (f"; 3-step chain {res['k16_chain3_rel_err']:.3e}" if chain
+           else "") + ")")
+    if timed:
+        for k in ks:
+            x = exe.set_features(goldens[k][0])
+            runs = [t / CHAIN for t in count(
+                k, lambda: cuda_runs(lambda: exe.run(x, CHAIN), REPS),
+                (1 + REPS) * CHAIN)]
+            # graph_ms runs the chain once to warm up and once to capture.
+            g_ms = count(k, lambda: graph_ms(lambda: exe.run(x, CHAIN),
+                                             REPS)[0], 2 * CHAIN) / CHAIN
+            ms = statistics.median(runs)
+            res.update({f"k{k}_ms_per_iter": ms,
+                        f"k{k}_ms_per_iter_runs": runs,
+                        f"k{k}_graph_ms_per_iter": g_ms})
+            log(f"{tag} f32 k={k}: {ms:.4f} ms/iter eager, median of "
+                f"{REPS} chains of {CHAIN} (min {min(runs):.4f}, max "
+                f"{max(runs):.4f}); {g_ms:.4f} ms/iter from one CUDA "
+                f"graph")
+    totals = (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
+              cuda_blocks.LAUNCHES_K3)
+    if totals != tuple(sum(c[j] for c in counts.values())
+                       for j in range(3)):
+        raise SystemExit(f"{tag}: launch counts disagree with their parts")
+    launched = [name for name, total, want in
+                zip(("K1", "K2", "K3"), totals, per[ks[0]])
+                if want and not total]
+    if launched:
+        raise SystemExit(f"{tag}: {launched} launched no time")
+    log(f"{tag} main path: K1.LAUNCHES = {totals[0]}, K2.LAUNCHES = "
+        f"{totals[1]}, K3.LAUNCHES = {totals[2]} (per step "
+        + ", ".join(f"k={k}: {per[k]}" for k in ks) + ")")
+    res["launches_per_step"] = {str(k): per[k] for k in ks}
+    for k in ks if timed else ():
+        # After the main path's counts are read: these launches are not
+        # the main path's.
+        prod_ms, route_ms = split_ms(exe, exe.set_features(goldens[k][0]))
+        res.update({f"k{k}_products_ms": prod_ms,
+                    f"k{k}_routing_ms": route_ms})
+        log(f"{tag} f32 k={k} apart: the levels' products {prod_ms:.4f} "
+            f"ms, routing (forward index_select, backward index_select "
+            f"and add) {route_ms:.4f} ms "
+            f"({100 * route_ms / (prod_ms + route_ms):.1f}%)")
+    return res, counts
+
+
+def phase_formats(dev, levels, n: int, width: int, gold: dict) -> tuple:
+    """Phase 11: ``fmt`` auto, ell and hyb on phase 4's decomposition
+    through ``MultiLevelArrow``, each built, driven (:func:`drive_format`)
+    and freed in turn, then its kernels' numbers.  ``gold`` holds phase
+    4's host goldens (``gold[(k, s)]`` = A^s x).  Returns (results,
+    kernel entries)."""
+    import torch
+
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+
+    nnz = sum(int(lvl.matrix.nnz) for lvl in levels)
+    row_nnz = nnz / n
+    goldens = {16: (gold[(16, 0)], gold[(16, 1)]),
+               128: (gold[(128, 0)], gold[(128, 1)]),
+               "chain": (gold[(16, 0)], gold[(16, 3)])}
+    results, kernels = {}, []
+    for fmt in FORMAT_CELLS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        exe = MultiLevelArrow(levels, width, fmt=fmt, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - tic
+        ops = level_k1_ops(exe)
+        rec = {"fmts": exe.fmts, "heads": exe.head_layouts(),
+               "dense_budget": exe.dense_budget, "build_s": t_build,
+               "device_bytes": sum(b.device_nbytes() for b in exe.blocks),
+               "peak_device_bytes": int(torch.cuda.max_memory_allocated()),
+               "host_rss_peak_bytes": host_rss_peak(),
+               "k1_operators": [(i, name, [tuple(c.shape) for c in op.cols])
+                                for i, name, op in ops]}
+        log(f"phase 11 {fmt}: formats {exe.fmts}, heads "
+            f"{exe.head_layouts()}, dense budget {exe.dense_budget} B; "
+            f"{len(ops)} K1 operators; {rec['device_bytes']} B on the "
+            f"card (peak {rec['peak_device_bytes']} B); pack and upload "
+            f"{t_build:.1f} s; host peak RSS {rec['host_rss_peak_bytes']} "
+            f"B")
+        if fmt in ("ell", "hyb"):
+            check_k1_forms(exe, fmt, n)
+        res, counts = drive_format(exe, f"phase 11 {fmt}", goldens,
+                                   row_nnz, chain=True, timed=True)
+        rec.update(res)
+        kernels += format_kernel_numbers(exe, fmt, counts, n, rec, dev)
+        results[fmt] = rec
+        del exe, ops
+    torch.cuda.empty_cache()
+    return results, kernels
+
+
+def format_kernel_numbers(exe, fmt: str, counts: dict, n: int, rec: dict,
+                          dev) -> list:
+    """The kernels' entries of one phase 11 format: K1 over its
+    operators, and K2/K3 over its dense levels, at each k of ``counts``
+    ({k: main-path (K1, K2, K3) launches})."""
+    from arrow_matrix_tpu_torch.utils import relative_tolerance
+
+    entries = []
+    dense = [b for b, f in zip(exe.blocks, exe.fmts) if f == "dense"]
+    for k, (k1, k2, k3) in counts.items():
+        if k1:
+            entries.append(k1_format_numbers(exe, fmt, k, k1, n))
+        if dense:
+            more, runs = dense_kernel_numbers(
+                dense, k, (k2, k3), f"{fmt},f32,k={k}",
+                relative_tolerance(max(exe.widths)), dev, "phase 11")
+            entries += more
+            rec.update({f"{name}_k{k}_ms_runs": r
+                        for name, r in runs.items()})
+    return entries
+
+
+def phase_heads(dev, n: int) -> dict:
+    """Phase 12: the ELL head layouts (gell, flat, per-block ELL) and
+    the dense format at ``bench.py``'s kernel-comparison shape (BA n
+    m=8, width 2048, 2 levels, seed 7): one validated step each and
+    ms/iter.  A format whose blocks would not fit the card's free memory
+    is logged and left out."""
+    import torch
+
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.utils import barabasi_albert, random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_runs
+
+    width = 2048
+    tic = time.perf_counter()
+    levels = arrow_decomposition(barabasi_albert(n, 8, seed=7), width,
+                                 max_levels=2, block_diagonal=True, seed=7)
+    nnz = sum(int(lvl.matrix.nnz) for lvl in levels)
+    g = random_dense(n, 16, seed=3)
+    goldens = {16: (g, host_golden(levels, g))}
+    log(f"phase 12: BA n={n} m=8, 2 levels (achieved widths "
+        f"{[lvl.arrow_width for lvl in levels]}, nnz "
+        f"{[int(lvl.matrix.nnz) for lvl in levels]}); decomposition and "
+        f"golden {time.perf_counter() - tic:.1f} s")
+    results = {}
+    for tag, kw in HEAD_CELLS:
+        torch.cuda.empty_cache()
+        if kw["fmt"] == "dense":
+            # The executor's widths and rows: the last level (and any
+            # grown one) banded at its own width, 5 stacks, else 3.
+            widths = [w if lvl.arrow_width <= w and i < len(levels) - 1
+                      else -(-lvl.arrow_width // w) * w
+                      for i, lvl, w in ((i, lvl, width)
+                                        for i, lvl in enumerate(levels))]
+            rows = max(widths) * -(-n // max(widths))
+            need = sum(rows * w * (3 if w == width and i < len(widths) - 1
+                                   else 5) * 4
+                       for i, w in enumerate(widths))
+            free = torch.cuda.mem_get_info(dev)[0]
+            if need > 0.9 * free:
+                log(f"phase 12 {tag}: left out, its blocks ({need} B) "
+                    f"exceed 90% of the card's free memory ({free} B)")
+                results[tag] = {"left_out": f"{need} B of blocks, "
+                                            f"{free} B free"}
+                continue
+        tic = time.perf_counter()
+        exe = MultiLevelArrow(levels, width, device=dev, **kw)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - tic
+        res, _ = drive_format(exe, f"phase 12 {tag}", goldens, nnz / n,
+                              chain=False, timed=False)
+        x = exe.set_features(g)
+        runs = [t / CHAIN for t in
+                cuda_runs(lambda: exe.run(x, CHAIN), REPS)]
+        res.update(heads=exe.head_layouts(), fmts=exe.fmts,
+                   widths=exe.widths, build_s=t_build,
+                   device_bytes=sum(b.device_nbytes() for b in exe.blocks),
+                   k16_ms_per_iter=statistics.median(runs),
+                   k16_ms_per_iter_runs=runs)
+        log(f"phase 12 {tag}: widths {exe.widths}, heads "
+            f"{exe.head_layouts()}, {res['device_bytes']} B on the card, "
+            f"build {t_build:.1f} s; {res['k16_ms_per_iter']:.4f} ms/iter "
+            f"(median of {REPS} chains of {CHAIN}, min {min(runs):.4f}, "
+            f"max {max(runs):.4f})")
+        results[tag] = res
+        del exe
+    torch.cuda.empty_cache()
+    return results
 
 
 def phase_granule_kernel(dev) -> float:
@@ -1059,16 +1571,19 @@ def main() -> int:
     tol1 = relative_tolerance(row_nnz, 1)
     results = {"main": {}}
     iters = 10
+    # The host goldens, ``gold[(k, s)]`` = A^s x, shared by every later
+    # check of these inputs (phases 4 and 11).
+    gold = {}
     for k, xseed in ((16, 3), (128, 4)):
         key = ("fold", "f32", k)
         ml.feature_dtype = torch.float32
-        g = random_dense(n, k, seed=xseed)
+        g = gold[(k, 0)] = random_dense(n, k, seed=xseed)
         x = ml.set_features(g)
         worst = 0.0
         tic = time.perf_counter()
-        for it in range(iters):
+        for it in range(VALIDATED[k]):
             y = count(key, lambda: ml.step(ml.set_features(g)), 1, ml.sell)
-            g_next = host_golden(levels, g)
+            g_next = gold[(k, it + 1)] = host_golden(levels, g)
             err = relative_error(ml.gather_result(y), g_next)
             worst = max(worst, err)
             if not err <= tol1:
@@ -1076,12 +1591,13 @@ def main() -> int:
                                  f"gate {tol1:.1e}")
             g = g_next
         t_gold = time.perf_counter() - tic
-        y = count(key, lambda: ml.run(x, iters), iters, ml.sell)
+        steps = VALIDATED[k]
+        y = count(key, lambda: ml.run(x, steps), steps, ml.sell)
         err10 = relative_error(ml.gather_result(y), g)
-        tol10 = relative_tolerance(row_nnz, iters)
+        tol10 = relative_tolerance(row_nnz, steps)
         if not err10 <= tol10:
-            raise SystemExit(f"k={k} 10-step chain: rel err {err10:.3e} > "
-                             f"gate {tol10:.1e}")
+            raise SystemExit(f"k={k} {steps}-step chain: rel err "
+                             f"{err10:.3e} > gate {tol10:.1e}")
         runs = [t / iters for t in count(
             key, lambda: cuda_runs(lambda: ml.run(x, iters), REPS),
             (1 + REPS) * iters, ml.sell)]
@@ -1089,14 +1605,13 @@ def main() -> int:
         results["main"][f"f32_k{k}_ms_per_iter"] = ms
         results["main"][f"f32_k{k}_ms_per_iter_runs"] = runs
         log(f"f32 k={k}: every step within {tol1:.1e} (worst "
-            f"{worst:.3e}); 10-step chain {err10:.3e} (gate {tol10:.1e}); "
-            f"{ms:.4f} ms/iter, median of {REPS} chains (min "
+            f"{worst:.3e}); {steps}-step chain {err10:.3e} (gate "
+            f"{tol10:.1e}); {ms:.4f} ms/iter, median of {REPS} chains (min "
             f"{min(runs):.4f}, max {max(runs):.4f}); host golden "
             f"{t_gold:.1f} s")
 
-    for k, xseed in ((16, 3), (128, 4)):
-        g = random_dense(n, k, seed=xseed)
-        want = host_golden(levels, g)
+    for k in (16, 128):
+        g, want = gold[(k, 0)], gold[(k, 1)]
         ml.feature_dtype = torch.bfloat16
         y = count(("fold", "bf16", k),
                   lambda: ml.step(ml.set_features(g)), 1, ml.sell)
@@ -1123,13 +1638,10 @@ def main() -> int:
                             fold_align=1, device=dev)
     t_tight = time.perf_counter() - tic
     live_tight = len(tight.sell.live_tiers())
-    g = random_dense(n, 16, seed=3)
-    x = tight.set_features(g)
+    x = tight.set_features(gold[(16, 0)])
     y = count(("fold_tight", "f32", 16), lambda: tight.run(x, 3), 3,
               tight.sell)
-    for _ in range(3):
-        g = host_golden(levels, g)
-    err = relative_error(tight.gather_result(y), g)
+    err = relative_error(tight.gather_result(y), gold[(16, 3)])
     if not err <= relative_tolerance(row_nnz, 3):
         raise SystemExit(f"fold_tight 3-step chain: rel err {err:.3e}")
     runs = [t / 3 for t in count(
@@ -1161,7 +1673,14 @@ def main() -> int:
     # -- 5. per-kernel numbers at the main path's shapes -----------------------
     kernels = phase_k1_numbers(ml, tight, launches, n, row_nnz,
                                results["main"])
-    del tight, levels, loaded      # phase 10 steps ml again
+    del tight
+    torch.cuda.empty_cache()
+
+    # -- 11. the other formats at full size, on phase 4's decomposition ------
+    results["formats"], format_kernels = phase_formats(dev, levels, n, width,
+                                                       gold)
+    kernels += format_kernels
+    del levels, loaded, gold      # phase 10 steps ml again
     torch.cuda.empty_cache()
 
     # -- 6-8. the dense path ---------------------------------------------------
@@ -1172,6 +1691,11 @@ def main() -> int:
     k4_err = phase_granule_kernel(dev)
     results["probes"], k4_entry = phase_probes(dev, ml, k4_err)
     kernels.append(k4_entry)
+    del ml
+    torch.cuda.empty_cache()
+
+    # -- 12. the ELL head layouts at the kernel-comparison shape -------------
+    results["heads"] = phase_heads(dev, n_dense)
 
     results["card"] = smi
     return finish(results, kernels)

@@ -123,14 +123,6 @@ def test_tiling_check_catches_entries_outside_the_pattern():
     assert blocks.lo_data is None and blocks.hi_data is None
 
 
-@pytest.mark.parametrize("kwargs", [{"fmt": "ell"}, {"head_fmt": "flat"},
-                                    {"head_fmt": "gell"}])
-def test_unported_block_formats_raise_naming_the_roadmap(kwargs):
-    a = arrow_csr(3, 16, seed=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        arrow_blocks_from_csr(a, 16, device="cpu", **kwargs)
-
-
 def test_block_dtype_names():
     assert resolve_block_dtype(np.float32) == torch.float32
     assert resolve_block_dtype(ml_dtypes.bfloat16) == torch.bfloat16

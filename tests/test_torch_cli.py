@@ -54,6 +54,24 @@ def test_dense_format_validates_on_cpu(tmp_path, blocked):
     assert os.path.exists(tmp_path / f"ba_1024_3_B_64{bd}_manifest.json")
 
 
+@pytest.mark.parametrize("fmt,head_fmt", [("ell", "auto"), ("ell", "gell"),
+                                          ("hyb", "auto"), ("auto", "flat")])
+def test_level_formats_validate_on_cpu(tmp_path, fmt, head_fmt):
+    proc = _run(["--fmt", fmt, "--head_fmt", head_fmt, "--device", "cpu",
+                 "--vertices", "1024", "--width", "64", "--features", "5",
+                 "--iterations", "2", "--validate", "--carry"], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    formats = re.search(r"formats (\[[^]]*\])", proc.stdout).group(1)
+    want = {"ell": "'ell'", "hyb": "'hyb'", "auto": "'dense'"}[fmt]
+    assert want in formats
+    if head_fmt == "gell":
+        assert "heads ['gell'" in proc.stdout
+    errs = re.findall(r"rel err vs host (\S+) \(gate (\S+)\)", proc.stdout)
+    assert len(errs) == 2
+    for err, gate in errs:
+        assert float(err) <= float(gate)
+
+
 def test_dense_format_rejects_a_feature_dtype(tmp_path):
     proc = _run(["--fmt", "dense", "--device", "cpu", "--vertices", "256",
                  "--width", "32", "--feature_dtype", "bf16"], tmp_path)

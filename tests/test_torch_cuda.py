@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: K1 (SELL
-tier), K2/K3 (dense arrow column blocks and head row) and K4 (granule
-gather).
+tier; also on the ELL and HYB levels' operators), K2/K3 (dense arrow
+column blocks and head row) and K4 (granule gather).
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a
 card (and without JAX) run them as
@@ -19,17 +19,24 @@ from arrow_matrix_tpu_torch.decomposition import (
 from arrow_matrix_tpu_torch.ops import (
     arrow_blocks,
     cuda_blocks,
+    cuda_ell,
     cuda_gather,
     cuda_sell,
     sell,
     worklist,
 )
+from arrow_matrix_tpu_torch.ops.hyb import hyb_from_csr, hyb_spmm
 from arrow_matrix_tpu_torch.ops.gather import (
     granule_gather_plain,
     pack_granules,
     take,
 )
-from arrow_matrix_tpu_torch.ops.ell import ell_tier_spmm, out_dtype_for
+from arrow_matrix_tpu_torch.ops.ell import (
+    ell_spmm_batched,
+    ell_stack_tier,
+    ell_tier_spmm,
+    out_dtype_for,
+)
 from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
 from arrow_matrix_tpu_torch.utils import (
     barabasi_albert,
@@ -104,8 +111,8 @@ def test_fold_executor_on_the_card_matches_the_cpu(cuda):
     levels = arrow_decomposition(a, 64, max_levels=10, block_diagonal=True,
                                  seed=0)
     x = random_dense(4096, 16, seed=2)
-    gpu = MultiLevelArrow(levels, 64, device=cuda)
-    cpu = MultiLevelArrow(levels, 64, device="cpu")
+    gpu = MultiLevelArrow(levels, 64, fmt="fold", device=cuda)
+    cpu = MultiLevelArrow(levels, 64, fmt="fold", device="cpu")
     before = cuda_sell.LAUNCHES
     got = gpu.gather_result(gpu.run(gpu.set_features(x), 3))
     # One launch per product (two with split rows), whatever the tiers.
@@ -358,3 +365,118 @@ def test_granule_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                    64, 16)
     with pytest.raises(ValueError, match="multiple of 8"):
         cuda_gather.granule_gather(xp, idx, 64, 24)
+
+
+def _ell_levels(banded):
+    a = barabasi_albert(4096, 4, seed=1)
+    return arrow_decomposition(a, 64, max_levels=10,
+                               block_diagonal=not banded, seed=0)
+
+
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("k", [16, 20])
+def test_k1_on_a_converted_ell_stack_matches_plain(cuda, binary, k):
+    # A 900-slot row: K1 splits it over thread groups and CTAs.
+    rng = np.random.default_rng(k)
+    b, w, m = 7, 300, 904
+    deg = rng.integers(0, 40, (b, w)).astype(np.int32)
+    deg[3, 5] = 900
+    cols = rng.integers(0, w, (b, w, m)).astype(np.int16)
+    pad = np.arange(m)[None, None, :] >= deg[:, :, None]
+    cols[pad] = 0
+    vals = np.where(pad, 0, rng.uniform(-1, 1, (b, w, m))).astype(
+        np.float32)
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, w, k)).astype(
+        np.float32)).to(cuda)
+    offsets = cuda_ell.stack_offsets("diag", b, w)
+    c = torch.from_numpy(cols).to(cuda)
+    weights = (dict(deg=torch.from_numpy(deg).to(cuda)) if binary
+               else dict(data=torch.from_numpy(vals).to(cuda)))
+    tier = ell_stack_tier(c, offsets, **weights)
+    op = cuda_ell.one_tier(*tier, x_rows=b * w)
+    before = cuda_sell.LAUNCHES
+    got = cuda_sell.sell_spmm_cuda(op, x.view(b * w, k))
+    again = cuda_sell.sell_spmm_cuda(op, x.view(b * w, k))
+    assert cuda_sell.LAUNCHES - before == 2 * op.plans[
+        (k, torch.float32, k % 4 == 0)].wl.launches
+    want = ell_spmm_batched(c, weights.get("data"), x,
+                            deg=weights.get("deg"))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert relative_error(got.view(b, w, k).cpu().numpy(),
+                          want.cpu().numpy()) <= relative_tolerance(900)
+
+
+@pytest.mark.parametrize("head_fmt", ["flat", "ell", "gell"])
+@pytest.mark.parametrize("banded", [False, True])
+def test_ell_executor_on_the_card_matches_the_cpu(cuda, head_fmt, banded):
+    levels = _ell_levels(banded)
+    x = random_dense(4096, 16, seed=2)
+    gpu = MultiLevelArrow(levels, 64, fmt="ell", head_fmt=head_fmt,
+                          banded=banded, device=cuda)
+    cpu = MultiLevelArrow(levels, 64, fmt="ell", head_fmt=head_fmt,
+                          banded=banded, device="cpu")
+    assert gpu.head_layouts() == [head_fmt] * len(levels)
+    ops = [op for b in gpu.blocks for op in cuda_ell.k1_operands(b).values()
+           if isinstance(op, sell.SellMatrix)]
+    before = (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
+              cuda_blocks.LAUNCHES_K3)
+    y = gpu.run(gpu.set_features(x), 3)
+    torch.cuda.synchronize()
+    per_step = sum(op.plans[(16, torch.float32, True)].wl.launches
+                   for op in ops)
+    assert cuda_sell.LAUNCHES - before[0] == 3 * per_step
+    assert (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3) == before[1:]
+    got = gpu.gather_result(y)
+    want = cpu.gather_result(cpu.run(cpu.set_features(x), 3))
+    golden = x
+    for _ in range(3):
+        golden = decomposition_spmm(levels, golden)
+    tol = relative_tolerance(gpu.nnz / 4096, 3)
+    assert relative_error(got, want) <= tol
+    assert relative_error(got, golden) <= tol
+    again = gpu.run(gpu.set_features(x), 3)
+    assert torch.equal(y, again)
+
+
+def test_hyb_level_on_the_card_matches_plain(cuda):
+    # BA with a 3,000-degree hub: heavy rows, one split across CTAs.
+    a = barabasi_albert(20000, 3, seed=3).tolil()
+    a[0, 1:3001] = 1
+    a[1:3001, 0] = 1
+    a = a.tocsr()
+    level = hyb_from_csr(a, pad_rows_to=20480, device=cuda)
+    assert level.heavy_idx.shape[0] > 0
+    x = torch.from_numpy(random_dense(20480, 16, seed=4)).to(cuda)
+    before = cuda_sell.LAUNCHES
+    got = cuda_ell.hyb_spmm_cuda(level, x)
+    again = cuda_ell.hyb_spmm_cuda(level, x)
+    ops = cuda_ell.hyb_operands(level)
+    assert cuda_sell.LAUNCHES - before == 2 * sum(
+        ops[name].plans[(16, torch.float32, True)].wl.launches
+        for name in ("light", "heavy"))
+    want = hyb_spmm(level, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert relative_error(got.cpu().numpy(), want.cpu().numpy()) <= \
+        relative_tolerance(3000)
+    golden = a @ random_dense(20480, 16, seed=4)[:20000]
+    assert relative_error(got[:20000].cpu().numpy(), golden) <= \
+        relative_tolerance(3000)
+
+
+def test_auto_executor_on_the_card_runs_k1_and_k2_k3(cuda):
+    levels = _ell_levels(False)
+    x = random_dense(4096, 16, seed=5)
+    budget = 4096 * 64 * 3 * 4 * 2
+    gpu = MultiLevelArrow(levels, 64, dense_budget=budget, device=cuda)
+    cpu = MultiLevelArrow(levels, 64, dense_budget=budget, device="cpu")
+    assert gpu.fmts == cpu.fmts and "dense" in gpu.fmts \
+        and "ell" in gpu.fmts
+    before = (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K3)
+    got = gpu.gather_result(gpu.step(gpu.set_features(x)))
+    torch.cuda.synchronize()
+    assert cuda_sell.LAUNCHES > before[0]
+    assert cuda_blocks.LAUNCHES_K3 - before[1] == gpu.fmts.count("dense")
+    want = cpu.gather_result(cpu.step(cpu.set_features(x)))
+    assert relative_error(got, want) <= relative_tolerance(gpu.nnz / 4096)

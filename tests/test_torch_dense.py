@@ -191,12 +191,27 @@ def test_arrow_blocks_from_numpy_round_trips_jax_blocks(banded, dtype):
                                 device="cpu")
 
 
-@pytest.mark.parametrize("fmt", ["ell", "hyb", "auto"])
-def test_unported_formats_raise_naming_the_roadmap(graph, fmt):
-    levels = _levels(graph, True)
-    with pytest.raises(NotImplementedError,
-                       match="Queue A, 'remaining single-device formats'"):
-        MultiLevelArrow(levels, WIDTH, fmt=fmt, device="cpu")
+@pytest.mark.parametrize("block_diagonal,banded", LAYOUTS)
+def test_auto_with_room_for_every_level_is_the_dense_executor(
+        graph, block_diagonal, banded):
+    """The default format densifies every level the budget holds: with
+    room for all of them it builds the dense executor, bit for bit, and
+    with none the ELL one, as the JAX class resolves them."""
+    levels = _levels(graph, block_diagonal)
+    x = random_dense(N, 5, seed=11)
+    dense = MultiLevelArrow(levels, WIDTH, fmt="dense", banded=banded,
+                            device="cpu")
+    roomy = MultiLevelArrow(levels, WIDTH, banded=banded,
+                            dense_budget=1 << 40, device="cpu")
+    none = MultiLevelArrow(levels, WIDTH, banded=banded, dense_budget=0,
+                           device="cpu")
+    assert roomy.fmts == ["dense"] * len(levels) == JaxArrow(
+        levels, WIDTH, banded=banded, dense_budget=1 << 40).fmts
+    assert none.fmts == ["ell"] * len(levels) == JaxArrow(
+        levels, WIDTH, banded=banded, dense_budget=0).fmts
+    assert np.array_equal(_run(roomy, x, 2), _run(dense, x, 2))
+    assert relative_error(_run(none, x, 2), _golden(levels, x, 2)) <= \
+        relative_tolerance(_nnz(levels) / N, 2)
 
 
 def test_feature_dtype_needs_the_fold_format(graph):
@@ -207,7 +222,7 @@ def test_feature_dtype_needs_the_fold_format(graph):
                         device="cpu")
     with pytest.raises(ValueError, match="unknown fmt"):
         MultiLevelArrow(levels, WIDTH, fmt="sparse", device="cpu")
-    fold = MultiLevelArrow(levels, WIDTH, device="cpu")
+    fold = MultiLevelArrow(levels, WIDTH, fmt="fold", device="cpu")
     with pytest.raises(ValueError, match="dense carriage"):
         fold.real_row_mask()
 

@@ -60,7 +60,7 @@ def _run(executor, x, iters):
 @pytest.mark.parametrize("kernel", ["xla", "pallas_sell"])
 def test_ten_iterations_match_jax_and_scipy(levels, kernel):
     x = random_dense(N, 16, seed=3)
-    ours = MultiLevelArrow(levels, WIDTH, device="cpu")
+    ours = MultiLevelArrow(levels, WIDTH, fmt="fold", device="cpu")
     theirs = JaxArrow(levels, WIDTH, fmt="fold", kernel=kernel)
     assert np.array_equal(ours.perm0, theirs.perm0)
     assert ours.total_rows == theirs.total_rows
@@ -75,7 +75,8 @@ def test_ten_iterations_match_jax_and_scipy(levels, kernel):
 
 def test_bf16_within_2e2_of_jax(levels):
     x = random_dense(N, 16, seed=4)
-    ours = MultiLevelArrow(levels, WIDTH, feature_dtype="bf16", device="cpu")
+    ours = MultiLevelArrow(levels, WIDTH, fmt="fold", feature_dtype="bf16",
+                           device="cpu")
     theirs = JaxArrow(levels, WIDTH, fmt="fold", feature_dtype="bf16")
     c = ours.set_features(x)
     assert c.dtype == torch.bfloat16 and c.shape == (ours.total_rows, 16)
@@ -86,7 +87,8 @@ def test_bf16_within_2e2_of_jax(levels):
 
 def test_int8_bit_identical_to_jax_on_a_binary_graph(levels):
     x = random_dense(N, 16, seed=6)
-    ours = MultiLevelArrow(levels, WIDTH, feature_dtype="int8", device="cpu")
+    ours = MultiLevelArrow(levels, WIDTH, fmt="fold", feature_dtype="int8",
+                           device="cpu")
     theirs = JaxArrow(levels, WIDTH, fmt="fold", feature_dtype="int8")
     assert ours.binary
     q, scale = ours.run(ours.set_features(x), 3)
@@ -100,8 +102,8 @@ def test_int8_bit_identical_to_jax_on_a_binary_graph(levels):
 
 def test_int8_within_one_step_of_jax_on_a_weighted_graph(weighted_levels):
     x = random_dense(N, 16, seed=7)
-    ours = MultiLevelArrow(weighted_levels, WIDTH, feature_dtype="int8",
-                           device="cpu")
+    ours = MultiLevelArrow(weighted_levels, WIDTH, fmt="fold",
+                           feature_dtype="int8", device="cpu")
     theirs = JaxArrow(weighted_levels, WIDTH, fmt="fold",
                       feature_dtype="int8")
     assert not ours.binary
@@ -115,7 +117,7 @@ def test_int8_within_one_step_of_jax_on_a_weighted_graph(weighted_levels):
 
 def test_weighted_f32_matches_scipy(weighted_levels):
     x = random_dense(N, 16, seed=8)
-    ours = MultiLevelArrow(weighted_levels, WIDTH, device="cpu")
+    ours = MultiLevelArrow(weighted_levels, WIDTH, fmt="fold", device="cpu")
     got = _run(ours, x, 2)
     want = decomposition_spmm(weighted_levels,
                               decomposition_spmm(weighted_levels, x))
@@ -125,8 +127,8 @@ def test_weighted_f32_matches_scipy(weighted_levels):
 
 @pytest.mark.parametrize("feature_dtype", [None, "bf16"])
 def test_export_round_trips_with_jax(levels, tmp_path, feature_dtype):
-    ours = MultiLevelArrow(levels, WIDTH, feature_dtype=feature_dtype,
-                           device="cpu")
+    ours = MultiLevelArrow(levels, WIDTH, fmt="fold",
+                           feature_dtype=feature_dtype, device="cpu")
     theirs = JaxArrow(levels, WIDTH, fmt="fold", feature_dtype=feature_dtype)
     ours.export_folded(str(tmp_path / "ours"))
     theirs.export_folded(str(tmp_path / "theirs"))
@@ -153,16 +155,16 @@ def test_export_round_trips_with_jax(levels, tmp_path, feature_dtype):
 
 def test_tight_packing_matches_default(levels):
     x = random_dense(N, 16, seed=10)
-    plain = MultiLevelArrow(levels, WIDTH, device="cpu")
-    tight = MultiLevelArrow(levels, WIDTH, fold_growth=1.1, fold_align=1,
-                            device="cpu")
+    plain = MultiLevelArrow(levels, WIDTH, fmt="fold", device="cpu")
+    tight = MultiLevelArrow(levels, WIDTH, fmt="fold", fold_growth=1.1,
+                            fold_align=1, device="cpu")
     assert tight.sell.n_slots < plain.sell.n_slots
     assert len(tight.sell.cols) > len(plain.sell.cols)
     assert relative_error(_run(tight, x, 3), _run(plain, x, 3)) <= 1e-5
 
 
 def test_carried_mask_marks_real_rows(levels):
-    ours = MultiLevelArrow(levels, WIDTH, device="cpu")
+    ours = MultiLevelArrow(levels, WIDTH, fmt="fold", device="cpu")
     mask = ours.carried_mask()
     assert mask.shape == (ours.total_rows, 1)
     assert int(mask.sum()) == N
@@ -171,7 +173,8 @@ def test_carried_mask_marks_real_rows(levels):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"fmt": "ell"}, {"mesh": object()}, {"repl": 2}, {"overlap_slabs": 2},
+    {"mesh": object()}, {"routing": "a2a"}, {"layout": "wide"},
+    {"kernel": "pallas_sell"}, {"repl": 2}, {"overlap_slabs": 2},
     {"plan": "auto"}, {"kernel_opts": {"row_block": 64}}])
 def test_unported_options_raise_naming_the_roadmap(levels, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
@@ -182,4 +185,4 @@ def test_fold_needs_the_card_unless_asked_for_the_cpu(levels):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        MultiLevelArrow(levels, WIDTH)
+        MultiLevelArrow(levels, WIDTH, fmt="fold")

@@ -71,7 +71,7 @@ def small_levels(tmp_path_factory):
 @pytest.mark.parametrize("k", [16, 128])
 def test_fold_step_agrees_with_plain(small_levels, k):
     levels = small_levels
-    multi = MultiLevelArrow(levels, 256, device="cpu")
+    multi = MultiLevelArrow(levels, 256, fmt="fold", device="cpu")
     rec = gather_probe.fold_step(k, multi, iters=2)
     row_nnz = multi.nnz / multi.n
     assert gather_probe.fold_gate(rec, row_nnz)

@@ -40,6 +40,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     names = {os.path.relpath(f, PORT) for f in files}
     assert {os.path.join("ops", "arrow_blocks.py"),
             os.path.join("ops", "cuda_blocks.py"),
+            os.path.join("ops", "cuda_ell.py"),
+            os.path.join("ops", "hyb.py"),
+            os.path.join("utils", "platform.py"),
             os.path.join("ops", "gather.py"),
             os.path.join("ops", "cuda_gather.py"),
             os.path.join("tools", "gather_probe.py"),
@@ -76,7 +79,7 @@ from arrow_matrix_tpu_torch.utils import timing
 a = barabasi_albert(400, 3, seed=0)
 levels = arrow_decomposition(a, 32, max_levels=4, block_diagonal=True,
                              seed=0)
-ml = MultiLevelArrow(levels, 32, device="cpu")
+ml = MultiLevelArrow(levels, 32, fmt="fold", device="cpu")
 x = random_dense(400, 8, seed=1)
 err = relative_error(ml.gather_result(ml.step(ml.set_features(x))),
                      decomposition_spmm(levels, x))
@@ -86,6 +89,12 @@ err_dense = relative_error(
     dense.gather_result(dense.step(dense.set_features(x))),
     decomposition_spmm(levels, x))
 assert err_dense < 1e-5, err_dense
+for fmt in ("ell", "hyb"):
+    other = MultiLevelArrow(levels, 32, fmt=fmt, device="cpu")
+    err_fmt = relative_error(
+        other.gather_result(other.step(other.set_features(x))),
+        decomposition_spmm(levels, x))
+    assert err_fmt < 1e-5, (fmt, err_fmt)
 probe = granule_gather_probe.run_probe("cpu", 1024, 256, 64, 16, reps=1)
 assert all(v["exact"] for v in probe["variants"].values()), probe
 assert all(r["exact"] for r in gather_probe.gather_rates(
