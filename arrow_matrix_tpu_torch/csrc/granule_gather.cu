@@ -1,105 +1,140 @@
-// K4: the granule gather, by waves of async copies, for Hopper (sm_90a).
+// K4: the row gather, and the fused gather-add, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel make_pallas_granule(...).run in
-// tools/pallas_gather_probe.py (pallas_call at :148), which copies each
-// slot's 512-byte granule line HBM -> VMEM with its own async copy,
-// `wave` copies in flight, and then selects the wanted sub-row.
+// tools/pallas_gather_probe.py (pallas_call at :148), which computes
+// x[idx] by copying each slot's whole 512-byte granule line (8 rows of 16
+// f32: the TPU's DMA unit) HBM -> VMEM and then selecting the wanted
+// sub-row.  On Hopper a 64-byte row is two 32-byte sectors and is read
+// alone, so this kernel gathers rows, never lines:
 //
-// What it computes: out.reshape(S, 16)[s] = x[idx[s]], with x packed as
-// (n / 8, 128) f32 (8 rows of 16 features make one 512-byte line) and
-// idx (S,) int32 in [0, n) -- not checked here, as on the TPU.
+//   gather      out[s, :] = x[idx[s], :]
+//   gather-add  out[s, :] = out[s, :] + x[idx[s], :]   (in place: one f32
+//               addition, the base first, as partials[i-1] + agg[bwd])
 //
-// Design.  A CTA of 8 warps owns `block` consecutive slots, as a grid
-// step of the TPU kernel does, but the TPU kernel stages all `block`
-// lines in VMEM (512 KB at block 1024) and a CTA has at most 227 KB of
-// shared memory, so the CTA stages one wave of `wave` lines at a time
-// (16 KB at wave 32).  Each warp copies whole lines with cp.async.cg
-// (32 lanes x 16 bytes = one line), the CTA waits for the whole wave
-// (commit, wait_group 0, __syncthreads), then 4 threads a slot store the
-// 64-byte sub-row (idx % 8) as float4s, and the next wave is issued:
-// all of a wave lands before the next starts, as on the TPU.  The
-// sub-row is copied bit for bit (a -0.0 stays -0.0; the plain version's
-// mask-and-sum gives +0.0).  Offsets into x and out are 64-bit.
+// x (n, k) f32 row-major, idx (S,) int32 in [0, n) (not checked, as on
+// the TPU), out (S, k) f32, any k >= 1; out must not overlap x (the
+// wrapper checks).  The gather copies bits: -0.0 and NaN payloads stay.
 //
-// Bound: a gather of S rows of 64 B, (distinct rows x 64 + S x 64 +
-// S x 4) bytes over the memory rate.  The design moves whole lines,
-// S x 512 B, an 8x read amplification; rings of waves in flight and
-// cp.async.bulk (TMA) copies are later designs.
+// Bound: memory.  (distinct rows x k x 4 + S x k x 4 + S x 4) bytes over
+// the memory rate, plus S x k x 4 for the base read of the gather-add.
+//
+// Design.  A row belongs to a group of `lanes` threads, the power of two
+// that covers its items (16-byte vectors where k % 4 == 0 and x and out
+// are 16-byte aligned, else single floats), at most a warp: 4 lanes at
+// k = 16, so a warp covers 8 rows a load, and a whole warp at k = 128.
+// A group owns kBatch rows, one CTA's worth of groups apart, so that for
+// each batch slot the warp's groups read consecutive indices and write
+// one contiguous run of rows.  A thread loads its kBatch indices first,
+// then issues all kBatch row loads (ld.global.nc) before any store; a row
+// wider than its group is walked in passes of one item a lane.  A CTA of
+// 256 threads so keeps 256 x 8 x 16 B = 32 KB of loads in flight, where
+// Little's law asks about 0.7 us x 3.35 TB/s / 132 SMs = 18 KB an SM.
+// Stores are streaming (st.global.cs), so that written rows do not evict
+// gathered ones from the 50 MB L2.  Offsets are 64-bit.  TMA has no row
+// gather on Hopper, and a bulk copy per 64-byte row costs more to issue
+// than it moves, so the design is plain vector loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRowsPerLine = 8;        // C
-constexpr int kLineF4 = 32;            // 128 floats = 32 float4 per line
-constexpr int kRowF4 = 4;              // 16 floats = 4 float4 per row
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kBatch = 8;
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(gmem) : "memory");
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
+// T is float4 (the vector body) or float (the scalar body); `width` is
+// k in items of T.
+template <typename T, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
-granule_gather_kernel(const float4* __restrict__ x,
-                      const int* __restrict__ idx,
-                      float4* __restrict__ out, int block, int wave) {
-  extern __shared__ float4 lines[];    // wave lines of 32 float4
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * block;
-  for (int base = 0; base < block; base += wave) {
-    const int64_t s0 = first + base;
-    for (int j = warp; j < wave; j += kWarps) {
-      const int64_t g = __ldg(idx + s0 + j) / kRowsPerLine;
-      cp_async_16(lines + j * kLineF4 + lane, x + g * kLineF4 + lane);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int t = threadIdx.x; t < wave * kRowF4; t += kThreads) {
-      const int j = t / kRowF4;
-      const int q = t % kRowF4;
-      const int sub = __ldg(idx + s0 + j) % kRowsPerLine;
-      out[(s0 + j) * kRowF4 + q] = lines[j * kLineF4 + sub * kRowF4 + q];
-    }
-    __syncthreads();                   // the wave's lines are free again
+row_gather_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+                  T* __restrict__ out, long long slots, int width,
+                  int lanes) {
+  const int groups = kThreads / lanes;
+  const int lane = threadIdx.x % lanes;
+  // Batch slot b of this group is row first + b * groups.
+  const long long first =
+      static_cast<long long>(blockIdx.x) * groups * kBatch +
+      threadIdx.x / lanes;
+  long long src[kBatch];               // x's offset of each row, in T
+  bool live[kBatch];
+#pragma unroll
+  for (int b = 0; b < kBatch; ++b) {
+    const long long s = first + static_cast<long long>(b) * groups;
+    live[b] = s < slots;
+    src[b] = live[b] ? static_cast<long long>(__ldg(idx + s)) * width : 0;
   }
+  for (int c = lane; c < width; c += lanes) {
+    T v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (live[b]) v[b] = __ldg(x + src[b] + c);
+    if (kAdd) {
+      T base[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (live[b])
+          base[b] = __ldcs(out + (first + static_cast<long long>(b) *
+                                  groups) * width + c);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (live[b]) v[b] = add(base[b], v[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (live[b])
+        __stcs(out + (first + static_cast<long long>(b) * groups) * width + c,
+               v[b]);
+  }
+}
+
+template <typename T, bool kAdd>
+cudaError_t launch(const void* x, const void* idx, void* out,
+                   long long slots, int width, cudaStream_t stream) {
+  int lanes = 1;
+  while (lanes < width && lanes < 32) lanes *= 2;
+  const long long rows_per_cta =
+      static_cast<long long>(kThreads / lanes) * kBatch;
+  const unsigned grid =
+      static_cast<unsigned>((slots + rows_per_cta - 1) / rows_per_cta);
+  row_gather_kernel<T, kAdd><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const int*>(idx),
+      static_cast<T*>(out), slots, width, lanes);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (S / 8, 128) f32 = the gathered rows; x_packed (n_lines, 128) f32,
-// idx (S,) int32.  The caller checks S % block == 0, block % wave == 0,
-// block % 8 == 0, 16-byte alignment and wave * 512 <= 227 KB.  Returns 0
-// or the cudaError_t of the launch.
-int granule_gather(const void* x_packed, const void* idx, void* out,
-                   long long slots, int block, int wave, void* stream) {
-  const size_t smem = static_cast<size_t>(wave) * kLineF4 * sizeof(float4);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        granule_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const unsigned grid = static_cast<unsigned>(slots / block);
-  granule_gather_kernel<<<grid, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x_packed), static_cast<const int*>(idx),
-      static_cast<float4*>(out), block, wave);
-  return static_cast<int>(cudaGetLastError());
+// out (S, k) f32 = x[idx] (add = 0), or out += x[idx] in place (add = 1);
+// x (n, k) f32, idx (S,) int32.  The caller checks shapes, dtypes,
+// contiguity and that out does not overlap x, and launches nothing for
+// S = 0 or k = 0.  The vector body runs where k % 4 == 0 and x and out
+// are 16-byte aligned, the scalar body otherwise.  Returns 0 or the
+// cudaError_t of the launch.
+int row_gather(const void* x, const void* idx, void* out, long long slots,
+               int k, int add, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool vec = k % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  cudaError_t e;
+  if (vec)
+    e = add ? launch<float4, true>(x, idx, out, slots, k / 4, stream)
+            : launch<float4, false>(x, idx, out, slots, k / 4, stream);
+  else
+    e = add ? launch<float, true>(x, idx, out, slots, k, stream)
+            : launch<float, false>(x, idx, out, slots, k, stream);
+  return static_cast<int>(e);
 }
 
-const char* granule_error_string(int code) {
+const char* row_gather_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

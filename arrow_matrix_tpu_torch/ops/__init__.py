@@ -12,7 +12,11 @@ from arrow_matrix_tpu_torch.ops.cuda_ell import (
     arrow_spmm_ell_cuda,
     hyb_spmm_cuda,
 )
-from arrow_matrix_tpu_torch.ops.cuda_gather import granule_gather
+from arrow_matrix_tpu_torch.ops.cuda_gather import (
+    granule_gather,
+    row_gather,
+    row_gather_add_,
+)
 from arrow_matrix_tpu_torch.ops.cuda_sell import (
     quantize_features,
     sell_spmm_cuda,
@@ -32,6 +36,8 @@ from arrow_matrix_tpu_torch.ops.ell import (
 from arrow_matrix_tpu_torch.ops.gather import (
     granule_gather_plain,
     pack_granules,
+    row_gather_add_plain,
+    row_gather_plain,
     take,
 )
 from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_from_csr, hyb_spmm
@@ -74,6 +80,10 @@ __all__ = [
     "quantize_features",
     "resolve_binary",
     "resolve_block_dtype",
+    "row_gather",
+    "row_gather_add_",
+    "row_gather_add_plain",
+    "row_gather_plain",
     "sell_from_arrays",
     "sell_from_csr",
     "sell_spmm",

@@ -17,7 +17,8 @@ in K1's form, with no intermediate:
 * the flat head is regrouped by row into the ``(w, nb*w)`` CSR it came
   from and packed into degree-sorted SELL tiers (``ops/sell.py``; the
   head rows are the pruned hubs, so their degrees are skewed), whose
-  result is put back in row order by one ``index_select``;
+  result is put back in row order by one row gather (K4,
+  ``ops/cuda_gather.py``);
 * the two partitions of a HYB level are one tier each; the heavy rows
   are added at their unique, sorted rows (one add per element, so the
   result does not depend on the order of the adds).
@@ -50,6 +51,7 @@ from arrow_matrix_tpu_torch.ops.arrow_blocks import (
     ArrowBlocks,
     arrow_spmm,
 )
+from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather
 from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
 from arrow_matrix_tpu_torch.ops.ell import ell_stack_tier
 from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_spmm
@@ -87,7 +89,7 @@ def one_tier(cols: torch.Tensor, data: Optional[torch.Tensor],
 def flat_head_operator(blocks: ArrowBlocks):
     """The flat head as K1 operator: ``(sell, inv)``, where ``sell`` is
     the ``(w, nb*w)`` head CSR in degree-sorted SELL tiers over global
-    columns and ``inv`` the int64 permutation that puts its result back
+    columns and ``inv`` the int32 permutation that puts its result back
     in row order."""
     nb, w = blocks.n_blocks, blocks.width
     dev = blocks.head_cols.device
@@ -105,7 +107,7 @@ def flat_head_operator(blocks: ArrowBlocks):
         pad_rows_to=w, binary=binary, conjugate=False)
     sell = sell_from_arrays(c, d, g, n_rows, starts, device=dev)
     sell.x_rows = nb * w
-    inv = torch.from_numpy(np.argsort(order)).to(dev)
+    inv = torch.from_numpy(np.argsort(order).astype(np.int32)).to(dev)
     return sell, inv
 
 
@@ -159,7 +161,7 @@ def arrow_spmm_k1(blocks: ArrowBlocks, x: torch.Tensor) -> torch.Tensor:
             c += sell_spmm_cuda(ops[name], flat)
     head = sell_spmm_cuda(ops["head"], flat)
     if blocks.head_flat:
-        head = head.index_select(0, ops["head_inv"])
+        head = row_gather(head, ops["head_inv"])
     elif not blocks.head_gell:
         head = head.view(nb, w, k).sum(dim=0)
     c[:w] = head

@@ -1,15 +1,25 @@
-"""The granule gather kernel (K4): wrapper of ``csrc/granule_gather.cu``.
+"""K4, the row gather: wrapper of ``csrc/granule_gather.cu``.
 
 Counterpart of ``make_pallas_granule(...).run`` in
-``tools/pallas_gather_probe.py``: ``x[idx]`` from granule-packed
-features through waves of async copies of whole 512-byte lines.
+``tools/pallas_gather_probe.py``, which gathers ``x[idx]`` through
+512-byte granule lines.  On the card K4 gathers rows, and has a fused
+form that adds them to a base in place:
 
-For CUDA tensors the wrapper checks device, dtype, shape, contiguity,
-16-byte alignment and the blocking, launches the kernel on PyTorch's
-current stream, raises on a launch error, and adds one to
-:data:`LAUNCHES`.  For CPU tensors it runs the plain version
-(``ops/gather.py:granule_gather_plain``).  There is no fallback: a
-failed build or launch raises.
+* :func:`row_gather` -- ``out[s] = x[idx[s]]``: the executors' forward
+  routing and the flat ELL head's unsort;
+* :func:`row_gather_add_` -- ``base[s] += x[idx[s]]``: the executors'
+  backward aggregation;
+* :func:`granule_gather` -- the probe's entry, the row gather on the
+  ``(n, 16)`` view of granule-packed lines.
+
+For CUDA tensors the wrappers check device, dtype, shape, contiguity
+and aliasing, launch on PyTorch's current stream, raise on a launch
+error, and add one to :data:`LAUNCHES` (gathers) or
+:data:`LAUNCHES_ADD` (gather-adds).  The kernel picks its 16-byte
+vector body where ``k % 4 == 0`` and the pointers are 16-byte aligned,
+else its scalar body.  For CPU tensors the wrappers run the plain
+versions (``ops/gather.py``).  There is no fallback: a failed build or
+launch raises.
 """
 
 from __future__ import annotations
@@ -20,14 +30,23 @@ import torch
 
 from arrow_matrix_tpu_torch.ops import _build
 from arrow_matrix_tpu_torch.ops.cuda_sell import check_operand
-from arrow_matrix_tpu_torch.ops.gather import C, LANES, granule_gather_plain
+from arrow_matrix_tpu_torch.ops.gather import (
+    C,
+    K,
+    LANES,
+    row_gather_add_plain,
+    row_gather_plain,
+)
 
-#: Kernel launches made by this process (one per call on the card).
+#: Row gather launches made by this process (one per call on the card).
 LAUNCHES = 0
+#: Gather-add launches made by this process (one per call on the card).
+LAUNCHES_ADD = 0
 
-#: Shared memory a CTA may take on Hopper; the kernel stages one wave.
-SMEM_LIMIT = 232_448
-LINE_BYTES = LANES * 4
+#: ctypes argument types of ``row_gather``: x, idx, out, slots, k, add,
+#: stream.
+ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 _FN = None
 
@@ -35,68 +54,98 @@ _FN = None
 def _kernel():
     global _FN
     if _FN is None:
-        fn = _build.load("granule_gather").granule_gather
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn = _build.load("granule_gather").row_gather
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def granule_gather(x_packed: torch.Tensor, idx: torch.Tensor,
-                   block: int = 1024, wave: int = 32) -> torch.Tensor:
-    """``out.reshape(S, 16)[s] = x[idx[s]]``, returned as ``(S / 8,
-    128)`` f32, from granule-packed ``x_packed (n / 8, 128)`` f32 (see
-    ``ops.gather.pack_granules``) and ``idx (S,)`` int32.
+def _check(x: torch.Tensor, idx: torch.Tensor) -> None:
+    """Raise ValueError unless ``x`` is contiguous ``(n, k)`` f32 and
+    ``idx`` contiguous ``(S,)`` int32 on ``x``'s device."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n, k), got {tuple(x.shape)}")
+    if idx.dim() != 1:
+        raise ValueError("idx must be 1-D")
+    check_operand("x", x, torch.float32, tuple(x.shape), x.device)
+    check_operand("idx", idx, torch.int32, (idx.shape[0],), x.device)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
 
-    ``block`` slots per CTA (a grid step of the TPU kernel), ``wave``
-    line copies in flight; needs ``S % block == 0``, ``block % 8 == 0``,
-    ``block % wave == 0`` and ``wave`` lines (512 B each) within a CTA's
-    shared memory.  The kernel does not check that ``idx`` lies in
-    ``[0, n)``: an index outside reads outside ``x``.  The kernel copies
-    each row's bits; the plain version (CPU tensors) selects by a mask
-    and a sum, which turns ``-0.0`` into ``+0.0``.
-    """
+
+def _launch(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+            add: bool) -> None:
+    slots, k = out.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = _kernel()(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                         slots, k, int(add), stream)
+    if code != 0:
+        lib = _build.load("granule_gather")
+        lib.row_gather_error_string.restype = ctypes.c_char_p
+        lib.row_gather_error_string.argtypes = [ctypes.c_int]
+        raise RuntimeError(
+            f"row_gather launch failed: "
+            f"{lib.row_gather_error_string(code).decode()} (code {code}; "
+            f"S={slots} k={k} add={add})")
+
+
+def row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[s] = x[idx[s]]``: ``(S, k)`` f32 from ``x (n, k)`` f32 and
+    ``idx (S,)`` int32, any ``k``.  The kernel copies each row's bits
+    and does not check that ``idx`` lies in ``[0, n)``: an index outside
+    reads outside ``x`` (the plain version raises)."""
     global LAUNCHES
+    _check(x, idx)
+    if x.device.type == "cpu":
+        return row_gather_plain(x, idx)
+    out = torch.empty((idx.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    if out.numel():
+        _launch(x, idx, out, add=False)
+        LAUNCHES += 1
+    return out
+
+
+def row_gather_add_(base: torch.Tensor, x: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """``base[s] += x[idx[s]]`` in place, one f32 addition with the base
+    first (``base + x[idx]``, bit for bit); returns ``base``.  ``base``
+    is contiguous ``(S, k)`` f32 and may not overlap ``x``.  Indices as
+    in :func:`row_gather`."""
+    global LAUNCHES_ADD
+    _check(x, idx)
+    check_operand("base", base, torch.float32,
+                  (idx.shape[0], x.shape[1]), x.device)
+    lo, hi = x.data_ptr(), x.data_ptr() + x.numel() * 4
+    b_lo, b_hi = base.data_ptr(), base.data_ptr() + base.numel() * 4
+    if b_lo < hi and lo < b_hi:
+        raise ValueError("base overlaps x: the gather-add writes base "
+                         "while it reads x")
+    if x.device.type == "cpu":
+        return row_gather_add_plain(base, x, idx)
+    if base.numel():
+        _launch(x, idx, base, add=True)
+        LAUNCHES_ADD += 1
+    return base
+
+
+def granule_gather(x_packed: torch.Tensor, idx: torch.Tensor
+                   ) -> torch.Tensor:
+    """The probe's entry: ``out.reshape(S, 16)[s] = x[idx[s]]``, returned
+    as ``(S / 8, 128)`` f32, from granule-packed ``x_packed (n / 8,
+    128)`` f32 (see ``ops.gather.pack_granules``) and ``idx (S,)``
+    int32, ``S % 8 == 0``: :func:`row_gather` on the ``(n, 16)`` view of
+    the same memory."""
     if x_packed.dim() != 2 or x_packed.shape[1] != LANES:
         raise ValueError(f"x_packed must be (n / {C}, {LANES}), got "
                          f"{tuple(x_packed.shape)}")
     if idx.dim() != 1:
         raise ValueError("idx must be 1-D")
-    slots = idx.shape[0]
-    if block <= 0 or wave <= 0 or block % C or block % wave:
-        raise ValueError(f"block = {block} must be a positive multiple of "
-                         f"{C} and of wave = {wave}")
-    if slots == 0 or slots % block:
-        raise ValueError(f"S = {slots} slots must be a positive multiple "
-                         f"of block = {block}")
-    if wave * LINE_BYTES > SMEM_LIMIT:
-        raise ValueError(f"wave = {wave} lines of {LINE_BYTES} B exceed a "
-                         f"CTA's {SMEM_LIMIT} B of shared memory")
-    dev = x_packed.device
+    if idx.shape[0] % C:
+        raise ValueError(f"S = {idx.shape[0]} slots is not a multiple of "
+                         f"{C} (the output is packed in granule lines)")
     check_operand("x_packed", x_packed, torch.float32,
-                  tuple(x_packed.shape), dev)
-    check_operand("idx", idx, torch.int32, (slots,), dev)
-    if dev.type == "cpu":
-        return granule_gather_plain(x_packed, idx)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out = torch.empty((slots // C, LANES), dtype=torch.float32, device=dev)
-    if x_packed.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("x_packed and out must be 16-byte aligned "
-                         "(cp.async copies 16 bytes at a time)")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _kernel()(x_packed.data_ptr(), idx.data_ptr(),
-                         out.data_ptr(), slots, block, wave, stream)
-    if code != 0:
-        lib = _build.load("granule_gather")
-        lib.granule_error_string.restype = ctypes.c_char_p
-        lib.granule_error_string.argtypes = [ctypes.c_int]
-        raise RuntimeError(
-            f"granule_gather launch failed: "
-            f"{lib.granule_error_string(code).decode()} (code {code}; "
-            f"S={slots} block={block} wave={wave})")
-    LAUNCHES += 1
-    return out
+                  tuple(x_packed.shape), x_packed.device)
+    return row_gather(x_packed.view(-1, K), idx).view(-1, LANES)

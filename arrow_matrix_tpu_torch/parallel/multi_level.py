@@ -24,9 +24,10 @@ carriage forward from level to level with the composed permutation
 tables, runs each level's product, and aggregates the partial products
 backward in the same order as the JAX package.  On the card a dense
 level runs the hand-written kernels K3 (head row) and K2 (every other
-block row) (``ops/cuda_blocks.py``), and every ELL stack, ELL head and
-HYB partition runs K1 (``ops/cuda_ell.py``).  The routing gathers are
-plain ``index_select``.
+block row) (``ops/cuda_blocks.py``), every ELL stack, ELL head and HYB
+partition runs K1 (``ops/cuda_ell.py``), and the routing runs K4
+(``ops/cuda_gather.py``): a row gather forward, a fused gather-add
+backward, over int32 tables.
 
 Carriage.  Features are carried **row-major** ``(total_rows, k)`` on
 the device, in level-0 order (fold: sorted level-0 order): a gathered
@@ -73,6 +74,7 @@ from arrow_matrix_tpu_torch.ops.cuda_ell import (
     hyb_operands,
     k1_operands,
 )
+from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather, row_gather_add_
 from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
 from arrow_matrix_tpu_torch.ops.ell import SLOT_ALIGN, auto_chunk
 from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_from_csr
@@ -204,20 +206,22 @@ def multi_level_spmm(x: torch.Tensor, fwd: torch.Tensor, bwd: torch.Tensor,
     """One decomposition-wide product on the flat ``(total, k)`` carriage
     in level-0 order: route forward (``x_i = x_{i-1}[fwd[i-1]]``), one
     product per level (:func:`level_spmm`), then aggregate backward
-    (``agg = partial_{i-1} + agg[bwd[i-1]]``), in the JAX package's
-    order."""
+    (``agg = partial_{i-1} + agg[bwd[i-1]]``, in place into the
+    partial), in the JAX package's order.  The routing is K4's row
+    gather and fused gather-add over the int32 tables ``fwd``/``bwd``
+    (their plain versions for CPU tensors)."""
     total, k = x.shape
     partials = []
     x_cur = x
     for i, (blk, w) in enumerate(zip(blocks, widths)):
         if i > 0:
-            x_cur = x_cur.index_select(0, fwd[i - 1])
+            x_cur = row_gather(x_cur, fwd[i - 1])
         partials.append(level_spmm(
             blk, x_cur, w,
             resolve_chunk(chunk, blk, total, k, gather_budget)))
     agg = partials[-1]
     for i in range(len(blocks) - 1, 0, -1):
-        agg = partials[i - 1].add_(agg.index_select(0, bwd[i - 1]))
+        agg = row_gather_add_(partials[i - 1], agg, bwd[i - 1])
     return agg
 
 
@@ -432,8 +436,8 @@ class MultiLevelArrow:
             self.blocks.append(blk)
         fwd, bwd = compose_routing([lvl.permutation for lvl in levels],
                                    total)
-        self.fwd = torch.from_numpy(fwd.astype(np.int64)).to(self.device)
-        self.bwd = torch.from_numpy(bwd.astype(np.int64)).to(self.device)
+        self.fwd = torch.from_numpy(fwd).to(self.device)
+        self.bwd = torch.from_numpy(bwd).to(self.device)
         self.perm0 = pad_permutation(np.asarray(levels[0].permutation),
                                      total)
         self.inv_perm0 = np.argsort(self.perm0)

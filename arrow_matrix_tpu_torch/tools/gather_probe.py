@@ -1,11 +1,11 @@
 """Gather-rate probes on the card: the cost model of the port's
-SELL kernel.
+SELL kernel and of its routing.
 
-Counterpart of ``tools/gather_probe.py``.  Measures the production
+Counterpart of ``tools/gather_probe.py``.  Measures the library
 gather's rate (``ops.gather.take``, row-major ``index_select``) in
 slots/s over the feature count, the carriage dtype and the order of
-the indices, and the fold step (one K1 launch per live tier) at the
-JAX package's protocol shape for k in {16, 128}:
+the indices, K4's row gather beside it in f32, and the fold step (one
+K1 product) at the JAX package's protocol shape for k in {16, 128}:
 
     python -m arrow_matrix_tpu_torch.tools.gather_probe
     python -m arrow_matrix_tpu_torch.tools.gather_probe --device cpu
@@ -35,6 +35,7 @@ from arrow_matrix_tpu_torch.io import (
     load_level_widths,
     save_decomposition,
 )
+from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather
 from arrow_matrix_tpu_torch.ops.gather import take
 from arrow_matrix_tpu_torch.ops.sell import sell_spmm
 from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
@@ -67,7 +68,10 @@ def gather_rates(n: int = 1 << 20, m: int = 16, device=None,
     with ``ms`` (median of ``reps``), ``mslots_s``, ``exact`` (the
     gathered rows of up to :data:`CHECKED_SLOTS` slots equal the host's
     bit for bit), and ``index_ms`` / ``index_mslots_s`` of the same
-    gather by advanced indexing, ``x[idx.long()]``."""
+    gather by advanced indexing, ``x[idx.long()]``; f32 records also
+    carry K4's row gather (``ops.cuda_gather.row_gather``): ``k4_ms``,
+    ``k4_mslots_s`` and ``k4_exact`` (its rows equal ``take``'s bit for
+    bit)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     idx = rng.integers(0, n, size=n * m, dtype=np.int32)
@@ -91,12 +95,20 @@ def gather_rates(n: int = 1 << 20, m: int = 16, device=None,
                 # beside take as a second yardstick.
                 ind_l = ind_d.long()
                 index_ms = median_ms(lambda: x[ind_l], reps, dev)
-                records.append({"k": k, "dtype": dt, "order": order,
-                                "slots": int(ind.size), "exact": exact,
-                                "ms": ms, "mslots_s": ind.size / ms / 1e3,
-                                "index_ms": index_ms,
-                                "index_mslots_s": ind.size / index_ms / 1e3})
+                rec = {"k": k, "dtype": dt, "order": order,
+                       "slots": int(ind.size), "exact": exact,
+                       "ms": ms, "mslots_s": ind.size / ms / 1e3,
+                       "index_ms": index_ms,
+                       "index_mslots_s": ind.size / index_ms / 1e3}
                 del ind_l
+                if dtype == torch.float32:
+                    rec["k4_exact"] = torch.equal(
+                        _bits(row_gather(x, ind_d)), _bits(take(x, ind_d)))
+                    k4_ms = median_ms(lambda: row_gather(x, ind_d), reps,
+                                      dev)
+                    rec.update(k4_ms=k4_ms,
+                               k4_mslots_s=ind.size / k4_ms / 1e3)
+                records.append(rec)
             del x
     return records
 
@@ -203,7 +215,10 @@ def main(argv=None) -> int:
     for r in rates:
         print(f"take k={r['k']:4d} {r['dtype']:4s} {r['order']:6s}: "
               f"{r['ms']:9.4f} ms ({r['mslots_s']:.0f}M slots/s) exact "
-              f"{r['exact']}; x[idx] {r['index_ms']:9.4f} ms", flush=True)
+              f"{r['exact']}; x[idx] {r['index_ms']:9.4f} ms"
+              + (f"; K4 {r['k4_ms']:9.4f} ms ({r['k4_mslots_s']:.0f}M "
+                 f"slots/s) exact {r['k4_exact']}" if "k4_ms" in r else ""),
+              flush=True)
     folds = []
     multi = fold_executor(dev, n, width)
     for k in (16, 128):

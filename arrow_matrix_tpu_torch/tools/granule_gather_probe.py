@@ -1,29 +1,30 @@
-"""The granule gather probe: waves of async line copies against the
-production gather, on the card.
+"""The granule gather probe: K4 against the library gather, on the
+card.
 
 Counterpart of ``tools/pallas_gather_probe.py``.  Features are packed
 so that 8 consecutive rows of 16 f32 features form one contiguous
 512-byte line, ``(n / 8, 128)``; three variants gather the same random
 rows:
 
-1. ``torch_take``    -- ``ops.gather.take``, the port's production
-                        gather (row-major ``index_select``);
+1. ``torch_take``    -- ``ops.gather.take``, one PyTorch call
+                        (row-major ``index_select``);
 2. ``torch_granule`` -- ``ops.gather.granule_gather_plain``: a gather
                         of whole granule lines, then the sub-row select
-                        (K4's plain version);
-3. ``cuda_granule``  -- K4, ``ops.cuda_gather.granule_gather``: each
-                        line copied by ``cp.async`` in waves of
-                        ``wave`` copies, then the sub-row select.
+                        (the TPU kernel's way, in plain PyTorch);
+3. ``cuda_granule``  -- K4, ``ops.cuda_gather.granule_gather``: the row
+                        gather on the ``(n, 16)`` view of the lines.
 
     python -m arrow_matrix_tpu_torch.tools.granule_gather_probe
     python -m arrow_matrix_tpu_torch.tools.granule_gather_probe --device cpu
 
-On the card: n = 2^20 rows, S = 2^21 slots, block 1024, wave 32, seed
-5; each variant's time is the median of 20 calls timed by CUDA events.
-``--device cpu`` takes n = 2^14, S = 2^12, block 64, wave 16; there the
-kernel variant runs its plain version and the times are the host's.
-Prints one JSON line.  ``cuda_vs_torch`` and ``verdict`` are written
-only when the device is a card and both ``torch_take`` and
+On the card: n = 2^20 rows, S = 2^21 slots, seed 5; each variant's
+time is the median of 20 calls timed by CUDA events.  ``--device cpu``
+takes n = 2^14, S = 2^12; there the kernel variant runs its plain
+version and the times are the host's.  The record also carries the JAX
+probe's ``block`` and ``wave`` (its TPU kernel's grid step and copies
+in flight; they configure nothing here) and the granule design's line
+traffic.  Prints one JSON line.  ``cuda_vs_torch`` and ``verdict`` are
+written only when the device is a card and both ``torch_take`` and
 ``cuda_granule`` gathered exactly.
 """
 
@@ -49,7 +50,8 @@ from arrow_matrix_tpu_torch.utils.timing import median_ms
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 
-#: (n, slots, block, wave) on the card and on the CPU.
+#: (n, slots, block, wave) on the card and on the CPU: the JAX probe's
+#: shapes, with its TPU kernel's blocking as record fields.
 SHAPES = {"cuda": (1 << 20, 1 << 21, 1024, 32),
           "cpu": (1 << 14, 1 << 12, 64, 16)}
 
@@ -57,23 +59,23 @@ SHAPES = {"cuda": (1 << 20, 1 << 21, 1024, 32),
 def gather_traffic(idx: np.ndarray) -> dict:
     """The least traffic of ``x[idx]`` at k = 16 f32: each distinct row
     read once (64 B), each slot's row written once (64 B), each index
-    read once (4 B); and the granule design's own line traffic (S x
-    512 B).  Its time over the card's memory rate is K4's bound."""
+    read once (4 B); and the line traffic of the TPU kernel's granule
+    design (S x 512 B).  The least traffic over the card's memory rate
+    is K4's bound."""
     distinct = int(np.unique(idx).size)
     return {"distinct_rows": distinct,
             "bytes": distinct * 4 * K + idx.size * (4 * K + 4),
             "line_bytes": idx.size * 4 * K * C}
 
 
-def run_probe(device=None, n=None, slots=None, block=None, wave=None,
-              seed: int = 5, reps: int = 20) -> dict:
+def run_probe(device=None, n=None, slots=None, seed: int = 5,
+              reps: int = 20) -> dict:
     """Time the three variants on ``device`` (the card unless ``"cpu"``)
     at the shapes of :data:`SHAPES` unless given; returns the record
     that :func:`main` prints."""
     dev = resolve_device(device)
-    dn, ds, db, dw = SHAPES[dev.type]
+    dn, ds, block, wave = SHAPES[dev.type]
     n, slots = n or dn, slots or ds
-    block, wave = block or db, wave or dw
     out = {"metric": "granule_gather_probe", "platform": dev.type,
            "device_kind": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
@@ -96,8 +98,8 @@ def run_probe(device=None, n=None, slots=None, block=None, wave=None,
     variants = {
         "torch_take": lambda: take(x_d, idx_d),
         "torch_granule": lambda: granule_gather_plain(x_packed, idx_d),
-        "cuda_granule": lambda: cuda_gather.granule_gather(
-            x_packed, idx_d, block, wave),
+        "cuda_granule": lambda: cuda_gather.granule_gather(x_packed,
+                                                           idx_d),
     }
     for name, fn in variants.items():
         got = fn().reshape(-1, K).cpu().numpy()

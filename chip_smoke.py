@@ -47,37 +47,51 @@ Phases, each fatal on failure:
    and stepped at k=16 and k=128 (f32 blocks, 10 chained iterations,
    every step and the chain validated against the host golden; ms/iter
    the median of 7 timed chains), one step with bf16 blocks at each k;
-   K2's and K3's launch counts must equal levels x iterations;
+   K2's and K3's launch counts must equal levels x iterations, K4's
+   (levels - 1) gathers and as many gather-adds an iteration, and a
+   step must equal the step routed by ``index_select`` bit for bit;
 8. per-kernel numbers at the dense path's shapes: K2 and K3 against
    their plain versions on the real blocks, their time per step
    (median of 20), bound, the plain versions' time, and the same
-   function through cuBLAS (f32 blocks) as a yardstick;
-9. granule gather kernel vs plain: K4 against its plain PyTorch version
-   on random rows (with a row of -0.0 and the rows 0 and n - 1) at (n,
-   S, block, wave) in {(2^10, 256, 64, 16), (2^14, 2^12, 64, 16),
-   (2^20, 2^21, 1024, 32)} and two ragged cases with wave = block, equal
-   by value, and bit for bit equal to ``take``;
+   function through cuBLAS (f32 blocks) as a yardstick; K4 over the
+   f32 path's routing, as in phase 11;
+9. K4 vs plain: its row gather and fused gather-add against their
+   plain PyTorch versions (``index_select``, and ``index_select`` then
+   ``add_``) bit for bit, on rows with a -0.0 and a NaN payload, at k in
+   {1, 3, 4, 36} (also on a view off 16-byte alignment: the scalar
+   body), at the probe's shape (n = 2^20, S = 2^21, k = 16) and at the
+   routing's (a permutation of 2^20 rows, k = 16 and 128), each
+   repeated bit for bit; and the probe's granule entry at (n, S) in
+   {(2^10, 256), (2^14, 2^12), (2^20, 2^21), (1000, 360)}, equal to its
+   plain version (granule lines, then the sub-row) by value and to
+   ``take`` bit for bit;
 10. the gather probes at full size (their main path): the granule probe's
    three variants (``torch_take``, ``torch_granule``, K4) with K4's
-   bound, the gather rates of ``take`` (and of ``x[idx]`` beside it)
-   over k, dtype and index order, and the fold step at k = 16 and 128
-   for both carriages, on phase 4's fold (max_levels 10, where the JAX
-   probe decomposes again at 12);
+   bound, the gather rates of ``take`` (and of ``x[idx]`` and, in f32,
+   of K4 beside it) over k, dtype and index order, and the fold step at
+   k = 16 and 128 for both carriages, on phase 4's fold (max_levels 10,
+   where the JAX probe decomposes again at 12);
 11. the other formats at full size, run right after phase 5 on phase
    4's decomposition: ``MultiLevelArrow`` with ``fmt`` auto (dense while
    the levels fit half the card's free memory, then ELL), ell (the head
    resolved as on the card) and hyb, each built, stepped once at k=16
    and k=128 and for a 3-step chain at k=16 against the host golden,
    timed (median of 7 chains of 10 steps, eager and from one CUDA
-   graph; the levels' products and the routing apart), its K1, K2 and
-   K3 launches equal to the formats' per step, then K1 over all its
-   operators (and K2/K3 on auto's dense levels) against the plain
-   versions, with bounds and library calls;
+   graph; the levels' products and the routing apart, the routing as
+   the step runs it (K4) beside the ``index_select`` routing it
+   replaced, with its bound), its K1, K2, K3 and K4 launches equal to
+   the formats' per step, each step bit for bit equal to the step
+   routed by ``index_select``, then K1 over all its operators (and
+   K2/K3 on auto's dense levels) and K4 over its routing (the gathers
+   and the gather-adds apart) against the plain versions, with bounds
+   and library calls;
 12. the ELL head layouts (gell, flat, per-block ELL) and the dense
    format at ``bench.py``'s kernel-comparison shape (BA n = 2^16 m=8,
    width 2048, 2 levels, seed 7): one validated step each, with its
-   launches, and ms/iter (the dense format is left out, and says so,
-   when its blocks would not fit the card's free memory).
+   launches (a flat head adds one K4 gather a level), bit for bit
+   equal to the step routed by ``index_select``, and ms/iter (the dense
+   format is left out, and says so, when its blocks would not fit the
+   card's free memory).
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3).  The line before the last is ``{"kernels": [...]}``;
@@ -105,12 +119,17 @@ REPLACES = {"K1": "arrow_matrix_tpu/ops/pallas_sell.py:298",
             "K2": "arrow_matrix_tpu/ops/pallas_blocks.py:175",
             "K3": "arrow_matrix_tpu/ops/pallas_blocks.py:261",
             "K4": "tools/pallas_gather_probe.py:81"}
-#: Phase 9's (n, S, block, wave): the two shapes of the JAX package's CPU
-#: checks, the probe's full size, and two ragged cases with wave = block
-#: (the last stages 128 KB, over the 48 KB of static shared memory).
-K4_SHAPES = ((1 << 10, 256, 64, 16), (1 << 14, 1 << 12, 64, 16),
-             (1 << 20, 1 << 21, 1024, 32), (1000, 360, 40, 40),
-             (1 << 12, 1 << 12, 256, 256))
+#: Phase 9's (n, S) of the granule entry: the two shapes of the JAX
+#: package's CPU checks, the probe's full size, and a ragged one.
+GRANULE_SHAPES = ((1 << 10, 256), (1 << 14, 1 << 12), (1 << 20, 1 << 21),
+                  (1000, 360))
+#: Phase 9's (n, S, k, misaligned) of the row gather and gather-add: odd
+#: widths, both bodies, the probe's shape and the routing's (S = n: a
+#: permutation of 2^20 rows).
+ROW_SHAPES = ((5000, 20_011, 1, False), (5000, 20_011, 3, False),
+              (5000, 20_011, 4, True), (5000, 20_011, 36, False),
+              (5000, 20_011, 36, True), (1 << 20, 1 << 21, 16, False),
+              (1 << 20, 1 << 20, 16, False), (1 << 20, 1 << 20, 128, False))
 REPS = 7                       # timed runs of each main-path chain
 #: Steps of phase 4's fold validated one by one against the host golden
 #: and then as one chain, by k (the host golden at k=128 costs about 12
@@ -748,7 +767,7 @@ def dense_path(dev, n: int, work: str):
         load_level_widths,
         save_decomposition,
     )
-    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_sell
+    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_gather, cuda_sell
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
         barabasi_albert,
@@ -780,6 +799,7 @@ def dense_path(dev, n: int, work: str):
     # The main path: every count at 0 just before, read just after.
     cuda_sell.LAUNCHES = 0
     cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
+    cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
     torch.cuda.reset_peak_memory_stats()
     launches = {}
     exes = {}
@@ -796,20 +816,26 @@ def dense_path(dev, n: int, work: str):
             f"{sum(b.device_nbytes() for b in exe.blocks)} B on the card; "
             f"pack and upload {t_build:.1f} s; peak device memory so far "
             f"{torch.cuda.max_memory_allocated()} B")
+    # K2, K3, and K4's gathers and gather-adds (one each a level pair).
+    pairs = len(exes["f32"].blocks) - 1
     per_iter = (sum(b.n_blocks > 1 for b in exes["f32"].blocks),
-                len(exes["f32"].blocks))
+                len(exes["f32"].blocks), pairs, pairs)
+
+    def counters():
+        return (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3,
+                cuda_gather.LAUNCHES, cuda_gather.LAUNCHES_ADD)
 
     def count(key, fn, iters):
-        before = (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3)
+        before = counters()
         out = fn()
         torch.cuda.synchronize()
-        delta = (cuda_blocks.LAUNCHES_K2 - before[0],
-                 cuda_blocks.LAUNCHES_K3 - before[1])
-        if delta != (per_iter[0] * iters, per_iter[1] * iters):
-            raise SystemExit(f"dense {key}: (K2, K3) launches {delta}, "
-                             f"expected {per_iter} per iteration x {iters}")
-        old = launches.get(key, (0, 0))
-        launches[key] = (old[0] + delta[0], old[1] + delta[1])
+        delta = tuple(a - b for a, b in zip(counters(), before))
+        if delta != tuple(p * iters for p in per_iter):
+            raise SystemExit(f"dense {key}: (K2, K3, K4, K4 add) launches "
+                             f"{delta}, expected {per_iter} per iteration "
+                             f"x {iters}")
+        launches[key] = tuple(a + b for a, b in
+                              zip(launches.get(key, (0,) * 4), delta))
         return out
 
     row_nnz = nnz / n
@@ -860,13 +886,24 @@ def dense_path(dev, n: int, work: str):
         results[f"bf16_k{k}_rel_err"] = err
         log(f"dense bf16 blocks k={k}: one step, rel err {err:.3e} "
             f"(gate 2e-2)")
-    totals = (cuda_blocks.LAUNCHES_K2, cuda_blocks.LAUNCHES_K3)
+    totals = counters()
     if totals != tuple(sum(v[i] for v in launches.values())
-                       for i in (0, 1)) or cuda_sell.LAUNCHES:
+                       for i in range(4)) or cuda_sell.LAUNCHES:
         raise SystemExit("dense launch counts disagree with their parts")
+    if pairs and not (totals[2] and totals[3]):
+        raise SystemExit("the dense path's routing launched no K4")
     log(f"dense main path: K2.LAUNCHES = {totals[0]}, K3.LAUNCHES = "
-        f"{totals[1]} ({', '.join(f'{k}: {v}' for k, v in launches.items())}"
+        f"{totals[1]}, K4.LAUNCHES = {totals[2]}, K4 add LAUNCHES = "
+        f"{totals[3]} ({', '.join(f'{k}: {v}' for k, v in launches.items())}"
         f"); peak device memory {torch.cuda.max_memory_allocated()} B")
+    # After the counts are read: the routed step against index_select's.
+    for dtype, e in exes.items():
+        for k, xseed in ((16, 3), (128, 4)):
+            check_routed_step(e, e.set_features(random_dense(n, k,
+                                                             seed=xseed)),
+                              f"dense {dtype} k={k}")
+    log("dense: a step of each block dtype at k = 16 and 128 bit for bit "
+        "equal to the step routed by index_select")
     results.update(
         n=n, nnz=nnz, levels=len(levels), widths=ml.widths,
         total_rows=ml.total_rows, host_generate_s=t_gen,
@@ -885,6 +922,9 @@ def dense_path(dev, n: int, work: str):
         kernels += entries
         for name, r in runs.items():
             results[f"{name}_{dtype}_k{k}_ms_runs"] = r
+        if dtype == "f32":
+            kernels += k4_format_numbers(exe, "dense", k,
+                                         launches[(dtype, k)][2:], n)
     return results, kernels
 
 
@@ -921,39 +961,109 @@ def level_k1_ops(exe) -> list:
 
 
 def step_launches(exe, k: int) -> tuple:
-    """(K1, K2, K3) launches of one step of ``exe`` at ``k`` f32
-    features, stated from the kernels' contracts: K1 one launch per
-    operator, two where its longest row is split across CTAs
-    (:func:`k1_per_product`); K2 one per dense level of more than one
-    block, K3 one per dense level."""
+    """(K1, K2, K3, K4 gathers, K4 gather-adds) launches of one step of
+    ``exe`` at ``k`` f32 features, stated from the kernels' contracts:
+    K1 one launch per operator, two where its longest row is split
+    across CTAs (:func:`k1_per_product`); K2 one per dense level of more
+    than one block, K3 one per dense level; K4 one gather forward and
+    one gather-add backward a pair of levels, and one gather a flat
+    ELL head."""
     import torch
 
     dense = [b for b, f in zip(exe.blocks, exe.fmts) if f == "dense"]
+    pairs = len(exe.blocks) - 1
     return (sum(k1_per_product(op, k, torch.float32)
                 for _, _, op in level_k1_ops(exe)),
-            sum(b.n_blocks > 1 for b in dense), len(dense))
+            sum(b.n_blocks > 1 for b in dense), len(dense),
+            pairs + exe.head_layouts().count("flat"), pairs)
 
 
 def level_inputs(exe, x) -> list:
     """Each level's input of one step from the carriage ``x`` (the
-    forward routing)."""
+    forward routing, through K4 as in the step)."""
+    from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather
+
     xs = [x]
     for i in range(len(exe.blocks) - 1):
-        xs.append(xs[-1].index_select(0, exe.fwd[i]))
+        xs.append(row_gather(xs[-1], exe.fwd[i]))
     return xs
 
 
-def split_ms(exe, x) -> tuple:
-    """(products, routing) ms of one step of ``exe`` on ``x``, each the
-    median of 7 CUDA-event timings: every level's product on its input,
-    and the forward ``index_select``s with the backward aggregation
-    (``index_select`` and add)."""
+def index_select_step(exe, x):
+    """One step of ``exe`` with the routing by ``index_select`` and
+    ``add_``, as the executor ran it before K4 carried the routing: the
+    bit-for-bit reference of the step."""
+    from arrow_matrix_tpu_torch.parallel.multi_level import (
+        level_spmm,
+        resolve_chunk,
+    )
+
+    total, k = x.shape
+    partials, cur = [], x
+    for i, (blk, w) in enumerate(zip(exe.blocks, exe.widths)):
+        if i:
+            cur = cur.index_select(0, exe.fwd[i - 1])
+        partials.append(level_spmm(blk, cur, w, resolve_chunk(
+            exe.chunk, blk, total, k, exe.gather_budget)))
+    agg = partials[-1]
+    for i in range(len(exe.blocks) - 1, 0, -1):
+        agg = partials[i - 1].add_(agg.index_select(0, exe.bwd[i - 1]))
+    return agg
+
+
+def check_routed_step(exe, x, tag: str) -> None:
+    """Raise unless one step of ``exe`` on ``x`` equals
+    :func:`index_select_step` bit for bit."""
+    import torch
+
+    got = exe.step(x)
+    want = index_select_step(exe, x)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        raise SystemExit(f"{tag}: the K4-routed step differs from the "
+                         f"index_select-routed step in {diff} elements")
+
+
+def routing_bytes(exe, k: int) -> tuple:
+    """(gather, gather-add) bytes of one step's routing at ``k`` f32
+    features: each table's distinct rows read once, its rows written
+    once, its 4-byte indices read once; the gather-add also reads its
+    base.  (A routing table is a permutation: distinct rows = rows.)"""
+    import torch
+
+    gather = add = 0
+    for tables, fused in ((exe.fwd, False), (exe.bwd, True)):
+        for t in tables:
+            s = t.shape[0]
+            moved = (int(torch.unique(t).numel()) + s) * k * 4 + s * 4
+            if fused:
+                add += moved + s * k * 4
+            else:
+                gather += moved
+    return gather, add
+
+
+def split_ms(exe, x) -> dict:
+    """One step of ``exe`` on ``x`` apart, each the median of 7
+    CUDA-event timings: every level's product on its input
+    (``products``), the routing as the step runs it, K4's gathers
+    forward and gather-adds backward (``routing``), and the routing it
+    replaced, ``index_select`` forward and ``index_select`` then
+    ``add_`` backward (``index_select_routing``); with the routing's
+    bytes bound."""
+    from arrow_matrix_tpu_torch.ops.cuda_gather import (
+        row_gather,
+        row_gather_add_,
+    )
     from arrow_matrix_tpu_torch.parallel.multi_level import level_spmm
     from arrow_matrix_tpu_torch.utils.timing import cuda_ms
 
     xs = level_inputs(exe, x)
+    # Bases the timed aggregations add into, in place, as the step does.
     parts = [level_spmm(b, xi, w) for b, xi, w in
              zip(exe.blocks, xs, exe.widths)]
+    pairs = len(exe.blocks) - 1
 
     def products():
         for b, xi, w in zip(exe.blocks, xs, exe.widths):
@@ -961,13 +1071,112 @@ def split_ms(exe, x) -> tuple:
 
     def routing():
         cur = x
-        for i in range(len(exe.blocks) - 1):
+        for i in range(pairs):
+            cur = row_gather(cur, exe.fwd[i])
+        agg = parts[-1]
+        for i in range(pairs, 0, -1):
+            agg = row_gather_add_(parts[i - 1], agg, exe.bwd[i - 1])
+
+    def index_select_routing():
+        cur = x
+        for i in range(pairs):
             cur = cur.index_select(0, exe.fwd[i])
         agg = parts[-1]
-        for i in range(len(exe.blocks) - 1, 0, -1):
-            agg = parts[i - 1] + agg.index_select(0, exe.bwd[i - 1])
+        for i in range(pairs, 0, -1):
+            agg = parts[i - 1].add_(agg.index_select(0, exe.bwd[i - 1]))
 
-    return cuda_ms(products, 7), cuda_ms(routing, 7)
+    gather_b, add_b = routing_bytes(exe, x.shape[1])
+    return {"products_ms": cuda_ms(products, 7),
+            "routing_ms": cuda_ms(routing, 7),
+            "index_select_routing_ms": cuda_ms(index_select_routing, 7),
+            "routing_bound_ms": (gather_b + add_b) / HBM_BYTES_PER_S * 1e3}
+
+
+def k4_format_numbers(exe, tag: str, k: int, launches: tuple, n: int
+                      ) -> list:
+    """K4 at one format's routing (phases 8 and 11): one step's gathers
+    and gather-adds
+    (each on the step's own shapes and tables) against their plain
+    versions bit for bit, each set timed (median of 20, and from one
+    CUDA graph) beside the plain versions and one PyTorch call each
+    (``index_select``; for the gather-add ``index_add_`` over the
+    inverse table, ``fwd`` being ``bwd``'s inverse), with its bytes
+    bound.  ``launches`` is the main path's (gathers, gather-adds)."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_gather import (
+        row_gather,
+        row_gather_add_,
+    )
+    from arrow_matrix_tpu_torch.ops.gather import (
+        row_gather_add_plain,
+        row_gather_plain,
+    )
+    from arrow_matrix_tpu_torch.parallel.multi_level import level_spmm
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    pairs = len(exe.blocks) - 1
+    xs = level_inputs(exe, exe.set_features(random_dense(n, k, seed=5)))
+    parts = [level_spmm(b, xi, w) for b, xi, w in
+             zip(exe.blocks, xs, exe.widths)]
+    bases = [p.clone() for p in parts[:-1]]
+    gather_args = [(xs[i], exe.fwd[i]) for i in range(pairs)]
+    add_args = [(bases[i], parts[i + 1], exe.bwd[i]) for i in range(pairs)]
+    for i, ((x, t), (b, src, bt)) in enumerate(zip(gather_args, add_args)):
+        got = row_gather(x, t)
+        got_add = row_gather_add_(b.clone(), src, bt)
+        want = row_gather_plain(x, t)
+        want_add = row_gather_add_plain(b.clone(), src, bt)
+        lib_add = b.clone().index_add_(0, exe.fwd[i], src)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                and torch.equal(got_add.view(torch.int32),
+                                want_add.view(torch.int32))):
+            raise SystemExit(f"K4 {tag} k={k}: a routing gather differs "
+                             f"from its plain version")
+        if not torch.equal(lib_add, want_add):
+            raise SystemExit(f"{tag} k={k}: index_add_ over the inverse "
+                             f"table is not the gather-add")
+        del got, got_add, want, want_add, lib_add
+    gather_b, add_b = routing_bytes(exe, k)
+    entries = []
+    for name, kernel, plain, library, bytes_, count in (
+            ("row_gather",
+             lambda: [row_gather(x, t) for x, t in gather_args],
+             lambda: [row_gather_plain(x, t) for x, t in gather_args],
+             lambda: [x.index_select(0, t) for x, t in gather_args],
+             gather_b, launches[0]),
+            ("row_gather_add",
+             lambda: [row_gather_add_(b, src, t) for b, src, t in add_args],
+             lambda: [row_gather_add_plain(b, src, t)
+                      for b, src, t in add_args],
+             lambda: [b.index_add_(0, exe.fwd[i], src)
+                      for i, (b, src, _) in enumerate(add_args)],
+             add_b, launches[1])):
+        runs = cuda_runs(kernel, 20)
+        ms = statistics.median(runs)
+        g_ms, _ = graph_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 5)
+        library_ms = cuda_ms(library, 5)
+        bound = bytes_ / HBM_BYTES_PER_S * 1e3
+        rows = pairs * exe.total_rows
+        lib = ("index_select" if name == "row_gather"
+               else "index_add_ over the inverse table")
+        log(f"K4 {name} {tag} k={k}: {pairs} calls of "
+            f"{exe.total_rows} rows: {ms:.4f} ms/step (median of 20, min "
+            f"{min(runs):.4f}, max {max(runs):.4f}; {count} launches in "
+            f"the main path), {g_ms:.4f} ms from one CUDA graph, "
+            f"{rows / ms / 1e6:.3f} G rows/s; bound {bound:.4f} ms "
+            f"({bytes_} B; {100 * bound / ms:.1f}%), plain {plain_ms:.4f} "
+            f"ms, {lib} {library_ms:.4f} ms; bit for bit equal to plain")
+        entries.append({
+            "name": f"{name}[{tag} routing,k={k}]", "route": "cuda",
+            "source": SOURCES["K4"], "replaces": REPLACES["K4"],
+            "launches": count, "max_abs_err": 0.0, "ms": ms,
+            "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": library_ms})
+    return entries
 
 
 def op_nnz(op) -> int:
@@ -1096,34 +1305,41 @@ def drive_format(exe, tag: str, goldens: dict, row_nnz: float,
     want)}), the 3-step chain at k=16 against ``goldens["chain"]`` (when
     ``chain``), and (when ``timed``) ms/iter over 7 timed chains of
     :data:`CHAIN` steps, eager and from one CUDA graph.  Launch counts
-    must be the formats' (:func:`step_launches`).  Returns (results,
-    {k: (K1, K2, K3) launches})."""
+    must be the formats' (:func:`step_launches`).  After the counts are
+    read, one step at each k must equal the step routed by
+    ``index_select`` bit for bit, and (when ``timed``) the step is timed
+    apart (:func:`split_ms`).  Returns (results, {k: (K1, K2, K3, K4
+    gathers, K4 gather-adds) launches})."""
     import torch
 
-    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_sell
+    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_gather, cuda_sell
     from arrow_matrix_tpu_torch.utils import (
         relative_error,
         relative_tolerance,
     )
     from arrow_matrix_tpu_torch.utils.timing import cuda_runs
 
+    def counters():
+        return (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
+                cuda_blocks.LAUNCHES_K3, cuda_gather.LAUNCHES,
+                cuda_gather.LAUNCHES_ADD)
+
     ks = [k for k in goldens if k != "chain"]
     per = {k: step_launches(exe, k) for k in ks}
-    counts = {k: (0, 0, 0) for k in ks}
+    counts = {k: (0,) * 5 for k in ks}
     cuda_sell.LAUNCHES = 0
     cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
+    cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
 
     def count(k, fn, steps):
-        before = (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
-                  cuda_blocks.LAUNCHES_K3)
+        before = counters()
         out = fn()
         torch.cuda.synchronize()
-        delta = (cuda_sell.LAUNCHES - before[0],
-                 cuda_blocks.LAUNCHES_K2 - before[1],
-                 cuda_blocks.LAUNCHES_K3 - before[2])
+        delta = tuple(a - b for a, b in zip(counters(), before))
         if delta != tuple(p * steps for p in per[k]):
-            raise SystemExit(f"{tag} k={k}: (K1, K2, K3) launches {delta},"
-                             f" expected {per[k]} per step x {steps}")
+            raise SystemExit(f"{tag} k={k}: (K1, K2, K3, K4, K4 add) "
+                             f"launches {delta}, expected {per[k]} per "
+                             f"step x {steps}")
         counts[k] = tuple(a + b for a, b in zip(counts[k], delta))
         return out
 
@@ -1167,30 +1383,38 @@ def drive_format(exe, tag: str, goldens: dict, row_nnz: float,
                 f"{REPS} chains of {CHAIN} (min {min(runs):.4f}, max "
                 f"{max(runs):.4f}); {g_ms:.4f} ms/iter from one CUDA "
                 f"graph")
-    totals = (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
-              cuda_blocks.LAUNCHES_K3)
+    totals = counters()
     if totals != tuple(sum(c[j] for c in counts.values())
-                       for j in range(3)):
+                       for j in range(5)):
         raise SystemExit(f"{tag}: launch counts disagree with their parts")
+    names = ("K1", "K2", "K3", "K4", "K4 add")
     launched = [name for name, total, want in
-                zip(("K1", "K2", "K3"), totals, per[ks[0]])
-                if want and not total]
+                zip(names, totals, per[ks[0]]) if want and not total]
     if launched:
         raise SystemExit(f"{tag}: {launched} launched no time")
-    log(f"{tag} main path: K1.LAUNCHES = {totals[0]}, K2.LAUNCHES = "
-        f"{totals[1]}, K3.LAUNCHES = {totals[2]} (per step "
-        + ", ".join(f"k={k}: {per[k]}" for k in ks) + ")")
+    log(f"{tag} main path: " + ", ".join(
+        f"{name}.LAUNCHES = {total}" for name, total in zip(names, totals))
+        + " (per step " + ", ".join(f"k={k}: {per[k]}" for k in ks) + ")")
     res["launches_per_step"] = {str(k): per[k] for k in ks}
+    # After the main path's counts are read: these launches are not the
+    # main path's.
+    for k in ks:
+        check_routed_step(exe, exe.set_features(goldens[k][0]),
+                          f"{tag} k={k}")
+    log(f"{tag}: one step at each k bit for bit equal to the step routed "
+        f"by index_select")
     for k in ks if timed else ():
-        # After the main path's counts are read: these launches are not
-        # the main path's.
-        prod_ms, route_ms = split_ms(exe, exe.set_features(goldens[k][0]))
-        res.update({f"k{k}_products_ms": prod_ms,
-                    f"k{k}_routing_ms": route_ms})
+        split = split_ms(exe, exe.set_features(goldens[k][0]))
+        res.update({f"k{k}_{key}": v for key, v in split.items()})
+        prod_ms, route_ms = split["products_ms"], split["routing_ms"]
         log(f"{tag} f32 k={k} apart: the levels' products {prod_ms:.4f} "
-            f"ms, routing (forward index_select, backward index_select "
-            f"and add) {route_ms:.4f} ms "
-            f"({100 * route_ms / (prod_ms + route_ms):.1f}%)")
+            f"ms, routing (K4: forward gathers, backward gather-adds) "
+            f"{route_ms:.4f} ms "
+            f"({100 * route_ms / (prod_ms + route_ms):.1f}%; bound "
+            f"{split['routing_bound_ms']:.4f} ms, "
+            f"{100 * split['routing_bound_ms'] / route_ms:.1f}%), the "
+            f"index_select routing it replaced "
+            f"{split['index_select_routing_ms']:.4f} ms")
     return res, counts
 
 
@@ -1246,15 +1470,18 @@ def phase_formats(dev, levels, n: int, width: int, gold: dict) -> tuple:
 def format_kernel_numbers(exe, fmt: str, counts: dict, n: int, rec: dict,
                           dev) -> list:
     """The kernels' entries of one phase 11 format: K1 over its
-    operators, and K2/K3 over its dense levels, at each k of ``counts``
-    ({k: main-path (K1, K2, K3) launches})."""
+    operators, K4 over its routing, and K2/K3 over its dense levels, at
+    each k of ``counts`` ({k: main-path (K1, K2, K3, K4 gathers, K4
+    gather-adds) launches})."""
     from arrow_matrix_tpu_torch.utils import relative_tolerance
 
     entries = []
     dense = [b for b, f in zip(exe.blocks, exe.fmts) if f == "dense"]
-    for k, (k1, k2, k3) in counts.items():
+    for k, (k1, k2, k3, k4, k4_add) in counts.items():
         if k1:
             entries.append(k1_format_numbers(exe, fmt, k, k1, n))
+        if k4:
+            entries += k4_format_numbers(exe, fmt, k, (k4, k4_add), n)
         if dense:
             more, runs = dense_kernel_numbers(
                 dense, k, (k2, k3), f"{fmt},f32,k={k}",
@@ -1335,9 +1562,10 @@ def phase_heads(dev, n: int) -> dict:
     return results
 
 
-def phase_granule_kernel(dev) -> float:
-    """Phase 9: K4 against its plain version.  Returns the max abs
-    error at the probe's full size (n = 2^20, S = 2^21)."""
+def phase_k4_kernel(dev) -> float:
+    """Phase 9: K4 against its plain versions.  Returns the granule
+    entry's max abs error against its plain version at the probe's full
+    size (n = 2^20, S = 2^21)."""
     import numpy as np
     import torch
 
@@ -1345,11 +1573,56 @@ def phase_granule_kernel(dev) -> float:
     from arrow_matrix_tpu_torch.ops.gather import (
         granule_gather_plain,
         pack_granules,
+        row_gather_add_plain,
+        row_gather_plain,
         take,
     )
 
+    def bits(t):
+        return t.view(torch.int32)
+
+    checks = 0
+    for n, s, k, misalign in ROW_SHAPES:
+        rng = np.random.default_rng(n + s + k)
+        host = rng.standard_normal((n, k)).astype(np.float32)
+        host[0] = -0.0
+        host.view(np.int32)[1, 0] = 0x7FC12345        # a NaN's payload
+        x = torch.from_numpy(host).to(dev)
+        if misalign:
+            buf = torch.empty(n * k + 1, device=dev)
+            buf[1:] = x.view(-1)
+            x = buf[1:].view(n, k)
+        if s == n:                                     # a routing table
+            idx = rng.permutation(n).astype(np.int32)
+        else:
+            idx = rng.integers(0, n, size=s, dtype=np.int32)
+            idx[:3] = (0, 1, n - 1)
+        it = torch.from_numpy(idx).to(dev)
+        base = torch.from_numpy(rng.standard_normal((s, k)).astype(
+            np.float32)).to(dev)
+        got = cuda_gather.row_gather(x, it)
+        again = cuda_gather.row_gather(x, it)
+        added = cuda_gather.row_gather_add_(base.clone(), x, it)
+        added2 = cuda_gather.row_gather_add_(base.clone(), x, it)
+        want = row_gather_plain(x, it)
+        want_add = row_gather_add_plain(base, x, it)
+        torch.cuda.synchronize()
+        for what, a, b in (("gather != index_select", got, want),
+                           ("gather not repeated", again, got),
+                           ("gather-add != index_select + add_", added,
+                            want_add),
+                           ("gather-add not repeated", added2, added)):
+            checks += 1
+            if not torch.equal(bits(a), bits(b)):
+                raise SystemExit(f"K4 {what} at n={n} S={s} k={k} "
+                                 f"misaligned={misalign}")
+        log(f"K4 n={n} S={s} k={k}{' (misaligned view)' if misalign else ''}:"
+            f" gather and gather-add bit for bit equal to index_select "
+            f"(+ add_) and to a second launch; -0.0 and the NaN payload "
+            f"kept")
+        del x, it, base, got, again, added, added2, want, want_add
     full_err = None
-    for n, s, block, wave in K4_SHAPES:
+    for n, s in GRANULE_SHAPES:
         rng = np.random.default_rng(n + s)
         x = rng.standard_normal((n, 16)).astype(np.float32)
         x[5] = -0.0
@@ -1357,22 +1630,24 @@ def phase_granule_kernel(dev) -> float:
         idx[:3] = (0, n - 1, 5)
         xp = pack_granules(torch.from_numpy(x).to(dev))
         it = torch.from_numpy(idx).to(dev)
-        got = cuda_gather.granule_gather(xp, it, block, wave)
+        got = cuda_gather.granule_gather(xp, it)
         want = granule_gather_plain(xp, it)
-        bits = take(xp.view(-1, 16), it).view(torch.int32)
+        rows = take(xp.view(-1, 16), it)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        checks += 2
         if not torch.equal(got, want):
-            raise SystemExit(f"K4 != plain at n={n} S={s} block={block} "
-                             f"wave={wave}: max abs err {err:.3e}")
-        if not torch.equal(got.view(-1, 16).view(torch.int32), bits):
-            raise SystemExit(f"K4 did not copy the rows' bits at n={n} "
-                             f"S={s} block={block} wave={wave}")
+            raise SystemExit(f"K4's granule entry != plain at n={n} S={s}: "
+                             f"max abs err {err:.3e}")
+        if not torch.equal(bits(got.view(-1, 16)), bits(rows)):
+            raise SystemExit(f"K4's granule entry did not copy the rows' "
+                             f"bits at n={n} S={s}")
         if (n, s) == (1 << 20, 1 << 21):
             full_err = err
-        log(f"K4 n={n} S={s} block={block} wave={wave}: equal to plain by "
-            f"value, to take bit for bit (the -0.0 row kept its sign)")
-    log(f"phase 9: {len(K4_SHAPES)} K4-vs-plain checks passed")
+        log(f"K4 granule entry n={n} S={s}: equal to plain by value, to "
+            f"take bit for bit (the -0.0 row kept its sign)")
+    torch.cuda.empty_cache()
+    log(f"phase 9: {checks} K4-vs-plain checks passed")
     return full_err
 
 
@@ -1385,15 +1660,19 @@ def phase_probes(dev, ml, k4_err: float) -> tuple:
     from arrow_matrix_tpu_torch.tools import gather_probe, granule_gather_probe
 
     # The main path: every count at 0 just before, read just after.
-    cuda_sell.LAUNCHES = cuda_gather.LAUNCHES = 0
+    cuda_sell.LAUNCHES = cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
     cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
     probe = granule_gather_probe.run_probe(dev)
     rates = gather_probe.gather_rates(device=dev)
     folds = [gather_probe.fold_step(k, ml) for k in (16, 128)]
     torch.cuda.synchronize()
     k4_launches, k1_launches = cuda_gather.LAUNCHES, cuda_sell.LAUNCHES
-    if not k4_launches:
-        raise SystemExit("phase 10: the granule probe launched no K4")
+    # The granule probe: 1 checked call + 1 warm-up + 20 timed; the f32
+    # gather rates: per k and index order 1 checked + 1 warm-up + 10.
+    k4_expected = 22 + 12 * sum(1 for r in rates if "k4_ms" in r)
+    if k4_launches != k4_expected or cuda_gather.LAUNCHES_ADD:
+        raise SystemExit(f"phase 10: {k4_launches} K4 launches, expected "
+                         f"{k4_expected}, and no gather-add")
     # fold_step takes, per k and carriage, one step and 1 + 7 timed
     # chains of 10 (chained_iteration_ms): 81 products of K1's launches.
     k1_expected = sum(81 * k1_per_product(ml.sell, k, dtype)
@@ -1408,23 +1687,27 @@ def phase_probes(dev, ml, k4_err: float) -> tuple:
     if not all(r["exact"] for r in v.values()) or "verdict" not in probe:
         raise SystemExit(f"granule probe: a variant was not exact: {v}")
     bound = probe["bound_ms"]
-    log(f"phase 10 granule probe (n={probe['n']}, S={probe['slots']}, "
-        f"block {probe['block']}, wave {probe['wave']}; "
+    log(f"phase 10 granule probe (n={probe['n']}, S={probe['slots']}; "
         f"{probe['distinct_rows']} distinct rows): " + "; ".join(
             f"{name} {r['ms']:.4f} ms ({r['mslots_s']:.1f} M slots/s, "
             f"{100 * bound / r['ms']:.1f}% of bound)"
             for name, r in v.items())
-        + f"; K4 bound {bound:.4f} ms ({probe['bytes']} B), line traffic "
-        f"{probe['line_bytes']} B; cuda_vs_torch "
+        + f"; K4 bound {bound:.4f} ms ({probe['bytes']} B; the TPU "
+        f"kernel's lines would move {probe['line_bytes']} B), K4 "
+        f"{probe['bytes'] / v['cuda_granule']['ms'] / 1e9:.3f} TB/s; "
+        f"cuda_vs_torch "
         f"{probe['cuda_vs_torch']:.3f}: {probe['verdict']}; "
         f"K4.LAUNCHES = {k4_launches}")
     for r in rates:
-        if not r["exact"]:
-            raise SystemExit(f"gather_rates: take was not exact: {r}")
+        if not r["exact"] or not r.get("k4_exact", True):
+            raise SystemExit(f"gather_rates: a gather was not exact: {r}")
+        k4 = (f"; K4 {r['k4_ms']:.4f} ms ({r['k4_mslots_s']:.1f} M "
+              f"slots/s, {r['k4_mslots_s'] / r['mslots_s']:.2f}x take)"
+              if "k4_ms" in r else "")
         log(f"phase 10 take k={r['k']:3d} {r['dtype']:4s} {r['order']:6s}: "
             f"{r['ms']:.4f} ms ({r['mslots_s']:.1f} M slots/s, "
             f"{r['slots']} slots); x[idx] {r['index_ms']:.4f} ms "
-            f"({r['index_mslots_s']:.1f} M slots/s)")
+            f"({r['index_mslots_s']:.1f} M slots/s){k4}")
     for rec in folds:
         if not gather_probe.fold_gate(rec, ml.nnz / ml.n):
             raise SystemExit(f"fold_step k={rec['k']}: kernel != plain "
@@ -1474,7 +1757,12 @@ def main() -> int:
         load_level_widths,
         save_decomposition,
     )
-    from arrow_matrix_tpu_torch.ops import _build, cuda_blocks, cuda_sell
+    from arrow_matrix_tpu_torch.ops import (
+        _build,
+        cuda_blocks,
+        cuda_gather,
+        cuda_sell,
+    )
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
         barabasi_albert,
@@ -1545,6 +1833,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     cuda_sell.LAUNCHES = 0
     cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
+    cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
     launches = {}
 
     def count(key, fn, iters, sell):
@@ -1659,8 +1948,10 @@ def main() -> int:
     total = cuda_sell.LAUNCHES
     if total != sum(launches.values()):
         raise SystemExit("launch count disagrees with its parts")
-    if cuda_blocks.LAUNCHES_K2 or cuda_blocks.LAUNCHES_K3:
-        raise SystemExit("the fold path launched a dense-block kernel")
+    if (cuda_blocks.LAUNCHES_K2 or cuda_blocks.LAUNCHES_K3
+            or cuda_gather.LAUNCHES or cuda_gather.LAUNCHES_ADD):
+        raise SystemExit("the fold path launched a dense-block or a "
+                         "gather kernel")
     log(f"main path: K1.LAUNCHES = {total} "
         f"({', '.join(f'{k}: {v}' for k, v in launches.items())}); peak "
         f"device memory {torch.cuda.max_memory_allocated()} B")
@@ -1687,8 +1978,8 @@ def main() -> int:
     results["dense"], dense_kernels = dense_phases(dev, n_dense, work)
     kernels += dense_kernels
 
-    # -- 9-10. the granule gather kernel and the gather probes ---------------
-    k4_err = phase_granule_kernel(dev)
+    # -- 9-10. K4 and the gather probes ---------------------------------------
+    k4_err = phase_k4_kernel(dev)
     results["probes"], k4_entry = phase_probes(dev, ml, k4_err)
     kernels.append(k4_entry)
     del ml

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: K1 (SELL
 tier; also on the ELL and HYB levels' operators), K2/K3 (dense arrow
-column blocks and head row) and K4 (granule gather).
+column blocks and head row) and K4 (the row gather and fused gather-add,
+the granule probe's entry, and the per-level executors' routing).
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a
 card (and without JAX) run them as
@@ -29,6 +30,7 @@ from arrow_matrix_tpu_torch.ops.hyb import hyb_from_csr, hyb_spmm
 from arrow_matrix_tpu_torch.ops.gather import (
     granule_gather_plain,
     pack_granules,
+    row_gather_add_plain,
     take,
 )
 from arrow_matrix_tpu_torch.ops.ell import (
@@ -38,6 +40,10 @@ from arrow_matrix_tpu_torch.ops.ell import (
     out_dtype_for,
 )
 from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+from arrow_matrix_tpu_torch.parallel.multi_level import (
+    level_spmm,
+    resolve_chunk,
+)
 from arrow_matrix_tpu_torch.utils import (
     barabasi_albert,
     bf16_within_one_ulp,
@@ -324,15 +330,14 @@ def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda_blocks.head_spmm(a.cpu(), x)
 
 
-# The shapes of chip_smoke.py phase 9: (n, S, block, wave), the last two
-# ragged with wave = block (the last over 48 KB of shared memory).
-K4_SHAPES = [(1 << 10, 256, 64, 16), (1 << 14, 1 << 12, 64, 16),
-             (1 << 20, 1 << 21, 1024, 32), (1000, 360, 40, 40),
-             (1 << 12, 1 << 12, 256, 256)]
+# The granule entry's shapes of chip_smoke.py phase 9: (n, S), the
+# JAX package's two CPU shapes, the probe's full size and a ragged one.
+K4_SHAPES = [(1 << 10, 256), (1 << 14, 1 << 12), (1 << 20, 1 << 21),
+             (1000, 360)]
 
 
-@pytest.mark.parametrize("n,s,block,wave", K4_SHAPES)
-def test_granule_kernel_matches_plain(cuda, n, s, block, wave):
+@pytest.mark.parametrize("n,s", K4_SHAPES)
+def test_granule_kernel_matches_plain(cuda, n, s):
     rng = np.random.default_rng(n + s)
     x = rng.standard_normal((n, 16)).astype(np.float32)
     x[5] = -0.0
@@ -341,7 +346,7 @@ def test_granule_kernel_matches_plain(cuda, n, s, block, wave):
     xp = pack_granules(torch.from_numpy(x).to(cuda))
     it = torch.from_numpy(idx).to(cuda)
     before = cuda_gather.LAUNCHES
-    got = cuda_gather.granule_gather(xp, it, block, wave)
+    got = cuda_gather.granule_gather(xp, it)
     assert cuda_gather.LAUNCHES == before + 1
     want = granule_gather_plain(xp, it)
     torch.cuda.synchronize()
@@ -358,13 +363,103 @@ def test_granule_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     xp = torch.zeros((32, 128), device=cuda)
     idx = torch.zeros(256, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="is on"):
-        cuda_gather.granule_gather(xp, idx.cpu(), 64, 16)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        flat = torch.zeros(33 * 128 + 1, device=cuda)
-        cuda_gather.granule_gather(flat[1:1 + 32 * 128].view(32, 128), idx,
-                                   64, 16)
+        cuda_gather.granule_gather(xp, idx.cpu())
     with pytest.raises(ValueError, match="multiple of 8"):
-        cuda_gather.granule_gather(xp, idx, 64, 24)
+        cuda_gather.granule_gather(xp, idx[:252])
+    with pytest.raises(ValueError, match="overlaps x"):
+        cuda_gather.row_gather_add_(xp.view(-1, 16)[:256], xp.view(-1, 16),
+                                    idx)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _gather_inputs(dev, n, k, s, seed, misalign):
+    """``(x, base, idx)`` on the card: features with a ``-0.0`` row and a
+    NaN with a payload, on a view 4 bytes off 16-byte alignment when
+    ``misalign`` (the kernel's scalar body)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    x[0] = -0.0
+    x.view(torch.int32)[1, 0] = 0x7FC12345
+    if misalign:
+        buf = torch.empty(n * k + 1, device=dev)
+        buf[1:] = x.reshape(-1).to(dev)
+        xd = buf[1:].view(n, k)
+        assert xd.data_ptr() % 16
+    else:
+        xd = x.to(dev)
+    base = torch.from_numpy(rng.standard_normal((s, k)).astype(
+        np.float32)).to(dev)
+    idx = rng.integers(0, n, size=s, dtype=np.int32)
+    idx[:3] = (0, 1, n - 1)
+    return xd, base, torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 16, 36, 128])
+@pytest.mark.parametrize("misalign", [False, True])
+def test_row_gather_matches_index_select_bit_for_bit(cuda, k, misalign):
+    x, base, idx = _gather_inputs(cuda, 5000, k, 20_011, seed=k,
+                                  misalign=misalign)
+    before = (cuda_gather.LAUNCHES, cuda_gather.LAUNCHES_ADD)
+    got = cuda_gather.row_gather(x, idx)
+    again = cuda_gather.row_gather(x, idx)
+    out = base.clone()
+    assert cuda_gather.row_gather_add_(out, x, idx) is out
+    out2 = cuda_gather.row_gather_add_(base.clone(), x, idx)
+    assert (cuda_gather.LAUNCHES - before[0],
+            cuda_gather.LAUNCHES_ADD - before[1]) == (2, 2)
+    torch.cuda.synchronize()
+    want = x.index_select(0, idx)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(again), _bits(got))
+    assert bool(torch.signbit(got[0]).all())          # -0.0 kept
+    assert int(_bits(got)[1, 0]) == 0x7FC12345        # the NaN's payload
+    assert torch.equal(_bits(out), _bits(base + want))
+    assert torch.equal(_bits(out), _bits(
+        row_gather_add_plain(base.clone(), x, idx)))
+    assert torch.equal(_bits(out2), _bits(out))
+
+
+def _index_select_step(exe, x):
+    """One step of ``exe`` routed by ``index_select`` and an add."""
+    total, k = x.shape
+    partials, cur = [], x
+    for i, (blk, w) in enumerate(zip(exe.blocks, exe.widths)):
+        if i:
+            cur = cur.index_select(0, exe.fwd[i - 1])
+        partials.append(level_spmm(blk, cur, w, resolve_chunk(
+            exe.chunk, blk, total, k, exe.gather_budget)))
+    agg = partials[-1]
+    for i in range(len(exe.blocks) - 1, 0, -1):
+        agg = partials[i - 1].add_(agg.index_select(0, exe.bwd[i - 1]))
+    return agg
+
+
+@pytest.mark.parametrize("fmt,head_fmt", [("ell", "gell"), ("ell", "flat"),
+                                          ("hyb", "auto"), ("dense", "auto")])
+def test_per_level_step_routes_through_k4(cuda, fmt, head_fmt):
+    levels = _ell_levels(False)
+    x = random_dense(4096, 16, seed=7)
+    gpu = MultiLevelArrow(levels, 64, fmt=fmt, head_fmt=head_fmt,
+                          device=cuda)
+    cpu = MultiLevelArrow(levels, 64, fmt=fmt, head_fmt=head_fmt,
+                          device="cpu")
+    flat = gpu.head_layouts().count("flat")
+    assert flat == (len(levels) if head_fmt == "flat" else 0)
+    xd = gpu.set_features(x)
+    before = (cuda_gather.LAUNCHES, cuda_gather.LAUNCHES_ADD)
+    y = gpu.step(xd)
+    torch.cuda.synchronize()
+    assert (cuda_gather.LAUNCHES - before[0],
+            cuda_gather.LAUNCHES_ADD - before[1]) == (
+        len(levels) - 1 + flat, len(levels) - 1)
+    assert torch.equal(_bits(y), _bits(_index_select_step(gpu, xd)))
+    assert torch.equal(_bits(gpu.step(xd)), _bits(y))
+    want = cpu.gather_result(cpu.step(cpu.set_features(x)))
+    assert relative_error(gpu.gather_result(y), want) <= \
+        relative_tolerance(gpu.nnz / 4096)
 
 
 def _ell_levels(banded):

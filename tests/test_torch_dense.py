@@ -90,7 +90,7 @@ def test_routing_tables_and_masks_equal_jax(graph, block_diagonal, banded):
                            device="cpu")
     theirs = JaxArrow(levels, WIDTH, fmt="dense", banded=banded)
     assert np.array_equal(ours.perm0, theirs.perm0)
-    assert ours.fwd.dtype == ours.bwd.dtype == torch.int64
+    assert ours.fwd.dtype == ours.bwd.dtype == torch.int32
     assert np.array_equal(ours.fwd.numpy(), np.asarray(theirs.fwd))
     assert np.array_equal(ours.bwd.numpy(), np.asarray(theirs.bwd))
     perms = [lvl.permutation for lvl in levels]

@@ -95,7 +95,7 @@ for fmt in ("ell", "hyb"):
         other.gather_result(other.step(other.set_features(x))),
         decomposition_spmm(levels, x))
     assert err_fmt < 1e-5, (fmt, err_fmt)
-probe = granule_gather_probe.run_probe("cpu", 1024, 256, 64, 16, reps=1)
+probe = granule_gather_probe.run_probe("cpu", 1024, 256, reps=1)
 assert all(v["exact"] for v in probe["variants"].values()), probe
 assert all(r["exact"] for r in gather_probe.gather_rates(
     n=256, m=2, device="cpu", ks=(16,), reps=1))
