@@ -1,8 +1,9 @@
 """Carry state across from the JAX package.
 
-The "weights" of this system are its packed operators: the fold
-operator (per-tier SELL arrays plus the carried permutation) and the
-dense arrow blocks of each level.  Three ways in:
+The "weights" of this system are its packed operators (the fold
+operator: per-tier SELL arrays plus the carried permutation; the dense
+arrow blocks of each level) and the parameters of its models.  Four
+ways in:
 
   * :func:`sell_from_numpy` turns the arrays of a JAX ``SellMatrix``
     (as numpy, via ``np.asarray``) into the port's ``SellMatrix``;
@@ -10,7 +11,9 @@ dense arrow blocks of each level.  Three ways in:
     package's ``MultiLevelArrow.export_folded`` — the same format the
     port writes, so this is ``MultiLevelArrow.load_folded``;
   * :func:`arrow_blocks_from_numpy` turns the dense stacks of a JAX
-    ``ArrowBlocks`` into the port's ``ArrowBlocks``.
+    ``ArrowBlocks`` into the port's ``ArrowBlocks``;
+  * :func:`load_jax_params` copies a JAX model's parameters (``SGCParams``
+    ``w``/``b`` as numpy) into a port model (``models/propagation.py``).
 
 Nothing here imports JAX: the caller hands over numpy arrays or a path.
 """
@@ -21,6 +24,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from arrow_matrix_tpu_torch.ops.arrow_blocks import ArrowBlocks
 from arrow_matrix_tpu_torch.ops.sell import SellMatrix, sell_from_arrays
@@ -97,3 +101,28 @@ def arrow_blocks_from_numpy(head: np.ndarray, diag: np.ndarray,
     return ArrowBlocks(head_data=head_t, diag_data=diag_t, col_data=col_t,
                        lo_data=lo_t, hi_data=hi_t, width=width,
                        n_blocks=shape[0], banded=banded)
+
+
+def load_jax_params(model, params) -> None:
+    """Copy JAX parameters into the port model ``model`` in place (any
+    module whose ``params`` is an ``SGCParams`` or a list of them).
+    ``params`` is one ``(w, b)`` pair of numpy arrays (``np.asarray`` of a
+    JAX ``SGCParams``' fields: ``w`` ``(k_in, k_out)``, ``b`` ``(k_out,)``)
+    for SGC and APPNP models, a list of pairs, one a layer, for GCN
+    models."""
+    heads = model.params
+    if isinstance(heads, nn.ModuleList):
+        if not isinstance(params, list) or len(params) != len(heads):
+            raise ValueError(f"a GCN model takes a list of {len(heads)} "
+                             f"(w, b) pairs, one a layer")
+        pairs = list(params)
+    else:
+        heads, pairs = [heads], [params]
+    with torch.no_grad():
+        for head, (w, b) in zip(heads, pairs):
+            for dst, src in ((head.w, w), (head.b, b)):
+                src = np.asarray(src, dtype=np.float32)
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"parameter of shape {src.shape}, "
+                                     f"the model's is {tuple(dst.shape)}")
+                dst.copy_(torch.from_numpy(np.array(src)))

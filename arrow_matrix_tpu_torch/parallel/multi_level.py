@@ -43,6 +43,13 @@ The int8 carriage is a symmetric per-feature pair ``(q, scale)``:
 in the JAX package).  SpMM is separable per feature column, so the
 scale rides outside the kernel and the only error is the per-step
 requantization.
+
+Gradients.  ``step`` and ``step_fn`` go through
+``parallel/autograd.py:StepFunction``: the backward of a step is one
+step over the transposed operator (:meth:`MultiLevelArrow.transposed`),
+which on the card runs the same kernels, so a model whose gradient
+crosses a propagation trains through K1-K4.  The int8 carriage takes no
+gradient.
 """
 
 from __future__ import annotations
@@ -82,6 +89,11 @@ from arrow_matrix_tpu_torch.ops.sell import (
     resolve_binary,
     sell_from_arrays,
     sell_pack_numpy,
+)
+from arrow_matrix_tpu_torch.parallel.autograd import (
+    StepFunction,
+    Transposed,
+    build_transposed,
 )
 from arrow_matrix_tpu_torch.utils.device import DeviceLike, resolve_device
 from arrow_matrix_tpu_torch.utils.platform import (
@@ -297,6 +309,12 @@ class MultiLevelArrow:
     or None) bounds the plain ELL/HYB gathers' intermediate; the kernels
     need none.  Every format but the fold carries float32.
 
+    The models' interface is the JAX class's: ``step_fn`` and
+    ``step_operands()`` (``step(x) == step_fn(x, *step_operands())``),
+    ``carries_feature_major`` (the fold), ``carried_mask`` and
+    ``real_row_mask``; ``step`` is differentiable, its backward
+    :meth:`transposed_step` over :meth:`transposed`.
+
     The JAX class's multi-device and fold tuning options (``mesh``,
     ``routing``, ``layout``, ``kernel``, ``repl``, ``overlap_slabs``,
     ``plan``, ``kernel_opts``) raise ``NotImplementedError`` naming the
@@ -364,6 +382,7 @@ class MultiLevelArrow:
                        for lvl, w in zip(levels, widths))
         self.total_rows = pad_to_multiple(max_rows, max(widths))
         self.binary = resolve_levels_binary(levels, binary)
+        self._transposed: Optional[Transposed] = None
         if self.folded:
             self.fmts = ["fold"]
             self._init_folded(levels, fold_growth, fold_align)
@@ -411,29 +430,16 @@ class MultiLevelArrow:
         single-device non-fold ``__init__``).  One level is built,
         uploaded and its host arrays dropped before the next; on the
         card each ELL and HYB level's K1 operators are built here too,
-        so no step does set-up work."""
+        so no step does set-up work.  The levels are kept (a reference,
+        no copy) for the transposed operator of the backward."""
         total = self.total_rows
         self.dtype = resolve_block_dtype(dtype)
-        itemsize = self.dtype.itemsize
-        self.fmts = self._level_formats(bandeds, itemsize)
-        self.blocks: list = []
-        for lvl, w, bd, f in zip(levels, self.widths, bandeds, self.fmts):
-            if f == "hyb":
-                blk = hyb_from_csr(lvl.matrix, pad_rows_to=total,
-                                   dtype=self.dtype, binary=self.binary,
-                                   device=self.device)
-            else:
-                hf = (self._head_format(lvl.matrix, w, head_fmt, itemsize)
-                      if f == "ell" else "auto")
-                blk = arrow_blocks_from_csr(
-                    lvl.matrix, w, pad_blocks_to=total // w, banded=bd,
-                    dtype=self.dtype, fmt=f, head_fmt=hf,
-                    binary=self.binary, device=self.device)
-            if self.device.type == "cuda" and f == "hyb":
-                hyb_operands(blk)
-            elif self.device.type == "cuda" and f == "ell":
-                k1_operands(blk)
-            self.blocks.append(blk)
+        self.fmts = self._level_formats(bandeds, self.dtype.itemsize)
+        self.levels = list(levels)
+        self.bandeds = list(bandeds)
+        self.head_fmt = head_fmt
+        self.blocks = [self.pack_level(i, lvl.matrix)
+                       for i, lvl in enumerate(levels)]
         fwd, bwd = compose_routing([lvl.permutation for lvl in levels],
                                    total)
         self.fwd = torch.from_numpy(fwd).to(self.device)
@@ -443,6 +449,29 @@ class MultiLevelArrow:
         self.inv_perm0 = np.argsort(self.perm0)
         self.nnz = sum(num_nonzeros(lvl.matrix) for lvl in levels)
         self.gather_budget = gather_budget_for(self.dense_budget)
+
+    def pack_level(self, i: int, matrix):
+        """Level ``i``'s operator for ``matrix`` (the level's matrix, or
+        its transpose) in the level's format, width and tiling, on the
+        device; an ELL head in ``head_fmt`` resolved for ``matrix``; on
+        the card with its K1 operators built."""
+        w, f, total = self.widths[i], self.fmts[i], self.total_rows
+        if f == "hyb":
+            blk = hyb_from_csr(matrix, pad_rows_to=total, dtype=self.dtype,
+                               binary=self.binary, device=self.device)
+        else:
+            hf = (self._head_format(matrix, w, self.head_fmt,
+                                    self.dtype.itemsize)
+                  if f == "ell" else "auto")
+            blk = arrow_blocks_from_csr(
+                matrix, w, pad_blocks_to=total // w, banded=self.bandeds[i],
+                dtype=self.dtype, fmt=f, head_fmt=hf, binary=self.binary,
+                device=self.device)
+        if self.device.type == "cuda" and f == "hyb":
+            hyb_operands(blk)
+        elif self.device.type == "cuda" and f == "ell":
+            k1_operands(blk)
+        return blk
 
     def _init_folded(self, levels, growth: float,
                      slot_align: Optional[int]) -> None:
@@ -503,6 +532,15 @@ class MultiLevelArrow:
     @property
     def int8(self) -> bool:
         return self.feature_dtype == torch.int8
+
+    @property
+    def carries_feature_major(self) -> bool:
+        """The carried-layout capability flag the models key on (the
+        ``*Carried`` classes and the solvers that mask by
+        ``carried_mask``): True for ``fmt="fold"``.  The JAX name is
+        kept; the port's fold carriage is row-major ``(total_rows, k)``
+        where the JAX package's is feature-major ``(k, positions)``."""
+        return self.folded
 
     def set_features(self, x_original: np.ndarray):
         """Host (n, k) features in original row order -> the device
@@ -572,16 +610,72 @@ class MultiLevelArrow:
 
     # -- iteration ---------------------------------------------------------
 
-    def step(self, x):
-        """One iteration ``X := A @ X`` on the carriage."""
+    def step_operands(self) -> tuple:
+        """The device operands of one step: ``(fwd, bwd, blocks)`` per
+        level as in the JAX package, ``(sell,)`` for the fold;
+        ``step(x) == step_fn(x, *step_operands())``."""
+        if self.folded:
+            return (self.sell,)
+        return (self.fwd, self.bwd, self.blocks)
+
+    @property
+    def step_fn(self):
+        """The step callable, ``step(x) == step_fn(x, *step_operands())``
+        (the JAX pair, for callers that thread the operands).  Its
+        backward is this executor's transposed step, so it takes this
+        executor's own operands and raises ``ValueError`` on others."""
+        return self._step_fn
+
+    def _step_fn(self, x, *operands):
+        own = self.step_operands()
+        if len(operands) != len(own) or any(
+                a is not b for a, b in zip(operands, own)):
+            raise ValueError(
+                "step_fn takes this executor's step_operands(): its "
+                "backward is the transpose of this executor's operator")
+        if isinstance(x, tuple):           # the int8 pair: no gradient
+            return self.raw_step(x, *operands)
+        return StepFunction.apply(x, self, operands)
+
+    def raw_step(self, x, *operands):
+        """The step's kernels on ``operands``, with no autograd: the
+        per-level product and routing, or the fold's K1 product (int8:
+        then requantized)."""
         if not self.folded:
-            return multi_level_spmm(x, self.fwd, self.bwd, self.blocks,
+            fwd, bwd, blocks = operands
+            return multi_level_spmm(x.contiguous(), fwd, bwd, blocks,
                                     self.widths, chunk=self.chunk,
                                     gather_budget=self.gather_budget)
+        (sell,) = operands
         if isinstance(x, tuple):
             q, scale = x
-            return requantize(sell_spmm_cuda(self.sell, q) * scale)
-        return sell_spmm_cuda(self.sell, x)
+            return requantize(sell_spmm_cuda(sell, q) * scale)
+        return sell_spmm_cuda(sell, x.contiguous())
+
+    def step(self, x):
+        """One iteration ``X := A @ X`` on the carriage, differentiable
+        in ``x`` (its backward is :meth:`transposed_step`)."""
+        return self._step_fn(x, *self.step_operands())
+
+    def transposed(self) -> Transposed:
+        """``Aᵀ`` in this executor's formats, built at the first call
+        (``parallel/autograd.py``): symmetric levels (the fold: a
+        symmetric operator) reuse the forward operator and pack
+        nothing."""
+        if self._transposed is None:
+            self._transposed = build_transposed(self)
+        return self._transposed
+
+    def transposed_step(self, g: torch.Tensor) -> torch.Tensor:
+        """``Aᵀ g`` on the f32 carriage, with no autograd: the step's
+        routing over the transposed levels, or for the fold K1 over the
+        pack of ``Sᵀ`` and one K4 row gather back into carriage order."""
+        t = self.transposed()
+        if not self.folded:
+            return self.raw_step(g, self.fwd, self.bwd, t.blocks)
+        if t.sell is None:
+            return self.raw_step(g, self.sell)
+        return row_gather(sell_spmm_cuda(t.sell, g), t.inv)
 
     def run(self, x, iterations: int, donate: bool = False):
         """``iterations`` chained steps.  ``donate`` is the reference's
@@ -634,6 +728,7 @@ class MultiLevelArrow:
         self.fmt = "fold"
         self.fmts = ["fold"]
         self.folded = True
+        self._transposed = None
         self.n = meta["n"]
         self.total_rows = meta["total_rows"]
         self.binary = meta["binary"]

@@ -91,7 +91,28 @@ Phases, each fatal on failure:
    launches (a flat head adds one K4 gather a level), bit for bit
    equal to the step routed by ``index_select``, and ms/iter (the dense
    format is left out, and says so, when its blocks would not fit the
-   card's free memory).
+   card's free memory);
+13. the model families at full size, run right after phase 11 on phase
+   4's decomposition (k_in = hidden = 128, k_out = 16; 5 Adam steps
+   each, forward, backward and train-step ms from CUDA events, median of
+   the last 4 steps, with the launches of each kernel per step and the
+   propagation's bound): on the symmetric ``D^-1/2 A D^-1/2`` (each
+   level's rows and columns scaled), where the backward runs the
+   forward operator, ``SGCModel`` (2 hops), ``GCNModel`` (128, 128, 16)
+   and ``APPNPModel`` (10 hops, alpha 0.1) on ``fmt="auto"`` and their
+   carried forms on its fold; on the asymmetric ``D⁻¹A`` (each level's
+   rows scaled), where the backward runs the kernels over transposed
+   packs, ``GCNModel`` on ``hyb``, ``GCNCarried`` on its fold and
+   ``GCNModel`` on ``dense`` at phase 7's shape; every first-step
+   forward and gradient against a float64 host golden (scipy with the
+   explicit transpose, numpy for the dense layers; computed in a thread
+   beside the card's work), the losses finite and falling; one ``Aᵀ g``
+   against scipy for every format family; the solvers (power iteration
+   and CG on phase 4's fold, label propagation over ``D⁻¹A`` and
+   PageRank over ``A D⁻¹`` on hyb) against their float64 host
+   iterations; K1 and K4 over the transposed packs and K2/K3 over the
+   transposed dense blocks against their plain versions, with bounds and
+   library calls.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3).  The line before the last is ``{"kernels": [...]}``;
@@ -146,6 +167,23 @@ T0 = time.perf_counter()
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.1f}s] {msg}", flush=True)
+
+
+def counters() -> tuple:
+    """(K1, K2, K3, K4 gathers, K4 gather-adds) launches so far."""
+    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_gather, cuda_sell
+
+    return (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
+            cuda_blocks.LAUNCHES_K3, cuda_gather.LAUNCHES,
+            cuda_gather.LAUNCHES_ADD)
+
+
+def reset_counters() -> None:
+    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_gather, cuda_sell
+
+    cuda_sell.LAUNCHES = 0
+    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
+    cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
 
 
 def demangle(text: str) -> str:
@@ -505,10 +543,7 @@ def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
             library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 5)
         item = x.element_size()
         out_item = 4 if carriage in ("f32", "int8") else 2
-        op_bytes = 4 * exe.nnz + (4 * sell.n_rows if sell.binary
-                                  else 4 * exe.nnz)
-        bytes_ = op_bytes + sell.n_rows * k * (item + out_item)
-        flops = (1 if sell.binary else 2) * exe.nnz * k
+        bytes_, flops = fold_work(sell, exe.nnz, k, item, out_item)
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
@@ -797,9 +832,7 @@ def dense_path(dev, n: int, work: str):
         f"loaded")
 
     # The main path: every count at 0 just before, read just after.
-    cuda_sell.LAUNCHES = 0
-    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
-    cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
+    reset_counters()
     torch.cuda.reset_peak_memory_stats()
     launches = {}
     exes = {}
@@ -1188,13 +1221,13 @@ def op_nnz(op) -> int:
     return int(sum(int(torch.count_nonzero(d)) for d in op.data))
 
 
-def k1_format_numbers(exe, tag: str, k: int, launches: int, n: int
-                      ) -> dict:
+def k1_format_numbers(exe, tag: str, k: int, launches: int, n: int,
+                      phase: str = "phase 11") -> dict:
     """K1 at one format's shapes: every K1 product of one step (each
     operator on its level's input) held against the plain version,
     timed (median of 20) beside the plain version and
     ``torch.sparse.mm`` over the same operators (one call each), with
-    the X-once bound and the gathered-bytes bound."""
+    the X-once bound and the gathered-bytes bound (:func:`k1_work`)."""
     import torch
 
     from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
@@ -1236,20 +1269,11 @@ def k1_format_numbers(exe, tag: str, k: int, launches: int, n: int
     plain_ms = cuda_ms(plain, 3)
     library_ms = cuda_ms(library, 5)
     del csrs
-    nnz = [op_nnz(op) for _, _, op in ops]
-    levels_read = sorted({i for i, _, _ in ops})
-    out_bytes = sum(op.n_rows for _, _, op in ops) * k * 4
-    op_bytes = sum(4 * z + (4 * op.n_rows if op.deg is not None else 4 * z)
-                   for z, (_, _, op) in zip(nnz, ops))
-    x_bytes = len(levels_read) * exe.total_rows * k * 4
-    bytes_ = op_bytes + x_bytes + out_bytes
-    flops = sum((1 if op.deg is not None else 2) * z * k
-                for z, (_, _, op) in zip(nnz, ops))
+    bytes_, flops, gathered, nnz = k1_work(exe, k)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
-    gathered = sum(nnz) * (k * 4 + 4) + out_bytes
     gather_ms = gathered / HBM_BYTES_PER_S * 1e3
-    log(f"phase 11 K1 {tag} k={k}: {len(ops)} operators, {sum(nnz)} nnz: "
+    log(f"{phase} K1 {tag} k={k}: {len(ops)} operators, {nnz} nnz: "
         f"{ms:.4f} ms/step (median of 20, min {min(runs):.4f}, max "
         f"{max(runs):.4f}; {launches} launches in the main path), bound "
         f"{max(t_bytes, t_ops):.4f} ms with X read once ({bytes_} B), "
@@ -1312,24 +1336,16 @@ def drive_format(exe, tag: str, goldens: dict, row_nnz: float,
     gathers, K4 gather-adds) launches})."""
     import torch
 
-    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_gather, cuda_sell
     from arrow_matrix_tpu_torch.utils import (
         relative_error,
         relative_tolerance,
     )
     from arrow_matrix_tpu_torch.utils.timing import cuda_runs
 
-    def counters():
-        return (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
-                cuda_blocks.LAUNCHES_K3, cuda_gather.LAUNCHES,
-                cuda_gather.LAUNCHES_ADD)
-
     ks = [k for k in goldens if k != "chain"]
     per = {k: step_launches(exe, k) for k in ks}
     counts = {k: (0,) * 5 for k in ks}
-    cuda_sell.LAUNCHES = 0
-    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
-    cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
+    reset_counters()
 
     def count(k, fn, steps):
         before = counters()
@@ -1660,8 +1676,7 @@ def phase_probes(dev, ml, k4_err: float) -> tuple:
     from arrow_matrix_tpu_torch.tools import gather_probe, granule_gather_probe
 
     # The main path: every count at 0 just before, read just after.
-    cuda_sell.LAUNCHES = cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
-    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
+    reset_counters()
     probe = granule_gather_probe.run_probe(dev)
     rates = gather_probe.gather_rates(device=dev)
     folds = [gather_probe.fold_step(k, ml) for k in (16, 128)]
@@ -1730,6 +1745,834 @@ def phase_probes(dev, ml, k4_err: float) -> tuple:
         "library_ms": v["torch_take"]["ms"]}
     return {"granule_probe": probe, "gather_rates": rates, "fold": folds,
             "k1_launches": k1_launches}, entry
+
+
+# -- 13. the models at full size ---------------------------------------------
+
+#: Phase 13's feature widths (the protocol's two: k_in = hidden = 128,
+#: k_out = 16), propagation depths and Adam steps.
+MODEL_DIMS = (128, 128, 16)
+SGC_HOPS = 2
+APPNP_HOPS, APPNP_ALPHA = 10, 0.1
+TRAIN_STEPS = 5
+#: Iterations of phase 13's solvers.
+SOLVER_ITERS = {"pagerank": 50, "label_propagation": 20,
+                "power_iteration": 50, "conjugate_gradient": 50}
+KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K4 add")
+
+
+def host_matrix(levels, n: int):
+    """The decomposed operator in original row order as one float64 host
+    CSR, ``A[perm[r], perm[c]] += B_i[r, c]`` over the levels (the
+    product ``decomposition_spmm`` computes)."""
+    import numpy as np
+    from scipy import sparse
+
+    rows, cols, vals = [], [], []
+    for lvl in levels:
+        coo = lvl.matrix.tocoo()
+        p = np.asarray(lvl.permutation)
+        rows.append(p[coo.row])
+        cols.append(p[coo.col])
+        vals.append(coo.data.astype(np.float64))
+    a = sparse.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                  np.concatenate(cols))),
+                          shape=(n, n))
+    a.sum_duplicates()
+    return a
+
+
+class HostOp:
+    """A float64 host CSR cut into row blocks, ``op @ x`` computed block
+    by block in threads (scipy's products release the GIL)."""
+
+    def __init__(self, a):
+        import numpy as np
+
+        parts = os.cpu_count() or 1
+        self.shape = a.shape
+        cut = np.linspace(0, a.shape[0], parts + 1).astype(int)
+        self.blocks = [a[lo:hi] for lo, hi in zip(cut[:-1], cut[1:])]
+
+    def __matmul__(self, x):
+        from concurrent.futures import ThreadPoolExecutor
+
+        import numpy as np
+
+        with ThreadPoolExecutor(len(self.blocks)) as pool:
+            return np.concatenate(list(pool.map(lambda b: b @ x,
+                                                self.blocks)))
+
+
+def model_products(name: str) -> tuple:
+    """(forward, backward) feature widths of the products one training
+    step of model ``name`` crosses (SGC's propagation runs before the
+    steps on the fold: ``sgc_carried`` crosses none)."""
+    k_in, hidden, k_out = MODEL_DIMS
+    return {"sgc": ([k_in] * SGC_HOPS, []),
+            "sgc_carried": ([], []),
+            "gcn": ([k_in, hidden], [hidden]),
+            "appnp": ([k_out] * APPNP_HOPS, [k_out] * APPNP_HOPS)}[name]
+
+
+def host_model(name: str, a, at, x, y, params) -> dict:
+    """Model ``name``'s forward (logits), masked-MSE loss over the ``n``
+    real rows and its gradients, in float64 on the host: scipy products
+    with ``a`` forward and the explicit transpose ``at`` backward, numpy
+    for the dense layers.  ``params``: [(w, b)] as float64."""
+    import numpy as np
+
+    n = x.shape[0]
+    if name == "sgc":
+        (w, b), = params
+        p = x
+        for _ in range(SGC_HOPS):
+            p = a @ p
+        out = p @ w + b
+        g = 2.0 * (out - y) / n
+        grads = [(p.T @ g, g.sum(0))]
+    elif name == "gcn":
+        h, cache = x, []
+        for i, (w, b) in enumerate(params):
+            z = a @ h
+            pre = z @ w + b
+            cache.append((z, pre))
+            h = np.maximum(pre, 0.0) if i < len(params) - 1 else pre
+        out = h
+        g = 2.0 * (out - y) / n
+        grads = []
+        for i in range(len(params) - 1, -1, -1):
+            z, pre = cache[i]
+            if i < len(params) - 1:
+                g = g * (pre > 0.0)
+            grads.append((z.T @ g, g.sum(0)))
+            if i:
+                g = at @ (g @ params[i][0].T)
+        grads.reverse()
+    else:
+        (w, b), = params
+        h = x @ w + b
+        z = h
+        for _ in range(APPNP_HOPS):
+            z = (1 - APPNP_ALPHA) * (a @ z) + APPNP_ALPHA * h
+        out = z
+        gz = 2.0 * (out - y) / n
+        gh = np.zeros_like(gz)
+        for _ in range(APPNP_HOPS):
+            gh += APPNP_ALPHA * gz
+            gz = (1 - APPNP_ALPHA) * (at @ gz)
+        gh += gz
+        grads = [(x.T @ gh, gh.sum(0))]
+    return {"logits": out, "loss": float(((out - y) ** 2).sum() / n),
+            "grads": grads}
+
+
+def model_params(params) -> list:
+    """A model's heads (an ``SGCParams`` or a list of them) as [(w, b)]
+    float64 host arrays."""
+    import numpy as np
+    import torch
+
+    heads = params if isinstance(params, torch.nn.ModuleList) else [params]
+    return [(h.w.detach().cpu().numpy().astype(np.float64),
+             h.b.detach().cpu().numpy().astype(np.float64)) for h in heads]
+
+
+def train_timed(model, xs, ys, mask, steps: int) -> dict:
+    """``steps`` Adam steps of ``model`` (the models' default optimizer,
+    ``torch.optim.Adam(lr=1e-2)``) on the carriage ``xs`` against
+    ``ys``: the body of their ``fit`` and train steps
+    (``models/propagation.py:_optimizer_step``: zero_grad, forward,
+    masked MSE, backward, update) with CUDA events and the launch
+    counters read between the parts.  Returns the losses, the per-step
+    (forward, backward, step) ms, the per-step forward and backward
+    launches, and the first step's output and gradients."""
+    import torch
+
+    from arrow_matrix_tpu_torch.models.propagation import (
+        default_optimizer,
+        masked_mse,
+    )
+
+    opt = default_optimizer(model.parameters())
+    marks, losses, first = [], [], None
+    for s in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        cs = [counters()]
+        opt.zero_grad()
+        out = model(xs)
+        loss = masked_mse(out, ys, mask)
+        ev[1].record()
+        cs.append(counters())
+        loss.backward()
+        ev[2].record()
+        cs.append(counters())
+        if s == 0:
+            first = (out.detach(), [p.grad.detach().clone()
+                                    for p in model.parameters()])
+        opt.step()
+        ev[3].record()
+        losses.append(loss.detach())
+        marks.append((ev, cs))
+    torch.cuda.synchronize()
+    per = [(ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+            ev[0].elapsed_time(ev[3])) for ev, _ in marks]
+    launches = [(tuple(b - a for a, b in zip(cs[0], cs[1])),
+                 tuple(b - a for a, b in zip(cs[1], cs[2])))
+                for _, cs in marks]
+    return {"losses": [float(v) for v in losses], "ms": per,
+            "launches": launches, "first_out": first[0],
+            "first_grads": first[1]}
+
+
+def fold_work(sell, nnz: int, k: int, item: int = 4,
+              out_item: int = 4) -> tuple:
+    """(bytes, operations) of K1 over the SELL operator ``sell`` of
+    ``nnz`` nonzeros at ``k`` features of ``item`` bytes: the operator
+    once (4 B an index, plus 4 B a row of degrees or a value), X read
+    once and the output (``out_item`` bytes) written once."""
+    op_bytes = 4 * nnz + (4 * sell.n_rows if sell.binary else 4 * nnz)
+    return (op_bytes + sell.n_rows * k * (item + out_item),
+            (1 if sell.binary else 2) * nnz * k)
+
+
+def fold_bound_ms(sell, nnz: int, k: int) -> float:
+    """K1's bound over ``sell`` at ``k`` f32 features (:func:`fold_work`)."""
+    bytes_, flops = fold_work(sell, nnz, k)
+    return max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+
+
+def k1_work(exe, k: int) -> tuple:
+    """(bytes with X read once, operations, gathered bytes, nonzeros) of
+    the K1 products of one step of the per-level ``exe`` at ``k`` f32
+    features: each operator moved once (4 B an index, plus 4 B a row of
+    degrees or a value), X read once a level, the outputs written once;
+    gathered: a row and its index read per nonzero, plus the outputs."""
+    ops = level_k1_ops(exe)
+    nnz = [op_nnz(op) for _, _, op in ops]
+    levels_read = {i for i, _, _ in ops}
+    out_bytes = sum(op.n_rows for _, _, op in ops) * k * 4
+    op_bytes = sum(4 * z + (4 * op.n_rows if op.deg is not None else 4 * z)
+                   for z, (_, _, op) in zip(nnz, ops))
+    bytes_ = op_bytes + len(levels_read) * exe.total_rows * k * 4 + out_bytes
+    flops = sum((1 if op.deg is not None else 2) * z * k
+                for z, (_, _, op) in zip(nnz, ops))
+    return (bytes_, flops, sum(nnz) * (k * 4 + 4) + out_bytes, sum(nnz))
+
+
+def unsort_bound_ms(exe, k: int) -> float:
+    """K4's bound for the transposed fold's unsort at ``k`` f32
+    features: two carriages and the int32 table, each moved once."""
+    return ((2 * exe.total_rows * k * 4 + exe.total_rows * 4)
+            / HBM_BYTES_PER_S * 1e3)
+
+
+def step_bound_ms(exe, k: int, transposed: bool = False) -> float:
+    """The least time of one step (``transposed``: of its backward) at
+    ``k`` f32 features: the sum of its kernels' bounds, K1 over the
+    ELL/HYB operators, K2 and K3 over the dense levels, K4's routing;
+    the fold's one K1 product (a transposed pack adds K4's unsort)."""
+    if exe.folded:
+        t = exe.transposed() if transposed else None
+        if t is None or t.sell is None:
+            return fold_bound_ms(exe.sell, exe.nnz, k)
+        return fold_bound_ms(t.sell, exe.nnz, k) + unsort_bound_ms(exe, k)
+    view = transposed_view(exe) if transposed else exe
+    bytes_, flops, _, _ = k1_work(view, k)
+    total = max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    for b, f in zip(view.blocks, view.fmts):
+        if f == "dense":
+            for kernel in ("K2", "K3"):
+                bb, oo = block_work(b, k, kernel)
+                total += max(bb / HBM_BYTES_PER_S, oo / F32_FLOPS)
+    gather_b, add_b = routing_bytes(view, k)
+    return (total + (gather_b + add_b) / HBM_BYTES_PER_S) * 1e3
+
+
+def transposed_view(exe):
+    """``exe`` with its transposed levels as its blocks: what the kernel
+    numbers of phases 8 and 11 read (routing, formats, widths kept)."""
+    import copy
+
+    view = copy.copy(exe)
+    view.blocks = exe.transposed().blocks
+    return view
+
+
+def check_transposed(exe, at, n: int, tag: str, row_nnz: float) -> float:
+    """One ``Aᵀ g`` through the executor's transposed step against scipy
+    with the explicit transpose, at k = 16."""
+    from arrow_matrix_tpu_torch.utils import (
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
+
+    g = random_dense(n, 16, seed=31)
+    got = exe.gather_result(exe.transposed_step(exe.set_features(g)))
+    err = relative_error(got, at @ g.astype("float64"))
+    tol = relative_tolerance(row_nnz, 1)
+    if not err <= tol:
+        raise SystemExit(f"phase 13 {tag}: transposed step rel err "
+                         f"{err:.3e} > gate {tol:.1e}")
+    t = exe.transposed()
+    log(f"phase 13 {tag}: A^T g (k=16) within {tol:.1e} of scipy's "
+        f"explicit transpose ({err:.3e}); levels packed transposed "
+        f"{t.packed}")
+    return err
+
+
+def drive_model(name: str, model, exe, x, y, golden: dict, row_nnz: float,
+                tag: str) -> dict:
+    """Train ``model`` (phase 13) for :data:`TRAIN_STEPS` steps on ``x``
+    (host, original order) against ``y`` and check it: the first step's
+    forward and every gradient against ``golden`` (float64 host), the
+    losses finite and the last under the first.  Returns its record
+    (times, launches, errors, bound, transposed build)."""
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.utils import relative_error, relative_tolerance
+
+    carried = exe.folded
+    if name == "sgc" and carried:
+        xs = model.propagate(x)
+    else:
+        xs = exe.set_features(x)
+    ys = exe.set_features(y)
+    mask = exe.carried_mask() if carried else exe.real_row_mask()
+    run = train_timed(model, xs, ys, mask, TRAIN_STEPS)
+    fwd_k, bwd_k = model_products("sgc_carried" if name == "sgc" and carried
+                                  else name)
+    chain_fwd, chain_bwd = model_products(name)
+    s = max(1, len(chain_fwd) + len(chain_bwd))
+    tol_fwd = relative_tolerance(row_nnz, max(1, len(chain_fwd)))
+    tol_grad = relative_tolerance(row_nnz, s)
+    fwd_err = relative_error(exe.gather_result(run["first_out"]),
+                             golden["logits"])
+    if not fwd_err <= tol_fwd:
+        raise SystemExit(f"phase 13 {tag}: forward rel err {fwd_err:.3e} > "
+                         f"gate {tol_fwd:.1e}")
+    want = [g for pair in golden["grads"] for g in pair]
+    grad_errs = [relative_error(got.cpu().numpy(), w)
+                 for got, w in zip(run["first_grads"], want)]
+    if len(grad_errs) != len(want) or not max(grad_errs) <= tol_grad:
+        raise SystemExit(f"phase 13 {tag}: gradient rel errs {grad_errs} > "
+                         f"gate {tol_grad:.1e}")
+    losses = run["losses"]
+    loss_err = abs(losses[0] - golden["loss"]) / abs(golden["loss"])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and loss_err <= tol_fwd):
+        raise SystemExit(f"phase 13 {tag}: losses {losses} (first vs host "
+                         f"{loss_err:.3e}): not finite, not decreasing, or "
+                         f"off the host's")
+    per_step = run["launches"]
+    if any(p != per_step[0] for p in per_step):
+        raise SystemExit(f"phase 13 {tag}: launches differ between steps "
+                         f"{per_step}")
+    tail = run["ms"][1:]
+    fwd_ms, bwd_ms, step_ms = (statistics.median(t[i] for t in tail)
+                               for i in range(3))
+    bound = (sum(fwd_k.count(k) * step_bound_ms(exe, k) for k in set(fwd_k))
+             + sum(bwd_k.count(k) * step_bound_ms(exe, k, transposed=True)
+                   for k in set(bwd_k)))
+    t = exe.transposed() if bwd_k else None
+    built = (f"transposed operator: levels {t.packed} packed in "
+             f"{t.seconds:.2f} s, {t.device_bytes} B on the card"
+             if t is not None and t.packed else
+             "transposed operator: none packed (symmetric: the backward "
+             "runs the forward operator)" if t is not None else
+             "no backward product")
+    log(f"phase 13 {tag}: losses {', '.join(f'{v:.6g}' for v in losses)}; "
+        f"forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms, train step "
+        f"{step_ms:.4f} ms (median of steps 2-{TRAIN_STEPS}); per step "
+        f"forward {dict(zip(KERNEL_NAMES, per_step[0][0]))}, backward "
+        f"{dict(zip(KERNEL_NAMES, per_step[0][1]))} launches; propagation "
+        f"bound {bound:.4f} ms ({len(fwd_k)} products forward at k "
+        f"{fwd_k}, {len(bwd_k)} backward); forward rel err {fwd_err:.3e} "
+        f"(gate {tol_fwd:.1e}), gradients max rel err {max(grad_errs):.3e} "
+        f"(gate {tol_grad:.1e}, {s} products); {built}")
+    return {"losses": losses, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "step_ms": step_ms, "ms_runs": run["ms"],
+            "launches_forward": per_step[0][0],
+            "launches_backward": per_step[0][1],
+            "propagation_bound_ms": bound, "forward_rel_err": fwd_err,
+            "forward_gate": tol_fwd, "grad_rel_errs": grad_errs,
+            "grad_gate": tol_grad, "products": [fwd_k, bwd_k],
+            "transposed_packed": None if t is None else t.packed,
+            "transposed_s": None if t is None else t.seconds,
+            "transposed_bytes": None if t is None else t.device_bytes}
+
+
+def scaled_levels(levels, rows=None, cols=None):
+    """The levels of ``diag(rows) A diag(cols)`` (``rows``/``cols``: per
+    original vertex, None for ones): each level's row r scaled by
+    ``rows[permutation[r]]``, its column c by ``cols[permutation[c]]``;
+    since ``A = sum_i P_iᵀ B_i P_i`` this needs no second decomposition.
+    ``D⁻¹A`` is ``rows = 1/deg``, ``A D⁻¹`` ``cols = 1/deg`` and the
+    symmetric ``D^-1/2 A D^-1/2`` both ``1/sqrt(deg)`` (each entry then
+    the same two float32 factors either way round: exactly symmetric)."""
+    import numpy as np
+    from scipy import sparse
+
+    from arrow_matrix_tpu_torch.decomposition.decompose import ArrowLevel
+
+    out = []
+    for lvl in levels:
+        p = np.asarray(lvl.permutation)
+        m = lvl.matrix.astype(np.float32)
+        if rows is not None:
+            m = sparse.diags(rows[p].astype(np.float32)) @ m
+        if cols is not None:
+            m = m @ sparse.diags(cols[p].astype(np.float32))
+        out.append(ArrowLevel(m.tocsr(), lvl.permutation, lvl.arrow_width))
+    return out
+
+
+def host_solvers(name: str, a, **kw):
+    """The solvers' float64 host iterations, as the port runs them."""
+    import numpy as np
+
+    if name == "pagerank":
+        n, d = a.shape[0], kw["damping"]
+        r = np.full((n, 1), 1.0 / n)
+        for _ in range(SOLVER_ITERS[name]):
+            r = d * (a @ r) + (1.0 - d) / n
+        return r
+    if name == "label_propagation":
+        labels, seed_mask = kw["labels"], kw["seed_mask"]
+        seeds = labels * seed_mask[:, None]
+        y = labels.astype(np.float64)
+        for _ in range(SOLVER_ITERS[name]):
+            y = np.where(seed_mask[:, None], seeds, a @ y)
+        return y
+    if name == "power_iteration":
+        x = kw["x0"].astype(np.float64)
+        for _ in range(SOLVER_ITERS[name]):
+            y = a @ x
+            x = y / max(np.linalg.norm(y), 1e-30)
+        y = a @ x
+        return x, float((x * y).sum() / (x * x).sum())
+    b, shift = kw["b"].astype(np.float64), kw["shift"]
+    x, r, p = np.zeros_like(b), b.copy(), b.copy()
+    rz = float((r * r).sum())
+    for _ in range(SOLVER_ITERS[name]):
+        ap = shift * p + a @ p
+        denom = float((p * ap).sum())
+        alpha = rz / (denom if denom else 1.0)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rz_new = float((r * r).sum())
+        p = r + rz_new / (rz if rz else 1.0) * p
+        rz = rz_new
+    return x
+
+
+def check_solver(name: str, got, want, row_nnz: float) -> float:
+    """A solver's result against its float64 host iteration within
+    ``relative_tolerance(nnz/n, iterations)`` (the chain rule: f32 sums
+    in another order, compounding at most linearly)."""
+    from arrow_matrix_tpu_torch.utils import relative_error, relative_tolerance
+
+    err = relative_error(got, want)
+    tol = relative_tolerance(row_nnz, SOLVER_ITERS[name])
+    if not err <= tol:
+        raise SystemExit(f"phase 13 {name}: rel err {err:.3e} > gate "
+                         f"{tol:.1e}")
+    return err
+
+
+def fold_transposed_numbers(exe, k: int, launches: tuple, n: int) -> list:
+    """The kernels of the fold's transposed step (phase 13, asymmetric
+    fold) at ``k``: K1 over the pack of ``Sᵀ`` and K4's unsort gather,
+    each against its plain version, timed (median of 20) beside the
+    plain version and one PyTorch call (``torch.sparse.mm``,
+    ``index_select``), with its bound.  ``launches``: the main path's
+    backward (K1, K4) launches."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather
+    from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+    from arrow_matrix_tpu_torch.ops.gather import row_gather_plain
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    t = exe.transposed()
+    g = exe.set_features(random_dense(n, k, seed=32))
+    got, want = sell_spmm_cuda(t.sell, g), sell_spmm(t.sell, g)
+    torch.cuda.synchronize()
+    err, ok = compare(got, want, exe.nnz / n, exact=False)
+    back, back_plain = row_gather(got, t.inv), row_gather_plain(got, t.inv)
+    torch.cuda.synchronize()
+    if not ok or not torch.equal(back.view(torch.int32),
+                                 back_plain.view(torch.int32)):
+        raise SystemExit(f"phase 13 fold^T k={k}: K1 != plain (max abs err "
+                         f"{err:.3e}) or the unsort gather != plain")
+    a_csr = sorted_csr(t.sell, torch.float32)
+    entries = []
+    rows = [("sell_tier_spmm", "K1", lambda: sell_spmm_cuda(t.sell, g),
+             lambda: sell_spmm(t.sell, g), lambda: torch.sparse.mm(a_csr, g),
+             fold_bound_ms(t.sell, exe.nnz, k), err, launches[0]),
+            ("row_gather", "K4", lambda: row_gather(got, t.inv),
+             lambda: row_gather_plain(got, t.inv),
+             lambda: got.index_select(0, t.inv), unsort_bound_ms(exe, k),
+             0.0, launches[1])]
+    for name, kernel, fn, plain, lib, bound, e, count in rows:
+        runs = cuda_runs(fn, 20)
+        ms = statistics.median(runs)
+        plain_ms, library_ms = cuda_ms(plain, 3), cuda_ms(lib, 5)
+        log(f"phase 13 {kernel} fold^T k={k}: {ms:.4f} ms (median of 20, "
+            f"min {min(runs):.4f}, max {max(runs):.4f}; {count} launches "
+            f"in the main path's backwards), bound {bound:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; max abs err "
+            f"{e:.3e}")
+        entries.append({
+            "name": f"{name}[fold^T{' unsort' if kernel == 'K4' else ''},"
+                    f"f32,k={k}]",
+            "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": count,
+            "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library_ms})
+    return entries
+
+
+def phase_models(dev, levels, n: int, width: int, ml) -> tuple:
+    """Phase 13: the model families at full size on phase 4's
+    decomposition (and, for the dense format, phase 7's shape), trained
+    through K1-K4 with the transposed-operator backward.  Every count at
+    0 just before, read just after.  Returns (results, kernel
+    entries)."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from concurrent.futures import ThreadPoolExecutor
+
+    from arrow_matrix_tpu_torch.models import (
+        APPNPCarried,
+        APPNPModel,
+        GCNCarried,
+        GCNModel,
+        SGCCarried,
+        SGCModel,
+        conjugate_gradient,
+        gcn_init,
+        label_propagation,
+        pagerank,
+        power_iteration,
+        sgc_init,
+    )
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.utils import (
+        barabasi_albert,
+        random_dense,
+        relative_tolerance,
+    )
+
+    k_in, hidden, k_out = MODEL_DIMS
+    dims = MODEL_DIMS
+    results, kernels = {}, []
+    ml.feature_dtype = torch.float32      # phase 4 left it at int8
+    reset_counters()
+    backward_asym = [0] * 5
+    aside = [0] * 5
+
+    def apart(fn, *args, **kw):
+        """A check or a kernel's numbers: its launches are not the main
+        path's."""
+        before = counters()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for i, (b0, b1) in enumerate(zip(before, counters())):
+            aside[i] += b1 - b0
+        return out
+
+    # The symmetric operator is the GCN normalization D^-1/2 A D^-1/2
+    # (spectral radius 1): over the raw A, APPNP's 10 hops grow the
+    # gradients past the square root of f32's range, Adam's second
+    # moment overflows and no step moves.  The asymmetric one is D^-1 A.
+    tic = time.perf_counter()
+    a = host_matrix(levels, n)
+    deg = np.maximum(np.asarray(a.sum(axis=1)).ravel(), 1.0)
+    inv_sqrt = 1.0 / np.sqrt(deg)
+    a_hat = a.multiply(inv_sqrt[:, None]).multiply(inv_sqrt[None, :]).tocsr()
+    a_rn = a.multiply(1.0 / deg[:, None]).tocsr()
+    ops = {"a": HostOp(a), "a_hat": HostOp(a_hat),
+           "a_hat_t": HostOp(a_hat.T.tocsr()), "a_rn": HostOp(a_rn),
+           "a_rn_t": HostOp(a_rn.T.tocsr())}
+    del a_hat
+    row_nnz = a.nnz / n
+    x = random_dense(n, k_in, seed=21)
+    y = random_dense(n, k_out, seed=22)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    log(f"phase 13: host operators A, D^-1/2 A D^-1/2, D^-1 A and the "
+        f"explicit transposes ({a.nnz} nnz, max degree {int(deg.max())}) "
+        f"in {time.perf_counter() - tic:.1f} s")
+
+    # The float64 host goldens run in a thread beside the card's work
+    # (scipy's and numpy's products release the GIL), from the initial
+    # parameters the models draw (seed 0; checked against each model).
+    b = random_dense(n, 4, seed=23)
+    shift = float(deg.max()) + 1.0
+    x0 = np.ones((n, 1), np.float32)
+    labels = np.eye(4, dtype=np.float32)[
+        np.random.default_rng(24).integers(0, 4, n)]
+    seed_mask = np.random.default_rng(25).random(n) < 0.1
+    ops["a_cn"] = HostOp(a.multiply(1.0 / deg[None, :]).tocsr())
+    draw = torch.Generator
+    init = {"sgc": model_params(sgc_init(draw().manual_seed(0), k_in,
+                                         k_out)),
+            "gcn": model_params(gcn_init(draw().manual_seed(0), dims))}
+    init["appnp"] = init["sgc"]
+
+    def timed(fn, *args, **kw):
+        tic = time.perf_counter()
+        return fn(*args, **kw), time.perf_counter() - tic
+
+    pool = ThreadPoolExecutor(1)
+    host = {}
+    for name, kind in (("sgc", "sym"), ("gcn", "sym"), ("appnp", "sym")):
+        host[(name, kind)] = pool.submit(timed, host_model, name,
+                                         ops["a_hat"], ops["a_hat_t"], x64,
+                                         y64, init[name])
+    host["power_iteration"] = pool.submit(timed, host_solvers,
+                                          "power_iteration", ops["a"],
+                                          x0=x0)
+    host["conjugate_gradient"] = pool.submit(
+        timed, host_solvers, "conjugate_gradient", ops["a"], b=b,
+        shift=shift)
+    host[("gcn", "asym")] = pool.submit(timed, host_model, "gcn",
+                                        ops["a_rn"], ops["a_rn_t"], x64, y64,
+                                        init["gcn"])
+    host["label_propagation"] = pool.submit(
+        timed, host_solvers, "label_propagation", ops["a_rn"],
+        labels=labels, seed_mask=seed_mask)
+    host["pagerank"] = pool.submit(timed, host_solvers, "pagerank",
+                                   ops["a_cn"], damping=0.85)
+
+    def host_result(key):
+        tic = time.perf_counter()
+        out, seconds = host[key].result()
+        results.setdefault("host_golden_s", {})[str(key)] = seconds
+        log(f"phase 13 host float64 {key}: {seconds:.1f} s in the golden "
+            f"thread, {time.perf_counter() - tic:.1f} s waited for")
+        return out
+
+    def golden(name, kind, model):
+        """The float64 host golden of (model, operator); the model's
+        initial parameters must be the ones it was computed from."""
+        if not all(np.array_equal(p, q)
+                   for pp, qq in zip(model_params(model.params), init[name])
+                   for p, q in zip(pp, qq)):
+            raise SystemExit(f"phase 13 {name}: the model's initial "
+                             f"parameters are not seed 0's")
+        return host_result((name, kind))
+
+    def drive(tag, name, kind, model, exe, gold=None,
+              data=(x, y, row_nnz)):
+        """Train and check one model (:func:`drive_model`) against
+        ``gold`` (default: the shared golden of ``kind``)."""
+        torch.cuda.reset_peak_memory_stats()
+        rec = drive_model(name, model, exe, data[0], data[1],
+                          gold or golden(name, kind, model), data[2], tag)
+        rec["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+        if kind != "sym":
+            for i, v in enumerate(rec["launches_backward"]):
+                backward_asym[i] += v * TRAIN_STEPS
+        results[tag] = rec
+        return rec
+
+    # -- symmetric: the backward reuses the forward operator ----------------
+    sym_levels = scaled_levels(levels, inv_sqrt, inv_sqrt)
+    tic = time.perf_counter()
+    torch.cuda.empty_cache()
+    exe = MultiLevelArrow(sym_levels, width, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 13 auto over D^-1/2 A D^-1/2: formats {exe.fmts}, built in "
+        f"{time.perf_counter() - tic:.1f} s")
+    for name, model in (("sgc", SGCModel(exe, k_in, k_out, hops=SGC_HOPS)),
+                        ("gcn", GCNModel(exe, dims)),
+                        ("appnp", APPNPModel(exe, k_in, k_out,
+                                             hops=APPNP_HOPS,
+                                             alpha=APPNP_ALPHA))):
+        drive(f"{name} auto", name, "sym", model, exe)
+    if exe.transposed().packed:
+        raise SystemExit("phase 13 auto: a level of the symmetric operator "
+                         "was packed transposed")
+    apart(check_transposed, exe, ops["a_hat_t"], n, "auto (sym)", row_nnz)
+    del exe, model
+    torch.cuda.empty_cache()
+
+    tic = time.perf_counter()
+    fold = MultiLevelArrow(sym_levels, width, fmt="fold", device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 13 fold over D^-1/2 A D^-1/2: built in "
+        f"{time.perf_counter() - tic:.1f} s")
+    for name, model in (("sgc", SGCCarried(fold, k_in, k_out,
+                                           hops=SGC_HOPS)),
+                        ("gcn", GCNCarried(fold, dims)),
+                        ("appnp", APPNPCarried(fold, k_in, k_out,
+                                               hops=APPNP_HOPS,
+                                               alpha=APPNP_ALPHA))):
+        drive(f"{name}_carried fold", name, "sym", model, fold)
+    if fold.transposed().packed:
+        raise SystemExit("phase 13 fold: the symmetric fold was packed "
+                         "transposed")
+    apart(check_transposed, fold, ops["a_hat_t"], n, "fold (sym)", row_nnz)
+    del fold, model, sym_levels
+    torch.cuda.empty_cache()
+
+    # -- solvers on phase 4's fold (the adjacency A) -------------------------
+    tic = time.perf_counter()
+    v, lam = power_iteration(ml, x0, iterations=SOLVER_ITERS[
+        "power_iteration"])
+    t_dev = time.perf_counter() - tic
+    hv, hlam = host_result("power_iteration")
+    err = check_solver("power_iteration", v, hv, row_nnz)
+    lam_err = abs(lam - hlam) / abs(hlam)
+    if not lam_err <= relative_tolerance(row_nnz, SOLVER_ITERS[
+            "power_iteration"]):
+        raise SystemExit(f"phase 13 power_iteration: eigenvalue {lam} vs "
+                         f"host {hlam}")
+    results["power_iteration fold"] = {"rel_err": err, "lambda": lam,
+                                       "lambda_rel_err": lam_err,
+                                       "host_s": t_dev}
+    log(f"phase 13 power_iteration (fold, {SOLVER_ITERS['power_iteration']}"
+        f" iterations): vector rel err {err:.3e}, eigenvalue {lam:.6f} (host "
+        f"{hlam:.6f}, rel err {lam_err:.3e}); {t_dev:.2f} s")
+    tic = time.perf_counter()
+    sol, rnorm = conjugate_gradient(
+        ml, b, shift=shift, iterations=SOLVER_ITERS["conjugate_gradient"])
+    t_dev = time.perf_counter() - tic
+    err = check_solver("conjugate_gradient", sol,
+                       host_result("conjugate_gradient"), row_nnz)
+    results["conjugate_gradient fold"] = {"rel_err": err, "residual": rnorm,
+                                          "shift": shift, "s": t_dev}
+    log(f"phase 13 conjugate_gradient (fold, shift {shift}, "
+        f"{SOLVER_ITERS['conjugate_gradient']} iterations, k=4): rel err "
+        f"{err:.3e} against the host CG, residual {rnorm:.3e}; {t_dev:.2f} s")
+
+    # -- asymmetric D^-1 A: a transposed pack built and run -----------------
+    rn_levels = scaled_levels(levels, rows=1.0 / deg)
+    rn_nnz = row_nnz
+    tic = time.perf_counter()
+    torch.cuda.empty_cache()
+    exe = MultiLevelArrow(rn_levels, width, fmt="hyb", device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 13 hyb over D^-1 A: built in "
+        f"{time.perf_counter() - tic:.1f} s")
+    rec = drive("gcn hyb D^-1A", "gcn", "asym", GCNModel(exe, dims), exe)
+    apart(check_transposed, exe, ops["a_rn_t"], n, "hyb (D^-1 A)", rn_nnz)
+    view = transposed_view(exe)
+    k1_b, _, _, k4_b, k4a_b = (v * TRAIN_STEPS
+                               for v in rec["launches_backward"])
+    kernels.append(apart(k1_format_numbers, view, "hyb^T", hidden, k1_b, n,
+                         phase="phase 13"))
+    kernels += apart(k4_format_numbers, view, "hyb^T", hidden,
+                     (k4_b, k4a_b), n)
+    tic = time.perf_counter()
+    got = label_propagation(exe, labels, seed_mask,
+                            iterations=SOLVER_ITERS["label_propagation"])
+    t_dev = time.perf_counter() - tic
+    err = check_solver("label_propagation", got,
+                       host_result("label_propagation"), rn_nnz)
+    results["label_propagation hyb D^-1A"] = {"rel_err": err, "s": t_dev}
+    log(f"phase 13 label_propagation (hyb over D^-1 A, "
+        f"{SOLVER_ITERS['label_propagation']} iterations, 4 classes): rel "
+        f"err {err:.3e}; {t_dev:.2f} s")
+    del exe, view
+    torch.cuda.empty_cache()
+
+    tic = time.perf_counter()
+    fold = MultiLevelArrow(rn_levels, width, fmt="fold", device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 13 fold over D^-1 A: built in "
+        f"{time.perf_counter() - tic:.1f} s")
+    rec = drive("gcn_carried fold D^-1A", "gcn", "asym",
+                GCNCarried(fold, dims), fold)
+    apart(check_transposed, fold, ops["a_rn_t"], n, "fold (D^-1 A)",
+          rn_nnz)
+    k1_b, _, _, k4_b, _ = (v * TRAIN_STEPS for v in rec["launches_backward"])
+    kernels += apart(fold_transposed_numbers, fold, hidden, (k1_b, k4_b),
+                     n)
+    del fold, rn_levels
+    torch.cuda.empty_cache()
+
+    cn_levels = scaled_levels(levels, cols=1.0 / deg)
+    tic = time.perf_counter()
+    exe = MultiLevelArrow(cn_levels, width, fmt="hyb", device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - tic
+    tic = time.perf_counter()
+    got = pagerank(exe, damping=0.85,
+                   iterations=SOLVER_ITERS["pagerank"])
+    t_dev = time.perf_counter() - tic
+    err = check_solver("pagerank", got, host_result("pagerank"), row_nnz)
+    results["pagerank hyb A D^-1"] = {"rel_err": err, "s": t_dev,
+                                      "build_s": t_build}
+    log(f"phase 13 pagerank (hyb over A D^-1, built in {t_build:.1f} s, "
+        f"{SOLVER_ITERS['pagerank']} iterations): rel err {err:.3e}; "
+        f"{t_dev:.2f} s")
+    pool.shutdown()
+    del exe, cn_levels, ops, a, a_rn
+    torch.cuda.empty_cache()
+
+    # -- dense at phase 7's shape: K2/K3 over transposed blocks -------------
+    n16 = 1 << min(16, n.bit_length() - 1)
+    tic = time.perf_counter()
+    levels16 = arrow_decomposition(barabasi_albert(n16, 8, seed=7), width,
+                                   max_levels=10, block_diagonal=True,
+                                   seed=7)
+    a16 = host_matrix(levels16, n16)
+    deg16 = np.maximum(np.asarray(a16.sum(axis=1)).ravel(), 1.0)
+    a16_rn = a16.multiply(1.0 / deg16[:, None]).tocsr()
+    rn16 = scaled_levels(levels16, rows=1.0 / deg16)
+    x16, y16 = random_dense(n16, k_in, seed=26), random_dense(n16, k_out,
+                                                             seed=27)
+    exe = MultiLevelArrow(rn16, width, fmt="dense", device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 13 dense over D^-1 A at n={n16} ({len(levels16)} levels): "
+        f"decomposed and built in {time.perf_counter() - tic:.1f} s")
+    model = GCNModel(exe, dims)
+    gold16 = host_model("gcn", HostOp(a16_rn), HostOp(a16_rn.T.tocsr()),
+                        x16.astype(np.float64), y16.astype(np.float64),
+                        model_params(model.params))
+    rec = drive(f"gcn dense D^-1A n={n16}", "gcn", "asym", model, exe,
+                gold16, (x16, y16, a16.nnz / n16))
+    apart(check_transposed, exe, a16_rn.T.tocsr(), n16, "dense (D^-1 A)",
+          a16.nnz / n16)
+    view = transposed_view(exe)
+    _, k2_b, k3_b, k4_b, k4a_b = (v * TRAIN_STEPS
+                                  for v in rec["launches_backward"])
+    more, _ = apart(
+        dense_kernel_numbers,
+        [b for b, f in zip(view.blocks, view.fmts) if f == "dense"], hidden,
+        (k2_b, k3_b), f"dense^T,f32,k={hidden}",
+        relative_tolerance(max(exe.widths)), dev, "phase 13")
+    kernels += more
+    kernels += apart(k4_format_numbers, view, "dense^T", hidden,
+                     (k4_b, k4a_b), n16)
+    del exe, view, model
+    torch.cuda.empty_cache()
+
+    totals = tuple(c - a for c, a in zip(counters(), aside))
+    log(f"phase 13 main path: " + ", ".join(
+        f"{k}.LAUNCHES = {v}" for k, v in zip(KERNEL_NAMES, totals))
+        + "; inside backwards over asymmetric operators: " + ", ".join(
+        f"{k} {v}" for k, v in zip(KERNEL_NAMES, backward_asym)))
+    idle = [k for k, v in zip(KERNEL_NAMES, totals) if not v]
+    if idle:
+        raise SystemExit(f"phase 13: {idle} launched no time")
+    idle = [k for k, v in zip(KERNEL_NAMES[:4], backward_asym) if not v]
+    if idle:
+        raise SystemExit(f"phase 13: {idle} ran in no backward over an "
+                         f"asymmetric operator")
+    results["launches"] = dict(zip(KERNEL_NAMES, totals))
+    results["backward_asymmetric_launches"] = dict(zip(KERNEL_NAMES,
+                                                       backward_asym))
+    return results, kernels
 
 
 def main() -> int:
@@ -1831,9 +2674,7 @@ def main() -> int:
         f"artifact saved and loaded")
 
     torch.cuda.reset_peak_memory_stats()
-    cuda_sell.LAUNCHES = 0
-    cuda_blocks.LAUNCHES_K2 = cuda_blocks.LAUNCHES_K3 = 0
-    cuda_gather.LAUNCHES = cuda_gather.LAUNCHES_ADD = 0
+    reset_counters()
     launches = {}
 
     def count(key, fn, iters, sell):
@@ -1971,6 +2812,11 @@ def main() -> int:
     results["formats"], format_kernels = phase_formats(dev, levels, n, width,
                                                        gold)
     kernels += format_kernels
+
+    # -- 13. the models at full size, on phase 4's decomposition -------------
+    results["models"], model_kernels = phase_models(dev, levels, n, width,
+                                                    ml)
+    kernels += model_kernels
     del levels, loaded, gold      # phase 10 steps ml again
     torch.cuda.empty_cache()
 

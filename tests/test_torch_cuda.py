@@ -12,6 +12,7 @@ card (and without JAX) run them as
 import numpy as np
 import pytest
 import torch
+from scipy import sparse
 
 from arrow_matrix_tpu_torch.decomposition import (
     arrow_decomposition,
@@ -575,3 +576,90 @@ def test_auto_executor_on_the_card_runs_k1_and_k2_k3(cuda):
     assert cuda_blocks.LAUNCHES_K3 - before[1] == gpu.fmts.count("dense")
     want = cpu.gather_result(cpu.step(cpu.set_features(x)))
     assert relative_error(got, want) <= relative_tolerance(gpu.nnz / 4096)
+
+
+def _scaled_levels(kind):
+    """BA 4096 at width 64 (ten block-diagonal levels): "rownorm" the
+    row-normalized ``D⁻¹A`` (asymmetric values), "directed" keeping 70%
+    of the entries (asymmetric pattern: the fold's transposed pack sorts
+    its rows in another order)."""
+    a = barabasi_albert(4096, 4, seed=1).astype(np.float32)
+    if kind == "rownorm":
+        deg = np.maximum(np.asarray(a.sum(axis=1)).ravel(), 1.0)
+        m = (sparse.diags(1.0 / deg) @ a).tocsr().astype(np.float32)
+    else:
+        coo = a.tocoo()
+        keep = np.random.default_rng(2).random(coo.nnz) < 0.7
+        m = sparse.csr_matrix((coo.data[keep], (coo.row[keep],
+                                                coo.col[keep])),
+                              shape=a.shape)
+    return m, arrow_decomposition(m, 64, max_levels=10,
+                                  block_diagonal=True, seed=0)
+
+
+@pytest.mark.parametrize("kind", ["rownorm", "directed"])
+@pytest.mark.parametrize("fmt", ["fold", "dense", "ell", "hyb", "auto"])
+def test_train_step_through_the_kernels_matches_the_cpu(cuda, kind, fmt):
+    """One GCN training step (GCNCarried on the fold) on the card, whose
+    backward runs K1-K4 over transposed operators, against the same step
+    on the CPU (the plain versions): the loss, every gradient and the
+    parameters after one Adam step; and the backward launched the
+    format's kernels."""
+    from arrow_matrix_tpu_torch.models import GCNCarried, GCNModel
+    from arrow_matrix_tpu_torch.models.propagation import masked_mse
+
+    m, levels = _scaled_levels(kind)
+    kw = {} if fmt == "fold" else {"dense_budget": 4096 * 64 * 3 * 4 * 2}
+    if fmt != "auto":
+        kw["fmt"] = fmt
+    x = random_dense(4096, 16, seed=5)
+    y = random_dense(4096, 4, seed=6)
+    res = {}
+    for dev in (cuda, "cpu"):
+        exe = MultiLevelArrow(levels, 64, device=dev, **kw)
+        cls = GCNCarried if exe.folded else GCNModel
+        model = cls(exe, (16, 8, 4), seed=3)
+        mask = exe.carried_mask() if exe.folded else exe.real_row_mask()
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        xs, ys = exe.set_features(x), exe.set_features(y)
+        before = (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
+                  cuda_gather.LAUNCHES, cuda_gather.LAUNCHES_ADD)
+        opt.zero_grad()
+        fwd = model(xs)
+        loss = masked_mse(fwd, ys, mask)
+        loss.backward()
+        grads = [p.grad.cpu().numpy().copy() for p in model.parameters()]
+        opt.step()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            delta = [a - b for a, b in zip(
+                (cuda_sell.LAUNCHES, cuda_blocks.LAUNCHES_K2,
+                 cuda_gather.LAUNCHES, cuda_gather.LAUNCHES_ADD), before)]
+            if fmt in ("fold", "ell", "hyb", "auto"):
+                assert delta[0] > 0
+            if fmt in ("dense", "auto"):
+                assert delta[1] > 0
+            assert delta[2] > 0
+            assert exe.transposed().packed
+        res[str(dev)] = (float(loss.detach()), grads,
+                         [p.detach().cpu().numpy() for p in
+                          model.parameters()])
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = (res[str(cuda)],
+                                                    res["cpu"])
+    tol = relative_tolerance(m.nnz / 4096, 3)
+    assert relative_error(l_gpu, l_cpu) <= tol
+    for a, b in zip(g_gpu, g_cpu):
+        assert relative_error(a, b) <= tol
+    for a, b in zip(p_gpu, p_cpu):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("fmt", ["fold", "dense", "ell", "hyb"])
+def test_transposed_step_on_the_card_matches_scipy(cuda, fmt):
+    """``Aᵀ g`` through the kernels over the transposed operators."""
+    m, levels = _scaled_levels("directed")
+    exe = MultiLevelArrow(levels, 64, fmt=fmt, device=cuda)
+    g = random_dense(4096, 16, seed=7)
+    got = exe.gather_result(exe.transposed_step(exe.set_features(g)))
+    assert relative_error(got, m.T @ g) <= relative_tolerance(
+        m.nnz / 4096)
