@@ -31,15 +31,7 @@ import time
 
 import numpy as np
 
-
-def str2bool(v) -> bool:
-    if isinstance(v, bool):
-        return v
-    if v.lower() in ("yes", "true", "t", "y", "1"):
-        return True
-    if v.lower() in ("no", "false", "f", "n", "0"):
-        return False
-    raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
+from arrow_matrix_tpu_torch.cli.common import str2bool
 
 
 def build_parser() -> argparse.ArgumentParser:

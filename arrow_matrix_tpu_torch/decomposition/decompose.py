@@ -1,7 +1,8 @@
 """Offline arrow decomposition of a sparse matrix (host side).
 
-The port's own copy of ``arrow_matrix_tpu/decomposition/decompose.py``,
-numpy backend only.  Decomposes a square sparse matrix ``A`` into
+The port's own copy of ``arrow_matrix_tpu/decomposition/decompose.py``
+with both of its backends: numpy/scipy (``linearize.py``, the default)
+and the C++ kernels (``native.py``).  Decomposes a square sparse matrix ``A`` into
 levels ``B_0..B_{K-1}`` with permutations ``sigma_0..sigma_{K-1}`` such
 that ``A = sum_i P_i^T B_i P_i``.  Each ``B_i`` is arrow-shaped:
 nonzeros only in the first ``width`` rows, the first ``width`` columns,
@@ -9,12 +10,17 @@ and a band (or the block diagonal) of width ``width``.
 
 Per level: prune the ``width`` highest-degree vertices to the front,
 linearize the rest by random-spanning-forest DFS, keep the edges that
-fit the arrow, recurse on the remainder.  For one seed the levels and
-permutations are identical to the JAX package's numpy backend.
+fit the arrow, recurse on the remainder.  For one seed and backend the
+levels and permutations are identical to the JAX package's.
+``AMT_DECOMP_PROFILE=1`` prints each phase's seconds to stderr.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,9 +32,20 @@ from arrow_matrix_tpu_torch.decomposition.linearize import (
 )
 from arrow_matrix_tpu_torch.utils.graphs import symmetrize
 
-NATIVE_TODO = ("backend='native' (the C++ decomposer) is not ported yet; "
-               "see ROADMAP.md Queue A, 'the native decomposer'. Use "
-               "backend='numpy'")
+BACKENDS = ("auto", "native", "numpy")
+
+
+@contextmanager
+def _phase(label: str):
+    """Phase timer of the offline pipeline: with ``AMT_DECOMP_PROFILE``
+    set, prints the phase's wall seconds to stderr."""
+    if not os.environ.get("AMT_DECOMP_PROFILE"):
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    print(f"[decomp] {label}: {time.perf_counter() - t0:.2f}s",
+          file=sys.stderr, flush=True)
 
 
 @dataclass
@@ -64,14 +81,59 @@ def achieved_width(coo_rows: np.ndarray, coo_cols: np.ndarray,
                int(np.max(np.abs(coo_rows[outside] - coo_cols[outside]))))
 
 
+def _resolve_backend(backend: str):
+    """The linearization functions ``(bfs, forest)`` of ``backend``:
+    "numpy" the scipy/csgraph ones (``linearize.py``), "native" the C++
+    kernels (``native.py``; an error if they do not build or load),
+    "auto" native when it loads and numpy otherwise.  This picks a host
+    decomposer; it has nothing to do with the device."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "numpy":
+        return bfs_order, random_forest_order
+    from arrow_matrix_tpu_torch.decomposition import native
+
+    if native.available():
+        return native.bfs_order, native.random_forest_order
+    if backend == "native":
+        raise RuntimeError(
+            f"backend='native' requested but the native decomposer "
+            f"failed to build/load: {native.load_error()}")
+    return bfs_order, random_forest_order
+
+
+def resolved_backend(backend: str) -> str:
+    """"native" or "numpy": what ``backend`` runs on this host."""
+    _, forest = _resolve_backend(backend)
+    return "numpy" if forest is random_forest_order else "native"
+
+
 def _linear_order(a: sparse.csr_matrix, width: int, deterministic: bool,
-                  rng: np.random.Generator) -> np.ndarray:
+                  rng: np.random.Generator,
+                  backend: str = "auto") -> np.ndarray:
     """Level ordering: width highest-degree vertices first, then the
     forest-linearized middle, then zero-degree singletons."""
     n = a.shape[0]
-    sym = symmetrize(a)
-    deg = np.diff(sym.indptr)
-    by_degree = np.argsort(-deg, kind="stable")
+    bfs_fn, forest_fn = _resolve_backend(backend)
+    from arrow_matrix_tpu_torch.decomposition import native as _native
+
+    # The all-native path: the symmetric structure without values (no
+    # scipy A + A.T) feeding the masked forest kernel, no submatrix
+    # built.  The structure equals symmetrize()'s, so the levels equal
+    # the native backend's through scipy.
+    native_path = (not deterministic
+                   and forest_fn is _native.random_forest_order
+                   and n < np.iinfo(np.int32).max)
+    with _phase("symmetrize"):
+        if native_path:
+            sym = _native.symmetrize_structure(a)   # (indptr, indices)
+            deg = np.diff(sym[0])
+        else:
+            sym = symmetrize(a)
+            deg = np.diff(sym.indptr)
+
+    with _phase("degree-argsort"):
+        by_degree = np.argsort(-deg, kind="stable")
     head = by_degree[:width]
     tail = by_degree[width:]
     tail_deg = deg[tail]
@@ -79,12 +141,17 @@ def _linear_order(a: sparse.csr_matrix, width: int, deterministic: bool,
     singletons = tail[tail_deg == 0]
 
     if middle.size:
-        sub = sym[middle][:, middle]
-        if deterministic:
-            sub_order = bfs_order(sub)
+        if native_path:
+            with _phase("forest-native"):
+                sub_order = _native.random_forest_order_masked(
+                    sym, middle, rng, base_size=min(width - 1, 16))
         else:
-            sub_order = random_forest_order(sub, rng,
-                                            base_size=min(width - 1, 16))
+            sub = sym[middle][:, middle]
+            if deterministic:
+                sub_order = bfs_fn(sub)
+            else:
+                sub_order = forest_fn(sub, rng,
+                                      base_size=min(width - 1, 16))
         middle_order = middle[sub_order]
     else:
         middle_order = middle
@@ -130,21 +197,23 @@ def arrow_decomposition(a: sparse.spmatrix,
         width-by-width blocks on the diagonal; otherwise a band.
     :param prune: place the ``arrow_width`` highest-degree vertices first.
     :param seed: RNG seed for the random-spanning-forest linearization.
-    :param backend: only "numpy" is ported; "native" and "auto" raise
-        ``NotImplementedError``.
+    :param backend: linearization implementation: "numpy" (scipy/
+        csgraph, the default), "native" (the C++ kernels of
+        ``native.py``) or "auto" (native when it loads).  The two use
+        different random streams, so for one seed the levels depend on
+        the backend; the default is "numpy" so that seeded results never
+        depend on the toolchain.
     :param band_detect: return ONE level for banded/bandable inputs
         (identity or reverse-Cuthill-McKee order within the width).
     """
-    if backend in ("native", "auto"):
-        raise NotImplementedError(NATIVE_TODO)
-    if backend != "numpy":
-        raise ValueError(f"unknown backend {backend!r}")
     a = a.tocsr()
     if a.shape[0] != a.shape[1]:
         raise ValueError(f"matrix must be square, got {a.shape}")
     if arrow_width > a.shape[0]:
         raise ValueError(
             f"arrow_width {arrow_width} exceeds matrix side {a.shape[0]}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
 
     if a.nnz and band_detect:
         coo = a.tocoo()
@@ -174,40 +243,68 @@ def arrow_decomposition(a: sparse.spmatrix,
     rng = np.random.default_rng(seed)
     levels: list[ArrowLevel] = []
     _decompose(a, arrow_width, levels, max_levels, block_diagonal, prune,
-               rng)
+               rng, backend)
     return levels
 
 
 def _decompose(a: sparse.csr_matrix, width: int, levels: list[ArrowLevel],
                max_levels: int, block_diagonal: bool, prune: bool,
-               rng: np.random.Generator) -> None:
+               rng: np.random.Generator, backend: str = "auto") -> None:
     n = a.shape[0]
     last = len(levels) + 1 >= max_levels
 
-    order = _linear_order(a, width, deterministic=last, rng=rng)
-    inv = np.argsort(order)
-    if n < np.iinfo(np.int32).max:
-        inv = inv.astype(np.int32)
-
-    coo = a.tocoo()
-    r = inv[coo.row]  # positions in the new order
-    c = inv[coo.col]
+    with _phase("linear-order-total"):
+        order = _linear_order(a, width, deterministic=last, rng=rng,
+                              backend=backend)
+    with _phase("inv-argsort"):
+        inv = np.argsort(order)
+        if n < np.iinfo(np.int32).max:
+            inv = inv.astype(np.int32)
 
     if not last:
-        if block_diagonal:
-            in_level = (r // width) == (c // width)
-        else:
-            in_level = np.abs(r - c) <= width
-        if prune:
-            in_level |= (r < width) | (c < width)
-        if not np.any(in_level):
-            in_level = np.ones(r.size, dtype=bool)
-        rest = ~in_level
+        # The fused native split: one C++ pass in place of the
+        # tocoo/gather/select/two-CSR-build chain below, equal to it on
+        # duplicate-free inputs.  Its in-level edges satisfy the band or
+        # block criterion, so the level's width is `width`.
+        from arrow_matrix_tpu_torch.decomposition import native as _native
 
-        b = sparse.csr_matrix(
-            (coo.data[in_level], (r[in_level], c[in_level])), shape=(n, n))
-        b.sum_duplicates()
-        b.sort_indices()
+        if (backend in ("auto", "native") and _native.available()
+                and n < np.iinfo(np.int32).max):
+            try:
+                with _phase("native-level-split"):
+                    b, rest_m = _native.level_split(
+                        a, inv, width, block_diagonal, prune)
+                levels.append(ArrowLevel(b, order, width))
+                if rest_m is not None:
+                    _decompose(rest_m, width, levels, max_levels,
+                               block_diagonal, prune, rng, backend)
+                return
+            except _native.LevelSplitUnsupported:
+                pass   # the numpy path below covers the degenerate cases
+
+    with _phase("coo-permute"):
+        coo = a.tocoo()
+        r = inv[coo.row]  # positions in the new order
+        c = inv[coo.col]
+
+    if not last:
+        with _phase("edge-select"):
+            if block_diagonal:
+                in_level = (r // width) == (c // width)
+            else:
+                in_level = np.abs(r - c) <= width
+            if prune:
+                in_level |= (r < width) | (c < width)
+            if not np.any(in_level):
+                in_level = np.ones(r.size, dtype=bool)
+            rest = ~in_level
+
+        with _phase("level-csr-build"):
+            b = sparse.csr_matrix(
+                (coo.data[in_level], (r[in_level], c[in_level])),
+                shape=(n, n))
+            b.sum_duplicates()
+            b.sort_indices()
         # The all-False fallback above keeps every edge, so the level's
         # width bound is whatever those edges achieve.
         levels.append(ArrowLevel(b, order,
@@ -215,16 +312,18 @@ def _decompose(a: sparse.csr_matrix, width: int, levels: list[ArrowLevel],
                                                 width)))
         if np.any(rest):
             # Remainder keeps original indexing; recursion re-linearizes.
-            a_rest = sparse.csr_matrix(
-                (coo.data[rest], (coo.row[rest], coo.col[rest])),
-                shape=(n, n))
+            with _phase("rest-csr-build"):
+                a_rest = sparse.csr_matrix(
+                    (coo.data[rest], (coo.row[rest], coo.col[rest])),
+                    shape=(n, n))
             _decompose(a_rest, width, levels, max_levels, block_diagonal,
-                       prune, rng)
+                       prune, rng, backend)
     else:
         # Last level: keep everything, report the width actually achieved.
-        b = sparse.csr_matrix((coo.data, (r, c)), shape=(n, n))
-        b.sum_duplicates()
-        b.sort_indices()
+        with _phase("level-csr-build"):
+            b = sparse.csr_matrix((coo.data, (r, c)), shape=(n, n))
+            b.sum_duplicates()
+            b.sort_indices()
         levels.append(ArrowLevel(b, order, achieved_width(r, c, width)))
 
 

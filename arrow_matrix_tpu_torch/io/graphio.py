@@ -1,5 +1,5 @@
-"""Decomposition artifact I/O (the port's own copy of the subset of
-``arrow_matrix_tpu/io/graphio.py`` the main path needs).
+"""Decomposition artifact I/O (the port's own copy of
+``arrow_matrix_tpu/io/graphio.py``).
 
 It reads and writes the same files as the JAX package — the npy-triplet
 scheme with its sha256 sidecar manifest:
@@ -12,6 +12,13 @@ scheme with its sha256 sidecar manifest:
     {base}_B_{width}_0[_bd]_widths.npy
     {base}_B_{width}[_bd]_manifest.json
 
+and the legacy single-file scheme (``save_decomposition_npz``, read by
+``load_decomposition`` when no triplets exist, ``convert_decomposition``
+between the two):
+
+    {base}_B_{width}_{i}[_bd].npz
+    {base}_B_{width}_{i}[_bd]_permutation.npy
+
 so an artifact written by either package loads in the other.
 """
 
@@ -23,7 +30,6 @@ import hashlib
 import json
 import os
 import re
-import tempfile
 import warnings
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -31,6 +37,7 @@ import numpy as np
 from scipy import sparse
 
 from arrow_matrix_tpu_torch.decomposition.decompose import ArrowLevel
+from arrow_matrix_tpu_torch.utils.artifacts import atomic_write_json
 
 
 class FileKind(enum.Enum):
@@ -124,26 +131,6 @@ def _sha256_file(path: str, chunk: int = 1 << 20) -> str:
     return h.hexdigest()
 
 
-def _atomic_write_json(path: str, obj: Any, indent=None,
-                       sort_keys: bool = False) -> None:
-    """Write JSON through a temporary file and ``os.replace`` so a
-    reader never sees a torn manifest."""
-    text = json.dumps(obj, indent=indent, sort_keys=sort_keys)
-    d = os.path.dirname(path)
-    fd, tmp = tempfile.mkstemp(dir=d or ".",
-                               prefix=f".{os.path.basename(path)}.",
-                               suffix=".tmp")
-    try:
-        with os.fdopen(fd, "w", encoding="utf-8") as fh:
-            fh.write(text)
-            fh.flush()
-            os.fsync(fh.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-
-
 def manifest_path(base: str, width: Optional[int],
                   block_diagonal: bool = True) -> str:
     """Sidecar manifest path for an artifact set (one per base+width)."""
@@ -160,7 +147,7 @@ def write_manifest(base: str, width: Optional[int], paths: List[str],
                                       "bytes": os.path.getsize(p)}
     doc = {"version": MANIFEST_VERSION, "files": files}
     mp = manifest_path(base, width, block_diagonal)
-    _atomic_write_json(mp, doc, indent=1, sort_keys=True)
+    atomic_write_json(mp, doc, indent=1, sort_keys=True)
     return mp
 
 
@@ -263,13 +250,30 @@ def load_level_widths(base: str, width: Optional[int],
     return np.asarray(widths, dtype=np.int64) if widths else None
 
 
+def save_decomposition_npz(levels: List[ArrowLevel], base: str,
+                           block_diagonal: bool = True,
+                           dtype=np.float32) -> None:
+    """The legacy single-file scheme: one scipy ``.npz`` per level and
+    its permutation, all named by the level-0 width (so the loader's
+    single-width enumeration finds a grown last level too)."""
+    width0 = levels[0].arrow_width if levels else 0
+    for i, lvl in enumerate(levels):
+        m = lvl.matrix.tocsr().astype(dtype)
+        sparse.save_npz(format_path(base, width0, i, block_diagonal,
+                                    FileKind.npz), m)
+        np.save(format_path(base, width0, i, block_diagonal,
+                            FileKind.permutation),
+                np.asarray(lvl.permutation, dtype=np.int64))
+
+
 def load_decomposition(base: str, width: Optional[int] = None,
                        block_diagonal: bool = True,
                        mem_map: bool = False,
                        with_permutation: bool = True,
                        verify: Optional[bool] = None,
                        ) -> List[Tuple[CsrLike, Optional[np.ndarray]]]:
-    """Load all levels of a decomposition in the npy-triplet format.
+    """Load all levels of a decomposition: the npy triplets, or the
+    legacy npz files when no triplet exists.
 
     With ``mem_map`` each CSR triplet stays on disk (memory-mapped).
     Missing ``_data`` files mean implicit unit values.  ``verify=None``
@@ -317,10 +321,32 @@ def load_decomposition(base: str, width: Optional[int] = None,
             break   # a glob-discovered level is the grown LAST level
 
     if not out:
+        out = _load_decomposition_npz(base, width, block_diagonal,
+                                      with_permutation)
+    if not out:
         raise FileNotFoundError(
             f"no decomposition artifacts found for base={base!r} "
-            f"width={width} block_diagonal={block_diagonal} (npy triplets; "
-            f"levels are saved under the level-0 width)")
+            f"width={width} block_diagonal={block_diagonal} (checked npy "
+            f"triplets and legacy npz; note levels are saved under the "
+            f"level-0 width, which for max_levels=1 is the *achieved* "
+            f"width, not the requested one)")
+    return out
+
+
+def _load_decomposition_npz(base, width, block_diagonal, with_permutation):
+    out = []
+    i = 0
+    while True:
+        p = format_path(base, width, i, block_diagonal, FileKind.npz)
+        if not os.path.exists(p):
+            break
+        m = sparse.load_npz(p)
+        perm = None
+        if with_permutation:
+            perm = np.load(format_path(base, width, i, block_diagonal,
+                                       FileKind.permutation))
+        out.append((m, perm))
+        i += 1
     return out
 
 
@@ -342,6 +368,48 @@ def as_levels(loaded: List[Tuple[CsrLike, Optional[np.ndarray]]],
                                    np.asarray(m[2])), shape=(n, n))
         levels.append(ArrowLevel(m, perm, int(w)))
     return levels
+
+
+def convert_decomposition(base: str, width: Optional[int] = None,
+                          block_diagonal: bool = True,
+                          to: str = "npy") -> int:
+    """Convert a stored decomposition between the legacy ``.npz``
+    scheme and the npy triplets: ``to="npy"`` reads npz levels and
+    writes triplets, ``to="npz"`` the reverse, one level in memory at a
+    time.  The permutation files are shared by both schemes.  Returns
+    the number of levels converted."""
+    if to not in ("npy", "npz"):
+        raise ValueError(f"unknown target format {to!r}")
+
+    def path(i, kind):
+        return format_path(base, width, i, block_diagonal, kind)
+
+    src_kind = FileKind.npz if to == "npy" else FileKind.indptr
+    i = 0
+    while os.path.exists(path(i, src_kind)):
+        if to == "npy":
+            m = sparse.load_npz(path(i, FileKind.npz)).tocsr()
+            m.sum_duplicates()
+            m.sort_indices()
+            np.save(path(i, FileKind.indptr), m.indptr)
+            np.save(path(i, FileKind.indices), m.indices)
+            np.save(path(i, FileKind.data), m.data)
+        else:
+            indptr = np.load(path(i, FileKind.indptr))
+            indices = np.load(path(i, FileKind.indices))
+            p_data = path(i, FileKind.data)
+            data = (np.load(p_data) if os.path.exists(p_data)
+                    else np.ones(indices.size, dtype=np.float32))
+            n = indptr.size - 1
+            sparse.save_npz(path(i, FileKind.npz),
+                            sparse.csr_matrix((data, indices, indptr),
+                                              shape=(n, n)))
+        i += 1
+    if i == 0:
+        raise FileNotFoundError(
+            f"no decomposition found for base={base!r} width={width} in "
+            f"the {'npz' if to == 'npy' else 'npy-triplet'} scheme")
+    return i
 
 
 def num_rows(matrix: CsrLike) -> int:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+from arrow_matrix_tpu_torch.decomposition.decompose import resolved_backend
 from arrow_matrix_tpu_torch.io import (
     as_levels,
     load_decomposition,
@@ -113,18 +114,39 @@ def gather_rates(n: int = 1 << 20, m: int = 16, device=None,
     return records
 
 
+def cache_base(n: int, m: int, width: int, seed: int, max_levels: int,
+               backend: str = "numpy", cache_dir: Optional[str] = None
+               ) -> str:
+    """Artifact base of the cached decomposition of BA ``n`` ``m`` at
+    ``width`` (``seed``, ``max_levels``) by ``backend``, resolved to the
+    decomposer that runs here ("auto" -> "native" or "numpy"): the two
+    backends draw different random forests, so each has its own key."""
+    return os.path.join(
+        cache_dir or CACHE_DIR,
+        f"ba_{n}_{m}_w{width}_s{seed}_L{max_levels}_"
+        f"{resolved_backend(backend)}")
+
+
+def store_levels(levels, base: str) -> None:
+    """Save ``levels`` under ``base`` and then its completion sentinel,
+    so that a run killed mid-write leaves nothing a later run loads."""
+    os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+    if os.path.exists(base + ".complete"):
+        os.remove(base + ".complete")
+    save_decomposition(levels, base, block_diagonal=True)
+    with open(base + ".complete", "w") as fh:
+        fh.write(f"{len(levels)} levels\n")
+
+
 def cached_levels(n: int, m: int, width: int, seed: int,
-                  max_levels: int = 4, cache_dir: Optional[str] = None):
-    """Generate and decompose once per (n, m, width, seed, max_levels),
-    then reload the saved artifact from ``cache_dir`` (default
-    :data:`CACHE_DIR`; ``bench.py:_cached_levels``).  A sentinel file is
-    written after the artifact is complete, so a run killed mid-write
-    leaves nothing that a later run would load."""
-    cache_dir = cache_dir or CACHE_DIR
-    base = os.path.join(cache_dir,
-                        f"ba_{n}_{m}_w{width}_s{seed}_L{max_levels}")
-    sentinel = base + ".complete"
-    if os.path.exists(sentinel):
+                  max_levels: int = 4, cache_dir: Optional[str] = None,
+                  backend: str = "numpy"):
+    """Generate and decompose once per (n, m, width, seed, max_levels,
+    backend), then reload the saved artifact from ``cache_dir`` (default
+    :data:`CACHE_DIR`; ``bench.py:_cached_levels``); see
+    :func:`cache_base` and :func:`store_levels`."""
+    base = cache_base(n, m, width, seed, max_levels, backend, cache_dir)
+    if os.path.exists(base + ".complete"):
         try:
             loaded = load_decomposition(base, width, block_diagonal=True)
             widths = load_level_widths(base, width, block_diagonal=True)
@@ -135,12 +157,10 @@ def cached_levels(n: int, m: int, width: int, seed: int,
     a = barabasi_albert(n, m, seed=seed)
     levels = arrow_decomposition(a, arrow_width=width,
                                  max_levels=max_levels,
-                                 block_diagonal=True, seed=seed)
+                                 block_diagonal=True, seed=seed,
+                                 backend=backend)
     try:
-        os.makedirs(cache_dir, exist_ok=True)
-        save_decomposition(levels, base, block_diagonal=True)
-        with open(sentinel, "w") as fh:
-            fh.write(f"{len(levels)} levels\n")
+        store_levels(levels, base)
     except OSError as e:            # the cache is best-effort
         print(f"decomposition cache write failed: {e}", file=sys.stderr)
     return levels

@@ -83,6 +83,23 @@ def barabasi_albert(n: int, m: int, seed: int | None = None,
     return a
 
 
+def random_csr(rows: int, cols: int, nnz_per_row: int,
+               seed: int | None = None, dtype=np.float32) -> sparse.csr_matrix:
+    """Random CSR with a fixed number of nonzeros per row, uniform
+    [-1, 1) values (the same draws as the JAX package's)."""
+    rng = np.random.default_rng(seed)
+    nnz_per_row = min(nnz_per_row, cols)
+    indices = np.empty((rows, nnz_per_row), dtype=np.int64)
+    for r in range(rows):
+        indices[r] = rng.choice(cols, size=nnz_per_row, replace=False)
+    indptr = np.arange(rows + 1, dtype=np.int64) * nnz_per_row
+    data = rng.uniform(-1.0, 1.0, size=rows * nnz_per_row).astype(dtype)
+    a = sparse.csr_matrix((data, indices.ravel(), indptr), shape=(rows, cols))
+    a.sum_duplicates()
+    a.sort_indices()
+    return a
+
+
 def random_dense(rows: int, cols: int, seed: int | None = None,
                  dtype=np.float32) -> np.ndarray:
     """Uniform [-1, 1) dense matrix."""

@@ -112,18 +112,33 @@ Phases, each fatal on failure:
    PageRank over ``A D⁻¹`` on hyb) against their float64 host
    iterations; K1 and K4 over the transposed packs and K2/K3 over the
    transposed dense blocks against their plain versions, with bounds and
-   library calls.
+   library calls;
+14. the native decomposer and the port's bench, run last: (a) Barabasi-
+   Albert n = 2^20 m=8 (phase 4's graph) decomposed at width 2048
+   (max_levels 12, seed 7) by the port's native (C++) decomposer, its
+   seconds beside phase 4's numpy seconds, its levels checked (they
+   reconstruct A exactly; every level within its width) and saved under
+   the bench's cache key; (b) ``python -m arrow_matrix_tpu_torch.bench``
+   as a subprocess on that cache (kernel comparison off: phase 12 covers
+   its variants), whose last line must carry the card's platform and
+   name, a finite ``value`` within ``frobenius_gate``, ``k128_ms``
+   within ``k128_gate``, ``roofline_frac`` at most 1 and a ``fmt_used``,
+   and whose candidates each launched the kernels of their format (the
+   counts each candidate's subprocess read around its measurement).
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
-kernels K2 and K3).  The line before the last is ``{"kernels": [...]}``;
-the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
-device the script exits 2 and prints no result.
+kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
+empty: the bench's launches are in its candidates' records).  The line
+before the last is ``{"kernels": [...]}``; the last line is ``{"ok":
+true, "device": {...}}``.  Without a CUDA device the script exits 2 and
+prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1058,25 +1073,6 @@ def check_routed_step(exe, x, tag: str) -> None:
                          f"index_select-routed step in {diff} elements")
 
 
-def routing_bytes(exe, k: int) -> tuple:
-    """(gather, gather-add) bytes of one step's routing at ``k`` f32
-    features: each table's distinct rows read once, its rows written
-    once, its 4-byte indices read once; the gather-add also reads its
-    base.  (A routing table is a permutation: distinct rows = rows.)"""
-    import torch
-
-    gather = add = 0
-    for tables, fused in ((exe.fwd, False), (exe.bwd, True)):
-        for t in tables:
-            s = t.shape[0]
-            moved = (int(torch.unique(t).numel()) + s) * k * 4 + s * 4
-            if fused:
-                add += moved + s * k * 4
-            else:
-                gather += moved
-    return gather, add
-
-
 def split_ms(exe, x) -> dict:
     """One step of ``exe`` on ``x`` apart, each the median of 7
     CUDA-event timings: every level's product on its input
@@ -1085,6 +1081,7 @@ def split_ms(exe, x) -> dict:
     replaced, ``index_select`` forward and ``index_select`` then
     ``add_`` backward (``index_select_routing``); with the routing's
     bytes bound."""
+    from arrow_matrix_tpu_torch.bench import routing_bytes
     from arrow_matrix_tpu_torch.ops.cuda_gather import (
         row_gather,
         row_gather_add_,
@@ -1137,6 +1134,7 @@ def k4_format_numbers(exe, tag: str, k: int, launches: tuple, n: int
     bound.  ``launches`` is the main path's (gathers, gather-adds)."""
     import torch
 
+    from arrow_matrix_tpu_torch.bench import routing_bytes
     from arrow_matrix_tpu_torch.ops.cuda_gather import (
         row_gather,
         row_gather_add_,
@@ -1973,6 +1971,8 @@ def step_bound_ms(exe, k: int, transposed: bool = False) -> float:
     ``k`` f32 features: the sum of its kernels' bounds, K1 over the
     ELL/HYB operators, K2 and K3 over the dense levels, K4's routing;
     the fold's one K1 product (a transposed pack adds K4's unsort)."""
+    from arrow_matrix_tpu_torch.bench import routing_bytes
+
     if exe.folded:
         t = exe.transposed() if transposed else None
         if t is None or t.sell is None:
@@ -2582,6 +2582,9 @@ def main() -> int:
                              "the dense path takes min(16, log2n)")
     parser.add_argument("--dense", action="store_true",
                         help="run phases 1, 2 and 6-8 only (the dense path)")
+    parser.add_argument("--bench", action="store_true",
+                        help="run phases 1, 2 and 14 only (the native "
+                             "decomposer and the port's bench)")
     args = parser.parse_args()
 
     import torch
@@ -2649,6 +2652,9 @@ def main() -> int:
     if args.dense:
         dense, kernels = dense_phases(dev, n_dense, work)
         return finish({"dense": dense, "card": smi}, kernels)
+    if args.bench:
+        bench = phase_bench(dev, 1 << args.log2n, None, None)
+        return finish({"bench": bench, "card": smi}, [])
 
     # -- 3. kernel vs plain on random tiers ------------------------------------
     phase_random_tiers(dev)
@@ -2667,7 +2673,6 @@ def main() -> int:
     save_decomposition(levels, base, block_diagonal=True)
     loaded = load_decomposition(base, width, block_diagonal=True)
     levels = as_levels(loaded, load_level_widths(base, width, True))
-    del a
     nnz = sum(int(lvl.matrix.nnz) for lvl in levels)
     log(f"phase 4: BA n={n} m={m}: {nnz} nnz; generate {t_gen:.1f} s, "
         f"decompose {t_dec:.1f} s ({len(levels)} levels, width {width}); "
@@ -2834,6 +2839,10 @@ def main() -> int:
     # -- 12. the ELL head layouts at the kernel-comparison shape -------------
     results["heads"] = phase_heads(dev, n_dense)
 
+    # -- 14. the native decomposer and the port's bench ----------------------
+    results["bench"] = phase_bench(dev, n, a, t_dec)
+    del a
+
     results["card"] = smi
     return finish(results, kernels)
 
@@ -2849,10 +2858,146 @@ def dense_phases(dev, n: int, work: str) -> tuple:
     return out
 
 
+#: The kernels each bench candidate's step must launch (phase 14).
+BENCH_KERNELS = {"fold": ("K1",), "fold_tight": ("K1",),
+                 "hyb": ("K1", "K4", "K4 add"),
+                 "auto": ("K1", "K2", "K3", "K4", "K4 add")}
+
+
+def check_levels(a, levels, width: int) -> None:
+    """Raise unless ``levels`` reconstruct ``a`` exactly and every level
+    keeps its edges within its width: the block diagonal or the head
+    for every level but the last, the band of its achieved width or the
+    head for the last."""
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.decomposition import reconstruct
+
+    if (reconstruct(levels) != a).nnz:
+        raise SystemExit("phase 14: the native levels do not reconstruct A")
+    for i, lvl in enumerate(levels):
+        coo = lvl.matrix.tocoo()
+        r, c = coo.row.astype(np.int64), coo.col.astype(np.int64)
+        w = lvl.arrow_width
+        head = (r < w) | (c < w)
+        if i < len(levels) - 1:
+            inside = (w == width) & np.all(head | (r // w == c // w))
+        else:
+            inside = np.all(head | (np.abs(r - c) <= w))
+        if not inside:
+            raise SystemExit(f"phase 14: native level {i} leaves its width "
+                             f"{w}")
+
+
+def phase_bench(dev, n: int, a, t_numpy) -> dict:
+    """Phase 14: BA ``n`` m=8 (``a``, generated here when None)
+    decomposed by the native decomposer into the bench's cache, then the
+    bench as a subprocess on it; every check fatal."""
+    import subprocess
+
+    import torch
+
+    from arrow_matrix_tpu_torch import bench
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.tools import gather_probe
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+    from arrow_matrix_tpu_torch.utils.artifacts import parse_last_json_line
+
+    m, width, seed, max_levels = 8, 2048, 7, 12
+    if a is None:
+        tic = time.perf_counter()
+        a = barabasi_albert(n, m, seed=seed)
+        log(f"phase 14: BA n={n} m={m} generated in "
+            f"{time.perf_counter() - tic:.1f} s")
+    tic = time.perf_counter()
+    levels = arrow_decomposition(a, width, max_levels=max_levels,
+                                 block_diagonal=True, seed=seed,
+                                 backend="native")
+    t_native = time.perf_counter() - tic
+    tic = time.perf_counter()
+    check_levels(a, levels, width)
+    t_check = time.perf_counter() - tic
+    cache = gather_probe.CACHE_DIR
+    base = gather_probe.cache_base(n, m, width, seed, max_levels, "native",
+                                   cache)
+    gather_probe.store_levels(levels, base)
+    numpy_s = ("phase 4's numpy decomposer (max_levels 10) "
+               f"{t_numpy:.1f} s" if t_numpy is not None
+               else "phase 4 not run")
+    log(f"phase 14: native decomposer {t_native:.1f} s ({len(levels)} "
+        f"levels, widths {[lvl.arrow_width for lvl in levels]}); "
+        f"{numpy_s}; levels reconstruct A exactly and stay within their "
+        f"widths (checked in {t_check:.1f} s); saved as {base}")
+    out = {"native_decompose_s": t_native, "numpy_decompose_s": t_numpy,
+           "native_levels": len(levels)}
+    del levels
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, AMT_BENCH_COMPARE="0", AMT_BENCH_CACHE_DIR=cache,
+               AMT_BENCH_N=str(n), AMT_BENCH_DEADLINE="1500")
+    for key in ("AMT_BENCH_FMT", "AMT_BENCH_LEVELS", "AMT_BENCH_K128",
+                "AMT_BENCH_SMALL", "AMT_BENCH_FULL"):
+        env.pop(key, None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    tic = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "arrow_matrix_tpu_torch.bench"],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=1560)
+    t_bench = time.perf_counter() - tic
+    for line in proc.stderr.splitlines():
+        print(f"    bench: {line}")
+    line = parse_last_json_line(proc.stdout)
+    print(f"phase 14 bench line: {json.dumps(line)}", flush=True)
+    if proc.returncode != 0 or line is None:
+        raise SystemExit(f"phase 14: the bench exited {proc.returncode}")
+    name = torch.cuda.get_device_name(0)
+    bad = []
+    if line.get("platform") != "cuda" or line.get("device_kind") != name:
+        bad.append(f"platform/device_kind {line.get('platform')} "
+                   f"{line.get('device_kind')}")
+    if line.get("config", {}).get("decompose_backend") != "native":
+        bad.append("the bench did not load the native decomposition")
+    value = line.get("value")
+    if not isinstance(value, float) or not math.isfinite(value):
+        bad.append(f"value {value}")
+    if not line.get("frobenius_err_vs_cpu", 1.0) <= line.get(
+            "frobenius_gate", 0.0):
+        bad.append("frobenius_err_vs_cpu above its gate")
+    if "k128_ms" not in line or not line.get("k128_err", 1.0) <= line.get(
+            "k128_gate", 0.0):
+        bad.append(f"k128: {line.get('k128_error', 'no k128_ms')}")
+    frac = line.get("roofline_frac")
+    if frac is None or not frac <= 1.0:
+        bad.append(f"roofline_frac {frac}")
+    if not line.get("fmt_used"):
+        bad.append("no fmt_used")
+    for cand, run in line.get("device_runs", {}).items():
+        idle = [k for k in BENCH_KERNELS.get(cand, ())
+                if not run.get("launches", {}).get(k)]
+        if "ms" in run and idle:
+            bad.append(f"{cand} launched no {idle}")
+    if bad:
+        raise SystemExit(f"phase 14: {'; '.join(bad)}")
+    log(f"phase 14: bench {t_bench:.1f} s: {line['fmt_used']} "
+        f"{value:.4f} ms/iter at k=16 (vs scipy {line['vs_baseline']}x, "
+        f"err {line['frobenius_err_vs_cpu']:.3e} <= "
+        f"{line['frobenius_gate']:.1e}, roofline {frac}), k=128 "
+        f"{line['k128_ms']:.4f} ms/iter; candidates "
+        + ", ".join(f"{c}: {r.get('ms', r.get('error'))} ms, launches "
+                    f"{r.get('launches')}"
+                    for c, r in line["device_runs"].items()))
+    out.update(bench_s=t_bench, line=line,
+               peak_bytes_s=bench.peak_bytes_s(name))
+    return out
+
+
 def finish(results: dict, kernels: list) -> int:
     """Print the results, the kernels' line and the last line."""
     import torch
 
+    log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     print(json.dumps(results))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -92,3 +92,120 @@ def test_without_a_device_it_fails_and_names_it(tmp_path):
 def test_path_needs_a_width(tmp_path):
     proc = _run(["--device", "cpu", "--path", "x"], tmp_path)
     assert proc.returncode != 0 and "--width is required" in proc.stderr
+
+
+# -- arrow_decompose and the matrix loaders ----------------------------------
+
+def test_arrow_decompose_then_spmm_arrow_validates(tmp_path):
+    from scipy import sparse
+
+    from arrow_matrix_tpu_torch.cli import arrow_decompose
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+
+    sparse.save_npz(tmp_path / "tiny.npz", barabasi_albert(300, 3, seed=1))
+    arrow_decompose.main(["--dataset_dir", str(tmp_path), "--dataset_name",
+                          "tiny.npz", "--width", "32", "--levels", "4",
+                          "--seed", "0"])
+    produced = os.listdir(tmp_path)
+    assert any("_indptr.npy" in p for p in produced)
+    assert any("_permutation.npy" in p for p in produced)
+    proc = _run(["--device", "cpu", "--path", str(tmp_path / "tiny"),
+                 "--width", "32", "--features", "4", "--iterations", "2",
+                 "--validate", "true"], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    errs = re.findall(r"rel err vs host (\S+) \(gate (\S+)\)", proc.stdout)
+    assert errs and all(float(e) <= float(g) for e, g in errs)
+
+
+@pytest.mark.parametrize("flags", [[], ["--backend", "numpy"],
+                                   ["--backend", "native", "--block_diagonal",
+                                    "false", "--seed", "3"]])
+def test_arrow_decompose_writes_the_jax_artifacts(tmp_path, flags):
+    import filecmp
+
+    from scipy import sparse
+
+    from arrow_matrix_tpu.cli import arrow_decompose as jax_cli
+    from arrow_matrix_tpu_torch.cli import arrow_decompose
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+
+    sparse.save_npz(tmp_path / "g.npz", barabasi_albert(600, 4, seed=5))
+    for side, cli in (("ours", arrow_decompose), ("theirs", jax_cli)):
+        cli.main(["--dataset_dir", str(tmp_path), "--dataset_name", "g.npz",
+                  "--width", "48", "--levels", "6",
+                  "--out_dir", str(tmp_path / side), *flags])
+    names = sorted(os.listdir(tmp_path / "theirs"))
+    assert len(names) > 5
+    assert sorted(os.listdir(tmp_path / "ours")) == names
+    _, mismatch, errors = filecmp.cmpfiles(
+        tmp_path / "ours", tmp_path / "theirs", names, shallow=False)
+    assert not mismatch and not errors
+
+
+def _write_mat73(path, m):
+    """A MATLAB v7.3 file: HDF5 with the 512-byte MATLAB userblock and
+    the SuiteSparse ``Problem/A`` group layout."""
+    import h5py
+    import numpy as np
+    from scipy import sparse
+
+    csc = sparse.csc_matrix(m)
+    with h5py.File(path, "w", userblock_size=512) as f:
+        g = f.create_group("Problem").create_group("A")
+        g.create_dataset("data", data=csc.data.astype(np.float64))
+        g.create_dataset("ir", data=csc.indices.astype(np.uint64))
+        g.create_dataset("jc", data=csc.indptr.astype(np.uint64))
+        g.attrs["MATLAB_sparse"] = np.uint64(csc.shape[0])
+    header = b"MATLAB 7.3 MAT-file, written by arrow_matrix_tpu_torch tests"
+    block = header.ljust(116, b" ") + b"\x00" * 8
+    block = block.ljust(124, b" ") + b"\x00\x02IM"
+    with open(path, "r+b") as fh:
+        fh.write(block.ljust(512, b"\x00"))
+
+
+@pytest.mark.parametrize("ext", [".mtx", ".npz", ".mat"])
+def test_load_sparse_matrix_equals_jax(tmp_path, ext):
+    import numpy as np
+    from scipy import io as sio
+    from scipy import sparse
+
+    from arrow_matrix_tpu.cli.common import load_sparse_matrix as jax_load
+    from arrow_matrix_tpu_torch.cli.common import load_sparse_matrix
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+
+    a = barabasi_albert(80, 3, seed=7).astype(np.float64)
+    a.data = np.random.default_rng(0).standard_normal(a.nnz)
+    path = str(tmp_path / f"g{ext}")
+    if ext == ".mtx":
+        sio.mmwrite(path, a)
+    elif ext == ".npz":
+        sparse.save_npz(path, a)
+    else:
+        pytest.importorskip("h5py")
+        _write_mat73(path, a)
+    ours, theirs = load_sparse_matrix(path), jax_load(path)
+    assert ours.dtype == theirs.dtype == np.float32
+    for field in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(ours, field), getattr(theirs, field))
+    assert abs(ours - a.astype(np.float32)).max() == 0
+    with pytest.raises(ValueError, match="unsupported matrix format"):
+        load_sparse_matrix(str(tmp_path / "g.txt"))
+
+
+def test_cli_helpers_equal_jax():
+    import numpy as np
+
+    from arrow_matrix_tpu.cli import common as jax_common
+    from arrow_matrix_tpu_torch.cli import common
+
+    for v in ("yes", "True", "0", "n", True, False):
+        assert common.str2bool(v) == jax_common.str2bool(v)
+    with pytest.raises(Exception):
+        common.str2bool("maybe")
+    ours = common.random_adjacency(64, 512, seed=3)
+    theirs = jax_common.random_adjacency(64, 512, seed=3)
+    assert (ours != theirs).nnz == 0
+    scaled, jscaled = (common.normalize_scale(ours),
+                       jax_common.normalize_scale(theirs))
+    assert np.array_equal(scaled.data, jscaled.data)
+    assert scaled.dtype == np.float32

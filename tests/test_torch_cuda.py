@@ -663,3 +663,31 @@ def test_transposed_step_on_the_card_matches_scipy(cuda, fmt):
     got = exe.gather_result(exe.transposed_step(exe.set_features(g)))
     assert relative_error(got, m.T @ g) <= relative_tolerance(
         m.nnz / 4096)
+
+
+def test_bench_on_the_card_prints_its_contract_line(cuda, tmp_path):
+    """``python -m arrow_matrix_tpu_torch.bench`` at n = 2^14: the race of
+    fold and hyb on the card, the k=128 rerun, every number gated."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, AMT_BENCH_N=str(1 << 14),
+               AMT_BENCH_FMT="fold,hyb", AMT_BENCH_COMPARE="0",
+               AMT_BENCH_CACHE_DIR=str(tmp_path / "cache"))
+    proc = subprocess.run([sys.executable, "-m",
+                           "arrow_matrix_tpu_torch.bench"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=1200)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["platform"] == "cuda" and line.get("degraded") is None
+    assert line["device_kind"] == torch.cuda.get_device_name(0)
+    assert line["device_kind"] in line["card"]
+    assert np.isfinite(line["value"])
+    assert line["frobenius_err_vs_cpu"] <= line["frobenius_gate"]
+    assert line["k128_err"] <= line["k128_gate"] and line["k128_ms"] > 0
+    assert line["fmt_used"] in ("fold", "hyb")
+    assert line["device_runs"][line["fmt_used"]]["launches"]["K1"] > 0

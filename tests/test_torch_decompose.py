@@ -57,10 +57,14 @@ def test_levels_identical_to_jax_numpy_backend(block_diagonal):
     assert (reconstruct(ours) != a).nnz == 0
 
 
-def test_native_backend_names_the_roadmap_item():
-    a = barabasi_albert(64, 2, seed=0)
-    with pytest.raises(NotImplementedError, match="native decomposer"):
-        arrow_decomposition(a, 8, backend="native")
+def test_native_backend_runs_and_equals_jax():
+    a = barabasi_albert(512, 3, seed=11)
+    ours = arrow_decomposition(a, 32, max_levels=10, block_diagonal=True,
+                               seed=4, backend="native")
+    theirs = jax_decompose(a, 32, max_levels=10, block_diagonal=True,
+                           seed=4, backend="native")
+    _same_levels(ours, theirs)
+    assert (reconstruct(ours) != a).nnz == 0
 
 
 def test_committed_artifact_loads_in_the_port(ba_256_3_base):

@@ -101,6 +101,11 @@ assert all(r["exact"] for r in gather_probe.gather_rates(
     n=256, m=2, device="cpu", ks=(16,), reps=1))
 assert gather_probe.fold_gate(gather_probe.fold_step(16, ml, iters=1),
                               ml.nnz / ml.n)
+import arrow_matrix_tpu_torch.bench, arrow_matrix_tpu_torch.cli.arrow_decompose
+from arrow_matrix_tpu_torch.utils import artifacts, logging, platform
+native_levels = arrow_decomposition(a, 32, max_levels=4, seed=0,
+                                    backend="auto")
+assert sum(l.matrix.nnz for l in native_levels) == a.nnz
 assert not any(m.split(".")[0] in {"jax", "flax", "arrow_matrix_tpu"}
                for m in sys.modules)
 print("ok", err)
@@ -108,8 +113,9 @@ print("ok", err)
 
 
 def test_port_runs_a_fold_step_with_jax_blocked():
-    """A fold step, a dense step and both gather probes, with JAX and
-    the JAX package unimportable."""
+    """A fold step, a dense step, both gather probes, the bench and
+    decomposer modules and a native decomposition, with JAX and the JAX
+    package unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
