@@ -136,14 +136,28 @@ def _bench_config(platform: str, fmt_override=None) -> dict:
     cfg["k128"] = (cfg["k"] != 128
                    and os.environ.get("AMT_BENCH_K128",
                                       "0" if degraded else "1") == "1")
+    # The step's column schedule (MultiLevelArrow's overlap_slabs and,
+    # for the fold candidates, repl): S feature slabs, c column groups;
+    # each must divide k.  1 is the plain step.
     cfg["overlap_slabs"] = max(
         int(os.environ.get("AMT_BENCH_OVERLAP_SLABS", "1")), 1)
     cfg["repl"] = max(int(os.environ.get("AMT_BENCH_REPL", "1")), 1)
-    if cfg["overlap_slabs"] > 1 or cfg["repl"] > 1:
-        raise NotImplementedError(
-            "AMT_BENCH_OVERLAP_SLABS / AMT_BENCH_REPL above 1 are not "
-            "ported yet; see ROADMAP.md Queue A, 'fold executor options'")
     return cfg
+
+
+def candidate_kwargs(fmt: str, cfg: dict) -> dict:
+    """``MultiLevelArrow`` keywords of candidate ``fmt``: its format
+    and packing, ``overlap_slabs`` when above 1, and ``repl`` above 1
+    for the fold candidates only (the executor takes it on the fold
+    alone, as in the root bench)."""
+    kw = dict(CANDIDATE_KWARGS.get(fmt, dict(fmt=fmt)))
+    slabs = max(int(cfg.get("overlap_slabs", 1)), 1)
+    if slabs > 1:
+        kw["overlap_slabs"] = slabs
+    repl = max(int(cfg.get("repl", 1)), 1)
+    if repl > 1 and kw.get("fmt") == "fold":
+        kw["repl"] = repl
+    return kw
 
 
 def _cached_levels(n: int, m: int, width: int, max_levels: int):
@@ -256,14 +270,17 @@ def run_one_candidate(fmt: str) -> None:
                             cfg["max_levels"])
     budget = device_memory_budget(dev)
     t0 = time.perf_counter()
+    build_kwargs = candidate_kwargs(fmt, cfg)
     multi = MultiLevelArrow(levels, cfg["width"], dense_budget=budget,
-                            device=dev,
-                            **CANDIDATE_KWARGS.get(fmt, dict(fmt=fmt)))
+                            device=dev, **build_kwargs)
     build_s = time.perf_counter() - t0
     _progress(f"fmt={fmt} built in {build_s:.0f}s; measuring")
     out = {"build_s": round(build_s, 2), "fmts": list(multi.fmts),
            "dense_budget_gb": round(budget / 2**30, 2),
            "host_load": host_load()}
+    for key in ("overlap_slabs", "repl"):
+        if key in build_kwargs:
+            out[key] = build_kwargs[key]
     if k128_run:
         # The secondary width on the winner only.  Gated like k=16, on
         # the first 16 columns (the product is column-separable).
@@ -397,6 +414,10 @@ def run_bench(result: dict, platform: str, device_kind: str) -> None:
                         "iterations": iters, "ba_neighbors": cfg["m"]}
     if cfg["degraded"]:
         result["degraded"] = True
+    if cfg["overlap_slabs"] > 1:
+        result["overlap_slabs"] = cfg["overlap_slabs"]
+    if cfg["repl"] > 1:
+        result["repl"] = cfg["repl"]
     _progress(f"platform={platform} kind={device_kind} n={n} "
               f"fmt={cfg['fmt']}")
     seg = wb.init("bench", f"ba_n{n}", config=dict(result["config"]))

@@ -1,15 +1,21 @@
-"""Shared CLI plumbing: flag parsing and matrix loading.
+"""Shared CLI plumbing: flag parsing, the device, the supervised loop
+and matrix loading.
 
-The port's copy of the host half of ``arrow_matrix_tpu/cli/common.py``:
-``str2bool``, ``load_sparse_matrix`` (``.npz``, ``.mtx``, ``.mat``
-including MATLAB v7.3 through h5py), ``random_adjacency`` and
-``normalize_scale``.
+The port's copy of ``arrow_matrix_tpu/cli/common.py``: ``str2bool``,
+``add_device_args`` / ``setup_platform`` (``--device`` picks the card,
+the default, or ``cpu``; there is no silent fallback), ``add_heal_args``
+/ ``make_supervisor`` (the supervised iteration loop's flags),
+``load_sparse_matrix`` (``.npz``, ``.mtx``, ``.mat`` including MATLAB
+v7.3 through h5py), ``random_adjacency`` and ``normalize_scale``.  The
+JAX module's multi-process launch flags wait for the multi-device
+executors.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional
 
 import numpy as np
 from scipy import sparse
@@ -24,6 +30,81 @@ def str2bool(v) -> bool:
     if v.lower() in ("no", "false", "f", "n", "0"):
         return False
     raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
+
+
+def add_device_args(parser: argparse.ArgumentParser) -> None:
+    """``--device``: ``cuda`` (the card, the default) or ``cpu`` (the
+    plain PyTorch versions of the kernels)."""
+    parser.add_argument(
+        "-i", "--device", type=str, default="cuda",
+        choices=["cuda", "cpu"],
+        help="Where the product runs (default: the card; 'cpu' runs the "
+             "plain PyTorch versions of the kernels).")
+
+
+def setup_platform(args: argparse.Namespace):
+    """The ``torch.device`` of ``--device``; exits with a message when
+    the card is asked for and there is none."""
+    from arrow_matrix_tpu_torch.utils.device import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+
+
+def add_heal_args(parser: argparse.ArgumentParser,
+                  checkpoint_every_default: int = 10) -> None:
+    """The supervised run loop's flags (watchdog, bounded retry, finite
+    check) and iteration-state checkpointing
+    (``utils/checkpoint.py``)."""
+    g = parser.add_argument_group(
+        "supervised loop", "watchdog, bounded retry, checkpoint resume "
+                           "(see faults/)")
+    g.add_argument("--checkpoint", type=str, default=None,
+                   help="Base path (or, for the server, directory) of "
+                        "iteration-state checkpoints (the batch CLI needs "
+                        "--carry): X and the iteration counter are saved "
+                        "every --checkpoint_every iterations as npz with "
+                        "a sha256 sidecar, and a rerun resumes from the "
+                        "checkpoint when one exists.")
+    g.add_argument("--checkpoint_every", type=int,
+                   default=checkpoint_every_default)
+    g.add_argument("--watchdog", type=float, default=0.0,
+                   help="Per-iteration watchdog seconds (0 disables): an "
+                        "iteration past the budget (the kernels' run "
+                        "included: the step is synchronised) is a fault, "
+                        "retried from its entry state, or escalated when "
+                        "it never drains.")
+    g.add_argument("--max_retries", type=int, default=2,
+                   help="Consecutive faulted attempts of one iteration "
+                        "before the run fails (each retry backs off "
+                        "exponentially and rolls back to the last "
+                        "checkpoint when one exists).")
+    g.add_argument("--retry_jitter", type=float, default=0.0,
+                   help="±fraction of deterministic, seedable jitter on "
+                        "each backoff delay (faults/policy.py).")
+    g.add_argument("--finite_check", type=str2bool, nargs="?",
+                   default=True, const=True,
+                   help="All-finite check on the carried X each "
+                        "iteration; NaN/Inf rolls back to the last "
+                        "checkpoint (carry mode only).")
+
+
+def make_supervisor(args: argparse.Namespace, name: str, *,
+                    carry: bool, layout: Optional[str] = None,
+                    registry=None, canonicalize=None):
+    """The supervised loop of a CLI run, from its ``add_heal_args``
+    flags."""
+    from arrow_matrix_tpu_torch.faults import RetryPolicy, Supervisor
+
+    return Supervisor(
+        name, carry=carry,
+        policy=RetryPolicy.from_args(args),
+        checkpoint_path=getattr(args, "checkpoint", None),
+        checkpoint_every=getattr(args, "checkpoint_every", 0),
+        finite_check=bool(getattr(args, "finite_check", True)) and carry,
+        layout=layout, registry=registry, canonicalize=canonicalize)
 
 
 def load_sparse_matrix(path: str, dtype=np.float32) -> sparse.csr_matrix:

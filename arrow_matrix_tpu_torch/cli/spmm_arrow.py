@@ -20,6 +20,12 @@ as in the JAX CLI).
     python -m arrow_matrix_tpu_torch.cli.spmm_arrow --fmt ell \\
         --head_fmt gell --vertices 65536 --width 2048 --validate
 
+The iteration loop runs under the supervisor (``faults/``), with the
+JAX CLI's flags: ``--watchdog`` seconds per iteration, ``--max_retries``
+with exponential backoff, ``--finite_check`` (NaN/Inf rolls back), and
+with ``--carry`` ``--checkpoint`` (every ``--checkpoint_every``
+iterations; a rerun resumes from it).
+
 Runs on the card; ``--device cpu`` runs the plain PyTorch version.
 """
 
@@ -31,7 +37,7 @@ import time
 
 import numpy as np
 
-from arrow_matrix_tpu_torch.cli.common import str2bool
+from arrow_matrix_tpu_torch.cli.common import add_heal_args, str2bool
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,11 +100,17 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["cuda", "cpu"],
                    help="Where the product runs (default: the card).")
     p.add_argument("--seed", type=int, default=42)
+    add_heal_args(p)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.checkpoint and not args.carry:
+        # A flag error: fail before any decomposition work.
+        raise SystemExit("--checkpoint requires --carry (there is no "
+                         "iteration state to resume when X is fresh "
+                         "every iteration)")
 
     import torch
 
@@ -114,6 +126,8 @@ def main(argv=None) -> int:
         num_rows,
         save_decomposition,
     )
+    from arrow_matrix_tpu_torch.cli.common import make_supervisor
+    from arrow_matrix_tpu_torch.faults import Abort
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
         barabasi_albert,
@@ -198,8 +212,21 @@ def main(argv=None) -> int:
         sum(lvl.matrix.nnz for lvl in levels) / max(n, 1), iters=1)
     if args.feature_dtype == "bf16":
         tol = max(tol, 2e-2)
+    # Layout tag: how X is carried.  A checkpoint written under another
+    # executor configuration refuses to resume instead of silently
+    # permuting rows.
+    sup = make_supervisor(
+        args, "spmm_arrow", carry=args.carry,
+        layout=f"spmm_arrow/{args.fmt}/{args.feature_dtype or 'f32'}")
+    start = 0
+    if args.carry and args.checkpoint:
+        state = sup.resume(like=x)
+        if state is not None:
+            x, start = state
+            print(f"resumed from {args.checkpoint} at iteration {start}")
     times = []
-    for it in range(args.iterations):
+
+    def body(x, it):
         if args.carry:
             x_host = multi.gather_result(x) if args.validate else None
         else:
@@ -218,9 +245,19 @@ def main(argv=None) -> int:
             print(f"iteration {it}: rel err vs host {err:.3e} "
                   f"(gate {tol:.1e})")
             if not np.isfinite(err) or err > tol:
-                print(f"validation gate failed at iteration {it}")
-                return 1
-        x = y
+                # A policy failure: never retried, and no checkpoint of
+                # this state is written.
+                raise Abort(f"validation gate failed at iteration {it}")
+        return y
+
+    _, ok = sup.run(body, x, start, args.iterations)
+    if not ok:
+        print("the supervised loop failed (validation gate, or retries "
+              "exhausted)")
+        return 1
+    if sup.faults_seen:
+        print(f"{sup.faults_seen} fault(s) seen, {sup.recoveries} "
+              f"recover(ies)")
     if times:
         ms = np.asarray(times) * 1e3
         print(f"spmm_time mean {ms.mean():.3f} ms over {len(ms)} "

@@ -32,12 +32,19 @@
 // column indices (and weights), then the BATCH row gathers, all in
 // flight before the first add.  BATCH is 8, and 4 for int8, whose lanes
 // widen 16 values into 16 accumulators and so hold more registers a row.
-// The chunks of a row that one CTA holds are added in chunk order
-// through shared memory; a row with more chunks than a CTA holds is
-// split over several CTAs, each writing one float32 partial to a
-// workspace, and a second launch adds a row's partials in order.  No
-// atomics: two runs give the same bits.  Binary rows stop at deg[r].
-// All offsets into x and out are 64-bit.
+// A row's chunk sums are added in one order fixed by the row's chunk
+// count alone, whatever k: in blocks of kBlock (8) consecutive chunks,
+// each block summed in chunk order, and the block sums added in block
+// order.  The chunks of a row that one CTA holds are added so through
+// shared memory; a row with more chunks than a CTA holds is split over
+// several CTAs, each writing one float32 partial per block to a
+// workspace, and a second launch adds a row's block partials in order.
+// (kBlock is the fewest groups a CTA has, at 32 lanes a group, so a
+// split item always holds whole blocks.)  A column of a product at any
+// k therefore has the same bits as the same column at another k: the
+// serving runtime's batches and column slabs rely on it.  No atomics:
+// two runs give the same bits.  Binary rows stop at deg[r].  All
+// offsets into x and out are 64-bit.
 //
 // Interface: plain C, built with nvcc -shared and loaded with ctypes
 // (ops/_build.py, ops/cuda_sell.py).  The launches go on the caller's
@@ -53,6 +60,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSumThreads = 128;
+// Chunks of one block of a row's sum order: kThreads / 32, the fewest
+// groups of a CTA (ops/worklist.py:CHUNK_BLOCK).
+constexpr int kBlock = 8;
 
 // One row of the tier table (ops/worklist.py:TIER_FIELDS), eight int64.
 struct Tier {
@@ -119,7 +129,8 @@ __device__ __forceinline__ void accumulate(
 // Grid (items, col_blocks).  Item (tier, row0, chunk0, part): part < 0,
 // the CTA holds rows row0 .. row0 + P / S - 1 whole and writes them;
 // else it holds chunks chunk0 .. chunk0 + P - 1 of row row0 and writes
-// their sum to part[part].
+// the sum of each of their blocks of kBlock chunks to part[part],
+// part[part + 1], ...
 template <typename TX, typename TO, bool BINARY, int VEC, bool VECLOAD,
           int BATCH>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -189,20 +200,42 @@ sell_kernel(const Tier* __restrict__ tiers, const int4* __restrict__ items,
     }
   }
 
-  if (cps > 1) {  // uniform across the CTA: no divergent barrier
+  // The group leading a block of kBlock chunks sums the block in chunk
+  // order; for a direct row the first group then adds the block sums in
+  // block order.  cps and direct are uniform across the CTA, so every
+  // barrier is reached by all of its threads.
+  const bool leader = c_local % kBlock == 0;
+  if (cps > 1) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) red[i * kThreads + threadIdx.x] = acc[i];
     __syncthreads();
-    if (row_ok && c_local == 0) {
-      for (int t = 1; t < cps; ++t) {
+    if (row_ok && leader && c_local < cps) {
+      const int last = min(kBlock, cps - c_local);
+      for (int t = 1; t < last; ++t) {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           acc[i] += red[i * kThreads + threadIdx.x + t * group];
         }
       }
     }
+    if (direct && cps > kBlock) {
+      __syncthreads();  // every block read its chunks
+      if (row_ok && leader && c_local < cps) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) red[i * kThreads + threadIdx.x] = acc[i];
+      }
+      __syncthreads();
+      if (row_ok && c_local == 0) {
+        for (int b = kBlock; b < cps; b += kBlock) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            acc[i] += red[i * kThreads + threadIdx.x + b * group];
+          }
+        }
+      }
+    }
   }
-  if (!work || c_local != 0) return;
+  if (!work || !leader || (direct && c_local != 0)) return;
 
   const int lim = (k - col0) < VEC ? static_cast<int>(k - col0) : VEC;
   if (direct) {
@@ -212,7 +245,8 @@ sell_kernel(const Tier* __restrict__ tiers, const int4* __restrict__ items,
       if (i < lim) store(o + i, acc[i]);
     }
   } else {
-    float* o = part + static_cast<int64_t>(item.w) * k + col0;
+    float* o = part + (static_cast<int64_t>(item.w) + c_local / kBlock) * k +
+               col0;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       if (i < lim) o[i] = acc[i];
@@ -221,7 +255,8 @@ sell_kernel(const Tier* __restrict__ tiers, const int4* __restrict__ items,
 }
 
 // Pass 2, one CTA per split row (out row, first partial, partials):
-// out[row] = part[first] + part[first + 1] + ... in order.
+// out[row] = part[first] + part[first + 1] + ... in order, the row's
+// block sums in block order.
 template <typename TO>
 __global__ void __launch_bounds__(kSumThreads)
 sum_rows_kernel(const int32_t* __restrict__ rows,
@@ -293,7 +328,7 @@ cudaError_t dispatch(int binary, int vecload, const void* tiers,
 // vecload: x is 16-byte aligned and k * itemsize % 16 == 0.
 // tiers: (T, 8) int64 tier table; items: (n_items, 4) int32; rows:
 // (n_rows, 3) int32 split rows; part: float32 workspace of the split
-// items (null when n_rows is 0).  group: lanes of a thread group, a
+// items' block sums (null when n_rows is 0).  group: lanes of a thread group, a
 // power of two up to 32 (ops/worklist.py:lanes).
 // Returns a cudaError_t (0 is success), -1 for an unknown carriage, -2
 // for a group the kernel does not take, -3 for split rows without a

@@ -277,8 +277,12 @@ def load_decomposition(base: str, width: Optional[int] = None,
 
     With ``mem_map`` each CSR triplet stays on disk (memory-mapped).
     Missing ``_data`` files mean implicit unit values.  ``verify=None``
-    follows :func:`_verify_default`.
+    follows :func:`_verify_default`.  The fault hook
+    ``io.load_decomposition`` (target: ``base``) runs first.
     """
+    from arrow_matrix_tpu_torch import faults
+
+    faults.inject("io.load_decomposition", target=base)
     if verify is None:
         verify = _verify_default(mem_map)
     if verify:

@@ -72,6 +72,18 @@ def out_dtype_for(x_dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if x_dtype == torch.int8 else x_dtype
 
 
+def _slot_sums(c: torch.Tensor, x: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """``sum_j w[j, r] x[c[j, r]]`` (rows, k) in float32 for a run of
+    slots ``c`` (s, rows), reduced along a contiguous slot axis: each
+    output element's sum then runs over its own slots in an order that
+    depends on their count alone, not on k or the rows beside it."""
+    s, rows = c.shape
+    k = x.shape[1]
+    g = x.index_select(0, c.reshape(-1).long()).reshape(s, rows, k).float()
+    return (g * w[:, :, None]).permute(1, 2, 0).contiguous().sum(-1)
+
+
 def ell_tier_sums(cols: torch.Tensor, x: torch.Tensor,
                   data: Optional[torch.Tensor] = None,
                   deg: Optional[torch.Tensor] = None,
@@ -81,27 +93,38 @@ def ell_tier_sums(cols: torch.Tensor, x: torch.Tensor,
     rounded to its dtype.  ``cols`` (and ``data``) may be a run of slots
     of a tier starting at slot ``first_slot``: a binary row then takes
     its slots below ``deg[r]`` counted from the tier's first slot.
-    ``chunk`` slots are gathered at a time (default: as many as keep the
-    intermediate under :data:`GATHER_ELEMENTS`)."""
+
+    ``chunk=None`` (the default) sums every slot of a row in one
+    reduction and cuts the rows instead to keep the intermediate under
+    :data:`GATHER_ELEMENTS`: a feature column of the result then has
+    the same bits whatever k (the serving runtime's batches and column
+    slabs rely on it).  An explicit ``chunk`` gathers that many slots at
+    a time and adds the chunks in order."""
     m, rows = cols.shape
     k = x.shape[1]
     if data is None and deg is None and m > 0:
         raise ValueError("binary ELL (data=None) requires deg")
     acc = torch.zeros((rows, k), dtype=torch.float32, device=x.device)
+    if m == 0 or rows == 0:
+        return acc
+
+    def weights(lo, hi, r0, r1):
+        if data is not None:
+            return data[lo:hi, r0:r1].float()
+        slot = torch.arange(first_slot + lo, first_slot + hi,
+                            device=x.device)[:, None]
+        return (slot < deg[None, r0:r1]).float()
+
     if chunk is None:
-        chunk = max(1, GATHER_ELEMENTS // max(rows * k, 1))
+        step = max(1, GATHER_ELEMENTS // max(m * k, 1))
+        for r0 in range(0, rows, step):
+            r1 = min(r0 + step, rows)
+            acc[r0:r1] = _slot_sums(cols[:, r0:r1], x,
+                                    weights(0, m, r0, r1))
+        return acc
     for lo in range(0, m, chunk):
         hi = min(lo + chunk, m)
-        c = cols[lo:hi]
-        g = x.index_select(0, c.reshape(-1).long()).reshape(
-            hi - lo, rows, k).float()
-        if data is not None:
-            w = data[lo:hi].float()
-        else:
-            slot = torch.arange(first_slot + lo, first_slot + hi,
-                                device=x.device)[:, None]
-            w = (slot < deg[None, :]).float()
-        acc += (g * w[:, :, None]).sum(dim=0)
+        acc += _slot_sums(cols[lo:hi], x, weights(lo, hi, 0, rows))
     return acc
 
 
@@ -117,7 +140,8 @@ def ell_tier_spmm(cols: torch.Tensor, x: torch.Tensor,
     :param data: (m, rows) f32 weights (0 in padding), or None.
     :param deg:  (rows,) int32 valid-slot counts (binary mode).
     :param out:  optional (rows, k) destination of the result dtype.
-    :param chunk: slots gathered at a time (see :func:`ell_tier_sums`).
+    :param chunk: slots gathered at a time (see :func:`ell_tier_sums`;
+        None: every slot at once, rows cut to bound the intermediate).
     :returns: (rows, k) in :func:`out_dtype_for` ``(x.dtype)``.
     """
     res = ell_tier_sums(cols, x, data=data, deg=deg, chunk=chunk).to(

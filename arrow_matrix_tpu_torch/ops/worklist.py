@@ -18,15 +18,23 @@ group`` groups a CTA:
 
 * ``S <= P`` (direct, ``part = -1``): the item covers ``P // S`` rows
   from ``row0``, the S chunks of a row on consecutive groups; they add
-  their sums in chunk order in shared memory and write the output row.
+  their sums in shared memory and write the output row.
 * ``S > P`` (split): each row takes ``Q = ceil(S / P)`` items, item q
-  covering chunks ``[q P, min((q + 1) P, S))`` (``chunk0 = q P``); its
-  sum in chunk order goes to row ``part`` of a float32 workspace, and a
-  second pass adds a row's Q partials in order (table ``rows``: output
-  row, first partial, Q).
+  covering chunks ``[q P, min((q + 1) P, S))`` (``chunk0 = q P``); it
+  writes the sum of each of its blocks of :data:`CHUNK_BLOCK` chunks to
+  rows ``part, part + 1, ...`` of a float32 workspace, and a second
+  pass adds a row's ``ceil(S / CHUNK_BLOCK)`` block sums in order
+  (table ``rows``: output row, first partial, partials).
 
-No atomics: the order of every sum is fixed by the shapes, so two runs
-give the same bits.  Zero-slot tiers get direct items and write zeros.
+Order.  A row's chunk sums are added in blocks of :data:`CHUNK_BLOCK`
+consecutive chunks (each block in chunk order), then the block sums in
+block order, direct or split: the order depends on S alone, never on k
+or the carriage, so a feature column of a product equals the same
+column of a product at any other k bit for bit (batched requests and
+column slabs rely on it).  ``CHUNK_BLOCK`` is the fewest groups of a
+CTA (P at 32 lanes), so a split item holds whole blocks.  No atomics:
+two runs give the same bits.  Zero-slot tiers get direct items and
+write zeros.
 
 :func:`sell_spmm_worklist` is the plain twin: the same chunks, the same
 partials and the same order of the chunk sums, in PyTorch.
@@ -47,6 +55,9 @@ THREADS = 256
 #: Most slots one thread group walks: longer rows are cut into chunks
 #: (chosen on the card among 64, 128 and 256; PERF.md).
 CHUNK_SLOTS = 128
+#: Chunks of one block of a row's sum order (``csrc``'s ``kBlock``):
+#: THREADS / 32, the fewest thread groups of a CTA.
+CHUNK_BLOCK = THREADS // 32
 #: Columns of the tier table (int64 each; ``csrc``'s ``struct Tier``).
 TIER_FIELDS = ("cols", "w", "row0", "m_t", "n_t", "chunk", "split",
                "unused")
@@ -83,7 +94,7 @@ class WorkList:
     tiers: np.ndarray      # (T, 5) int64: row0, m_t, n_t, L, S
     items: np.ndarray      # (I, 4) int32: tier, row0, chunk0, part
     rows: np.ndarray       # (R, 3) int32: output row, first part, parts
-    n_parts: int           # rows of the float32 workspace
+    n_parts: int           # rows of the float32 workspace (block sums)
 
     @property
     def groups(self) -> int:
@@ -125,18 +136,19 @@ def build_worklist(shapes: Sequence[Tuple[int, int]],
             items.append(it)
             continue
         q = -(-s // p)
+        blocks = -(-s // CHUNK_BLOCK)          # block sums of a row
         r = np.repeat(np.arange(n_t, dtype=np.int64), q)
         it = np.empty((r.size, 4), np.int64)
         it[:, 0], it[:, 1] = t, r
         it[:, 2] = np.tile(np.arange(q, dtype=np.int64) * p, n_t)
-        it[:, 3] = n_parts + np.arange(r.size)
+        it[:, 3] = n_parts + r * blocks + it[:, 2] // CHUNK_BLOCK
         items.append(it)
         rw = np.empty((n_t, 3), np.int64)
         rw[:, 0] = row0 + np.arange(n_t)
-        rw[:, 1] = n_parts + np.arange(n_t) * q
-        rw[:, 2] = q
+        rw[:, 1] = n_parts + np.arange(n_t) * blocks
+        rw[:, 2] = blocks
         rows.append(rw)
-        n_parts += r.size
+        n_parts += n_t * blocks
     cat = (lambda parts, width: np.concatenate(parts).astype(np.int32)
            if parts else np.zeros((0, width), np.int32))
     return WorkList(group=group, col_blocks=col_blocks,
@@ -144,16 +156,29 @@ def build_worklist(shapes: Sequence[Tuple[int, int]],
                     n_parts=n_parts)
 
 
+def chunk_order_sum(sums: list) -> torch.Tensor:
+    """The chunk sums of a row (or of rows alike) added in K1's order:
+    blocks of :data:`CHUNK_BLOCK` chunks, each in chunk order, then the
+    block sums in block order."""
+    total = None
+    for b in range(0, len(sums), CHUNK_BLOCK):
+        blk = sums[b].clone()
+        for c in sums[b + 1:b + CHUNK_BLOCK]:
+            blk += c
+        total = blk if total is None else total + blk
+    return total
+
+
 def sell_spmm_worklist(m, x: torch.Tensor, wl: WorkList) -> torch.Tensor:
     """Plain twin of K1 over the work list ``wl`` of ``m`` at ``x``'s k
     and carriage: ``m @ x`` row-major, ``x`` (n_rows, k) -> (n_rows, k)
     in ``out_dtype_for(x.dtype)``.
 
-    Each chunk's float32 sum is taken by ``ell_tier_sums``; the chunks
-    of a direct row are added in chunk order; a split item adds its
-    chunks in order into its workspace row, and the rows table adds a
-    row's partials in order: the kernel's order of the chunk sums.
-    (Inside a chunk PyTorch sums in its own order.)"""
+    Each chunk's float32 sum is taken by ``ell_tier_sums``; a direct
+    row's chunk sums are added in K1's order (:func:`chunk_order_sum`);
+    a split item writes its block sums into its workspace rows, and the
+    rows table adds a row's block sums in order: the kernel's order of
+    the chunk sums.  (Inside a chunk PyTorch sums in its own order.)"""
     k = x.shape[1]
     out = torch.zeros((m.n_rows, k), dtype=out_dtype_for(x.dtype),
                       device=x.device)
@@ -172,19 +197,18 @@ def sell_spmm_worklist(m, x: torch.Tensor, wl: WorkList) -> torch.Tensor:
             else data[c * length:(c + 1) * length],
             deg=deg, first_slot=c * length) for c in range(s)]
         if s <= p:
-            acc = sums[0].clone()
-            for c in range(1, s):
-                acc += sums[c]
-            out[row0:row0 + n_t] = acc.to(out.dtype)
+            out[row0:row0 + n_t] = chunk_order_sum(sums).to(out.dtype)
             continue
         mine = items[items[:, 0] == t]
         for chunk0 in torch.unique(mine[:, 2]).tolist():
             sel = mine[mine[:, 2] == chunk0]
             r = sel[:, 1]
-            acc = sums[chunk0][r].clone()
-            for c in range(chunk0 + 1, min(chunk0 + p, s)):
-                acc += sums[c][r]
-            part[sel[:, 3]] = acc
+            last = min(chunk0 + p, s)
+            for b, c0 in enumerate(range(chunk0, last, CHUNK_BLOCK)):
+                acc = sums[c0][r].clone()
+                for c in range(c0 + 1, min(c0 + CHUNK_BLOCK, last)):
+                    acc += sums[c][r]
+                part[sel[:, 3] + b] = acc
     for orow, first, parts in wl.rows.tolist():
         acc = part[first].clone()
         for q in range(1, parts):

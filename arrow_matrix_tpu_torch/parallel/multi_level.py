@@ -38,6 +38,28 @@ comparison points keep the JAX shapes: ``gather_result`` returns a host
 ``(n, k)`` array in original row order, and ``export_folded`` writes
 the same directory as the JAX package.
 
+Column schedule.  ``repl`` (c, the fold only) and ``overlap_slabs``
+(S) split a step along the features, as the JAX executor does: c
+column groups of ``k / c`` features, each cut into S slabs, each slab
+one product (one K1 product over ``k / (c S)`` columns for the fold).
+A slab of the row-major carriage is a strided view, so each is copied
+once into a contiguous tensor, and the slabs' results are concatenated
+once per step.  SpMM is separable per feature column and K1 sums each
+output element in an order fixed by the operator alone, so every
+schedule equals ``repl=1`` bit for bit.  These are the rungs of the
+serving runtime's degradation ladder (``serve/scheduler.py``).
+
+HBM model.  :meth:`MultiLevelArrow.predicted_hbm_bytes` counts the
+device tensors of a supervised run at a feature width: the operator,
+K1's work-list tables and its split-row float32 workspace, three
+carriages (the entry state a supervisor keeps for rollback, a step's
+input and its output) and the column schedule's slab copies; :meth:`carriage_hbm_bytes` is its part that grows with k,
+the serving runtime's admission price.
+
+Faults.  ``step`` passes its input through the fault hook
+``faults.on_step("multi_level.step", x)`` (on the int8 pair, through
+its scale), one ``None`` check when no plan is set.
+
 The int8 carriage is a symmetric per-feature pair ``(q, scale)``:
 ``q`` int8 ``(total_rows, k)`` and ``scale`` f32 ``(1, k)`` (``(k, 1)``
 in the JAX package).  SpMM is separable per feature column, so the
@@ -83,6 +105,7 @@ from arrow_matrix_tpu_torch.ops.cuda_ell import (
 )
 from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather, row_gather_add_
 from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+from arrow_matrix_tpu_torch.ops.worklist import build_worklist
 from arrow_matrix_tpu_torch.ops.ell import SLOT_ALIGN, auto_chunk
 from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_from_csr
 from arrow_matrix_tpu_torch.ops.sell import (
@@ -94,6 +117,10 @@ from arrow_matrix_tpu_torch.parallel.autograd import (
     StepFunction,
     Transposed,
     build_transposed,
+)
+from arrow_matrix_tpu_torch.parallel.routing import (
+    overlap_slices,
+    repl_slab_width,
 )
 from arrow_matrix_tpu_torch.utils.device import DeviceLike, resolve_device
 from arrow_matrix_tpu_torch.utils.platform import (
@@ -114,6 +141,19 @@ FEATURE_DTYPES = {None: torch.float32, "f32": torch.float32,
 _META_NAMES = {torch.bfloat16: "bfloat16", torch.int8: "int8"}
 
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+#: The CUDA caching allocator's block granularity: every tensor takes a
+#: multiple of 512 bytes of device memory.
+ALLOC_BLOCK = 512
+#: Device bytes of the supervisor's finite check: the min and max of
+#: ``torch.aminmax`` and the three one-element masks that test them.
+FINITE_CHECK_BYTES = 5 * ALLOC_BLOCK
+
+
+def alloc_bytes(nbytes: int) -> int:
+    """Device bytes a tensor of ``nbytes`` takes (whole allocator
+    blocks)."""
+    return -(-int(nbytes) // ALLOC_BLOCK) * ALLOC_BLOCK
 
 
 def _todo(what: str, item: str) -> NotImplementedError:
@@ -237,6 +277,27 @@ def multi_level_spmm(x: torch.Tensor, fwd: torch.Tensor, bwd: torch.Tensor,
     return agg
 
 
+def column_schedule(k: int, repl: int, overlap_slabs: int) -> list:
+    """The step's feature slabs ``[(lo, hi), ...]`` at width ``k``:
+    ``repl`` column groups of ``k / repl`` outermost, each cut into
+    ``overlap_slabs`` equal slabs (the JAX executor's order); raises
+    ``ValueError`` when a count does not divide its width."""
+    kc = repl_slab_width(k, repl)
+    return [(j * kc + lo, j * kc + hi)
+            for j in range(max(int(repl), 1))
+            for lo, hi in overlap_slices(kc, overlap_slabs)]
+
+
+def by_slabs(fn, x: torch.Tensor, slabs: list) -> torch.Tensor:
+    """``fn`` over each feature slab of the row-major ``x`` (copied once
+    into a contiguous tensor), the results concatenated along the
+    features; ``fn(x)`` itself for one slab."""
+    if len(slabs) == 1:
+        return fn(x)
+    return torch.cat([fn(x[:, lo:hi].contiguous()) for lo, hi in slabs],
+                     dim=1)
+
+
 def resolve_levels_binary(levels, binary) -> bool:
     """Decomposition-wide binary decision: "auto" is True iff every
     level is implicit-ones or all-ones."""
@@ -315,10 +376,14 @@ class MultiLevelArrow:
     ``real_row_mask``; ``step`` is differentiable, its backward
     :meth:`transposed_step` over :meth:`transposed`.
 
+    ``repl`` (c, the fold only) and ``overlap_slabs`` (S) are the column
+    schedule of a step (module docstring): a width k then needs c | k
+    and S | k/c.
+
     The JAX class's multi-device and fold tuning options (``mesh``,
-    ``routing``, ``layout``, ``kernel``, ``repl``, ``overlap_slabs``,
-    ``plan``, ``kernel_opts``) raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them.
+    ``routing``, ``layout``, ``kernel`` other than "xla", ``plan``,
+    ``kernel_opts``) raise ``NotImplementedError`` naming the ROADMAP
+    item that ports them.
     """
 
     def __init__(self, levels: List[ArrowLevel], width: int, *,
@@ -342,10 +407,20 @@ class MultiLevelArrow:
         if mesh is not None or routing != "gather" or layout != "slim":
             raise _todo("a mesh / routing / layout",
                         "multi-device executors")
-        if kernel != "xla" or repl != 1 or overlap_slabs != 1 \
-                or plan is not None or kernel_opts:
-            raise _todo("kernel / repl / overlap_slabs / plan / "
-                        "kernel_opts", "fold executor options")
+        if kernel != "xla" or plan is not None or kernel_opts:
+            raise _todo("kernel / plan / kernel_opts",
+                        "fold executor options")
+        if overlap_slabs < 1:
+            raise ValueError(f"overlap_slabs must be >= 1, got "
+                             f"{overlap_slabs}")
+        if repl < 1:
+            raise ValueError(f"repl must be >= 1, got {repl}")
+        if repl > 1 and fmt != "fold":
+            raise ValueError(
+                f"repl={repl} requires fmt='fold' (the single-device "
+                f"column-group schedule), got fmt={fmt!r}")
+        self.repl = int(repl)
+        self.overlap_slabs = int(overlap_slabs)
         if head_fmt not in HEAD_FORMATS:
             raise ValueError(f"unknown head_fmt {head_fmt!r}")
         if not levels:
@@ -563,8 +638,9 @@ class MultiLevelArrow:
                              0.0).astype(np.float32)
             return (torch.from_numpy(q).to(self.device),
                     torch.from_numpy(scale).to(self.device))
+        # Converted on the host: the card holds only the carriage.
         t = torch.from_numpy(np.ascontiguousarray(feat, dtype=np.float32))
-        return t.to(self.device).to(self.feature_dtype)
+        return t.to(self.feature_dtype).to(self.device)
 
     def gather_result(self, c) -> np.ndarray:
         """Device carriage -> host (n, k) f32 array in original order."""
@@ -572,7 +648,8 @@ class MultiLevelArrow:
             q, scale = c
             arr = (q.float() * scale.float()).cpu().numpy()
         else:
-            arr = c.float().cpu().numpy()
+            # Copied to the host first: no float32 copy on the card.
+            arr = c.detach().cpu().float().numpy()
         return arr[self.inv_perm0][:self.n]
 
     def _row_mask(self, dtype=np.float32) -> torch.Tensor:
@@ -643,18 +720,38 @@ class MultiLevelArrow:
         then requantized)."""
         if not self.folded:
             fwd, bwd, blocks = operands
-            return multi_level_spmm(x.contiguous(), fwd, bwd, blocks,
-                                    self.widths, chunk=self.chunk,
-                                    gather_budget=self.gather_budget)
+            return by_slabs(
+                lambda xs: multi_level_spmm(
+                    xs, fwd, bwd, blocks, self.widths, chunk=self.chunk,
+                    gather_budget=self.gather_budget),
+                x.contiguous(), self.slabs(x.shape[1]))
         (sell,) = operands
         if isinstance(x, tuple):
             q, scale = x
-            return requantize(sell_spmm_cuda(sell, q) * scale)
-        return sell_spmm_cuda(sell, x.contiguous())
+            z = by_slabs(lambda qs: sell_spmm_cuda(sell, qs), q,
+                         self.slabs(q.shape[1]))
+            return requantize(z * scale)
+        return by_slabs(lambda xs: sell_spmm_cuda(sell, xs), x.contiguous(),
+                        self.slabs(x.shape[1]))
+
+    def slabs(self, k: int) -> list:
+        """The step's feature slabs at width ``k`` (module docstring);
+        ``[(0, k)]`` with neither ``repl`` nor ``overlap_slabs``."""
+        return column_schedule(k, getattr(self, "repl", 1),
+                               getattr(self, "overlap_slabs", 1))
 
     def step(self, x):
         """One iteration ``X := A @ X`` on the carriage, differentiable
-        in ``x`` (its backward is :meth:`transposed_step`)."""
+        in ``x`` (its backward is :meth:`transposed_step`).  The input
+        passes the fault hook ``multi_level.step`` first (for the int8
+        pair, its scale)."""
+        from arrow_matrix_tpu_torch.faults import on_step as _fault_hook
+
+        if isinstance(x, tuple):
+            q, scale = x
+            x = (q, _fault_hook("multi_level.step", scale))
+        else:
+            x = _fault_hook("multi_level.step", x)
         return self._step_fn(x, *self.step_operands())
 
     def transposed(self) -> Transposed:
@@ -678,13 +775,95 @@ class MultiLevelArrow:
         return row_gather(sell_spmm_cuda(t.sell, g), t.inv)
 
     def run(self, x, iterations: int, donate: bool = False):
-        """``iterations`` chained steps.  ``donate`` is the reference's
-        signature: an eager loop holds each step's input only until the
-        next step has read it, whatever its value."""
+        """``iterations`` chained steps, past the fault hook (as the
+        JAX executor's one-program ``run`` is).  ``donate`` is the
+        reference's signature: an eager loop holds each step's input
+        only until the next step has read it, whatever its value."""
         del donate
         for _ in range(iterations):
-            x = self.step(x)
+            x = self._step_fn(x, *self.step_operands())
         return x
+
+    # -- the HBM model -------------------------------------------------------
+
+    def operator_bytes(self) -> int:
+        """Device bytes of the resident operator: the SELL tiers
+        (column indices and degrees or values) of the fold, or every
+        level's blocks and the routing tables."""
+        if self.folded:
+            return self.sell.device_nbytes()
+        return (sum(b.device_nbytes() for b in self.blocks)
+                + self.fwd.nbytes + self.bwd.nbytes)
+
+    def kernel_bytes(self, k: int, itemsize: int = 4) -> int:
+        """Device bytes of K1 at width ``k`` (fold only, 0 else): its
+        work list's tables on the card (kept on the operator) and its
+        split-row float32 workspace at this step's slab width (live
+        during a launch).  The work list is priced at the widest lane
+        layout (32 lanes a row, 8 rows a CTA), which has the most items
+        and split rows of any width, so the prices of requests batched
+        together cover the batch's own work list."""
+        if not self.folded or k <= 0:
+            return 0
+        cache = self.__dict__.setdefault("_kernel_bytes", {})
+        if (k, itemsize) not in cache:
+            cache[(k, itemsize)] = self._count_kernel_bytes(k, itemsize)
+        return cache[(k, itemsize)]
+
+    def _count_kernel_bytes(self, k: int, itemsize: int) -> int:
+        lo, hi = self._model_slabs(k)[0]
+        m = self.sell
+        widest = build_worklist([tuple(c.shape) for c in m.cols],
+                                m.row_starts, 32 * (16 // itemsize),
+                                itemsize)
+        tables = (alloc_bytes(len(m.cols) * 8 * 8)
+                  + alloc_bytes(widest.items.nbytes)
+                  + alloc_bytes(widest.rows.nbytes))
+        return tables + alloc_bytes(widest.n_parts * (hi - lo) * 4)
+
+    def _model_slabs(self, k: int) -> list:
+        """The slabs the model prices at width ``k``: the step's, or
+        for a width its schedule cannot split (which a server runs on
+        its ladder's last rung) the plain step's one."""
+        try:
+            return self.slabs(k) if k > 0 else [(0, 0)]
+        except ValueError:
+            return [(0, k)]
+
+    def predicted_hbm_bytes(self, k: int, itemsize: int = 4,
+                            repl: int = 1) -> int:
+        """Static HBM model of a supervised run at feature width ``k``
+        of ``itemsize`` bytes: the operator, K1's work-list tables and
+        workspace (:meth:`kernel_bytes`), three carriages of
+        ``total_rows x k`` (the entry state kept for rollback, a step's
+        input and its output), the finite check's scalars, and under a
+        column schedule the slabs' results before their concatenation
+        and one slab's copy; each tensor in whole allocator blocks
+        (:data:`ALLOC_BLOCK`).
+        A width the schedule cannot split is priced as the plain step.
+        ``repl`` is the JAX package's planning multiplier: the model
+        times ``repl``."""
+        rows = self.total_rows
+        slabs = self._model_slabs(k)
+        carriage = 0
+        if k > 0:
+            carriage = 3 * alloc_bytes(rows * k * itemsize) \
+                + FINITE_CHECK_BYTES
+        if len(slabs) > 1:
+            width = slabs[0][1] - slabs[0][0]
+            carriage += (len(slabs) + 1) * alloc_bytes(
+                rows * width * itemsize)
+        base = (self.operator_bytes() + self.kernel_bytes(k, itemsize)
+                + carriage)
+        return base * max(int(repl), 1)
+
+    def carriage_hbm_bytes(self, k: int, itemsize: int = 4,
+                           repl: int = 1) -> int:
+        """The part of the model that a width ``k`` adds on top of the
+        resident operator (``predicted_hbm_bytes(k) -
+        predicted_hbm_bytes(0)``): one request's admission price."""
+        return (self.predicted_hbm_bytes(k, itemsize, repl)
+                - self.predicted_hbm_bytes(0, itemsize, repl))
 
     # -- the packed operator on disk ---------------------------------------
 
@@ -717,10 +896,12 @@ class MultiLevelArrow:
 
     @classmethod
     def load_folded(cls, in_dir: str, feature_dtype="keep",
-                    device: DeviceLike = None) -> "MultiLevelArrow":
+                    device: DeviceLike = None, repl: int = 1,
+                    overlap_slabs: int = 1) -> "MultiLevelArrow":
         """Rebuild a fold executor from an ``export_folded`` directory
         (written by either package) without the decomposition.
-        ``feature_dtype="keep"`` uses the exported carriage."""
+        ``feature_dtype="keep"`` uses the exported carriage; ``repl``
+        and ``overlap_slabs`` its column schedule."""
         with open(os.path.join(in_dir, "meta.json")) as f:
             meta = json.load(f)
         self = cls.__new__(cls)
@@ -729,6 +910,9 @@ class MultiLevelArrow:
         self.fmts = ["fold"]
         self.folded = True
         self._transposed = None
+        if repl < 1 or overlap_slabs < 1:
+            raise ValueError("repl and overlap_slabs must be >= 1")
+        self.repl, self.overlap_slabs = int(repl), int(overlap_slabs)
         self.n = meta["n"]
         self.total_rows = meta["total_rows"]
         self.binary = meta["binary"]

@@ -1,0 +1,1012 @@
+"""The serving scheduler: an always-on, multi-tenant SpMM server.
+
+The port's copy of ``arrow_matrix_tpu/serve/scheduler.py``.  One
+decomposed operator stays resident on the card while tenants' requests
+(iterate ``X := A @ X`` from their own X) run over it:
+
+  * **admission control** — every request is priced against the live
+    HBM accountant (serve/admission.py) before it is queued; a request
+    over budget is rejected explicitly, and a full bounded queue sheds
+    explicitly: no silent drops.
+  * **request-level supervision** — each batch runs under a fresh
+    :class:`~arrow_matrix_tpu_torch.faults.Supervisor` stamped from the
+    server's one :class:`~arrow_matrix_tpu_torch.faults.RetryPolicy`
+    (watchdog, bounded retry, seeded backoff jitter), with a
+    per-request checkpoint path: a killed server resumes every
+    in-flight request from its last sha256-verified checkpoint.
+  * **graceful degradation** — repeated faults on a tenant's requests
+    walk that tenant down the ladder repl=c -> 1, overlap S -> 1
+    (:func:`degradation_ladder`; the JAX ladder's first rung, fused
+    kernel -> XLA, does not exist in the port, whose ``"xla"`` rung is
+    the hand-written kernel K1 on the card) instead of failing it; only
+    a tenant already on the last rung can fail.
+  * **dynamic batching** — compatible queued requests (same effective
+    configuration, same iteration count) are concatenated along the
+    feature axis and split back after the run.  SpMM is separable per
+    feature column and K1 sums every output element in an order fixed
+    by the operator alone (``ops/worklist.py``), so each request's
+    slice of a batched result equals its run alone bit for bit; so do
+    the ``repl``/``overlap_slabs`` rungs against ``repl=1``.
+
+Determinism: with a deterministic trace (serve/loadgen.py) and the
+synchronous ``drain()`` mode, the admission census and every completed
+request's result bytes replay identically.
+
+Not ported yet, each raising with its ROADMAP.md Queue A item:
+``tune_plan`` ("Proof and tuning layers"), the certificate ledger
+lookup and ``attach_pulse`` ("Observability and the ledger"), and
+``grow`` ("multi-device executors").
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from arrow_matrix_tpu_torch.classes import (
+    TRAFFIC_CLASSES,
+    Certificate,
+    class_itemsize,
+)
+from arrow_matrix_tpu_torch.faults import RetryPolicy, Supervisor
+from arrow_matrix_tpu_torch.obs import flight
+from arrow_matrix_tpu_torch.obs.comm import hbm_budget_bytes as _budget
+from arrow_matrix_tpu_torch.obs.memview import predicted_bytes_for
+from arrow_matrix_tpu_torch.serve import request as rq
+from arrow_matrix_tpu_torch.serve.admission import (
+    HBMAccountant,
+    request_price_bytes,
+)
+from arrow_matrix_tpu_torch.sync import guarded_by, witnessed
+from arrow_matrix_tpu_torch.utils.checkpoint import CheckpointIntegrityError
+
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet; see ROADMAP.md Queue A, '{item}'")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecConfig:
+    """One rung of the execution ladder: the knobs graceful degradation
+    can trade away (the JAX package's fused kernel, column replication
+    ``repl``, overlap sub-slabs ``overlap_slabs``) without changing the
+    result's row order or the carriage layout, so a degraded rerun
+    resumes the same checkpoints.  The port's executors take
+    ``kernel="xla"`` only (K1 on the card); another kernel fails to
+    build, and the ladder degrades past it, loudly.
+
+    ``feature_dtype`` is NOT a degradation knob: it is
+    the carriage dtype of the traffic class a request is served under
+    (None = f32 exact, "bf16" = certified approx), constant along a
+    ticket's ladder walk.  It lives here because it is part of the
+    executor cache key — an approx batch must never share an executor
+    (or a batch) with an exact one."""
+
+    kernel: str = "xla"
+    repl: int = 1
+    overlap_slabs: int = 1
+    feature_dtype: Optional[str] = None
+
+    def accepts_k(self, k: int) -> bool:
+        """Whether a feature width is schedulable under this config
+        (c | k and S | k/c)."""
+        if k <= 0 or k % self.repl:
+            return False
+        return (k // self.repl) % self.overlap_slabs == 0
+
+
+def degradation_ladder(base: ExecConfig) -> Tuple[ExecConfig, ...]:
+    """Cumulative degradation rungs from ``base`` down to the c=1 S=1
+    executor: a fused kernel first (cheapest to give up; the JAX
+    package's), then replication, then overlap — the JAX order."""
+    rungs = [base]
+    cur = base
+    if cur.kernel != "xla":
+        cur = dataclasses.replace(cur, kernel="xla")
+        rungs.append(cur)
+    if cur.repl > 1:
+        cur = dataclasses.replace(cur, repl=1)
+        rungs.append(cur)
+    if cur.overlap_slabs > 1:
+        cur = dataclasses.replace(cur, overlap_slabs=1)
+        rungs.append(cur)
+    return tuple(rungs)
+
+
+class _Tenant:
+    __slots__ = ("rung", "fault_score", "degradations",
+                 "allow_approx", "class_degraded")
+
+    def __init__(self):
+        self.rung = 0
+        self.fault_score = 0
+        self.degradations: List[dict] = []
+        # exact -> approx is one more (opt-in) rung
+        # below the terminal config rung; never taken silently.
+        self.allow_approx = False
+        self.class_degraded = False
+
+
+@guarded_by(
+    "_lock", node="arrow_server", aliases=("_cond",),
+    callbacks=("_factory",),
+    attrs=("_queue", "_counts", "_executors", "_tenants",
+           "_latencies_s", "_tenant_latencies_s",
+           "_class_latencies_s", "batches", "batched_requests",
+           "faults_seen", "recoveries", "checkpoint_corruptions",
+           "_stop"))
+class ArrowServer:
+    """Long-lived multi-tenant server over one resident arrow operator.
+
+    ``executor_factory(config: ExecConfig)`` builds an executor
+    (``set_features`` / ``step`` / ``gather_result`` plus the HBM model
+    ``predicted_hbm_bytes`` / ``carriage_hbm_bytes``) for one ladder
+    rung; executors are built lazily and cached — the base rung is
+    built eagerly so the resident operator is charged before the first
+    request.  The HBM budget defaults to the base executor's device's
+    (``obs/comm.hbm_budget_bytes``).
+
+    Two execution modes share all logic: ``start()`` spawns a worker
+    thread (the always-on deployment; ``shutdown(wait=True)`` drains
+    the queue first), while ``drain()`` processes synchronously in the
+    caller's thread — the deterministic mode every test and gate uses.
+    """
+
+    def __init__(self, executor_factory: Callable[[ExecConfig], Any],
+                 base_config: ExecConfig = ExecConfig(), *,
+                 hbm_budget_bytes: Optional[int] = None,
+                 queue_capacity: int = 64,
+                 policy: Optional[RetryPolicy] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 2,
+                 max_batch_k: int = 0,
+                 degrade_after: int = 2,
+                 itemsize: int = 4,
+                 registry=None,
+                 tracer=None,
+                 name: str = "serve",
+                 verbose: bool = False,
+                 tune_plan=None,
+                 certificates=None,
+                 structure_hash: Optional[str] = None,
+                 cert_ledger_dir: Optional[str] = None,
+                 approx_opt_in=(),
+                 grow_config: Optional[ExecConfig] = None,
+                 grow_factory: Optional[
+                     Callable[[ExecConfig], Any]] = None,
+                 reshard_budget_bytes: int = 1 << 20):
+        if tune_plan is not None:
+            raise _todo("tune_plan", "Proof and tuning layers")
+        if grow_config is not None or grow_factory is not None:
+            raise _todo("grow_config / grow_factory (live resharding)",
+                        "multi-device executors")
+        if cert_ledger_dir is not None:
+            raise _todo("a certificate lookup in the ledger "
+                        "(cert_ledger_dir)", "Observability and the ledger")
+        del reshard_budget_bytes
+        if base_config.feature_dtype is not None:
+            # The BASE rung serves the exact class; a carriage dtype
+            # on it is a class
+            # property, applied per ticket by _effective_config, never
+            # a default every tenant silently inherits.
+            base_config = dataclasses.replace(base_config,
+                                              feature_dtype=None)
+        if queue_capacity < 1:
+            raise ValueError(f"queue_capacity must be >= 1, got "
+                             f"{queue_capacity}")
+        self.name = name
+        self.verbose = verbose
+        self.registry = registry
+        self.tracer = tracer
+        self.policy = policy or RetryPolicy()
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        self.queue_capacity = int(queue_capacity)
+        self.max_batch_k = int(max_batch_k)
+        self.degrade_after = max(int(degrade_after), 1)
+        self.itemsize = int(itemsize)
+        self._factory = executor_factory
+        self.base_config = base_config
+        self.ladder = degradation_ladder(base_config)
+        # The approx class serves bf16 carriage only (the int8
+        # (q, scale) carriage has no checkpoint form), and only for
+        # structures holding a covering certificate, passed explicitly.
+        self.approx_dtype = "bf16"
+        self._certificates: Dict[str, Certificate] = {}
+        certs = certificates or ()
+        if isinstance(certs, dict):   # {dtype: cert} or an iterable
+            certs = certs.values()
+        for c in certs:
+            cert = (c if isinstance(c, Certificate)
+                    else Certificate.from_dict(dict(c)))
+            self._certificates[cert.dtype] = cert
+        shash = structure_hash
+        self._executors: Dict[ExecConfig, Any] = {}
+        self._tenants: Dict[str, _Tenant] = {}
+        for t in approx_opt_in or ():
+            self._tenant(t).allow_approx = True
+        self._queue: collections.deque = collections.deque()
+        # The worker thread, N submitter threads and the flight
+        # observers all meet on this one RLock; _cond is an alias view
+        # of it (declared on the contract) so a ``with self._cond:``
+        # region counts as holding ``_lock``.
+        self._lock = witnessed("arrow_server", threading.RLock())
+        self._cond = threading.Condition(self._lock)
+        self._thread: Optional[threading.Thread] = None
+        self._stop = False
+        self._counts = collections.Counter()
+        self._latencies_s: List[float] = []
+        self._tenant_latencies_s: Dict[str, List[float]] = {}
+        self._class_latencies_s: Dict[str, List[float]] = {}
+        self.batches = 0
+        self.batched_requests = 0
+        self.faults_seen = 0
+        self.recoveries = 0
+        self.checkpoint_corruptions = 0
+        base = self._build_executor(base_config)
+        if hbm_budget_bytes is None:
+            hbm_budget_bytes = _budget(None,
+                                       device=getattr(base, "device", None))
+        self.accountant = HBMAccountant(hbm_budget_bytes,
+                                        registry=registry, name=name)
+        resident = predicted_bytes_for(base, 0, itemsize=self.itemsize,
+                                       repl=base_config.repl) or 0
+        self.accountant.charge_resident(resident)
+        self._event("started", resident_bytes=resident,
+                    budget_bytes=self.accountant.budget_bytes,
+                    ladder=[dataclasses.asdict(c) for c in self.ladder])
+        if self._certificates:
+            self._event("certificates_loaded",
+                        structure_hash=shash,
+                        certificates={
+                            dt: {"iterations": c.iterations,
+                                 "tolerance": c.tolerance,
+                                 "bound": c.bound_at(c.iterations)}
+                            for dt, c in
+                            sorted(self._certificates.items())})
+
+    # -- plumbing ----------------------------------------------------------
+
+    def _log(self, msg: str) -> None:
+        if self.verbose:
+            print(f"[graft-serve {self.name}] {msg}", flush=True)
+
+    def _event(self, event: str, **data) -> None:
+        """The one serve-event funnel: the flight recorder gets every
+        event."""
+        flight.record("serve", event, server=self.name, **data)
+
+    def _span(self, name: str, **attrs):
+        """A tracer span when a tracer is attached, else a no-op (the
+        request context stamps request_id/tenant onto the span)."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, **attrs)
+
+    def _count(self, what: str, tenant: Optional[str] = None,
+               klass: Optional[str] = None, **labels) -> None:
+        # Counter.__iadd__ is read-modify-write: two unlocked bumps
+        # from the worker and a submitter can lose one (RC1).  The
+        # registry dispatch stays outside the critical section.
+        with self._lock:
+            self._counts[what] += 1
+            if tenant is not None:
+                self._counts[f"{what}:{tenant}"] += 1
+            if klass is not None:
+                self._counts[f"{what}:class:{klass}"] += 1
+        if self.registry is not None:
+            lb = dict(labels)
+            if tenant is not None:
+                lb["tenant"] = tenant
+            if klass is not None:
+                lb["traffic_class"] = klass
+            self.registry.counter(f"serve_{what}", server=self.name,
+                                  **lb).inc()
+
+    def _tenant(self, tenant: str) -> _Tenant:
+        t = self._tenants.get(tenant)
+        if t is None:
+            t = self._tenants[tenant] = _Tenant()
+        return t
+
+    def _build_executor(self, cfg: ExecConfig):
+        with self._lock:
+            ex = self._executors.get(cfg)
+        if ex is None:
+            # The factory is a user callback — it compiles kernels and
+            # can take seconds, so it runs with NO lock held (RC3).
+            # Two racing builders both build; the first to publish
+            # wins and the loser's executor is dropped.
+            built = self._factory(cfg)
+            with self._lock:
+                ex = self._executors.setdefault(cfg, built)
+        return ex
+
+    def _effective_config(self, ticket: rq.Ticket) -> ExecConfig:
+        """The ladder rung this ticket runs on: its tenant's current
+        rung, or the terminal rung when the request's feature width
+        fails the rung's divisibility contract (repl/overlap need
+        c | k and S | k/c; the terminal rung accepts every k).
+        Approx-served tickets get the class carriage dtype stamped on
+        the rung — a distinct executor cache key, so exact and approx
+        never share a compiled step or a batch."""
+        tenant = self._tenant(ticket.request.tenant)
+        cfg = self.ladder[tenant.rung]
+        if not cfg.accepts_k(ticket.request.k):
+            cfg = self.ladder[-1]
+        if ticket.served_class == "exact" and tenant.class_degraded:
+            # Opt-in class degradation (never silent): the tenant
+            # consented via approx_opt_in and its ladder is exhausted.
+            cert = self._certificates.get(self.approx_dtype)
+            if cert is not None and cert.covers(
+                    ticket.request.iterations):
+                ticket.served_class = "approx"
+                ticket.class_fallback = "degraded_opt_in"
+                ticket.certified_bound = cert.bound_at(
+                    ticket.request.iterations)
+                self._event("class_degraded_applied",
+                            request=ticket.request.request_id,
+                            tenant=ticket.request.tenant,
+                            traffic_class="approx",
+                            certified_bound=ticket.certified_bound)
+        if ticket.served_class == "approx":
+            cfg = dataclasses.replace(cfg,
+                                      feature_dtype=self.approx_dtype)
+        return cfg
+
+    def _resolve_class(self, request: rq.Request):
+        """Admission-time class decision: ``(served_class,
+        fallback_reason, certificate)``.  An approx request without a
+        covering certificate is served EXACT — the loud fallback the
+        class contract promises (never silent approx)."""
+        if request.traffic_class == "exact":
+            return "exact", None, None
+        cert = self._certificates.get(self.approx_dtype)
+        if cert is None:
+            return "exact", "no_certificate", None
+        if not cert.covers(request.iterations):
+            reason = ("curve_shorter_than_request"
+                      if cert.bound_at(request.iterations) is None
+                      else "certified_bound_exceeds_tolerance")
+            return "exact", reason, None
+        return "approx", None, cert
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(self, request: rq.Request) -> rq.Ticket:
+        """Admission-control one request: price, reserve, enqueue —
+        or reject (HBM) / shed (queue overflow) explicitly.  Returns
+        the ticket immediately; it resolves when processed.
+
+        The whole admission path runs inside the request's correlation
+        context, so the shed/reject/admit events and the ``admission``
+        span all carry its ``request_id``/``tenant``."""
+        with flight.request_context(request.request_id, request.tenant), \
+                self._span("admission", k=request.k,
+                           iterations=request.iterations):
+            return self._submit(request)
+
+    def _submit(self, request: rq.Request) -> rq.Ticket:
+        ticket = rq.Ticket(request)
+        ticket.submitted_s = time.monotonic()
+        # Keep the submit-time correlation context (trace_id and
+        # friends) on the ticket: _process_batch runs on the worker
+        # thread, where the submitting thread's contextvars are out of
+        # reach — the ticket is the handoff.
+        ctx = flight.current_request()
+        ticket.trace = dict(ctx) if ctx else None
+        self._count("submitted", request.tenant)
+        if request.traffic_class not in TRAFFIC_CLASSES:
+            ticket._finish(
+                rq.REJECTED, reason="unknown_class",
+                error=f"unknown traffic class "
+                      f"{request.traffic_class!r} (expected one of "
+                      f"{TRAFFIC_CLASSES})")
+            self._count("rejected", request.tenant,
+                        reason="unknown_class")
+            self._event("rejected", request=request.request_id,
+                        tenant=request.tenant, reason="unknown_class",
+                        traffic_class=request.traffic_class)
+            return ticket
+        served, fallback, cert = self._resolve_class(request)
+        ticket.served_class = served
+        ticket.class_fallback = fallback
+        if cert is not None:
+            ticket.certified_bound = cert.bound_at(request.iterations)
+        if fallback is not None:
+            self._count("class_fallback", request.tenant,
+                        reason=fallback)
+            self._event("class_fallback", request=request.request_id,
+                        tenant=request.tenant,
+                        requested_class=request.traffic_class,
+                        traffic_class=served, reason=fallback)
+            self._log(f"class fallback {request.request_id}: "
+                      f"approx -> exact ({fallback})")
+        # Approx carriage is priced at its TRUE (smaller) itemsize —
+        # the admitted-requests-per-GB lever the class exists for.
+        itemsize = (class_itemsize(self.approx_dtype)
+                    if served == "approx" else self.itemsize)
+        price = request_price_bytes(
+            self._build_executor(self.base_config), request.k,
+            itemsize=itemsize, repl=self.base_config.repl)
+        ticket.predicted_bytes = price
+        with self._cond:
+            if self._stop:
+                ticket._finish(rq.SHED, reason="server_stopped")
+                self._count("shed", request.tenant,
+                            reason="server_stopped")
+                self._event("shed", request=request.request_id,
+                            tenant=request.tenant,
+                            reason="server_stopped")
+                return ticket
+            if not self.accountant.reserve(price):
+                ticket._finish(
+                    rq.REJECTED, reason="hbm_budget",
+                    error=f"predicted {price} B exceeds remaining HBM "
+                          f"headroom "
+                          f"{self.accountant.headroom_bytes()} B")
+                self._count("rejected", request.tenant,
+                            klass=ticket.served_class,
+                            reason="hbm_budget")
+                self._event("rejected", request=request.request_id,
+                            tenant=request.tenant, reason="hbm_budget",
+                            traffic_class=ticket.served_class,
+                            predicted_bytes=price,
+                            headroom_bytes=self.accountant
+                            .headroom_bytes())
+                self._log(f"rejected {request.request_id} "
+                          f"(hbm_budget: {price} B over headroom)")
+                return ticket
+            if len(self._queue) >= self.queue_capacity:
+                self.accountant.release(price)
+                ticket._finish(
+                    rq.SHED, reason="queue_full",
+                    error=f"queue at capacity {self.queue_capacity}")
+                self._count("shed", request.tenant,
+                            reason="queue_full")
+                self._event("shed", request=request.request_id,
+                            tenant=request.tenant, reason="queue_full",
+                            queue_depth=len(self._queue))
+                self._log(f"shed {request.request_id} (queue_full)")
+                return ticket
+            ticket.status = rq.ADMITTED
+            self._queue.append(ticket)
+            self._count("admitted", request.tenant,
+                        klass=ticket.served_class)
+            self._event("admitted", request=request.request_id,
+                        tenant=request.tenant, k=request.k,
+                        predicted_bytes=price,
+                        traffic_class=ticket.served_class,
+                        queue_depth=len(self._queue))
+            self._cond.notify_all()
+        return ticket
+
+    # -- scheduling --------------------------------------------------------
+
+    def _shed_expired(self, ticket: rq.Ticket) -> bool:
+        dl = ticket.request.deadline_s
+        if dl is None or ticket.submitted_s is None:
+            return False
+        if time.monotonic() - ticket.submitted_s <= dl:
+            return False
+        self.accountant.release(ticket.predicted_bytes)
+        ticket._finish(rq.SHED, reason="deadline",
+                       error=f"queued past the {dl:.3f}s deadline")
+        self._count("shed", ticket.request.tenant, reason="deadline")
+        self._event("shed", request=ticket.request.request_id,
+                    tenant=ticket.request.tenant, reason="deadline")
+        self._log(f"shed {ticket.request.request_id} (deadline)")
+        return True
+
+    def _take_batch(self) -> Tuple[List[rq.Ticket],
+                                   Optional[ExecConfig]]:
+        """Pop the head request plus every compatible queued request
+        (same effective config + iteration count, combined width under
+        ``max_batch_k`` and schedulable) — FIFO, deterministic."""
+        with self._lock:
+            head: Optional[rq.Ticket] = None
+            while self._queue:
+                t = self._queue.popleft()
+                if self._shed_expired(t):
+                    continue
+                head = t
+                break
+            if head is None:
+                return [], None
+            cfg = self._effective_config(head)
+            batch = [head]
+            k_total = head.request.k
+            if self.max_batch_k > k_total:
+                keep: List[rq.Ticket] = []
+                for t in list(self._queue):
+                    k2 = t.request.k
+                    # Class separation: config equality already
+                    # differs on feature_dtype, but the served-class
+                    # check is the explicit contract — a batch never
+                    # mixes accuracy classes.
+                    if (t.request.iterations == head.request.iterations
+                            and self._effective_config(t) == cfg
+                            and t.served_class == head.served_class
+                            and k_total + k2 <= self.max_batch_k
+                            and cfg.accepts_k(k_total + k2)
+                            and not self._shed_expired(t)):
+                        batch.append(t)
+                        k_total += k2
+                    elif not t.done:
+                        keep.append(t)
+                self._queue = collections.deque(keep)
+            return batch, cfg
+
+    def _pump_once(self) -> bool:
+        batch, cfg = self._take_batch()
+        if not batch:
+            return False
+        self._process_batch(batch, cfg)
+        return True
+
+    def drain(self) -> None:
+        """Synchronously process the queue to empty in the caller's
+        thread (the deterministic test/gate mode)."""
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError(
+                "drain() is the synchronous mode; a worker thread is "
+                "already running — use shutdown(wait=True)")
+        while self._pump_once():
+            pass
+
+    def start(self) -> None:
+        """Spawn the always-on worker thread."""
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return
+            self._stop = False
+            self._thread = threading.Thread(
+                target=self._serve_loop, daemon=True,
+                name=f"graft-serve-{self.name}")
+            self._thread.start()
+
+    def _serve_loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._queue and not self._stop:
+                    self._cond.wait(0.05)
+                if self._stop and not self._queue:
+                    return
+            try:
+                self._pump_once()
+            except Exception as e:  # noqa: BLE001 — the serving loop
+                # must survive anything a batch throws; the batch's
+                # tickets were already failed explicitly.
+                self._log(f"worker survived unexpected error: "
+                          f"{type(e).__name__}: {e}")
+
+    def shutdown(self, wait: bool = True,
+                 timeout: Optional[float] = None) -> None:
+        """Graceful stop: the worker finishes the queued requests,
+        then exits; later submissions are shed explicitly."""
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        t = self._thread
+        if wait and t is not None:
+            t.join(timeout)
+        self._event("stopped")
+
+    # -- execution ---------------------------------------------------------
+
+    def _executor_for(self, cfg: ExecConfig):
+        """Build (or fetch) the executor for a rung, walking further
+        down the ladder when a rung's build itself fails; returns
+        ``(executor, actual_cfg)`` or ``(None, cfg)``."""
+        if cfg in self.ladder:
+            rungs = list(self.ladder[self.ladder.index(cfg):])
+        else:
+            # A class-stamped rung (feature_dtype set by
+            # _effective_config) is not a ladder member: try it
+            # first, and only degrade into the exact ladder — losing
+            # the carriage dtype, loudly, via rung_build_failed —
+            # when the class rung itself cannot build.
+            rungs = [cfg] + list(self.ladder)
+        for rung in rungs:
+            try:
+                return self._build_executor(rung), rung
+            except Exception as e:  # noqa: BLE001 — a rung that cannot
+                # build is one more thing to degrade past, loudly.
+                self._log(f"rung {rung} failed to build "
+                          f"({type(e).__name__}: {e}); degrading")
+                self._event("rung_build_failed",
+                            config=dataclasses.asdict(rung),
+                            error=f"{type(e).__name__}: {e}")
+        return None, cfg
+
+    def _ck_path(self, key: str) -> Optional[str]:
+        if not self.checkpoint_dir:
+            return None
+        import os
+
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        return os.path.join(self.checkpoint_dir, f"ck_{key}")
+
+    def _discard_checkpoint(self, path: str, key: str,
+                            err: Exception) -> None:
+        import os
+
+        with self._lock:
+            self.checkpoint_corruptions += 1
+        self._count("checkpoint_corrupt")
+        self._event("checkpoint_corrupt_discarded", request=key,
+                    path=path, error=f"{type(err).__name__}: {err}")
+        print(f"[graft-serve {self.name}] WARNING: discarding "
+              f"unusable checkpoint for request {key}: {err}",
+              flush=True)
+        for p in (path + ".npz", path + ".npz.sha256",
+                  path + ".meta.json"):
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+
+    def _process_batch(self, batch: List[rq.Ticket],
+                       cfg: ExecConfig) -> None:
+        """Run one batch inside its correlation context: the batched
+        key ``"r0001+r0002"`` names every member request, so each
+        member's spans/events are recoverable from one Perfetto track
+        (membership in the joined key)."""
+        key = "+".join(t.request.request_id for t in batch)
+        tenants = sorted({t.request.tenant for t in batch})
+        tenant = "+".join(tenants)
+        # Rejoin the members' trace ids on this worker thread
+        # (class-pure batches of one make the join a single id).
+        trace_ids = sorted({(t.trace or {}).get("trace_id")
+                            for t in batch
+                            if (t.trace or {}).get("trace_id")})
+        with flight.request_context(
+                key, tenant,
+                trace_id="+".join(trace_ids) if trace_ids else None), \
+                self._span("batch", requests=len(batch),
+                           k_total=sum(t.request.k for t in batch),
+                           iterations=batch[0].request.iterations,
+                           traffic_class=batch[0].served_class,
+                           config=dataclasses.asdict(cfg)):
+            self._run_batch(batch, cfg, key)
+
+    def _run_batch(self, batch: List[rq.Ticket], cfg: ExecConfig,
+                   key: str) -> None:
+        iters = batch[0].request.iterations
+        k_total = sum(t.request.k for t in batch)
+        for t in batch:
+            t.status = rq.RUNNING
+            t.attempts += 1
+        with self._lock:
+            self.batches += 1
+            self.batched_requests += len(batch)
+        if self.registry is not None:
+            self.registry.counter("serve_batches",
+                                  server=self.name).inc()
+            self.registry.record("serve_batch_k", float(k_total),
+                                 server=self.name)
+        executor, cfg = self._executor_for(cfg)
+        if executor is None:
+            self._fail_batch(batch, "no executor rung could be built")
+            return
+        x_cat = np.concatenate([t.request.x for t in batch], axis=1)
+        ck = self._ck_path(key)
+        layout = f"serve/{key}/k{k_total}/it{iters}"
+        sup = Supervisor(f"{self.name}:{key}", carry=True,
+                         policy=self.policy, checkpoint_path=ck,
+                         checkpoint_every=(self.checkpoint_every
+                                           if ck else 0),
+                         layout=layout, registry=self.registry,
+                         tracer=self.tracer, verbose=False)
+        with self._span("set_features", k_total=k_total):
+            x0 = executor.set_features(x_cat)
+        start = 0
+        if ck:
+            try:
+                st = sup.resume(x0)
+            except CheckpointIntegrityError as e:
+                self._discard_checkpoint(ck, key, e)
+                st = None
+            except Exception as e:  # noqa: BLE001 — a stale/mismatched
+                # checkpoint (different batch composition, layout tag,
+                # truncated file) must not wedge the server: discard
+                # loudly and recompute.
+                self._discard_checkpoint(ck, key, e)
+                st = None
+            if st is not None:
+                x0, start = st
+                for t in batch:
+                    t.resumed_step = start
+                self._event("resumed_request", request=key, step=start)
+                # The chaos kill scenario greps this line in the CLI's
+                # stdout; print it regardless of verbosity.
+                print(f"[graft-serve {self.name}] resumed request "
+                      f"{key} at iteration {start}", flush=True)
+        y, ok, err = None, False, None
+        body = lambda x, it: executor.step(x)   # noqa: E731
+        try:
+            y, ok = sup.run(body, x0, start, iters)
+        except CheckpointIntegrityError as e:
+            # Corruption surfaced mid-run (rollback hit a corrupted
+            # save): discard and recompute once from scratch.
+            self._discard_checkpoint(ck or "", key, e)
+            try:
+                y, ok = sup.run(body, executor.set_features(x_cat), 0,
+                                iters)
+            except Exception as e2:  # noqa: BLE001
+                err = e2
+        except Exception as e:  # noqa: BLE001 — WatchdogStalled or an
+            # unexpected executor error: the request fails/degrades,
+            # the server survives.
+            err = e
+        with self._lock:
+            self.faults_seen += sup.faults_seen
+            self.recoveries += sup.recoveries
+        for t in batch:
+            t.faults_seen += sup.faults_seen
+            t.recoveries += sup.recoveries
+        if sup.faults_seen or sup.recoveries:
+            # Surface supervised-fault pressure into the event funnel.
+            self._event("supervised", request=key,
+                        faults=sup.faults_seen,
+                        recoveries=sup.recoveries)
+        if ok:
+            with self._span("finalize", requests=len(batch)):
+                self._finalize_completed(batch, y, executor, cfg)
+            self._note_faults(batch, sup.faults_seen)
+        else:
+            self._handle_failure(batch, err)
+
+    def _note_faults(self, batch: List[rq.Ticket],
+                     faults: int) -> None:
+        """Accumulate recovered-fault pressure per tenant; repeated
+        faults degrade the tenant's rung even when every request still
+        completes (the ladder is preventive, not just reactive)."""
+        if not faults:
+            return
+        with self._lock:
+            for tenant in {t.request.tenant for t in batch}:
+                self._degrade_tenant(tenant, faults,
+                                     reason="repeated_faults")
+
+    def _degrade_tenant(self, tenant: str, faults: int,
+                        reason: str) -> bool:
+        t = self._tenant(tenant)
+        t.fault_score += faults
+        if t.fault_score < self.degrade_after:
+            return False
+        if t.rung + 1 >= len(self.ladder):
+            # One more rung exists below the terminal
+            # config — exact -> approx — but ONLY for tenants that
+            # opted in, and only with a certificate to serve under.
+            if (t.allow_approx and not t.class_degraded
+                    and self.approx_dtype in self._certificates):
+                t.class_degraded = True
+                t.fault_score = 0
+                rec = {"tenant": tenant,
+                       "from": {"traffic_class": "exact"},
+                       "to": {"traffic_class": "approx",
+                              "feature_dtype": self.approx_dtype},
+                       "reason": f"{reason}:class_opt_in"}
+                t.degradations.append(rec)
+                self._count("degraded", tenant, reason=reason)
+                self._event("degraded", **rec)
+                self._log(f"degraded tenant {tenant} to the approx "
+                          f"class ({reason}; explicit opt-in)")
+                return True
+            return False
+        frm, t.rung = t.rung, t.rung + 1
+        t.fault_score = 0
+        rec = {"tenant": tenant,
+               "from": dataclasses.asdict(self.ladder[frm]),
+               "to": dataclasses.asdict(self.ladder[t.rung]),
+               "reason": reason}
+        t.degradations.append(rec)
+        self._count("degraded", tenant, reason=reason)
+        self._event("degraded", **rec)
+        self._log(f"degraded tenant {tenant} to rung {t.rung} "
+                  f"{self.ladder[t.rung]} ({reason})")
+        return True
+
+    def _handle_failure(self, batch: List[rq.Ticket],
+                        err: Optional[Exception]) -> None:
+        """Retries exhausted (or the attempt escalated): degrade the
+        batch's tenants one rung and requeue at the FRONT; only
+        tenants already on the terminal rung fail their requests —
+        explicitly."""
+        detail = (f"{type(err).__name__}: {err}" if err is not None
+                  else "supervised run exhausted its retries")
+        degraded = False
+        with self._lock:
+            for tenant in {t.request.tenant for t in batch}:
+                degraded |= self._degrade_tenant(
+                    tenant, max(self.degrade_after, 1),
+                    reason="request_failure")
+        if degraded:
+            with self._cond:
+                for t in reversed(batch):
+                    t.status = rq.ADMITTED
+                    self._queue.appendleft(t)
+                self._cond.notify_all()
+            self._event("requeued_degraded",
+                        requests=[t.request.request_id for t in batch],
+                        error=detail)
+            self._log(f"requeued {len(batch)} request(s) on a "
+                      f"degraded rung after: {detail}")
+            return
+        self._fail_batch(batch, detail)
+
+    def _fail_batch(self, batch: List[rq.Ticket], detail: str) -> None:
+        for t in batch:
+            self.accountant.release(t.predicted_bytes)
+            t._finish(rq.FAILED, reason="exhausted", error=detail)
+            self._count("failed", t.request.tenant)
+            self._event("failed", request=t.request.request_id,
+                        tenant=t.request.tenant, error=detail)
+            self._log(f"FAILED {t.request.request_id}: {detail}")
+
+    def _finalize_completed(self, batch: List[rq.Ticket], y,
+                            executor, cfg: ExecConfig) -> None:
+        gathered = executor.gather_result(y)
+        off = 0
+        for t in batch:
+            k = t.request.k
+            t.result = np.ascontiguousarray(gathered[:, off:off + k])
+            off += k
+            t.exec_config = cfg
+            self.accountant.release(t.predicted_bytes)
+            t._finish(rq.COMPLETED)
+            self._count("completed", t.request.tenant,
+                        klass=t.served_class)
+            lat_ms = (t.latency_s or 0.0) * 1e3
+            with self._lock:
+                self._latencies_s.append(t.latency_s or 0.0)
+                self._tenant_latencies_s.setdefault(
+                    t.request.tenant, []).append(t.latency_s or 0.0)
+                self._class_latencies_s.setdefault(
+                    t.served_class, []).append(t.latency_s or 0.0)
+            if self.registry is not None:
+                self.registry.record("serve_latency_ms", lat_ms,
+                                     server=self.name)
+                self.registry.record("serve_latency_ms", lat_ms,
+                                     server=self.name,
+                                     tenant=t.request.tenant)
+                self.registry.record("serve_latency_ms", lat_ms,
+                                     server=self.name,
+                                     traffic_class=t.served_class)
+            self._event("completed", request=t.request.request_id,
+                        tenant=t.request.tenant,
+                        traffic_class=t.served_class,
+                        latency_ms=round(lat_ms, 3),
+                        faults_seen=t.faults_seen)
+
+    # -- not ported yet ----------------------------------------------------
+
+    def attach_pulse(self, monitor) -> Any:
+        """Streaming telemetry over the event funnel (the JAX package's
+        ``obs/pulse.py``): not ported yet."""
+        raise _todo("attach_pulse (live telemetry)",
+                    "Observability and the ledger")
+
+    def note_slo_pressure(self, reason: str,
+                          tenants: Optional[List[str]] = None,
+                          score: Optional[int] = None,
+                          direction: str = "drop") -> List[str]:
+        """Feed measured SLO pressure into the degradation ladder: each
+        named tenant (default: every known tenant) takes ``score``
+        fault-score points (default: enough to force one rung at once).
+        Returns the tenants that degraded.  ``direction="grow"`` (cut
+        over to a grown layout) is not ported yet and raises."""
+        if direction == "grow":
+            return ["*"] if self.grow(reason=reason) else []
+        if direction != "drop":
+            raise ValueError(f"unknown pressure direction "
+                             f"{direction!r} (expected 'drop'/'grow')")
+        degraded = []
+        with self._lock:
+            names = (list(tenants) if tenants is not None
+                     else sorted(self._tenants))
+            pts = self.degrade_after if score is None else int(score)
+            for tenant in names:
+                if self._degrade_tenant(tenant, pts, reason=reason):
+                    degraded.append(tenant)
+        return degraded
+
+    def grow(self, reason: str = "slo_pressure") -> bool:
+        """Cut the base rung over to a grown (more devices) layout:
+        not ported yet."""
+        raise _todo("grow (live resharding)", "multi-device executors")
+
+    # -- reporting ---------------------------------------------------------
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def latency_samples_ms(self) -> List[float]:
+        """Every completed request's latency in ms, in completion
+        order (raw samples, so pooled quantiles over several servers
+        are exact)."""
+        with self._lock:
+            return [lat * 1e3 for lat in self._latencies_s]
+
+    def class_latency_samples_ms(self) -> Dict[str, List[float]]:
+        """Completed-request latencies (ms) keyed by served class —
+        the per-class half of the SLO report."""
+        with self._lock:
+            return {cls: [lat * 1e3 for lat in vals]
+                    for cls, vals in
+                    sorted(self._class_latencies_s.items())}
+
+    def opt_in_approx(self, tenant: str) -> None:
+        """Record a tenant's explicit consent to exact -> approx class
+        degradation (the ladder rung below the terminal config; never
+        taken without this)."""
+        with self._lock:
+            self._tenant(tenant).allow_approx = True
+
+    def summary(self) -> dict:
+        with self._lock:
+            counts = dict(self._counts)
+            tenants = {
+                name: {
+                    "rung": t.rung,
+                    "config": dataclasses.asdict(self.ladder[t.rung]),
+                    "fault_score": t.fault_score,
+                    "allow_approx": t.allow_approx,
+                    "class_degraded": t.class_degraded,
+                    "completed": counts.get(f"completed:{name}", 0),
+                    "failed": counts.get(f"failed:{name}", 0),
+                    "shed": counts.get(f"shed:{name}", 0),
+                    "rejected": counts.get(f"rejected:{name}", 0),
+                    "degradations": list(t.degradations),
+                }
+                for name, t in sorted(self._tenants.items())
+            }
+            classes = {
+                cls: {
+                    "admitted": counts.get(f"admitted:class:{cls}", 0),
+                    "completed": counts.get(
+                        f"completed:class:{cls}", 0),
+                    "requests": len(self._class_latencies_s.get(
+                        cls, ())),
+                }
+                for cls in ("exact", "approx")
+            }
+            # The bare fault/batch counters are read under the same
+            # lock their writers hold — a summary taken mid-batch is
+            # a consistent cut.  The accountant snapshot nests its own
+            # lock inside ours: the declared arrow_server ->
+            # hbm_accountant order.
+            return {
+                "server": self.name,
+                "submitted": counts.get("submitted", 0),
+                "admitted": counts.get("admitted", 0),
+                "completed": counts.get("completed", 0),
+                "failed": counts.get("failed", 0),
+                "shed": counts.get("shed", 0),
+                "rejected": counts.get("rejected", 0),
+                "class_fallback": counts.get("class_fallback", 0),
+                "batches": self.batches,
+                "batched_requests": self.batched_requests,
+                "faults_seen": self.faults_seen,
+                "recoveries": self.recoveries,
+                "checkpoint_corruptions": self.checkpoint_corruptions,
+                "hbm": self.accountant.snapshot(),
+                "tenants": tenants,
+                "classes": classes,
+                "certificates": {
+                    dt: {"iterations": c.iterations,
+                         "tolerance": c.tolerance,
+                         "bound": c.bound_at(c.iterations),
+                         "record_id": c.record_id}
+                    for dt, c in sorted(self._certificates.items())
+                },
+            }

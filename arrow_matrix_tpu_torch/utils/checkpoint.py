@@ -1,0 +1,300 @@
+"""Iteration-state checkpoint and resume of the supervised loops.
+
+The port's copy of ``arrow_matrix_tpu/utils/checkpoint.py``, in its
+``.npz`` form: ``{x, step, version, layout}`` written atomically, a
+sha256 sidecar (``.npz.sha256``) checked on load, and a format version
+and layout tag that make a resume under another execution mode fail
+loudly instead of silently permuting rows.  Files written by either
+package load in the other when the carriage has the same layout: the
+per-level formats carry ``(total_rows, k)`` in both.  The fold does
+not: the port carries it row-major ``(total_rows, k)``, the JAX package
+feature-major ``(k, positions)``, so a fold checkpoint that crosses
+packages fails the shape check (and says so); it is never loaded
+transposed.
+
+The JAX writer uses orbax when it is installed; an orbax directory
+raises here with a message naming the format.  A bfloat16 carriage is
+stored as its 16-bit patterns with ``x_dtype`` naming it.  One process
+only: under a ``torch.distributed`` group of several processes the
+functions raise (the multi-device executors are not ported).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Checkpoint format version: bump when the saved state's meaning
+# changes.  Version 1 adds the version + layout tags themselves;
+# untagged checkpoints (version 0) still load but cannot be
+# layout-verified.
+CHECKPOINT_VERSION = 1
+
+
+class CheckpointIntegrityError(RuntimeError):
+    """The checkpoint's bytes do not match its sha256 sidecar: the
+    state on disk was corrupted after it was written (bit rot, a torn
+    concurrent writer, an injected ``corrupt`` fault).  Loading it
+    would silently poison every subsequent iteration; callers either
+    fail loudly (the batch CLI) or discard the checkpoint and recompute
+    (the server)."""
+
+
+def _meta_path(path: str) -> str:
+    return path + ".meta.json"
+
+
+def _write_meta(path: str, step: int, layout: Optional[str]) -> None:
+    meta = {"version": CHECKPOINT_VERSION, "step": int(step),
+            "layout": layout}
+    tmp = _meta_path(path) + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        json.dump(meta, fh)
+    os.replace(tmp, _meta_path(path))
+
+
+def _read_meta(path: str) -> Optional[dict]:
+    try:
+        with open(_meta_path(path), encoding="utf-8") as fh:
+            return json.load(fh)
+    except FileNotFoundError:
+        return None
+    except (ValueError, OSError) as e:
+        # A malformed/unreadable sidecar degrades the checkpoint to
+        # legacy (unverifiable) status with a loud warning — it must
+        # never turn a loadable state into a crash.
+        print(f"[checkpoint] WARNING: metadata at {_meta_path(path)} "
+              f"is unreadable ({type(e).__name__}: {e}); treating the "
+              f"checkpoint as legacy/untagged", file=sys.stderr)
+        return None
+
+
+def list_checkpoints(ckpt_dir: str, prefix: str = "ck_") -> list:
+    """Stems of every checkpoint under ``ckpt_dir`` with ``prefix``
+    (``.npz`` files, and the JAX package's orbax directories, which
+    :func:`load_state` refuses by name), sorted.  A stem is what
+    ``load_state``/``save_state`` take as ``path``."""
+    stems = set()
+    try:
+        entries = os.listdir(ckpt_dir)
+    except OSError:
+        return []
+    for e in entries:
+        p = os.path.join(ckpt_dir, e)
+        if not e.startswith(prefix):
+            continue
+        if e.endswith(".npz"):
+            stems.add(p[: -len(".npz")])
+        elif os.path.isdir(p):
+            stems.add(p)
+    return sorted(stems)
+
+
+def checkpoint_layout_tag(path: str) -> Optional[str]:
+    """The layout tag the checkpoint at ``path`` (a stem) was saved
+    with, without loading the state; None for untagged/legacy."""
+    path = os.path.abspath(path)
+    meta = _read_meta(path)
+    if meta is not None:
+        return meta.get("layout") or None
+    npz = path + ".npz"
+    if os.path.exists(npz):
+        try:
+            with np.load(npz) as z:
+                if "layout" in z.files:
+                    return str(z["layout"]) or None
+        except (OSError, ValueError):
+            return None
+    return None
+
+
+def _sha_path(npz_path: str) -> str:
+    return npz_path + ".sha256"
+
+
+def _file_sha256(p: str) -> str:
+    h = hashlib.sha256()
+    with open(p, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _write_sha(npz_path: str) -> None:
+    tmp = _sha_path(npz_path) + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        fh.write(_file_sha256(npz_path) + "\n")
+    os.replace(tmp, _sha_path(npz_path))
+
+
+def _verify_sha(npz_path: str) -> None:
+    """Raise :class:`CheckpointIntegrityError` when the npz bytes do
+    not match the sha256 sidecar; a missing/unreadable sidecar skips
+    the check (pre-sidecar checkpoints keep loading)."""
+    try:
+        with open(_sha_path(npz_path), encoding="utf-8") as fh:
+            want = fh.read().strip()
+    except (FileNotFoundError, OSError):
+        return
+    if not want:
+        return
+    got = _file_sha256(npz_path)
+    if got != want:
+        raise CheckpointIntegrityError(
+            f"checkpoint {npz_path} fails sha256 verification "
+            f"(sidecar records {want[:12]}..., file hashes "
+            f"{got[:12]}...) — the state on disk was corrupted after "
+            f"it was written; delete it (and its .sha256 sidecar) to "
+            f"recompute from scratch")
+
+
+def checkpoint_meta(path: str) -> Optional[dict]:
+    """Best-effort ``{"version", "step", "layout"}`` of the checkpoint
+    at ``path`` without loading the state, or None when absent or
+    unreadable.  Pre-version (legacy) npz checkpoints report
+    ``version: 0`` — callers warn loudly and skip layout verification
+    instead of crashing (the server's resume contract)."""
+    path = os.path.abspath(path)
+    try:
+        if os.path.isdir(path):
+            return _read_meta(path)
+        if os.path.exists(path + ".npz"):
+            with np.load(path + ".npz") as z:
+                if "version" not in z.files:
+                    return {"version": 0, "step": int(z["step"]),
+                            "layout": None}
+                layout = (str(z["layout"]) if "layout" in z.files
+                          else "")
+                return {"version": int(z["version"]),
+                        "step": int(z["step"]),
+                        "layout": layout or None}
+    except Exception as e:  # noqa: BLE001 — metadata probing must not
+        # crash the resume path; the load itself still verifies.
+        print(f"[checkpoint] WARNING: cannot read metadata of {path} "
+              f"({type(e).__name__}: {e})", file=sys.stderr)
+        return None
+    return None
+
+
+def _check_meta(path: str, meta: Optional[dict],
+                layout: Optional[str]) -> None:
+    """Fail loudly on a version or layout mismatch; tolerate untagged
+    (pre-version) checkpoints so old artifacts keep loading."""
+    if meta is None:
+        return
+    version = int(meta.get("version", 0))
+    if version > CHECKPOINT_VERSION:
+        raise RuntimeError(
+            f"checkpoint at {path} has format version {version}, this "
+            f"build understands <= {CHECKPOINT_VERSION} — refusing to "
+            f"reinterpret a newer checkpoint")
+    saved_layout = meta.get("layout")
+    if layout is not None and saved_layout is not None \
+            and saved_layout != layout:
+        raise RuntimeError(
+            f"checkpoint at {path} was written with layout "
+            f"{saved_layout!r} but the resuming executor carries X as "
+            f"{layout!r} — resuming would silently permute rows; "
+            f"rebuild the executor with the checkpointing mode or "
+            f"delete the checkpoint")
+
+
+def _single_process(what: str) -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            f"{what} across {dist.get_world_size()} processes is not "
+            f"ported yet; see ROADMAP.md Queue A, 'multi-device "
+            f"executors'")
+
+
+def _orbax_dir(path: str) -> None:
+    if os.path.isdir(path):
+        raise RuntimeError(
+            f"checkpoint at {path} is an orbax directory (the JAX "
+            f"package's format when orbax is installed); the port reads "
+            f"and writes the npz form only — resume with the JAX "
+            f"package, or delete the directory to recompute")
+
+
+def save_state(path: str, x: torch.Tensor, step: int,
+               layout: Optional[str] = None) -> None:
+    """Write ``{x, step}`` to ``path + ".npz"`` atomically, then its
+    sha256 sidecar.  ``layout`` tags how X is carried (e.g.
+    ``"serve/r0001/k16/it10"``); :func:`load_state` verifies it."""
+    if isinstance(x, tuple):
+        raise ValueError("the int8 (q, scale) carriage has no checkpoint "
+                         "form; checkpoint an f32 or bf16 carriage")
+    _single_process("a checkpoint")
+    path = os.path.abspath(path)
+    _orbax_dir(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    t = x.detach()
+    dtype_name = ""
+    if t.dtype == torch.bfloat16:
+        t, dtype_name = t.view(torch.int16), "bfloat16"
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, x=t.cpu().numpy(), step=np.int64(step),
+             version=np.int64(CHECKPOINT_VERSION),
+             layout=np.str_(layout or ""), x_dtype=np.str_(dtype_name))
+    os.replace(tmp, path + ".npz")
+    # The sidecar AFTER the npz replace: a crash between the two leaves
+    # a stale sidecar that fails verification loudly, never a silently
+    # wrong state.
+    _write_sha(path + ".npz")
+
+
+def load_state(path: str, like: Optional[torch.Tensor] = None,
+               layout: Optional[str] = None):
+    """Read ``(x, step)`` from ``path``; None when there is none.
+
+    ``like`` (the resuming executor's fresh carriage) gives the expected
+    shape, dtype and device: a different shape raises (an executor built
+    differently, or a fold checkpoint of the other package, must not
+    reinterpret rows).  ``layout`` is verified against the saved tag;
+    untagged checkpoints skip the check.  Without ``like`` the state
+    comes back as a CPU tensor."""
+    _single_process("a checkpoint")
+    path = os.path.abspath(path)
+    _orbax_dir(path)
+    if not os.path.exists(path + ".npz"):
+        return None
+    _verify_sha(path + ".npz")
+    with np.load(path + ".npz") as z:
+        meta = None
+        if "version" in z.files:
+            saved_layout = str(z["layout"]) if "layout" in z.files else ""
+            meta = {"version": int(z["version"]),
+                    "layout": saved_layout or None}
+        _check_meta(path, meta, layout)
+        arr, step = np.array(z["x"]), int(z["step"])
+        bf16 = "x_dtype" in z.files and str(z["x_dtype"]) == "bfloat16"
+    x = torch.from_numpy(arr)
+    if bf16:
+        x = x.view(torch.bfloat16)
+    if like is not None:
+        if tuple(x.shape) != tuple(like.shape):
+            turned = (x.dim() == 2
+                      and tuple(x.shape) == tuple(like.shape)[::-1])
+            raise ValueError(
+                f"checkpoint X has shape {tuple(x.shape)}, executor "
+                f"expects {tuple(like.shape)}"
+                + (" — the transposed layout: a fold checkpoint of the "
+                   "other package (feature-major (k, positions) against "
+                   "the port's row-major (total_rows, k)); it is never "
+                   "loaded transposed" if turned else "")
+                + " — resume with the same mode/format the checkpoint "
+                  "was written with")
+        x = x.to(device=like.device, dtype=like.dtype)
+    from arrow_matrix_tpu_torch.obs import flight
+
+    flight.record("heal", "resumed", path=path, step=step, layout=layout)
+    return x, step

@@ -126,9 +126,34 @@ Phases, each fatal on failure:
    and whose candidates each launched the kernels of their format (the
    counts each candidate's subprocess read around its measurement).
 
+15. the serving runtime, run right after phase 13 on phase 4's
+   decomposition (its fold built per ladder rung by a closure over the
+   levels), with the card's own HBM budget: (a) 32 requests (4 tenants,
+   k = 16, 10 iterations, seed 7; the first request's X phase 4's k=16
+   input) through ``ArrowServer`` batched to k = 128 (4 batches; queue
+   64): every ticket completed with no fault, K1's launches exactly
+   batches x iterations x launches a product, each batch's first
+   request served alone equal to its slice bit for bit, phase 4's input
+   within the 10-step gate of phase 4's golden, and each batch's price
+   (its requests' admission prices) at or above the measured peak of
+   device memory; requests/s, p50/p99, per-batch device ms (CUDA events
+   around the supervised loop), host ms of ``set_features``,
+   ``gather_result`` and the concatenation; (b) one k = 128 batch on
+   each rung of the ladder from repl=2, overlap_slabs=2, each equal to
+   the base bit for bit with K1 launched c x S products a step, then an
+   error plan exhausting the retries that walks the tenant down every
+   rung to the same bits; (c) ``tools/serve_gate.py``'s in-process
+   scenarios (hang, a corrupt checkpoint, overflow, an HBM budget of one
+   request) and a NaN rollback, each ending equal to the fault-free
+   replay; (d) ``graft_serve`` as a subprocess at BA n = 2^16, SIGKILLed
+   by a kill plan and rerun from its checkpoints, equal to a never-killed
+   run; then K1 at the batch shape against its plain version with its
+   time, bound and ``torch.sparse.mm``.
+
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
-empty: the bench's launches are in its candidates' records).  The line
+empty: the bench's launches are in its candidates' records), ``--serve``
+phases 1, 2 and 15 (phase 4's decomposition and golden made first).  The line
 before the last is ``{"kernels": [...]}``; the last line is ``{"ok":
 true, "device": {...}}``.  Without a CUDA device the script exits 2 and
 prints no result.
@@ -2575,6 +2600,510 @@ def phase_models(dev, levels, n: int, width: int, ml) -> tuple:
     return results, kernels
 
 
+# -- 15. the serving runtime ---------------------------------------------------
+
+#: Phase 15's deployment: the trace (tenants, requests, k, iterations,
+#: seed), the batch width and the queue.
+SERVE = dict(tenants=4, requests=32, k=16, iterations=10, seed=7,
+             max_batch_k=128, queue=64)
+#: Phase 15's gate scenarios: the first requests of the trace, fewer
+#: iterations (tools/serve_gate.py's 8 requests of 4 iterations).
+GATE = dict(requests=8, iterations=4)
+#: serve_kill's subprocess graph: BA n = 2^16 at width 2048, so that its
+#: three decompositions fit the time limit (the phase's 2^20 graph takes
+#: about 120 s to generate and decompose).
+SERVE_KILL = dict(vertices=1 << 16, width=2048, features=16, tenants=4,
+                  requests=8, iterations=4, seed=11, after=18)
+
+
+class TimedExecutor:
+    """A ``MultiLevelArrow`` as the server calls it, timed: one record a
+    batch in ``log`` with the host ms of ``set_features`` and
+    ``gather_result``, and the CUDA-event device ms and host wall ms
+    from the end of ``set_features`` to the start of ``gather_result``
+    (the supervised loop).  Every other attribute is the executor's."""
+
+    def __init__(self, ex):
+        self.ex = ex
+        self.log = []
+
+    def __getattr__(self, name):
+        return getattr(self.ex, name)
+
+    def set_features(self, x):
+        import torch
+
+        tic = time.perf_counter()
+        out = self.ex.set_features(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.log.append({"k": int(x.shape[1]), "start": start,
+                         "wall0": time.perf_counter(),
+                         "set_features_ms":
+                             (time.perf_counter() - tic) * 1e3})
+        return out
+
+    def step(self, x):
+        return self.ex.step(x)
+
+    def gather_result(self, y):
+        import torch
+
+        rec = self.log[-1]
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        rec["device_ms"] = rec.pop("start").elapsed_time(end)
+        rec["loop_wall_ms"] = (time.perf_counter() - rec.pop("wall0")) * 1e3
+        tic = time.perf_counter()
+        out = self.ex.gather_result(y)
+        rec["gather_ms"] = (time.perf_counter() - tic) * 1e3
+        return out
+
+
+def serve_factory(levels, width: int, dev, built: dict):
+    """The phase's executor factory: a closure over phase 4's levels
+    that builds the fold ``MultiLevelArrow`` of a ladder rung once (the
+    server caches it too; later servers of the phase reuse it)."""
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+
+    def factory(cfg):
+        key = (cfg.kernel, cfg.repl, cfg.overlap_slabs, cfg.feature_dtype)
+        if key not in built:
+            built[key] = TimedExecutor(MultiLevelArrow(
+                levels, width, fmt="fold", kernel=cfg.kernel, repl=cfg.repl,
+                overlap_slabs=cfg.overlap_slabs,
+                feature_dtype=cfg.feature_dtype, device=dev))
+        return built[key]
+
+    return factory
+
+
+def result_bytes(tickets) -> dict:
+    return {t.request.request_id: t.result.tobytes() for t in tickets
+            if t.result is not None}
+
+
+def serve_alone(serve, factory, request, policy):
+    """``request`` served alone (no batching) on the base rung."""
+    srv = serve.ArrowServer(factory, serve.ExecConfig(), policy=policy,
+                            name="alone")
+    (t,) = serve.run_trace(srv, [request])
+    if t.status != "completed":
+        raise SystemExit(f"phase 15: {request.request_id} alone: {t.status}")
+    return t.result
+
+
+def phase_serve_batches(serve, factory, trace, n: int, row_nnz: float,
+                        x16, gold16, policy) -> tuple:
+    """Phase 15 step 1: the trace at full width, batched to k = 128."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.utils import relative_error, relative_tolerance
+
+    it, kmax = SERVE["iterations"], SERVE["max_batch_k"]
+    trace = list(trace)
+    trace[0] = dataclasses.replace(trace[0], x=x16)   # phase 4's input
+    base = factory(serve.ExecConfig())
+    srv = serve.ArrowServer(factory, serve.ExecConfig(), policy=policy,
+                            queue_capacity=SERVE["queue"],
+                            max_batch_k=kmax, name="phase15")
+    base.log.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_bytes = torch.cuda.memory_allocated()
+    reset_counters()
+    tic = time.perf_counter()
+    tickets = serve.run_trace(srv, trace)
+    wall = time.perf_counter() - tic
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() - before_bytes
+    s = srv.summary()
+    bad = [t.request.request_id for t in tickets if t.status != "completed"]
+    if bad or s["faults_seen"]:
+        raise SystemExit(f"phase 15: not completed {bad}, faults "
+                         f"{s['faults_seen']}")
+    per = k1_per_product(base.sell, kmax, torch.float32)
+    if s["batches"] != SERVE["requests"] * SERVE["k"] // kmax:
+        raise SystemExit(f"phase 15: {s['batches']} batches")
+    if launches[0] != s["batches"] * it * per or any(launches[1:]):
+        raise SystemExit(f"phase 15: launches {launches}, expected K1 "
+                         f"{s['batches']} batches x {it} x {per} and no "
+                         f"other kernel")
+    # Each batch: its first request alone equals its slice bit for bit.
+    per_batch = kmax // SERVE["k"]
+    for b in range(s["batches"]):
+        t = tickets[b * per_batch]
+        alone = serve_alone(serve, factory, t.request, policy)
+        if alone.tobytes() != t.result.tobytes():
+            raise SystemExit(f"phase 15: {t.request.request_id} batched != "
+                             f"alone")
+    err = relative_error(tickets[0].result, gold16)
+    tol = relative_tolerance(row_nnz, it)
+    if not err <= tol:
+        raise SystemExit(f"phase 15: phase 4's input after {it} served "
+                         f"steps: rel err {err:.3e} > {tol:.1e}")
+    prices = [sum(t.predicted_bytes for t in tickets[b * per_batch:
+                                                     (b + 1) * per_batch])
+              for b in range(s["batches"])]
+    if min(prices) < peak:
+        raise SystemExit(f"phase 15: a batch's price {min(prices)} B is "
+                         f"below the measured peak {peak} B")
+    batches = [rec for rec in base.log if rec["k"] == kmax]
+    concat_ms = []
+    for b in range(s["batches"]):
+        xs = [t.request.x for t in tickets[b * per_batch:(b + 1) *
+                                            per_batch]]
+        tic = time.perf_counter()
+        np.concatenate(xs, axis=1)
+        concat_ms.append((time.perf_counter() - tic) * 1e3)
+    lat = serve.latency_summary_ms(tickets)
+    out = {"requests": len(tickets), "wall_s": wall,
+           "requests_per_s": len(tickets) / wall,
+           "latency_ms": lat, "batches": s["batches"],
+           "k1_launches": launches[0], "k1_per_product": per,
+           "batch_device_ms": [r["device_ms"] for r in batches],
+           "batch_loop_wall_ms": [r["loop_wall_ms"] for r in batches],
+           "set_features_ms": [r["set_features_ms"] for r in batches],
+           "gather_result_ms": [r["gather_ms"] for r in batches],
+           "concat_ms": concat_ms,
+           "batch_price_bytes": prices, "measured_peak_bytes": peak,
+           "price_k128_bytes": base.carriage_hbm_bytes(kmax),
+           "resident_bytes": s["hbm"]["resident_bytes"],
+           "budget_bytes": s["hbm"]["budget_bytes"],
+           "phase4_input_err": err, "phase4_input_gate": tol}
+    log(f"phase 15 serve: {len(tickets)} requests (k={SERVE['k']}, "
+        f"{it} iterations, {SERVE['tenants']} tenants) in {s['batches']} "
+        f"batches of k={kmax}: {out['requests_per_s']:.2f} req/s, p50 "
+        f"{lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms, wall {wall:.2f} s; "
+        f"K1 {launches[0]} launches ({s['batches']} x {it} x {per}); "
+        f"batch device ms {[round(v, 3) for v in out['batch_device_ms']]} "
+        f"(loop wall {[round(v, 3) for v in out['batch_loop_wall_ms']]}), "
+        f"host ms: set_features "
+        f"{[round(v, 1) for v in out['set_features_ms']]}, gather_result "
+        f"{[round(v, 1) for v in out['gather_result_ms']]}, concat "
+        f"{[round(v, 1) for v in concat_ms]}; price of a batch "
+        f"{prices[0]} B >= measured peak {peak} B (price at k={kmax} "
+        f"{out['price_k128_bytes']} B); every batch's first request "
+        f"alone equals its slice bit for bit; phase 4's input after {it} "
+        f"steps {err:.3e} (gate {tol:.1e})")
+    return out, tickets
+
+
+def phase_serve_ladder(serve, faults, factory, trace, policy) -> dict:
+    """Phase 15 step 2: one k = 128 batch on each rung of the ladder
+    from repl=2, overlap_slabs=2, then an error plan that exhausts the
+    retries twice, walking the tenant down to the last rung."""
+    import dataclasses
+
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+
+    it, kmax = SERVE["iterations"], SERVE["max_batch_k"]
+    batch = [dataclasses.replace(r, tenant="ladder")
+             for r in trace[:kmax // SERVE["k"]]]
+    rungs = serve.degradation_ladder(serve.ExecConfig(repl=2,
+                                                      overlap_slabs=2))
+    results, launches = [], []
+    for cfg in rungs:
+        srv = serve.ArrowServer(factory, cfg, policy=policy,
+                                max_batch_k=kmax, name="rung")
+        ex = factory(cfg)
+        slabs = cfg.repl * cfg.overlap_slabs
+        want = it * slabs * k1_per_product(ex.sell, kmax // slabs,
+                                           torch.float32)
+        before = cuda_sell.LAUNCHES
+        tickets = serve.run_trace(srv, batch)
+        got = cuda_sell.LAUNCHES - before
+        if srv.batches != 1 or got != want or any(
+                t.status != "completed" for t in tickets):
+            raise SystemExit(f"phase 15 rung {cfg}: {srv.batches} batches, "
+                             f"{got} K1 launches (expected {want})")
+        results.append(result_bytes(tickets))
+        launches.append(got)
+        if results[-1] != results[0]:
+            raise SystemExit(f"phase 15 rung {cfg} != the base rung")
+    faults.set_plan({"scenario": "error", "site": "multi_level.step",
+                     "after": 0, "count": 2 * (len(rungs) - 1)})
+    try:
+        srv = serve.ArrowServer(
+            factory, rungs[0], max_batch_k=kmax, degrade_after=1,
+            policy=dataclasses.replace(policy, max_retries=1), name="walk")
+        tickets = serve.run_trace(srv, batch)
+    finally:
+        faults.clear_plan()
+    s = srv.summary()
+    walk = [(d["from"], d["to"]) for d in s["tenants"]["ladder"][
+        "degradations"]]
+    want_walk = [(dataclasses.asdict(a), dataclasses.asdict(b))
+                 for a, b in zip(rungs, rungs[1:])]
+    if (walk != want_walk or result_bytes(tickets) != results[0]
+            or s["faults_seen"] != 2 * (len(rungs) - 1)
+            or any(t.attempts != len(rungs) for t in tickets)):
+        raise SystemExit(f"phase 15 ladder walk: {walk}, faults "
+                         f"{s['faults_seen']}, attempts "
+                         f"{[t.attempts for t in tickets]}")
+    log(f"phase 15 ladder: rungs "
+        f"{[(c.repl, c.overlap_slabs) for c in rungs]} each equal to the "
+        f"base bit for bit, K1 launches a batch {launches} ({it} steps x "
+        f"c x S x launches a product); an error plan exhausting the "
+        f"retries walked the tenant down every rung ({s['faults_seen']} "
+        f"faults) to the same bits")
+    return {"rungs": [dataclasses.asdict(c) for c in rungs],
+            "k1_launches": launches, "walk_faults": s["faults_seen"]}
+
+
+def phase_serve_gate(serve, faults, factory, trace, work: str,
+                     policy) -> dict:
+    """Phase 15 step 3: tools/serve_gate.py's in-process scenarios on
+    the card, each ending bit-equal to the fault-free replay."""
+    import dataclasses
+
+    gate = [dataclasses.replace(r, iterations=GATE["iterations"])
+            for r in trace[:GATE["requests"]]]
+    n_req = len(gate)
+
+    def server(**kw):
+        kw.setdefault("policy", policy)
+        kw.setdefault("queue_capacity", 16)
+        return serve.ArrowServer(factory, serve.ExecConfig(), name="gate",
+                                 **kw)
+
+    def run(srv, plan=None):
+        if plan is not None:
+            faults.set_plan(plan)
+        try:
+            return serve.run_trace(srv, gate)
+        finally:
+            faults.clear_plan()
+
+    ref = result_bytes(run(server()))
+    out = {}
+    checks = []
+
+    srv = server(policy=dataclasses.replace(policy, watchdog_s=0.3,
+                                            watchdog_grace_s=60.0))
+    got = run(srv, {"scenario": "hang", "site": "multi_level.step",
+                    "after": 3, "hang_s": 1.0})
+    checks.append(("serve_hang", srv.faults_seen >= 1
+                   and srv.recoveries >= 1 and result_bytes(got) == ref))
+    out["hang"] = {"faults": srv.faults_seen, "recoveries": srv.recoveries}
+
+    ck = os.path.join(work, "serve_ck_corrupt")
+    os.makedirs(ck, exist_ok=True)
+    victim = os.path.join(ck, "ck_r0000.npz")
+    with open(victim, "wb") as fh:
+        fh.write(b"\x00corrupt\xff" * 64)
+    with open(victim + ".sha256", "w", encoding="utf-8") as fh:
+        fh.write("0" * 64 + "\n")
+    srv = server(checkpoint_dir=ck, checkpoint_every=2)
+    got = run(srv)
+    from arrow_matrix_tpu_torch.utils.checkpoint import load_state
+
+    final = load_state(victim[:-len(".npz")])
+    checks.append(("serve_corrupt", srv.checkpoint_corruptions >= 1
+                   and result_bytes(got) == ref and final is not None
+                   and final[1] == GATE["iterations"]))
+    out["corrupt"] = {"corruptions": srv.checkpoint_corruptions}
+    shutil.rmtree(ck, ignore_errors=True)
+
+    def burst(capacity):
+        srv = server(queue_capacity=capacity)
+        tickets = [srv.submit(r) for r in gate]
+        srv.drain()
+        return srv, tickets
+
+    (srv, got), (_, again) = burst(3), burst(3)
+    s = srv.summary()
+    census = [(t.status, t.reason) for t in got]
+    checks.append(("serve_overflow", s["completed"] == 3
+                   and s["shed"] == n_req - 3
+                   and census == [(t.status, t.reason) for t in again]
+                   and all(ref[k] == v for k, v in result_bytes(got).items())
+                   and all(t.reason == "queue_full" for t in got
+                           if t.status == "shed")))
+    out["overflow"] = {"completed": s["completed"], "shed": s["shed"]}
+
+    ex = factory(serve.ExecConfig())
+    from arrow_matrix_tpu_torch.obs.memview import predicted_bytes_for
+
+    resident = predicted_bytes_for(ex, 0)
+    price = serve.request_price_bytes(ex, gate[0].k)
+    srv = server(hbm_budget_bytes=resident + price)
+    tickets = [srv.submit(r) for r in gate]
+    srv.drain()
+    s = srv.summary()
+    checks.append(("serve_hbm", s["admitted"] == 1
+                   and s["rejected"] == n_req - 1
+                   and s["hbm"]["peak_in_use_bytes"] <= resident + price
+                   and all(ref[k] == v
+                           for k, v in result_bytes(tickets).items())))
+    out["hbm"] = {"admitted": s["admitted"], "rejected": s["rejected"],
+                  "budget_bytes": resident + price}
+
+    ck = os.path.join(work, "serve_ck_nan")
+    srv = server(checkpoint_dir=ck, checkpoint_every=2)
+    got = run(srv, {"scenario": "nan", "site": "multi_level.step",
+                    "after": 5, "burst": 4, "seed": 0})
+    checks.append(("nan", srv.faults_seen >= 1 and srv.recoveries >= 1
+                   and result_bytes(got) == ref))
+    out["nan"] = {"faults": srv.faults_seen, "recoveries": srv.recoveries}
+    shutil.rmtree(ck, ignore_errors=True)
+    failed = [name for name, ok in checks if not ok]
+    if failed:
+        raise SystemExit(f"phase 15 gate scenarios failed: {failed} ({out})")
+    log(f"phase 15 gate: {[name for name, _ in checks]} each recovered to "
+        f"the fault-free replay's bits ({json.dumps(out)})")
+    return out
+
+
+def phase_serve_kill(work: str) -> dict:
+    """Phase 15 step 4: ``graft_serve`` as a subprocess on the card,
+    SIGKILLed by a kill plan, rerun from its checkpoints; its results
+    equal a never-killed run's bit for bit."""
+    import subprocess
+
+    import numpy as np
+
+    c = SERVE_KILL
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("AMT_FAULT_PLAN", None)
+    cwd = os.path.join(work, "serve_kill")
+    os.makedirs(cwd, exist_ok=True)
+    cmd = [sys.executable, "-m", "arrow_matrix_tpu_torch.cli.graft_serve",
+           "--vertices", str(c["vertices"]), "--width", str(c["width"]),
+           "--features", str(c["features"]), "--tenants", str(c["tenants"]),
+           "--requests", str(c["requests"]), "--iterations",
+           str(c["iterations"]), "--seed", str(c["seed"]),
+           "--checkpoint_every", "2"]
+
+    def run(extra, plan=None):
+        e = dict(env)
+        if plan is not None:
+            e["AMT_FAULT_PLAN"] = json.dumps(plan)
+        tic = time.perf_counter()
+        proc = subprocess.run(cmd + extra, env=e, cwd=cwd,
+                              capture_output=True, text=True, timeout=300)
+        return proc, time.perf_counter() - tic
+
+    ref, out, ck = (os.path.join(cwd, f) for f in ("ref.npz", "kill.npz",
+                                                     "ck"))
+    r1, s1 = run(["--results_out", ref])
+    r2, s2 = run(["--results_out", out, "--checkpoint", ck],
+                 {"scenario": "kill", "site": "*.step", "after": c["after"]})
+    r3, s3 = run(["--results_out", out, "--checkpoint", ck])
+    if r1.returncode or r2.returncode != -9 or r3.returncode:
+        raise SystemExit(f"phase 15 serve_kill: exit codes {r1.returncode}, "
+                         f"{r2.returncode}, {r3.returncode}: "
+                         f"{(r1.stderr + r3.stderr)[-800:]}")
+    if "resumed request" not in r3.stdout:
+        raise SystemExit("phase 15 serve_kill: the rerun resumed nothing")
+    with np.load(ref) as a, np.load(out) as b:
+        if sorted(a.files) != sorted(b.files) or len(a.files) != \
+                c["requests"] or any(a[f].tobytes() != b[f].tobytes()
+                                     for f in a.files):
+            raise SystemExit("phase 15 serve_kill: the resumed results "
+                             "differ from the never-killed run")
+    resumed = [ln for ln in r3.stdout.splitlines() if "resumed request" in ln]
+    log(f"phase 15 serve_kill (BA n={c['vertices']} width {c['width']}, a "
+        f"smaller graph so that three subprocess decompositions fit): "
+        f"killed at step hit {c['after']}, rerun {resumed[0].strip()!r} "
+        f"and {len(resumed) - 1} more; {c['requests']} results equal the "
+        f"never-killed run bit for bit; subprocess seconds {s1:.1f}, "
+        f"{s2:.1f}, {s3:.1f}")
+    shutil.rmtree(cwd, ignore_errors=True)
+    return {"subprocess_s": [s1, s2, s3], "resumed": len(resumed)}
+
+
+def phase_serve(dev, levels, n: int, width: int, row_nnz: float, x16,
+                gold16, work: str) -> tuple:
+    """Phase 15: the serving runtime on phase 4's decomposition.
+    Returns (results, K1's kernel entry at the serve batch's shape)."""
+    import torch
+
+    from arrow_matrix_tpu_torch import faults, serve
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    t_phase = time.perf_counter()
+    built = {}
+    factory = serve_factory(levels, width, dev, built)
+    policy = faults.RetryPolicy(max_retries=2, backoff_s=0.01, jitter=0.2,
+                                seed=SERVE["seed"])
+    tic = time.perf_counter()
+    trace = serve.synthetic_trace(n, tenants=SERVE["tenants"],
+                                  requests=SERVE["requests"], k=SERVE["k"],
+                                  iterations=SERVE["iterations"],
+                                  seed=SERVE["seed"])
+    t_trace = time.perf_counter() - tic
+    results, tickets = phase_serve_batches(serve, factory, trace, n,
+                                           row_nnz, x16, gold16, policy)
+    results["trace_s"] = t_trace
+    results["ladder"] = phase_serve_ladder(serve, faults, factory, trace,
+                                           policy)
+    results["gate"] = phase_serve_gate(serve, faults, factory, trace, work,
+                                       policy)
+    del tickets, trace
+    results["kill"] = phase_serve_kill(work)
+
+    # K1 at the serve batch's shape, against its plain version.
+    ex = factory(serve.ExecConfig())
+    sell, k = ex.sell, SERVE["max_batch_k"]
+    x = ex.set_features(random_dense(n, k, seed=5))
+    got = cuda_sell.sell_spmm_cuda(sell, x)
+    want = sell_spmm(sell, x)
+    torch.cuda.synchronize()
+    err, ok = compare(got, want, row_nnz, exact=False)
+    if not ok:
+        raise SystemExit(f"phase 15: K1 != plain at k={k} (max abs err "
+                         f"{err:.3e})")
+    del got, want
+    runs = cuda_runs(lambda: cuda_sell.sell_spmm_cuda(sell, x), 20)
+    ms = statistics.median(runs)
+    plain_ms = cuda_ms(lambda: sell_spmm(sell, x), 3)
+    a_csr = sorted_csr(sell, x.dtype)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 5)
+    bytes_, flops = fold_work(sell, ex.nnz, k)
+    t_bytes, t_ops = (bytes_ / HBM_BYTES_PER_S * 1e3,
+                      flops / F32_FLOPS * 1e3)
+    busy = SERVE["iterations"] * ms
+    walls = [d + s + g for d, s, g in zip(results["batch_loop_wall_ms"],
+                                          results["set_features_ms"],
+                                          results["gather_result_ms"])]
+    results.update(k1_ms=ms, k1_runs=runs, k1_plain_ms=plain_ms,
+                   k1_library_ms=library_ms,
+                   batch_busy_ms=busy, batch_wall_ms=walls,
+                   device_busy_share=[busy / w for w in walls],
+                   phase_s=time.perf_counter() - t_phase)
+    log(f"phase 15 K1 at the batch shape (k={k}): {ms:.4f} ms/product "
+        f"(median of 20), plain {plain_ms:.4f} ms, torch.sparse.mm "
+        f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms; a batch's "
+        f"{SERVE['iterations']} products {busy:.3f} ms of its "
+        f"{[round(w, 1) for w in walls]} ms wall (device busy share "
+        f"{[round(busy / w, 4) for w in walls]}); phase 15 "
+        f"{results['phase_s']:.1f} s")
+    entry = {"name": f"sell_tier_spmm[serve,f32,k={k}]", "route": "cuda",
+             "source": SOURCES["K1"], "replaces": REPLACES["K1"],
+             "launches": results["k1_launches"], "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms}
+    del x, a_csr, ex, built
+    torch.cuda.empty_cache()
+    return results, entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -2585,6 +3114,10 @@ def main() -> int:
     parser.add_argument("--bench", action="store_true",
                         help="run phases 1, 2 and 14 only (the native "
                              "decomposer and the port's bench)")
+    parser.add_argument("--serve", action="store_true",
+                        help="run phases 1, 2 and 15 only (the serving "
+                             "runtime, on phase 4's decomposition and its "
+                             "k=16 golden, computed here)")
     args = parser.parse_args()
 
     import torch
@@ -2655,6 +3188,9 @@ def main() -> int:
     if args.bench:
         bench = phase_bench(dev, 1 << args.log2n, None, None)
         return finish({"bench": bench, "card": smi}, [])
+    if args.serve:
+        serve_res, entry = serve_only(dev, 1 << args.log2n, work)
+        return finish({"serve": serve_res, "card": smi}, [entry])
 
     # -- 3. kernel vs plain on random tiers ------------------------------------
     phase_random_tiers(dev)
@@ -2822,6 +3358,11 @@ def main() -> int:
     results["models"], model_kernels = phase_models(dev, levels, n, width,
                                                     ml)
     kernels += model_kernels
+
+    # -- 15. the serving runtime, on phase 4's decomposition -----------------
+    results["serve"], serve_entry = phase_serve(
+        dev, levels, n, width, row_nnz, gold[(16, 0)], gold[(16, 10)], work)
+    kernels.append(serve_entry)
     del levels, loaded, gold      # phase 10 steps ml again
     torch.cuda.empty_cache()
 
@@ -2845,6 +3386,42 @@ def main() -> int:
 
     results["card"] = smi
     return finish(results, kernels)
+
+
+def serve_only(dev, n: int, work: str) -> tuple:
+    """``--serve``: phase 4's decomposition (generated, decomposed,
+    saved and loaded as in phase 4) and its k=16 input's 10-step host
+    golden, then phase 15."""
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.io import (
+        as_levels,
+        load_decomposition,
+        load_level_widths,
+        save_decomposition,
+    )
+    from arrow_matrix_tpu_torch.utils import barabasi_albert, random_dense
+
+    m, width, seed = 8, 2048, 7
+    tic = time.perf_counter()
+    a = barabasi_albert(n, m, seed=seed)
+    levels = arrow_decomposition(a, width, max_levels=10,
+                                 block_diagonal=True, seed=seed)
+    base = os.path.join(work, f"ba_{n}_{m}")
+    save_decomposition(levels, base, block_diagonal=True)
+    levels = as_levels(load_decomposition(base, width, block_diagonal=True),
+                       load_level_widths(base, width, True))
+    nnz = sum(int(lvl.matrix.nnz) for lvl in levels)
+    t_dec = time.perf_counter() - tic
+    tic = time.perf_counter()
+    x16 = g = random_dense(n, 16, seed=3)
+    for _ in range(SERVE["iterations"]):
+        g = host_golden(levels, g)
+    log(f"phase 4 (for phase 15): BA n={n} m={m}: {nnz} nnz, {len(levels)} "
+        f"levels, generated, decomposed, saved and loaded in {t_dec:.1f} s; "
+        f"the k=16 input's {SERVE['iterations']}-step host golden "
+        f"{time.perf_counter() - tic:.1f} s")
+    del a
+    return phase_serve(dev, levels, n, width, nnz / n, x16, g, work)
 
 
 def dense_phases(dev, n: int, work: str) -> tuple:

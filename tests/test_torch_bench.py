@@ -94,8 +94,24 @@ def test_config_agrees_with_the_root_bench(monkeypatch, env):
         theirs.pop("platform")
         assert ours == theirs
     monkeypatch.setenv("AMT_BENCH_REPL", "2")
-    with pytest.raises(NotImplementedError, match="fold executor options"):
-        bench._bench_config("cuda")
+    monkeypatch.setenv("AMT_BENCH_OVERLAP_SLABS", "2")
+    ours, theirs = bench._bench_config("cuda"), root_bench._bench_config(
+        "tpu")
+    assert (ours["repl"], ours["overlap_slabs"]) == (2, 2)
+    assert (theirs["repl"], theirs["overlap_slabs"]) == (2, 2)
+
+
+def test_cpu_run_with_a_column_schedule_writes_it_on_the_line(tmp_path):
+    proc, line = _bench(tmp_path, ["--device", "cpu"], AMT_BENCH_N="4096",
+                        AMT_BENCH_FMT="fold,hyb", AMT_BENCH_K128="0",
+                        AMT_BENCH_REPL="2", AMT_BENCH_OVERLAP_SLABS="2")
+    assert proc.returncode == 0, proc.stderr
+    assert line["repl"] == 2 and line["overlap_slabs"] == 2
+    assert line["frobenius_err_vs_cpu"] <= line["frobenius_gate"]
+    runs = line["device_runs"]
+    assert (runs["fold"]["repl"], runs["fold"]["overlap_slabs"]) == (2, 2)
+    # repl is a fold schedule: the hyb candidate takes the slabs alone.
+    assert "repl" not in runs["hyb"] and runs["hyb"]["overlap_slabs"] == 2
 
 
 @pytest.fixture(scope="module")

@@ -691,3 +691,56 @@ def test_bench_on_the_card_prints_its_contract_line(cuda, tmp_path):
     assert line["k128_err"] <= line["k128_gate"] and line["k128_ms"] > 0
     assert line["fmt_used"] in ("fold", "hyb")
     assert line["device_runs"][line["fmt_used"]]["launches"]["K1"] > 0
+
+
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_column_has_the_same_bits_at_every_k(cuda, binary, dtype):
+    """K1 at k = 128 (the 47-chunk hub split over CTAs of one block)
+    against every slab of k = 4 and 16 (the hub on one CTA) and 32 and
+    64 (split over CTAs of several blocks): each column equal bit for
+    bit, the serving runtime's batching and column-slab contract."""
+    rng = np.random.default_rng(40 + binary)
+    m = _multi_tier(rng, binary, cuda)
+    x = torch.from_numpy(rng.uniform(-1, 1, (m.n_rows, 128)).astype(
+        np.float32)).to(cuda).to(dtype)
+    full = cuda_sell.sell_spmm_cuda(m, x)
+    bits = (lambda t: t.view(torch.int16)) if dtype == torch.bfloat16 \
+        else (lambda t: t.view(torch.int32))
+    for k in (4, 16, 32, 64):
+        for lo in range(0, 128, k):
+            part = cuda_sell.sell_spmm_cuda(m, x[:, lo:lo + k].contiguous())
+            assert torch.equal(bits(part), bits(full[:, lo:lo + k])), (k, lo)
+
+
+def test_server_with_a_column_schedule_on_the_card(cuda):
+    """A small server on the card with base rung repl=2, overlap_slabs=2
+    and batching: every request completed with no fault, each result
+    equal bit for bit to the plain rung's, within tolerance of the CPU
+    server's, and K1 launched c x S products a step."""
+    from arrow_matrix_tpu_torch import serve
+
+    def run(device, cfg):
+        fac, n = serve.ba_executor_factory(4096, 64, 5, device=device)
+        srv = serve.ArrowServer(fac, cfg, max_batch_k=64,
+                                policy=serve.scheduler.RetryPolicy(
+                                    backoff_s=0.001))
+        tickets = serve.run_trace(srv, serve.synthetic_trace(
+            n, tenants=4, requests=8, k=16, iterations=3, seed=5))
+        assert srv.summary()["faults_seen"] == 0
+        assert [t.status for t in tickets] == ["completed"] * 8
+        return srv, tickets
+
+    before = cuda_sell.LAUNCHES
+    srv, got = run(cuda, serve.ExecConfig(repl=2, overlap_slabs=2))
+    assert srv.batches == 2
+    ex = srv._build_executor(serve.ExecConfig(repl=2, overlap_slabs=2))
+    per = sum(ex.sell.plans[(16, torch.float32, True)].wl.launches
+              for _ in range(4))
+    assert cuda_sell.LAUNCHES - before == srv.batches * 3 * per
+    _, plain = run(cuda, serve.ExecConfig())
+    _, cpu = run("cpu", serve.ExecConfig())
+    for a, b, c in zip(got, plain, cpu):
+        assert a.result.tobytes() == b.result.tobytes()
+        assert relative_error(a.result, c.result) <= relative_tolerance(
+            ex.nnz / 4096, 3)

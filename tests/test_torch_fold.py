@@ -174,8 +174,8 @@ def test_carried_mask_marks_real_rows(levels):
 
 @pytest.mark.parametrize("kwargs", [
     {"mesh": object()}, {"routing": "a2a"}, {"layout": "wide"},
-    {"kernel": "pallas_sell"}, {"repl": 2}, {"overlap_slabs": 2},
-    {"plan": "auto"}, {"kernel_opts": {"row_block": 64}}])
+    {"kernel": "pallas_sell"}, {"plan": "auto"},
+    {"kernel_opts": {"row_block": 64}}])
 def test_unported_options_raise_naming_the_roadmap(levels, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)

@@ -47,7 +47,22 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             os.path.join("ops", "cuda_gather.py"),
             os.path.join("tools", "gather_probe.py"),
             os.path.join("tools", "granule_gather_probe.py"),
-            os.path.join("utils", "timing.py")} <= names
+            os.path.join("utils", "timing.py"),
+            "sync.py", "classes.py",
+            os.path.join("obs", "flight.py"),
+            os.path.join("obs", "metrics.py"),
+            os.path.join("obs", "memview.py"),
+            os.path.join("obs", "comm.py"),
+            os.path.join("faults", "plan.py"),
+            os.path.join("faults", "policy.py"),
+            os.path.join("faults", "supervisor.py"),
+            os.path.join("utils", "checkpoint.py"),
+            os.path.join("parallel", "routing.py"),
+            os.path.join("serve", "request.py"),
+            os.path.join("serve", "admission.py"),
+            os.path.join("serve", "scheduler.py"),
+            os.path.join("serve", "loadgen.py"),
+            os.path.join("cli", "graft_serve.py")} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -118,6 +133,46 @@ def test_port_runs_a_fold_step_with_jax_blocked():
     package unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", BLOCKED_RUN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+SERVE_RUN = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")] + r"""
+import json, os, tempfile
+import arrow_matrix_tpu_torch.sync, arrow_matrix_tpu_torch.classes
+from arrow_matrix_tpu_torch import faults
+from arrow_matrix_tpu_torch.obs import comm, flight, memview, metrics
+from arrow_matrix_tpu_torch.serve import (ArrowServer, ExecConfig,
+                                          ba_executor_factory, run_trace,
+                                          slo_summary, synthetic_trace)
+from arrow_matrix_tpu_torch.utils import checkpoint
+import arrow_matrix_tpu_torch.cli.graft_serve
+work = tempfile.mkdtemp()
+fac, n = ba_executor_factory(64, 16, 5, device="cpu")
+faults.set_plan({"scenario": "error", "site": "multi_level.step",
+                 "after": 1})
+srv = ArrowServer(fac, ExecConfig(repl=2, overlap_slabs=2), max_batch_k=8,
+                  policy=faults.RetryPolicy(backoff_s=0.001),
+                  checkpoint_dir=os.path.join(work, "ck"),
+                  registry=metrics.MetricsRegistry())
+tickets = run_trace(srv, synthetic_trace(n, requests=4, k=4, seed=5))
+assert [t.status for t in tickets] == ["completed"] * 4
+s = slo_summary(srv, tickets, 1.0)
+assert s["faults_seen"] == 1 and s["recoveries"] == 1, s
+assert not any(m.split(".")[0] in {"jax", "flax", "arrow_matrix_tpu"}
+               for m in sys.modules)
+print("ok", json.dumps(s["hbm"]))
+"""
+
+
+def test_serving_runtime_runs_with_jax_blocked():
+    """Every module of the serving runtime imported, and a supervised,
+    batched, checkpointing server run with a column schedule and one
+    injected fault, with JAX and the JAX package unimportable."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env.pop("AMT_FAULT_PLAN", None)
+    proc = subprocess.run([sys.executable, "-c", SERVE_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("ok")

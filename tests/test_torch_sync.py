@@ -1,0 +1,177 @@
+"""The port's lock-order witness (``arrow_matrix_tpu_torch.sync``), the
+JAX package's cases: off by default at zero overhead, raising on an
+inverted acquisition order (declared or observed), the Condition
+protocol, flock vertices; the declared order equal to the JAX
+package's; and a threaded stress of the port's server under the
+witness (submitter threads against the always-on worker), with every
+request completed, the metrics registry's counts exact and no order
+violation."""
+
+import threading
+
+import pytest
+import torch
+
+from arrow_matrix_tpu import sync as jsync
+from arrow_matrix_tpu_torch import serve as pserve
+from arrow_matrix_tpu_torch import sync
+from arrow_matrix_tpu_torch.obs import flight
+from arrow_matrix_tpu_torch.obs.metrics import Histogram, MetricsRegistry
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _witness_restored():
+    prev = sync.witness_registry()
+    sync.disable_witness()
+    yield
+    if prev is not None:
+        sync.enable_witness(prev)
+    else:
+        sync.disable_witness()
+
+
+@pytest.fixture
+def witness():
+    yield sync.enable_witness()
+    sync.disable_witness()
+
+
+def test_witness_off_by_default_is_zero_overhead():
+    assert sync.witness_registry() is None
+    lock = threading.Lock()
+    assert sync.witnessed("arrow_server", lock) is lock
+    cm = sync.flock_witness("sidecar")
+    assert cm is sync.flock_witness("preempt_registry")
+    with cm:
+        pass
+
+
+@pytest.mark.parametrize("declared", [True, False])
+def test_witness_raises_on_an_inverted_order(witness, declared):
+    la = sync.witnessed("a", threading.Lock())
+    lb = sync.witnessed("b", threading.Lock())
+    if declared:
+        witness.declare("a", "b")
+    with la:
+        with lb:
+            pass
+    with lb:
+        with pytest.raises(sync.LockOrderViolation,
+                           match="declared" if declared else "observed"):
+            la.acquire()
+    snap = witness.snapshot()
+    assert snap["violations"]
+    assert snap["observed_edges"] == ([] if declared else [("a", "b")])
+
+
+def test_witness_reentrancy_and_bad_declarations():
+    reg = sync.enable_witness()
+    lr = sync.witnessed("r", threading.RLock())
+    with lr:
+        with lr:
+            pass
+    assert reg.snapshot()["reentries"] == 1
+    with pytest.raises(ValueError, match="contradicts"):
+        sync.LockRegistry(declared=(("a", "b"), ("b", "a")))
+    with pytest.raises(ValueError, match="self-edge"):
+        sync.LockRegistry(declared=(("a", "a"),))
+
+
+def test_witness_condition_protocol_round_trips(witness):
+    cond = threading.Condition(sync.witnessed("cond", threading.RLock()))
+    box = {"ready": False}
+    done = threading.Event()
+
+    def waiter():
+        with cond:
+            while not box["ready"]:
+                cond.wait(timeout=30)
+        done.set()
+
+    t = threading.Thread(target=waiter, daemon=True)
+    t.start()
+    with cond:
+        box["ready"] = True
+        cond.notify_all()
+    assert done.wait(30)
+    t.join(30)
+    assert not t.is_alive()
+    snap = witness.snapshot()
+    assert snap["violations"] == [] and len(snap["threads"]) == 2
+
+
+def test_flock_witness_is_a_graph_vertex(witness):
+    inner = sync.witnessed("inner", threading.Lock())
+    with sync.flock_witness("sidecar"):
+        with inner:
+            pass
+    with inner:
+        with pytest.raises(sync.LockOrderViolation):
+            with sync.flock_witness("sidecar"):
+                pass
+
+
+def test_declared_order_equals_the_jax_package():
+    assert sync.DECLARED_ORDER == jsync.DECLARED_ORDER
+    assert sync.FLOCK_NODES == jsync.FLOCK_NODES
+    snap = sync.LockRegistry().snapshot()
+    assert sorted(tuple(e) for e in snap["declared_edges"]) == \
+        sorted(sync.DECLARED_ORDER)
+
+
+def test_threaded_server_stress_under_witness(monkeypatch):
+    """Three submitter threads against the always-on worker, with a
+    metrics registry and a flight recorder, the witness armed and a
+    short switch interval: every request completes, the completed
+    counter and the latency histogram count each request once, and the
+    witness saw several threads and no violation."""
+    import sys
+
+    registry = sync.enable_witness()
+    rec = flight.FlightRecorder(None, capacity=10_000)
+    flight.set_recorder(rec)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    metrics = MetricsRegistry()
+    try:
+        fac, n = pserve.ba_executor_factory(64, 16, 5, device="cpu")
+        srv = pserve.ArrowServer(fac, pserve.ExecConfig(),
+                                 queue_capacity=64, registry=metrics,
+                                 max_batch_k=8)
+        srv.start()
+        trace = pserve.synthetic_trace(n, tenants=4, requests=24, k=2,
+                                       iterations=2, seed=7)
+        tickets, lock = [], threading.Lock()
+
+        def submitter(chunk):
+            for r in chunk:
+                t = srv.submit(r)
+                with lock:
+                    tickets.append(t)
+
+        threads = [threading.Thread(target=submitter, args=(trace[i::3],))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        for t in tickets:
+            assert t.wait(120)
+        srv.shutdown(wait=True, timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+        flight.set_recorder(None)
+        sync.disable_witness()
+    assert [t.status for t in tickets] == ["completed"] * 24
+    assert srv.summary()["completed"] == 24
+    done = sum(c["value"] for c in metrics.snapshot()["counters"]
+               if c["name"] == "serve_completed")
+    assert done == 24
+    lat = metrics.histogram("serve_latency_ms", server="serve")
+    assert isinstance(lat, Histogram) and len(lat.values) == 24
+    snap = registry.snapshot()
+    assert snap["violations"] == [], snap["violations"]
+    assert len(snap["threads"]) >= 3

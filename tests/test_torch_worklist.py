@@ -71,8 +71,9 @@ def _tasks(wl) -> dict:
     """Every thread group's task, decoded from the items as the kernel
     decodes them: arrays ``item``, ``group``, ``tier``, ``row``
     (tier-local), ``chunk``, ``lo``/``hi`` (its slots ``[lo, hi)``,
-    clipped to m_t) and ``part`` (-1 when the group's row is written
-    directly).  Groups with no task are left out."""
+    clipped to m_t) and ``part`` (the workspace row of the group's
+    block sum, -1 when the group's row is written directly).  Groups
+    with no task are left out."""
     p = wl.groups
     it = wl.items.astype(np.int64)
     n = len(it)
@@ -91,6 +92,7 @@ def _tasks(wl) -> dict:
         direct, 0, chunk0)) < cps)
     lo = np.minimum(chunk * length, m_t)
     hi = np.minimum(lo + length, m_t)
+    part = np.where(direct, -1, part + g // worklist.CHUNK_BLOCK)
     pick = lambda a: a[live]
     return {"item": pick(item), "group": pick(g), "tier": pick(tier),
             "row": pick(row), "chunk": pick(chunk), "lo": pick(lo),
@@ -101,8 +103,8 @@ def _check_cover(wl, shapes):
     """Every (tier, row) of the ladder is covered by tasks whose chunks
     run 0, 1, ... S - 1 over contiguous, non-empty slot ranges from 0
     to m_t (one empty task for a zero-slot row), each exactly once; a
-    split row's items come in chunk order on consecutive partials, as
-    the rows table says."""
+    split row's items come in chunk order, their blocks of CHUNK_BLOCK
+    chunks on consecutive partials, as the rows table says."""
     t = _tasks(wl)
     m_t = np.array([m for m, _ in shapes], np.int64)
     n_t = np.array([n for _, n in shapes], np.int64)
@@ -121,15 +123,22 @@ def _check_cover(wl, shapes):
     assert (chunk[step] == chunk[np.r_[step[1:], False]] + 1).all()
     assert (lo[step] == hi[np.r_[step[1:], False]]).all()
     assert ((hi > lo) | (m_t[tier] == 0)).all()     # no empty chunk
-    # Split rows: items in chunk order, on consecutive partials.
+    # Split rows: items in chunk order, blocks on consecutive partials.
     split = t["part"] >= 0
     assert np.unique(t["part"][split]).size == wl.n_parts
+    per_item = wl.groups // worklist.CHUNK_BLOCK
     for orow, first_part, parts in wl.rows.tolist():
         mine = wl.items[(wl.items[:, 3] >= first_part)
                         & (wl.items[:, 3] < first_part + parts)]
-        assert mine[:, 3].tolist() == list(range(first_part,
-                                                 first_part + parts))
-        assert mine[:, 2].tolist() == [q * wl.groups for q in range(parts)]
+        q = -(-parts // per_item)
+        assert mine[:, 3].tolist() == list(range(
+            first_part, first_part + parts, per_item))
+        assert mine[:, 2].tolist() == [i * wl.groups for i in range(q)]
+        got = t["part"][split][np.isin(t["item"][split], np.flatnonzero(
+            (wl.items[:, 3] >= first_part)
+            & (wl.items[:, 3] < first_part + parts)))]
+        assert sorted(set(got.tolist())) == list(range(
+            first_part, first_part + parts))
         tr = {(int(a), int(b)) for a, b in mine[:, :2]}
         assert len(tr) == 1
         (ti, r), = tr
