@@ -1,6 +1,6 @@
 """Tolerance-certified traffic classes.
 
-The port's copy of ``arrow_matrix_tpu/classes.py`` (stdlib only).  Two
+The port's copy of ``arrow_matrix_tpu/classes.py``.  Two
 declared classes:
 
 * ``exact`` — f32 carriage, the default: every caller that says nothing
@@ -12,10 +12,10 @@ declared classes:
   the class tolerance of the f32 result.
 
 A :class:`Certificate` is derived from a curve record
-(:func:`certificate_from_record`) or passed explicitly; no certificate
+(:func:`certificate_from_record`), found in a ledger store by structure
+hash (:func:`find_certificate`), or passed explicitly; no certificate
 (or a curve shorter than the request) means the request is served
-``exact``, loudly.  Looking certificates up in the ledger
-(``ledger_dir``) is not ported yet and raises.
+``exact``, loudly.
 
 Admission prices carriage at the class itemsize (f32 4, bf16 2, int8
 1), so approx requests reserve their true, smaller bytes.
@@ -181,16 +181,18 @@ def find_certificate(structure_hash: str, dtype: str, *,
                      allow_emulated: bool = False
                      ) -> Optional[Certificate]:
     """The NEWEST usable certificate for ``(structure_hash, dtype)``
-    from an explicit record list (``records``; the ledger lookup by
-    ``ledger_dir`` is not ported yet and raises).  Emulated curves
-    (the pre-real-int8 quantize-dequantize probe) are rejected unless
+    from the ledger in ``ledger_dir`` (the port's default store when
+    None), or from an explicit record list.  Emulated curves (the
+    pre-real-int8 quantize-dequantize probe) are rejected unless
     explicitly allowed: a certificate must describe the carriage the
     executor actually serves."""
     if records is None:
-        raise NotImplementedError(
-            "a certificate lookup in the ledger is not ported yet; pass "
-            "the certificates (or the curve records) explicitly; see "
-            "ROADMAP.md Queue A, 'Observability and the ledger'")
+        from arrow_matrix_tpu_torch.ledger.store import Ledger
+
+        try:
+            records = Ledger(ledger_dir).read_all()
+        except OSError:
+            return None
     best: Optional[Certificate] = None
     for rec in records:
         if rec.get("kind") != "error_curve":
@@ -204,7 +206,7 @@ def find_certificate(structure_hash: str, dtype: str, *,
             continue
         if cert.emulated and not allow_emulated:
             continue
-        best = cert   # records are append-ordered: last wins = newest
+        best = cert   # read_all is append-ordered: last wins = newest
     return best
 
 
@@ -212,8 +214,9 @@ def certified_classes(structure_hash: str, *,
                       ledger_dir: Optional[str] = None,
                       records: Optional[Sequence[Dict[str, Any]]] = None
                       ) -> List[Certificate]:
-    """Every usable certificate the records hold for one structure:
-    the serving layer's startup view of what ``approx`` can serve."""
+    """Every usable certificate the ledger (or the records) holds for
+    one structure: the serving layer's startup view of what ``approx``
+    can serve."""
     out = []
     for dtype in ("bf16", "int8"):
         c = find_certificate(structure_hash, dtype,

@@ -18,16 +18,24 @@ Prints the SLO report (requests/s, p50/p99 latency, the shed/rejected
 census, HBM occupancy) and, with ``--obs_dir``, writes
 ``serve_summary.json``, ``metrics.jsonl`` and the flight recorder there.
 ``--results_out`` writes every completed request's result (one array
-per request id), the replay artifact.  Runs on the card; ``--device
-cpu`` runs the plain PyTorch versions.  Exits non-zero only when a
-request FAILED (shed and rejected are explicit, policy-level outcomes).
-``--pulse``/``--pulse_port`` and ``--fmt ell`` (a mesh) are not ported
-yet and exit with the ROADMAP.md item that ports them.
+per request id), the replay artifact.  ``--pulse`` attaches the live
+telemetry (a PulseMonitor with the SLO-burn watchdog, ``--slo_p99_ms``
+its p99 target) and a request-correlated tracer: ``--obs_dir`` then also
+gets ``pulse_ring.json``, ``pulse_metrics.prom`` and
+``serve_trace.json``, ``--results_out`` the window series as
+``_pulse_windows``, and ``--pulse_port`` (0: any free port) serves
+``/metrics``, ``/pulse.json`` and ``/healthz`` while the run lasts.
+Runs on the card; ``--device cpu`` runs the plain PyTorch versions.
+Exits non-zero only when a request FAILED (shed and rejected are
+explicit, policy-level outcomes).  ``--fmt ell`` (a mesh) is not ported
+yet and exits with the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 import time
 
@@ -84,12 +92,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run directory for serve_summary.json, "
                         "metrics.jsonl and the flight recorder")
     p.add_argument("--pulse", action="store_true",
-                   help="live telemetry (not ported yet)")
+                   help="attach live telemetry: sliding-window SLO "
+                        "series, the SLO-burn watchdog and a "
+                        "request-correlated trace")
     p.add_argument("--pulse_window", type=float, default=0.5,
                    help="pulse sliding-window width in seconds")
     p.add_argument("--pulse_port", type=int, default=-1,
-                   help="live telemetry endpoint port (not ported yet; "
-                        "-1 = none)")
+                   help="with --pulse, serve /metrics, /pulse.json and "
+                        "/healthz on this port (0 = any free port; -1 = "
+                        "none)")
     p.add_argument("--slo_p99_ms", type=float, default=0.0,
                    help="p99 latency SLO target of the burn watchdog "
                         "(with --pulse)")
@@ -104,10 +115,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.pulse or args.pulse_port >= 0:
-        raise SystemExit("graft_serve: --pulse/--pulse_port (live "
-                         "telemetry) is not ported yet; see ROADMAP.md "
-                         "Queue A, 'Observability and the ledger'")
     if args.fmt == "ell":
         raise SystemExit("graft_serve: --fmt ell serves over a mesh, "
                          "which is not ported yet; see ROADMAP.md Queue "
@@ -133,8 +140,6 @@ def main(argv=None) -> int:
 
     registry = MetricsRegistry(run_dir=args.obs_dir)
     if args.obs_dir:
-        import os
-
         os.makedirs(args.obs_dir, exist_ok=True)
         flight.install(os.path.join(args.obs_dir, "flight.json"))
 
@@ -145,6 +150,19 @@ def main(argv=None) -> int:
     policy = RetryPolicy.from_args(args)
     budget = (int(args.hbm_budget_mb * 2**20)
               if args.hbm_budget_mb > 0 else None)
+    monitor, endpoint, tracer = None, None, None
+    if args.pulse:
+        from arrow_matrix_tpu_torch.obs import Tracer, pulse as pulse_mod
+
+        tracer = Tracer("graft-serve", registry=registry)
+        ring = (os.path.join(args.obs_dir, "pulse_ring.json")
+                if args.obs_dir else None)
+        monitor = pulse_mod.PulseMonitor(
+            window_s=args.pulse_window, ring_path=ring,
+            name="graft-serve",
+            watchdog=pulse_mod.SloWatchdog(pulse_mod.default_rules(
+                target_p99_ms=(args.slo_p99_ms
+                               if args.slo_p99_ms > 0 else None))))
     server = ArrowServer(
         factory, base_cfg, hbm_budget_bytes=budget,
         queue_capacity=args.queue, policy=policy,
@@ -152,7 +170,17 @@ def main(argv=None) -> int:
         checkpoint_every=args.checkpoint_every,
         max_batch_k=args.max_batch_k,
         degrade_after=args.degrade_after,
-        registry=registry, name="graft-serve", verbose=True)
+        registry=registry, tracer=tracer, name="graft-serve",
+        verbose=True)
+    if monitor is not None:
+        server.attach_pulse(monitor)
+        if args.pulse_port >= 0:
+            from arrow_matrix_tpu_torch.obs import PulseEndpoint
+
+            endpoint = PulseEndpoint(monitor,
+                                     port=args.pulse_port).start()
+            print(f"graft-serve: pulse endpoint at {endpoint.url}"
+                  f"/metrics", flush=True)
     trace = synthetic_trace(
         n_rows, tenants=args.tenants, requests=args.requests,
         k=args.features, iterations=args.iterations, seed=args.seed,
@@ -160,7 +188,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tickets = run_trace(server, trace)
     wall = time.perf_counter() - t0
-    summary = slo_summary(server, tickets, wall)
+    if monitor is not None:
+        monitor.close()
+    summary = slo_summary(server, tickets, wall, pulse=monitor)
 
     lat = summary["latency_ms"]
     print(f"graft-serve: {summary['requests']} requests over "
@@ -181,13 +211,36 @@ def main(argv=None) -> int:
               f"{summary['recoveries']} recover(ies), "
               f"{summary['checkpoint_corruptions']} checkpoint "
               f"corruption(s) discarded")
+    if monitor is not None:
+        pt = summary["pulse"]
+        burns = [e for e in pt["burn_events"]
+                 if e["event"] == "slo_burn"]
+        print(f"graft-serve: pulse — {len(pt['windows'])} windows of "
+              f"{pt['window_s']}s, {len(burns)} SLO burn(s)"
+              + (": " + ", ".join(sorted({b['rule'] for b in burns}))
+                 if burns else ""), flush=True)
     if args.results_out:
         done = {t.request.request_id: t.result for t in tickets
                 if t.result is not None}
+        if monitor is not None:
+            # The window series rides the replay artifact for offline
+            # diffing, only with --pulse: it is timing-shaped, not
+            # replay-identical.
+            done["_pulse_windows"] = np.frombuffer(
+                json.dumps(summary["pulse"]["windows"]).encode(),
+                dtype=np.uint8)
         np.savez(args.results_out, **done)
         print(f"graft-serve: wrote {len(done)} result(s) to "
               f"{args.results_out}")
     if args.obs_dir:
+        if tracer is not None:
+            tp = tracer.save(os.path.join(args.obs_dir,
+                                          "serve_trace.json"))
+            print(f"graft-serve: wrote request-correlated trace {tp}")
+        if monitor is not None:
+            with open(os.path.join(args.obs_dir, "pulse_metrics.prom"),
+                      "w", encoding="utf-8") as fh:
+                fh.write(monitor.exposition_text())
         path = write_serve_artifacts(args.obs_dir, summary,
                                      registry=registry)
         rec = flight.get_recorder()
@@ -195,6 +248,8 @@ def main(argv=None) -> int:
             rec.seal("graft-serve run complete")
             flight.set_recorder(None)
         print(f"graft-serve: wrote {path}")
+    if endpoint is not None:
+        endpoint.stop()
     if summary["failed"]:
         print(f"graft-serve: {summary['failed']} request(s) FAILED",
               file=sys.stderr)

@@ -1,14 +1,87 @@
-"""Observability of the serving runtime.
+"""Observability of the port.
 
 * :mod:`~arrow_matrix_tpu_torch.obs.flight` — the flight recorder and
   the request-correlation context;
 * :mod:`~arrow_matrix_tpu_torch.obs.metrics` — counters, gauges and
   histograms with a ``metrics.jsonl`` sink;
+* :mod:`~arrow_matrix_tpu_torch.obs.tracer` — host-side phase spans,
+  emitted as Chrome-trace / Perfetto JSON and entered as
+  ``torch.profiler.record_function`` ranges, plus the shared timing
+  harness;
+* :mod:`~arrow_matrix_tpu_torch.obs.pulse` — live serving telemetry:
+  sliding-window SLO series, a crash-readable ring, a scrape endpoint
+  and the SLO-burn watchdog;
+* :mod:`~arrow_matrix_tpu_torch.obs.xray` — per-process trace
+  documents merged into one timeline, and the per-class critical path;
 * :mod:`~arrow_matrix_tpu_torch.obs.memview` — the executors' static
   HBM model as the admission price;
 * :mod:`~arrow_matrix_tpu_torch.obs.comm` — the device's HBM budget.
 """
 
-from arrow_matrix_tpu_torch.obs.metrics import MetricsRegistry
+from arrow_matrix_tpu_torch.obs.comm import hbm_budget_bytes
+from arrow_matrix_tpu_torch.obs.flight import (
+    FlightRecorder,
+    current_request,
+    request_context,
+)
+from arrow_matrix_tpu_torch.obs.memview import (
+    predicted_bytes_for,
+    tree_device_bytes,
+)
+from arrow_matrix_tpu_torch.obs.metrics import (
+    MetricsRegistry,
+    get_registry,
+    init_registry,
+    set_registry,
+)
+from arrow_matrix_tpu_torch.obs.pulse import (
+    BurnRule,
+    PulseEndpoint,
+    PulseMonitor,
+    SloWatchdog,
+)
+from arrow_matrix_tpu_torch.obs.tracer import (
+    Tracer,
+    call_time_ms,
+    chained_iteration_ms,
+    iteration_time_ms,
+    timed,
+)
+from arrow_matrix_tpu_torch.obs.xray import (
+    critical_path,
+    merge_process_traces,
+    merge_run_dir,
+    new_trace_id,
+    process_trace,
+    recover_from_flight,
+    subdivide_compute,
+)
 
-__all__ = ["MetricsRegistry"]
+__all__ = [
+    "BurnRule",
+    "FlightRecorder",
+    "MetricsRegistry",
+    "PulseEndpoint",
+    "PulseMonitor",
+    "SloWatchdog",
+    "Tracer",
+    "call_time_ms",
+    "chained_iteration_ms",
+    "critical_path",
+    "current_request",
+    "get_registry",
+    "hbm_budget_bytes",
+    "init_registry",
+    "iteration_time_ms",
+    "merge_process_traces",
+    "merge_run_dir",
+    "new_trace_id",
+    "predicted_bytes_for",
+    "process_trace",
+    "recover_from_flight",
+    "request_context",
+    "set_registry",
+    "subdivide_compute",
+    "timed",
+    "tree_device_bytes",
+]

@@ -13,17 +13,23 @@ and rejection counts, HBM occupancy, per-tenant and per-class
 breakdowns) with the JAX package's field names.
 :func:`ba_executor_factory` builds the resident operator of a
 Barabasi-Albert graph and one ``MultiLevelArrow`` per ladder rung, on
-the card unless ``device="cpu"``.  ``smoke_serve`` (which needs the
-streaming telemetry and the ledger) is not ported yet and raises.
+the card unless ``device="cpu"``.  A summary built with ``pulse=``
+embeds the monitor's closed-window series under ``"pulse"``: the
+report and the streaming series share one vocabulary
+(``obs/pulse.py:SLO_SERIES_FIELDS``), so the two can be diffed field
+for field.  :func:`smoke_serve` is one small end-to-end serve run with
+a pulse monitor attached and a run-local ledger record.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from arrow_matrix_tpu_torch.ledger import store as ledger_store
 from arrow_matrix_tpu_torch.serve import request as rq
 from arrow_matrix_tpu_torch.serve.scheduler import ArrowServer, ExecConfig
 from arrow_matrix_tpu_torch.utils.artifacts import atomic_write_json
@@ -84,13 +90,9 @@ def latency_summary_ms(tickets: List[rq.Ticket]) -> Dict[str, float]:
 
 def slo_summary(server: ArrowServer, tickets: List[rq.Ticket],
                 wall_s: float, pulse=None) -> dict:
-    """The serving SLO report (the JAX package's fields).  ``pulse``
-    (a streaming telemetry monitor) is not ported yet: the report's
-    ``"pulse"`` section is None, and passing one raises."""
-    if pulse is not None:
-        raise NotImplementedError(
-            "a pulse monitor is not ported yet; see ROADMAP.md Queue A, "
-            "'Observability and the ledger'")
+    """The serving SLO report (the JAX package's fields); pass the run's
+    :class:`~arrow_matrix_tpu_torch.obs.pulse.PulseMonitor` to embed its
+    windowed time series under ``"pulse"``."""
     base = server.summary()
     per_tenant = {}
     for name, rec in base["tenants"].items():
@@ -108,6 +110,16 @@ def slo_summary(server: ArrowServer, tickets: List[rq.Ticket],
         rec["latency_ms"] = latency_summary_ms(mine)
         per_class[klass] = rec
     completed = base["completed"]
+    pulse_section = None
+    if pulse is not None:
+        pulse_section = {
+            "window_s": pulse.window_s,
+            "windows": pulse.series(),
+            "totals": pulse.totals_dict(),
+            "burn_events": list(pulse.burn_events),
+            "dropped_windows": pulse.dropped_windows,
+            "ring_path": pulse.ring_path,
+        }
     return {
         "server": base["server"],
         "requests": len(tickets),
@@ -128,7 +140,7 @@ def slo_summary(server: ArrowServer, tickets: List[rq.Ticket],
         "per_class": per_class,
         "class_fallback": base.get("class_fallback", 0),
         "certificates": base.get("certificates", {}),
-        "pulse": None,
+        "pulse": pulse_section,
     }
 
 
@@ -188,9 +200,64 @@ def ba_executor_factory(n: int, width: int, seed: int,
     return factory, n
 
 
-def smoke_serve(run_dir: str, **kwargs) -> dict:
-    """The JAX package's smoke run with streaming telemetry and a
-    run-local ledger record: not ported yet."""
-    raise NotImplementedError(
-        "smoke_serve needs the streaming telemetry and the ledger; see "
-        "ROADMAP.md Queue A, 'Observability and the ledger'")
+def smoke_serve(run_dir: str, *, n: int = 96, width: int = 16,
+                k: int = 2, tenants: int = 2, requests: int = 4,
+                iterations: int = 2, seed: int = 3,
+                queue_capacity: int = 8,
+                hbm_budget_bytes: Optional[int] = None,
+                max_batch_k: int = 0, registry=None,
+                device: DeviceLike = None) -> dict:
+    """One small end-to-end serve run on ``device`` (the card unless
+    ``"cpu"``): build a BA operator, serve a deterministic trace with a
+    PulseMonitor attached, write the SLO artifacts
+    (``serve_summary.json``, ``pulse_ring.json``, ``pulse_metrics.prom``)
+    into ``run_dir``, record the report in a ledger under ``run_dir``
+    (never the default store), and return the summary with its
+    ``ledger_record_id``."""
+    from arrow_matrix_tpu_torch.obs import pulse as pulse_mod
+
+    dev = resolve_device(device)
+    if registry is None:
+        from arrow_matrix_tpu_torch.obs.metrics import MetricsRegistry
+
+        registry = MetricsRegistry(run_dir=run_dir)
+    os.makedirs(run_dir, exist_ok=True)
+    factory, n_rows = ba_executor_factory(n, width, seed, fmt="fold",
+                                          device=dev)
+    server = ArrowServer(factory, ExecConfig(),
+                         hbm_budget_bytes=hbm_budget_bytes,
+                         queue_capacity=queue_capacity,
+                         max_batch_k=max_batch_k,
+                         registry=registry, name="smoke")
+    ledger = os.path.join(run_dir, "ledger")
+    monitor = pulse_mod.PulseMonitor(
+        window_s=0.25, name="smoke",
+        ring_path=os.path.join(run_dir, "pulse_ring.json"),
+        ledger_dir=ledger, watchdog=pulse_mod.SloWatchdog())
+    server.attach_pulse(monitor)
+    trace = synthetic_trace(n_rows, tenants=tenants,
+                            requests=requests, k=k,
+                            iterations=iterations, seed=seed)
+    t0 = time.perf_counter()
+    tickets = run_trace(server, trace)
+    wall = time.perf_counter() - t0
+    monitor.close()
+    with open(os.path.join(run_dir, "pulse_metrics.prom"), "w",
+              encoding="utf-8") as fh:
+        fh.write(monitor.exposition_text())
+    summary = slo_summary(server, tickets, wall, pulse=monitor)
+    rec = ledger_store.record(
+        "serve", "requests_per_s", summary.get("requests_per_s"),
+        directory=ledger, unit="req/s",
+        knobs={"n": n, "width": width, "k": k, "seed": seed,
+               "tenants": tenants, "requests": requests,
+               "iterations": iterations,
+               "max_batch_k": max_batch_k},
+        payload={key: summary[key] for key in
+                 ("requests", "completed", "failed", "shed",
+                  "rejected", "wall_s", "latency_ms", "batches",
+                  "batched_requests") if key in summary},
+        **ledger_store.device_stamp(dev))
+    summary["ledger_record_id"] = rec["record_id"] if rec else None
+    write_serve_artifacts(run_dir, summary, registry=registry)
+    return summary

@@ -32,10 +32,13 @@ Determinism: with a deterministic trace (serve/loadgen.py) and the
 synchronous ``drain()`` mode, the admission census and every completed
 request's result bytes replay identically.
 
+Live telemetry: :meth:`ArrowServer.attach_pulse` feeds every serve
+event to a :class:`~arrow_matrix_tpu_torch.obs.pulse.PulseMonitor`, and
+its watchdog's SLO-burn trips walk tenants down the ladder.
+
 Not ported yet, each raising with its ROADMAP.md Queue A item:
-``tune_plan`` ("Proof and tuning layers"), the certificate ledger
-lookup and ``attach_pulse`` ("Observability and the ledger"), and
-``grow`` ("multi-device executors").
+``tune_plan`` ("Proof and tuning layers") and ``grow`` ("multi-device
+executors").
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from arrow_matrix_tpu_torch.classes import (
     TRAFFIC_CLASSES,
     Certificate,
     class_itemsize,
+    find_certificate,
 )
 from arrow_matrix_tpu_torch.faults import RetryPolicy, Supervisor
 from arrow_matrix_tpu_torch.obs import flight
@@ -187,9 +191,6 @@ class ArrowServer:
         if grow_config is not None or grow_factory is not None:
             raise _todo("grow_config / grow_factory (live resharding)",
                         "multi-device executors")
-        if cert_ledger_dir is not None:
-            raise _todo("a certificate lookup in the ledger "
-                        "(cert_ledger_dir)", "Observability and the ledger")
         del reshard_budget_bytes
         if base_config.feature_dtype is not None:
             # The BASE rung serves the exact class; a carriage dtype
@@ -205,6 +206,7 @@ class ArrowServer:
         self.verbose = verbose
         self.registry = registry
         self.tracer = tracer
+        self.pulse = None   # a PulseMonitor, via attach_pulse()
         self.policy = policy or RetryPolicy()
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = int(checkpoint_every)
@@ -217,7 +219,8 @@ class ArrowServer:
         self.ladder = degradation_ladder(base_config)
         # The approx class serves bf16 carriage only (the int8
         # (q, scale) carriage has no checkpoint form), and only for
-        # structures holding a covering certificate, passed explicitly.
+        # structures holding a covering certificate: passed explicitly,
+        # or found in the ledger by structure hash.
         self.approx_dtype = "bf16"
         self._certificates: Dict[str, Certificate] = {}
         certs = certificates or ()
@@ -228,6 +231,12 @@ class ArrowServer:
                     else Certificate.from_dict(dict(c)))
             self._certificates[cert.dtype] = cert
         shash = structure_hash
+        if shash and cert_ledger_dir is not None \
+                and self.approx_dtype not in self._certificates:
+            cert = find_certificate(shash, self.approx_dtype,
+                                    ledger_dir=cert_ledger_dir)
+            if cert is not None:
+                self._certificates[cert.dtype] = cert
         self._executors: Dict[ExecConfig, Any] = {}
         self._tenants: Dict[str, _Tenant] = {}
         for t in approx_opt_in or ():
@@ -251,9 +260,11 @@ class ArrowServer:
         self.recoveries = 0
         self.checkpoint_corruptions = 0
         base = self._build_executor(base_config)
+        #: The device the executors run on (None for an executor that
+        #: does not say); the pulse monitor's ledger record names it.
+        self.device = getattr(base, "device", None)
         if hbm_budget_bytes is None:
-            hbm_budget_bytes = _budget(None,
-                                       device=getattr(base, "device", None))
+            hbm_budget_bytes = _budget(None, device=self.device)
         self.accountant = HBMAccountant(hbm_budget_bytes,
                                         registry=registry, name=name)
         resident = predicted_bytes_for(base, 0, itemsize=self.itemsize,
@@ -280,8 +291,15 @@ class ArrowServer:
 
     def _event(self, event: str, **data) -> None:
         """The one serve-event funnel: the flight recorder gets every
-        event."""
+        event, and so does the streaming telemetry when a PulseMonitor
+        is attached."""
         flight.record("serve", event, server=self.name, **data)
+        if self.pulse is not None:
+            try:
+                self.pulse.observe(event, **data)
+            except Exception:  # noqa: BLE001 — telemetry must never
+                # take down the server it observes.
+                pass
 
     def _span(self, name: str, **attrs):
         """A tracer span when a tracer is attached, else a no-op (the
@@ -887,13 +905,38 @@ class ArrowServer:
                         latency_ms=round(lat_ms, 3),
                         faults_seen=t.faults_seen)
 
-    # -- not ported yet ----------------------------------------------------
+    # -- live telemetry ----------------------------------------------------
 
     def attach_pulse(self, monitor) -> Any:
-        """Streaming telemetry over the event funnel (the JAX package's
-        ``obs/pulse.py``): not ported yet."""
-        raise _todo("attach_pulse (live telemetry)",
-                    "Observability and the ledger")
+        """Wire a :class:`~arrow_matrix_tpu_torch.obs.pulse.PulseMonitor`
+        into this server: every serve event (the :meth:`_event` funnel)
+        flows into its sliding windows, HBM occupancy is sampled from the
+        live accountant, its ledger record names this server's device,
+        and, when the monitor carries a watchdog with no callback yet,
+        SLO-burn trips feed the per-tenant degradation ladder through
+        :meth:`note_slo_pressure`.  Returns the monitor."""
+        from arrow_matrix_tpu_torch.ledger import device_stamp
+
+        self.pulse = monitor
+        acct = self.accountant
+        monitor.hbm_sampler = lambda: (acct.in_use_bytes,
+                                       acct.occupancy())
+        if self.device is not None:
+            monitor.device_stamp = device_stamp(self.device)
+        wd = getattr(monitor, "watchdog", None)
+        if wd is not None and wd.on_burn is None:
+            wd.on_burn = self._on_slo_burn
+        return monitor
+
+    def _on_slo_burn(self, rule, window: dict, event: dict) -> None:
+        """SloWatchdog trip callback: the tenants active in the burning
+        window (all known tenants when it names none) take one forced
+        ladder rung."""
+        tenants = sorted((window.get("per_tenant") or {}).keys())
+        self.note_slo_pressure(f"slo_burn:{rule.name}",
+                               tenants=tenants or None)
+
+    # -- not ported yet ----------------------------------------------------
 
     def note_slo_pressure(self, reason: str,
                           tenants: Optional[List[str]] = None,

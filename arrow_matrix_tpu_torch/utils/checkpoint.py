@@ -14,7 +14,9 @@ transposed.
 
 The JAX writer uses orbax when it is installed; an orbax directory
 raises here with a message naming the format.  A bfloat16 carriage is
-stored as its 16-bit patterns with ``x_dtype`` naming it.  One process
+stored as the reference stores it, its 16-bit patterns as 2-byte void
+(``|V2``); the older port form (int16 patterns and an ``x_dtype`` key)
+still loads.  One process
 only: under a ``torch.distributed`` group of several processes the
 functions raise (the multi-device executors are not ported).
 """
@@ -225,6 +227,10 @@ def _orbax_dir(path: str) -> None:
             f"package, or delete the directory to recompute")
 
 
+#: A bf16 array on disk: 16-bit patterns as 2-byte void (``|V2``).
+_BF16_VOID = np.dtype("V2")
+
+
 def save_state(path: str, x: torch.Tensor, step: int,
                layout: Optional[str] = None) -> None:
     """Write ``{x, step}`` to ``path + ".npz"`` atomically, then its
@@ -238,13 +244,16 @@ def save_state(path: str, x: torch.Tensor, step: int,
     _orbax_dir(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     t = x.detach()
-    dtype_name = ""
     if t.dtype == torch.bfloat16:
-        t, dtype_name = t.view(torch.int16), "bfloat16"
+        # The reference's on-disk form of a bf16 array: its 16-bit
+        # patterns as 2-byte void, which no loader casts to numbers.
+        arr = t.view(torch.int16).cpu().numpy().view(_BF16_VOID)
+    else:
+        arr = t.cpu().numpy()
     tmp = path + ".tmp.npz"
-    np.savez(tmp, x=t.cpu().numpy(), step=np.int64(step),
+    np.savez(tmp, x=arr, step=np.int64(step),
              version=np.int64(CHECKPOINT_VERSION),
-             layout=np.str_(layout or ""), x_dtype=np.str_(dtype_name))
+             layout=np.str_(layout or ""))
     os.replace(tmp, path + ".npz")
     # The sidecar AFTER the npz replace: a crash between the two leaves
     # a stale sidecar that fails verification loudly, never a silently
@@ -276,7 +285,11 @@ def load_state(path: str, like: Optional[torch.Tensor] = None,
                     "layout": saved_layout or None}
         _check_meta(path, meta, layout)
         arr, step = np.array(z["x"]), int(z["step"])
-        bf16 = "x_dtype" in z.files and str(z["x_dtype"]) == "bfloat16"
+        # Older port files carry bf16 as int16 patterns plus x_dtype.
+        legacy = "x_dtype" in z.files and str(z["x_dtype"]) == "bfloat16"
+    bf16 = legacy or arr.dtype == _BF16_VOID
+    if arr.dtype == _BF16_VOID:
+        arr = arr.view(np.int16)
     x = torch.from_numpy(arr)
     if bf16:
         x = x.view(torch.bfloat16)

@@ -8,7 +8,7 @@ uploads finished runs to wandb when it is installed (and lists them
 otherwise), under an exclusive lock file.
 
 Device time is the CUDA events' (``utils/timing.py``), not these host
-segments.  ``trace()`` waits for the port's tracing layer.
+segments; ``trace()`` takes a ``torch.profiler`` trace of the device.
 """
 
 from __future__ import annotations
@@ -111,12 +111,81 @@ def segment(name: str):
     return _GLOBAL.segment(name)
 
 
-def trace(log_dir: str = "./traces"):
-    """Device-side profiling.  The reference wraps ``jax.profiler``; the
-    port's trace belongs to its observability layer, not ported yet."""
-    raise NotImplementedError(
-        "trace() is not ported yet; see ROADMAP.md Queue A, "
-        "'Observability and the ledger' (obs/)")
+class ProfilerTraceEmpty(RuntimeError):
+    """A profile of a CUDA device ended holding no device kernel event:
+    the profiler did not trace the card, and a CPU-only trace would
+    pass for a device timeline."""
+
+
+@dataclass
+class ProfileTrace:
+    """What :func:`trace` captured: the Chrome trace's ``path``, the
+    device kernel events (``name``, ``ts``, ``dur`` in us), the memory
+    copies and sets on the device, the host annotations (the tracer's
+    span names), and the host wall time of the window in us (from entry
+    to the device synchronize at exit)."""
+
+    device: Any
+    path: str = ""
+    kernels: list = field(default_factory=list)
+    copies: list = field(default_factory=list)
+    annotations: list = field(default_factory=list)
+    wall_us: float = 0.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "./traces", device=None):
+    """Device-side profiling: a ``torch.profiler.profile`` context that
+    writes a Chrome trace (Perfetto) under ``log_dir`` on exit.
+
+    The counterpart of the reference's ``jax.profiler.trace`` context.
+    On the card (the default) it records CPU and CUDA activity, waits
+    for the device at exit, and raises :class:`ProfilerTraceEmpty` when
+    the profile holds no device kernel event; it never stands in a
+    CPU-only trace for a device one.  ``device="cpu"`` records the host
+    alone.  Yields a :class:`ProfileTrace`, filled at exit.
+
+    Usage: ``with trace("./traces") as t: multi.step(x)``.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from arrow_matrix_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = ProfileTrace(device=dev)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        tic = time.perf_counter()
+        yield out
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out.wall_us = (time.perf_counter() - tic) * 1e6
+    out.path = os.path.join(
+        log_dir, f"trace.{os.getpid()}.{uuid.uuid4().hex[:8]}.json")
+    prof.export_chrome_trace(out.path)
+    with open(out.path, encoding="utf-8") as fh:
+        events = json.load(fh).get("traceEvents", [])
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat", "")
+        rec = {"name": e.get("name", ""), "ts": float(e.get("ts", 0.0)),
+               "dur": float(e.get("dur", 0.0))}
+        if cat == "kernel":
+            out.kernels.append(rec)
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            out.copies.append(rec)
+        elif cat == "user_annotation":
+            out.annotations.append(rec["name"])
+    if dev.type == "cuda" and not out.kernels:
+        raise ProfilerTraceEmpty(
+            f"torch.profiler traced {dev} but recorded no device kernel "
+            f"event ({len(events)} events, written to {out.path}); the "
+            f"profiler's CUDA tracing (CUPTI) is not working here")
 
 
 def _acquire_lock(lock_path: str, attempts: int = 20,

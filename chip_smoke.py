@@ -149,11 +149,32 @@ Phases, each fatal on failure:
    by a kill plan and rerun from its checkpoints, equal to a never-killed
    run; then K1 at the batch shape against its plain version with its
    time, bound and ``torch.sparse.mm``.
+16. observed serving, right after phase 15 on its factory and trace:
+   (a) the same 32 requests again with a ``PulseMonitor`` (0.5 s
+   windows, the default burn rules), a ``Tracer``, a ``PulseEndpoint``
+   on port 0 scraped (``/metrics``, ``/pulse.json``, ``/healthz``)
+   during the run, and a ledger under the run's directory: every result
+   bit-equal to phase 15's, the ring and exposition valid, the monitor's
+   latency count/p50/p99 equal to the SLO report's, every span stamped
+   with its request id, the ledger's ``serve`` and ``pulse`` records
+   valid and stamped with the card's name, K1's launches batches x
+   iterations x launches a product; requests/s and p50/p99 beside phase
+   15's; (b) ``utils/logging.trace`` (``torch.profiler``) around a chain
+   of 10 fold steps at f32 k=16 and around one k=128 batch: each trace
+   holds exactly the K1 launches the wrapper counted (``sell_kernel``,
+   ``sum_rows_kernel``) and the tracer's spans as annotations; the
+   kernel (and copy) share of each window and K1's time a product
+   beside CUDA events'; (c) ``smoke_serve`` at its defaults; (d)
+   ``graft_serve --pulse --pulse_port 0`` at (d)'s arguments, bit-equal
+   to phase 15's run without ``--pulse``, its trace and ring valid; (e)
+   one k=128 batch result (host numbers) through ``fleet/wire`` over a
+   socket pair inline and as a shared-memory descriptor, bit-equal, and
+   ``measure_transports``.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
 empty: the bench's launches are in its candidates' records), ``--serve``
-phases 1, 2 and 15 (phase 4's decomposition and golden made first).  The line
+phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first).  The line
 before the last is ``{"kernels": [...]}``; the last line is ``{"ok":
 true, "device": {...}}``.  Without a CUDA device the script exits 2 and
 prints no result.
@@ -2243,15 +2264,21 @@ def fold_transposed_numbers(exe, k: int, launches: tuple, n: int) -> list:
              lambda: row_gather_plain(got, t.inv),
              lambda: got.index_select(0, t.inv), unsort_bound_ms(exe, k),
              0.0, launches[1])]
+    # K1's gathered-bytes bound over the transposed pack, as phase 5's:
+    # a row and its index read per nonzero, the output written once.
+    gathered = exe.nnz * (k * 4 + 4) + t.sell.n_rows * k * 4
+    gather_ms = gathered / HBM_BYTES_PER_S * 1e3
     for name, kernel, fn, plain, lib, bound, e, count in rows:
         runs = cuda_runs(fn, 20)
         ms = statistics.median(runs)
         plain_ms, library_ms = cuda_ms(plain, 3), cuda_ms(lib, 5)
         log(f"phase 13 {kernel} fold^T k={k}: {ms:.4f} ms (median of 20, "
             f"min {min(runs):.4f}, max {max(runs):.4f}; {count} launches "
-            f"in the main path's backwards), bound {bound:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; max abs err "
-            f"{e:.3e}")
+            f"in the main path's backwards), bound {bound:.4f} ms"
+            + (f", gathered-bytes bound {gather_ms:.4f} ms ({gathered} B "
+               f"over {t.sell.n_rows} rows)" if kernel == "K1" else "")
+            + f", plain {plain_ms:.4f} ms, library {library_ms:.4f} ms; "
+            f"max abs err {e:.3e}")
         entries.append({
             "name": f"{name}[fold^T{' unsort' if kernel == 'K4' else ''},"
                     f"f32,k={k}]",
@@ -2259,7 +2286,8 @@ def fold_transposed_numbers(exe, k: int, launches: tuple, n: int) -> list:
             "replaces": REPLACES[kernel], "launches": count,
             "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": library_ms})
+            "library_ms": library_ms,
+            **({"gathered_bound_ms": gather_ms} if kernel == "K1" else {})})
     return entries
 
 
@@ -2963,20 +2991,16 @@ def phase_serve_gate(serve, faults, factory, trace, work: str,
     return out
 
 
-def phase_serve_kill(work: str) -> dict:
-    """Phase 15 step 4: ``graft_serve`` as a subprocess on the card,
-    SIGKILLed by a kill plan, rerun from its checkpoints; its results
-    equal a never-killed run's bit for bit."""
-    import subprocess
-
-    import numpy as np
-
+def serve_cli(work: str, name: str) -> tuple:
+    """``graft_serve``'s command at :data:`SERVE_KILL`'s arguments, its
+    environment (the checkout on the path, no fault plan) and a fresh
+    working directory ``work/name``."""
     c = SERVE_KILL
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("AMT_FAULT_PLAN", None)
-    cwd = os.path.join(work, "serve_kill")
+    cwd = os.path.join(work, name)
     os.makedirs(cwd, exist_ok=True)
     cmd = [sys.executable, "-m", "arrow_matrix_tpu_torch.cli.graft_serve",
            "--vertices", str(c["vertices"]), "--width", str(c["width"]),
@@ -2984,6 +3008,20 @@ def phase_serve_kill(work: str) -> dict:
            "--requests", str(c["requests"]), "--iterations",
            str(c["iterations"]), "--seed", str(c["seed"]),
            "--checkpoint_every", "2"]
+    return cmd, env, cwd
+
+
+def phase_serve_kill(work: str) -> dict:
+    """Phase 15 step 4: ``graft_serve`` as a subprocess on the card,
+    SIGKILLed by a kill plan, rerun from its checkpoints; its results
+    equal a never-killed run's bit for bit.  The never-killed results
+    stay in ``work`` (``ref_path``) for phase 16."""
+    import subprocess
+
+    import numpy as np
+
+    c = SERVE_KILL
+    cmd, env, cwd = serve_cli(work, "serve_kill")
 
     def run(extra, plan=None):
         e = dict(env)
@@ -3019,14 +3057,19 @@ def phase_serve_kill(work: str) -> dict:
         f"and {len(resumed) - 1} more; {c['requests']} results equal the "
         f"never-killed run bit for bit; subprocess seconds {s1:.1f}, "
         f"{s2:.1f}, {s3:.1f}")
+    kept = os.path.join(work, "serve_kill_ref.npz")
+    os.replace(ref, kept)
     shutil.rmtree(cwd, ignore_errors=True)
-    return {"subprocess_s": [s1, s2, s3], "resumed": len(resumed)}
+    return {"subprocess_s": [s1, s2, s3], "resumed": len(resumed),
+            "ref_path": kept}
 
 
 def phase_serve(dev, levels, n: int, width: int, row_nnz: float, x16,
                 gold16, work: str) -> tuple:
     """Phase 15: the serving runtime on phase 4's decomposition.
-    Returns (results, K1's kernel entry at the serve batch's shape)."""
+    Returns (results, K1's kernel entry at the serve batch's shape, what
+    phase 16 serves again: the factory, the policy, the trace as served
+    and its results by request id)."""
     import torch
 
     from arrow_matrix_tpu_torch import faults, serve
@@ -3053,6 +3096,9 @@ def phase_serve(dev, levels, n: int, width: int, row_nnz: float, x16,
                                            policy)
     results["gate"] = phase_serve_gate(serve, faults, factory, trace, work,
                                        policy)
+    ctx = {"factory": factory, "policy": policy,
+           "trace": [t.request for t in tickets],
+           "results": {t.request.request_id: t.result for t in tickets}}
     del tickets, trace
     results["kill"] = phase_serve_kill(work)
 
@@ -3081,7 +3127,9 @@ def phase_serve(dev, levels, n: int, width: int, row_nnz: float, x16,
                                           results["set_features_ms"],
                                           results["gather_result_ms"])]
     results.update(k1_ms=ms, k1_runs=runs, k1_plain_ms=plain_ms,
-                   k1_library_ms=library_ms,
+                   k1_library_ms=library_ms, k1_max_abs_err=err,
+                   k1_bound_ms=max(t_bytes, t_ops),
+                   k1_bound_by="bytes" if t_bytes >= t_ops else "operations",
                    batch_busy_ms=busy, batch_wall_ms=walls,
                    device_busy_share=[busy / w for w in walls],
                    phase_s=time.perf_counter() - t_phase)
@@ -3101,6 +3149,490 @@ def phase_serve(dev, levels, n: int, width: int, row_nnz: float, x16,
              "library_ms": library_ms}
     del x, a_csr, ex, built
     torch.cuda.empty_cache()
+    return results, entry, ctx
+
+
+# -- 16. observed serving -----------------------------------------------------
+
+#: Phase 16's pulse window (s), and the seconds it should stay within.
+OBSERVE = dict(window_s=0.5, budget_s=90.0)
+#: K1's kernels by name: the tier kernel, and the sum of split rows.
+K1_NAMES = ("sell_kernel", "sum_rows_kernel")
+
+
+def k1_events(prof) -> list:
+    """K1's kernel events in a profile, matched on their demangled
+    names."""
+    names = demangle("\n".join(k["name"] for k in prof.kernels)
+                     ).splitlines()
+    if len(names) != len(prof.kernels):
+        names = [k["name"] for k in prof.kernels]
+    return [k for k, name in zip(prof.kernels, names)
+            if any(s in name for s in K1_NAMES)]
+
+
+def profile_shares(prof) -> dict:
+    """Kernel time, copy time and K1 time of a profile over its window."""
+    kernel_us = sum(k["dur"] for k in prof.kernels)
+    copy_us = sum(c["dur"] for c in prof.copies)
+    k1 = k1_events(prof)
+    return {"window_ms": prof.wall_us / 1e3,
+            "kernel_ms": kernel_us / 1e3, "copy_ms": copy_us / 1e3,
+            "k1_launches": len(k1),
+            "k1_ms": sum(k["dur"] for k in k1) / 1e3,
+            "k1_ms_per_launch": (sum(k["dur"] for k in k1) / 1e3 / len(k1)
+                                 if k1 else None),
+            "kernel_share": kernel_us / prof.wall_us,
+            "device_share": (kernel_us + copy_us) / prof.wall_us,
+            "kernels": len(prof.kernels), "trace": prof.path}
+
+
+def scrape_loop(url: str, stop, out: list) -> None:
+    """Fetch ``/metrics``, ``/pulse.json`` and ``/healthz`` every 0.25 s
+    until ``stop`` is set; each reply (or error) lands in ``out`` with
+    its host time."""
+    import urllib.request
+
+    while True:
+        for path in ("/metrics", "/pulse.json", "/healthz"):
+            try:
+                with urllib.request.urlopen(url + path, timeout=10) as r:
+                    out.append((time.perf_counter(), path, r.status,
+                                r.read().decode()))
+            except OSError as e:
+                out.append((time.perf_counter(), path, None, repr(e)))
+        if stop.wait(0.25):
+            return
+
+
+def bit_equal(a, b) -> bool:
+    import numpy as np
+
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.view(np.uint32), b.view(np.uint32)))
+
+
+def observe_serve(ctx: dict, run_dir: str, dev, p15: dict) -> dict:
+    """Phase 16 (a): phase 15's trace served again with a pulse monitor
+    (window 0.5 s, the default burn rules), a tracer, a scrape endpoint
+    on port 0 scraped during the run, and a ledger under ``run_dir``."""
+    import threading
+
+    import torch
+
+    from arrow_matrix_tpu_torch import serve
+    from arrow_matrix_tpu_torch.ledger import Ledger, device_stamp, record
+    from arrow_matrix_tpu_torch.obs import Tracer, pulse
+
+    it, kmax = SERVE["iterations"], SERVE["max_batch_k"]
+    factory, trace = ctx["factory"], ctx["trace"]
+    ledger_dir = os.path.join(run_dir, "ledger")
+    ring = os.path.join(run_dir, "pulse_ring.json")
+    tracer = Tracer("phase16")
+    monitor = pulse.PulseMonitor(window_s=OBSERVE["window_s"],
+                                 ring_path=ring, ledger_dir=ledger_dir,
+                                 watchdog=pulse.SloWatchdog(),
+                                 name="phase16")
+    srv = serve.ArrowServer(factory, serve.ExecConfig(),
+                            policy=ctx["policy"],
+                            queue_capacity=SERVE["queue"], max_batch_k=kmax,
+                            tracer=tracer, name="phase16")
+    srv.attach_pulse(monitor)
+    endpoint = pulse.PulseEndpoint(monitor, port=0).start()
+    scrapes, stop = [], threading.Event()
+    scraper = threading.Thread(target=scrape_loop,
+                               args=(endpoint.url, stop, scrapes),
+                               daemon=True)
+    try:
+        torch.cuda.synchronize()
+        reset_counters()
+        scraper.start()
+        tic = time.perf_counter()
+        tickets = serve.run_trace(srv, trace)
+        toc = time.perf_counter()
+        launches = counters()
+        stop.set()
+        scraper.join(30)
+        monitor.close()
+    finally:
+        stop.set()
+        endpoint.stop()
+    wall = toc - tic
+    s = srv.summary()
+    summary = serve.slo_summary(srv, tickets, wall, pulse=monitor)
+    name = torch.cuda.get_device_name(0)
+    rec = record("serve", "requests_per_s", summary["requests_per_s"],
+                 directory=ledger_dir, unit="req/s",
+                 knobs={"requests": len(trace), "k": SERVE["k"],
+                        "iterations": it, "max_batch_k": kmax},
+                 payload={key: summary[key] for key in (
+                     "requests", "completed", "wall_s", "latency_ms",
+                     "batches")},
+                 **device_stamp(dev))
+    bad = []
+    per = k1_per_product(factory(serve.ExecConfig()).sell, kmax,
+                         torch.float32)
+    if [t.status for t in tickets] != ["completed"] * len(trace) \
+            or s["faults_seen"]:
+        bad.append(f"statuses {[t.status for t in tickets]}, faults "
+                   f"{s['faults_seen']}")
+    unequal = [t.request.request_id for t in tickets
+               if t.result is None or not bit_equal(
+                   t.result, ctx["results"][t.request.request_id])]
+    if unequal:
+        bad.append(f"results differ from phase 15's: {unequal}")
+    if s["batches"] != len(trace) * SERVE["k"] // kmax or \
+            launches[0] != s["batches"] * it * per or any(launches[1:]):
+        bad.append(f"{s['batches']} batches, launches {launches} "
+                   f"(expected K1 {s['batches']} x {it} x {per} only)")
+    ring_doc = pulse.load_ring(ring)
+    problems = (pulse.validate_ring(ring_doc)
+                + pulse.validate_ring(monitor.snapshot())
+                + pulse.validate_exposition(monitor.exposition_text()))
+    if problems:
+        bad.append(f"ring/exposition: {problems}")
+    during = {}
+    for t, path, status, body in scrapes:
+        if not tic <= t <= toc:
+            continue
+        if status != 200:
+            bad.append(f"scrape {path}: {body}")
+            continue
+        if path == "/metrics":
+            ok = not pulse.validate_exposition(body)
+        elif path == "/pulse.json":
+            ok = not pulse.validate_ring(json.loads(body))
+        else:
+            ok = body == "ok\n"
+        during[path] = during.get(path, 0) + 1
+        if not ok:
+            bad.append(f"scrape {path} invalid: {body[:200]}")
+    if set(during) != {"/metrics", "/pulse.json", "/healthz"}:
+        bad.append(f"scrapes during the run: {during}")
+    mlat, rlat = monitor.totals_dict()["latency_ms"], summary["latency_ms"]
+    if mlat["count"] != rlat["count"] or \
+            len(monitor.merged_latency().values) != rlat["count"] or any(
+                abs(mlat[q] - rlat[q]) > 1e-2 for q in ("p50", "p99")):
+        bad.append(f"pulse latency {mlat} != SLO report {rlat}")
+    spans = [e for e in tracer.to_chrome_trace()["traceEvents"]
+             if e["ph"] == "X"]
+    unstamped = sorted({e["name"] for e in spans
+                        if not e["args"].get("request_id")})
+    if not spans or unstamped:
+        bad.append(f"serve spans without request_id: {unstamped}")
+    tracer.save(os.path.join(run_dir, "serve_trace.json"))
+    lg = Ledger(ledger_dir)
+    kinds = {r["kind"]: r for r in lg.read_all()}
+    if lg.validate() or set(kinds) != {"serve", "pulse"} or rec is None \
+            or any((r["platform"], r["device_kind"]) != ("gpu", name)
+                   for r in kinds.values()):
+        bad.append(f"ledger: {lg.validate()}, kinds {sorted(kinds)}, "
+                   f"stamps {[(r['platform'], r['device_kind']) for r in kinds.values()]}")
+    if bad:
+        raise SystemExit(f"phase 16 (a): {'; '.join(bad)}")
+    lat = summary["latency_ms"]
+    out = {"requests": len(tickets), "wall_s": wall,
+           "requests_per_s": len(tickets) / wall, "latency_ms": lat,
+           "batches": s["batches"], "k1_launches": launches[0],
+           "k1_per_product": per, "windows": len(monitor.series()),
+           "scrapes_during_run": during,
+           "burn_events": len(monitor.burn_events),
+           "ledger_records": sorted(kinds),
+           "phase15_requests_per_s": p15["requests_per_s"],
+           "phase15_latency_ms": p15["latency_ms"]}
+    log(f"phase 16 (a) observed serve: {len(tickets)} requests in "
+        f"{s['batches']} batches, {out['requests_per_s']:.2f} req/s, p50 "
+        f"{lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms (phase 15 without "
+        f"telemetry: {p15['requests_per_s']:.2f} req/s, p50 "
+        f"{p15['latency_ms']['p50']:.1f}, p99 "
+        f"{p15['latency_ms']['p99']:.1f}); every result bit-equal to phase "
+        f"15's; K1 {launches[0]} launches ({s['batches']} x {it} x {per}); "
+        f"{out['windows']} windows of {OBSERVE['window_s']} s, ring and "
+        f"exposition valid, {sum(during.values())} scrapes during the run "
+        f"{during}; pulse count/p50/p99 {mlat['count']}/{mlat['p50']}/"
+        f"{mlat['p99']} = report {rlat['count']}/{rlat['p50']:.3f}/"
+        f"{rlat['p99']:.3f}; {len(spans)} spans, each with its request_id; "
+        f"ledger {sorted(kinds)} valid, stamped gpu / {name}")
+    return out
+
+
+def observe_profile(ctx: dict, run_dir: str, n: int) -> dict:
+    """Phase 16 (b): ``utils/logging.trace`` around a chain of 10 fold
+    steps at f32 k=16 and around one k=128 batch of (a)."""
+    import torch
+
+    from arrow_matrix_tpu_torch import serve
+    from arrow_matrix_tpu_torch.obs import Tracer
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.utils import logging as wb, random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_runs
+
+    factory = ctx["factory"]
+    ml = factory(serve.ExecConfig()).ex
+    traces = os.path.join(run_dir, "traces")
+    steps, kmax = 10, SERVE["max_batch_k"]
+    bad = []
+    x = ml.set_features(random_dense(n, 16, seed=3))
+    ml.run(x, steps)
+    torch.cuda.synchronize()
+    per16 = k1_per_product(ml.sell, 16, torch.float32)
+    tracer = Tracer("phase16b")
+    before = cuda_sell.LAUNCHES
+    with wb.trace(traces) as prof:
+        with tracer.span("fold_chain", k=16, steps=steps):
+            ml.run(x, steps)
+    counted = cuda_sell.LAUNCHES - before
+    chain = profile_shares(prof)
+    if not chain["k1_launches"] == counted == steps * per16:
+        bad.append(f"fold chain: {chain['k1_launches']} K1 kernels in the "
+                   f"profile, {counted} counted, expected {steps} x {per16}")
+    if "fold_chain" not in prof.annotations:
+        bad.append("fold chain: the span is not in the profile")
+    runs = cuda_runs(lambda: ml.run(x, steps), REPS)
+    chain.update(k1_ms_per_product=chain["k1_ms"] / steps,
+                 cuda_event_ms_per_iter=statistics.median(runs) / steps,
+                 cuda_event_runs=[r / steps for r in runs])
+
+    batch = ctx["trace"][:kmax // SERVE["k"]]
+    tracer2 = Tracer("phase16b")
+    srv = serve.ArrowServer(factory, serve.ExecConfig(),
+                            policy=ctx["policy"], max_batch_k=kmax,
+                            tracer=tracer2, name="profiled")
+    per128 = k1_per_product(ml.sell, kmax, torch.float32)
+    torch.cuda.synchronize()
+    before = cuda_sell.LAUNCHES
+    with wb.trace(traces) as prof2:
+        got = serve.run_trace(srv, batch)
+    counted = cuda_sell.LAUNCHES - before
+    served = profile_shares(prof2)
+    if not served["k1_launches"] == counted == steps * per128:
+        bad.append(f"batch: {served['k1_launches']} K1 kernels in the "
+                   f"profile, {counted} counted, expected {steps} x "
+                   f"{per128}")
+    missing = sorted({s.name for s in tracer2.spans}
+                     - set(prof2.annotations))
+    if srv.batches != 1 or missing:
+        bad.append(f"batch: {srv.batches} batches, spans missing from "
+                   f"the profile {missing}")
+    if any(not bit_equal(t.result, ctx["results"][t.request.request_id])
+           for t in got):
+        bad.append("batch: results differ from phase 15's")
+    served["k1_ms_per_product"] = served["k1_ms"] / steps
+    if bad:
+        raise SystemExit(f"phase 16 (b): {'; '.join(bad)}")
+    log(f"phase 16 (b) profiler: fold chain f32 k=16, {steps} steps: "
+        f"{chain['k1_launches']} K1 kernels (= {steps} x {per16}, the "
+        f"wrapper's count), {chain['kernels']} kernels in all; kernel "
+        f"share {chain['kernel_share']:.4f} of the {chain['window_ms']:.3f} "
+        f"ms window; K1 {chain['k1_ms_per_launch']:.4f} ms a launch, "
+        f"{chain['k1_ms_per_product']:.4f} ms a product (profiler) vs {chain['cuda_event_ms_per_iter']:.4f} ms/iter "
+        f"(CUDA events, median of {REPS} chains)"
+        + (f", phase 4 {ctx['phase4_ms']:.4f}" if ctx.get("phase4_ms")
+           else "")
+        + f"; one k={kmax} batch: {served['k1_launches']} K1 kernels (= "
+        f"{steps} x {per128}), K1 {served['k1_ms_per_launch']:.4f} ms a "
+        f"launch, {served['k1_ms_per_product']:.4f} ms a product, kernels {served['kernel_ms']:.3f} ms + copies "
+        f"{served['copy_ms']:.3f} ms of the {served['window_ms']:.1f} ms "
+        f"window: kernel share {served['kernel_share']:.4f}, device share "
+        f"{served['device_share']:.4f}; spans "
+        f"{sorted({s.name for s in tracer2.spans})} annotated; traces "
+        f"{chain['trace']}, {served['trace']}")
+    return {"chain": chain, "batch": served}
+
+
+def observe_smoke(run_dir: str) -> dict:
+    """Phase 16 (c): ``smoke_serve`` at its defaults on the card."""
+    from arrow_matrix_tpu_torch import serve
+    from arrow_matrix_tpu_torch.ledger import Ledger
+    from arrow_matrix_tpu_torch.obs import pulse
+
+    out = os.path.join(run_dir, "smoke")
+    tic = time.perf_counter()
+    summary = serve.smoke_serve(out)
+    secs = time.perf_counter() - tic
+    with open(os.path.join(out, "serve_summary.json"),
+              encoding="utf-8") as fh:
+        saved = json.load(fh)
+    with open(os.path.join(out, "pulse_metrics.prom"),
+              encoding="utf-8") as fh:
+        prom = fh.read()
+    problems = (pulse.validate_ring(pulse.load_ring(
+        os.path.join(out, "pulse_ring.json")))
+        + pulse.validate_exposition(prom)
+        + Ledger(os.path.join(out, "ledger")).validate())
+    if problems or not saved.get("ledger_record_id") or \
+            saved["ledger_record_id"] != summary["ledger_record_id"] or \
+            summary["completed"] != summary["requests"]:
+        raise SystemExit(f"phase 16 (c) smoke_serve: {problems}, "
+                         f"ledger_record_id {saved.get('ledger_record_id')},"
+                         f" completed {summary['completed']}")
+    log(f"phase 16 (c) smoke_serve on the card: {summary['completed']} "
+        f"requests in {secs:.1f} s; serve_summary.json, pulse_ring.json, "
+        f"pulse_metrics.prom valid; ledger record "
+        f"{summary['ledger_record_id']}")
+    return {"seconds": secs, "ledger_record_id": summary["ledger_record_id"]}
+
+
+def observe_cli(work: str, ref_path: str) -> dict:
+    """Phase 16 (d): ``graft_serve --pulse --pulse_port 0`` as a
+    subprocess at phase 15 (d)'s arguments; its results equal phase 15's
+    run of them without ``--pulse`` bit for bit."""
+    import subprocess
+
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.obs import pulse
+
+    cmd, env, cwd = serve_cli(work, "serve_pulse")
+    obs, out = os.path.join(cwd, "obs"), os.path.join(cwd, "pulse.npz")
+    tic = time.perf_counter()
+    proc = subprocess.run(cmd + ["--pulse", "--pulse_port", "0",
+                                 "--obs_dir", obs, "--results_out", out],
+                          env=env, cwd=cwd, capture_output=True, text=True,
+                          timeout=300)
+    secs = time.perf_counter() - tic
+    if proc.returncode:
+        raise SystemExit(f"phase 16 (d): graft_serve --pulse exited "
+                         f"{proc.returncode}: {proc.stderr[-800:]}")
+    bad = []
+    with np.load(ref_path) as a, np.load(out) as b:
+        files = sorted(f for f in b.files if f != "_pulse_windows")
+        if "_pulse_windows" not in b.files or files != sorted(a.files) \
+                or any(a[f].tobytes() != b[f].tobytes() for f in files):
+            bad.append("results differ from the run without --pulse")
+    ring = pulse.load_ring(os.path.join(obs, "pulse_ring.json"))
+    bad += pulse.validate_ring(ring)
+    with open(os.path.join(obs, "serve_trace.json"), encoding="utf-8") as fh:
+        spans = [e for e in json.load(fh)["traceEvents"] if e["ph"] == "X"]
+    if not spans or any(not e["args"].get("request_id") for e in spans):
+        bad.append("serve_trace.json: spans without request_id")
+    if "pulse endpoint at http://" not in proc.stdout:
+        bad.append("no pulse endpoint")
+    if bad:
+        raise SystemExit(f"phase 16 (d): {bad}")
+    shutil.rmtree(cwd, ignore_errors=True)
+    log(f"phase 16 (d) graft_serve --pulse --pulse_port 0 (BA n="
+        f"{SERVE_KILL['vertices']}): {len(files)} results bit-equal to "
+        f"phase 15's run without --pulse; ring ({len(ring['windows'])} "
+        f"windows) and serve_trace.json ({len(spans)} spans) valid; "
+        f"subprocess {secs:.1f} s")
+    return {"seconds": secs, "windows": len(ring["windows"]),
+            "spans": len(spans)}
+
+
+def wire_round(host, transport: str, pool) -> dict:
+    """``host`` through ``wire.send_msg``/``recv_msg`` over a socket
+    pair; host seconds and MB/s of the whole round."""
+    import socket
+    import threading
+
+    from arrow_matrix_tpu_torch.fleet import wire
+
+    a, b = socket.socketpair()
+    got = {}
+
+    def reader():
+        got["msg"], got["stats"] = wire.recv_msg_stats(b)
+
+    t = threading.Thread(target=reader, daemon=True)
+    st = {}
+    try:
+        t.start()
+        tic = time.perf_counter()
+        st = wire.send_msg(a, {"op": "result", "y": host},
+                           transport=transport, shm_pool=pool)
+        t.join(300)
+        secs = time.perf_counter() - tic
+    finally:
+        for desc in st.get("shm_descs", ()):
+            pool.release(desc)
+        a.close()
+        b.close()
+    y = got.get("msg", {}).get("y")
+    if y is None or not bit_equal(y, host):
+        raise SystemExit(f"phase 16 (e): the {transport} round trip is not "
+                         f"bit-equal")
+    return {"seconds": secs, "mb_per_s": host.nbytes / 2**20 / secs,
+            "frame_bytes": st["frame_bytes"],
+            "serialize_ms": st["serialize_ms"]
+            + got["stats"]["serialize_ms"]}
+
+
+def observe_wire(ctx: dict) -> dict:
+    """Phase 16 (e): one k=128 batch's result copied from the card to the
+    host, then sent inline and as a shared-memory descriptor."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch import serve
+    from arrow_matrix_tpu_torch.fleet import shm, wire
+
+    kmax = SERVE["max_batch_k"]
+    ml = ctx["factory"](serve.ExecConfig()).ex
+    batch = ctx["trace"][:kmax // SERVE["k"]]
+    y = ml.run(ml.set_features(np.concatenate([r.x for r in batch],
+                                              axis=1)), SERVE["iterations"])
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    host = ml.gather_result(y)
+    copy_s = time.perf_counter() - tic
+    del y
+    if host.shape != (ml.n, kmax) or host.dtype != np.float32:
+        raise SystemExit(f"phase 16 (e): result {host.shape} {host.dtype}")
+    free = shutil.disk_usage("/dev/shm").free
+    need = host.nbytes + (1 << 20)
+    log(f"phase 16 (e): /dev/shm free {free} B; a {host.shape} f32 result "
+        f"is {host.nbytes} B")
+    if free < need:
+        raise SystemExit(f"phase 16 (e): /dev/shm has {free} B free, the "
+                         f"segment pool needs {need} B")
+    inline = wire_round(host, "json", None)
+    pool = shm.SegmentPool(slots=1, slot_bytes=host.nbytes, name="phase16")
+    try:
+        desc = wire_round(host, "shm", pool)
+    finally:
+        leaks = pool.close(strict=False)
+    if leaks:
+        raise SystemExit(f"phase 16 (e): the segment pool leaked {leaks}")
+    transports = wire.measure_transports()
+    log(f"phase 16 (e) host numbers: card-to-host copy of the result "
+        f"{copy_s * 1e3:.1f} ms; wire inline (base64 JSON) "
+        f"{inline['mb_per_s']:.1f} MB/s ({inline['seconds']:.2f} s, frame "
+        f"{inline['frame_bytes']} B), shared-memory descriptor "
+        f"{desc['mb_per_s']:.1f} MB/s ({desc['seconds']:.2f} s, frame "
+        f"{desc['frame_bytes']} B), both bit-equal; measure_transports "
+        f"(1 MiB): {json.dumps(transports)}")
+    return {"result_bytes": int(host.nbytes), "dev_shm_free": free,
+            "copy_to_host_s": copy_s, "inline": inline, "shm": desc,
+            "measure_transports": transports, "host_numbers": True}
+
+
+def phase_observe(ctx: dict, p15: dict, n: int, work: str, dev) -> tuple:
+    """Phase 16: observed serving on the card, on phase 15's factory and
+    trace.  Returns (results, K1's kernel entry read from the profiler)."""
+    t_phase = time.perf_counter()
+    run_dir = os.path.join(work, "observe")
+    os.makedirs(run_dir, exist_ok=True)
+    results = observe_serve(ctx, run_dir, dev, p15)
+    results["profile"] = observe_profile(ctx, run_dir, n)
+    results["smoke"] = observe_smoke(run_dir)
+    results["cli"] = observe_cli(work, p15["kill"]["ref_path"])
+    results["wire"] = observe_wire(ctx)
+    results["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {results['phase_s']:.1f} s (budget "
+        f"{OBSERVE['budget_s']:.0f} s)")
+    batch = results["profile"]["batch"]
+    entry = {"name": f"sell_tier_spmm[observe,f32,k="
+                     f"{SERVE['max_batch_k']}]",
+             "route": "cuda", "source": SOURCES["K1"],
+             "replaces": REPLACES["K1"],
+             "launches": results["k1_launches"],
+             "profiler_launches": batch["k1_launches"],
+             "max_abs_err": p15["k1_max_abs_err"],
+             "ms": batch["k1_ms_per_product"],
+             "cuda_event_ms": p15["k1_ms"], "plain_ms": p15["k1_plain_ms"],
+             "bound_ms": p15["k1_bound_ms"], "bound_by": p15["k1_bound_by"],
+             "library_ms": p15["k1_library_ms"]}
     return results, entry
 
 
@@ -3115,9 +3647,10 @@ def main() -> int:
                         help="run phases 1, 2 and 14 only (the native "
                              "decomposer and the port's bench)")
     parser.add_argument("--serve", action="store_true",
-                        help="run phases 1, 2 and 15 only (the serving "
-                             "runtime, on phase 4's decomposition and its "
-                             "k=16 golden, computed here)")
+                        help="run phases 1, 2, 15 and 16 only (the serving "
+                             "runtime and its observability, on phase 4's "
+                             "decomposition and its k=16 golden, computed "
+                             "here)")
     args = parser.parse_args()
 
     import torch
@@ -3189,8 +3722,11 @@ def main() -> int:
         bench = phase_bench(dev, 1 << args.log2n, None, None)
         return finish({"bench": bench, "card": smi}, [])
     if args.serve:
-        serve_res, entry = serve_only(dev, 1 << args.log2n, work)
-        return finish({"serve": serve_res, "card": smi}, [entry])
+        serve_res, entry, ctx = serve_only(dev, 1 << args.log2n, work)
+        observe, observe_entry = phase_observe(ctx, serve_res,
+                                               1 << args.log2n, work, dev)
+        return finish({"serve": serve_res, "observe": observe, "card": smi},
+                      [entry, observe_entry])
 
     # -- 3. kernel vs plain on random tiers ------------------------------------
     phase_random_tiers(dev)
@@ -3360,9 +3896,16 @@ def main() -> int:
     kernels += model_kernels
 
     # -- 15. the serving runtime, on phase 4's decomposition -----------------
-    results["serve"], serve_entry = phase_serve(
+    results["serve"], serve_entry, ctx = phase_serve(
         dev, levels, n, width, row_nnz, gold[(16, 0)], gold[(16, 10)], work)
     kernels.append(serve_entry)
+
+    # -- 16. observed serving, on phase 15's factory and trace ---------------
+    ctx["phase4_ms"] = results["main"]["f32_k16_ms_per_iter"]
+    results["observe"], observe_entry = phase_observe(ctx, results["serve"],
+                                                      n, work, dev)
+    kernels.append(observe_entry)
+    del ctx
     del levels, loaded, gold      # phase 10 steps ml again
     torch.cuda.empty_cache()
 
@@ -3391,7 +3934,7 @@ def main() -> int:
 def serve_only(dev, n: int, work: str) -> tuple:
     """``--serve``: phase 4's decomposition (generated, decomposed,
     saved and loaded as in phase 4) and its k=16 input's 10-step host
-    golden, then phase 15."""
+    golden, then phase 15 (whose results phase 16 takes on)."""
     from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
     from arrow_matrix_tpu_torch.io import (
         as_levels,

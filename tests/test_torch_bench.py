@@ -244,8 +244,10 @@ def test_logging_and_host_load_behave_as_jax(tmp_path):
     x = torch.ones(3)
     assert wb.block_until_ready(x) is x
     assert wb.block_until_ready((x, 1))[1] == 1
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        wb.trace(str(tmp_path / "traces"))
+    with wb.trace(str(tmp_path / "traces"), device="cpu") as prof:
+        with wb.segment("traced"):
+            torch.ones(8) @ torch.ones(8)
+    assert os.path.isfile(prof.path) and prof.kernels == []
     ours, theirs = host_load(), jax_host_load()
     assert set(ours) == set(theirs) == {"loadavg_1m", "competing"}
     assert isinstance(ours["loadavg_1m"], float)

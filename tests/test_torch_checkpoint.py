@@ -137,6 +137,45 @@ def test_bf16_carriage_round_trips(tmp_path):
     assert torch.equal(got.view(torch.int16), x.view(torch.int16))
 
 
+def test_bf16_jax_writes_port_reads_bit_for_bit(tmp_path, jax_npz):
+    x = _x(6, 4, seed=6)
+    jck.save_state(str(tmp_path / "ck"), jnp.asarray(x, jnp.bfloat16), 2)
+    with np.load(str(tmp_path / "ck.npz")) as z:
+        assert z["x"].dtype == np.dtype("V2")
+    got, step = pck.load_state(str(tmp_path / "ck"),
+                               like=torch.zeros(6, 4, dtype=torch.bfloat16))
+    want = np.asarray(jnp.asarray(x, jnp.bfloat16)).view(np.int16)
+    assert step == 2 and got.dtype == torch.bfloat16
+    assert got.view(torch.int16).numpy().tobytes() == want.tobytes()
+
+
+def test_bf16_port_file_is_the_reference_form_jax_refuses(tmp_path,
+                                                          jax_npz):
+    """The reference cannot cast its own bf16 npz back (no cast function
+    from void); a port file now has that form, so JAX raises where the
+    older int16 form came back as numbers (0.12597656 as 15872.0)."""
+    x = torch.tensor([[0.12597656, -1.5], [3.0, 0.0]], dtype=torch.bfloat16)
+    pck.save_state(str(tmp_path / "ck"), x, 1)
+    with np.load(str(tmp_path / "ck.npz")) as z:
+        assert z["x"].dtype == np.dtype("V2")
+        assert "x_dtype" not in z.files
+    with pytest.raises((TypeError, ValueError)):
+        jck.load_state(str(tmp_path / "ck"),
+                       like=jnp.zeros((2, 2), jnp.bfloat16))
+
+
+def test_bf16_legacy_int16_file_still_loads(tmp_path):
+    x = torch.from_numpy(_x(5, 3, seed=7)).to(torch.bfloat16)
+    path = str(tmp_path / "ck")
+    np.savez(path + ".npz", x=x.view(torch.int16).numpy(), step=np.int64(3),
+             version=np.int64(pck.CHECKPOINT_VERSION), layout=np.str_(""),
+             x_dtype=np.str_("bfloat16"))
+    pck._write_sha(path + ".npz")
+    got, step = pck.load_state(path)
+    assert step == 3 and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), x.view(torch.int16))
+
+
 def test_several_processes_raise_naming_the_roadmap(tmp_path, monkeypatch):
     import torch.distributed as dist
 

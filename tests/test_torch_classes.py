@@ -102,9 +102,72 @@ def test_certificates_equal_jax(curves, certs):
         ours.structure_hash, records=curves)] == \
         [c.dtype for c in jcls.certified_classes(ours.structure_hash,
                                                  records=curves)]
-    with pytest.raises(NotImplementedError, match="Observability"):
-        pcls.find_certificate(ours.structure_hash, "bf16",
-                              ledger_dir="/nonexistent")
+
+
+def _store(curves, directory):
+    """The curve records appended to a ledger store by the port."""
+    from arrow_matrix_tpu_torch.ledger import Ledger
+
+    lg = Ledger(directory)
+    for rec in curves:
+        lg.record(rec["kind"], rec["metric"], rec["value"],
+                  unit=rec["unit"], structure_hash=rec["structure_hash"],
+                  knobs=rec["knobs"], payload=rec["payload"],
+                  platform=rec["platform"],
+                  device_kind=rec["device_kind"], host_load=None,
+                  git_rev=None)
+    return directory
+
+
+def test_ledger_lookup_equals_jax(curves, certs, tmp_path):
+    store = _store(curves, str(tmp_path / "ledger"))
+    shash = certs[0].structure_hash
+    for dtype in ("bf16", "int8"):
+        for emulated in (False, True):
+            a = pcls.find_certificate(shash, dtype, ledger_dir=store,
+                                      allow_emulated=emulated)
+            b = jcls.find_certificate(shash, dtype, ledger_dir=store,
+                                      allow_emulated=emulated)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.to_dict() == b.to_dict()
+                assert a.record_id is not None
+    assert pcls.find_certificate(shash, "bf16", ledger_dir=store
+                                 ).rel_frobenius == certs[0].rel_frobenius
+    assert [c.to_dict() for c in pcls.certified_classes(
+        shash, ledger_dir=store)] == \
+        [c.to_dict() for c in jcls.certified_classes(shash,
+                                                     ledger_dir=store)]
+    for d in (str(tmp_path / "absent"), store):
+        assert pcls.find_certificate("no-such-hash", "bf16",
+                                     ledger_dir=d) is None
+        assert jcls.find_certificate("no-such-hash", "bf16",
+                                     ledger_dir=d) is None
+
+
+def test_server_finds_its_certificate_in_the_ledger(factories, curves,
+                                                    certs, tmp_path):
+    """``cert_ledger_dir`` with a structure hash: both servers load the
+    same bf16 certificate from the same store and serve approx on it."""
+    store = _store(curves, str(tmp_path / "ledger"))
+    shash = certs[0].structure_hash
+    (pfac, _), (jfac, _) = factories
+    ours = pserve.ArrowServer(pfac, pserve.ExecConfig(),
+                              structure_hash=shash, cert_ledger_dir=store)
+    theirs = jserve.ArrowServer(jfac, jserve.ExecConfig(),
+                                structure_hash=shash,
+                                cert_ledger_dir=store)
+    assert ours.summary()["certificates"] == \
+        theirs.summary()["certificates"]
+    assert set(ours.summary()["certificates"]) == {"bf16"}
+    tickets = pserve.run_trace(ours, _trace(pserve,
+                                            traffic_class="approx"))
+    assert [t.served_class for t in tickets] == ["approx"] * 2
+    # an empty store (or none given) loads nothing: approx falls back
+    bare = pserve.ArrowServer(pfac, pserve.ExecConfig(),
+                              structure_hash=shash,
+                              cert_ledger_dir=str(tmp_path / "empty"))
+    assert bare.summary()["certificates"] == {}
 
 
 def test_approx_is_priced_at_two_bytes_and_served_bf16(factories, certs):

@@ -1,5 +1,7 @@
-"""The port's ``spmm_arrow`` command line, end to end on the CPU."""
+"""The port's command lines end to end on the CPU: ``spmm_arrow``,
+and ``graft_serve --pulse``."""
 
+import json
 import os
 import re
 import subprocess
@@ -209,3 +211,54 @@ def test_cli_helpers_equal_jax():
                        jax_common.normalize_scale(theirs))
     assert np.array_equal(scaled.data, jscaled.data)
     assert scaled.dtype == np.float32
+
+
+def _graft_serve(args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env.pop("AMT_FAULT_PLAN", None)
+    return subprocess.run(
+        [sys.executable, "-m", "arrow_matrix_tpu_torch.cli.graft_serve",
+         "--vertices", "96", "--width", "16", "--features", "2",
+         "--tenants", "2", "--requests", "6", "--iterations", "2",
+         "--max_batch_k", "4", "--seed", "3", "--device", "cpu", *args],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_graft_serve_pulse_writes_a_valid_ring_and_trace(tmp_path):
+    """``--pulse --pulse_port 0``: the ring, the exposition and the
+    request-correlated trace under ``--obs_dir``, the window series in
+    ``--results_out``, and every result equal to a run without
+    telemetry."""
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.obs import pulse
+
+    obs = tmp_path / "obs"
+    r = _graft_serve(["--pulse", "--pulse_port", "0", "--slo_p99_ms",
+                      "1e6", "--obs_dir", str(obs), "--results_out",
+                      str(tmp_path / "pulse.npz")], tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert "pulse endpoint at http://127.0.0.1:" in r.stdout
+    assert "graft-serve: pulse" in r.stdout
+    ring = pulse.load_ring(str(obs / "pulse_ring.json"))
+    assert pulse.validate_ring(ring) == []
+    assert ring["totals"]["completed"] == 6 and ring["closed"]
+    with open(obs / "pulse_metrics.prom") as fh:
+        assert pulse.validate_exposition(fh.read()) == []
+    with open(obs / "serve_trace.json") as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e["ph"] == "X"]
+    assert {"admission", "batch", "finalize"} <= {e["name"] for e in events}
+    assert all(e["args"].get("request_id") for e in events)
+    with open(obs / "serve_summary.json") as fh:
+        assert json.load(fh)["pulse"]["totals"]["completed"] == 6
+    r = _graft_serve(["--results_out", str(tmp_path / "plain.npz")],
+                     tmp_path)
+    assert r.returncode == 0, r.stderr
+    with np.load(tmp_path / "pulse.npz") as a, \
+            np.load(tmp_path / "plain.npz") as b:
+        assert sorted(a.files) == sorted(b.files + ["_pulse_windows"])
+        for rid in b.files:
+            assert a[rid].tobytes() == b[rid].tobytes()
+        windows = json.loads(a["_pulse_windows"].tobytes().decode())
+    assert sum(w["completed"] for w in windows) == 6

@@ -744,3 +744,42 @@ def test_server_with_a_column_schedule_on_the_card(cuda):
         assert a.result.tobytes() == b.result.tobytes()
         assert relative_error(a.result, c.result) <= relative_tolerance(
             ex.nnz / 4096, 3)
+
+
+def test_profiler_trace_records_k1_launches_by_name(cuda, tmp_path):
+    """``utils/logging.trace`` on the card: the profile holds exactly the
+    K1 launches the wrapper counted (``sell_kernel`` and, with split
+    rows, ``sum_rows_kernel``), the tracer's span as an annotation, and
+    kernel time inside the window; a smoke serve on the card stamps its
+    ledger records with the card's name."""
+    from arrow_matrix_tpu_torch import serve
+    from arrow_matrix_tpu_torch.ledger import Ledger
+    from arrow_matrix_tpu_torch.obs import Tracer
+    from arrow_matrix_tpu_torch.utils import logging as wb
+
+    a = barabasi_albert(4096, 4, seed=1)
+    levels = arrow_decomposition(a, 64, max_levels=10, block_diagonal=True,
+                                 seed=0)
+    ml = MultiLevelArrow(levels, 64, fmt="fold", device=cuda)
+    x = ml.set_features(random_dense(4096, 16, seed=2))
+    ml.run(x, 1)
+    torch.cuda.synchronize()
+    tr = Tracer("profiled")
+    before = cuda_sell.LAUNCHES
+    with wb.trace(str(tmp_path / "traces")) as prof:
+        with tr.span("fold_chain"):
+            ml.run(x, 5)
+    launched = cuda_sell.LAUNCHES - before
+    k1 = [k for k in prof.kernels
+          if "sell_kernel" in k["name"] or "sum_rows_kernel" in k["name"]]
+    assert launched > 0 and len(k1) == launched
+    assert "fold_chain" in prof.annotations
+    busy = sum(k["dur"] for k in prof.kernels)
+    assert 0 < busy <= prof.wall_us
+    summary = serve.smoke_serve(str(tmp_path / "smoke"))
+    assert summary["completed"] == summary["requests"]
+    recs = Ledger(str(tmp_path / "smoke" / "ledger")).read_all()
+    assert {r["kind"] for r in recs} == {"serve", "pulse"}
+    for r in recs:
+        assert r["platform"] == "gpu"
+        assert r["device_kind"] == torch.cuda.get_device_name(0)

@@ -304,7 +304,5 @@ def test_killed_server_resumes_to_the_never_killed_results(tmp_path):
 
 
 def test_cli_flags_of_parts_not_ported_exit_naming_them(tmp_path):
-    r = _serve_cli(tmp_path, ["--pulse"])
-    assert r.returncode != 0 and "Observability" in r.stderr
     r = _serve_cli(tmp_path, ["--fmt", "ell"])
     assert r.returncode != 0 and "multi-device" in r.stderr

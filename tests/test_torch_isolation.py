@@ -62,7 +62,15 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             os.path.join("serve", "admission.py"),
             os.path.join("serve", "scheduler.py"),
             os.path.join("serve", "loadgen.py"),
-            os.path.join("cli", "graft_serve.py")} <= names
+            os.path.join("cli", "graft_serve.py"),
+            os.path.join("ledger", "store.py"),
+            os.path.join("obs", "tracer.py"),
+            os.path.join("obs", "pulse.py"),
+            os.path.join("obs", "xray.py"),
+            os.path.join("fleet", "wire.py"),
+            os.path.join("fleet", "shm.py"),
+            os.path.join("fleet", "health.py"),
+            os.path.join("fleet", "placement.py")} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -160,6 +168,21 @@ tickets = run_trace(srv, synthetic_trace(n, requests=4, k=4, seed=5))
 assert [t.status for t in tickets] == ["completed"] * 4
 s = slo_summary(srv, tickets, 1.0)
 assert s["faults_seen"] == 1 and s["recoveries"] == 1, s
+from arrow_matrix_tpu_torch import fleet, ledger
+from arrow_matrix_tpu_torch.obs import Tracer, pulse, xray
+from arrow_matrix_tpu_torch.serve import smoke_serve
+from arrow_matrix_tpu_torch.utils import logging as wb
+faults.clear_plan()
+smoke = smoke_serve(os.path.join(work, "smoke"), device="cpu")
+assert smoke["completed"] == 4 and smoke["ledger_record_id"], smoke
+assert ledger.Ledger(os.path.join(work, "smoke", "ledger")).validate() == []
+tr = Tracer("blocked")
+with wb.trace(os.path.join(work, "tr"), device="cpu") as prof:
+    with tr.span("phase"):
+        pass
+assert "phase" in prof.annotations
+assert xray.process_trace(tr, "p")["spans"][0]["name"] == "phase"
+assert fleet.measure_transports(1 << 12, repeats=1)["shm"]["frame_bytes"]
 assert not any(m.split(".")[0] in {"jax", "flax", "arrow_matrix_tpu"}
                for m in sys.modules)
 print("ok", json.dumps(s["hbm"]))
@@ -167,9 +190,11 @@ print("ok", json.dumps(s["hbm"]))
 
 
 def test_serving_runtime_runs_with_jax_blocked():
-    """Every module of the serving runtime imported, and a supervised,
+    """Every module of the serving runtime imported, a supervised,
     batched, checkpointing server run with a column schedule and one
-    injected fault, with JAX and the JAX package unimportable."""
+    injected fault, and the observability layer (a smoke serve with its
+    pulse monitor and ledger, a CPU profile, a trace document) and the
+    fleet's data plane, with JAX and the JAX package unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     env.pop("AMT_FAULT_PLAN", None)
     proc = subprocess.run([sys.executable, "-c", SERVE_RUN], env=env,

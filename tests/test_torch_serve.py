@@ -353,18 +353,90 @@ def test_unported_parts_raise_naming_their_roadmap_item(pkgs, tmp_path):
         _server(p, tune_plan={"candidate": "fold"})
     with pytest.raises(NotImplementedError, match="multi-device"):
         _server(p, grow_config=pserve.ExecConfig(repl=2))
-    with pytest.raises(NotImplementedError, match="Observability"):
-        _server(p, cert_ledger_dir=str(tmp_path))
     srv = _server(p)
-    with pytest.raises(NotImplementedError, match="Observability"):
-        srv.attach_pulse(object())
     with pytest.raises(NotImplementedError, match="multi-device"):
         srv.note_slo_pressure("test", direction="grow")
-    with pytest.raises(NotImplementedError, match="Observability"):
-        pserve.smoke_serve(str(tmp_path))
     with pytest.raises(NotImplementedError, match="multi-device"):
         pserve.ba_executor_factory(N, WIDTH, SEED, mesh=object(),
                                    device="cpu")
+
+
+def test_attach_pulse_feeds_the_monitor_like_jax(pkgs):
+    """The same trace through both servers, each with a monitor on a
+    frozen clock: the same event counts per tenant reach both, and the
+    HBM gauge is sampled from each server's accountant."""
+    from arrow_matrix_tpu.obs import pulse as jpulse
+    from arrow_matrix_tpu_torch.obs import pulse as ppulse
+
+    totals = {}
+    for name, mod in (("jax", jpulse), ("port", ppulse)):
+        p = pkgs[name]
+        mon = mod.PulseMonitor(window_s=1.0, clock=lambda: 0.0,
+                               watchdog=mod.SloWatchdog())
+        srv = _server(p, max_batch_k=2 * K)
+        assert srv.attach_pulse(mon) is mon and srv.pulse is mon
+        assert mon.watchdog.on_burn == srv._on_slo_burn
+        p.serve.run_trace(srv, _trace(p, requests=4, tenants=2))
+        mon.close()
+        t = mon.totals_dict()
+        assert t["hbm"]["in_use_bytes"] is not None
+        assert t["latency_ms"]["count"] == 4
+        totals[name] = {key: t[key] for key in (
+            "submitted", "admitted", "completed", "failed", "shed",
+            "rejected", "degraded", "faults_seen")}
+        totals[name]["per_tenant"] = {
+            tn: rec["completed"] for tn, rec in t["per_tenant"].items()}
+    assert totals["port"] == totals["jax"]
+    assert totals["port"]["completed"] == 4
+
+
+def test_a_failing_monitor_never_takes_the_server_down(pkgs):
+    p = pkgs["port"]
+
+    class Broken:
+        watchdog = None
+
+        def observe(self, event, **data):
+            raise RuntimeError("telemetry down")
+
+    srv = _server(p)
+    srv.attach_pulse(Broken())
+    tickets = p.serve.run_trace(srv, _trace(p, requests=2))
+    assert [t.status for t in tickets] == ["completed"] * 2
+
+
+def test_smoke_serve_on_the_cpu_gives_the_jax_summary(tmp_path):
+    from arrow_matrix_tpu_torch.ledger import Ledger
+    from arrow_matrix_tpu_torch.obs import pulse as ppulse
+
+    import json
+    import os
+
+    ours = pserve.smoke_serve(str(tmp_path / "port"), n=N, width=WIDTH,
+                              device="cpu")
+    theirs = jserve.smoke_serve(str(tmp_path / "jax"), n=N, width=WIDTH)
+    assert set(ours) == set(theirs)
+    assert set(ours["pulse"]) == set(theirs["pulse"])
+    assert set(ours["latency_ms"]) == set(theirs["latency_ms"])
+    for key in ("requests", "completed", "failed", "shed", "rejected",
+                "batches", "batched_requests"):
+        assert ours[key] == theirs[key], key
+    assert ours["completed"] == ours["requests"] == 4
+    run = str(tmp_path / "port")
+    with open(os.path.join(run, "serve_summary.json")) as fh:
+        assert json.load(fh)["ledger_record_id"] == \
+            ours["ledger_record_id"] is not None
+    assert ppulse.validate_ring(ppulse.load_ring(
+        os.path.join(run, "pulse_ring.json"))) == []
+    with open(os.path.join(run, "pulse_metrics.prom")) as fh:
+        assert ppulse.validate_exposition(fh.read()) == []
+    lg = Ledger(os.path.join(run, "ledger"))
+    assert lg.validate() == []
+    kinds = {r["kind"]: r for r in lg.read_all()}
+    assert set(kinds) == {"pulse", "serve"}
+    assert kinds["serve"]["record_id"] == ours["ledger_record_id"]
+    for rec in kinds.values():
+        assert (rec["platform"], rec["device_kind"]) == ("cpu", "cpu")
 
 
 def test_slo_pressure_degrades_every_named_tenant(pkgs):
