@@ -170,12 +170,31 @@ Phases, each fatal on failure:
    one k=128 batch result (host numbers) through ``fleet/wire`` over a
    socket pair inline and as a shared-memory descriptor, bit-equal, and
    ``measure_transports``.
+17. the fleet, last: (a) ``graft_fleet`` as a subprocess, 2 worker
+   processes on the card each over ``ba_executor_factory(2^20, 2048,
+   seed 11)`` (the fold, K1), ring placement, the wire over shared
+   memory, 4 tenants, 8 requests at k = 16, 10 iterations: every
+   request completed, bit-equal to a single-process replay built in a
+   thread beside the fleet; the fleet p99 the exact pooled quantile;
+   the workers' budgets summing to at most the card's, each worker's
+   allocator peak within its budget; ``nvidia-smi`` listing every
+   process on the card; K1 launched requests x iterations x launches a
+   product in the workers (their own counts, which start at 0 in each
+   fresh process); the workers' ledgers stamped with the card;
+   ``fleet_xray.json`` and ``xray_report.json`` written, and
+   ``graft_xray`` and ``graft_pulse`` reading the run dir; (b)-(e) the
+   port's ``tools/fleet_gate.py`` scenarios at serve_kill's graph (BA
+   n = 2^16, width 2048) with the lock witness armed: ``fleet_kill``,
+   ``fleet_host_kill``, ``router_quorum`` and ``fleet_migrate``, each
+   with zero loss, requeue and resume where the scenario asks, and
+   results bit-equal to the replay; then K1 at the fleet's shape
+   against its plain version.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
 empty: the bench's launches are in its candidates' records), ``--serve``
-phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first).  The line
-before the last is ``{"kernels": [...]}``; the last line is ``{"ok":
+phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first),
+``--fleet`` phases 1, 2 and 17.  The line before the last is ``{"kernels": [...]}``; the last line is ``{"ok":
 true, "device": {...}}``.  Without a CUDA device the script exits 2 and
 prints no result.
 """
@@ -3636,6 +3655,381 @@ def phase_observe(ctx: dict, p15: dict, n: int, work: str, dev) -> tuple:
     return results, entry
 
 
+# -- 17. the fleet ------------------------------------------------------------
+
+#: Phase 17 (a): the Serve cell's size.  Two worker processes on the
+#: card, each over ``ba_executor_factory(2^20, 2048, seed 11)`` (BA m=3,
+#: the fold, K1), ring placement, the wire over shared memory; 8
+#: requests at k = 16, 10 iterations.  The ring hashes the names
+#: tenant0-tenant7 all onto worker-1, so the trace draws from 9 names
+#: with seed 4: 4 tenants (tenant2, 3, 6 and 8), 5 requests on worker-1
+#: and 3 on worker-0.  5 s pulse windows, so that a worker idle at the
+#: end stays within the ring's gap fill.
+FLEET = dict(vertices=1 << 20, width=2048, seed=11, workers=2, tenants=9,
+             requests=8, k=16, iterations=10, trace_seed=4, window_s=5.0)
+#: Phase 17 (b)-(e): the fleet gate's scenarios at serve_kill's graph
+#: (BA n = 2^16, width 2048), and the seconds the phase should stay
+#: within.
+FLEET_GATE = dict(vertices=SERVE_KILL["vertices"], width=SERVE_KILL["width"],
+                  budget_s=200.0)
+
+
+def smi_query(query: str) -> list:
+    """``nvidia-smi --query-...=... --format=csv,noheader,nounits``
+    rows, each a list of fields."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", query,
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout
+    return [[f.strip() for f in line.split(",")]
+            for line in out.splitlines() if line.strip()]
+
+
+def fleet_poll(stop, polls: list) -> None:
+    """Every 0.5 s until ``stop``: the card's compute processes (pid,
+    used MiB) and its used memory (MiB), as ``nvidia-smi`` reads them."""
+    while not stop.wait(0.5):
+        polls.append({"apps": smi_query("--query-compute-apps=pid,"
+                                        "used_memory"),
+                      "used_mib": smi_query("--query-gpu=memory.used")})
+
+
+def fleet_replay(out: dict) -> None:
+    """Phase 17 (a)'s single-process replay on the card (run in a
+    thread while the fleet's workers build): the trace through one
+    ``ArrowServer`` over the same factory, its results by request id
+    and its base executor for K1's numbers."""
+    try:
+        from arrow_matrix_tpu_torch.serve import (
+            ArrowServer,
+            ExecConfig,
+            ba_executor_factory,
+            run_trace,
+            synthetic_trace,
+        )
+
+        c = FLEET
+        tic = time.perf_counter()
+        factory, n_rows = ba_executor_factory(c["vertices"], c["width"],
+                                              c["seed"], fmt="fold")
+        server = ArrowServer(factory, ExecConfig(), name="fleet-ref")
+        out["build_s"] = time.perf_counter() - tic
+        trace = synthetic_trace(n_rows, tenants=c["tenants"],
+                                requests=c["requests"], k=c["k"],
+                                iterations=c["iterations"],
+                                seed=c["trace_seed"])
+        tickets = run_trace(server, trace)
+        out["results"] = {t.request.request_id: t.result.tobytes()
+                          for t in tickets if t.result is not None}
+        out["executor"] = server._executors[server.base_config]
+        out["s"] = time.perf_counter() - tic
+    except BaseException as e:      # re-raised by the phase's thread
+        out["error"] = e
+
+
+def fleet_clis(run_dir: str, env: dict) -> dict:
+    """``graft_xray report`` and ``graft_pulse merge`` / ``check`` over a
+    fleet run dir; each must exit 0."""
+    import subprocess
+
+    out = {}
+    workers = sorted(d for d in os.listdir(run_dir)
+                     if d.startswith("worker-"))
+    for tag, cmd in (
+            ("graft_xray report", ["arrow_matrix_tpu_torch.cli.graft_xray",
+                                   "report", run_dir, "--json"]),
+            ("graft_pulse merge", ["arrow_matrix_tpu_torch.cli.graft_pulse",
+                                   "merge"] + [os.path.join(run_dir, w)
+                                               for w in workers]),
+            ("graft_pulse check", ["arrow_matrix_tpu_torch.cli.graft_pulse",
+                                   "check", os.path.join(run_dir,
+                                                         workers[0])])):
+        proc = subprocess.run([sys.executable, "-m", *cmd], env=env,
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            raise SystemExit(f"phase 17: {tag} exited {proc.returncode}: "
+                             f"{(proc.stdout + proc.stderr)[-800:]}")
+        out[tag] = proc.stdout.strip().splitlines()[-1]
+    return out
+
+
+def fleet_baseline(dev, work: str) -> tuple:
+    """Phase 17 (a): ``graft_fleet`` as a subprocess at :data:`FLEET`,
+    its single-process replay built in a thread beside it, ``nvidia-smi``
+    polled meanwhile.  Returns (results, the replay)."""
+    import subprocess
+    import threading
+
+    import torch
+
+    from arrow_matrix_tpu_torch.ledger import Ledger
+    from arrow_matrix_tpu_torch.tools import fleet_gate as gate
+
+    c = FLEET
+    name = torch.cuda.get_device_name(dev)
+    run_dir, npz = (os.path.join(work, f) for f in ("fleet", "fleet.npz"))
+    env = gate.fleet_env()
+    replay, polls, stop = {}, [], threading.Event()
+    threads = [threading.Thread(target=fleet_replay, args=(replay,),
+                                daemon=True),
+               threading.Thread(target=fleet_poll, args=(stop, polls),
+                                daemon=True)]
+    cmd = [sys.executable, "-m", "arrow_matrix_tpu_torch.cli.graft_fleet",
+           "--run_dir", run_dir, "--workers", str(c["workers"]),
+           "--vertices", str(c["vertices"]), "--width", str(c["width"]),
+           "--seed", str(c["seed"]), "--tenants", str(c["tenants"]),
+           "--requests", str(c["requests"]), "--k", str(c["k"]),
+           "--iterations", str(c["iterations"]),
+           "--trace_seed", str(c["trace_seed"]), "--transport", "auto",
+           "--window_s", str(c["window_s"]), "--results_npz", npz]
+    tic = time.perf_counter()
+    for t in threads:
+        t.start()
+    with open(os.path.join(work, "fleet.out"), "w") as out_fh, \
+            open(os.path.join(work, "fleet.err"), "w") as err_fh:
+        proc = subprocess.Popen(cmd, env=env, cwd=work, stdout=out_fh,
+                                stderr=err_fh, text=True)
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - tic
+    stop.set()
+    threads[0].join(600)
+    threads[1].join(10)
+    stdout = open(os.path.join(work, "fleet.out")).read()
+    stderr = open(os.path.join(work, "fleet.err")).read()
+    verdict = gate.last_json(stdout)
+    if rc != 0 or verdict is None:
+        raise SystemExit(f"phase 17 (a): graft_fleet exited {rc}: "
+                         f"{(stdout + stderr)[-1500:]}")
+    if "error" in replay or "results" not in replay:
+        raise SystemExit(f"phase 17 (a): the replay failed: "
+                         f"{replay.get('error')!r}")
+    with open(os.path.join(run_dir, "fleet_report.json")) as fh:
+        report = json.load(fh)
+    bad = []
+    if verdict["completed"] != c["requests"] or verdict["dead_workers"] \
+            or verdict["pulse_problems"]:
+        bad.append(f"verdict {json.dumps(verdict)}")
+    if set(verdict["transports"].values()) != {"shm"} \
+            or not verdict["wire_shm_bytes"]:
+        bad.append(f"the wire: {verdict['transports']}, shm bytes "
+                   f"{verdict['wire_shm_bytes']}")
+    bad += gate.check_bit_identity("phase 17 (a)", npz, replay["results"])
+    bad += gate.check_exact_pooled_p99("phase 17 (a)", run_dir)
+    bad += gate.check_xray_artifacts("phase 17 (a)", run_dir)
+    # Budgets: the workers' shares of the card's budget, and each
+    # worker's allocator peak within its share.
+    hello = report["worker_hello"]
+    budgets = {w: h["budget_bytes"] for w, h in hello.items()}
+    card = report.get("card_budget_bytes")
+    if card is None or sum(budgets.values()) > card:
+        bad.append(f"budgets {budgets} against the card's {card}")
+    ex = replay["executor"]
+    per = k1_per_product(ex.sell, c["k"], torch.float32)
+    launches, memory = {}, {}
+    for wid, rec in sorted(report["workers"].items()):
+        launches[wid] = rec.get("kernel_launches") or {}
+        memory[wid] = rec.get("device_memory") or {}
+        if hello[wid]["device"] != str(dev):
+            bad.append(f"{wid} served on {hello[wid]['device']}")
+        if not launches[wid].get("K1") or any(
+                launches[wid].get(kern) for kern in KERNEL_NAMES[1:]):
+            bad.append(f"{wid} launches {launches[wid]}")
+        if not memory[wid].get("max_reserved", 0) <= budgets[wid]:
+            bad.append(f"{wid} reserved {memory[wid]} over its budget "
+                       f"{budgets[wid]}")
+        led = Ledger(os.path.join(run_dir, wid, "ledger"))
+        recs = led.read_all()
+        if not recs or led.validate() or any(
+                (r.get("platform"), r.get("device_kind")) != ("gpu", name)
+                for r in recs):
+            bad.append(f"{wid} ledger: {len(recs)} records, "
+                       f"{led.validate()}, stamps "
+                       f"{[(r.get('platform'), r.get('device_kind')) for r in recs]}")
+    k1_total = sum(v.get("K1", 0) for v in launches.values())
+    if k1_total != c["requests"] * c["iterations"] * per:
+        bad.append(f"K1 {k1_total} launches, expected {c['requests']} x "
+                   f"{c['iterations']} x {per}")
+    # nvidia-smi: this process, the router and each worker hold a
+    # context on the card while the fleet serves.
+    rows = max((len(p["apps"]) for p in polls), default=0)
+    used = max((int(p["used_mib"][0][0]) for p in polls), default=0)
+    if rows < c["workers"] + 2 or not all(
+            int(r[1]) > 0 for p in polls for r in p["apps"]):
+        bad.append(f"nvidia-smi listed at most {rows} compute processes")
+    if bad:
+        raise SystemExit(f"phase 17 (a): {'; '.join(bad)}")
+    clis = fleet_clis(run_dir, env)
+    lat = verdict["latency_ms"]
+    builds = {w: h["build_s"] for w, h in hello.items()}
+    log(f"phase 17 (a) fleet: {c['workers']} workers on {name}, BA "
+        f"n={c['vertices']} m=3 width {c['width']} seed {c['seed']} (fold, "
+        f"K1), ring placement, shm wire; {c['requests']} requests (k="
+        f"{c['k']}, {c['iterations']} iterations, {c['tenants']} tenants) "
+        f"in {wall:.1f} s of subprocess: {verdict['requests_per_s']:.3f} "
+        f"req/s, p50 {lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms (the "
+        f"exact pooled nearest-rank quantile); worker build s {builds}; "
+        f"budget_bytes {budgets} (sum {sum(budgets.values())} <= the "
+        f"card's {card}); allocator peaks "
+        f"{ {w: m.get('max_reserved') for w, m in memory.items()} } B; "
+        f"nvidia-smi: {rows} compute processes at most (pids "
+        f"{sorted({r[0] for p in polls for r in p['apps']})}: the "
+        f"container's namespace), {used} MiB used at most; "
+        f"wire_shm_bytes {verdict['wire_shm_bytes']}; K1 launches "
+        f"{ {w: v.get('K1') for w, v in launches.items()} } ({c['requests']}"
+        f" x {c['iterations']} x {per}); every result bit-equal to the "
+        f"single-process replay (built beside it in "
+        f"{replay['build_s']:.1f} s, served in {replay['s']:.1f} s); "
+        f"ledgers stamped gpu / {name}; graft_xray and graft_pulse read "
+        f"the run dir: {clis['graft_pulse check']}")
+    return ({"wall_s": wall, "verdict": verdict, "worker_build_s": builds,
+             "budget_bytes": budgets, "card_budget_bytes": card,
+             "device_memory": memory, "smi_rows": rows, "smi_used_mib": used,
+             "k1_launches": k1_total, "k1_per_product": per,
+             "replay_build_s": replay["build_s"], "replay_s": replay["s"],
+             "clis": clis}, replay)
+
+
+def fleet_k1_entry(replay: dict, launches: int) -> tuple:
+    """K1 at the fleet's shape (the replay's fold, f32 k = 16) against
+    its plain version: the phase's kernel entry (``launches``: the
+    workers' count in (a))."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    ex, k, n = replay["executor"], FLEET["k"], FLEET["vertices"]
+    sell = ex.sell
+    x = ex.set_features(random_dense(n, k, seed=5))
+    got = cuda_sell.sell_spmm_cuda(sell, x)
+    want = sell_spmm(sell, x)
+    torch.cuda.synchronize()
+    err, ok = compare(got, want, ex.nnz / n, exact=False)
+    if not ok:
+        raise SystemExit(f"phase 17: K1 != plain at the fleet's shape (max "
+                         f"abs err {err:.3e})")
+    del got, want
+    ms = statistics.median(cuda_runs(
+        lambda: cuda_sell.sell_spmm_cuda(sell, x), 20))
+    plain_ms = cuda_ms(lambda: sell_spmm(sell, x), 3)
+    a_csr = sorted_csr(sell, x.dtype)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 5)
+    bytes_, flops = fold_work(sell, ex.nnz, k)
+    t_bytes, t_ops = (bytes_ / HBM_BYTES_PER_S * 1e3,
+                      flops / F32_FLOPS * 1e3)
+    # As phase 5's: a row and an index read per nonzero, the output once.
+    gathered = (ex.nnz * (k * 4 + 4) + n * k * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"phase 17 K1 at the fleet's shape (BA 2^20 m=3 fold, {ex.nnz} nnz, "
+        f"k={k}): {ms:.4f} ms/product (median of 20), plain {plain_ms:.4f} "
+        f"ms, torch.sparse.mm {library_ms:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms, gathered-bytes bound {gathered:.4f} "
+        f"ms; max abs err {err:.3e}")
+    return {"name": f"sell_tier_spmm[fleet,f32,k={k}]", "route": "cuda",
+            "source": SOURCES["K1"], "replaces": REPLACES["K1"],
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def fleet_scenarios(work: str) -> dict:
+    """Phase 17 (b)-(e): the port's fleet gate on worker processes on the
+    card at :data:`FLEET_GATE`'s graph, the lock witness armed in this
+    process: (b) ``fleet_kill``, (c) ``fleet_host_kill``, (d)
+    ``router_quorum``, (e) ``fleet_migrate``, run at once; each fatal."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from arrow_matrix_tpu_torch import sync
+    from arrow_matrix_tpu_torch.tools import fleet_gate as gate
+
+    shape = gate.GateShape(FLEET_GATE["vertices"], FLEET_GATE["width"],
+                           "cuda")
+    gate_dir = os.path.join(work, "fleet_gate")
+    os.makedirs(gate_dir, exist_ok=True)
+    registry = sync.enable_witness()
+    try:
+        tic = time.perf_counter()
+        ref = gate.reference_results(shape)
+        ref4 = gate.reference_results(shape, k=4, iters=gate.HOST_KILL_ITERS)
+        if ref is None or ref4 is None:
+            raise SystemExit("phase 17: the gate's replay did not complete")
+        out = {"replay_s": time.perf_counter() - tic}
+
+        def timed(fn, want):
+            tic = time.perf_counter()
+            problems = fn(gate_dir, want, shape)
+            return problems, time.perf_counter() - tic
+
+        # The four scenarios at once: each has its own workers, run dir
+        # and checkpoints (and each router its own budget split).
+        tic = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            runs = [(letter, name, pool.submit(timed, fn, want))
+                    for letter, name, fn, want in (
+                        ("b", "fleet_kill", gate.scenario_fleet_kill, ref),
+                        ("c", "fleet_host_kill",
+                         gate.scenario_fleet_host_kill, ref4),
+                        ("d", "router_quorum", gate.scenario_router_quorum,
+                         ref),
+                        ("e", "fleet_migrate", gate.scenario_fleet_migrate,
+                         ref))]
+            for letter, name, fut in runs:
+                problems, out[f"{name}_s"] = fut.result()
+                if problems:
+                    raise SystemExit(f"phase 17 ({letter}) {name}: "
+                                     f"{'; '.join(problems)}")
+        out["scenarios_s"] = time.perf_counter() - tic
+        snap = registry.snapshot()
+    finally:
+        sync.disable_witness()
+    if snap["violations"]:
+        raise SystemExit(f"phase 17: lock witness {snap['violations']}")
+    with open(os.path.join(gate_dir, "fleet_host_kill",
+                           "fleet_report.json")) as fh:
+        shm_bytes = json.load(fh)["wire"]["totals"]["shm_bytes"]
+    log(f"phase 17 (b)-(e) at BA n={shape.n} width {shape.width} on the "
+        f"card: fleet_kill (the armed worker alone buried, zero loss, "
+        f"requeued, a survivor resumed) {out['fleet_kill_s']:.1f} s; "
+        f"fleet_host_kill (host-1 buried, shm bytes {shm_bytes}) "
+        f"{out['fleet_host_kill_s']:.1f} s; router_quorum (agreement, "
+        f"failover, no loss) {out['router_quorum_s']:.1f} s; fleet_migrate "
+        f"(handed off, resumed on the destination) "
+        f"{out['fleet_migrate_s']:.1f} s; {out['scenarios_s']:.1f} s for "
+        f"the four at once; every result bit-equal to the "
+        f"single-process replay ({out['replay_s']:.1f} s); lock witness "
+        f"{snap['acquisitions']} acquisitions, no violation")
+    out["host_kill_shm_bytes"] = shm_bytes
+    return out
+
+
+def phase_fleet(dev, work: str) -> tuple:
+    """Phase 17: the fleet on the card.  (a) the baseline at the Serve
+    cell's size, (b)-(e) the gate's fault scenarios at 2^16, then K1 at
+    the fleet's shape.  Returns (results, K1's entry)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    os.makedirs(work, exist_ok=True)      # phases 6-8 removed it
+    results, replay = fleet_baseline(dev, work)
+    results["scenarios"] = fleet_scenarios(work)
+    entry = fleet_k1_entry(replay, results["k1_launches"])
+    del replay
+    torch.cuda.empty_cache()
+    results["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: {results['phase_s']:.1f} s (budget "
+        f"{FLEET_GATE['budget_s']:.0f} s)")
+    return results, entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -3646,6 +4040,9 @@ def main() -> int:
     parser.add_argument("--bench", action="store_true",
                         help="run phases 1, 2 and 14 only (the native "
                              "decomposer and the port's bench)")
+    parser.add_argument("--fleet", action="store_true",
+                        help="run phases 1, 2 and 17 only (the fleet of "
+                             "worker processes on the card)")
     parser.add_argument("--serve", action="store_true",
                         help="run phases 1, 2, 15 and 16 only (the serving "
                              "runtime and its observability, on phase 4's "
@@ -3721,6 +4118,9 @@ def main() -> int:
     if args.bench:
         bench = phase_bench(dev, 1 << args.log2n, None, None)
         return finish({"bench": bench, "card": smi}, [])
+    if args.fleet:
+        fleet, entry = phase_fleet(dev, work)
+        return finish({"fleet": fleet, "card": smi}, [entry])
     if args.serve:
         serve_res, entry, ctx = serve_only(dev, 1 << args.log2n, work)
         observe, observe_entry = phase_observe(ctx, serve_res,
@@ -3926,6 +4326,10 @@ def main() -> int:
     # -- 14. the native decomposer and the port's bench ----------------------
     results["bench"] = phase_bench(dev, n, a, t_dec)
     del a
+
+    # -- 17. the fleet of worker processes on the card -----------------------
+    results["fleet"], fleet_entry = phase_fleet(dev, work)
+    kernels.append(fleet_entry)
 
     results["card"] = smi
     return finish(results, kernels)
