@@ -45,8 +45,17 @@ roofline); with no card and no ``--device cpu`` it prints an ``error``
 line and exits non-zero.  It never moves to the CPU by itself.
 
 The last line of stdout is exactly one JSON object in ``bench.py``'s
-field names (``metric``, ``value``, ``unit``, ``vs_baseline``, ...);
-the run exits non-zero iff it has no ``value``.  ``bytes_per_iter_gb``
+field names (``metric``, ``value``, ``unit``, ``vs_baseline``, ...),
+stamped as the port's ledger records are (``"platform": "gpu"`` and the
+card's name on the card); the run exits non-zero iff it has no
+``value``.  The same object lands in the port's ledger as one
+``kind="bench"`` record (``AMT_LEDGER_DIR``, default
+``bench_results/ledger_torch``; ``AMT_LEDGER=0`` turns it off), and it
+carries the newest prior on-card capture as ``last_onchip`` (a "gpu"
+record only, never the committed TPU captures).  Each candidate and
+variant subprocess keeps a flight recorder
+(``<cache dir>/flight/<name>.json``, ``AMT_FLIGHT_DIR``); a candidate
+killed at its timeout names its file in its error.  ``bytes_per_iter_gb``
 is the least the built executor must move an iteration (see
 :func:`min_bytes_per_iter`), so ``roofline_frac`` (achieved bytes/s
 over the card's peak, looked up by name) is at most 1 by construction.
@@ -94,9 +103,44 @@ COMPARE_CONFIG = dict(n=65536, m=8, width=2048, k=16, iters=10)
 
 
 def _progress(msg: str) -> None:
-    """Stage markers on stderr (stdout carries only the JSON line)."""
+    """Stage markers on stderr (stdout carries only the JSON line),
+    mirrored into the flight recorder where one is installed (the
+    candidate and variant subprocesses): its file survives the SIGKILL
+    of a timeout, which loses the stderr pipe's tail."""
     print(f"[bench +{time.perf_counter() - _T0:.0f}s] {msg}",
           file=sys.stderr, flush=True)
+    mod = sys.modules.get("arrow_matrix_tpu_torch.obs.flight")
+    if mod is not None:
+        mod.record("progress", msg)
+
+
+def _flight_path(name: str) -> str:
+    """The flight recorder's file of one bench subprocess, known to the
+    subprocess that writes it and to the parent that names it on a
+    timeout (``AMT_FLIGHT_DIR``, default ``<cache dir>/flight``)."""
+    return os.path.join(
+        os.environ.get("AMT_FLIGHT_DIR",
+                       os.path.join(_cache_dir(), "flight")),
+        f"{name}.json")
+
+
+def _candidate_flight_name(fmt: str, cfg: dict) -> str:
+    return (f"candidate_{fmt}_k128" if cfg.get("k128_run")
+            else f"candidate_{fmt}")
+
+
+def _install_flight(name: str):
+    """Install the flight recorder in a bench subprocess (a ring of
+    progress events flushed to disk as they come).  A failure to install
+    it is reported and never costs the measurement."""
+    try:
+        from arrow_matrix_tpu_torch.obs import flight
+
+        return flight.install(_flight_path(name))
+    except Exception as e:
+        print(f"[bench] flight recorder unavailable: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        return None
 
 
 def peak_bytes_s(device_kind: str):
@@ -249,6 +293,7 @@ def run_one_candidate(fmt: str) -> None:
     prints one JSON line.  Runs in a subprocess of the race."""
     cfg = json.loads(os.environ["AMT_BENCH_CFG"])
     k128_run = bool(cfg.get("k128_run"))
+    _install_flight(_candidate_flight_name(fmt, cfg))
     _progress(f"fmt={fmt} candidate start: n={cfg['n']} "
               f"width={cfg['width']} k={128 if k128_run else cfg['k']} "
               f"platform={cfg['platform']}")
@@ -346,8 +391,15 @@ def _spawn_candidate(fmt: str, cfg: dict, timeout_s: float) -> dict:
             capture_output=True, text=True, timeout=timeout_s, env=env)
     except subprocess.TimeoutExpired:
         _progress(f"fmt={fmt} timed out after {timeout_s:.0f}s")
-        return {"error": f"timed out after {timeout_s:.0f}s",
-                "timed_out": True}
+        err = {"error": f"timed out after {timeout_s:.0f}s",
+               "timed_out": True}
+        # The killed child's flight recorder is the only record of how
+        # far it got.
+        fp = _flight_path(_candidate_flight_name(fmt, cfg))
+        if os.path.exists(fp):
+            err["flight"] = fp
+            _progress(f"fmt={fmt}: its flight recorder is {fp}")
+        return err
     if proc.returncode != 0 or not proc.stdout.strip():
         _progress(f"fmt={fmt} FAILED rc={proc.returncode}")
         return {"error": f"rc={proc.returncode}: "
@@ -525,6 +577,7 @@ def run_one_variant(name: str) -> None:
     """Build and measure ONE kernel-comparison variant; prints its
     ms/iter as JSON.  Runs in a subprocess of :func:`kernel_compare`."""
     cfg = json.loads(os.environ["AMT_BENCH_CFG"])
+    _install_flight(f"variant_{name}")
     _progress(f"variant={name} start")
     dev = _child_device(cfg)
     from arrow_matrix_tpu_torch.parallel.multi_level import MultiLevelArrow
@@ -579,6 +632,78 @@ def kernel_compare(cfg: dict, timeout_s: float = 300.0,
     return out
 
 
+def _last_onchip_evidence() -> dict | None:
+    """Summary of the newest on-card capture of this bench among
+    ``bench_results/onchip_*.json`` and ``<cache dir>/onchip_*.json``
+    (the root bench's ``_last_onchip_evidence``), labeled as a prior
+    capture; None when there is none.
+
+    Only a record whose ``platform`` is "gpu" qualifies: the committed
+    ``bench_results/onchip_r3_*.json`` are the JAX package's TPU
+    captures, which ``utils/artifacts.record_is_onchip`` accepts (it
+    rejects only CPU and degraded records)."""
+    import glob
+
+    from arrow_matrix_tpu_torch.utils.artifacts import (
+        is_stray_verification_artifact,
+        load_last_json_line,
+        record_is_onchip,
+    )
+
+    paths = [p for p in
+             (glob.glob(os.path.join(_PKG_PARENT, "bench_results",
+                                     "onchip_*.json"))
+              + glob.glob(os.path.join(_cache_dir(), "onchip_*.json")))
+             if not is_stray_verification_artifact(p)]
+    by_mtime = []
+    for p in paths:
+        try:
+            by_mtime.append((os.path.getmtime(p), p))
+        except OSError:
+            continue
+    for mt, p in sorted(by_mtime, reverse=True):
+        d = load_last_json_line(p)
+        if (d is None or d.get("metric") != "spmm_iter_ms"
+                or not d.get("value") or d.get("platform") != "gpu"
+                or not record_is_onchip(d)):
+            continue
+        keep = ("metric", "value", "unit", "vs_baseline", "platform",
+                "device_kind", "fmt_used", "k128_ms", "k128_err",
+                "k128_bf16_ms", "frobenius_err_vs_cpu", "frobenius_gate",
+                "achieved_gbps", "roofline_frac", "config")
+        summary = {k: d[k] for k in keep if k in d}
+        if isinstance(summary.get("config"), dict):
+            summary["config"] = {k: summary["config"][k]
+                                 for k in ("n", "width", "features",
+                                           "iterations", "levels")
+                                 if k in summary["config"]}
+        return {"note": ("most recent on-card capture (a prior run, not "
+                         "this invocation's measurement)"),
+                "path": p, "captured_unix": int(mt), "summary": summary}
+    return None
+
+
+def _record_in_ledger(result: dict) -> None:
+    """Append the run's headline to the port's ledger (``kind="bench"``,
+    ``AMT_LEDGER_DIR`` or ``bench_results/ledger_torch``); a failure is
+    reported and never blocks the JSON line."""
+    try:
+        from arrow_matrix_tpu_torch.ledger import bench_metric, record
+
+        record("bench",
+               bench_metric(result.get("metric", "spmm_iter_ms"),
+                            result.get("config")),
+               result.get("value"), unit=result.get("unit"),
+               platform=result.get("platform"),
+               device_kind=result.get("device_kind"),
+               knobs={"config": result.get("config", {}),
+                      "fmt_used": result.get("fmt_used")},
+               payload={"parsed": result})
+    except Exception as e:
+        print(f"[ledger] bench record not persisted: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
@@ -622,6 +747,10 @@ def main(argv=None) -> int:
                     f"the bench on the host")
             import torch
 
+            from arrow_matrix_tpu_torch.ledger import device_stamp
+
+            # The card's stamp, as every ledger record of the port has it.
+            platform = device_stamp(torch.device("cuda", 0))["platform"]
             card = card_report(torch.device("cuda", 0))
         result.update(platform=platform, device_kind=device_kind, card=card)
         try:
@@ -647,6 +776,14 @@ def main(argv=None) -> int:
         result.setdefault("error", f"{type(e).__name__}: {e}")
     if deadline > 0:
         signal.alarm(0)
+    try:
+        evidence = _last_onchip_evidence()
+        if evidence is not None:
+            result["last_onchip"] = evidence
+    except Exception as e:   # evidence is auxiliary
+        print(f"[bench] no last_onchip: {type(e).__name__}: {e}",
+              file=sys.stderr)
+    _record_in_ledger(result)
     print(json.dumps(result), flush=True)
     return 0 if result.get("value") is not None else 1
 

@@ -14,8 +14,9 @@ arrow_matrix_tpu_torch.cli.graft_xray``.  Subcommands:
   compute / checkpoint / response mean ms per class.  The analyzer
   that localizes WHERE a byte-cheaper class spends the time it saves.
   ``--ledger-dir`` appends the per-class segment means as
-  ``kind="xray"`` records.  ``--lens`` needs ``obs/lens.py``, which is
-  not ported yet, and raises.
+  ``kind="xray"`` records.  ``--lens PROFILE`` splits each class's
+  compute segment by a lens profile's per-tier attribution
+  (``obs/lens.attribution_fractions``).
 * ``diff`` — per-class, per-segment regression check of one report
   JSON against a baseline report JSON; exits nonzero on regression.
 
@@ -53,8 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append per-class segment means as "
                         "kind='xray' ledger records")
     r.add_argument("--lens", default=None, metavar="PROFILE",
-                   help="a per-level attribution profile; needs "
-                        "obs/lens.py, not ported yet (raises)")
+                   help="lens profile JSON (graft_lens profile --out): "
+                        "subdivide each class's compute segment by "
+                        "per-tier attribution (the exact class by the "
+                        "f32 fractions, approx by the bf16 ones when "
+                        "profiled)")
     r.add_argument("--json", action="store_true",
                    help="skip the table, JSON line only")
 
@@ -121,10 +125,21 @@ def cmd_report(args) -> int:
     trace = _load_trace(args.run_dir)
     cp = xray.critical_path(trace, classes=_load_classes(args.run_dir))
     if getattr(args, "lens", None):
-        raise NotImplementedError(
-            "graft_xray report --lens needs obs/lens.py, which is not "
-            "ported yet; see ROADMAP.md Queue A, 'Observability and the "
-            "ledger, part 2'")
+        from arrow_matrix_tpu_torch.obs import lens as lens_mod
+        with open(args.lens, encoding="utf-8") as fh:
+            profile = json.load(fh)
+        dtypes = profile.get("dtypes", {})
+        fractions = {}
+        if "f32" in dtypes:
+            fractions["exact"] = lens_mod.attribution_fractions(
+                profile, "f32")
+        # Approximate traffic rides the bf16 carriage when it was
+        # profiled; otherwise the f32 attribution is the best shape.
+        approx_fd = "bf16" if "bf16" in dtypes else "f32"
+        if approx_fd in dtypes:
+            fractions["approx"] = lens_mod.attribution_fractions(
+                profile, approx_fd)
+        cp = xray.subdivide_compute(cp, fractions)
     if not args.json:
         for line in xray.format_report(cp):
             print(line)

@@ -1,9 +1,11 @@
 """The ledger: the port's append-only, hash-chained record store.
 
-The port's copy of ``arrow_matrix_tpu/ledger`` (the store; the gate,
-the export bridge and the accuracy probe are not ported yet).  See
-``ledger/store.py`` for the integrity model and where the port's store
-lives.
+The port's copy of ``arrow_matrix_tpu/ledger``: the store
+(``ledger/store.py``: the integrity model, and where the port's store
+lives), the drift gate (``ledger/gate.py``), the accuracy probe
+(``ledger/probe.py``) and the legacy ``BENCH_r*.json`` bridge
+(``ledger/export.py``); ``cli/graft_ledger.py`` is the operator
+surface.
 """
 
 from arrow_matrix_tpu_torch.ledger.store import (  # noqa: F401

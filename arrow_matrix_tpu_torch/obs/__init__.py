@@ -14,17 +14,46 @@
 * :mod:`~arrow_matrix_tpu_torch.obs.xray` — per-process trace
   documents merged into one timeline, and the per-class critical path;
 * :mod:`~arrow_matrix_tpu_torch.obs.memview` — the executors' static
-  HBM model as the admission price;
+  HBM model as the admission price, and one call's measured device
+  memory beside it;
+* :mod:`~arrow_matrix_tpu_torch.obs.imbalance` — per-unit load
+  imbalance from the packed operators;
+* :mod:`~arrow_matrix_tpu_torch.obs.lens` and
+  :mod:`~arrow_matrix_tpu_torch.obs.costmodel` — K1's time per tier of
+  the fold and the per-family cost model fitted from it;
 * :mod:`~arrow_matrix_tpu_torch.obs.comm` — the device's HBM budget.
 """
 
 from arrow_matrix_tpu_torch.obs.comm import hbm_budget_bytes
+from arrow_matrix_tpu_torch.obs.costmodel import (
+    CostModel,
+    fit_cost_model,
+    predict_candidate_ms,
+    predict_iter_ms,
+    tier_counters,
+)
 from arrow_matrix_tpu_torch.obs.flight import (
     FlightRecorder,
     current_request,
     request_context,
 )
+from arrow_matrix_tpu_torch.obs.imbalance import (
+    account_imbalance,
+    format_imbalance_report,
+    shard_report_for,
+)
+from arrow_matrix_tpu_torch.obs.lens import (
+    attribution_fractions,
+    explain_gap,
+    fit_from_profile,
+    profile_fold,
+    ratio_points,
+    record_profile,
+)
 from arrow_matrix_tpu_torch.obs.memview import (
+    account_memory,
+    format_memory_report,
+    memory_report,
     predicted_bytes_for,
     tree_device_bytes,
 )
@@ -59,29 +88,46 @@ from arrow_matrix_tpu_torch.obs.xray import (
 
 __all__ = [
     "BurnRule",
+    "CostModel",
     "FlightRecorder",
     "MetricsRegistry",
     "PulseEndpoint",
     "PulseMonitor",
     "SloWatchdog",
     "Tracer",
+    "account_imbalance",
+    "account_memory",
+    "attribution_fractions",
     "call_time_ms",
     "chained_iteration_ms",
     "critical_path",
     "current_request",
+    "explain_gap",
+    "fit_cost_model",
+    "fit_from_profile",
+    "format_imbalance_report",
+    "format_memory_report",
     "get_registry",
     "hbm_budget_bytes",
     "init_registry",
     "iteration_time_ms",
+    "memory_report",
     "merge_process_traces",
     "merge_run_dir",
     "new_trace_id",
+    "predict_candidate_ms",
+    "predict_iter_ms",
     "predicted_bytes_for",
     "process_trace",
+    "profile_fold",
+    "ratio_points",
+    "record_profile",
     "recover_from_flight",
     "request_context",
     "set_registry",
+    "shard_report_for",
     "subdivide_compute",
+    "tier_counters",
     "timed",
     "tree_device_bytes",
 ]

@@ -199,7 +199,7 @@ def iteration_time_ms(step_fn, x, iters: int, warmup: int = 1,
     return out
 
 
-def chained_sampler(run_fn, x, iters: int):
+def chained_sampler(run_fn, x, iters: int, clock=time.perf_counter):
     """Compile-and-warm a chained measurement, return a zero-arg
     callable producing one ms/iter sample per call.
 
@@ -207,12 +207,14 @@ def chained_sampler(run_fn, x, iters: int):
     programs (per-level prefixes) interleave sampling
     sweeps across all of them and take per-program minima: slow host
     load drift then lands on whole sweeps instead of whole programs,
-    and the minimum discards it."""
+    and the minimum discards it.  ``clock`` reads seconds (the wall
+    clock; ``time.process_time`` times work that runs on this process's
+    own threads, as the plain versions on the CPU do)."""
     def chain(n: int) -> float:
-        t0 = time.perf_counter()
+        t0 = clock()
         xd = run_fn(x, n) if n else x
         xd[0, 0].item()         # a host fetch: waits for the device
-        return time.perf_counter() - t0
+        return clock() - t0
 
     chain(iters)  # compile + warmup at the benchmark length
     rtt = min(chain(0) for _ in range(3))

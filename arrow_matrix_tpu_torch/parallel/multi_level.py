@@ -94,6 +94,7 @@ from arrow_matrix_tpu_torch.ops.arrow_blocks import (
     HEAD_FORMATS,
     ArrowBlocks,
     arrow_blocks_from_csr,
+    block_row_stats,
     resolve_block_dtype,
 )
 from arrow_matrix_tpu_torch.ops.cuda_blocks import arrow_spmm_cuda
@@ -107,11 +108,13 @@ from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather, row_gather_add_
 from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
 from arrow_matrix_tpu_torch.ops.worklist import build_worklist
 from arrow_matrix_tpu_torch.ops.ell import SLOT_ALIGN, auto_chunk
-from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_from_csr
+from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_from_csr, hyb_stats
 from arrow_matrix_tpu_torch.ops.sell import (
+    SellMatrix,
     resolve_binary,
     sell_from_arrays,
     sell_pack_numpy,
+    sell_stats,
 )
 from arrow_matrix_tpu_torch.parallel.autograd import (
     StepFunction,
@@ -275,6 +278,18 @@ def multi_level_spmm(x: torch.Tensor, fwd: torch.Tensor, bwd: torch.Tensor,
     for i in range(len(blocks) - 1, 0, -1):
         agg = row_gather_add_(partials[i - 1], agg, bwd[i - 1])
     return agg
+
+
+def _block_unit_stats(blk) -> dict:
+    """Per-unit (rows, nnz, slots) of one packed operator, by its type:
+    an arrow block grid (block rows), SELL tiers, or a HYB split."""
+    if isinstance(blk, ArrowBlocks):
+        return block_row_stats(blk)
+    if isinstance(blk, SellMatrix):
+        return sell_stats(blk)
+    if isinstance(blk, HybLevel):
+        return hyb_stats(blk)
+    raise TypeError(f"no unit stats for {type(blk).__name__}")
 
 
 def column_schedule(k: int, repl: int, overlap_slabs: int) -> list:
@@ -864,6 +879,24 @@ class MultiLevelArrow:
         predicted_hbm_bytes(0)``): one request's admission price."""
         return (self.predicted_hbm_bytes(k, itemsize, repl)
                 - self.predicted_hbm_bytes(0, itemsize, repl))
+
+    def shard_report(self) -> dict:
+        """Load report over the executor's compute units
+        (``obs/imbalance.py`` schema): the SELL tiers of the fold
+        ("tier" units), the block rows of the per-level formats
+        ("block-row"; a HYB level gives its light and heavy parts)."""
+        from arrow_matrix_tpu_torch.obs.imbalance import summarize_units
+
+        rows: list = []
+        nnz: list = []
+        slots: list = []
+        for blk in ([self.sell] if self.folded else self.blocks):
+            st = _block_unit_stats(blk)
+            rows.extend(int(v) for v in st["rows"])
+            nnz.extend(int(v) for v in st["nnz"])
+            slots.extend(int(v) for v in st["slots"])
+        units = "tier" if self.folded else "block-row"
+        return summarize_units(rows, nnz, slots, units=units)
 
     # -- the packed operator on disk ---------------------------------------
 

@@ -113,18 +113,22 @@ Phases, each fatal on failure:
    iterations; K1 and K4 over the transposed packs and K2/K3 over the
    transposed dense blocks against their plain versions, with bounds and
    library calls;
-14. the native decomposer and the port's bench, run last: (a) Barabasi-
+14. the native decomposer and the port's bench: (a) Barabasi-
    Albert n = 2^20 m=8 (phase 4's graph) decomposed at width 2048
    (max_levels 12, seed 7) by the port's native (C++) decomposer, its
    seconds beside phase 4's numpy seconds, its levels checked (they
    reconstruct A exactly; every level within its width) and saved under
    the bench's cache key; (b) ``python -m arrow_matrix_tpu_torch.bench``
    as a subprocess on that cache (kernel comparison off: phase 12 covers
-   its variants), whose last line must carry the card's platform and
+   its variants; the race fold, hyb and auto: phase 4 times fold_tight),
+   whose last line must carry the card's platform and
    name, a finite ``value`` within ``frobenius_gate``, ``k128_ms``
    within ``k128_gate``, ``roofline_frac`` at most 1 and a ``fmt_used``,
    and whose candidates each launched the kernels of their format (the
-   counts each candidate's subprocess read around its measurement).
+   counts each candidate's subprocess read around its measurement);
+   the line stamped ``"platform": "gpu"`` and the card's name, any
+   ``last_onchip`` a "gpu" record, and the same line as the one
+   ``kind="bench"`` record in phase 18's run-local ledger.
 
 15. the serving runtime, run right after phase 13 on phase 4's
    decomposition (its fold built per ladder rung by a closure over the
@@ -169,7 +173,8 @@ Phases, each fatal on failure:
    to phase 15's run without ``--pulse``, its trace and ring valid; (e)
    one k=128 batch result (host numbers) through ``fleet/wire`` over a
    socket pair inline and as a shared-memory descriptor, bit-equal, and
-   ``measure_transports``.
+   ``measure_transports`` (the inline frame carries the result's first
+   quarter of rows).
 17. the fleet, last: (a) ``graft_fleet`` as a subprocess, 2 worker
    processes on the card each over ``ba_executor_factory(2^20, 2048,
    seed 11)`` (the fold, K1), ring placement, the wire over shared
@@ -190,13 +195,45 @@ Phases, each fatal on failure:
    results bit-equal to the replay; then K1 at the fleet's shape
    against its plain version.
 
+18. the lens, the probe and the ledger, after phase 14 on phase 4's
+   levels (read back from its artifact through a ``"dir"`` source, so
+   no graph is decomposed twice): (a) ``obs/lens.profile_fold`` at
+   k=128, f32 and bf16 (20 chained iterations a sample, 5 interleaved
+   sweeps): the full step beside phase 4's (f32) and phase 5's (bf16)
+   K1 time, each tier's ms from the differences of K1 over tier
+   prefixes, with its K1 launches counted by the wrapper (the phase's
+   K1 count must equal the profile's), coverage within 10%, every
+   fitted tier's measured/predicted ratio in [0.5, 2.0] and
+   ``check_profile`` clean; the model's prediction at k=16 beside phase
+   4's (reported, not gated); the profile's records into the run-local
+   ledger; (b) ``obs/memview.memory_report`` of one fold step at k=128
+   beside ``predicted_hbm_bytes(128)``, and K1 over the bulk prefix
+   (tiers of at most 48 slots) against its plain version at each
+   carriage with its bounds and ``torch.sparse.mm``; (c) the accuracy
+   probe at k=16, 8 iterations, f32, bf16 and int8 on the card into the
+   run-local ledger: the f32 curve all zeros, every point finite, the
+   bf16 curve's first point within phase 4's 2e-2, and
+   ``classes.find_certificate`` returning the card's bf16 curve; (d)
+   ``graft_ledger`` rebaseline, check (exit 0) and report on the
+   run-local ledger, ``export --round 99`` whose ``parsed`` is stamped
+   "gpu" and the card's name (when phase 14 wrote its record), and
+   ``graft_lens check`` on (a)'s profile and model (exit 0).
+
+The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 11, 13, 15, 16, 10,
+18, 17: the host work of phase 4 (generating the 2^20 graph, decomposing
+it with the numpy decomposer, the host goldens of its inputs) and of
+phase 14 (the native decomposition) runs in two processes of their own
+from the start, beside phases 3, 6-9, 12 and 14.
+
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
 empty: the bench's launches are in its candidates' records), ``--serve``
 phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first),
-``--fleet`` phases 1, 2 and 17.  The line before the last is ``{"kernels": [...]}``; the last line is ``{"ok":
-true, "device": {...}}``.  Without a CUDA device the script exits 2 and
-prints no result.
+``--fleet`` phases 1, 2 and 17, ``--lens`` phases 1, 2 and 18 (phase
+4's decomposition made first; (d) then has no bench record to export).
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -236,6 +273,8 @@ REPS = 7                       # timed runs of each main-path chain
 #: and then as one chain, by k (the host golden at k=128 costs about 12
 #: s a step at n = 2^20, so its chain is cut to 3 steps).
 VALIDATED = {16: 10, 128: 3}
+#: Phase 4's inputs: (k, seed of ``random_dense``).
+GOLDEN_INPUTS = ((16, 3), (128, 4))
 #: K1's carriage dtypes by name (resolved when torch is imported).
 CARRIAGE_DTYPES = {}
 #: Phase 5 times K1 over the bulk tiers (rows of at most this many
@@ -453,21 +492,23 @@ def k1_per_product(sell, k: int, dtype) -> int:
     return 1 + (hub > 256 // lanes * 128)
 
 
-def host_golden(levels, x):
-    """``decomposition_spmm(levels, x)`` on the host, over blocks of 16
-    feature columns in parallel threads (SpMM is separable per column,
-    so the result is the same; scipy's sparse products release the
-    GIL)."""
+def host_golden(levels, x, cores=None):
+    """``decomposition_spmm(levels, x)`` on the host, over blocks of
+    feature columns in parallel threads, one block a core (SpMM is
+    separable per column and scipy sums each element over its row in
+    the same order whatever the block's width, so the result is the
+    same bit for bit; scipy's sparse products release the GIL)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
     from arrow_matrix_tpu_torch.decomposition import decomposition_spmm
 
-    blocks = [np.ascontiguousarray(x[:, lo:lo + 16])
-              for lo in range(0, x.shape[1], 16)]
-    with ThreadPoolExecutor(max_workers=min(len(blocks),
-                                            os.cpu_count() or 1)) as pool:
+    cores = cores or os.cpu_count() or 1
+    width = max(1, -(-x.shape[1] // cores))
+    blocks = [np.ascontiguousarray(x[:, lo:lo + width])
+              for lo in range(0, x.shape[1], width)]
+    with ThreadPoolExecutor(max_workers=min(len(blocks), cores)) as pool:
         parts = list(pool.map(lambda b: decomposition_spmm(levels, b),
                               blocks))
     return np.concatenate(parts, axis=1)
@@ -3579,7 +3620,9 @@ def wire_round(host, transport: str, pool) -> dict:
 
 def observe_wire(ctx: dict) -> dict:
     """Phase 16 (e): one k=128 batch's result copied from the card to the
-    host, then sent inline and as a shared-memory descriptor."""
+    host, then sent as a shared-memory descriptor, and its first quarter
+    of rows (128 MiB at 2^20) inline: base64 JSON runs at tens of MB/s,
+    so the whole result would take 20 s of the phase's budget."""
     import numpy as np
     import torch
 
@@ -3605,7 +3648,8 @@ def observe_wire(ctx: dict) -> dict:
     if free < need:
         raise SystemExit(f"phase 16 (e): /dev/shm has {free} B free, the "
                          f"segment pool needs {need} B")
-    inline = wire_round(host, "json", None)
+    inline = wire_round(np.ascontiguousarray(host[:host.shape[0] // 4]),
+                        "json", None)
     pool = shm.SegmentPool(slots=1, slot_bytes=host.nbytes, name="phase16")
     try:
         desc = wire_round(host, "shm", pool)
@@ -3728,29 +3772,26 @@ def fleet_replay(out: dict) -> None:
         out["error"] = e
 
 
-def fleet_clis(run_dir: str, env: dict) -> dict:
+def fleet_clis(run_dir: str) -> dict:
     """``graft_xray report`` and ``graft_pulse merge`` / ``check`` over a
-    fleet run dir; each must exit 0."""
-    import subprocess
+    fleet run dir, each through its ``main`` in this process (a process
+    of its own costs seconds to start); each must exit 0."""
+    from arrow_matrix_tpu_torch.cli import graft_pulse, graft_xray
 
     out = {}
     workers = sorted(d for d in os.listdir(run_dir)
                      if d.startswith("worker-"))
-    for tag, cmd in (
-            ("graft_xray report", ["arrow_matrix_tpu_torch.cli.graft_xray",
-                                   "report", run_dir, "--json"]),
-            ("graft_pulse merge", ["arrow_matrix_tpu_torch.cli.graft_pulse",
-                                   "merge"] + [os.path.join(run_dir, w)
-                                               for w in workers]),
-            ("graft_pulse check", ["arrow_matrix_tpu_torch.cli.graft_pulse",
-                                   "check", os.path.join(run_dir,
-                                                         workers[0])])):
-        proc = subprocess.run([sys.executable, "-m", *cmd], env=env,
-                              capture_output=True, text=True, timeout=120)
-        if proc.returncode != 0:
-            raise SystemExit(f"phase 17: {tag} exited {proc.returncode}: "
-                             f"{(proc.stdout + proc.stderr)[-800:]}")
-        out[tag] = proc.stdout.strip().splitlines()[-1]
+    for tag, main, argv in (
+            ("graft_xray report", graft_xray.main,
+             ["report", run_dir, "--json"]),
+            ("graft_pulse merge", graft_pulse.main,
+             ["merge"] + [os.path.join(run_dir, w) for w in workers]),
+            ("graft_pulse check", graft_pulse.main,
+             ["check", os.path.join(run_dir, workers[0])])):
+        rc, text = cli_main(main, argv)
+        if rc != 0:
+            raise SystemExit(f"phase 17: {tag} exited {rc}: {text[-800:]}")
+        out[tag] = text.strip().splitlines()[-1]
     return out
 
 
@@ -3864,7 +3905,7 @@ def fleet_baseline(dev, work: str) -> tuple:
         bad.append(f"nvidia-smi listed at most {rows} compute processes")
     if bad:
         raise SystemExit(f"phase 17 (a): {'; '.join(bad)}")
-    clis = fleet_clis(run_dir, env)
+    clis = fleet_clis(run_dir)
     lat = verdict["latency_ms"]
     builds = {w: h["build_s"] for w, h in hello.items()}
     log(f"phase 17 (a) fleet: {c['workers']} workers on {name}, BA "
@@ -4030,6 +4071,323 @@ def phase_fleet(dev, work: str) -> tuple:
     return results, entry
 
 
+# -- 18. the lens and the ledger -----------------------------------------------
+
+#: Phase 18: the lens at k=128 (f32, bf16), its model's prediction at
+#: k=16, the probe's curves at k=16 (8 iterations), the one-step bf16
+#: gate of phase 4.
+LENS = dict(k=128, dtypes=("f32", "bf16"), iters=20, predict_k=16,
+            probe_k=16, probe_iterations=8, probe_dtypes=("f32", "bf16",
+                                                          "int8"),
+            bf16_gate=2e-2)
+
+
+def cli_main(main, argv: list) -> tuple:
+    """(exit code, stdout) of a CLI's ``main(argv)`` run in this
+    process."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, buf.getvalue()
+
+
+def lens_prefix_entry(sell, carriage: str, launches: int, row_nnz: float,
+                      dev) -> dict:
+    """K1 over the lens's bulk prefix (tiers 0..the last of at most
+    :data:`BULK_SLOTS` slots) at k=128 against its plain version, timed
+    beside its bounds and ``torch.sparse.mm``: a kernels-line entry of
+    phase 18 (``launches``: K1's launches in the phase's profile of
+    ``carriage``)."""
+    import torch
+
+    from arrow_matrix_tpu_torch.obs.lens import tier_prefix
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    k = LENS["k"]
+    last = max(t for t, c in enumerate(sell.cols)
+               if 0 < c.shape[0] <= BULK_SLOTS)
+    prefix = tier_prefix(sell, last)
+    x = torch.from_numpy(random_dense(sell.n_rows, k, seed=5)).to(dev).to(
+        CARRIAGE_DTYPES[carriage])
+    got = cuda_sell.sell_spmm_cuda(prefix, x)
+    want = sell_spmm(prefix, x)
+    torch.cuda.synchronize()
+    err, ok = compare(got, want, row_nnz, exact=False)
+    if not ok:
+        raise SystemExit(f"phase 18: K1 != plain on the bulk prefix "
+                         f"({carriage}, max abs err {err:.3e})")
+    del got, want
+    ms = statistics.median(cuda_runs(
+        lambda: cuda_sell.sell_spmm_cuda(prefix, x), 20))
+    plain_ms = cuda_ms(lambda: sell_spmm(prefix, x), 3)
+    a_csr = sorted_csr(prefix, x.dtype)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 5)
+    nnz = int(a_csr.values().numel())
+    # The rows the prefix gathers, each read once.
+    read = int(torch.unique(a_csr.col_indices()).numel())
+    del a_csr
+    item = x.element_size()
+    op_bytes = 4 * nnz + 4 * prefix.n_rows
+    t_bytes = (op_bytes + (read + prefix.n_rows) * k * item) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = nnz * k / F32_FLOPS * 1e3
+    gathered = (nnz * (k * item + 4) + prefix.n_rows * k * item) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"phase 18 K1 on the bulk prefix (tiers 0-{last}, "
+        f"{prefix.n_rows} rows, {nnz} nnz, {read} rows read), {carriage} "
+        f"k={k}: {ms:.4f} ms/product (median of 20), plain {plain_ms:.4f} "
+        f"ms, torch.sparse.mm {library_ms:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms, gathered-bytes bound "
+        f"{gathered:.4f} ms; max abs err {err:.3e}")
+    return {"name": f"sell_tier_spmm[lens prefix 0-{last},{carriage},"
+                    f"k={k}]", "route": "cuda", "source": SOURCES["K1"],
+            "replaces": REPLACES["K1"], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "gather_bound_ms": gathered}
+
+
+def phase_lens(dev, base: str, width: int, store: str, run_dir: str,
+               main: dict) -> tuple:
+    """Phase 18: the lens, the memory report, the probe and the ledger's
+    CLIs on phase 4's levels (read back through a ``"dir"`` source),
+    every check fatal; ``store`` is the run-local ledger phase 14's bench
+    wrote into (when it ran)."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.classes import find_certificate
+    from arrow_matrix_tpu_torch.cli import graft_ledger, graft_lens
+    from arrow_matrix_tpu_torch.ledger import Ledger
+    from arrow_matrix_tpu_torch.ledger.probe import error_curves_for_source
+    from arrow_matrix_tpu_torch.obs import lens, memview
+    from arrow_matrix_tpu_torch.obs.costmodel import predict_iter_ms
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.tune import (
+        load_levels_from_source,
+        structure_fingerprint,
+    )
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.artifacts import atomic_write_json
+
+    t_phase = time.perf_counter()
+    os.makedirs(run_dir, exist_ok=True)
+    name = torch.cuda.get_device_name(0)
+    src = {"kind": "dir", "base": base, "width": width}
+    tic = time.perf_counter()
+    levels, width = load_levels_from_source(src)
+    out = {"load_s": time.perf_counter() - tic}
+
+    # (a) the lens: K1 per tier prefix, f32 and bf16 at k=128.
+    reset_counters()
+    tic = time.perf_counter()
+    prof = lens.profile_fold(levels, width, LENS["k"],
+                             feature_dtypes=LENS["dtypes"],
+                             iters=LENS["iters"], device=dev)
+    torch.cuda.synchronize()
+    out["profile_s"] = time.perf_counter() - tic
+    counts = counters()
+    per_dtype = {fd: e["launches"] + sum(t.get("launches", 0)
+                                         for t in e["tiers"])
+                 for fd, e in prof["dtypes"].items()}
+    if counts[0] != sum(per_dtype.values()) or any(counts[1:]):
+        raise SystemExit(f"phase 18: launches {counts} disagree with the "
+                         f"profile's K1 count {per_dtype}")
+    if (prof["platform"], prof["device_kind"]) != ("gpu", name):
+        raise SystemExit(f"phase 18: profile stamped {prof['platform']} "
+                         f"{prof['device_kind']}")
+    model = lens.fit_from_profile(prof)
+    problems = lens.check_profile(prof, model)
+    ratios = lens.ratio_points(prof, model)
+    bad = [p for p in ratios if p["tier"] is not None
+           and not lens.LENS_RATIO_MIN <= p["ratio"] <= lens.LENS_RATIO_MAX]
+    phase4 = {"f32": main.get("f32_k128_ms_per_iter"),
+              "bf16": (statistics.median(main["fold_bf16_k128_k1_ms_runs"])
+                       if "fold_bf16_k128_k1_ms_runs" in main else None)}
+    out["lens"] = {}
+    for fd, e in prof["dtypes"].items():
+        live = [t for t in e["tiers"] if t["slot_width"] > 0]
+        idle = [t["tier"] for t in live if not t.get("launches")]
+        if idle:
+            raise SystemExit(f"phase 18 {fd}: tier prefixes {idle} "
+                             f"launched no K1")
+        if abs(e["coverage"] - 1.0) > lens.LENS_COVERAGE_TOL:
+            problems.append(f"{fd} coverage {e['coverage']:.4f}")
+        bulk = sum(t["measured_ms"] for t in live
+                   if t["slot_width"] <= BULK_SLOTS)
+        out["lens"][fd] = {
+            "full_ms": e["full_ms"], "phase4_ms": phase4.get(fd),
+            "coverage": e["coverage"], "chain_floor_ms": e["chain_floor_ms"],
+            "resolution_ms": e["resolution_ms"], "bulk_ms": bulk,
+            "full_launches": e["launches"],
+            "tiers": [[t["tier"], t["slot_width"], t["rows"], t["nnz"],
+                       t["measured_ms"], bool(t.get("below_resolution")),
+                       t["launches"]] for t in live]}
+        p4 = phase4.get(fd)
+        log(f"phase 18 (a) lens {fd} k={LENS['k']}: full {e['full_ms']:.4f} "
+            f"ms/iter (phase 4/5's K1 "
+            f"{'not run' if p4 is None else f'{p4:.4f} ms'}), coverage "
+            f"{e['coverage']:.4f}, chain floor {e['chain_floor_ms']:.4f} "
+            f"ms, resolution {e['resolution_ms']:.4f} ms; bulk tiers "
+            f"(m_t <= {BULK_SLOTS}) {bulk:.4f} ms; K1 launches {e['launches']} "
+            f"(the full step's chains) + "
+            f"{sum(t['launches'] for t in live)} (prefixes)")
+        for t in live:
+            log(f"    tier {t['tier']:2d} m_t={t['slot_width']:5d} "
+                f"rows={t['rows']:8d} nnz={t['nnz']:9d}: "
+                f"{t['measured_ms']:.4f} ms"
+                f"{' (below resolution)' if t.get('below_resolution') else ''}"
+                f", {t['launches']} K1 launches")
+    for p in ratios:
+        log(f"    ratio {p['dtype']} "
+            f"{'full' if p['tier'] is None else 'tier %d' % p['tier']} "
+            f"({p['family']}): measured {p['measured_ms']:.4f} / predicted "
+            f"{p['predicted_ms']:.4f} = {p['ratio']:.3f}")
+    if problems or bad:
+        raise SystemExit(f"phase 18 (a): {problems} {bad}")
+    gap = lens.explain_gap(prof, model=model)
+    fp = structure_fingerprint(levels, width)
+    pred = predict_iter_ms(fp, LENS["predict_k"], model)
+    out.update(structure_hash=prof["structure_hash"], ratios=ratios,
+               coeffs=model.coeffs, gap=gap, k16_predicted_ms=pred,
+               k16_phase4_ms=main.get("f32_k16_ms_per_iter"),
+               k1_launches=counts[0], launches_by_dtype=per_dtype)
+    p16 = main.get("f32_k16_ms_per_iter")
+    log(f"phase 18 (a) model {sorted(model.coeffs)}; {gap['note']}; "
+        f"predicted f32 k={LENS['predict_k']} {pred:.4f} ms/iter beside "
+        f"phase 4's {'not run' if p16 is None else f'{p16:.4f} ms'} "
+        f"(reported, not gated); profile {out['profile_s']:.1f} s")
+    prof_path = os.path.join(run_dir, "lens_profile.json")
+    model_path = os.path.join(run_dir, "lens_model.json")
+    atomic_write_json(prof_path, prof, indent=2, sort_keys=True)
+    atomic_write_json(model_path, model.to_dict(), indent=2,
+                      sort_keys=True)
+    out["lens_records"] = len(lens.record_profile(prof, model,
+                                                  directory=store))
+
+    # (b) one fold step's device memory beside the executor's model.
+    tic = time.perf_counter()
+    ml = MultiLevelArrow(levels, width, fmt="fold", device=dev)
+    out["fold_build_s"] = time.perf_counter() - tic
+    x = ml.set_features(random_dense(ml.n, LENS["k"], seed=3))
+    ml.raw_step(x, ml.sell)            # the work list, built once
+    rep = memview.memory_report(ml.raw_step, x, ml.sell)
+    pred_bytes = ml.predicted_hbm_bytes(LENS["k"])
+    if rep["source"] != "cuda_allocator" or rep["temp_bytes"] is None:
+        raise SystemExit(f"phase 18 (b): {rep}")
+    out["memory"] = dict(rep, predicted_bytes=pred_bytes,
+                         ratio=rep["total_bytes"] / pred_bytes)
+    log(f"phase 18 (b) memory of one fold step at k={LENS['k']}: arguments "
+        f"{rep['argument_bytes']} B, output {rep['output_bytes']} B, "
+        f"temporaries {rep['temp_bytes']} B, total {rep['total_bytes']} B "
+        f"against predicted_hbm_bytes {pred_bytes} B (ratio "
+        f"{out['memory']['ratio']:.4f}); fold built in "
+        f"{out['fold_build_s']:.1f} s")
+    row_nnz = ml.nnz / ml.n
+    entries = [lens_prefix_entry(ml.sell, fd, per_dtype[fd], row_nnz, dev)
+               for fd in LENS["dtypes"]]
+    del ml, x
+    torch.cuda.empty_cache()
+
+    # (c) the probe: f32, bf16 and int8 trajectories on the card.
+    before = counters()[0]
+    tic = time.perf_counter()
+    recs = error_curves_for_source(
+        src, k=LENS["probe_k"], iterations=LENS["probe_iterations"],
+        dtypes=LENS["probe_dtypes"], ledger=Ledger(store), device=dev)
+    out["probe_s"] = time.perf_counter() - tic
+    out["probe_k1_launches"] = counters()[0] - before
+    curves = {r["knobs"]["dtype"]: r["payload"]["rel_frobenius"]
+              for r in recs}
+    out["curves"] = curves
+    for r in recs:
+        log(f"phase 18 (c) {r['metric']} k={LENS['probe_k']}: "
+            f"{[float('%.4e' % v) for v in curves[r['knobs']['dtype']]]} "
+            f"({r['platform']}, {r['device_kind']})")
+    shash = recs[0]["structure_hash"]
+    cert = find_certificate(shash, "bf16", ledger_dir=store)
+    bad = []
+    if shash != prof["structure_hash"]:
+        bad.append(f"probe hash {shash} != lens hash")
+    if any(v != 0.0 for v in curves["f32"]):
+        bad.append("the f32 curve is not all zeros")
+    if not all(np.isfinite(v) for c in curves.values() for v in c):
+        bad.append("a curve point is not finite")
+    if not curves["bf16"][0] <= LENS["bf16_gate"]:
+        bad.append(f"bf16 first point {curves['bf16'][0]:.3e} > "
+                   f"{LENS['bf16_gate']}")
+    if cert is None or cert.record_id != recs[1]["record_id"]:
+        bad.append(f"find_certificate returned {cert}")
+    if any(r["platform"] != "gpu" for r in recs):
+        bad.append("a curve is not stamped gpu")
+    if bad:
+        raise SystemExit(f"phase 18 (c): {'; '.join(bad)}")
+    out["certificate"] = {"record_id": cert.record_id,
+                          "tolerance": cert.tolerance}
+    log(f"phase 18 (c) probe {out['probe_s']:.1f} s ({out['probe_k1_launches']} "
+        f"K1 launches); find_certificate({shash}, bf16) -> "
+        f"{cert.record_id} (tolerance {cert.tolerance})")
+
+    # (d) the ledger through its CLIs, on the run-local store.
+    lg = Ledger(store)
+    if lg.validate():
+        raise SystemExit(f"phase 18 (d): {lg.validate()}")
+    kinds = sorted({r["kind"] for r in lg.read_all()})
+    rc_re, _ = cli_main(graft_ledger.main, ["--ledger-dir", store,
+                                            "rebaseline"])
+    rc_check, text = cli_main(graft_ledger.main, ["--ledger-dir", store,
+                                                  "check"])
+    print(text, end="")
+    rc_rep, text = cli_main(graft_ledger.main, ["--ledger-dir", store,
+                                                "report"])
+    print(text, end="")
+    if (rc_re, rc_check, rc_rep) != (0, 0, 0):
+        raise SystemExit(f"phase 18 (d): rebaseline/check/report exited "
+                         f"{rc_re}/{rc_check}/{rc_rep}")
+    out["ledger"] = {"records": len(lg.read_all()), "kinds": kinds}
+    if "bench" in kinds:
+        rc, _ = cli_main(graft_ledger.main, ["--ledger-dir", store,
+                                             "export", "--round", "99",
+                                             "--out", run_dir])
+        with open(os.path.join(run_dir, "BENCH_r99.json")) as fh:
+            parsed = json.load(fh)["parsed"]
+        if rc != 0 or (parsed.get("platform"), parsed.get("device_kind")) \
+                != ("gpu", name):
+            raise SystemExit(f"phase 18 (d): export rc {rc}, parsed "
+                             f"{parsed.get('platform')} "
+                             f"{parsed.get('device_kind')}")
+        out["ledger"]["export"] = {"platform": parsed["platform"],
+                                   "device_kind": parsed["device_kind"],
+                                   "value": parsed.get("value"),
+                                   "curves": len(parsed["error_curves"])}
+        log(f"phase 18 (d) export --round 99: parsed platform "
+            f"{parsed['platform']}, {parsed['device_kind']}, value "
+            f"{parsed.get('value')}, {len(parsed['error_curves'])} curves")
+    else:
+        log("phase 18 (d) no bench record in the store (phase 14 not "
+            "run): export left out")
+    rc_lens, text = cli_main(graft_lens.main, ["check", prof_path,
+                                               "--model", model_path])
+    print(text, end="")
+    if rc_lens != 0:
+        raise SystemExit(f"phase 18 (d): graft_lens check exited {rc_lens}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 (d) graft_ledger rebaseline/check/report exit 0 over "
+        f"{out['ledger']['records']} records ({', '.join(kinds)}); "
+        f"graft_lens check exit 0; phase 18 {out['phase_s']:.1f} s")
+    return out, entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -4043,6 +4401,10 @@ def main() -> int:
     parser.add_argument("--fleet", action="store_true",
                         help="run phases 1, 2 and 17 only (the fleet of "
                              "worker processes on the card)")
+    parser.add_argument("--lens", action="store_true",
+                        help="run phases 1, 2 and 18 only (the lens, the "
+                             "probe and the ledger, on phase 4's "
+                             "decomposition, made here)")
     parser.add_argument("--serve", action="store_true",
                         help="run phases 1, 2, 15 and 16 only (the serving "
                              "runtime and its observability, on phase 4's "
@@ -4059,12 +4421,10 @@ def main() -> int:
 
     import numpy as np
 
-    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
     from arrow_matrix_tpu_torch.io import (
         as_levels,
         load_decomposition,
         load_level_widths,
-        save_decomposition,
     )
     from arrow_matrix_tpu_torch.ops import (
         _build,
@@ -4074,7 +4434,6 @@ def main() -> int:
     )
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
-        barabasi_albert,
         card_report,
         random_dense,
         relative_error,
@@ -4111,16 +4470,29 @@ def main() -> int:
                         "arrow_matrix_tpu_torch", "_build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    # Phase 4's artifact and phase 18's run-local ledger, which phases
+    # 6-8 (they empty ``work``) must not remove.
+    keep = work + "_lens"
+    shutil.rmtree(keep, ignore_errors=True)
+    os.makedirs(keep)
+    store = os.path.join(keep, "ledger")
     n_dense = 1 << min(16, args.log2n)
     if args.dense:
         dense, kernels = dense_phases(dev, n_dense, work)
         return finish({"dense": dense, "card": smi}, kernels)
     if args.bench:
-        bench = phase_bench(dev, 1 << args.log2n, None, None)
+        bench = phase_bench(dev, 1 << args.log2n,
+                            start_host(phase14_host, 1 << args.log2n), None,
+                            ledger_dir=store)
         return finish({"bench": bench, "card": smi}, [])
     if args.fleet:
         fleet, entry = phase_fleet(dev, work)
         return finish({"fleet": fleet, "card": smi}, [entry])
+    if args.lens:
+        base, _ = decompose_phase4(1 << args.log2n, keep)
+        lens_res, entries = phase_lens(dev, base, 2048, store,
+                                       os.path.join(keep, "run"), {})
+        return finish({"lens": lens_res, "card": smi}, entries)
     if args.serve:
         serve_res, entry, ctx = serve_only(dev, 1 << args.log2n, work)
         observe, observe_entry = phase_observe(ctx, serve_res,
@@ -4128,27 +4500,43 @@ def main() -> int:
         return finish({"serve": serve_res, "observe": observe, "card": smi},
                       [entry, observe_entry])
 
+    # Phase 4's host work (the graph and its numpy decomposition, saved as
+    # an artifact) runs in a process of its own beside phases 3, 6-9 and
+    # 12, which do not need it.
+    n, m, width, seed = 1 << args.log2n, 8, 2048, 7
+    base = os.path.join(keep, f"ba_{n}_{m}")
+    host4 = start_host(phase4_host, n, base)
+    host14 = start_host(phase14_host, n)
+
     # -- 3. kernel vs plain on random tiers ------------------------------------
     phase_random_tiers(dev)
 
-    # -- 4. main path ----------------------------------------------------------
-    n, m, width, seed = 1 << args.log2n, 8, 2048, 7
-    base = os.path.join(work, f"ba_{n}_{m}")
+    # -- 6-8. the dense path ---------------------------------------------------
+    results = {}
+    results["dense"], kernels = dense_phases(dev, n_dense, work)
+    os.makedirs(work, exist_ok=True)      # phases 6-8 removed it
 
+    # -- 9. K4 against its plain versions --------------------------------------
+    k4_err = phase_k4_kernel(dev)
+
+    # -- 12. the ELL head layouts at the kernel-comparison shape -------------
+    results["heads"] = phase_heads(dev, n_dense)
+
+    # -- 14. the native decomposer and the port's bench ----------------------
+    results["bench"] = phase_bench(dev, n, host14, None, ledger_dir=store)
+
+    # -- 4. main path ----------------------------------------------------------
     tic = time.perf_counter()
-    a = barabasi_albert(n, m, seed=seed)
-    t_gen = time.perf_counter() - tic
-    tic = time.perf_counter()
-    levels = arrow_decomposition(a, width, max_levels=10,
-                                 block_diagonal=True, seed=seed)
-    t_dec = time.perf_counter() - tic
-    save_decomposition(levels, base, block_diagonal=True)
+    rec = join_host(*host4, "phase 4")
+    t_gen, t_dec = rec["t_gen"], rec["t_dec"]
     loaded = load_decomposition(base, width, block_diagonal=True)
     levels = as_levels(loaded, load_level_widths(base, width, True))
     nnz = sum(int(lvl.matrix.nnz) for lvl in levels)
     log(f"phase 4: BA n={n} m={m}: {nnz} nnz; generate {t_gen:.1f} s, "
-        f"decompose {t_dec:.1f} s ({len(levels)} levels, width {width}); "
-        f"artifact saved and loaded")
+        f"decompose {t_dec:.1f} s ({len(levels)} levels, width {width}), "
+        f"the host goldens {rec['t_gold']:.1f} s, in a process beside "
+        f"phases 3, 6-9, 12 and 14 (waited {time.perf_counter() - tic:.1f} "
+        f"s); artifact saved and loaded")
 
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -4176,28 +4564,26 @@ def main() -> int:
         f"ladder (m_t, n_t): {ladder(ml.sell)}")
     row_nnz = ml.nnz / n
     tol1 = relative_tolerance(row_nnz, 1)
-    results = {"main": {}}
+    results["main"] = {}
     iters = 10
     # The host goldens, ``gold[(k, s)]`` = A^s x, shared by every later
     # check of these inputs (phases 4 and 11).
     gold = {}
-    for k, xseed in ((16, 3), (128, 4)):
+    for k, xseed in GOLDEN_INPUTS:
         key = ("fold", "f32", k)
         ml.feature_dtype = torch.float32
         g = gold[(k, 0)] = random_dense(n, k, seed=xseed)
         x = ml.set_features(g)
         worst = 0.0
-        tic = time.perf_counter()
         for it in range(VALIDATED[k]):
             y = count(key, lambda: ml.step(ml.set_features(g)), 1, ml.sell)
-            g_next = gold[(k, it + 1)] = host_golden(levels, g)
+            g_next = gold[(k, it + 1)] = np.load(golden_path(base, k, it + 1))
             err = relative_error(ml.gather_result(y), g_next)
             worst = max(worst, err)
             if not err <= tol1:
                 raise SystemExit(f"k={k} step {it}: rel err {err:.3e} > "
                                  f"gate {tol1:.1e}")
             g = g_next
-        t_gold = time.perf_counter() - tic
         steps = VALIDATED[k]
         y = count(key, lambda: ml.run(x, steps), steps, ml.sell)
         err10 = relative_error(ml.gather_result(y), g)
@@ -4214,8 +4600,7 @@ def main() -> int:
         log(f"f32 k={k}: every step within {tol1:.1e} (worst "
             f"{worst:.3e}); {steps}-step chain {err10:.3e} (gate "
             f"{tol10:.1e}); {ms:.4f} ms/iter, median of {REPS} chains (min "
-            f"{min(runs):.4f}, max {max(runs):.4f}); host golden "
-            f"{t_gold:.1f} s")
+            f"{min(runs):.4f}, max {max(runs):.4f})")
 
     for k in (16, 128):
         g, want = gold[(k, 0)], gold[(k, 1)]
@@ -4280,8 +4665,8 @@ def main() -> int:
         peak_device_bytes=int(torch.cuda.max_memory_allocated()))
 
     # -- 5. per-kernel numbers at the main path's shapes -----------------------
-    kernels = phase_k1_numbers(ml, tight, launches, n, row_nnz,
-                               results["main"])
+    kernels += phase_k1_numbers(ml, tight, launches, n, row_nnz,
+                                results["main"])
     del tight
     torch.cuda.empty_cache()
 
@@ -4309,23 +4694,16 @@ def main() -> int:
     del levels, loaded, gold      # phase 10 steps ml again
     torch.cuda.empty_cache()
 
-    # -- 6-8. the dense path ---------------------------------------------------
-    results["dense"], dense_kernels = dense_phases(dev, n_dense, work)
-    kernels += dense_kernels
-
-    # -- 9-10. K4 and the gather probes ---------------------------------------
-    k4_err = phase_k4_kernel(dev)
+    # -- 10. the gather probes on phase 4's fold -----------------------------
     results["probes"], k4_entry = phase_probes(dev, ml, k4_err)
     kernels.append(k4_entry)
     del ml
     torch.cuda.empty_cache()
 
-    # -- 12. the ELL head layouts at the kernel-comparison shape -------------
-    results["heads"] = phase_heads(dev, n_dense)
-
-    # -- 14. the native decomposer and the port's bench ----------------------
-    results["bench"] = phase_bench(dev, n, a, t_dec)
-    del a
+    # -- 18. the lens, the probe and the ledger, on phase 4's levels ---------
+    results["lens"], lens_entries = phase_lens(
+        dev, base, width, store, os.path.join(keep, "run"), results["main"])
+    kernels += lens_entries
 
     # -- 17. the fleet of worker processes on the card -----------------------
     results["fleet"], fleet_entry = phase_fleet(dev, work)
@@ -4339,26 +4717,12 @@ def serve_only(dev, n: int, work: str) -> tuple:
     """``--serve``: phase 4's decomposition (generated, decomposed,
     saved and loaded as in phase 4) and its k=16 input's 10-step host
     golden, then phase 15 (whose results phase 16 takes on)."""
-    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
-    from arrow_matrix_tpu_torch.io import (
-        as_levels,
-        load_decomposition,
-        load_level_widths,
-        save_decomposition,
-    )
-    from arrow_matrix_tpu_torch.utils import barabasi_albert, random_dense
+    from arrow_matrix_tpu_torch.utils import random_dense
 
-    m, width, seed = 8, 2048, 7
-    tic = time.perf_counter()
-    a = barabasi_albert(n, m, seed=seed)
-    levels = arrow_decomposition(a, width, max_levels=10,
-                                 block_diagonal=True, seed=seed)
-    base = os.path.join(work, f"ba_{n}_{m}")
-    save_decomposition(levels, base, block_diagonal=True)
-    levels = as_levels(load_decomposition(base, width, block_diagonal=True),
-                       load_level_widths(base, width, True))
+    m, width = 8, 2048
+    base, t_dec = decompose_phase4(n, work)
+    levels = as_levels_of(base, width)
     nnz = sum(int(lvl.matrix.nnz) for lvl in levels)
-    t_dec = time.perf_counter() - tic
     tic = time.perf_counter()
     x16 = g = random_dense(n, 16, seed=3)
     for _ in range(SERVE["iterations"]):
@@ -4367,8 +4731,114 @@ def serve_only(dev, n: int, work: str) -> tuple:
         f"levels, generated, decomposed, saved and loaded in {t_dec:.1f} s; "
         f"the k=16 input's {SERVE['iterations']}-step host golden "
         f"{time.perf_counter() - tic:.1f} s")
-    del a
     return phase_serve(dev, levels, n, width, nnz / n, x16, g, work)
+
+
+def phase4_host(n: int, base: str, out: str) -> None:
+    """Phase 4's host work in a process of its own: BA ``n`` m=8 (seed 7)
+    decomposed at width 2048 (10 levels) by the numpy decomposer and
+    saved as the artifact ``base``, then loaded as phase 4 loads it and
+    the host goldens of its inputs computed over it (``A^s x`` for the
+    k=16 and k=128 inputs, :data:`VALIDATED` steps, on half the cores:
+    the phases beside it keep the rest), each saved as
+    :func:`golden_path`; its seconds in ``out``."""
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.io import save_decomposition
+    from arrow_matrix_tpu_torch.utils import barabasi_albert, random_dense
+
+    tic = time.perf_counter()
+    a = barabasi_albert(n, 8, seed=7)
+    t_gen = time.perf_counter() - tic
+    tic = time.perf_counter()
+    levels = arrow_decomposition(a, 2048, max_levels=10,
+                                 block_diagonal=True, seed=7)
+    t_dec = time.perf_counter() - tic
+    save_decomposition(levels, base, block_diagonal=True)
+    levels = as_levels_of(base, 2048)
+    tic = time.perf_counter()
+    cores = max(1, (os.cpu_count() or 2) // 2)
+    for k, xseed in GOLDEN_INPUTS:
+        g = random_dense(n, k, seed=xseed)
+        for s in range(VALIDATED[k]):
+            g = host_golden(levels, g, cores)
+            np.save(golden_path(base, k, s + 1), g)
+    with open(out, "w") as fh:
+        json.dump({"t_gen": t_gen, "t_dec": t_dec,
+                   "t_gold": time.perf_counter() - tic}, fh)
+
+
+def golden_path(base: str, k: int, s: int) -> str:
+    """The file of ``A^s x`` for phase 4's k-wide input."""
+    return f"{base}_gold_k{k}_s{s}.npy"
+
+
+def start_host(target, *args) -> tuple:
+    """Start a phase's host work, ``target(*args, out)``, in a spawned
+    process; (the process, ``out``, a JSON file the target writes)."""
+    import multiprocessing
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "arrow_matrix_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    fd, out = tempfile.mkstemp(suffix=".json", prefix=target.__name__,
+                               dir=build)
+    os.close(fd)
+    # A daemon: a run that fails before joining it does not wait for it.
+    proc = multiprocessing.get_context("spawn").Process(
+        target=target, args=(*args, out), name=target.__name__, daemon=True)
+    proc.start()
+    return proc, out
+
+
+def join_host(proc, out: str, phase: str) -> dict:
+    """Wait for :func:`start_host`'s process; the record it wrote.  Fatal
+    if it failed."""
+    proc.join()
+    try:
+        if proc.exitcode != 0:
+            raise SystemExit(f"{phase}: its host process exited "
+                             f"{proc.exitcode}")
+        with open(out) as fh:
+            return json.load(fh)
+    finally:
+        os.remove(out)
+
+
+def decompose_phase4(n: int, directory: str) -> tuple:
+    """Phase 4's decomposition for a short form: BA ``n`` m=8 decomposed
+    at width 2048 (10 levels, seed 7) by the numpy decomposer and saved
+    as an artifact under ``directory``; returns (its base, seconds)."""
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.io import save_decomposition
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+
+    m, width, seed = 8, 2048, 7
+    tic = time.perf_counter()
+    a = barabasi_albert(n, m, seed=seed)
+    levels = arrow_decomposition(a, width, max_levels=10,
+                                 block_diagonal=True, seed=seed)
+    base = os.path.join(directory, f"ba_{n}_{m}")
+    save_decomposition(levels, base, block_diagonal=True)
+    t_dec = time.perf_counter() - tic
+    log(f"phase 4 (for a short form): BA n={n} m={m} decomposed into "
+        f"{len(levels)} levels and saved in {t_dec:.1f} s")
+    return base, t_dec
+
+
+def as_levels_of(base: str, width: int):
+    """The levels of the artifact at ``base``, loaded as phase 4 loads
+    them."""
+    from arrow_matrix_tpu_torch.io import (
+        as_levels,
+        load_decomposition,
+        load_level_widths,
+    )
+
+    return as_levels(load_decomposition(base, width, block_diagonal=True),
+                     load_level_widths(base, width, True))
 
 
 def dense_phases(dev, n: int, work: str) -> tuple:
@@ -4383,9 +4853,10 @@ def dense_phases(dev, n: int, work: str) -> tuple:
 
 
 #: The kernels each bench candidate's step must launch (phase 14).
-BENCH_KERNELS = {"fold": ("K1",), "fold_tight": ("K1",),
-                 "hyb": ("K1", "K4", "K4 add"),
+BENCH_KERNELS = {"fold": ("K1",), "hyb": ("K1", "K4", "K4 add"),
                  "auto": ("K1", "K2", "K3", "K4", "K4 add")}
+#: Phase 14's race.
+BENCH_RACE = tuple(BENCH_KERNELS)
 
 
 def check_levels(a, levels, width: int) -> None:
@@ -4413,26 +4884,17 @@ def check_levels(a, levels, width: int) -> None:
                              f"{w}")
 
 
-def phase_bench(dev, n: int, a, t_numpy) -> dict:
-    """Phase 14: BA ``n`` m=8 (``a``, generated here when None)
-    decomposed by the native decomposer into the bench's cache, then the
-    bench as a subprocess on it; every check fatal."""
-    import subprocess
-
-    import torch
-
-    from arrow_matrix_tpu_torch import bench
+def phase14_host(n: int, out: str) -> None:
+    """Phase 14's host work in a process of its own: BA ``n`` m=8 (seed
+    7) decomposed at width 2048 (max_levels 12) by the native decomposer
+    into the bench's cache, the levels checked (:func:`check_levels`);
+    its seconds and levels in ``out``."""
     from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
     from arrow_matrix_tpu_torch.tools import gather_probe
     from arrow_matrix_tpu_torch.utils import barabasi_albert
-    from arrow_matrix_tpu_torch.utils.artifacts import parse_last_json_line
 
     m, width, seed, max_levels = 8, 2048, 7, 12
-    if a is None:
-        tic = time.perf_counter()
-        a = barabasi_albert(n, m, seed=seed)
-        log(f"phase 14: BA n={n} m={m} generated in "
-            f"{time.perf_counter() - tic:.1f} s")
+    a = barabasi_albert(n, m, seed=seed)
     tic = time.perf_counter()
     levels = arrow_decomposition(a, width, max_levels=max_levels,
                                  block_diagonal=True, seed=seed,
@@ -4441,27 +4903,53 @@ def phase_bench(dev, n: int, a, t_numpy) -> dict:
     tic = time.perf_counter()
     check_levels(a, levels, width)
     t_check = time.perf_counter() - tic
-    cache = gather_probe.CACHE_DIR
     base = gather_probe.cache_base(n, m, width, seed, max_levels, "native",
-                                   cache)
+                                   gather_probe.CACHE_DIR)
     gather_probe.store_levels(levels, base)
+    with open(out, "w") as fh:
+        json.dump({"t_native": t_native, "t_check": t_check, "base": base,
+                   "widths": [lvl.arrow_width for lvl in levels]}, fh)
+
+
+def phase_bench(dev, n: int, host14: tuple, t_numpy, ledger_dir: str
+                ) -> dict:
+    """Phase 14: the native decomposition of BA ``n`` m=8 into the
+    bench's cache (``host14``: :func:`phase14_host`'s process and its
+    output file), then the bench as a subprocess on it, its ledger
+    record into ``ledger_dir``; every check fatal."""
+    import subprocess
+
+    import torch
+
+    from arrow_matrix_tpu_torch import bench
+    from arrow_matrix_tpu_torch.tools import gather_probe
+    from arrow_matrix_tpu_torch.utils.artifacts import parse_last_json_line
+
+    tic = time.perf_counter()
+    rec = join_host(*host14, "phase 14")
+    cache = gather_probe.CACHE_DIR
     numpy_s = ("phase 4's numpy decomposer (max_levels 10) "
                f"{t_numpy:.1f} s" if t_numpy is not None
-               else "phase 4 not run")
-    log(f"phase 14: native decomposer {t_native:.1f} s ({len(levels)} "
-        f"levels, widths {[lvl.arrow_width for lvl in levels]}); "
+               else "phase 4's numpy seconds are in its line")
+    log(f"phase 14: native decomposer {rec['t_native']:.1f} s "
+        f"({len(rec['widths'])} levels, widths {rec['widths']}; in a "
+        f"process of its own, waited {time.perf_counter() - tic:.1f} s); "
         f"{numpy_s}; levels reconstruct A exactly and stay within their "
-        f"widths (checked in {t_check:.1f} s); saved as {base}")
-    out = {"native_decompose_s": t_native, "numpy_decompose_s": t_numpy,
-           "native_levels": len(levels)}
-    del levels
+        f"widths (checked in {rec['t_check']:.1f} s); saved as "
+        f"{rec['base']}")
+    out = {"native_decompose_s": rec["t_native"],
+           "numpy_decompose_s": t_numpy, "native_levels": len(rec["widths"])}
     torch.cuda.empty_cache()
 
+    # The race without fold_tight: phase 4 times that packing on the same
+    # graph, and a candidate costs a subprocess of 20-30 s.
     env = dict(os.environ, AMT_BENCH_COMPARE="0", AMT_BENCH_CACHE_DIR=cache,
-               AMT_BENCH_N=str(n), AMT_BENCH_DEADLINE="1500")
-    for key in ("AMT_BENCH_FMT", "AMT_BENCH_LEVELS", "AMT_BENCH_K128",
-                "AMT_BENCH_SMALL", "AMT_BENCH_FULL"):
+               AMT_BENCH_N=str(n), AMT_BENCH_DEADLINE="1500",
+               AMT_BENCH_FMT=",".join(BENCH_RACE))
+    for key in ("AMT_BENCH_LEVELS", "AMT_BENCH_K128",
+                "AMT_BENCH_SMALL", "AMT_BENCH_FULL", "AMT_LEDGER"):
         env.pop(key, None)
+    env["AMT_LEDGER_DIR"] = ledger_dir
     root = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     tic = time.perf_counter()
@@ -4478,7 +4966,7 @@ def phase_bench(dev, n: int, a, t_numpy) -> dict:
         raise SystemExit(f"phase 14: the bench exited {proc.returncode}")
     name = torch.cuda.get_device_name(0)
     bad = []
-    if line.get("platform") != "cuda" or line.get("device_kind") != name:
+    if line.get("platform") != "gpu" or line.get("device_kind") != name:
         bad.append(f"platform/device_kind {line.get('platform')} "
                    f"{line.get('device_kind')}")
     if line.get("config", {}).get("decompose_backend") != "native":
@@ -4497,6 +4985,15 @@ def phase_bench(dev, n: int, a, t_numpy) -> dict:
         bad.append(f"roofline_frac {frac}")
     if not line.get("fmt_used"):
         bad.append("no fmt_used")
+    onchip = line.get("last_onchip")
+    if onchip is not None and onchip["summary"].get("platform") != "gpu":
+        bad.append(f"last_onchip from {onchip['path']}")
+    from arrow_matrix_tpu_torch.ledger import Ledger
+
+    recs = [r for r in Ledger(ledger_dir).read_all() if r["kind"] == "bench"]
+    if (len(recs) != 1 or recs[0]["payload"]["parsed"] != line
+            or recs[0]["platform"] != "gpu"):
+        bad.append(f"the bench's ledger record: {len(recs)} records")
     for cand, run in line.get("device_runs", {}).items():
         idle = [k for k in BENCH_KERNELS.get(cand, ())
                 if not run.get("launches", {}).get(k)]

@@ -253,3 +253,92 @@ def test_logging_and_host_load_behave_as_jax(tmp_path):
     assert isinstance(ours["loadavg_1m"], float)
     assert isinstance(ours["competing"], list)
     assert len(host_load(max_pids=1)["competing"]) <= 1
+
+
+# ---------------------------------------------------------------------------
+# The ledger record, the prior on-card capture, the flight recorders
+# ---------------------------------------------------------------------------
+
+def test_the_runs_record_lands_in_the_ledger_dir(tmp_path):
+    from arrow_matrix_tpu_torch.ledger import Ledger
+
+    store = tmp_path / "ledger"
+    proc, line = _bench(tmp_path, ["--device", "cpu"], AMT_BENCH_N="4096",
+                        AMT_BENCH_FMT="fold", AMT_BENCH_K128="0",
+                        AMT_LEDGER_DIR=str(store))
+    assert proc.returncode == 0, proc.stderr
+    lg = Ledger(str(store))
+    assert lg.validate() == []
+    (rec,) = lg.read_all()
+    assert rec["kind"] == "bench"
+    assert rec["metric"] == "spmm_iter_ms_n4096_w2048"
+    assert rec["value"] == line["value"] and rec["unit"] == "ms"
+    assert (rec["platform"], rec["device_kind"]) == ("cpu", "host")
+    assert rec["payload"]["parsed"] == line
+    assert rec["knobs"]["fmt_used"] == line["fmt_used"]
+    # Each candidate subprocess left its flight recorder behind.
+    flight = json.loads((tmp_path / "cache" / "flight" /
+                         "candidate_fold.json").read_text())
+    assert any("candidate start" in str(ev.get("name"))
+               for ev in flight.get("events", []))
+
+
+def _capture(path, **fields):
+    rec = {"metric": "spmm_iter_ms", "value": 0.34, "unit": "ms",
+           "config": {"n": 1 << 20, "width": 2048, "features": 16,
+                      "iterations": 10, "levels": 10, "decompose_s": 1.0},
+           **fields}
+    path.write_text("progress\n" + json.dumps(rec) + "\n")
+    return rec
+
+
+def test_last_onchip_evidence_takes_only_a_card_record(tmp_path,
+                                                       monkeypatch):
+    committed = [os.path.join(REPO, "bench_results", n)
+                 for n in ("onchip_r3_full.json", "onchip_r3_foldonly.json")]
+    from arrow_matrix_tpu_torch.utils.artifacts import (
+        load_last_json_line,
+        record_is_onchip,
+    )
+
+    for p in committed:
+        rec = load_last_json_line(p)
+        # The committed captures are the JAX package's TPU records, which
+        # the shared predicate accepts.
+        assert rec["platform"] == "tpu" and record_is_onchip(rec)
+    monkeypatch.setenv("AMT_BENCH_CACHE_DIR", str(tmp_path))
+    assert bench._last_onchip_evidence() is None
+    for name, fields in (("onchip_a.json", {"platform": "tpu"}),
+                         ("onchip_b.json", {"platform": "cuda"}),
+                         ("onchip_c.json", {"platform": "gpu",
+                                            "degraded": True}),
+                         ("onchip_VERIFYDRIVE.json", {"platform": "gpu"})):
+        _capture(tmp_path / name, **fields)
+    assert bench._last_onchip_evidence() is None
+    want = _capture(tmp_path / "onchip_card.json", platform="gpu",
+                    device_kind="NVIDIA H100 80GB HBM3", k128_ms=2.75)
+    ev = bench._last_onchip_evidence()
+    assert ev["path"] == str(tmp_path / "onchip_card.json")
+    assert ev["summary"]["platform"] == "gpu"
+    assert ev["summary"]["value"] == want["value"]
+    assert ev["summary"]["k128_ms"] == 2.75
+    assert "decompose_s" not in ev["summary"]["config"]
+    assert "prior run" in ev["note"]
+
+
+def test_a_timed_out_candidate_names_its_flight_recorder(tmp_path,
+                                                         monkeypatch):
+    monkeypatch.setenv("AMT_FLIGHT_DIR", str(tmp_path))
+    cfg = {"k128_run": True}
+    assert bench._flight_path(bench._candidate_flight_name("fold", cfg)) \
+        == str(tmp_path / "candidate_fold_k128.json")
+
+    def hang(*a, **kw):
+        raise subprocess.TimeoutExpired("bench", 1.0)
+
+    monkeypatch.setattr(bench.subprocess, "run", hang)
+    err = bench._spawn_candidate("fold", {}, 1.0)
+    assert err["timed_out"] and "flight" not in err
+    (tmp_path / "candidate_fold.json").write_text("{}")
+    err = bench._spawn_candidate("fold", {}, 1.0)
+    assert err["flight"] == str(tmp_path / "candidate_fold.json")

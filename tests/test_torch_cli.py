@@ -1,5 +1,7 @@
 """The port's command lines end to end on the CPU: ``spmm_arrow``,
-and ``graft_serve --pulse``."""
+``graft_serve --pulse``, and the lens's and the ledger's operator
+surfaces ``graft_lens`` and ``graft_ledger`` (every subcommand, beside
+the JAX CLIs' outputs where they compute the same thing)."""
 
 import json
 import os
@@ -262,3 +264,154 @@ def test_graft_serve_pulse_writes_a_valid_ring_and_trace(tmp_path):
             assert a[rid].tobytes() == b[rid].tobytes()
         windows = json.loads(a["_pulse_windows"].tobytes().decode())
     assert sum(w["completed"] for w in windows) == 6
+
+
+# ---------------------------------------------------------------------------
+# graft_lens and graft_ledger
+# ---------------------------------------------------------------------------
+
+class _Run:
+    """The outcome of one in-process CLI call."""
+
+    def __init__(self, returncode, stdout, stderr):
+        self.returncode, self.stdout, self.stderr = returncode, stdout, \
+            stderr
+
+    def last_json(self):
+        return json.loads(self.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture
+def cli(tmp_path, capsys):
+    """``cli(module, *args)``: ``python -m module args`` run in this
+    process from ``tmp_path`` (no interpreter start-up a call)."""
+    import importlib
+
+    def run(module, *args):
+        main = importlib.import_module(module).main
+        old = os.getcwd()
+        capsys.readouterr()
+        os.chdir(tmp_path)
+        try:
+            rc = main([str(a) for a in args])
+        except SystemExit as e:
+            rc = e.code
+        finally:
+            os.chdir(old)
+        return _Run(rc, *capsys.readouterr())
+
+    return run
+
+
+LENS = "arrow_matrix_tpu_torch.cli.graft_lens"
+LEDGER = "arrow_matrix_tpu_torch.cli.graft_ledger"
+JLENS = "arrow_matrix_tpu.cli.graft_lens"
+JLEDGER = "arrow_matrix_tpu.cli.graft_ledger"
+
+
+def test_graft_lens_profile_fit_predict_explain_check(tmp_path, cli,
+                                                      monkeypatch):
+    import functools
+
+    from arrow_matrix_tpu_torch.ledger import Ledger
+    from arrow_matrix_tpu_torch.obs import lens
+    from test_torch_lens import SimulatedCard
+
+    committed = os.path.join(REPO, "bench_results", "lens",
+                             "ba_256_3_profile.json")
+    # The samples read a clock that advances with K1's work alone, not
+    # the shared host's wall clock.
+    monkeypatch.setattr(lens, "profile_fold", functools.partial(
+        lens.profile_fold, clock=SimulatedCard(monkeypatch)))
+    store = "L"
+    r = cli(LENS, "profile", "--ba", "256,32,0", "--k", "16", "--iters",
+            "5", "--device", "cpu", "--out", "p.json", "--fit", "m.json",
+            "--ledger-dir", store)
+    assert r.returncode == 0, r.stderr
+    c = cli(LENS, "check", "p.json", "--model", "m.json")
+    assert c.returncode == 0, c.stdout + c.stderr
+    assert c.last_json() == {"cmd": "check", "ok": True, "problems": []}
+    out = r.last_json()
+    with open(committed) as fh:
+        assert out["structure_hash"] == json.load(fh)["structure_hash"]
+    assert out["kernel"] == "xla" and set(out["dtypes"]) == {"f32", "bf16"}
+    assert out["records"] == len(Ledger(str(tmp_path / store)).read_all()) > 0
+    f = cli(LENS, "fit", "p.json", "--out", "m2.json", "--dtypes", "f32")
+    assert f.returncode == 0 and f.last_json()["families"]
+    p = cli(LENS, "predict", "m.json", "--ba", "256,32,0", "--k", "16")
+    assert p.returncode == 0 and p.last_json()["predicted_ms"] > 0
+    e = cli(LENS, "explain", "p.json", "--model", "m.json")
+    assert e.returncode == 0 and e.last_json()["dominant"].startswith("L")
+    # The JAX CLI reads the port's documents and agrees on the model.
+    jp = cli(JLENS, "predict", "m.json", "--ba", "256,32,0", "--k", "16")
+    assert jp.returncode == 0, jp.stderr
+    assert jp.last_json()["predicted_ms"] == p.last_json()["predicted_ms"]
+    jc = cli(JLENS, "check", "p.json", "--model", "m.json")
+    assert jc.returncode == 0, jc.stdout + jc.stderr
+    # A profile whose tiers cover half the step fails the check.
+    with open(tmp_path / "p.json") as fh:
+        bad = json.load(fh)
+    bad["dtypes"]["f32"]["coverage"] = 0.5
+    with open(tmp_path / "bad.json", "w") as fh:
+        json.dump(bad, fh)
+    b = cli(LENS, "check", "bad.json")
+    assert b.returncode == 1 and not b.last_json()["ok"]
+
+
+@pytest.mark.parametrize("flags", [["--kernel", "pallas"], ["--ring-sweep"]])
+def test_graft_lens_reference_options_exit_naming_the_item(cli, flags):
+    r = cli(LENS, "profile", "--ba", "64,16,0", "--device", "cpu", *flags)
+    assert r.returncode == 2
+    assert "fold executor options" in r.stderr
+    assert "ROADMAP.md Queue A" in r.last_json()["error"]
+
+
+def test_graft_ledger_subcommands_on_a_store(tmp_path, cli):
+    from arrow_matrix_tpu_torch.ledger import Ledger
+
+    store = ("--ledger-dir", "L")
+    rounds = [os.path.join(REPO, f"BENCH_r0{i}.json") for i in (2, 3)]
+    r = cli(LEDGER, *store, "ingest", "--bench", *rounds)
+    assert r.returncode == 0, r.stderr
+    assert "ingested 2 legacy bench rounds" in r.stdout
+    r = cli(LEDGER, *store, "probe", "--ba", "96,16,7", "--k", "2",
+            "--iterations", "3", "--device", "cpu")
+    assert r.returncode == 0, r.stderr
+    assert cli(LEDGER, *store, "check").returncode == 0
+    r = cli(LEDGER, *store, "rebaseline")
+    assert r.returncode == 0 and "baseline written" in r.stdout
+    r = cli(LEDGER, *store, "check")
+    assert r.returncode == 0 and "ledger_gate: ok" in r.stdout
+    r = cli(LEDGER, *store, "report")
+    assert r.returncode == 0 and "error_curve|error_curve_bf16|" in r.stdout
+    r = cli(LEDGER, *store, "report", "--json", "--kind", "error_curve")
+    assert json.loads(r.stdout)["records"] == 2
+    r = cli(LEDGER, *store, "curve", "--dtype", "f32")
+    assert r.returncode == 0 and "0.0000e+00" in r.stdout
+    r = cli(LEDGER, *store, "diff")
+    assert r.returncode == 0, r.stdout + r.stderr
+    # export into a directory names the round file there.
+    (tmp_path / "out").mkdir()
+    r = cli(LEDGER, *store, "export", "--round", "99", "--out", "out")
+    assert r.returncode == 0, r.stderr
+    doc = json.loads((tmp_path / "out" / "BENCH_r99.json").read_text())
+    assert doc["n"] == 99 and len(doc["parsed"]["error_curves"]) == 2
+    assert doc["parsed"]["ledger"]["records"] == len(
+        Ledger(str(tmp_path / "L")).read_all())
+    assert not (tmp_path / "BENCH_r99.json").exists()
+    # --out is required: nothing lands in the working directory.
+    r = cli(LEDGER, *store, "export", "--round", "98")
+    assert r.returncode == 2 and "--out" in r.stderr
+    # The JAX CLI exports the port's store to the same bytes.
+    r = cli(JLEDGER, *store, "export", "--round", "99", "--out", "jax.json")
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "jax.json").read_bytes() == \
+        (tmp_path / "out" / "BENCH_r99.json").read_bytes()
+    # A tampered line fails the check.
+    path = tmp_path / "L" / "ledger.jsonl"
+    lines = path.read_text().splitlines()
+    rec = json.loads(lines[0])
+    rec["value"] = 1.0
+    lines[0] = json.dumps(rec, separators=(",", ":"))
+    path.write_text("\n".join(lines) + "\n")
+    assert cli(LEDGER, *store, "check").returncode == 1

@@ -683,7 +683,7 @@ def test_bench_on_the_card_prints_its_contract_line(cuda, tmp_path):
                           timeout=1200)
     assert proc.returncode == 0, proc.stderr[-2000:]
     line = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert line["platform"] == "cuda" and line.get("degraded") is None
+    assert line["platform"] == "gpu" and line.get("degraded") is None
     assert line["device_kind"] == torch.cuda.get_device_name(0)
     assert line["device_kind"] in line["card"]
     assert np.isfinite(line["value"])
@@ -783,3 +783,63 @@ def test_profiler_trace_records_k1_launches_by_name(cuda, tmp_path):
     for r in recs:
         assert r["platform"] == "gpu"
         assert r["device_kind"] == torch.cuda.get_device_name(0)
+
+
+def test_lens_profile_on_the_card_counts_k1_per_prefix(cuda, tmp_path):
+    """``profile_fold`` on the card: the static tiers equal the CPU
+    profile's, every live tier's prefix chain launched K1 (the warm-up
+    and 5 sweeps of ``iters``), the document checks and its records are
+    stamped with the card."""
+    from arrow_matrix_tpu_torch.ledger import Ledger
+    from arrow_matrix_tpu_torch.obs import lens
+    from arrow_matrix_tpu_torch.tune import load_levels_from_source
+
+    # 2^18 rows: K1's chains are device-bound at k=128 (at 2^14 the
+    # launches' host time is the step's).
+    levels, width = load_levels_from_source(
+        {"kind": "ba", "n": 1 << 18, "m": 8, "width": 2048, "seed": 7,
+         "max_levels": 10})
+    iters = 10
+    prof = lens.profile_fold(levels, width, 128,
+                             feature_dtypes=("f32", "bf16"), iters=iters,
+                             device=cuda)
+    cpu = lens.profile_fold(levels, width, 8, feature_dtypes=("f32",),
+                            iters=1, device="cpu")
+    assert prof["platform"] == "gpu"
+    assert prof["device_kind"] == torch.cuda.get_device_name(0)
+    assert prof["structure_hash"] == cpu["structure_hash"]
+    static = ("tier", "family", "rows", "nnz", "slots", "slot_width")
+    for fd, entry in prof["dtypes"].items():
+        assert entry["full_ms"] > 0 and entry["dma_wait_ms"] == {}
+        assert entry["launches"] >= 6 * iters
+        for t, c in zip(entry["tiers"], cpu["dtypes"]["f32"]["tiers"]):
+            if fd == "f32":
+                assert {f: t[f] for f in static} == \
+                    {f: c[f] for f in static}
+            if t["slot_width"] > 0:
+                assert t["launches"] >= 6 * iters
+    model = lens.fit_from_profile(prof)
+    assert lens.check_profile(prof) == []
+    d = str(tmp_path / "ledger")
+    lens.record_profile(prof, model, directory=d)
+    assert {r["platform"] for r in Ledger(d).read_all()} == {"gpu"}
+
+
+def test_memory_report_of_a_fold_step_on_the_card(cuda):
+    """``memory_report`` on the card reads the allocator: the arguments
+    (carriage and operator) and the result from their tensors, the
+    temporaries from the peak, all within the executor's HBM model."""
+    from arrow_matrix_tpu_torch.obs import memview
+
+    a = barabasi_albert(1 << 14, 8, seed=7)
+    levels = arrow_decomposition(a, 256, max_levels=10,
+                                 block_diagonal=True, seed=7)
+    exe = MultiLevelArrow(levels, 256, fmt="fold", device=cuda)
+    x = exe.set_features(random_dense(exe.n, 128, seed=3))
+    exe.raw_step(x, exe.sell)            # the work list, built once
+    rep = memview.memory_report(exe.raw_step, x, exe.sell)
+    assert rep["source"] == "cuda_allocator"
+    assert rep["argument_bytes"] == x.nbytes + exe.sell.device_nbytes()
+    assert rep["output_bytes"] == x.nbytes
+    assert rep["temp_bytes"] is not None and rep["temp_bytes"] >= 0
+    assert rep["total_bytes"] <= exe.predicted_hbm_bytes(128)

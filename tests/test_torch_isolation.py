@@ -78,7 +78,19 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             os.path.join("cli", "graft_fleet.py"),
             os.path.join("cli", "graft_xray.py"),
             os.path.join("cli", "graft_pulse.py"),
-            os.path.join("tools", "fleet_gate.py")} <= names
+            os.path.join("tools", "fleet_gate.py"),
+            os.path.join("obs", "lens.py"),
+            os.path.join("obs", "costmodel.py"),
+            os.path.join("obs", "imbalance.py"),
+            os.path.join("tune", "fingerprint.py"),
+            os.path.join("tune", "search.py"),
+            os.path.join("ledger", "gate.py"),
+            os.path.join("ledger", "export.py"),
+            os.path.join("ledger", "probe.py"),
+            os.path.join("cli", "graft_lens.py"),
+            os.path.join("cli", "graft_ledger.py"),
+            os.path.join("tools", "lens_gate.py"),
+            os.path.join("tools", "ledger_gate.py")} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -294,3 +306,39 @@ def test_cuda_only_tests_exist_and_are_marked():
     assert "pytestmark = pytest.mark.cuda" in src
     for t in tests:
         assert "cuda" in [a.arg for a in t.args.args], t.name
+
+
+LENS_RUN = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")] + r"""
+import os, tempfile
+from arrow_matrix_tpu_torch.obs import lens
+from arrow_matrix_tpu_torch.ledger import Ledger, export, gate, probe
+from arrow_matrix_tpu_torch.tools import lens_gate, ledger_gate
+from arrow_matrix_tpu_torch.tune import load_levels_from_source
+import arrow_matrix_tpu_torch.cli.graft_lens, arrow_matrix_tpu_torch.cli.graft_ledger
+work = tempfile.mkdtemp()
+src = {"kind": "ba", "n": 128, "m": 3, "width": 16, "seed": 1,
+       "max_levels": 10}
+levels, width = load_levels_from_source(src)
+prof = lens.profile_fold(levels, width, 4, iters=2, device="cpu")
+lg = Ledger(os.path.join(work, "ledger"))
+assert lens.fit_from_profile(prof).coeffs
+lens.record_profile(prof, None, lg.directory)
+probe.error_curves_for_source(src, k=2, iterations=2, ledger=lg,
+                              device="cpu")
+assert gate.main(["--rebaseline", "--ledger-dir", lg.directory]) == 0
+assert gate.main(["--check", "--ledger-dir", lg.directory]) == 0
+assert lens_gate.main([]) == 0
+assert not any(m.split(".")[0] in {"jax", "flax", "arrow_matrix_tpu"}
+               for m in sys.modules)
+print("ok")
+"""
+
+
+def test_lens_and_ledger_run_with_jax_blocked():
+    """A lens profile, its records, the probe's curves, the gate and the
+    lens gate, with JAX and the JAX package unimportable."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", LENS_RUN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

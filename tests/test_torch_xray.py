@@ -219,3 +219,85 @@ def test_merge_run_dir_equals_jax(tmp_path):
     path = pxray.save_fleet_trace(ours, str(run))
     with open(path) as fh:
         assert json.load(fh) == json.loads(json.dumps(ours))
+
+
+def _run_dir(tmp_path):
+    docs, offsets = _random_docs(7, workers=2)
+    run = tmp_path / "run"
+    (run / "w0").mkdir(parents=True)
+    (run / "w1").mkdir()
+    with open(run / "router_xray.json", "w") as fh:
+        json.dump(docs[0], fh)
+    for w in (0, 1):
+        with open(run / f"w{w}" / "xray_trace.json", "w") as fh:
+            json.dump(docs[1 + w], fh)
+    with open(run / "fleet_report.json", "w") as fh:
+        json.dump({"clock_offsets_ns": offsets}, fh)
+    return run
+
+
+def test_report_with_a_lens_profile_splits_compute_as_jax(tmp_path,
+                                                           capsys):
+    """``graft_xray report --lens PROFILE`` splits each class's compute
+    segment by the profile's per-tier attribution (the exact class by
+    f32, approx by bf16), as the JAX CLI does."""
+    from arrow_matrix_tpu.cli import graft_xray as jcli
+    from arrow_matrix_tpu_torch.cli import graft_xray as pcli
+
+    run = _run_dir(tmp_path)
+    profile = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "bench_results", "lens",
+        "ba_256_3_profile.json")
+    outs = {}
+    for name, cli in (("port", pcli), ("jax", jcli)):
+        out = tmp_path / f"{name}.json"
+        assert cli.main(["report", str(run), "--lens", profile, "--out",
+                         str(out)]) == 0
+        outs[name] = json.loads(out.read_text())
+        text = capsys.readouterr().out
+        assert json.loads(text.strip().splitlines()[-1])["ok"]
+    assert outs["port"] == outs["jax"]
+    per_class = outs["port"]["per_class"]
+    assert per_class
+    for cls, agg in per_class.items():
+        split = agg["compute_breakdown_ms"]
+        assert any(label.startswith("L0:") for label in split)
+        assert sum(split.values()) == pytest.approx(
+            agg["segments_mean_ms"]["compute"], rel=1e-4, abs=1e-5)
+
+
+def test_memory_report_on_the_cpu_reads_the_tensors():
+    from arrow_matrix_tpu_torch.obs import MetricsRegistry, memview
+
+    x = torch.ones((32, 16))
+    rep = memview.memory_report(lambda v: v @ v.T, x)
+    assert rep["source"] == "tensors"
+    assert rep["argument_bytes"] == 32 * 16 * 4
+    assert rep["output_bytes"] == 32 * 32 * 4
+    assert rep["temp_bytes"] is None
+    assert rep["total_bytes"] == (32 * 16 + 32 * 32) * 4
+    reg = MetricsRegistry()
+    acc = memview.account_memory("toy", lambda v: v @ v.T, x,
+                                 predicted_bytes=1024, registry=reg)
+    assert acc["ratio"] == acc["measured_bytes"] / 1024
+    assert reg.gauge("hbm_measured_bytes",
+                     algorithm="toy").value == acc["measured_bytes"]
+    assert "measured vs format-model prediction" in \
+        memview.format_memory_report(acc)
+    assert memview.account_memory("toy", lambda v: v, x)["ratio"] is None
+
+
+def test_memory_report_of_a_fold_step_counts_the_operator():
+    from arrow_matrix_tpu_torch.obs import memview
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+
+    levels = arrow_decomposition(barabasi_albert(400, 3, seed=1), 32,
+                                 max_levels=10, block_diagonal=True, seed=1)
+    exe = MultiLevelArrow(levels, 32, fmt="fold", device="cpu")
+    x = exe.set_features(np.ones((exe.n, 8), np.float32))
+    rep = memview.memory_report(exe.raw_step, x, exe.sell)
+    assert rep["argument_bytes"] == x.nbytes + exe.sell.device_nbytes()
+    assert rep["output_bytes"] == x.nbytes
+    assert rep["total_bytes"] <= exe.predicted_hbm_bytes(8)
