@@ -35,6 +35,11 @@ How it runs:
   at ``COMPARE_CONFIG``.  The reference's ``pallas`` and
   ``pallas_bf16`` variants have no counterpart: on the card the port's
   ``dense`` already runs its hand-written block kernels (K2/K3).
+- ``--overlap_slabs 1,2,4`` (``AMT_BENCH_OVERLAP_SWEEP``) and ``--repl
+  1,2`` (``AMT_BENCH_REPL_SWEEP``) then measure the winning format at
+  each overlap slab count S and the fold at each replication factor c,
+  each point in its own subprocess and gated (``overlap_sweep`` and
+  ``repl_sweep`` in the line), as the root ``bench.py`` does.
 - ``AMT_BENCH_DEADLINE`` (3300 s; 0 turns it off) bounds the whole run.
 
 The device rule differs on purpose from the root ``bench.py``'s
@@ -571,6 +576,60 @@ def run_bench(result: dict, platform: str, device_kind: str) -> None:
                                     or rerun.get("error"))
         if rerun.pop("timed_out", False):
             _check_wedged(result, cfg, "k=128 rerun")
+    column_sweeps(result, cfg, tol)
+
+
+def _sweep_points(spec: str, k: int, what: str):
+    """(label, value or None, error) of each token of a comma list: a
+    positive integer that divides ``k``."""
+    for tok in (t.strip() for t in spec.split(",")):
+        if not tok:
+            continue
+        if not tok.isdigit() or int(tok) < 1:
+            yield tok, None, "not a positive integer"
+        elif k % int(tok):
+            yield str(int(tok)), None, f"{what}={int(tok)} does not " \
+                                       f"divide k={k}"
+        else:
+            yield str(int(tok)), int(tok), None
+
+
+def column_sweeps(result: dict, cfg: dict, tol: float) -> None:
+    """The column-schedule sweeps of the root ``bench.py``: the winning
+    format again at each overlap slab count S of
+    ``AMT_BENCH_OVERLAP_SWEEP`` (``--overlap_slabs``), and the fold at
+    each replication factor c of ``AMT_BENCH_REPL_SWEEP`` (``--repl``),
+    each point in its own subprocess with its own timeout and gate."""
+    k = cfg["k"]
+    for env, key, what, field in (
+            ("AMT_BENCH_OVERLAP_SWEEP", "overlap_sweep", "S",
+             "overlap_slabs"),
+            ("AMT_BENCH_REPL_SWEEP", "repl_sweep", "c", "repl")):
+        spec = os.environ.get(env, "")
+        if not spec or result.get("accelerator_wedged"):
+            continue
+        fmt = result.get("fmt_used") or "fold"
+        if field == "repl" and not str(fmt).startswith("fold"):
+            fmt = "fold"          # repl composes with the fold schedule
+        sweep = result[key] = {"fmt": fmt}
+        for label, value, err in _sweep_points(spec, k, what):
+            if err is not None:
+                sweep[label] = {"error": err}
+                continue
+            _progress(f"{key}: fmt={fmt} {what}={value}")
+            run = _spawn_candidate(fmt, dict(cfg, k128=False,
+                                             **{field: value}),
+                                   timeout_s=900.0)
+            timed_out = run.pop("timed_out", False)
+            point = {kk: run[kk] for kk in ("ms", "err", "error",
+                                            "host_load", "launches")
+                     if run.get(kk) is not None}
+            if "err" in point and np.isfinite(point["err"]) \
+                    and point["err"] > tol:
+                point["gate_missed"] = tol
+            sweep[label] = point
+            if timed_out and _check_wedged(result, cfg, f"{what}={value}"):
+                break
 
 
 def run_one_variant(name: str) -> None:
@@ -709,9 +768,21 @@ def main(argv=None) -> int:
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
                         help="cuda (default: the card, or an error line "
                              "without one) or cpu (the host, degraded)")
+    parser.add_argument("--overlap_slabs", default=None,
+                        help="comma list of overlap slab counts S to "
+                             "sweep the winning format over after the race "
+                             "(sets AMT_BENCH_OVERLAP_SWEEP), e.g. 1,2,4")
+    parser.add_argument("--repl", default=None,
+                        help="comma list of replication factors c to sweep "
+                             "the fold over after the race (sets "
+                             "AMT_BENCH_REPL_SWEEP), e.g. 1,2,4")
     parser.add_argument("--candidate", help=argparse.SUPPRESS)
     parser.add_argument("--variant", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.overlap_slabs is not None:
+        os.environ["AMT_BENCH_OVERLAP_SWEEP"] = args.overlap_slabs
+    if args.repl is not None:
+        os.environ["AMT_BENCH_REPL_SWEEP"] = args.repl
     if args.candidate:
         run_one_candidate(args.candidate)
         return 0

@@ -28,10 +28,11 @@
 // `group` lanes; a lane holds VEC features of a row (16 bytes when the
 // rows allow 16-byte loads), so a gathered row is one run of 16-byte
 // loads.  Each group walks one chunk of at most 128 slots of one row
-// (ops/worklist.py:CHUNK_SLOTS), BATCH slots at a time: first the BATCH
-// column indices (and weights), then the BATCH row gathers, all in
-// flight before the first add.  BATCH is 8, and 4 for int8, whose lanes
-// widen 16 values into 16 accumulators and so hold more registers a row.
+// (ops/worklist.py:CHUNK_SLOTS; the chunk_slots knob), BATCH slots at a
+// time: first the BATCH column indices (and weights), then the BATCH row
+// gathers, all in flight before the first add, which takes them in slot
+// order.  BATCH is 8 by default, and 4 for int8, whose lanes widen 16
+// values into 16 accumulators and so hold more registers a row.
 // A row's chunk sums are added in one order fixed by the row's chunk
 // count alone, whatever k: in blocks of kBlock (8) consecutive chunks,
 // each block summed in chunk order, and the block sums added in block
@@ -45,6 +46,15 @@
 // serving runtime's batches and column slabs rely on it.  No atomics:
 // two runs give the same bits.  Binary rows stop at deg[r].  All
 // offsets into x and out are 64-bit.
+//
+// Launch knobs (ops/kernel_contract.py declares them, ops/worklist.py
+// checks them): BATCH in {4, 8} and the launch bound's least CTAs per
+// SM, MINB in {1, 2}, are template parameters, one instance each; the
+// chunk length is the work list's.  BATCH and MINB leave every sum's
+// order as it is
+// (the adds follow the slots, whatever the batch; registers hold the
+// same values), so they keep the bits; the chunk length changes S and
+// so the order of a row's chunk sums.
 //
 // Interface: plain C, built with nvcc -shared and loaded with ctypes
 // (ops/_build.py, ops/cuda_sell.py).  The launches go on the caller's
@@ -132,8 +142,8 @@ __device__ __forceinline__ void accumulate(
 // the sum of each of their blocks of kBlock chunks to part[part],
 // part[part + 1], ...
 template <typename TX, typename TO, bool BINARY, int VEC, bool VECLOAD,
-          int BATCH>
-__global__ void __launch_bounds__(kThreads, 2)
+          int BATCH, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 sell_kernel(const Tier* __restrict__ tiers, const int4* __restrict__ items,
             const TX* __restrict__ x, TO* __restrict__ out,
             float* __restrict__ part, int k, int group) {
@@ -266,25 +276,25 @@ sum_rows_kernel(const int32_t* __restrict__ rows,
   const int64_t first = rows[3 * blockIdx.x + 1];
   const int parts = rows[3 * blockIdx.x + 2];
   for (int c = threadIdx.x; c < k; c += kSumThreads) {
-    float s = __ldg(part + first * k + c);
-    for (int q = 1; q < parts; ++q) s += __ldg(part + (first + q) * k + c);
-    store(out + orow * k + c, s);
+    float acc = __ldg(part + first * k + c);
+    for (int q = 1; q < parts; ++q) acc += __ldg(part + (first + q) * k + c);
+    store(out + orow * k + c, acc);
   }
 }
 
-template <typename TX, typename TO, bool BINARY, bool VECLOAD>
+template <typename TX, typename TO, bool BINARY, bool VECLOAD, int BATCH,
+          int MINB>
 cudaError_t launch(const void* tiers, const void* items, const void* rows,
                    const void* x, void* out, void* part, int n_items,
                    int n_rows, int k, int group, cudaStream_t s) {
   constexpr int VEC = VECLOAD ? static_cast<int>(16 / sizeof(TX)) : 1;
-  constexpr int BATCH = sizeof(TX) == 1 ? 4 : 8;
   const int per_row = (k + VEC - 1) / VEC;
   const int col_blocks = (per_row + group - 1) / group;
   if (col_blocks > 65535) return cudaErrorInvalidValue;
   auto* o = static_cast<TO*>(out);
   auto* p = static_cast<float*>(part);
   if (n_items > 0) {
-    sell_kernel<TX, TO, BINARY, VEC, VECLOAD, BATCH>
+    sell_kernel<TX, TO, BINARY, VEC, VECLOAD, BATCH, MINB>
         <<<dim3(static_cast<unsigned>(n_items),
                 static_cast<unsigned>(col_blocks)),
            kThreads, 0, s>>>(static_cast<const Tier*>(tiers),
@@ -300,25 +310,52 @@ cudaError_t launch(const void* tiers, const void* items, const void* rows,
   return cudaGetLastError();
 }
 
-template <typename TX, typename TO>
-cudaError_t dispatch(int binary, int vecload, const void* tiers,
-                     const void* items, const void* rows, const void* x,
-                     void* out, void* part, int n_items, int n_rows, int k,
-                     int group, cudaStream_t s) {
-  if (binary) {
-    return vecload ? launch<TX, TO, true, true>(tiers, items, rows, x, out,
-                                                part, n_items, n_rows, k,
-                                                group, s)
-                   : launch<TX, TO, true, false>(tiers, items, rows, x, out,
-                                                 part, n_items, n_rows, k,
-                                                 group, s);
+// Arguments of one product, passed down the dispatch unchanged.
+struct Args {
+  const void* tiers;
+  const void* items;
+  const void* rows;
+  const void* x;
+  void* out;
+  void* part;
+  int n_items, n_rows, k, group;
+  cudaStream_t s;
+};
+
+template <typename TX, typename TO, bool BINARY, bool VECLOAD, int BATCH>
+cudaError_t by_minb(const Args& a, int minb) {
+  if (minb == 1) {
+    return launch<TX, TO, BINARY, VECLOAD, BATCH, 1>(
+        a.tiers, a.items, a.rows, a.x, a.out, a.part, a.n_items, a.n_rows,
+        a.k, a.group, a.s);
   }
-  return vecload ? launch<TX, TO, false, true>(tiers, items, rows, x, out,
-                                               part, n_items, n_rows, k,
-                                               group, s)
-                 : launch<TX, TO, false, false>(tiers, items, rows, x, out,
-                                                part, n_items, n_rows, k,
-                                                group, s);
+  return launch<TX, TO, BINARY, VECLOAD, BATCH, 2>(
+      a.tiers, a.items, a.rows, a.x, a.out, a.part, a.n_items, a.n_rows,
+      a.k, a.group, a.s);
+}
+
+// The batches of every carriage: 4 and 8.
+template <typename TX, typename TO, bool BINARY, bool VECLOAD>
+cudaError_t by_batch(const Args& a, int batch, int minb) {
+  switch (batch) {
+    case 4:
+      return by_minb<TX, TO, BINARY, VECLOAD, 4>(a, minb);
+    case 8:
+      return by_minb<TX, TO, BINARY, VECLOAD, 8>(a, minb);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TX, typename TO>
+cudaError_t dispatch(int binary, int vecload, const Args& a, int batch,
+                     int minb) {
+  if (binary) {
+    return vecload ? by_batch<TX, TO, true, true>(a, batch, minb)
+                   : by_batch<TX, TO, true, false>(a, batch, minb);
+  }
+  return vecload ? by_batch<TX, TO, false, true>(a, batch, minb)
+                 : by_batch<TX, TO, false, false>(a, batch, minb);
 }
 
 }  // namespace
@@ -328,32 +365,36 @@ cudaError_t dispatch(int binary, int vecload, const void* tiers,
 // vecload: x is 16-byte aligned and k * itemsize % 16 == 0.
 // tiers: (T, 8) int64 tier table; items: (n_items, 4) int32; rows:
 // (n_rows, 3) int32 split rows; part: float32 workspace of the split
-// items' block sums (null when n_rows is 0).  group: lanes of a thread group, a
-// power of two up to 32 (ops/worklist.py:lanes).
+// items' block sums (null when n_rows is 0).  group: lanes of a thread
+// group, a power of two up to 32 (ops/worklist.py:lanes).  batch: slot
+// loads in flight a lane (4, 8); ctas_per_sm: the launch
+// bound's least CTAs per SM (1, 2).
 // Returns a cudaError_t (0 is success), -1 for an unknown carriage, -2
 // for a group the kernel does not take, -3 for split rows without a
-// workspace.
+// workspace, -4 for a batch the carriage does not take, -5 for a
+// ctas_per_sm the kernel does not take.
 extern "C" int sell_spmm(int carriage, int binary, int vecload,
                          const void* tiers, const void* items,
                          const void* rows, const void* x, void* out,
                          void* part, int n_items, int n_rows, int k,
-                         int group, void* stream) {
+                         int group, int batch, int ctas_per_sm,
+                         void* stream) {
   if (group < 1 || group > 32 || (group & (group - 1)) != 0) return -2;
   if (n_rows > 0 && part == nullptr) return -3;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch != 4 && batch != 8) return -4;
+  if (ctas_per_sm != 1 && ctas_per_sm != 2) return -5;
+  const Args a{tiers, items, rows, x, out, part, n_items, n_rows, k, group,
+               static_cast<cudaStream_t>(stream)};
   switch (carriage) {
     case 0:
-      return static_cast<int>(dispatch<float, float>(
-          binary, vecload, tiers, items, rows, x, out, part, n_items, n_rows,
-          k, group, s));
+      return static_cast<int>(
+          dispatch<float, float>(binary, vecload, a, batch, ctas_per_sm));
     case 1:
       return static_cast<int>(dispatch<__nv_bfloat16, __nv_bfloat16>(
-          binary, vecload, tiers, items, rows, x, out, part, n_items, n_rows,
-          k, group, s));
+          binary, vecload, a, batch, ctas_per_sm));
     case 2:
-      return static_cast<int>(dispatch<int8_t, float>(
-          binary, vecload, tiers, items, rows, x, out, part, n_items, n_rows,
-          k, group, s));
+      return static_cast<int>(
+          dispatch<int8_t, float>(binary, vecload, a, batch, ctas_per_sm));
     default:
       return -1;
   }
@@ -363,5 +404,7 @@ extern "C" const char* sell_error_string(int code) {
   if (code == -1) return "unknown carriage";
   if (code == -2) return "group the kernel does not take";
   if (code == -3) return "split rows without a workspace";
+  if (code == -4) return "batch the carriage does not take";
+  if (code == -5) return "ctas_per_sm the kernel does not take";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

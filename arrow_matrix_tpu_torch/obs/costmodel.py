@@ -17,11 +17,18 @@ candidates and flags drift (the ledger's measured/predicted ratio
 band).
 
 Kernels.  ``"xla"`` is the fold's own path, which on the card is K1
-(``csrc/sell_tier_spmm.cu``): it reads one X row per slot, so its
-streamed bytes count ``granule = 1``, the same count as K1's
-gathered-bytes bound.  ``"pallas"`` (the reference's granule-line
-kernel and its call descriptions, the ``meta_*`` counters) raises
-``NotImplementedError``: it comes with the fold executor options.
+(``csrc/sell_tier_spmm.cu``) at its default knobs: it reads one X row
+per slot, so its streamed bytes count ``granule = 1``, the same count
+as K1's gathered-bytes bound.  ``"pallas"`` (the reference's name for
+its fused tier kernel; ``kernel="pallas_sell"`` executors) is K1 with
+its launch knobs: the same streamed bytes, families refined by the
+knob that sets a launch's register use (``@b<batch>``), and per tier
+K1's launch counters from its work list (items, CTAs, split partials).
+The reference's ``meta_*`` counters over a TPU call description become
+Hopper counters over K1's launch meta (``ops/worklist.py:k1_meta``):
+CTAs, gathered bytes, shared memory, rows, split partials.  The DMA
+ring's (``meta_wave_count``, ``meta_dma_copies``) have no counterpart:
+K1 has no ring.
 """
 
 from __future__ import annotations
@@ -43,21 +50,69 @@ ITEMSIZE = {None: 4, "f32": 4, "bf16": 2, "int8": 1}
 #: which coefficient set prices it.
 _FAMILY_BOUNDS = ((0, "zero"), (GRANULE, "tail"), (64, "mid"))
 
-#: The kernels the port prices.
-KERNELS = ("xla",)
+#: The kernels the port prices: K1 at its defaults ("xla") and K1
+#: with its launch knobs ("pallas").
+KERNELS = ("xla", "pallas")
 
 
 def check_kernel(kernel: str) -> str:
-    """``kernel`` if the port prices it; "pallas" raises naming the
-    ROADMAP item that ports it, anything else is a ValueError."""
-    if kernel == "pallas":
-        from arrow_matrix_tpu_torch.parallel.multi_level import _todo
-
-        raise _todo("the 'pallas' kernel", "fold executor options")
+    """``kernel`` if the port prices it, else a ValueError."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} (expected one of "
                          f"{KERNELS})")
     return kernel
+
+
+# -- Hopper counters over K1's launch meta (ops/worklist.py:k1_meta) ---------
+
+def meta_grid_programs(meta: Dict[str, Any]) -> int:
+    """CTAs one K1 launch runs: its items times its CTAs along the
+    features."""
+    return len(meta["items"]) * int(meta["col_blocks"])
+
+
+def meta_stream_bytes(meta: Dict[str, Any]) -> int:
+    """Feature bytes the launch gathers: one X row of ``k`` items a
+    slot (padding slots included)."""
+    return sum(int(m_t) * int(n_t) for _, m_t, n_t, _, _ in meta["tiers"]) \
+        * int(meta["k"]) * int(meta["itemsize"])
+
+
+def meta_smem_bytes(meta: Dict[str, Any]) -> int:
+    """Shared memory of one CTA (static plus dynamic)."""
+    return int(meta["static_smem"]) + int(meta["dynamic_smem"])
+
+
+def meta_padded_rows(meta: Dict[str, Any]) -> int:
+    """Output rows the launch writes."""
+    return sum(int(n_t) for _, _, n_t, _, _ in meta["tiers"])
+
+
+def meta_split_partials(meta: Dict[str, Any]) -> int:
+    """Rows of the f32 workspace the launch writes (block sums of the
+    rows split across CTAs); nonzero means a second launch adds them."""
+    return int(meta["n_parts"])
+
+
+def _k1_tier_counters(slot_width: int, rows: int, k: int, itemsize: int,
+                      chunk_slots: int) -> Dict[str, int]:
+    """K1's launch counters of one tier at its knobs (a one-tier work
+    list)."""
+    from arrow_matrix_tpu_torch.ops.worklist import (
+        LaunchOpts,
+        build_worklist,
+        lanes,
+    )
+
+    if slot_width <= 0 or rows <= 0:
+        return {"k1_items": 0, "k1_ctas": 0, "k1_split_partials": 0}
+    wl = build_worklist([(slot_width, rows)], [0], k, itemsize,
+                        vecload=k * itemsize % 16 == 0,
+                        opts=LaunchOpts(chunk_slots=chunk_slots))
+    col_blocks = lanes(k, itemsize, k * itemsize % 16 == 0)[2]
+    return {"k1_items": len(wl.items),
+            "k1_ctas": len(wl.items) * col_blocks,
+            "k1_split_partials": int(wl.n_parts)}
 
 
 def tier_family(slot_width: int) -> str:
@@ -97,13 +152,20 @@ def schedule_family(kernel: str, slot_width: int,
 def tier_counters(fp: Dict[str, Any], k: int, *,
                   kernel: str = "xla",
                   feature_dtype: Optional[str] = None,
-                  schedule: Optional[List[Dict[str, Any]]] = None
+                  schedule: Optional[List[Dict[str, Any]]] = None,
+                  kernel_opts: Optional[Dict[str, Any]] = None
                   ) -> List[Dict[str, Any]]:
     """Static per-tier counters for one (fingerprint, k, kernel,
     carriage) point: the rows the cost model is fitted on and predicts
-    from.  ``schedule`` (per-tier overrides) refines a tier's family by
-    its row block and prices its own carriage."""
+    from.  Under "xla", ``schedule`` (the reference's per-tier
+    overrides) refines a tier's family by its row block and prices its
+    own carriage; under "pallas" (K1's knobs) the uniform
+    ``kernel_opts`` and the schedule's entries set each tier's batch,
+    chunk and carriage, and each tier carries K1's launch counters."""
     check_kernel(kernel)
+    if kernel == "pallas":
+        return _k1_counters(fp, k, feature_dtype, schedule,
+                            kernel_opts or {})
     sched: Dict[int, Dict[str, Any]] = {}
     for e in (schedule or []):
         try:
@@ -138,6 +200,34 @@ def tier_counters(fp: Dict[str, Any], k: int, *,
             "streamed_bytes": tier_stream_bytes(
                 int(w), int(rows), k, itemsize=ITEMSIZE.get(fd_t, 4)),
         })
+    return out
+
+
+def _k1_counters(fp: Dict[str, Any], k: int, feature_dtype: Optional[str],
+                 schedule: Optional[List[Dict[str, Any]]],
+                 opts: Dict[str, Any]) -> List[Dict[str, Any]]:
+    sched = {int(e["tier"]): e for e in (schedule or [])
+             if isinstance(e, dict) and "tier" in e}
+    ladder = fp["ladder"]
+    out = []
+    for t, (rows, nnz, slots, w) in enumerate(zip(
+            ladder["rows"], ladder["nnz"], ladder["slots"],
+            ladder["slot_width"])):
+        ov = sched.get(t, {})
+        fd_t = ov.get("carriage", feature_dtype)
+        item = ITEMSIZE.get(fd_t, 4)
+        batch = ov.get("batch", opts.get("batch"))
+        family = f"pallas:{tier_family(int(w))}"
+        if batch is not None:
+            family += f"@b{int(batch)}"
+        chunk = int(ov.get("chunk_slots", opts.get("chunk_slots", 128)))
+        out.append({
+            "tier": t, "family": family, "rows": int(rows),
+            "nnz": int(nnz), "slots": int(slots), "slot_width": int(w),
+            "padded_slots": int(slots) - int(nnz), "ring": None,
+            "streamed_bytes": tier_stream_bytes(int(w), int(rows), k,
+                                                itemsize=item),
+            **_k1_tier_counters(int(w), int(rows), k, item, chunk)})
     return out
 
 
@@ -261,7 +351,8 @@ def predict_iter_ms(fp: Dict[str, Any], k: int, model: CostModel, *,
                     kernel: str = "xla",
                     feature_dtype: Optional[str] = None,
                     ring: Optional[int] = None,
-                    schedule: Optional[List[Dict[str, Any]]] = None
+                    schedule: Optional[List[Dict[str, Any]]] = None,
+                    kernel_opts: Optional[Dict[str, Any]] = None
                     ) -> float:
     """Predicted fold-iteration ms for one (structure, k) point: the
     sum of the per-tier family predictions over the static counters.
@@ -270,7 +361,7 @@ def predict_iter_ms(fp: Dict[str, Any], k: int, model: CostModel, *,
     del ring
     tiers = tier_counters(fp, k, kernel=kernel,
                           feature_dtype=feature_dtype,
-                          schedule=schedule)
+                          schedule=schedule, kernel_opts=kernel_opts)
     return model.predict_tiers(tiers)
 
 
@@ -279,11 +370,16 @@ def predict_candidate_ms(model: CostModel, fp: Dict[str, Any], k: int,
                          kernel_opts: Optional[Dict[str, Any]] = None
                          ) -> float:
     """Price one candidate from its build / kernel_opts dicts (the
-    reference's ``build["kernel"] == "pallas_sell"`` raises)."""
+    ``tune/space.py`` lens screen): ``kernel="pallas_sell"`` candidates
+    as "pallas" (K1 with its knobs)."""
     kernel = ("pallas" if build.get("kernel") == "pallas_sell"
               else "xla")
     opts = kernel_opts or {}
     fd = build.get("feature_dtype") or opts.get("feature_dtype")
+    uniform = {kk: v for kk, v in opts.items()
+               if kk not in ("schedule", "feature_dtype")}
     return predict_iter_ms(fp, k, model, kernel=kernel,
                            feature_dtype=fd, ring=opts.get("ring"),
-                           schedule=opts.get("schedule"))
+                           schedule=opts.get("schedule"),
+                           kernel_opts=uniform if kernel == "pallas"
+                           else None)

@@ -67,7 +67,12 @@ LENS_DTYPES = ("f32", "bf16")
 
 
 def _resolve_kernel(kernel: str) -> str:
-    """"auto" is the fold's own path, K1 ("xla"); "pallas" raises."""
+    """"auto" is the fold's own path, K1 ("xla"); "pallas" (K1's
+    knobs under the lens) raises naming the fold executor options."""
+    if kernel == "pallas":
+        from arrow_matrix_tpu_torch.parallel.multi_level import _todo
+
+        raise _todo("the lens's 'pallas' kernel", "fold executor options")
     return check_kernel("xla" if kernel == "auto" else kernel)
 
 

@@ -251,3 +251,140 @@ def arrow_spmm_cuda(blocks: ArrowBlocks, x: torch.Tensor) -> torch.Tensor:
     head_spmm(blocks.head_data, x, out=out[0])
     return column_spmm(blocks.diag_data, blocks.col_data, x,
                        blocks.lo_data, blocks.hi_data, out=out)
+
+
+# -- the Hopper kernel contract (ops/kernel_contract.py) ---------------------
+
+#: The kernels' tile configurations, as ``csrc/arrow_blocks_spmm.cu``
+#: declares them (``using Narrow = Cfg<...>``): BM, BN, TM, TN, AV, ring
+#: buffers with f32 and with bf16 blocks, and the launch bound's CTAs an
+#: SM.  The certifier checks the source against this mirror, and
+#: :data:`TILES` against it.
+CONFIGS = {"Narrow": (64, 16, 4, 4, 4, 4, 3, 4),
+           "Mid": (128, 64, 8, 4, 4, 3, 3, 2),
+           "Wide": (128, 128, 8, 8, 2, 4, 4, 1)}
+#: Contraction depth of one tile (``BK``).
+BK = 32
+#: The configuration of each row of :data:`TILES`.
+TILE_CONFIGS = ("Narrow", "Mid", "Wide")
+
+
+def ring_bytes(config: str, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA of ``config`` with blocks of
+    ``itemsize`` bytes: its ring of (block tile, feature tile) buffers
+    (``csrc``'s ``struct Ring``)."""
+    bm, bn, _, _, _, s32, s16, _ = CONFIGS[config]
+    stages = s32 if itemsize == 4 else s16
+    a_stride = BK + 16 // itemsize
+    return stages * (bm * a_stride * itemsize + BK * bn * 4)
+
+
+def config_for(k: int) -> str:
+    """The configuration K2/K3 launch at ``k`` features."""
+    return next(c for (k_max, _, _), c in zip(TILES, TILE_CONFIGS)
+                if k_max is None or k <= k_max)
+
+
+def dense_meta(kernel_pass: str, nb: int, w: int, k: int,
+               block_dtype: str) -> dict:
+    """The literal description of one K2 (``"column"``) or K3
+    (``"head"``) launch over ``(nb, w, w)`` blocks at ``k`` features:
+    what ``analysis/kernels.py`` checks."""
+    config = config_for(k)
+    bm, bn, tm, tn, av, _, _, minb = CONFIGS[config]
+    item = 4 if block_dtype == "f32" else 2
+    threads = (bn // tn) * (bm // tm)
+    tiles = (_ceil_div(w, bm), _ceil_div(k, bn))
+    meta = {"kernel": "arrow_blocks_spmm", "kind": "dense_blocks",
+            "pass": kernel_pass, "config": config, "bm": bm, "bn": bn,
+            "nb": nb, "w": w, "k": k, "block_dtype": block_dtype,
+            "threads": threads, "ctas_per_sm": minb, "static_smem": 0,
+            "dynamic_smem": ring_bytes(config, item),
+            # acc TM x TN, AV block values of TM rows, TN feature values.
+            "regs_demand": 24 + tm * tn + av * tm + tn,
+            "accum_dtype": "f32", "tiles": list(tiles)}
+    if kernel_pass == "column":
+        meta["grid"] = [tiles[0], tiles[1], nb - 1]
+        meta["writes_blocks"] = list(range(1, nb))
+    else:
+        chunks = head_chunks(nb, w, k)
+        meta["grid"] = [tiles[0], tiles[1], len(chunks)]
+        meta["split"] = head_split(nb, w, k)
+        meta["chunks"] = [[c.start, c.stop] for c in chunks]
+        meta["writes_blocks"] = [0]
+    return meta
+
+
+def kcert_metas() -> list:
+    """K2/K3 metas at each tile configuration (k 8, 16, 64, 128, 200),
+    both block dtypes, on small and large block counts."""
+    metas = []
+    for k in (8, 16, 64, 128, 200):
+        for dt in ("f32", "bf16"):
+            for nb, w in ((3, 48), (33, 200), (64, 2048), (512, 2048)):
+                metas.append(dense_meta("column", nb, w, k, dt))
+                metas.append(dense_meta("head", nb, w, k, dt))
+    return metas
+
+
+def kcert_witness():
+    """KC1 boundary witness -> (ok, detail): the plain K2/K3 products on
+    blocks of the largest index (every block nonzero only in its last
+    row and column) equal a float64 reference."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    nb, w, k = 3, 48, 20
+    diag = np.zeros((nb, w, w), np.float32)
+    diag[:, -1, -1] = 1.0
+    col = np.zeros((nb, w, w), np.float32)
+    col[:, -1, -1] = 2.0
+    head = np.zeros((nb, w, w), np.float32)
+    head[:, -1, -1] = 3.0
+    x = rng.uniform(-1, 1, (nb, w, k)).astype(np.float32)
+    got_c = plain.column_spmm(torch.from_numpy(diag), torch.from_numpy(col),
+                              torch.from_numpy(x)).numpy()
+    got_h = plain.head_spmm(torch.from_numpy(head),
+                            torch.from_numpy(x)).numpy()
+    want_c = diag.astype(np.float64) @ x + col.astype(np.float64) @ x[0]
+    want_c[0] = 0.0                    # block 0 is the head row's
+    want_h = sum(head[b].astype(np.float64) @ x[b] for b in range(nb))
+    if not (np.isfinite(got_c).all() and np.isfinite(got_h).all()):
+        return False, "non-finite boundary output"
+    if not (np.allclose(got_c, want_c, atol=1e-5)
+            and np.allclose(got_h, want_h, atol=1e-5)):
+        return False, "boundary blocks: plain K2/K3 != float64 reference"
+    return True, ("blocks nonzero in the last row and column only: plain "
+                  "K2/K3 equal the float64 products")
+
+
+def kcert_entry():
+    """K2/K3's certifiable entry (``ops/kernel_contract.builtin_kernels``)."""
+    import os
+
+    from arrow_matrix_tpu_torch.ops.kernel_contract import (
+        KernelContract,
+        KernelEntry,
+    )
+
+    contract = KernelContract(
+        name="arrow_blocks_spmm",
+        module="arrow_matrix_tpu_torch.ops.cuda_blocks",
+        kind="dense_blocks",
+        source="csrc/arrow_blocks_spmm.cu",
+        threads=max((c[1] // c[3]) * (c[0] // c[2])
+                    for c in CONFIGS.values()),
+        ctas_per_sm=tuple(sorted({c[7] for c in CONFIGS.values()})),
+        static_smem_bytes=0,
+        dynamic_smem_bytes=max(ring_bytes(c, i) for c in CONFIGS
+                               for i in (4, 2)),
+        knobs=(("config", TILE_CONFIGS),),
+        ks=(8, 16, 64, 128),
+        carriage_dtypes=("f32",),
+        accum_dtype="f32",
+        accum_decls=("float acc[C::TM][C::TN] = {};",
+                     "float s = __ldg(part + i);"))
+    return KernelEntry(contract=contract, metas=kcert_metas,
+                       source_path=os.path.join(_build.CSRC_DIR,
+                                                "arrow_blocks_spmm.cu"),
+                       witness=kcert_witness)

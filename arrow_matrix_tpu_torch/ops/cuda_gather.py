@@ -149,3 +149,87 @@ def granule_gather(x_packed: torch.Tensor, idx: torch.Tensor
     check_operand("x_packed", x_packed, torch.float32,
                   tuple(x_packed.shape), x_packed.device)
     return row_gather(x_packed.view(-1, K), idx).view(-1, LANES)
+
+
+# -- the Hopper kernel contract (ops/kernel_contract.py) ---------------------
+
+#: Threads of a CTA and rows a thread group gathers at once
+#: (``csrc/granule_gather.cu``'s ``kThreads`` and ``kBatch``).
+THREADS = 256
+BATCH = 8
+
+
+def gather_meta(slots: int, x_rows: int, k: int, add: bool) -> dict:
+    """The literal description of one K4 launch gathering ``slots`` rows
+    of ``k`` f32 features from ``x_rows`` rows (``add``: the fused
+    gather-add): what ``analysis/kernels.py`` checks."""
+    vecload = k % 4 == 0
+    width = k // 4 if vecload else k
+    lanes = 1
+    while lanes < width and lanes < 32:
+        lanes *= 2
+    rows_per_cta = (THREADS // lanes) * BATCH
+    words = 4 if vecload else 1
+    return {"kernel": "granule_gather", "kind": "row_gather",
+            "slots": slots, "x_rows": x_rows, "k": k, "add": add,
+            "vecload": vecload, "width": width, "lanes": lanes,
+            "batch": BATCH, "threads": THREADS, "ctas_per_sm": 1,
+            "grid": -(-slots // rows_per_cta), "static_smem": 0,
+            "dynamic_smem": 0,
+            # src offsets (2 a row), live flags, the rows and the bases.
+            "regs_demand": 16 + BATCH * (3 + words * (2 if add else 1)),
+            "adds_per_element": 1 if add else 0, "accum_dtype": "f32"}
+
+
+def kcert_metas() -> list:
+    """K4 metas: both bodies (k % 4 == 0 or not), gather and gather-add,
+    short and ragged slot counts."""
+    return [gather_meta(slots, 1000, k, add)
+            for slots in (1, 255, 4096, 10_007)
+            for k in (1, 3, 4, 16, 36, 128)
+            for add in (False, True)]
+
+
+def kcert_witness():
+    """KC1 boundary witness -> (ok, detail): every index at the last row
+    of x, through the plain gather and gather-add, equal to numpy."""
+    import numpy as np
+
+    x = torch.from_numpy(np.linspace(-1, 1, 64 * 20, dtype=np.float32)
+                         .reshape(64, 20))
+    idx = torch.full((300,), 63, dtype=torch.int32)
+    got = row_gather_plain(x, idx)
+    base = torch.ones((300, 20))
+    added = row_gather_add_plain(base.clone(), x, idx)
+    if not (torch.equal(got, x[63].expand(300, 20))
+            and torch.equal(added, 1.0 + x[63].expand(300, 20))):
+        return False, "boundary gather != the last row"
+    return True, "every index at the last row: gather and gather-add exact"
+
+
+def kcert_entry():
+    """K4's certifiable entry (``ops/kernel_contract.builtin_kernels``)."""
+    import os
+
+    from arrow_matrix_tpu_torch.ops.kernel_contract import (
+        KernelContract,
+        KernelEntry,
+    )
+
+    contract = KernelContract(
+        name="granule_gather",
+        module="arrow_matrix_tpu_torch.ops.cuda_gather",
+        kind="row_gather",
+        source="csrc/granule_gather.cu",
+        threads=THREADS, ctas_per_sm=(1,),
+        knobs=(("add", (False, True)),),
+        ks=(1, 4, 16, 128),
+        carriage_dtypes=("f32",),
+        accum_dtype="f32",
+        accum_decls=("__device__ __forceinline__ float add(float a, "
+                     "float b) { return a + b; }",
+                     "float4 add(float4 a, float4 b)"))
+    return KernelEntry(contract=contract, metas=kcert_metas,
+                       source_path=os.path.join(_build.CSRC_DIR,
+                                                "granule_gather.cu"),
+                       witness=kcert_witness)

@@ -56,9 +56,12 @@ class SellMatrix:
     than it writes.
 
     ``plans`` caches K1's work lists on the device by (k, carriage,
-    vecload) (``ops/cuda_sell.py:plan_for``).  They hold pointers to the
-    tier tensors, so no constructor or ``dataclasses.replace`` takes
-    them: every new operator starts with none.
+    vecload, launch knobs) (``ops/cuda_sell.py:plan_for``), and
+    ``subsets`` the operators of some of its tiers, one per launch of a
+    per-tier schedule (``ops/cuda_sell.py:tier_subset``).  They hold
+    pointers to the tier tensors, so no constructor or
+    ``dataclasses.replace`` takes them: every new operator starts with
+    none.
     """
 
     cols: Tuple[torch.Tensor, ...]                    # (m_t, n_t) int32
@@ -69,6 +72,8 @@ class SellMatrix:
     x_rows: Optional[int] = None
     plans: dict = field(default_factory=dict, init=False, repr=False,
                         compare=False)
+    subsets: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
 
     @property
     def binary(self) -> bool:

@@ -38,12 +38,20 @@ write zeros.
 
 :func:`sell_spmm_worklist` is the plain twin: the same chunks, the same
 partials and the same order of the chunk sums, in PyTorch.
+
+Launch knobs (:class:`LaunchOpts`, declared by the Hopper kernel
+contract ``ops/kernel_contract.py``): ``chunk_slots`` (64, 128, 256;
+one value or one a tier) sets ``CHUNK_SLOTS`` and so S, which changes
+the order of a row's chunk sums; ``batch`` (slot loads in flight a
+lane: 4, 8) and ``ctas_per_sm`` (the launch bound: 1, 2) leave every
+sum's order as it is.  A knob value outside the contract raises:
+nothing falls back to the default.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,6 +66,16 @@ CHUNK_SLOTS = 128
 #: Chunks of one block of a row's sum order (``csrc``'s ``kBlock``):
 #: THREADS / 32, the fewest thread groups of a CTA.
 CHUNK_BLOCK = THREADS // 32
+#: The ``chunk_slots`` values K1 takes (the contract's knob points).
+CHUNK_SLOTS_CHOICES = (64, 128, 256)
+#: The ``batch`` values K1 takes, at every carriage.
+BATCH_CHOICES = (4, 8)
+#: The ``ctas_per_sm`` values of K1's launch bound.
+CTAS_PER_SM_CHOICES = (1, 2)
+#: K1's default launch bound (``__launch_bounds__(kThreads, 2)``).
+DEFAULT_CTAS_PER_SM = 2
+#: The names of K1's knobs, in a plan's ``kernel_opts``.
+KNOBS = ("chunk_slots", "batch", "ctas_per_sm")
 #: Columns of the tier table (int64 each; ``csrc``'s ``struct Tier``).
 TIER_FIELDS = ("cols", "w", "row0", "m_t", "n_t", "chunk", "split",
                "unused")
@@ -76,13 +94,68 @@ def lanes(k: int, itemsize: int, vecload: bool) -> Tuple[int, int, int]:
     return vec, group, -(-per_row // group)
 
 
-def chunking(m_t: int) -> Tuple[int, int]:
+def default_batch(itemsize: int) -> int:
+    """K1's batch for a carriage of ``itemsize`` bytes: 8, and 4 for
+    int8."""
+    return 4 if itemsize == 1 else 8
+
+
+def chunking(m_t: int, chunk_slots: int = CHUNK_SLOTS) -> Tuple[int, int]:
     """``(L, S)``: slots per chunk and chunks per row of a tier of m_t
-    slots (``(0, 1)`` for a zero-slot tier)."""
+    slots (``(0, 1)`` for a zero-slot tier), chunks of at most
+    ``chunk_slots``."""
     if m_t == 0:
         return 0, 1
-    s = -(-m_t // CHUNK_SLOTS)
+    s = -(-m_t // chunk_slots)
     return -(-m_t // s), s
+
+
+@dataclass(frozen=True)
+class LaunchOpts:
+    """K1's knobs for one launch.  ``chunk_slots`` is one value or a
+    tuple of one a tier; ``batch=None`` is the carriage's default
+    (:func:`default_batch`)."""
+
+    chunk_slots: Union[int, Tuple[int, ...]] = CHUNK_SLOTS
+    batch: Optional[int] = None
+    ctas_per_sm: int = DEFAULT_CTAS_PER_SM
+
+    def chunk_of(self, t: int) -> int:
+        c = self.chunk_slots
+        return c[t] if isinstance(c, tuple) else c
+
+    def batch_for(self, itemsize: int) -> int:
+        return default_batch(itemsize) if self.batch is None else self.batch
+
+    def keeps_order(self) -> bool:
+        """Whether every sum keeps the default's order (and bits)."""
+        c = self.chunk_slots
+        return all(v == CHUNK_SLOTS for v in
+                   (c if isinstance(c, tuple) else (c,)))
+
+    def check(self, n_tiers: Optional[int] = None) -> "LaunchOpts":
+        """Raise ``ValueError`` unless K1 takes every knob (and, for
+        per-tier chunks, ``n_tiers`` tiers); returns self."""
+        chunks = (self.chunk_slots if isinstance(self.chunk_slots, tuple)
+                  else (self.chunk_slots,))
+        if isinstance(self.chunk_slots, tuple) and n_tiers is not None \
+                and len(chunks) != n_tiers:
+            raise ValueError(f"{len(chunks)} per-tier chunk_slots for "
+                             f"{n_tiers} tiers")
+        for c in chunks:
+            if c not in CHUNK_SLOTS_CHOICES:
+                raise ValueError(f"chunk_slots={c!r}: K1 takes "
+                                 f"{CHUNK_SLOTS_CHOICES}")
+        if self.batch is not None and self.batch not in BATCH_CHOICES:
+            raise ValueError(f"batch={self.batch!r}: K1 takes "
+                             f"{BATCH_CHOICES}")
+        if self.ctas_per_sm not in CTAS_PER_SM_CHOICES:
+            raise ValueError(f"ctas_per_sm={self.ctas_per_sm!r}: K1 takes "
+                             f"{CTAS_PER_SM_CHOICES}")
+        return self
+
+
+DEFAULT_OPTS = LaunchOpts()
 
 
 @dataclass(frozen=True)
@@ -110,18 +183,20 @@ class WorkList:
 
 def build_worklist(shapes: Sequence[Tuple[int, int]],
                    row_starts: Sequence[int], k: int, itemsize: int,
-                   vecload: bool = True) -> WorkList:
+                   vecload: bool = True,
+                   opts: LaunchOpts = DEFAULT_OPTS) -> WorkList:
     """The work list of an operator whose tier t has ``shapes[t] =
     (m_t, n_t)`` and writes output rows ``row_starts[t] + [0, n_t)``,
-    at ``k`` features of ``itemsize`` bytes.  A pure function of its
-    arguments."""
+    at ``k`` features of ``itemsize`` bytes, with the chunks and item
+    order of ``opts``.  A pure function of its arguments."""
     if len(shapes) != len(row_starts):
         raise ValueError("one row start per tier")
+    opts.check(len(shapes))
     _, group, col_blocks = lanes(k, itemsize, vecload)
     p = THREADS // group
     tiers = np.zeros((len(shapes), 5), np.int64)
     for t, ((m_t, n_t), r0) in enumerate(zip(shapes, row_starts)):
-        tiers[t] = (r0, m_t, n_t, *chunking(int(m_t)))
+        tiers[t] = (r0, m_t, n_t, *chunking(int(m_t), opts.chunk_of(t)))
     order = sorted(range(len(shapes)), key=lambda t: -int(tiers[t, 1]))
     items, rows = [], []
     n_parts = 0
@@ -215,3 +290,53 @@ def sell_spmm_worklist(m, x: torch.Tensor, wl: WorkList) -> torch.Tensor:
             acc += part[first + q]
         out[orow] = acc.to(out.dtype)
     return out
+
+
+# -- the launch description the certifier reads -----------------------------
+
+#: Registers of a K1 lane beyond its arrays (indices, pointers, loop
+#: state): the certifier's register model (KC2).
+BASE_REGISTERS = 16
+
+
+def register_demand(vec: int, batch: int, vecload: bool) -> int:
+    """Registers a K1 lane keeps live at once (the certifier's model):
+    ``vec`` float accumulators, ``batch`` loaded rows (a 16-byte load is
+    four registers, a scalar one one), ``batch`` weights, and
+    :data:`BASE_REGISTERS`."""
+    return BASE_REGISTERS + vec + batch * ((4 if vecload else 1) + 1)
+
+
+def k1_meta(shapes: Sequence[Tuple[int, int]], row_starts: Sequence[int],
+            n_rows: int, x_rows: int, k: int, carriage: str, binary: bool,
+            vecload: bool, opts: LaunchOpts = DEFAULT_OPTS,
+            itemsize: Optional[int] = None) -> dict:
+    """The literal description of one K1 product (work list and launch)
+    at ``k`` features of ``carriage``: what ``analysis/kernels.py``
+    checks under KC1-KC5.  The wrapper launches exactly this work list
+    (``ops/cuda_sell.py:build_plan`` calls :func:`build_worklist` with
+    the same arguments)."""
+    if itemsize is None:
+        itemsize = {"f32": 4, "bf16": 2, "int8": 1}[carriage]
+    wl = build_worklist(shapes, row_starts, k, itemsize, vecload=vecload,
+                        opts=opts)
+    vec, group, col_blocks = lanes(k, itemsize, vecload)
+    batch = opts.batch_for(itemsize)
+    chunk = opts.chunk_slots
+    return {
+        "kernel": "sell_tier_spmm", "kind": "k1_worklist",
+        "k": int(k), "carriage": carriage, "itemsize": int(itemsize),
+        "binary": bool(binary), "vecload": bool(vecload),
+        "vec": vec, "group": group, "col_blocks": col_blocks,
+        "threads": THREADS, "ctas_per_sm": opts.ctas_per_sm,
+        "batch": batch,
+        "chunk_slots": list(chunk) if isinstance(chunk, tuple) else chunk,
+        "order_block": CHUNK_BLOCK, "kernel_block": CHUNK_BLOCK,
+        "static_smem": vec * THREADS * 4, "dynamic_smem": 0,
+        "regs_demand": register_demand(vec, batch, vecload),
+        "accum_dtype": "f32",
+        "n_rows": int(n_rows), "x_rows": int(x_rows),
+        "tiers": wl.tiers.tolist(), "items": wl.items.tolist(),
+        "rows": wl.rows.tolist(), "n_parts": int(wl.n_parts),
+        "claims_default_order": opts.keeps_order(),
+    }

@@ -56,6 +56,17 @@ carriages (the entry state a supervisor keeps for rollback, a step's
 input and its output) and the column schedule's slab copies; :meth:`carriage_hbm_bytes` is its part that grows with k,
 the serving runtime's admission price.
 
+Kernels and plans.  ``kernel`` is the JAX class's argument: "xla" (the
+default) runs the fold through K1 at its default knobs, "pallas_sell"
+(``fmt="fold"`` only) runs K1 with ``kernel_opts`` honoured: its launch
+knobs (``ops/worklist.py:LaunchOpts``) and a per-tier ``schedule``,
+one K1 launch for each distinct (batch, ctas_per_sm, carriage) of the
+tiers (``ops/cuda_sell.py:launch_groups``); "pallas" is the dense
+levels' K2/K3 and needs a dense level.  ``plan`` (a ``TunePlan``, its
+dict, or "auto": the structure's cached plan, ``tune/plan.py``)
+replaces the knob arguments, and explicit ``kernel_opts`` beat the
+plan's; a miss warns ``TunePlanMiss`` and runs the arguments given.
+
 Faults.  ``step`` passes its input through the fault hook
 ``faults.on_step("multi_level.step", x)`` (on the int8 pair, through
 its scale), one ``None`` check when no plan is set.
@@ -105,8 +116,13 @@ from arrow_matrix_tpu_torch.ops.cuda_ell import (
     k1_operands,
 )
 from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather, row_gather_add_
-from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
-from arrow_matrix_tpu_torch.ops.worklist import build_worklist
+from arrow_matrix_tpu_torch.ops.cuda_sell import (
+    launch_groups,
+    sell_spmm_cuda,
+    sell_spmm_k1,
+    tier_subset,
+)
+from arrow_matrix_tpu_torch.ops.worklist import LaunchOpts, build_worklist
 from arrow_matrix_tpu_torch.ops.ell import SLOT_ALIGN, auto_chunk
 from arrow_matrix_tpu_torch.ops.hyb import HybLevel, hyb_from_csr, hyb_stats
 from arrow_matrix_tpu_torch.ops.sell import (
@@ -133,6 +149,10 @@ from arrow_matrix_tpu_torch.utils.platform import (
 
 #: Executor formats: the fold, and the per-level ones.
 FORMATS = ("auto", "dense", "ell", "hyb", "fold")
+#: Kernels of the executor (the JAX class's names): "xla" is K1 at its
+#: defaults on the fold, "pallas_sell" K1 with its knobs, "pallas" the
+#: dense levels' K2/K3.
+KERNELS = ("xla", "pallas", "pallas_sell")
 
 #: Carriage dtypes by name; None is f32.
 FEATURE_DTYPES = {None: torch.float32, "f32": torch.float32,
@@ -395,10 +415,15 @@ class MultiLevelArrow:
     schedule of a step (module docstring): a width k then needs c | k
     and S | k/c.
 
-    The JAX class's multi-device and fold tuning options (``mesh``,
-    ``routing``, ``layout``, ``kernel`` other than "xla", ``plan``,
-    ``kernel_opts``) raise ``NotImplementedError`` naming the ROADMAP
-    item that ports them.
+    ``kernel``, ``kernel_opts``, ``plan`` and ``plan_k`` are the fold
+    executor options (module docstring, "Kernels and plans"); the knobs
+    of ``kernel_opts`` apply under ``kernel="pallas_sell"`` and are
+    checked under every kernel (the ``"xla"`` rung of a server's ladder
+    runs K1 at its defaults whatever the plan's knobs).
+
+    The JAX class's multi-device options (``mesh``, ``routing``,
+    ``layout``) raise ``NotImplementedError`` naming the ROADMAP item
+    that ports them.
     """
 
     def __init__(self, levels: List[ArrowLevel], width: int, *,
@@ -410,8 +435,33 @@ class MultiLevelArrow:
                  fold_growth: float = 1.2,
                  fold_align: Optional[int] = None,
                  overlap_slabs: int = 1, repl: int = 1, plan=None,
+                 plan_k: Optional[int] = None,
                  kernel_opts: Optional[dict] = None,
                  device: DeviceLike = None):
+        if mesh is not None or routing != "gather" or layout != "slim":
+            raise _todo("a mesh / routing / layout",
+                        "multi-device executors")
+        # A resolved plan replaces the knob arguments; explicit
+        # kernel_opts beat the plan's (a caller overriding one knob
+        # keeps the rest).  A miss warns TunePlanMiss and keeps them.
+        self.tune_plan = None
+        self.kernel_opts = dict(kernel_opts) if kernel_opts else {}
+        if plan is not None:
+            from arrow_matrix_tpu_torch.tune.plan import resolve_plan
+
+            resolved = resolve_plan(
+                plan, levels=levels, width=width, dtype=dtype,
+                growth=fold_growth, slot_align=fold_align, binary=binary,
+                plan_k=plan_k)
+            if resolved is not None:
+                self.tune_plan = resolved
+                bk = resolved.build_kwargs()
+                fmt, kernel, chunk = bk["fmt"], bk["kernel"], bk["chunk"]
+                fold_growth, fold_align = bk["fold_growth"], bk["fold_align"]
+                feature_dtype = bk["feature_dtype"]
+                overlap_slabs, repl = bk["overlap_slabs"], bk["repl"]
+                self.kernel_opts = {**resolved.kernel_opts(),
+                                    **self.kernel_opts}
         if fmt not in FORMATS:
             raise ValueError(f"unknown fmt {fmt!r} (expected one of "
                              f"{FORMATS})")
@@ -419,12 +469,13 @@ class MultiLevelArrow:
             raise ValueError(
                 "feature_dtype is implemented for fmt='fold' (the "
                 "single-chip headline path); other formats carry f32")
-        if mesh is not None or routing != "gather" or layout != "slim":
-            raise _todo("a mesh / routing / layout",
-                        "multi-device executors")
-        if kernel != "xla" or plan is not None or kernel_opts:
-            raise _todo("kernel / plan / kernel_opts",
-                        "fold executor options")
+        if kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {kernel!r}")
+        if kernel == "pallas_sell" and fmt != "fold":
+            raise ValueError(
+                "kernel='pallas_sell' is the fused fold kernel (K1 with "
+                "kernel_opts, ops/cuda_sell.py); it requires fmt='fold'")
+        self.kernel = kernel
         if overlap_slabs < 1:
             raise ValueError(f"overlap_slabs must be >= 1, got "
                              f"{overlap_slabs}")
@@ -476,8 +527,18 @@ class MultiLevelArrow:
         if self.folded:
             self.fmts = ["fold"]
             self._init_folded(levels, fold_growth, fold_align)
+            # Checks every knob (and the int8 rule) under every kernel.
+            self._groups = {self.feature_dtype: launch_groups(
+                self.kernel_opts, len(self.sell.cols), self.feature_dtype)}
         else:
+            launch_groups({k: v for k, v in self.kernel_opts.items()
+                           if k != "schedule"}, 0, torch.float32)
             self._init_levels(levels, bandeds, dtype, head_fmt)
+        if self.kernel == "pallas" and "dense" not in self.fmts:
+            raise ValueError(
+                "kernel='pallas' but no level resolved to the dense block "
+                "format (the pallas kernels cover dense only; raise "
+                "dense_budget or pass fmt='dense')")
 
     def _level_formats(self, bandeds, itemsize: int) -> List[str]:
         """Each level's format: ``fmt`` itself, or for "auto" dense
@@ -743,11 +804,28 @@ class MultiLevelArrow:
         (sell,) = operands
         if isinstance(x, tuple):
             q, scale = x
-            z = by_slabs(lambda qs: sell_spmm_cuda(sell, qs), q,
+            z = by_slabs(lambda qs: self.fold_product(sell, qs), q,
                          self.slabs(q.shape[1]))
             return requantize(z * scale)
-        return by_slabs(lambda xs: sell_spmm_cuda(sell, xs), x.contiguous(),
-                        self.slabs(x.shape[1]))
+        return by_slabs(lambda xs: self.fold_product(sell, xs),
+                        x.contiguous(), self.slabs(x.shape[1]))
+
+    def launch_groups(self, dtype: torch.dtype) -> tuple:
+        """K1's launches of a fold product at carriage ``dtype`` under
+        ``kernel_opts`` (``ops/cuda_sell.py:launch_groups``)."""
+        groups = self.__dict__.setdefault("_groups", {})
+        if dtype not in groups:
+            groups[dtype] = launch_groups(self.kernel_opts,
+                                          len(self.sell.cols), dtype)
+        return groups[dtype]
+
+    def fold_product(self, sell: SellMatrix, x: torch.Tensor) -> torch.Tensor:
+        """One K1 product of the fold: at the default knobs under
+        ``kernel="xla"``, through the launches of ``kernel_opts`` under
+        ``"pallas_sell"``."""
+        if getattr(self, "kernel", "xla") == "pallas_sell":
+            return sell_spmm_k1(sell, x, self.launch_groups(x.dtype))
+        return sell_spmm_cuda(sell, x)
 
     def slabs(self, k: int) -> list:
         """The step's feature slabs at width ``k`` (module docstring);
@@ -827,14 +905,26 @@ class MultiLevelArrow:
 
     def _count_kernel_bytes(self, k: int, itemsize: int) -> int:
         lo, hi = self._model_slabs(k)[0]
-        m = self.sell
-        widest = build_worklist([tuple(c.shape) for c in m.cols],
-                                m.row_starts, 32 * (16 // itemsize),
-                                itemsize)
-        tables = (alloc_bytes(len(m.cols) * 8 * 8)
-                  + alloc_bytes(widest.items.nbytes)
-                  + alloc_bytes(widest.rows.nbytes))
-        return tables + alloc_bytes(widest.n_parts * (hi - lo) * 4)
+        width = hi - lo
+        groups = ((None,) if getattr(self, "kernel", "xla") != "pallas_sell"
+                  else self.launch_groups(self.feature_dtype))
+        total = 0
+        for g in groups:
+            m = self.sell if g is None else tier_subset(self.sell, g.tiers)
+            item = itemsize if g is None or g.carriage is None \
+                else g.carriage.itemsize
+            widest = build_worklist(
+                [tuple(c.shape) for c in m.cols], m.row_starts,
+                32 * (16 // item), item,
+                opts=LaunchOpts() if g is None else g.opts)
+            total += (alloc_bytes(len(m.cols) * 8 * 8)
+                      + alloc_bytes(widest.items.nbytes)
+                      + alloc_bytes(widest.rows.nbytes)
+                      + alloc_bytes(widest.n_parts * width * 4))
+            if g is not None and g.carriage is not None:
+                # The converted carriage and the launch's own output.
+                total += 2 * alloc_bytes(self.total_rows * width * item)
+        return total
 
     def _model_slabs(self, k: int) -> list:
         """The slabs the model prices at width ``k``: the step's, or
@@ -930,15 +1020,24 @@ class MultiLevelArrow:
     @classmethod
     def load_folded(cls, in_dir: str, feature_dtype="keep",
                     device: DeviceLike = None, repl: int = 1,
-                    overlap_slabs: int = 1) -> "MultiLevelArrow":
+                    overlap_slabs: int = 1, kernel: str = "xla",
+                    kernel_opts: Optional[dict] = None
+                    ) -> "MultiLevelArrow":
         """Rebuild a fold executor from an ``export_folded`` directory
         (written by either package) without the decomposition.
         ``feature_dtype="keep"`` uses the exported carriage; ``repl``
-        and ``overlap_slabs`` its column schedule."""
+        and ``overlap_slabs`` its column schedule; ``kernel`` ("xla" or
+        "pallas_sell") and ``kernel_opts`` K1's launches, as in the
+        constructor."""
+        if kernel not in ("xla", "pallas_sell"):
+            raise ValueError(f"a fold runs kernel 'xla' or 'pallas_sell', "
+                             f"not {kernel!r}")
         with open(os.path.join(in_dir, "meta.json")) as f:
             meta = json.load(f)
         self = cls.__new__(cls)
         self.device = resolve_device(device)
+        self.kernel, self.tune_plan = kernel, None
+        self.kernel_opts = dict(kernel_opts) if kernel_opts else {}
         self.fmt = "fold"
         self.fmts = ["fold"]
         self.folded = True
@@ -969,4 +1068,5 @@ class MultiLevelArrow:
             meta["row_starts"], device=self.device)
         self.nnz = (int(sum(int(d.sum()) for d in deg)) if meta["binary"]
                     else int(sum(np.count_nonzero(d) for d in data)))
+        self.launch_groups(self.feature_dtype)     # checks every knob
         return self

@@ -166,36 +166,65 @@ def ba_executor_factory(n: int, width: int, seed: int,
     is computed once (the resident operator) and each
     :class:`ExecConfig` rung builds its own ``MultiLevelArrow`` over the
     same levels, on ``device`` (the card unless ``"cpu"``).  Returns
-    ``(factory, n_rows)``.  ``mesh`` and ``plan`` are not ported yet and
-    raise."""
+    ``(factory, n_rows)``.
+
+    ``plan`` (a ``TunePlan``, its dict, or "auto") threads into every
+    rung: the rung's ExecConfig still wins on kernel/overlap/repl (the
+    ladder must be able to step a tuned knob down), while the plan gives
+    the structural knobs (tier split, carriage) and K1's knobs.
+    ``mesh`` is not ported yet and raises.
+
+    With ``AMT_BA_CACHE_DIR`` set, the decomposition is the one saved
+    there (``tools/gather_probe.cached_levels``: computed and saved on
+    the first call, loaded after), so that the processes of a fleet load
+    one decomposition instead of each computing it; its executors give
+    the same bits as the computed decomposition's."""
     if mesh is not None:
         raise NotImplementedError(
             "a mesh is not ported yet; see ROADMAP.md Queue A, "
             "'multi-device executors'")
-    if plan is not None or plan_k is not None:
-        raise NotImplementedError(
-            "a tune plan is not ported yet; see ROADMAP.md Queue A, "
-            "'Proof and tuning layers'")
     dev = resolve_device(device)
-    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
-    from arrow_matrix_tpu_torch.utils import barabasi_albert
+    cache = os.environ.get("AMT_BA_CACHE_DIR")
+    if cache:
+        from arrow_matrix_tpu_torch.tools.gather_probe import cached_levels
 
-    a = barabasi_albert(n, 3, seed=seed)
-    levels = arrow_decomposition(a, width, max_levels=10,
-                                 block_diagonal=True, seed=seed)
+        levels = cached_levels(n, 3, width, seed=seed, max_levels=10,
+                               cache_dir=cache, backend="numpy")
+    else:
+        from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+        from arrow_matrix_tpu_torch.utils import barabasi_albert
+
+        a = barabasi_albert(n, 3, seed=seed)
+        levels = arrow_decomposition(a, width, max_levels=10,
+                                     block_diagonal=True, seed=seed)
+    resolved = None
+    if plan is not None:
+        from arrow_matrix_tpu_torch.tune.plan import resolve_plan
+
+        resolved = resolve_plan(plan, levels=levels, width=width,
+                                plan_k=plan_k)
 
     def factory(cfg: ExecConfig):
         from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
 
-        # The rung's class carriage wins over the factory's default: an
-        # approx batch builds a reduced-precision executor.
-        dtype = feature_dtype
+        kwargs = dict(fmt=fmt, feature_dtype=feature_dtype)
+        kernel_opts = None
+        if resolved is not None:
+            bk = resolved.build_kwargs()
+            kwargs.update(fmt=bk["fmt"], chunk=bk["chunk"],
+                          fold_growth=bk["fold_growth"],
+                          fold_align=bk["fold_align"],
+                          feature_dtype=bk["feature_dtype"])
+            kernel_opts = resolved.kernel_opts()
+        # The rung's class carriage wins over the factory's default and
+        # the plan's: an approx batch builds a reduced-precision
+        # executor.
         if getattr(cfg, "feature_dtype", None) is not None:
-            dtype = cfg.feature_dtype
-        return MultiLevelArrow(levels, width, fmt=fmt, kernel=cfg.kernel,
+            kwargs["feature_dtype"] = cfg.feature_dtype
+        return MultiLevelArrow(levels, width, kernel=cfg.kernel,
                                overlap_slabs=cfg.overlap_slabs,
-                               repl=cfg.repl, feature_dtype=dtype,
-                               device=dev)
+                               repl=cfg.repl, kernel_opts=kernel_opts,
+                               device=dev, **kwargs)
 
     return factory, n
 

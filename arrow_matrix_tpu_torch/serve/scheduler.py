@@ -15,11 +15,12 @@ decomposed operator stays resident on the card while tenants' requests
     per-request checkpoint path: a killed server resumes every
     in-flight request from its last sha256-verified checkpoint.
   * **graceful degradation** — repeated faults on a tenant's requests
-    walk that tenant down the ladder repl=c -> 1, overlap S -> 1
-    (:func:`degradation_ladder`; the JAX ladder's first rung, fused
-    kernel -> XLA, does not exist in the port, whose ``"xla"`` rung is
-    the hand-written kernel K1 on the card) instead of failing it; only
-    a tenant already on the last rung can fail.
+    walk that tenant down the ladder kernel "pallas_sell" -> "xla"
+    (K1 with a plan's knobs -> K1 at its defaults), repl=c -> 1,
+    overlap S -> 1 (:func:`degradation_ladder`, the JAX order) instead
+    of failing it; only a tenant already on the last rung can fail.
+    Every rung keeps the bits of a plan whose knobs keep the sum
+    order.
   * **dynamic batching** — compatible queued requests (same effective
     configuration, same iteration count) are concatenated along the
     feature axis and split back after the run.  SpMM is separable per
@@ -36,9 +37,12 @@ Live telemetry: :meth:`ArrowServer.attach_pulse` feeds every serve
 event to a :class:`~arrow_matrix_tpu_torch.obs.pulse.PulseMonitor`, and
 its watchdog's SLO-burn trips walk tenants down the ladder.
 
-Not ported yet, each raising with its ROADMAP.md Queue A item:
-``tune_plan`` ("Proof and tuning layers") and ``grow`` ("multi-device
-executors").
+Tune plans: ``tune_plan=`` (a ``TunePlan``, its dict) becomes the base
+rung (its kernel, repl, overlap), its certificate joins the approx
+class's admission, and the server logs ``tune_plan_applied``.
+
+Not ported yet, raising with its ROADMAP.md Queue A item: ``grow``
+("multi-device executors").
 """
 
 from __future__ import annotations
@@ -83,8 +87,8 @@ class ExecConfig:
     ``repl``, overlap sub-slabs ``overlap_slabs``) without changing the
     result's row order or the carriage layout, so a degraded rerun
     resumes the same checkpoints.  The port's executors take
-    ``kernel="xla"`` only (K1 on the card); another kernel fails to
-    build, and the ladder degrades past it, loudly.
+    ``kernel`` "xla" (K1 at its defaults) or "pallas_sell" (K1 with a
+    plan's knobs); the ladder steps "pallas_sell" down to "xla" first.
 
     ``feature_dtype`` is NOT a degradation knob: it is
     the carriage dtype of the traffic class a request is served under
@@ -186,8 +190,20 @@ class ArrowServer:
                  grow_factory: Optional[
                      Callable[[ExecConfig], Any]] = None,
                  reshard_budget_bytes: int = 1 << 20):
+        # A cached TunePlan becomes the base rung: admitted requests run
+        # its kernel/repl/overlap at no search cost, and the ladder
+        # below steps each tuned knob back down under pressure.  The
+        # factory sees the tuned ExecConfig like any rung; factories
+        # that consume the plan's structural knobs and K1's knobs take
+        # ``plan=`` themselves (serve/loadgen.ba_executor_factory).
+        self.tune_plan = None
         if tune_plan is not None:
-            raise _todo("tune_plan", "Proof and tuning layers")
+            from arrow_matrix_tpu_torch.tune.plan import resolve_plan
+
+            resolved = resolve_plan(tune_plan)
+            if resolved is not None:
+                self.tune_plan = resolved
+                base_config = resolved.exec_config()
         if grow_config is not None or grow_factory is not None:
             raise _todo("grow_config / grow_factory (live resharding)",
                         "multi-device executors")
@@ -230,7 +246,11 @@ class ArrowServer:
             cert = (c if isinstance(c, Certificate)
                     else Certificate.from_dict(dict(c)))
             self._certificates[cert.dtype] = cert
-        shash = structure_hash
+        if self.tune_plan is not None and self.tune_plan.certificate:
+            cert = Certificate.from_dict(self.tune_plan.certificate)
+            self._certificates.setdefault(cert.dtype, cert)
+        shash = structure_hash or (self.tune_plan.structure_hash
+                                   if self.tune_plan else None)
         if shash and cert_ledger_dir is not None \
                 and self.approx_dtype not in self._certificates:
             cert = find_certificate(shash, self.approx_dtype,
@@ -282,6 +302,14 @@ class ArrowServer:
                                  "bound": c.bound_at(c.iterations)}
                             for dt, c in
                             sorted(self._certificates.items())})
+        if self.tune_plan is not None:
+            self._event("tune_plan_applied",
+                        structure_hash=self.tune_plan.structure_hash,
+                        candidate=self.tune_plan.candidate,
+                        k=self.tune_plan.k,
+                        measured_ms=self.tune_plan.measured_ms,
+                        margin=self.tune_plan.margin,
+                        base_config=dataclasses.asdict(base_config))
 
     # -- plumbing ----------------------------------------------------------
 

@@ -154,7 +154,7 @@ Phases, each fatal on failure:
    run; then K1 at the batch shape against its plain version with its
    time, bound and ``torch.sparse.mm``.
 16. observed serving, right after phase 15 on its factory and trace:
-   (a) the same 32 requests again with a ``PulseMonitor`` (0.5 s
+   (a) the first 16 of the same requests again with a ``PulseMonitor`` (0.5 s
    windows, the default burn rules), a ``Tracer``, a ``PulseEndpoint``
    on port 0 scraped (``/metrics``, ``/pulse.json``, ``/healthz``)
    during the run, and a ledger under the run's directory: every result
@@ -177,7 +177,9 @@ Phases, each fatal on failure:
    quarter of rows).
 17. the fleet, last: (a) ``graft_fleet`` as a subprocess, 2 worker
    processes on the card each over ``ba_executor_factory(2^20, 2048,
-   seed 11)`` (the fold, K1), ring placement, the wire over shared
+   seed 11)`` (the fold, K1; the graph decomposed once, in a process
+   of its own from phase 4 on, and loaded by the workers and the replay
+   through ``AMT_BA_CACHE_DIR``), ring placement, the wire over shared
    memory, 4 tenants, 8 requests at k = 16, 10 iterations: every
    request completed, bit-equal to a single-process replay built in a
    thread beside the fleet; the fleet p99 the exact pooled quantile;
@@ -219,21 +221,66 @@ Phases, each fatal on failure:
    "gpu" and the card's name (when phase 14 wrote its record), and
    ``graft_lens check`` on (a)'s profile and model (exit 0).
 
+19. graft-tune on the card, after phase 18 on phase 4's levels (a
+   ``"dir"`` source): (a) ``tune.search`` at k = 16 and 128 over the
+   restricted set (``default``, K1 through ``kernel_opts`` at its
+   defaults and at each knob off its default, the synthesized exact
+   schedule ``synth_ladder``, ``fold_tight``, ``overlap2``, ``repl2``,
+   ``bf16`` as a diagnostic), each child a subprocess alone on the card
+   (the next three import while it runs, and the next starts on the
+   card as soon as it has printed its result): each child's
+   ms/iter, bit identity to the golden default fold, K1 launches a
+   step and where its seconds went, the pruned set with its reasons,
+   the winner bit-identical and saved in a run-local plan cache;
+   (b) a second search at each k, a pure hit with zero children;
+   (c) ``MultiLevelArrow(plan="auto")`` at each k applies the winner,
+   launches K1 with its knobs as often as the winner's child did, and
+   equals the golden bit for bit; (d) K1 at every knob point of the
+   contract (12: chunk 64/128/256, batch 4/8, one or two CTAs an SM)
+   against the work list's twin on phase 3's random tiers (f32/bf16/
+   int8, k 16 and 128; int8 bit for bit) and on the fold at k = 16
+   (f32), the points that keep the order bit for bit equal to the
+   default; each fold point first drives the main path,
+   ``MultiLevelArrow.load_folded(kernel="pallas_sell", kernel_opts=
+   point)`` over the race's exported fold, one step with the counts set
+   to 0 just before it (the step equal to the golden, bit for bit where
+   the point keeps the order), and is an entry of the kernels line (its
+   time, the twin's, the bound, ``torch.sparse.mm``, and the launches
+   of that step); (e) ``graft_tune check`` (its timed replay alone on
+   the card, after (d)), the port's ``tools/tune_gate`` (``--no-timing``,
+   a process beside (c), (f) and (d)'s random tiers) and ``python -m
+   arrow_matrix_tpu_torch.analysis kernels --check`` (a host process
+   from the phase's start) exit 0; (f) a
+   search at BA n = 2^16 (k = 128) restricted to the 2^20 k = 128
+   winner's K1 candidate (``pallas_sell`` when the winner is not one),
+   an ``ArrowServer(tune_plan=)`` over ``ba_executor_factory(plan=)``
+   serving three k = 128 requests with ``tune_plan_applied`` in the
+   flight recorder, and an error plan walking the tenant from
+   ``"pallas_sell"`` down to ``"xla"`` with the same bits.
+
 The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 11, 13, 15, 16, 10,
-18, 17: the host work of phase 4 (generating the 2^20 graph, decomposing
+18, 19, 17: the host work of phase 4 (generating the 2^20 graph, decomposing
 it with the numpy decomposer, the host goldens of its inputs) and of
 phase 14 (the native decomposition) runs in two processes of their own
-from the start, beside phases 3, 6-9, 12 and 14.
+from the start, beside phases 3, 6-9, 12 and 14; that of phase 17
+(decomposing the fleet's graph) in a third, from phase 4 on.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
 empty: the bench's launches are in its candidates' records), ``--serve``
 phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first),
 ``--fleet`` phases 1, 2 and 17, ``--lens`` phases 1, 2 and 18 (phase
-4's decomposition made first; (d) then has no bench record to export).
+4's decomposition made first; (d) then has no bench record to export),
+``--tune`` phases 1, 2 and 19 (phase 4's decomposition made first).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 2 and prints no result.
+
+The script stops every process it starts.  It makes itself the reaper
+of its descendants' orphans (``PR_SET_CHILD_SUBREAPER``), and at its end,
+whether a phase failed or not, it stops the multiprocessing resource
+tracker, then stops and reaps any process still below it, naming each
+on standard error.
 """
 
 from __future__ import annotations
@@ -3082,22 +3129,41 @@ def phase_serve_kill(work: str) -> dict:
 
     c = SERVE_KILL
     cmd, env, cwd = serve_cli(work, "serve_kill")
+    ref_cwd = serve_cli(work, "serve_kill_ref")[2]
 
-    def run(extra, plan=None):
+    def start(extra, plan=None, where=cwd):
         e = dict(env)
         if plan is not None:
             e["AMT_FAULT_PLAN"] = json.dumps(plan)
-        tic = time.perf_counter()
-        proc = subprocess.run(cmd + extra, env=e, cwd=cwd,
-                              capture_output=True, text=True, timeout=300)
-        return proc, time.perf_counter() - tic
+        return (subprocess.Popen(cmd + extra, env=e, cwd=where,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True),
+                time.perf_counter())
+
+    def finish(started):
+        proc, tic = started
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SystemExit(f"phase 15 serve_kill: {proc.args} ran past "
+                             f"300 s")
+        return (subprocess.CompletedProcess(proc.args, proc.returncode,
+                                            stdout, stderr),
+                time.perf_counter() - tic)
 
     ref, out, ck = (os.path.join(cwd, f) for f in ("ref.npz", "kill.npz",
                                                      "ck"))
-    r1, s1 = run(["--results_out", ref])
-    r2, s2 = run(["--results_out", out, "--checkpoint", ck],
-                 {"scenario": "kill", "site": "*.step", "after": c["after"]})
-    r3, s3 = run(["--results_out", out, "--checkpoint", ck])
+    # The never-killed run beside the killed one and its rerun.
+    first = start(["--results_out", ref], where=ref_cwd)
+    try:
+        r2, s2 = finish(start(["--results_out", out, "--checkpoint", ck],
+                              {"scenario": "kill", "site": "*.step",
+                               "after": c["after"]}))
+        r3, s3 = finish(start(["--results_out", out, "--checkpoint", ck]))
+    finally:
+        r1, s1 = finish(first)
     if r1.returncode or r2.returncode != -9 or r3.returncode:
         raise SystemExit(f"phase 15 serve_kill: exit codes {r1.returncode}, "
                          f"{r2.returncode}, {r3.returncode}: "
@@ -3112,7 +3178,8 @@ def phase_serve_kill(work: str) -> dict:
                              "differ from the never-killed run")
     resumed = [ln for ln in r3.stdout.splitlines() if "resumed request" in ln]
     log(f"phase 15 serve_kill (BA n={c['vertices']} width {c['width']}, a "
-        f"smaller graph so that three subprocess decompositions fit): "
+        f"smaller graph so that three subprocess decompositions fit; the "
+        f"never-killed run beside the other two): "
         f"killed at step hit {c['after']}, rerun {resumed[0].strip()!r} "
         f"and {len(resumed) - 1} more; {c['requests']} results equal the "
         f"never-killed run bit for bit; subprocess seconds {s1:.1f}, "
@@ -3120,6 +3187,7 @@ def phase_serve_kill(work: str) -> dict:
     kept = os.path.join(work, "serve_kill_ref.npz")
     os.replace(ref, kept)
     shutil.rmtree(cwd, ignore_errors=True)
+    shutil.rmtree(ref_cwd, ignore_errors=True)
     return {"subprocess_s": [s1, s2, s3], "resumed": len(resumed),
             "ref_path": kept}
 
@@ -3285,7 +3353,8 @@ def observe_serve(ctx: dict, run_dir: str, dev, p15: dict) -> dict:
     from arrow_matrix_tpu_torch.obs import Tracer, pulse
 
     it, kmax = SERVE["iterations"], SERVE["max_batch_k"]
-    factory, trace = ctx["factory"], ctx["trace"]
+    # The first half of phase 15's trace (two k = 128 batches).
+    factory, trace = ctx["factory"], ctx["trace"][:len(ctx["trace"]) // 2]
     ledger_dir = os.path.join(run_dir, "ledger")
     ring = os.path.join(run_dir, "pulse_ring.json")
     tracer = Tracer("phase16")
@@ -3795,10 +3864,27 @@ def fleet_clis(run_dir: str) -> dict:
     return out
 
 
-def fleet_baseline(dev, work: str) -> tuple:
+def fleet_host(cache: str, out: str) -> None:
+    """Phase 17 (a)'s host work in a process of its own: the fleet's
+    graph (:data:`FLEET`) decomposed as ``ba_executor_factory``
+    decomposes it and saved in ``cache`` (``AMT_BA_CACHE_DIR``), where
+    the workers and the replay load it; its seconds in ``out``."""
+    from arrow_matrix_tpu_torch.serve import ba_executor_factory
+
+    c = FLEET
+    os.environ["AMT_BA_CACHE_DIR"] = cache
+    tic = time.perf_counter()
+    ba_executor_factory(c["vertices"], c["width"], c["seed"], device="cpu")
+    with open(out, "w") as fh:
+        json.dump({"t_build": time.perf_counter() - tic}, fh)
+
+
+def fleet_baseline(dev, work: str, cache: str) -> tuple:
     """Phase 17 (a): ``graft_fleet`` as a subprocess at :data:`FLEET`,
     its single-process replay built in a thread beside it, ``nvidia-smi``
-    polled meanwhile.  Returns (results, the replay)."""
+    polled meanwhile; the workers and the replay load the graph's
+    decomposition from ``cache`` (:func:`fleet_host`).  Returns
+    (results, the replay)."""
     import subprocess
     import threading
 
@@ -3811,6 +3897,7 @@ def fleet_baseline(dev, work: str) -> tuple:
     name = torch.cuda.get_device_name(dev)
     run_dir, npz = (os.path.join(work, f) for f in ("fleet", "fleet.npz"))
     env = gate.fleet_env()
+    env["AMT_BA_CACHE_DIR"] = cache
     replay, polls, stop = {}, [], threading.Event()
     threads = [threading.Thread(target=fleet_replay, args=(replay,),
                                 daemon=True),
@@ -3825,6 +3912,7 @@ def fleet_baseline(dev, work: str) -> tuple:
            "--trace_seed", str(c["trace_seed"]), "--transport", "auto",
            "--window_s", str(c["window_s"]), "--results_npz", npz]
     tic = time.perf_counter()
+    os.environ["AMT_BA_CACHE_DIR"] = cache     # the replay's factory
     for t in threads:
         t.start()
     with open(os.path.join(work, "fleet.out"), "w") as out_fh, \
@@ -3841,6 +3929,7 @@ def fleet_baseline(dev, work: str) -> tuple:
     stop.set()
     threads[0].join(600)
     threads[1].join(10)
+    os.environ.pop("AMT_BA_CACHE_DIR", None)
     stdout = open(os.path.join(work, "fleet.out")).read()
     stderr = open(os.path.join(work, "fleet.err")).read()
     verdict = gate.last_json(stdout)
@@ -4051,16 +4140,24 @@ def fleet_scenarios(work: str) -> dict:
     return out
 
 
-def phase_fleet(dev, work: str) -> tuple:
+def phase_fleet(dev, work: str, host: tuple, cache: str) -> tuple:
     """Phase 17: the fleet on the card.  (a) the baseline at the Serve
-    cell's size, (b)-(e) the gate's fault scenarios at 2^16, then K1 at
-    the fleet's shape.  Returns (results, K1's entry)."""
+    cell's size, its graph decomposed into ``cache`` by ``host``
+    (:func:`fleet_host`'s process), (b)-(e) the gate's fault scenarios
+    at 2^16, then K1 at the fleet's shape.  Returns (results, K1's
+    entry)."""
     import torch
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     os.makedirs(work, exist_ok=True)      # phases 6-8 removed it
-    results, replay = fleet_baseline(dev, work)
+    tic = time.perf_counter()
+    rec = join_host(*host, "phase 17 (a)'s graph")
+    log(f"phase 17 (a): the fleet's graph decomposed in {rec['t_build']:.1f} "
+        f"s in a process of its own (waited {time.perf_counter() - tic:.1f} "
+        f"s); the workers and the replay load it")
+    results, replay = fleet_baseline(dev, work, cache)
+    results["graph_build_s"] = rec["t_build"]
     results["scenarios"] = fleet_scenarios(work)
     entry = fleet_k1_entry(replay, results["k1_launches"])
     del replay
@@ -4388,6 +4485,447 @@ def phase_lens(dev, base: str, width: int, store: str, run_dir: str,
     return out, entries
 
 
+# -- 19. graft-tune on the card ------------------------------------------------
+
+#: Phase 19's race (the restricted set), its widths and the serving step.
+TUNE = dict(ks=(16, 128), iters=3, timeout_s=240.0,
+            race=("default", "pallas_sell", "pallas_sell_chunk64",
+                  "pallas_sell_chunk256", "pallas_sell_batch4",
+                  "pallas_sell_ctas1", "synth_ladder", "fold_tight",
+                  "overlap2", "repl2", "bf16"),
+            serve_n=1 << 16, serve_width=2048, serve_seed=7,
+            serve_requests=3, serve_iterations=4, knob_k=16)
+
+
+def tune_race(source: dict, k: int, work: str, dev) -> tuple:
+    """Phase 19 (a): ``search`` at width ``k`` over the restricted set,
+    each child alone on the card; returns (plan, report)."""
+    from arrow_matrix_tpu_torch.tune import search
+
+    tic = time.perf_counter()
+    plan, rep = search(source, k, iters=TUNE["iters"],
+                       timeout_s=TUNE["timeout_s"],
+                       plan_dir=os.path.join(work, "tune_plans"),
+                       restrict=list(TUNE["race"]),
+                       run_dir=os.path.join(work, "tune_runs", f"k{k}"),
+                       ledger_dir=os.path.join(work, "ledger"), synth=True,
+                       device=dev, quiet=True)
+    wall = time.perf_counter() - tic
+    if plan is None or rep.get("cache_hit"):
+        raise SystemExit(f"phase 19 k={k}: no plan ({rep.get('error')}, "
+                         f"cache_hit={rep.get('cache_hit')})")
+    res = rep["results"]
+    if set(res) != set(TUNE["race"]) or rep["children_spawned"] != len(res):
+        raise SystemExit(f"phase 19 k={k}: raced {sorted(res)}, pruned "
+                         f"{ {c: r for c, r in rep['pruned'].items() if c in TUNE['race']} }")
+    for name, r in res.items():
+        if r.get("error") or r.get("ms") is None \
+                or not r.get("k1_launches_per_step"):
+            raise SystemExit(f"phase 19 k={k} {name}: {r}")
+    if not res["default"]["bit_identical"] or not plan.bit_identical:
+        raise SystemExit(f"phase 19 k={k}: the default or the winner is "
+                         f"not bit-identical to the golden")
+    if not res["bf16"]["rel_frobenius"] <= 2e-2:
+        raise SystemExit(f"phase 19 k={k} bf16: rel err "
+                         f"{res['bf16']['rel_frobenius']}")
+    log(f"phase 19 (a) k={k}: {len(res)} children in {wall:.1f} s; winner "
+        f"{plan.candidate!r} {plan.measured_ms:.4f} ms/iter vs default "
+        f"{plan.default_ms:.4f} (margin {plan.margin})")
+    for name in TUNE["race"]:
+        r = res[name]
+        sec = r["seconds"]
+        log(f"    {name:22s} {r['ms']:9.4f} ms/iter  bit_identical="
+            f"{r['bit_identical']!s:5s}  rel_err={r['rel_frobenius']:.2e}  "
+            f"K1 launches a step {r['k1_launches_per_step']}  (s: turn "
+            f"{r['turn_s']:.2f}, of it build {sec['build']:.2f}, check "
+            f"{sec['check']:.2f}, timing {sec['timing']:.2f}; waited "
+            f"{sec['waited']:.2f} after {sec['before_wait']:.2f})")
+    pruned = {c: why for c, why in rep["pruned"].items()
+              if why != "not in restricted candidate set"}
+    log(f"    pruned: {pruned}")
+    return plan, dict(rep, wall_s=wall, pruned_screens=pruned)
+
+
+def knob_points() -> list:
+    """Every knob point of K1's contract, as ``LaunchOpts``."""
+    import itertools
+
+    from arrow_matrix_tpu_torch.ops import worklist
+
+    return [worklist.LaunchOpts(chunk_slots=cs, batch=b, ctas_per_sm=ctas)
+            for cs, b, ctas in itertools.product(
+                worklist.CHUNK_SLOTS_CHOICES, worklist.BATCH_CHOICES,
+                worklist.CTAS_PER_SM_CHOICES)]
+
+
+def knob_tag(opts) -> str:
+    return f"cs{opts.chunk_slots},b{opts.batch},ctas{opts.ctas_per_sm}"
+
+
+def tune_knob_main_path(fold_dir: str, golden, row_nnz: float,
+                        dev) -> dict:
+    """Phase 19 (d)'s main path: for each knob point, the race's exported
+    default fold loaded as ``MultiLevelArrow.load_folded(kernel=
+    "pallas_sell", kernel_opts=point)`` and stepped once on the golden's
+    input, its K1 launches counted from zero; the step equals the golden
+    bit for bit where the point keeps the order, else within the
+    fold's tolerance.  Returns {tag: launches}."""
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.tune.search import GOLDEN_SEED
+    from arrow_matrix_tpu_torch.utils import (
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
+
+    k = golden.shape[1]
+    x_host = random_dense(golden.shape[0], k, seed=GOLDEN_SEED)
+    launches = {}
+    for opts in knob_points():
+        ml = MultiLevelArrow.load_folded(
+            fold_dir, device=dev, kernel="pallas_sell",
+            kernel_opts={"chunk_slots": opts.chunk_slots,
+                         "batch": opts.batch,
+                         "ctas_per_sm": opts.ctas_per_sm})
+        x = ml.set_features(x_host)
+        reset_counters()
+        y = ml.gather_result(ml.step(x))
+        got = launches[knob_tag(opts)] = cuda_sell.LAUNCHES
+        err = relative_error(y, golden)
+        same = bool(np.array_equal(y, golden))
+        if got == 0 or not err <= relative_tolerance(row_nnz, 1) \
+                or (opts.keeps_order() and not same):
+            raise SystemExit(f"phase 19 (d) {opts}: {got} K1 launches, rel "
+                             f"err {err:.3e} against the golden (bit-equal "
+                             f"{same})")
+        del ml, x
+    return launches
+
+
+def tune_knob_points(sell, x, row_nnz: float, want_default, dev,
+                     launches: dict) -> list:
+    """Phase 19 (d) on the fold: K1 at every knob point of the contract
+    (f32, k = ``x``'s width) against the work list's twin, the points
+    that keep the order bit for bit against the default; each point's
+    time beside the twin's, the bound and ``torch.sparse.mm``, and its
+    launches on its main-path run (``launches``, by tag)."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_sell, worklist
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    k = x.shape[1]
+    nnz = int(sum(int(d.sum()) for d in sell.deg)) if sell.binary else \
+        int(sum(int((d != 0).sum()) for d in sell.data))
+    bound = fold_bound_ms(sell, nnz, k)
+    by, fl = fold_work(sell, nnz, k)
+    bound_by = "bytes" if by / HBM_BYTES_PER_S >= fl / F32_FLOPS \
+        else "operations"
+    a_csr = sorted_csr(sell, torch.float32)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 5)
+    del a_csr
+    twins, twin_ms = {}, {}
+    entries = []
+    for opts in knob_points():
+        cs = opts.chunk_slots
+        got = cuda_sell.sell_spmm_cuda(sell, x, opts)
+        if cs not in twins:
+            wl = cuda_sell.plan_for(sell, k, x.dtype, True, opts).wl
+            twins[cs] = worklist.sell_spmm_worklist(sell, x, wl)
+            twin_ms[cs] = cuda_ms(
+                lambda: worklist.sell_spmm_worklist(sell, x, wl), 2)
+        torch.cuda.synchronize()
+        err, ok = compare(got, twins[cs], row_nnz, exact=False)
+        if not ok or (opts.keeps_order() and not torch.equal(got,
+                                                             want_default)):
+            raise SystemExit(f"phase 19 (d): K1 at {opts} != its twin "
+                             f"(max abs err {err:.3e}) or, keeping the "
+                             f"order, != the default")
+        ms = statistics.median(cuda_runs(
+            lambda: cuda_sell.sell_spmm_cuda(sell, x, opts), 20))
+        entries.append({
+            "name": f"sell_tier_spmm[knob {knob_tag(opts)},fold,f32,k={k}]",
+            "route": "cuda", "source": SOURCES["K1"],
+            "replaces": REPLACES["K1"],
+            "launches": launches[knob_tag(opts)],
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": twin_ms[cs], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "keeps_order": opts.keeps_order()})
+        del got
+    best = min(entries, key=lambda e: e["ms"])
+    log(f"phase 19 (d): K1 at {len(entries)} knob points on the fold, f32 "
+        f"k={k}: each within its twin's tolerance, the order-keeping ones "
+        f"equal to the default bit for bit; default "
+        f"{next(e['ms'] for e in entries if 'cs128,b8,ctas2' in e['name']):.4f} "
+        f"ms, fastest {best['name']} {best['ms']:.4f} ms, bound "
+        f"{bound:.4f} ms, torch.sparse.mm {library_ms:.4f} ms")
+    for e in entries:
+        log(f"    {e['name']}: {e['ms']:.4f} ms (twin {e['plain_ms']:.1f} "
+            f"ms), launches on its main-path step {e['launches']}")
+    return entries
+
+
+def tune_random_knobs(dev) -> int:
+    """Phase 19 (d) on phase 3's random tiers: K1 at every knob point of
+    each carriage against the work list's twin, binary, k 16 and 128."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_sell, sell, worklist
+
+    rng = np.random.default_rng(19)
+    n_m = sum(n_t for _, n_t in MULTI_TIER_SHAPES)
+    parts = [random_tier(rng, m_t, n_t, n_m) for m_t, n_t in MULTI_TIER_SHAPES]
+    starts = np.cumsum([0] + [n_t for _, n_t in MULTI_TIER_SHAPES[:-1]])
+    m = sell.sell_from_arrays([p[0] for p in parts], None,
+                              [p[1] for p in parts], n_m, starts, device=dev)
+    checks = 0
+    for k in (16, 128):
+        x32 = torch.from_numpy(rng.uniform(-1, 1, (n_m, k)).astype(
+            np.float32)).to(dev)
+        xs = {"f32": x32, "bf16": x32.to(torch.bfloat16),
+              "int8": torch.from_numpy(rng.integers(
+                  -127, 128, (n_m, k)).astype(np.int8)).to(dev)}
+        for name, x in xs.items():
+            base = cuda_sell.sell_spmm_cuda(m, x)
+            for opts in knob_points():
+                got = cuda_sell.sell_spmm_cuda(m, x, opts)
+                wl = cuda_sell.plan_for(m, k, x.dtype, True, opts).wl
+                twin = worklist.sell_spmm_worklist(m, x, wl)
+                torch.cuda.synchronize()
+                err, ok = compare(got, twin, 6000.0, exact=name == "int8")
+                if not ok or (opts.keeps_order()
+                              and not torch.equal(got, base)):
+                    raise SystemExit(f"phase 19 (d) random tiers k={k} "
+                                     f"{name} {opts}: K1 != twin "
+                                     f"({err:.3e}) or != the default")
+                checks += 1
+    log(f"phase 19 (d): {checks} knob points on phase 3's random tiers "
+        f"(f32/bf16/int8, k 16 and 128) equal their twins (int8 bit for "
+        f"bit), the order-keeping ones the default bit for bit")
+    return checks
+
+
+def tune_serve(plan128, work: str, dev) -> dict:
+    """Phase 19 (f): a search at BA 2^16 (k=128) restricted to the 2^20
+    k=128 winner's K1 candidate, an ``ArrowServer(tune_plan=)`` over
+    ``ba_executor_factory(plan=)`` serving a few k=128 requests (its
+    ``tune_plan_applied`` event read back from the flight recorder),
+    and an error plan that forces the tenant down the ladder to
+    ``"xla"``, with the same bits."""
+    import dataclasses
+
+    from arrow_matrix_tpu_torch import faults, serve
+    from arrow_matrix_tpu_torch.obs import flight
+    from arrow_matrix_tpu_torch.tune import search
+
+    name = plan128.candidate if plan128.kernel == "pallas_sell" \
+        else "pallas_sell"
+    source = {"kind": "ba", "n": TUNE["serve_n"], "m": 3,
+              "width": TUNE["serve_width"], "seed": TUNE["serve_seed"],
+              "max_levels": 10}
+    plan, rep = search(source, 128, iters=TUNE["iters"],
+                       timeout_s=TUNE["timeout_s"],
+                       plan_dir=os.path.join(work, "tune_plans_serve"),
+                       restrict=[name],
+                       run_dir=os.path.join(work, "tune_runs", "serve"),
+                       ledger_dir=os.path.join(work, "ledger"), synth=True,
+                       device=dev, quiet=True)
+    if plan is None or plan.kernel != "pallas_sell":
+        raise SystemExit(f"phase 19 (f): no pallas_sell plan at 2^16 "
+                         f"({rep.get('error')}, {rep.get('results')})")
+    factory, n = serve.ba_executor_factory(
+        TUNE["serve_n"], TUNE["serve_width"], TUNE["serve_seed"],
+        plan=plan, device=dev)
+    trace = serve.synthetic_trace(n, tenants=1, requests=TUNE["serve_requests"],
+                                  k=128, iterations=TUNE["serve_iterations"],
+                                  seed=19)
+    rec = flight.FlightRecorder(None)
+    prior = flight.get_recorder()
+    flight.set_recorder(rec)
+    try:
+        srv = serve.ArrowServer(factory, tune_plan=plan, name="tuned")
+        tickets = serve.run_trace(srv, trace)
+    finally:
+        flight.set_recorder(prior)
+    applied = [e for e in rec.snapshot()["events"]
+               if e["name"] == "tune_plan_applied"]
+    if not applied or any(t.status != "completed" for t in tickets) \
+            or srv.base_config.kernel != "pallas_sell":
+        raise SystemExit(f"phase 19 (f): tune_plan_applied {applied}, "
+                         f"tickets {[t.status for t in tickets]}")
+    base = result_bytes(tickets)
+    rungs = serve.degradation_ladder(srv.base_config)
+    faults.set_plan({"scenario": "error", "site": "multi_level.step",
+                     "after": 0, "count": 2 * (len(rungs) - 1)})
+    try:
+        walk = serve.ArrowServer(
+            factory, tune_plan=plan, degrade_after=1, name="walk",
+            policy=faults.RetryPolicy(max_retries=1, backoff_s=0.0))
+        walked = serve.run_trace(walk, trace[:1])
+    finally:
+        faults.clear_plan()
+    s = walk.summary()
+    degr = [(d["from"]["kernel"], d["to"]["kernel"])
+            for t in s["tenants"].values() for d in t["degradations"]]
+    if ("pallas_sell", "xla") not in degr \
+            or result_bytes(walked) != {trace[0].request_id:
+                                        base[trace[0].request_id]}:
+        raise SystemExit(f"phase 19 (f): the ladder walk {degr} or its "
+                         f"bits differ from the tuned rung")
+    log(f"phase 19 (f): ArrowServer(tune_plan={plan.candidate!r}) over "
+        f"ba_executor_factory(plan=) at BA {n}: {len(tickets)} k=128 "
+        f"requests completed, tune_plan_applied logged "
+        f"({applied[0]['data']['base_config']}); an error plan walked the "
+        f"tenant {degr} to the same bits")
+    return {"candidate": plan.candidate, "requests": len(tickets),
+            "walk": degr, "rungs": [dataclasses.asdict(c) for c in rungs]}
+
+
+def phase_tune(dev, base: str, width: int, work: str) -> tuple:
+    """Phase 19: graft-tune on the card over phase 4's 2^20 artifact."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.cli import graft_tune
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.tune import search
+    from arrow_matrix_tpu_torch.tune.search import GOLDEN_SEED
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    import subprocess
+
+    t0 = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # (e)'s certifier needs no card: it runs on the host from the start,
+    # against the committed program store.
+    kcheck = subprocess.Popen(
+        [sys.executable, "-m", "arrow_matrix_tpu_torch.analysis", "kernels",
+         "--check"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={k_: v for k_, v in os.environ.items()
+             if k_ != "AMT_SYNTH_STORE"})
+    os.environ["AMT_SYNTH_STORE"] = os.path.join(work, "synth_programs.json")
+    os.environ["AMT_FLIGHT_DIR"] = os.path.join(work, "flight")
+    plan_dir = os.path.join(work, "tune_plans")
+    source = {"kind": "dir", "base": base, "width": width}
+    out, plans, reports = {}, {}, {}
+    # (a) the race at k = 16 and 128.
+    for k in TUNE["ks"]:
+        plans[k], reports[k] = tune_race(source, k, work, dev)
+    # (b) a second search: a pure hit.
+    for k in TUNE["ks"]:
+        tic = time.perf_counter()
+        again, rep = search(source, k, plan_dir=plan_dir, device=dev,
+                            quiet=True)
+        if not rep["cache_hit"] or rep["children_spawned"] != 0 \
+                or again.candidate != plans[k].candidate:
+            raise SystemExit(f"phase 19 (b) k={k}: {rep}")
+        log(f"phase 19 (b) k={k}: a second search is a pure hit, 0 children "
+            f"({time.perf_counter() - tic:.1f} s with the fingerprint)")
+    # (e)'s bit-identity replay (tools/tune_gate --no-timing) runs in a
+    # process of its own beside (c), (f) and (d)'s random tiers, which
+    # time nothing; graft_tune check, whose replay is timed, runs here
+    # after (d).
+    gate = subprocess.Popen(
+        [sys.executable, "-m", "arrow_matrix_tpu_torch.tools.tune_gate",
+         "--plan-dir", plan_dir, "--no-timing"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    # (c) plan="auto" on the main path: K1 with the winner's knobs.
+    levels = as_levels_of(base, width)
+    os.environ["AMT_TUNE_PLAN_DIR"] = plan_dir
+    auto_launches = {}
+    try:
+        for k in TUNE["ks"]:
+            ml = MultiLevelArrow(levels, width, fmt="fold", plan="auto",
+                                 plan_k=k, device=dev)
+            p = plans[k]
+            if ml.tune_plan is None or ml.tune_plan.candidate != p.candidate \
+                    or ml.kernel != p.kernel:
+                raise SystemExit(f"phase 19 (c) k={k}: plan='auto' applied "
+                                 f"{ml.tune_plan}")
+            x = ml.set_features(random_dense(ml.n, k, seed=GOLDEN_SEED))
+            reset_counters()
+            y = ml.gather_result(ml.step(x))
+            got = auto_launches[k] = cuda_sell.LAUNCHES
+            want = reports[k]["results"][p.candidate]["k1_launches_per_step"]
+            golden = np.load(os.path.join(work, "tune_runs", f"k{k}",
+                                          f"golden_k{k}.npy"))
+            if got != want or not np.array_equal(y, golden):
+                raise SystemExit(f"phase 19 (c) k={k}: {got} K1 launches "
+                                 f"(the winner's child {want}), bit-equal "
+                                 f"{np.array_equal(y, golden)}")
+            log(f"phase 19 (c) k={k}: MultiLevelArrow(plan='auto') applied "
+                f"{p.candidate!r} (kernel {ml.kernel}, kernel_opts "
+                f"{ml.kernel_opts}); one step launched K1 {got} times, as "
+                f"the winner's child did, and equals the golden bit for bit")
+            del ml, x
+        # (f) the tuned server.
+        out["serve"] = tune_serve(plans[128], work, dev)
+    finally:
+        os.environ.pop("AMT_TUNE_PLAN_DIR", None)
+    del levels
+    # (d) every knob point: on phase 3's random tiers against the twin,
+    # then on the race's exported 2^20 fold at k = 16, each point's
+    # main-path step first, then K1 against the twin and timed.
+    random_checks = tune_random_knobs(dev)
+    gate_out = gate.communicate(timeout=600)[0]
+    kd = TUNE["knob_k"]
+    run_dir = os.path.join(work, "tune_runs", f"k{kd}")
+    golden = np.load(os.path.join(run_dir, f"golden_k{kd}.npy"))
+    ml = MultiLevelArrow.load_folded(os.path.join(run_dir, "fold"),
+                                     device=dev)
+    row_nnz = ml.nnz / ml.n
+    point_launches = tune_knob_main_path(os.path.join(run_dir, "fold"),
+                                         golden, row_nnz, dev)
+    xs = torch.from_numpy(random_dense(ml.total_rows, kd, seed=5)).to(dev)
+    want_default = cuda_sell.sell_spmm_cuda(ml.sell, xs)
+    entries = tune_knob_points(ml.sell, xs, row_nnz, want_default, dev,
+                               point_launches)
+    del ml, want_default, xs
+    torch.cuda.empty_cache()
+    # (e) the gates.
+    rc_check, text = cli_main(graft_tune.main, ["check", "--plan-dir",
+                                                plan_dir])
+    kc_out = kcheck.communicate(timeout=600)[0]
+    if rc_check or gate.returncode or kcheck.returncode:
+        raise SystemExit(f"phase 19 (e): graft_tune check rc {rc_check}, "
+                         f"tune_gate rc {gate.returncode}, analysis kernels "
+                         f"--check rc {kcheck.returncode}:\n{text}\n"
+                         f"{gate_out[-2000:]}\n{kc_out[-2000:]}")
+    log(f"phase 19 (e): graft_tune check, tools/tune_gate and analysis "
+        f"kernels --check exit 0 ({kc_out.strip().splitlines()[-2]})")
+    for line in text.strip().splitlines() + [
+            f"tools/tune_gate: {g}" for g in gate_out.splitlines()
+            if g.startswith("tune-gate")]:
+        log(f"    {line}")
+    for k in TUNE["ks"]:
+        rep = reports[k]
+        out[f"k{k}"] = {
+            "winner": plans[k].candidate, "measured_ms": plans[k].measured_ms,
+            "default_ms": plans[k].default_ms, "margin": plans[k].margin,
+            "wall_s": rep["wall_s"], "pruned": rep["pruned_screens"],
+            "results": {n: {kk: r.get(kk) for kk in
+                            ("ms", "bit_identical", "rel_frobenius",
+                             "k1_launches_per_step", "k1_launches",
+                             "seconds", "turn_s")}
+                        for n, r in rep["results"].items()}}
+    out.update(random_knob_checks=random_checks,
+               auto_k1_launches=auto_launches,
+               knob_k1_launches=point_launches,
+               seconds=time.perf_counter() - t0)
+    os.environ.pop("AMT_SYNTH_STORE", None)
+    log(f"phase 19: {out['seconds']:.1f} s")
+    return out, entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -4405,6 +4943,9 @@ def main() -> int:
                         help="run phases 1, 2 and 18 only (the lens, the "
                              "probe and the ledger, on phase 4's "
                              "decomposition, made here)")
+    parser.add_argument("--tune", action="store_true",
+                        help="run phases 1, 2 and 19 only (graft-tune on "
+                             "phase 4's decomposition, made here)")
     parser.add_argument("--serve", action="store_true",
                         help="run phases 1, 2, 15 and 16 only (the serving "
                              "runtime and its observability, on phase 4's "
@@ -4470,8 +5011,8 @@ def main() -> int:
                         "arrow_matrix_tpu_torch", "_build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    # Phase 4's artifact and phase 18's run-local ledger, which phases
-    # 6-8 (they empty ``work``) must not remove.
+    # Phase 4's artifact, phase 17's graph and phase 18's run-local
+    # ledger, which phases 6-8 (they empty ``work``) must not remove.
     keep = work + "_lens"
     shutil.rmtree(keep, ignore_errors=True)
     os.makedirs(keep)
@@ -4485,14 +5026,22 @@ def main() -> int:
                             start_host(phase14_host, 1 << args.log2n), None,
                             ledger_dir=store)
         return finish({"bench": bench, "card": smi}, [])
+    fleet_cache = os.path.join(keep, "fleet_cache")
     if args.fleet:
-        fleet, entry = phase_fleet(dev, work)
+        fleet, entry = phase_fleet(dev, work,
+                                   start_host(fleet_host, fleet_cache),
+                                   fleet_cache)
         return finish({"fleet": fleet, "card": smi}, [entry])
     if args.lens:
         base, _ = decompose_phase4(1 << args.log2n, keep)
         lens_res, entries = phase_lens(dev, base, 2048, store,
                                        os.path.join(keep, "run"), {})
         return finish({"lens": lens_res, "card": smi}, entries)
+    if args.tune:
+        base, _ = decompose_phase4(1 << args.log2n, keep)
+        tune_res, entries = phase_tune(dev, base, 2048,
+                                       os.path.join(keep, "tune"))
+        return finish({"tune": tune_res, "card": smi}, entries)
     if args.serve:
         serve_res, entry, ctx = serve_only(dev, 1 << args.log2n, work)
         observe, observe_entry = phase_observe(ctx, serve_res,
@@ -4528,6 +5077,8 @@ def main() -> int:
     # -- 4. main path ----------------------------------------------------------
     tic = time.perf_counter()
     rec = join_host(*host4, "phase 4")
+    # Phase 17's graph, decomposed in a process of its own from here on.
+    host17 = start_host(fleet_host, fleet_cache)
     t_gen, t_dec = rec["t_gen"], rec["t_dec"]
     loaded = load_decomposition(base, width, block_diagonal=True)
     levels = as_levels(loaded, load_level_widths(base, width, True))
@@ -4705,8 +5256,14 @@ def main() -> int:
         dev, base, width, store, os.path.join(keep, "run"), results["main"])
     kernels += lens_entries
 
+    # -- 19. graft-tune on the card, on phase 4's levels ---------------------
+    results["tune"], tune_entries = phase_tune(dev, base, width,
+                                               os.path.join(keep, "tune"))
+    kernels += tune_entries
+
     # -- 17. the fleet of worker processes on the card -----------------------
-    results["fleet"], fleet_entry = phase_fleet(dev, work)
+    results["fleet"], fleet_entry = phase_fleet(dev, work, host17,
+                                                fleet_cache)
     kernels.append(fleet_entry)
 
     results["card"] = smi
@@ -5027,5 +5584,117 @@ def finish(results: dict, kernels: list) -> int:
     return 0
 
 
+# -- the processes the run starts ----------------------------------------------
+
+#: The ``prctl`` option that makes a process the reaper of the orphans
+#: among its descendants (Linux, ``<linux/prctl.h>``).
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> None:
+    """Make this process the parent of every orphan among its
+    descendants (a process whose own parent exited first, such as a
+    fleet worker's resource tracker), so that :func:`stop_descendants`
+    finds every process the run started and reaps those that exited."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        print(f"chip_smoke: prctl(PR_SET_CHILD_SUBREAPER) failed (errno "
+              f"{ctypes.get_errno()}): an orphan of a child may outlive "
+              f"the run", file=sys.stderr, flush=True)
+
+
+def descendants() -> list:
+    """Every process below this one, as (pid, state letter), each
+    parent before its children."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        children.setdefault(int(fields[1]), []).append((int(name),
+                                                        fields[0]))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for pid, state in children.get(todo.pop(0), []):
+            out.append((pid, state))
+            todo.append(pid)
+    return out
+
+
+def command_line(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return fh.read().replace(b"\0", b" ").decode(
+                errors="replace").strip()[:240]
+    except OSError:
+        return "?"
+
+
+def reap_children() -> None:
+    """Reap every child of this process that has exited."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(grace_s: float = 10.0) -> list:
+    """Stop every process the run started that is still there at its
+    end: the multiprocessing resource tracker by closing its pipe (it
+    ignores SIGTERM), any other by SIGTERM and, after ``grace_s``,
+    SIGKILL; each is reaped.  Returns the command lines of those that
+    were still running, each also named on standard error."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    stop = getattr(tracker, "_stop", None)
+    if stop is not None and getattr(tracker, "_pid", None) is not None:
+        stop()
+    stopped = {}
+    deadline = time.monotonic() + grace_s
+    while True:
+        reap_children()
+        live = [pid for pid, state in descendants() if state != "Z"]
+        if not live:
+            break
+        late = time.monotonic() > deadline
+        if late and time.monotonic() > deadline + grace_s:
+            print(f"chip_smoke: processes {live} survived SIGKILL",
+                  file=sys.stderr, flush=True)
+            break
+        for pid in live:
+            if pid not in stopped:
+                stopped[pid] = command_line(pid)
+                print(f"chip_smoke: pid {pid} was still running at the "
+                      f"end, stopping it: {stopped[pid]}", file=sys.stderr,
+                      flush=True)
+            try:
+                os.kill(pid, signal.SIGKILL if late else signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+        time.sleep(0.1)
+    reap_children()
+    return list(stopped.values())
+
+
+def run() -> int:
+    """:func:`main`, and every process it started stopped at its end."""
+    adopt_orphans()
+    try:
+        return main()
+    finally:
+        stop_descendants()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

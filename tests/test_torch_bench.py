@@ -114,6 +114,46 @@ def test_cpu_run_with_a_column_schedule_writes_it_on_the_line(tmp_path):
     assert "repl" not in runs["hyb"] and runs["hyb"]["overlap_slabs"] == 2
 
 
+def test_the_column_schedule_sweep_flags_measure_each_point(tmp_path):
+    """``--overlap_slabs`` and ``--repl`` (the root bench's sweeps): the
+    winner again at each S, the fold at each c, each point gated, and
+    the points the width cannot take named."""
+    proc, line = _bench(tmp_path, ["--device", "cpu", "--overlap_slabs",
+                                   "1,2,3,x", "--repl", "2"],
+                        AMT_BENCH_N="2048", AMT_BENCH_FMT="hyb",
+                        AMT_BENCH_K128="0")
+    assert proc.returncode == 0, proc.stderr
+    over, repl = line["overlap_sweep"], line["repl_sweep"]
+    assert over["fmt"] == "hyb" and repl["fmt"] == "fold"
+    for point in (over["1"], over["2"], repl["2"]):
+        assert point["ms"] > 0 and point["err"] <= line["frobenius_gate"]
+        assert "gate_missed" not in point
+    assert over["3"] == {"error": "S=3 does not divide k=16"}
+    assert over["x"] == {"error": "not a positive integer"}
+
+
+def test_the_sweep_env_names_the_root_benchs(monkeypatch):
+    from arrow_matrix_tpu_torch import bench as pbench
+
+    calls = []
+    monkeypatch.setattr(pbench, "_spawn_candidate",
+                        lambda fmt, cfg, timeout_s: calls.append(
+                            (fmt, cfg["overlap_slabs"], cfg["repl"]))
+                        or {"ms": 1.0, "err": 1.0})
+    monkeypatch.setenv("AMT_BENCH_OVERLAP_SWEEP", "4")
+    monkeypatch.setenv("AMT_BENCH_REPL_SWEEP", "2,5")
+    result = {"fmt_used": "hyb"}
+    cfg = {"k": 16, "platform": "cpu", "overlap_slabs": 1, "repl": 1}
+    pbench.column_sweeps(result, cfg, tol=0.5)
+    assert calls == [("hyb", 4, 1), ("fold", 1, 2)]
+    assert result["overlap_sweep"]["4"]["gate_missed"] == 0.5
+    assert result["repl_sweep"]["5"] == {"error": "c=5 does not divide "
+                                                  "k=16"}
+    root = open(os.path.join(REPO, "bench.py")).read()
+    assert '"AMT_BENCH_OVERLAP_SWEEP"' in root and \
+        '"AMT_BENCH_REPL_SWEEP"' in root
+
+
 @pytest.fixture(scope="module")
 def tiny_levels():
     a = barabasi_albert(500, 3, seed=4)

@@ -843,3 +843,69 @@ def test_memory_report_of_a_fold_step_on_the_card(cuda):
     assert rep["output_bytes"] == x.nbytes
     assert rep["temp_bytes"] is not None and rep["temp_bytes"] >= 0
     assert rep["total_bytes"] <= exe.predicted_hbm_bytes(128)
+
+
+# -- K1's launch knobs (ops/worklist.py:LaunchOpts) ----------------------------
+
+def _knob_operator(cuda, binary):
+    rng = np.random.default_rng(14)
+    shapes = ((0, 9), (8, 3000), (40, 600), (300, 40), (2000, 3))
+    n = sum(n_t for _, n_t in shapes)
+    parts = [_tier(rng, m_t, n_t, n) for m_t, n_t in shapes]
+    starts = np.cumsum([0] + [n_t for _, n_t in shapes[:-1]])
+    return sell.sell_from_arrays(
+        [p[0] for p in parts], None if binary else [p[2] for p in parts],
+        [p[1] for p in parts] if binary else None, n, starts, device=cuda)
+
+
+@pytest.mark.parametrize("cs", worklist.CHUNK_SLOTS_CHOICES)
+@pytest.mark.parametrize("batch", worklist.BATCH_CHOICES)
+@pytest.mark.parametrize("ctas", worklist.CTAS_PER_SM_CHOICES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_k1_at_every_knob_point_matches_its_twin(cuda, cs, batch, ctas,
+                                                  dtype):
+    opts = worklist.LaunchOpts(chunk_slots=cs, batch=batch,
+                               ctas_per_sm=ctas)
+    for binary in (True, False):
+        m = _knob_operator(cuda, binary)
+        for k in (16, 128):
+            rng = np.random.default_rng(k)
+            x = (torch.from_numpy(rng.integers(-127, 128, (m.n_rows, k))
+                                  .astype(np.int8)).to(cuda)
+                 if dtype == torch.int8 else
+                 torch.from_numpy(rng.uniform(-1, 1, (m.n_rows, k))
+                                  .astype(np.float32)).to(cuda).to(dtype))
+            got = cuda_sell.sell_spmm_cuda(m, x, opts)
+            wl = cuda_sell.plan_for(m, k, x.dtype, True, opts).wl
+            twin = worklist.sell_spmm_worklist(m, x, wl)
+            assert torch.equal(got, cuda_sell.sell_spmm_cuda(m, x, opts))
+            if dtype == torch.bfloat16:
+                assert bf16_within_one_ulp(got, twin, 2000.0)
+            elif dtype == torch.int8 and binary:
+                assert torch.equal(got, twin)
+            else:
+                assert relative_error(got.cpu().numpy(),
+                                      twin.cpu().numpy()) <= \
+                    relative_tolerance(2000.0)
+            if opts.keeps_order():
+                assert torch.equal(got, cuda_sell.sell_spmm_cuda(m, x))
+
+
+def test_pallas_sell_fold_with_a_schedule_on_the_card(cuda):
+    from arrow_matrix_tpu_torch.tune.fingerprint import structure_fingerprint
+    from arrow_matrix_tpu_torch.tune.synth import synthesize_schedule
+
+    a = barabasi_albert(4096, 3, seed=2)
+    levels = arrow_decomposition(a, 128, max_levels=10,
+                                 block_diagonal=True, seed=2)
+    sched = synthesize_schedule(structure_fingerprint(levels, 128))
+    ex = MultiLevelArrow(levels, 128, fmt="fold", kernel="pallas_sell",
+                         kernel_opts={"schedule": sched}, device=cuda)
+    base = MultiLevelArrow(levels, 128, fmt="fold", device=cuda)
+    x = random_dense(4096, 128, seed=1)
+    before = cuda_sell.LAUNCHES
+    y = ex.gather_result(ex.step(ex.set_features(x)))
+    assert cuda_sell.LAUNCHES - before >= 2
+    assert np.array_equal(y, base.gather_result(base.step(
+        base.set_features(x))))

@@ -176,9 +176,29 @@ def test_carried_mask_marks_real_rows(levels):
     {"mesh": object()}, {"routing": "a2a"}, {"layout": "wide"},
     {"kernel": "pallas_sell"}, {"plan": "auto"},
     {"kernel_opts": {"row_block": 64}}])
-def test_unported_options_raise_naming_the_roadmap(levels, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)
+def test_unported_options_raise_naming_the_roadmap(levels, kwargs,
+                                                   tmp_path, monkeypatch):
+    """The multi-device options still raise naming ROADMAP.md; the fold
+    executor options are ported and answer as the JAX class does:
+    "pallas_sell" needs the fold, a plan miss warns, and a TPU knob
+    K1 has no use for raises."""
+    from arrow_matrix_tpu_torch.tune import TunePlanMiss
+
+    monkeypatch.setenv("AMT_TUNE_PLAN_DIR", str(tmp_path))
+    if "kernel" in kwargs:
+        with pytest.raises(ValueError, match="requires fmt='fold'"):
+            MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)
+    elif "plan" in kwargs:
+        with pytest.warns(TunePlanMiss, match="no plan file"):
+            MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)
+    elif "kernel_opts" in kwargs:
+        with pytest.raises(ValueError, match="TPU knobs"):
+            MultiLevelArrow(levels, WIDTH, fmt="fold", device="cpu",
+                            **kwargs)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue A"):
+            MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)
 
 
 def test_fold_needs_the_card_unless_asked_for_the_cpu(levels):

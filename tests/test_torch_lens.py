@@ -157,14 +157,26 @@ def test_unseen_family_and_version_skew_as_jax():
 
 
 def test_pallas_and_ring_sweep_raise_with_the_title():
+    """The lens's 'pallas' kernel and ring sweep still raise with the
+    title; the cost model prices K1 with its knobs ("pallas") since the
+    fold executor options were ported."""
     fp = structure_fingerprint(_levels(), 64)
-    model = pcm.CostModel("h", "cpu")
-    for call in (lambda: pcm.tier_counters(fp, 16, kernel="pallas"),
-                 lambda: pcm.predict_iter_ms(fp, 16, model,
-                                             kernel="pallas"),
-                 lambda: pcm.predict_candidate_ms(
-                     model, fp, 16, {"kernel": "pallas_sell"}),
-                 lambda: plens.profile_fold(_levels(), 64, 8,
+    model = pcm.CostModel("h", "cpu", coeffs={
+        "xla:tail": {"nnz": 1e-6, "rows": 1e-6, "streamed_bytes": 1e-9}})
+    k1 = pcm.tier_counters(fp, 16, kernel="pallas",
+                           kernel_opts={"batch": 4})
+    xla = pcm.tier_counters(fp, 16)
+    assert [c["streamed_bytes"] for c in k1] == \
+        [c["streamed_bytes"] for c in xla]
+    assert all(c["family"].startswith("pallas:") and "@b4" in c["family"]
+               for c in k1)
+    assert all(c["k1_ctas"] >= c["k1_items"]
+               >= (c["rows"] > 0 and c["slot_width"] > 0)
+               for c in k1)
+    assert pcm.predict_iter_ms(fp, 16, model, kernel="pallas") > 0.0
+    assert pcm.predict_candidate_ms(
+        model, fp, 16, {"kernel": "pallas_sell"}) > 0.0
+    for call in (lambda: plens.profile_fold(_levels(), 64, 8,
                                             kernel="pallas",
                                             device="cpu"),
                  lambda: plens.profile_fold(_levels(), 64, 8,

@@ -348,9 +348,15 @@ def test_policy_equals_jax_and_validates():
 
 
 def test_unported_parts_raise_naming_their_roadmap_item(pkgs, tmp_path):
+    """Live resharding still raises naming its item; a tune plan is
+    ported, and one the port cannot apply (no backend, no structure)
+    is a loud miss, never a silent default."""
+    from arrow_matrix_tpu_torch.tune import TunePlanMiss
+
     p = pkgs["port"]
-    with pytest.raises(NotImplementedError, match="Proof and tuning"):
-        _server(p, tune_plan={"candidate": "fold"})
+    with pytest.warns(TunePlanMiss, match="backend"):
+        srv = _server(p, tune_plan={"candidate": "fold"})
+    assert srv.tune_plan is None
     with pytest.raises(NotImplementedError, match="multi-device"):
         _server(p, grow_config=pserve.ExecConfig(repl=2))
     srv = _server(p)
@@ -452,3 +458,27 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pserve.ba_executor_factory(N, WIDTH, SEED)
+
+
+@pytest.mark.parametrize("n,width,seed", [(64, 16, 5), (4096, 64, 11)])
+def test_factory_cache_loads_the_same_decomposition(tmp_path, monkeypatch,
+                                                    n, width, seed):
+    """With ``AMT_BA_CACHE_DIR`` the factory computes and saves the
+    decomposition once, then loads it; every executor over it gives the
+    computed decomposition's bits."""
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    def three_steps():
+        factory, _ = pserve.ba_executor_factory(n, width, seed, device="cpu")
+        ml = factory(pserve.ExecConfig())
+        x = ml.set_features(random_dense(ml.n, 4, seed=7))
+        return np.asarray(ml.gather_result(ml.run(x, 3)))
+
+    monkeypatch.delenv("AMT_BA_CACHE_DIR", raising=False)
+    computed = three_steps()
+    monkeypatch.setenv("AMT_BA_CACHE_DIR", str(tmp_path))
+    first = three_steps()
+    done = [f for f in tmp_path.iterdir() if f.name.endswith(".complete")]
+    assert len(done) == 1
+    loaded = three_steps()
+    assert computed.tobytes() == first.tobytes() == loaded.tobytes()

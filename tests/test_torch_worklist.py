@@ -357,7 +357,8 @@ def test_twin_splits_a_hub_row_in_order(weighted, k):
 
 def test_kernel_source_mirrors_the_worklist():
     """``ops/worklist.py`` names the kernel's CTA size, tier table and
-    chunk; the kernel takes its batch from the carriage alone."""
+    chunk; the kernel takes its batch (default 8, 4 for int8) and its
+    launch bound as launch knobs, the values ``ops/worklist.py`` lists."""
     assert int(re.search(r"constexpr int kThreads = (\d+);", SRC).group(1)) \
         == worklist.THREADS
     body = SRC[SRC.index("struct Tier {"):]
@@ -368,8 +369,14 @@ def test_kernel_source_mirrors_the_worklist():
     assert "static_assert(sizeof(Tier) == 64" in SRC
     assert len(worklist.TIER_FIELDS) * 8 == 64
     assert f"chunk of at most {worklist.CHUNK_SLOTS} slots" in SRC
-    assert "constexpr int BATCH = sizeof(TX) == 1 ? 4 : 8;" in SRC
-    assert "batch" not in SRC[SRC.index('extern "C"'):]
+    assert "BATCH is 8 by default, and 4 for int8" in SRC
+    assert (worklist.default_batch(4), worklist.default_batch(1)) == (8, 4)
+    entry = SRC[SRC.index('extern "C"'):]
+    assert "int batch, int ctas_per_sm" in entry
+    assert "if (batch != 4 && batch != 8) return -4;" in entry
+    assert worklist.BATCH_CHOICES == (4, 8)
+    assert "ctas_per_sm != 1 && ctas_per_sm != 2" in entry
+    assert worklist.CTAS_PER_SM_CHOICES == (1, 2)
 
 
 def test_ctypes_signature_matches_the_kernel_source():
