@@ -60,16 +60,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--blocked", type=str2bool, nargs="?",
                    default=True, const=True,
                    help="Block-diagonal decomposition (default true).")
-    p.add_argument("--fmt", type=str, default="fold",
-                   choices=["fold", "auto", "dense", "ell", "hyb"],
+    p.add_argument("--fmt", type=str, default=None,
+                   choices=["fold", "auto", "dense", "ell", "hyb", "sell"],
                    help="Operator format: fold (every level in one SELL "
-                        "operator, the default on one device); dense "
+                        "operator, the default on one device); sell (the "
+                        "padding-free mesh executor SellMultiLevel, the "
+                        "default on more); dense "
                         "(each level's dense arrow blocks, through the "
                         "column and head-row kernels); ell (ELL arrow "
                         "blocks) and hyb (one split ELL per level), "
                         "through the SELL kernel; auto (dense while the "
                         "levels fit half the free device memory, then "
                         "ell).")
+    p.add_argument("--devices", type=int, default=1,
+                   help="Ranks of the mesh, one process each (started "
+                        "here unless the env already holds a "
+                        "torchrun-style WORLD_SIZE).")
+    p.add_argument("--backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="Process-group backend of the ranks: nccl (one "
+                        "card a rank, the default on the card) or gloo "
+                        "(the CPU, or ranks sharing a card).")
+    p.add_argument("--mode", type=str, default="time",
+                   choices=["time", "space"],
+                   help="Multi-matrix execution mode: time (the levels "
+                        "one after the other on the whole mesh); space "
+                        "is not ported.")
+    p.add_argument("--routing", type=str, default=None,
+                   choices=["gather", "a2a"],
+                   help="Inter-level exchange on a mesh: a2a (explicit "
+                        "tables over one all-to-all; the default for "
+                        "--fmt sell) or gather (an all-gather of the "
+                        "carriage; the default otherwise).")
+    p.add_argument("--repl", type=str, default="1",
+                   choices=["auto", "1", "2", "4"],
+                   help="2.5D replication factor c of --fmt sell on a "
+                        "mesh: c replica groups each own a k/c feature "
+                        "slab (c divides --devices and --features); "
+                        "auto runs the obs/comm model under the HBM "
+                        "budget.")
+    p.add_argument("-s", "--slim", type=str2bool, nargs="?", default=True,
+                   const=True,
+                   help="Layout on a mesh: true = slim (default); false = "
+                        "wide, on an (arm=2, blocks) mesh (an even "
+                        "--devices >= 4, a stacked format, --routing "
+                        "gather).")
+    p.add_argument("--ladder", type=str, default="default",
+                   choices=["default", "tight"],
+                   help="Degree ladder of --fmt sell: default (growth "
+                        "1.5, align 8) or tight (1.3, 1).")
+    p.add_argument("--comm_report", type=str2bool, nargs="?", default=False,
+                   const=True,
+                   help="Print one step's collective bytes by kind "
+                        "(utils/commstats) beside the executor's ideal.")
     p.add_argument("--head_fmt", type=str, default="auto",
                    choices=["auto", "flat", "ell", "gell"],
                    help="Head layout of ELL levels (--fmt ell/auto): "
@@ -79,7 +122,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "flat and ell.")
     p.add_argument("--feature_dtype", type=str, default=None,
                    choices=["f32", "bf16"],
-                   help="Carried-feature dtype of --fmt fold: bf16 "
+                   help="Carried-feature dtype of --fmt fold or sell: bf16 "
                         "halves the gathered bytes, sums stay f32 (the "
                         "--validate gate widens to 2e-2).")
     p.add_argument("--fold_growth", type=float, default=1.2,
@@ -104,6 +147,65 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def check_mesh_flags(args) -> None:
+    """Resolve ``--fmt``/``--routing`` as the JAX CLI does (fold on one
+    device, sell and a2a on more) and refuse flag combinations before
+    any decomposition work."""
+    n_dev = args.devices
+    if n_dev < 1:
+        raise SystemExit("--devices must be >= 1")
+    if args.mode == "space":
+        raise SystemExit(
+            "spmm_arrow: --mode space (the space-shared executors) is not "
+            "ported yet; see ROADMAP.md Queue A, 'multi-device "
+            "executors'")
+    if args.fmt is None:
+        args.fmt = "sell" if n_dev > 1 else "fold"
+        print(f"auto-selected --fmt {args.fmt} for {n_dev} device(s) "
+              f"(measured-best; override with --fmt)")
+    if args.routing is None:
+        args.routing = "a2a" if (args.fmt == "sell" and n_dev > 1) \
+            else "gather"
+        if args.routing == "a2a":
+            print("auto-selected --routing a2a (lowest collective "
+                  "volume; override with --routing)")
+    if args.fmt in ("hyb", "fold") and n_dev > 1:
+        raise SystemExit(
+            f"--fmt {args.fmt} is single-chip only; rerun with "
+            f"--devices 1 (or pick --fmt auto/dense/ell/sell "
+            f"for the {n_dev}-device mesh)")
+    if args.fmt == "sell" and n_dev < 2:
+        raise SystemExit(
+            "--fmt sell is the mesh orchestration; on one chip "
+            "use --fmt fold (same layouts, zero routing)")
+    if args.feature_dtype == "bf16" and args.fmt not in ("fold", "sell"):
+        raise SystemExit(f"spmm_arrow: --feature_dtype is a --fmt fold option "
+                         f"(and of --fmt sell on a mesh); the {args.fmt} "
+                         f"carriage is f32")
+    if args.repl != "1" and args.fmt != "sell":
+        raise SystemExit(f"--repl needs --fmt sell (mesh replica groups); "
+                         f"--fmt {args.fmt} has no replica axis here")
+    if args.repl not in ("1", "auto"):
+        c = int(args.repl)
+        if n_dev % c or args.features % c:
+            raise SystemExit(
+                f"--repl {c} must divide the device count ({n_dev}) and "
+                f"--features ({args.features}): each replica group needs "
+                f"an equal share of the mesh and of the features")
+    if not args.slim:
+        if n_dev < 4 or n_dev % 2:
+            raise SystemExit("--slim false (the wide layout) needs an "
+                             "even --devices >= 4")
+        if args.fmt == "sell" or args.routing == "a2a":
+            raise SystemExit("--slim false needs a stacked format "
+                             "(auto/dense/ell) and --routing gather")
+    if n_dev > 1 and args.checkpoint:
+        raise SystemExit(
+            "spmm_arrow: checkpoints of a multi-process run are not "
+            "ported yet; see ROADMAP.md Queue A, 'multi-device "
+            "executors'")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.checkpoint and not args.carry:
@@ -111,26 +213,24 @@ def main(argv=None) -> int:
         raise SystemExit("--checkpoint requires --carry (there is no "
                          "iteration state to resume when X is fresh "
                          "every iteration)")
+    check_mesh_flags(args)
+    if args.devices > 1:
+        return mesh_main(args)
 
     import torch
 
-    from arrow_matrix_tpu_torch.decomposition import (
-        arrow_decomposition,
-        decomposition_spmm,
-    )
+    from arrow_matrix_tpu_torch.decomposition import decomposition_spmm
     from arrow_matrix_tpu_torch.io import (
         ArtifactIntegrityError,
         as_levels,
         load_decomposition,
         load_level_widths,
         num_rows,
-        save_decomposition,
     )
     from arrow_matrix_tpu_torch.cli.common import make_supervisor
     from arrow_matrix_tpu_torch.faults import Abort
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
-        barabasi_albert,
         random_dense,
         relative_error,
         relative_tolerance,
@@ -146,24 +246,7 @@ def main(argv=None) -> int:
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
 
-    width = args.width
-    if args.path is None:
-        width = width or 512
-        n = args.vertices
-        path = os.path.join(".", f"ba_{n}_{args.ba_neighbors}")
-        print(f"generating Barabasi-Albert graph n={n} "
-              f"m={args.ba_neighbors}")
-        a = barabasi_albert(n, args.ba_neighbors, seed=args.seed)
-        levels = arrow_decomposition(a, arrow_width=width, max_levels=10,
-                                     block_diagonal=args.blocked,
-                                     seed=args.seed)
-        save_decomposition(levels, path, block_diagonal=args.blocked)
-    else:
-        path = args.path
-        if not width:
-            raise SystemExit("--width is required with --path (it names "
-                             "the artifact files)")
-
+    path, width = prepare_artifact(args)
     try:
         loaded = load_decomposition(path, width,
                                     block_diagonal=args.blocked)
@@ -262,6 +345,207 @@ def main(argv=None) -> int:
         ms = np.asarray(times) * 1e3
         print(f"spmm_time mean {ms.mean():.3f} ms over {len(ms)} "
               f"iterations (min {ms.min():.3f}) on {device}")
+    return 0
+
+
+def prepare_artifact(args) -> tuple:
+    """(path, width) of the run's artifact: ``--path``, or a generated
+    Barabasi-Albert graph decomposed and saved in the cwd."""
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.io import save_decomposition
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+
+    if args.path is not None:
+        if not args.width:
+            raise SystemExit("--width is required with --path (it names "
+                             "the artifact files)")
+        return args.path, args.width
+    width = args.width or 512
+    n = args.vertices
+    path = os.path.join(".", f"ba_{n}_{args.ba_neighbors}")
+    print(f"generating Barabasi-Albert graph n={n} m={args.ba_neighbors}")
+    a = barabasi_albert(n, args.ba_neighbors, seed=args.seed)
+    levels = arrow_decomposition(a, arrow_width=width, max_levels=10,
+                                 block_diagonal=args.blocked, seed=args.seed)
+    save_decomposition(levels, path, block_diagonal=args.blocked)
+    return path, width
+
+
+def mesh_main(args) -> int:
+    """``--devices P > 1``: the artifact made once, then the ranks — this
+    process as one rank of a ``torchrun``-style job when the env holds
+    ``WORLD_SIZE``, else P ranks started here (:func:`mesh_rank`), on
+    the card unless ``--device cpu``."""
+    from arrow_matrix_tpu_torch.parallel.launch import (
+        RankContext,
+        resolve_launch,
+        spawn,
+    )
+
+    try:
+        backend, kind = resolve_launch(args.devices, args.backend,
+                                       args.device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"spmm_arrow: {e}") from None
+    if "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from arrow_matrix_tpu_torch.parallel.mesh import (
+            initialize_multihost,
+            rank_device,
+            set_rank_device,
+        )
+
+        if int(os.environ["WORLD_SIZE"]) != args.devices:
+            raise SystemExit(f"--devices {args.devices} but the env's "
+                             f"WORLD_SIZE is {os.environ['WORLD_SIZE']}")
+        rank = initialize_multihost(backend=backend, device=args.device)
+        path, width = (prepare_artifact(args) if rank == 0
+                       else (None, None))
+        box = [path, width]
+        dist.broadcast_object_list(box, src=0)
+        dev = rank_device(int(os.environ.get("LOCAL_RANK", rank)),
+                          args.device)
+        set_rank_device(dev)
+        return mesh_rank(RankContext(rank, args.devices, dev, backend),
+                         args, *box)
+    path, width = prepare_artifact(args)
+    codes = spawn(mesh_rank, args.devices, args=(args, path, width),
+                  backend=backend, device=args.device)
+    return max(codes)
+
+
+def mesh_rank(ctx, args, path: str, width: int) -> int:
+    """One rank of ``spmm_arrow --devices P``: its mesh, its shards of the
+    executor, the iteration loop (``--validate`` on every rank against
+    the host golden; rank 0 prints), and ``--comm_report``."""
+    import torch
+
+    from arrow_matrix_tpu_torch.decomposition import decomposition_spmm
+    from arrow_matrix_tpu_torch.io import (
+        as_levels,
+        load_decomposition,
+        load_level_widths,
+        num_rows,
+    )
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_repl_mesh,
+    )
+    from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel
+    from arrow_matrix_tpu_torch.utils import (
+        commstats,
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
+
+    say = print if ctx.rank == 0 else (lambda *a, **k: None)
+    n_dev = ctx.world
+    widths = load_level_widths(path, width, block_diagonal=args.blocked)
+    levels = as_levels(load_decomposition(path, width,
+                                          block_diagonal=args.blocked),
+                       width if widths is None else widths)
+    n = num_rows(levels[0].matrix)
+    repl_c = 1
+    if args.repl == "auto":
+        from arrow_matrix_tpu_torch.obs.comm import auto_repl
+
+        nnz = sum(lvl.matrix.nnz for lvl in levels)
+        base = nnz * 8 // n_dev + 2 * (-(-n // n_dev)) * args.features * 4
+        exch = max(n_dev - 1, 0) * width * args.features * 4 * len(levels)
+        repl_c = auto_repl(n_dev, args.features, base,
+                           exchange_bytes=exch, quiet=ctx.rank != 0,
+                           device=ctx.device)["c"]
+    elif args.repl != "1":
+        repl_c = int(args.repl)
+    tic = time.perf_counter()
+    if not args.slim:
+        mesh = make_mesh((2, n_dev // 2), ("arm", "blocks"))
+    elif repl_c > 1:
+        mesh = make_repl_mesh(n_dev, repl_c)
+        say(f"2.5D mesh: {n_dev // repl_c} block shards x {repl_c} "
+            f"replica groups")
+    else:
+        mesh = make_mesh((n_dev,), ("blocks",))
+    if args.fmt == "sell":
+        exe = SellMultiLevel(levels, width, mesh, routing=args.routing,
+                             feature_dtype=args.feature_dtype,
+                             ladder=args.ladder,
+                             repl_axis="repl" if repl_c > 1 else None)
+        what = (f"sell: {len(levels)} levels, {exe.rows_local} carried "
+                f"rows a rank, halo hops {[o.hops for o in exe.ops]}")
+    else:
+        exe = MultiLevelArrow(levels, width, mesh=mesh, fmt=args.fmt,
+                              head_fmt=args.head_fmt,
+                              banded=not args.blocked,
+                              layout="slim" if args.slim else "wide",
+                              routing=args.routing)
+        what = f"{args.fmt}: formats {exe.fmts}, widths {exe.widths}"
+    say(f"mesh: {dict(mesh.shape)} over {ctx.backend} ({ctx.world} ranks "
+        f"on {ctx.device}); {what}, routing {args.routing} "
+        f"({time.perf_counter() - tic:.3f} s)")
+
+    def sync():
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize(ctx.device)
+
+    x_host = random_dense(n, args.features, seed=args.seed)
+    x = exe.set_features(x_host)
+    exe.step(x)                 # warm-up: builds and first launches
+    sync()
+    if args.comm_report:
+        from arrow_matrix_tpu_torch.obs.comm import (
+            account_collectives,
+            ideal_bytes_for,
+            reduce_bytes_for,
+        )
+
+        item = 2 if args.feature_dtype == "bf16" else 4
+        rep = account_collectives(
+            "spmm_arrow", lambda: (exe.step(x), sync()),
+            ideal_bytes=ideal_bytes_for(exe, args.features, item),
+            overlap_slabs=exe.overlap_slabs, repl=repl_c,
+            reduce_bytes=reduce_bytes_for(exe, args.features, item))
+        say("per-iteration collective bytes on rank 0 (utils/commstats):")
+        say(commstats.format_stats(rep["collectives"]))
+        ratio = rep["ratio"]
+        say(f"ideal {rep['ideal_bytes']} B (ratio "
+            f"{'n/a' if ratio is None else f'{ratio:.3f}'}), reduce "
+            f"{rep['reduce_bytes']} B, host staged "
+            f"{rep['host_staged_bytes']} B, exposed "
+            f"{rep['exposed_comm_ms']} ms at the modeled link rate")
+    tol = relative_tolerance(
+        sum(lvl.matrix.nnz for lvl in levels) / max(n, 1), iters=1)
+    if args.feature_dtype == "bf16":
+        tol = max(tol, 2e-2)
+    rng = np.random.default_rng(args.seed)
+    times = []
+    for it in range(args.iterations):
+        if not args.carry:
+            x_host = random_dense(n, args.features,
+                                  seed=int(rng.integers(2**31)))
+            x = exe.set_features(x_host)
+        elif args.validate:
+            x_host = exe.gather_result(x)
+        sync()
+        tic = time.perf_counter()
+        x = exe.step(x)
+        sync()
+        times.append(time.perf_counter() - tic)
+        if args.validate:
+            err = relative_error(exe.gather_result(x),
+                                 decomposition_spmm(levels, x_host))
+            say(f"iteration {it}: rel err vs host {err:.3e} "
+                f"(gate {tol:.1e})")
+            if not np.isfinite(err) or err > tol:
+                say(f"validation gate failed at iteration {it}")
+                return 1
+    if times:
+        ms = np.asarray(times) * 1e3
+        say(f"spmm_time mean {ms.mean():.3f} ms over {len(ms)} iterations "
+            f"(min {ms.min():.3f}) on {ctx.world} {ctx.backend} ranks")
     return 0
 
 

@@ -13,7 +13,13 @@ ways in:
   * :func:`arrow_blocks_from_numpy` turns the dense stacks of a JAX
     ``ArrowBlocks`` into the port's ``ArrowBlocks``;
   * :func:`load_jax_params` copies a JAX model's parameters (``SGCParams``
-    ``w``/``b`` as numpy) into a port model (``models/propagation.py``).
+    ``w``/``b`` as numpy) into a port model (``models/propagation.py``);
+  * :func:`shard_stack_from_numpy` builds the port's ``SellShardStack``
+    (one level's body or head tiers of every device, or one device's
+    slice of them) from a JAX ``SellShardStack``'s per-device arrays,
+    and :func:`route_tables_from_numpy` the port's ``RouteTables`` from
+    a JAX ``RouteTables``'s: with them a test drives the port's mesh
+    step over exactly JAX's packing.
 
 Nothing here imports JAX: the caller hands over numpy arrays or a path.
 """
@@ -126,3 +132,46 @@ def load_jax_params(model, params) -> None:
                     raise ValueError(f"parameter of shape {src.shape}, "
                                      f"the model's is {tuple(dst.shape)}")
                 dst.copy_(torch.from_numpy(np.array(src)))
+
+
+def shard_stack_from_numpy(cols: Sequence[np.ndarray],
+                           deg: Sequence[np.ndarray],
+                           data: Optional[Sequence[np.ndarray]] = None,
+                           device_index: Optional[int] = None):
+    """A port ``SellShardStack`` from a JAX ``SellShardStack``'s arrays
+    (``np.asarray`` of each ``cols[t]``, ``deg[t]`` and, weighted,
+    ``data[t]``: ``(n_dev, m_t, n_t)`` / ``(n_dev, n_t)``).  Each array
+    may also be one device's shard (leading axis 1, as a multi-process
+    JAX run addresses it): pass its ``device_index`` and the stack holds
+    that device's tiers at that index, the devices before it zero."""
+    from arrow_matrix_tpu_torch.parallel.sell_slim import SellShardStack
+
+    def put(arrays):
+        out = []
+        for a in arrays:
+            a = np.asarray(a)
+            if device_index is not None:
+                full = np.zeros((device_index + 1,) + a.shape[1:], a.dtype)
+                full[device_index] = a[0]
+                a = full
+            out.append(np.ascontiguousarray(a))
+        return tuple(out)
+
+    return SellShardStack(cols=put(cols), deg=put(deg),
+                          data=None if data is None else put(data))
+
+
+def route_tables_from_numpy(local_src: np.ndarray, local_dst: np.ndarray,
+                            send_idx: np.ndarray, recv_dst: np.ndarray,
+                            rows_src: int, rows_dst: int, n_dev: int):
+    """A port ``RouteTables`` from a JAX ``RouteTables``'s arrays and
+    static fields (int32 tables, the same layout)."""
+    from arrow_matrix_tpu_torch.parallel.routing import RouteTables
+
+    def i32(a):
+        return np.ascontiguousarray(np.asarray(a), dtype=np.int32)
+
+    return RouteTables(local_src=i32(local_src), local_dst=i32(local_dst),
+                       send_idx=i32(send_idx), recv_dst=i32(recv_dst),
+                       rows_src=int(rows_src), rows_dst=int(rows_dst),
+                       n_dev=int(n_dev))

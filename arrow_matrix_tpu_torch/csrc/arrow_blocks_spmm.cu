@@ -7,6 +7,11 @@
 //                           for b = 1 .. nb-1 (block row 0 is K3's);
 //   K3 head_blocks_spmm:    out[0] = sum_b A_0b X_b.
 //
+// K2 runs over a range of block rows b = first .. first + rows - 1 of
+// the operand, its stacks and output holding those rows only: one
+// level's rows 1 .. nb-1, or a mesh rank's own blocks inside its operand
+// [X_0; X_prev; own; X_next] with no blocks stored for the others.
+//
 // Blocks are float32 or bfloat16 (a template parameter); sums are
 // float32; the output is float32 and written once.  The JAX package's TPU
 // kernels these replace are ops/pallas_blocks.py:column_spmm_pallas
@@ -348,8 +353,8 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, int w,
   }
 }
 
-// K2's pairs of block row b: (A_bb, X_b), (A_b0, X_0), (A_b,b-1, X_{b-1}),
-// (A_b,b+1, X_{b+1}).
+// K2's pairs of operand block row b, stored at z = b - first: (A_bb,
+// X_b), (A_b0, X_0), (A_b,b-1, X_{b-1}), (A_b,b+1, X_{b+1}).
 template <typename TA>
 struct ColumnPairs {
   const TA* diag;
@@ -357,10 +362,10 @@ struct ColumnPairs {
   const TA* lo;
   const TA* hi;
   const float* feat;
-  int64_t b, ww, wk;
+  int64_t z, b, ww, wk;
   __device__ __forceinline__ const TA* a(int p) const {
     const TA* s = p == 0 ? diag : p == 1 ? col : p == 2 ? lo : hi;
-    return s + b * ww;
+    return s + z * ww;
   }
   __device__ __forceinline__ const float* x(int p) const {
     const int64_t xb = p == 0 ? b : p == 1 ? 0 : p == 2 ? b - 1 : b + 1;
@@ -382,25 +387,27 @@ struct HeadPairs {
   }
 };
 
-// K2: grid (ceil(k / BN), ceil(w / BM), nb - 1); block row b = z + 1.
+// K2: grid (ceil(k / BN), ceil(w / BM), rows); stored row z is operand
+// block row b = first + z.
 template <typename TA, bool VEC, class C>
 __global__ void __launch_bounds__(C::NT, C::MINB)
 column_blocks_kernel(const TA* __restrict__ diag, const TA* __restrict__ col,
                      const TA* __restrict__ lo, const TA* __restrict__ hi,
                      const float* __restrict__ x, float* __restrict__ out,
-                     int nb, int w, int k) {
+                     int nb, int w, int k, int first) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n0 = blockIdx.x * C::BN;
   const int row0 = blockIdx.y * C::BM;
-  const int64_t b = static_cast<int64_t>(blockIdx.z) + 1;
+  const int64_t z = blockIdx.z;
+  const int64_t b = first + z;
   const int64_t wk = static_cast<int64_t>(w) * k;
-  const ColumnPairs<TA> pairs{diag, col, lo, hi, x, b,
+  const ColumnPairs<TA> pairs{diag, col, lo, hi, x, z, b,
                               static_cast<int64_t>(w) * w, wk};
   // Banded (lo set, uniform over the CTA): X_{b+1} exists below nb.
   const int npairs = lo == nullptr ? 2 : (b + 1 < nb ? 4 : 3);
   float acc[C::TM][C::TN] = {};
   mainloop<TA, VEC, C>(pairs, npairs, w, k, row0, n0, smem, acc);
-  store_tile<VEC, C>(out + b * wk, w, k, row0, n0, acc);
+  store_tile<VEC, C>(out + z * wk, w, k, row0, n0, acc);
 }
 
 // K3 pass 1: grid (ceil(k / BN), ceil(w / BM), S); CTA z sums blocks
@@ -451,16 +458,16 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 template <typename TA, bool VEC, class C>
 cudaError_t launch_column(const void* diag, const void* col, const void* lo,
                           const void* hi, const float* x, float* out, int nb,
-                          int w, int k, cudaStream_t s) {
+                          int w, int k, int first, int rows, cudaStream_t s) {
   const auto kernel = column_blocks_kernel<TA, VEC, C>;
   const int smem = Ring<TA, C>::BYTES;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((k + C::BN - 1) / C::BN, (w + C::BM - 1) / C::BM, nb - 1);
+  const dim3 grid((k + C::BN - 1) / C::BN, (w + C::BM - 1) / C::BM, rows);
   kernel<<<grid, C::NT, smem, s>>>(
       static_cast<const TA*>(diag), static_cast<const TA*>(col),
       static_cast<const TA*>(lo), static_cast<const TA*>(hi), x, out, nb, w,
-      k);
+      k, first);
   return cudaGetLastError();
 }
 
@@ -490,16 +497,17 @@ cudaError_t launch_head(const void* head, const float* x, float* out,
 template <typename TA, bool VEC>
 cudaError_t column_for(const void* diag, const void* col, const void* lo,
                        const void* hi, const float* x, float* out, int nb,
-                       int w, int k, cudaStream_t s) {
+                       int w, int k, int first, int rows, cudaStream_t s) {
   if (k <= 16) {
     return launch_column<TA, VEC, Narrow>(diag, col, lo, hi, x, out, nb, w,
-                                          k, s);
+                                          k, first, rows, s);
   }
   if (k <= 64) {
     return launch_column<TA, VEC, Mid>(diag, col, lo, hi, x, out, nb, w, k,
-                                       s);
+                                       first, rows, s);
   }
-  return launch_column<TA, VEC, Wide>(diag, col, lo, hi, x, out, nb, w, k, s);
+  return launch_column<TA, VEC, Wide>(diag, col, lo, hi, x, out, nb, w, k,
+                                      first, rows, s);
 }
 
 template <typename TA, bool VEC>
@@ -524,30 +532,36 @@ bool bad_shape(int nb, int w, int k, int min_nb) {
 
 }  // namespace
 
-// block_dtype: 0 = float32 blocks, 1 = bfloat16 blocks; x and out are
-// float32 (nb, w, k), contiguous.  vec: every operand is 16-byte aligned,
-// w * sizeof(block) % 16 == 0 and k % 4 == 0.  lo and hi are null unless
-// banded.  Returns a cudaError_t (0 is success), -1 for an unknown block
-// dtype, -2 for a shape the grid cannot hold (nb < 2 included: K2 then
-// has no block row to compute).
+// block_dtype: 0 = float32 blocks, 1 = bfloat16 blocks; x is the float32
+// (nb, w, k) operand, the stacks (rows, w, w) and out float32 (rows, w,
+// k) hold operand block rows first .. first + rows - 1, all contiguous.
+// vec: every operand is 16-byte aligned, w * sizeof(block) % 16 == 0 and
+// k % 4 == 0.  lo and hi are null unless banded.  Returns a cudaError_t
+// (0 is success), -1 for an unknown block dtype, -2 for a shape the grid
+// cannot hold or a row range outside 1 .. nb - 1 (nb < 2 included: there
+// is no block row besides X_0's).
 extern "C" int arrow_column_spmm(int block_dtype, int vec, const void* diag,
                                  const void* col, const void* lo,
                                  const void* hi, const void* x, void* out,
-                                 int nb, int w, int k, void* stream) {
+                                 int nb, int w, int k, int first, int rows,
+                                 void* stream) {
   if (block_dtype != 0 && block_dtype != 1) return -1;
-  if (bad_shape(nb, w, k, 2)) return -2;
+  if (bad_shape(nb, w, k, 2) || first < 1 || rows < 1 || rows > nb - first)
+    return -2;
   const auto* xx = static_cast<const float*>(x);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (block_dtype == 0) {
-    e = vec ? column_for<float, true>(diag, col, lo, hi, xx, o, nb, w, k, s)
-            : column_for<float, false>(diag, col, lo, hi, xx, o, nb, w, k, s);
+    e = vec ? column_for<float, true>(diag, col, lo, hi, xx, o, nb, w, k,
+                                      first, rows, s)
+            : column_for<float, false>(diag, col, lo, hi, xx, o, nb, w, k,
+                                       first, rows, s);
   } else {
     e = vec ? column_for<__nv_bfloat16, true>(diag, col, lo, hi, xx, o, nb,
-                                              w, k, s)
+                                              w, k, first, rows, s)
             : column_for<__nv_bfloat16, false>(diag, col, lo, hi, xx, o, nb,
-                                               w, k, s);
+                                               w, k, first, rows, s);
   }
   return static_cast<int>(e);
 }

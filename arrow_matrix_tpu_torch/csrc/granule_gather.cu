@@ -14,6 +14,9 @@
 // x (n, k) f32 row-major, idx (S,) int32 in [0, n) (not checked, as on
 // the TPU), out (S, k) f32, any k >= 1; out must not overlap x (the
 // wrapper checks).  The gather copies bits: -0.0 and NaN payloads stay.
+// The source may come in two parts, x = [x1; x2] with x1's `split` rows
+// first, read where they lie: a mesh exchange gathers from its own rows
+// and the slots it received without concatenating them.
 //
 // Bound: memory.  (distinct rows x k x 4 + S x k x 4 + S x 4) bytes over
 // the memory rate, plus S x k x 4 for the base read of the gather-add.
@@ -52,7 +55,8 @@ __device__ __forceinline__ float4 add(float4 a, float4 b) {
 // k in items of T.
 template <typename T, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
-row_gather_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+row_gather_kernel(const T* __restrict__ x, const T* __restrict__ x2,
+                  long long split, const int* __restrict__ idx,
                   T* __restrict__ out, long long slots, int width,
                   int lanes) {
   const int groups = kThreads / lanes;
@@ -61,19 +65,20 @@ row_gather_kernel(const T* __restrict__ x, const int* __restrict__ idx,
   const long long first =
       static_cast<long long>(blockIdx.x) * groups * kBatch +
       threadIdx.x / lanes;
-  long long src[kBatch];               // x's offset of each row, in T
+  const T* src[kBatch];                // each row's start
   bool live[kBatch];
 #pragma unroll
   for (int b = 0; b < kBatch; ++b) {
     const long long s = first + static_cast<long long>(b) * groups;
     live[b] = s < slots;
-    src[b] = live[b] ? static_cast<long long>(__ldg(idx + s)) * width : 0;
+    const long long r = live[b] ? __ldg(idx + s) : 0;
+    src[b] = r < split ? x + r * width : x2 + (r - split) * width;
   }
   for (int c = lane; c < width; c += lanes) {
     T v[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
-      if (live[b]) v[b] = __ldg(x + src[b] + c);
+      if (live[b]) v[b] = __ldg(src[b] + c);
     if (kAdd) {
       T base[kBatch];
 #pragma unroll
@@ -94,8 +99,9 @@ row_gather_kernel(const T* __restrict__ x, const int* __restrict__ idx,
 }
 
 template <typename T, bool kAdd>
-cudaError_t launch(const void* x, const void* idx, void* out,
-                   long long slots, int width, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* x2, long long split,
+                   const void* idx, void* out, long long slots, int width,
+                   cudaStream_t stream) {
   int lanes = 1;
   while (lanes < width && lanes < 32) lanes *= 2;
   const long long rows_per_cta =
@@ -103,8 +109,9 @@ cudaError_t launch(const void* x, const void* idx, void* out,
   const unsigned grid =
       static_cast<unsigned>((slots + rows_per_cta - 1) / rows_per_cta);
   row_gather_kernel<T, kAdd><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int*>(idx),
-      static_cast<T*>(out), slots, width, lanes);
+      static_cast<const T*>(x), static_cast<const T*>(x2), split,
+      static_cast<const int*>(idx), static_cast<T*>(out), slots, width,
+      lanes);
   return cudaGetLastError();
 }
 
@@ -113,24 +120,30 @@ cudaError_t launch(const void* x, const void* idx, void* out,
 extern "C" {
 
 // out (S, k) f32 = x[idx] (add = 0), or out += x[idx] in place (add = 1);
-// x (n, k) f32, idx (S,) int32.  The caller checks shapes, dtypes,
-// contiguity and that out does not overlap x, and launches nothing for
-// S = 0 or k = 0.  The vector body runs where k % 4 == 0 and x and out
-// are 16-byte aligned, the scalar body otherwise.  Returns 0 or the
-// cudaError_t of the launch.
-int row_gather(const void* x, const void* idx, void* out, long long slots,
-               int k, int add, void* stream_ptr) {
+// x = [x1; x2] (x1's first `split` rows, then x2's), both (., k) f32, idx
+// (S,) int32 (one source: x2 = x1 and split its row count).  The caller
+// checks shapes, dtypes, contiguity and that out overlaps neither part,
+// and launches nothing for S = 0 or k = 0.  The vector body runs where
+// k % 4 == 0 and x1, x2 and out are 16-byte aligned, the scalar body
+// otherwise.  Returns 0 or the cudaError_t of the launch.
+int row_gather(const void* x1, const void* x2, long long split,
+               const void* idx, void* out, long long slots, int k, int add,
+               void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool vec = k % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) |
+                   (reinterpret_cast<uintptr_t>(x1) |
+                    reinterpret_cast<uintptr_t>(x2) |
                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   cudaError_t e;
   if (vec)
-    e = add ? launch<float4, true>(x, idx, out, slots, k / 4, stream)
-            : launch<float4, false>(x, idx, out, slots, k / 4, stream);
+    e = add ? launch<float4, true>(x1, x2, split, idx, out, slots, k / 4,
+                                   stream)
+            : launch<float4, false>(x1, x2, split, idx, out, slots, k / 4,
+                                    stream);
   else
-    e = add ? launch<float, true>(x, idx, out, slots, k, stream)
-            : launch<float, false>(x, idx, out, slots, k, stream);
+    e = add ? launch<float, true>(x1, x2, split, idx, out, slots, k, stream)
+            : launch<float, false>(x1, x2, split, idx, out, slots, k,
+                                   stream);
   return static_cast<int>(e);
 }
 

@@ -416,14 +416,38 @@ def column_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
     ``(nb, w, k)`` in x's dtype.
     """
     nb, w, k = x.shape
-    xf = x.float()
     acc = torch.zeros((nb, w, k), dtype=torch.float32, device=x.device)
-    acc[1:] = torch.bmm(diag[1:].float(), xf[1:])
-    acc[1:] += torch.matmul(col[1:].float(), xf[0])
-    if lo is not None:
-        acc[1:] += torch.bmm(lo[1:].float(), xf[:-1])
-        acc[1:-1] += torch.bmm(hi[1:-1].float(), xf[2:])
+    acc[1:] = column_rows_spmm(diag[1:], col[1:], x, 1,
+                               None if lo is None else lo[1:],
+                               None if hi is None else hi[1:])
     return acc.to(x.dtype)
+
+
+def column_rows_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
+                     first: int, lo: Optional[torch.Tensor] = None,
+                     hi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The block rows ``b = first .. first + rows - 1`` of the operand
+    ``x (nb, w, k)``: ``out[z] = A_bb X_b + A_b0 X_0 [+ A_b,b-1 X_{b-1} +
+    A_b,b+1 X_{b+1}]`` with ``b = first + z``, the last term only where
+    ``b + 1 < nb``; each product summed in float32.
+
+    diag/col (and lo/hi, banded) ``(rows, w, w)``: the blocks of those
+    rows only -> ``(rows, w, k)`` float32.  ``first >= 1``: block 0 of
+    the operand is X_0.
+    """
+    rows, nb = diag.shape[0], x.shape[0]
+    if first < 1 or first + rows > nb:
+        raise ValueError(f"block rows {first}..{first + rows - 1} outside "
+                         f"the operand's 1..{nb - 1}")
+    xf = x.float()
+    acc = torch.bmm(diag.float(), xf[first:first + rows])
+    acc += torch.matmul(col.float(), xf[0])
+    if lo is not None:
+        acc += torch.bmm(lo.float(), xf[first - 1:first + rows - 1])
+        n_hi = max(0, min(rows, nb - first - 1))
+        acc[:n_hi] += torch.bmm(hi[:n_hi].float(),
+                                xf[first + 1:first + 1 + n_hi])
+    return acc
 
 
 def head_spmm(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@
 
 Counterpart of ``arrow_matrix_tpu/ops/pallas_blocks.py``:
 :func:`column_spmm` launches K2 (every block row but the head),
-:func:`head_spmm` launches K3 (the head row), and
+:func:`column_rows_spmm` launches it over a range of an operand's block
+rows (a mesh rank's own blocks), :func:`head_spmm` launches K3 (the
+head row), and
 :func:`arrow_spmm_cuda` composes them into one level's product, K3
 writing straight into block 0 of the output K2 fills.  Blocks are
 float32 or bfloat16, features and results float32, sums float32.
@@ -56,7 +58,7 @@ _LIB = "arrow_blocks_spmm"
 _FNS = {}
 #: Pointer and int arguments of each C entry point (after the block
 #: dtype code and ``vec``; the stream comes last).
-_ARGS = {"arrow_column_spmm": (6, 3), "arrow_head_spmm": (4, 4)}
+_ARGS = {"arrow_column_spmm": (6, 5), "arrow_head_spmm": (4, 4)}
 
 
 def _kernel(name: str):
@@ -116,9 +118,10 @@ def _dims(x: torch.Tensor) -> tuple:
 
 
 def _operands(x: torch.Tensor, blocks: dict, out: Optional[torch.Tensor],
-              out_shape: tuple):
-    """Validate a launch's operands (x already 3-D); returns (block
-    dtype code, vec, out), allocating ``out`` when it is None."""
+              out_shape: tuple, block_rows: Optional[int] = None):
+    """Validate a launch's operands (x already 3-D; the stacks hold
+    ``block_rows`` blocks, default x's); returns (block dtype code, vec,
+    out), allocating ``out`` when it is None."""
     nb, w, k = x.shape
     dev = x.device
     check_operand("x", x, torch.float32, (nb, w, k), dev)
@@ -127,7 +130,8 @@ def _operands(x: torch.Tensor, blocks: dict, out: Optional[torch.Tensor],
         raise ValueError(f"unsupported block dtype {dtype}; the kernels "
                          f"take {tuple(BLOCK_DTYPES)}")
     for name, t in blocks.items():
-        check_operand(name, t, dtype, (nb, w, w), dev)
+        check_operand(name, t, dtype,
+                      (nb if block_rows is None else block_rows, w, w), dev)
     if out is None:
         out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     else:
@@ -161,7 +165,6 @@ def column_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
     kernel leaves it as it finds it (zero when this function allocates
     ``out``).  CPU tensors take the plain ``arrow_blocks.column_spmm``.
     """
-    global LAUNCHES_K2
     if x.device.type == "cpu":
         res = plain.column_spmm(diag, col, x, lo, hi)
         if out is None:
@@ -182,17 +185,68 @@ def column_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
         out[0].zero_()
     if nb == 1:
         return out             # no block row besides the head
+    rows = {name: t[1:] for name, t in stacks.items()}
+    _column_launch(code_dtype, vec, rows, x, out[1:], 1)
+    return out
+
+
+def column_rows_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
+                     first: int, lo: Optional[torch.Tensor] = None,
+                     hi: Optional[torch.Tensor] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2 over the block rows ``b = first .. first + rows - 1`` of the
+    operand ``x (nb, w, k)`` float32: ``out[z] = A_bb X_b + A_b0 X_0 [+
+    A_b,b-1 X_{b-1} + A_b,b+1 X_{b+1}]`` with ``b = first + z``, the
+    last term only where ``b + 1 < nb``.
+
+    diag/col (and lo/hi, banded) ``(rows, w, w)`` float32 or bfloat16
+    hold those rows' blocks only; ``out`` ``(rows, w, k)`` float32.
+    ``first >= 1`` (block 0 of the operand is X_0).  CPU tensors take
+    the plain ``arrow_blocks.column_rows_spmm``."""
+    if x.device.type == "cpu":
+        res = plain.column_rows_spmm(diag, col, x, first, lo, hi)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if (lo is None) != (hi is None):
+        raise ValueError("pass both lo and hi (banded) or neither")
+    nb, w, k = _dims(x)
+    rows = diag.shape[0] if diag.dim() == 3 else 0
+    if first < 1 or rows < 1 or first + rows > nb:
+        raise ValueError(f"block rows {first}..{first + rows - 1} outside "
+                         f"the operand's 1..{nb - 1}")
+    stacks = {"diag": diag, "col": col}
+    if lo is not None:
+        stacks.update(lo=lo, hi=hi)
+    code_dtype, vec, out = _operands(x, stacks, out, (rows, w, k),
+                                     block_rows=rows)
+    _column_launch(code_dtype, vec, stacks, x, out, first)
+    return out
+
+
+def _column_launch(code_dtype: int, vec: int, stacks: dict,
+                   x: torch.Tensor, out: torch.Tensor, first: int) -> None:
+    """One K2 launch over validated operands: ``stacks`` and ``out``
+    hold the block rows ``first ..`` of ``x``."""
+    global LAUNCHES_K2
+    nb, w, k = x.shape
+    rows = out.shape[0]
+    lo, hi = stacks.get("lo"), stacks.get("hi")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = _kernel("arrow_column_spmm")(
-            code_dtype, vec, diag.data_ptr(), col.data_ptr(),
+            code_dtype, vec, stacks["diag"].data_ptr(),
+            stacks["col"].data_ptr(),
             None if lo is None else lo.data_ptr(),
             None if hi is None else hi.data_ptr(), x.data_ptr(),
-            out.data_ptr(), nb, w, k, stream)
+            out.data_ptr(), nb, w, k, first, rows, stream)
     _raise_on(code, f"column_blocks_spmm (nb={nb} w={w} k={k} "
-                    f"{diag.dtype})")
+                    f"rows {first}..{first + rows - 1} "
+                    f"{stacks['diag'].dtype})")
     LAUNCHES_K2 += 1
-    return out
 
 
 def head_spmm(head: torch.Tensor, x: torch.Tensor,

@@ -6,7 +6,9 @@ Counterpart of ``make_pallas_granule(...).run`` in
 form that adds them to a base in place:
 
 * :func:`row_gather` -- ``out[s] = x[idx[s]]``: the executors' forward
-  routing and the flat ELL head's unsort;
+  routing and the flat ELL head's unsort; ``x`` may come in two parts
+  (``x2``: the rows ``[x; x2]`` read where they lie, as a mesh exchange
+  gathers from its own rows and the slots it received);
 * :func:`row_gather_add_` -- ``base[s] += x[idx[s]]``: the executors'
   backward aggregation;
 * :func:`granule_gather` -- the probe's entry, the row gather on the
@@ -25,6 +27,7 @@ launch raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -43,9 +46,10 @@ LAUNCHES = 0
 #: Gather-add launches made by this process (one per call on the card).
 LAUNCHES_ADD = 0
 
-#: ctypes argument types of ``row_gather``: x, idx, out, slots, k, add,
-#: stream.
-ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+#: ctypes argument types of ``row_gather``: x1, x2, split, idx, out,
+#: slots, k, add, stream.
+ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 _FN = None
@@ -61,26 +65,39 @@ def _kernel():
     return _FN
 
 
-def _check(x: torch.Tensor, idx: torch.Tensor) -> None:
-    """Raise ValueError unless ``x`` is contiguous ``(n, k)`` f32 and
-    ``idx`` contiguous ``(S,)`` int32 on ``x``'s device."""
+def _check(x: torch.Tensor, idx: torch.Tensor, x2=None) -> None:
+    """Raise ValueError unless ``x`` (and ``x2``) are contiguous ``(n,
+    k)`` f32 and ``idx`` contiguous ``(S,)`` int32 on ``x``'s device."""
     if x.dim() != 2:
         raise ValueError(f"x must be (n, k), got {tuple(x.shape)}")
     if idx.dim() != 1:
         raise ValueError("idx must be 1-D")
     check_operand("x", x, torch.float32, tuple(x.shape), x.device)
+    if x2 is not None:
+        if x2.dim() != 2:
+            raise ValueError(f"x2 must be (n2, k), got {tuple(x2.shape)}")
+        check_operand("x2", x2, torch.float32, (x2.shape[0], x.shape[1]),
+                      x.device)
     check_operand("idx", idx, torch.int32, (idx.shape[0],), x.device)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _launch(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    lo, hi = a.data_ptr(), a.data_ptr() + a.numel() * a.element_size()
+    b_lo = b.data_ptr()
+    return b_lo < hi and lo < b_lo + b.numel() * b.element_size()
+
+
+def _launch(x: torch.Tensor, x2, idx: torch.Tensor, out: torch.Tensor,
             add: bool) -> None:
     slots, k = out.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = _kernel()(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                         slots, k, int(add), stream)
+        code = _kernel()(x.data_ptr(),
+                         (x if x2 is None else x2).data_ptr(), x.shape[0],
+                         idx.data_ptr(), out.data_ptr(), slots, k, int(add),
+                         stream)
     if code != 0:
         lib = _build.load("granule_gather")
         lib.row_gather_error_string.restype = ctypes.c_char_p
@@ -91,44 +108,61 @@ def _launch(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
             f"S={slots} k={k} add={add})")
 
 
-def row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[s] = x[idx[s]]``: ``(S, k)`` f32 from ``x (n, k)`` f32 and
-    ``idx (S,)`` int32, any ``k``.  The kernel copies each row's bits
-    and does not check that ``idx`` lies in ``[0, n)``: an index outside
-    reads outside ``x`` (the plain version raises)."""
+def row_gather(x: torch.Tensor, idx: torch.Tensor,
+               x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[s] = x[idx[s]]``: ``(S, k)`` from ``x (n, k)`` and ``idx
+    (S,)`` int32, any ``k`` for f32 rows; bf16 rows of even ``k`` are
+    moved as the f32 pairs of their bits (the mesh executors' bf16
+    carriage; odd ``k`` only on the CPU).  With ``x2 (n2, k)`` of
+    ``x``'s dtype the source is the rows ``[x; x2]`` (index ``n + j`` is
+    ``x2[j]``), read in place.  The kernel copies each row's bits and
+    does not check that ``idx`` lies in ``[0, n + n2)``: an index
+    outside reads outside the source (the plain version raises)."""
     global LAUNCHES
-    _check(x, idx)
+    if x.dtype == torch.bfloat16 and x.dim() == 2:
+        if x.shape[1] % 2 == 0:
+            pairs = lambda t: t.contiguous().view(torch.float32)
+            return row_gather(pairs(x), idx, None if x2 is None
+                              else pairs(x2)).view(torch.bfloat16)
+        if x.device.type != "cpu":
+            raise ValueError(f"bf16 rows move as f32 pairs: k must be "
+                             f"even, got {x.shape[1]}")
+        return row_gather_plain(_joined(x, x2), idx)
+    _check(x, idx, x2)
     if x.device.type == "cpu":
-        return row_gather_plain(x, idx)
+        return row_gather_plain(_joined(x, x2), idx)
     out = torch.empty((idx.shape[0], x.shape[1]), dtype=torch.float32,
                       device=x.device)
     if out.numel():
-        _launch(x, idx, out, add=False)
+        _launch(x, x2, idx, out, add=False)
         LAUNCHES += 1
     return out
 
 
-def row_gather_add_(base: torch.Tensor, x: torch.Tensor,
-                    idx: torch.Tensor) -> torch.Tensor:
+def row_gather_add_(base: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
+                    x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``base[s] += x[idx[s]]`` in place, one f32 addition with the base
     first (``base + x[idx]``, bit for bit); returns ``base``.  ``base``
-    is contiguous ``(S, k)`` f32 and may not overlap ``x``.  Indices as
-    in :func:`row_gather`."""
+    is contiguous ``(S, k)`` f32 and may not overlap the source.
+    Indices and ``x2`` as in :func:`row_gather`."""
     global LAUNCHES_ADD
-    _check(x, idx)
+    _check(x, idx, x2)
     check_operand("base", base, torch.float32,
                   (idx.shape[0], x.shape[1]), x.device)
-    lo, hi = x.data_ptr(), x.data_ptr() + x.numel() * 4
-    b_lo, b_hi = base.data_ptr(), base.data_ptr() + base.numel() * 4
-    if b_lo < hi and lo < b_hi:
+    if any(_overlaps(base, t) for t in (x, x2) if t is not None):
         raise ValueError("base overlaps x: the gather-add writes base "
                          "while it reads x")
     if x.device.type == "cpu":
-        return row_gather_add_plain(base, x, idx)
+        return row_gather_add_plain(base, _joined(x, x2), idx)
     if base.numel():
-        _launch(x, idx, base, add=True)
+        _launch(x, x2, idx, base, add=True)
         LAUNCHES_ADD += 1
     return base
+
+
+def _joined(x: torch.Tensor, x2: Optional[torch.Tensor]) -> torch.Tensor:
+    """The rows ``[x; x2]`` (the plain versions' one source)."""
+    return x if x2 is None else torch.cat([x, x2])
 
 
 def granule_gather(x_packed: torch.Tensor, idx: torch.Tensor

@@ -1,3 +1,9 @@
+from arrow_matrix_tpu_torch.parallel.mesh import (
+    Mesh,
+    largest_replication,
+    make_mesh,
+    make_repl_mesh,
+)
 from arrow_matrix_tpu_torch.parallel.multi_level import (
     MultiLevelArrow,
     compose_routing,
@@ -6,10 +12,17 @@ from arrow_matrix_tpu_torch.parallel.multi_level import (
     requantize,
     resolve_feature_dtype,
 )
+from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel, SellSlim
 
 __all__ = [
+    "Mesh",
     "MultiLevelArrow",
+    "SellMultiLevel",
+    "SellSlim",
     "compose_routing",
+    "largest_replication",
+    "make_mesh",
+    "make_repl_mesh",
     "multi_level_spmm",
     "pad_permutation",
     "requantize",

@@ -421,10 +421,21 @@ class MultiLevelArrow:
     checked under every kernel (the ``"xla"`` rung of a server's ladder
     runs K1 at its defaults whatever the plan's knobs).
 
-    The JAX class's multi-device options (``mesh``, ``routing``,
-    ``layout``) raise ``NotImplementedError`` naming the ROADMAP item
-    that ports them.
+    ``mesh`` (a ``parallel/mesh.py`` mesh of ranks) builds the
+    multi-device executor, ``parallel/arrow_layout.py:
+    MeshMultiLevelArrow`` (with ``axis``, ``routing`` "gather" or "a2a",
+    ``layout`` "slim" or "wide", ``arm_axis``); without one, "a2a" and
+    "wide" raise the JAX class's ``ValueError``.
     """
+
+    def __new__(cls, levels=None, width=None, *, mesh=None, **kwargs):
+        if mesh is not None and cls is MultiLevelArrow:
+            from arrow_matrix_tpu_torch.parallel.arrow_layout import (
+                MeshMultiLevelArrow,
+            )
+
+            return super().__new__(MeshMultiLevelArrow)
+        return super().__new__(cls)
 
     def __init__(self, levels: List[ArrowLevel], width: int, *,
                  mesh=None, banded: bool = False, dtype=np.float32,
@@ -438,9 +449,12 @@ class MultiLevelArrow:
                  plan_k: Optional[int] = None,
                  kernel_opts: Optional[dict] = None,
                  device: DeviceLike = None):
-        if mesh is not None or routing != "gather" or layout != "slim":
-            raise _todo("a mesh / routing / layout",
-                        "multi-device executors")
+        from arrow_matrix_tpu_torch.parallel.arrow_layout import (
+            check_mesh_options,
+        )
+
+        check_mesh_options(None, fmt, routing, layout, head_fmt, repl,
+                           kernel, "arm")
         # A resolved plan replaces the knob arguments; explicit
         # kernel_opts beat the plan's (a caller overriding one knob
         # keeps the rest).  A miss warns TunePlanMiss and keeps them.

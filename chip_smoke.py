@@ -25,12 +25,12 @@ Phases, each fatal on failure:
    launch count must equal its launches per product (one, two with
    split rows) x iterations, whatever the tier count;
 5. per-kernel numbers at the main path's shapes: K1 against its plain
-   version on the real operator, its time per product (median of 20)
-   eager and replayed from one CUDA graph (no host work between the
-   launches), its bound, the plain version's time, one PyTorch call
-   computing the same product (``torch.sparse.mm``) as a yardstick;
-   for f32 the bulk tiers (at most 48 slots a row) and the rest timed
-   apart (graph times); K1's registers and spills from ptxas; beside
+   version on the real operator, its time per product (median of 20,
+   eager; the graph replays of every row were cut for time: they
+   differed from eager by at most 0.6%), its bound, the plain version's
+   time, one PyTorch call computing the same product
+   (``torch.sparse.mm``) as a yardstick; K1's registers and spills from
+   ptxas; beside
    the bound that reads X once, the bound of a gather that reads every
    gathered row (nnz rows and indices, and the output); and, run in
    phase 11 where the operators exist, K1 on one ELL stack and on one
@@ -98,9 +98,11 @@ Phases, each fatal on failure:
    the last 4 steps, with the launches of each kernel per step and the
    propagation's bound): on the symmetric ``D^-1/2 A D^-1/2`` (each
    level's rows and columns scaled), where the backward runs the
-   forward operator, ``SGCModel`` (2 hops), ``GCNModel`` (128, 128, 16)
-   and ``APPNPModel`` (10 hops, alpha 0.1) on ``fmt="auto"`` and their
-   carried forms on its fold; on the asymmetric ``D⁻¹A`` (each level's
+   forward operator, ``SGCModel`` (2 hops) and ``APPNPModel`` (10 hops,
+   alpha 0.1) on ``fmt="auto"`` and the carried forms of both and of
+   ``GCNModel`` (128, 128, 16) on its fold (``GCNModel`` on ``auto`` was
+   cut for time: it trains on ``hyb`` and ``dense`` below); on the
+   asymmetric ``D⁻¹A`` (each level's
    rows scaled), where the backward runs the kernels over transposed
    packs, ``GCNModel`` on ``hyb``, ``GCNCarried`` on its fold and
    ``GCNModel`` on ``dense`` at phase 7's shape; every first-step
@@ -258,12 +260,44 @@ Phases, each fatal on failure:
    flight recorder, and an error plan walking the tenant from
    ``"pallas_sell"`` down to ``"xla"`` with the same bits.
 
+20. the mesh executors on ranks, after phase 19 (MESH): (a) on 4 gloo
+   ranks sharing the card (their tensors on the card; what gloo cannot
+   move there staged through pinned host buffers and counted), the main
+   path ``SellMultiLevel(routing="a2a")`` over phase 4's levels (read
+   back from its artifact by each rank, which packed its own shards on
+   the host in a process started once the artifact existed, beside the
+   phases that follow, and moved them to the card when released): the
+   f32 k=16 3-step chain with each rank's K1 and K4 launches equal to
+   its executor's own count (``launch_counts``: K1's launches a product
+   over every body and head operator of every level; K4's halo gather,
+   head unsort, a2a pack and unpack) x steps, the counts set to 0 just
+   before it; then k=128, a bf16 carriage, ``routing="gather"``,
+   ``overlap_slabs=2`` and 2.5D ``repl`` 2 on a (blocks, repl) grid for
+   one step each; every result within ``relative_tolerance`` of phase
+   4's host golden (bf16 2e-2) and of the port's fold on rank 0;
+   gather, overlap 2 and a repeat equal to the a2a step bit for bit;
+   ms/iter (a transport through the host, not a speed of the executor)
+   and one step's collective bytes by kind beside ``ideal_comm_bytes``
+   and the host-staged bytes; (b) the same chain on one NCCL rank a
+   card; (c) ``MultiLevelArrow(mesh=)`` over phase 7's graph (BA 2^16)
+   on the 4 ranks: auto (slim, a2a), dense banded, and the wide layout
+   on an (arm=2, blocks=2) grid, one k=16 step each against the host
+   golden with its K1/K2/K3/K4 launches; (d) on rank 0, K1 over its
+   shards' operators and K4's pack and unpack of its first exchange
+   against their plain versions (K4 bit for bit; each timed eager and
+   from one CUDA graph: these small products are launch-bound eager),
+   and K2 and K3 over its dense banded shards, each with time, bound,
+   plain time and one PyTorch call; (a), (c) and (d) run while the NCCL
+   rank packs, (b) alone after them.
+
 The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 11, 13, 15, 16, 10,
-18, 19, 17: the host work of phase 4 (generating the 2^20 graph, decomposing
-it with the numpy decomposer, the host goldens of its inputs) and of
-phase 14 (the native decomposition) runs in two processes of their own
-from the start, beside phases 3, 6-9, 12 and 14; that of phase 17
-(decomposing the fleet's graph) in a third, from phase 4 on.
+18, 19, 20, 17: the host work of phase 4 (generating the 2^20 graph,
+decomposing it with the numpy decomposer, the host goldens of its
+inputs) and of phase 14 (the native decomposition) runs in two
+processes of their own from the start, beside phases 3, 6-9, 12 and 14;
+that of phase 17 (decomposing the fleet's graph) in a third, and that of
+phase 20 (each rank packing its shards) in its four ranks, from phase 4
+on.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
@@ -271,7 +305,9 @@ empty: the bench's launches are in its candidates' records), ``--serve``
 phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first),
 ``--fleet`` phases 1, 2 and 17, ``--lens`` phases 1, 2 and 18 (phase
 4's decomposition made first; (d) then has no bench record to export),
-``--tune`` phases 1, 2 and 19 (phase 4's decomposition made first).
+``--tune`` phases 1, 2 and 19 (phase 4's decomposition made first),
+``--mesh`` phases 1, 2 and 20 (phase 4's decomposition and the goldens
+phase 20 gates against made first).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 2 and prints no result.
@@ -615,34 +651,6 @@ def ptxas_registers(text: str) -> list:
     return out
 
 
-def k1_view(sell, tiers):
-    """The tiers ``tiers`` of ``sell`` as an operator of their own over
-    the same rows (for timing a part of the product apart)."""
-    from arrow_matrix_tpu_torch.ops.sell import SellMatrix
-
-    pick = lambda ts: None if ts is None else tuple(ts[t] for t in tiers)
-    return SellMatrix(cols=pick(sell.cols), data=pick(sell.data),
-                      deg=pick(sell.deg), n_rows=sell.n_rows,
-                      row_starts=tuple(sell.row_starts[t] for t in tiers))
-
-
-def k1_graph_ms(sell, x, reps: int = 20) -> float:
-    """Median ms of K1 over ``sell`` replayed from one CUDA graph, into
-    one preallocated output."""
-    import torch
-
-    from arrow_matrix_tpu_torch.ops import cuda_sell
-    from arrow_matrix_tpu_torch.ops.ell import out_dtype_for
-
-    vecload = (x.shape[1] * x.element_size()) % 16 == 0
-    plan = cuda_sell.build_plan(sell, x.shape[1], x.dtype, vecload)
-    out = torch.empty((sell.n_rows, x.shape[1]),
-                      dtype=out_dtype_for(x.dtype), device=x.device)
-    ms, _ = graph_ms(lambda: cuda_sell.launch(plan, sell.binary, x, out,
-                                              vecload), reps)
-    return ms
-
-
 def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
                      main: dict) -> list:
     """Phase 5: K1 at the main path's shapes, one entry of the kernels
@@ -680,27 +688,8 @@ def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
         del got, want
         runs = cuda_runs(lambda: cuda_sell.sell_spmm_cuda(sell, x), 20)
         ms = statistics.median(runs)
-        g_ms, g_out = graph_ms(lambda: cuda_sell.sell_spmm_cuda(sell, x), 20)
-        if not torch.equal(g_out, cuda_sell.sell_spmm_cuda(sell, x)):
-            raise SystemExit(f"{key}: graph replay != eager product")
-        del g_out
         tag = f"{op_name}_{carriage}_k{k}"
         main[f"{tag}_k1_ms_runs"] = runs
-        main[f"{tag}_k1_graph_ms"] = g_ms
-        parts = ""
-        if carriage == "f32":
-            bulk = [t for t, c in enumerate(sell.cols)
-                    if c.shape[0] <= BULK_SLOTS]
-            rest = [t for t in range(len(sell.cols)) if t not in bulk]
-            bulk_ms = k1_graph_ms(k1_view(sell, bulk), x)
-            rest_ms = k1_graph_ms(k1_view(sell, rest), x)
-            main[f"{tag}_k1_bulk_graph_ms"] = bulk_ms
-            main[f"{tag}_k1_rest_graph_ms"] = rest_ms
-            parts = (f"; from graphs, the bulk tiers t{bulk[0]}-t{bulk[-1]} "
-                     f"(m_t <= {BULK_SLOTS}, "
-                     f"{sum(sell.cols[t].numel() for t in bulk)} slots) "
-                     f"{bulk_ms:.4f} ms, the other {len(rest)} tiers "
-                     f"{rest_ms:.4f} ms")
         plain_ms = cuda_ms(lambda: sell_spmm(sell, x), 3)
         library_ms = None
         if carriage != "int8":
@@ -733,11 +722,10 @@ def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
         per = k1_per_product(sell, k, x.dtype)
         log(f"phase 5 {op_name} {carriage} k={k}: K1 {ms:.4f} ms/product "
             f"eager (median of 20, min {min(runs):.4f}, max "
-            f"{max(runs):.4f}; {per} launch{'es' if per > 1 else ''}), "
-            f"{g_ms:.4f} ms from one CUDA graph{parts}; bound "
-            f"{bound:.4f} ms with X read once ({bytes_} B; "
-            f"{100 * bound / ms:.1f}% eager, {100 * bound / g_ms:.1f}% "
-            f"graph), {gather_ms:.4f} ms with every gathered row read "
+            f"{max(runs):.4f}; {per} launch{'es' if per > 1 else ''}); "
+            f"bound {bound:.4f} ms with X read once ({bytes_} B; "
+            f"{100 * bound / ms:.1f}%), {gather_ms:.4f} ms with every "
+            f"gathered row read "
             f"({gathered} B; {100 * gather_ms / ms:.1f}% eager), plain "
             f"{plain_ms:.4f} ms, "
             f"torch.sparse.mm "
@@ -2078,13 +2066,15 @@ def train_timed(model, xs, ys, mask, steps: int) -> dict:
 
 
 def fold_work(sell, nnz: int, k: int, item: int = 4,
-              out_item: int = 4) -> tuple:
+              out_item: int = 4, x_rows=None) -> tuple:
     """(bytes, operations) of K1 over the SELL operator ``sell`` of
     ``nnz`` nonzeros at ``k`` features of ``item`` bytes: the operator
-    once (4 B an index, plus 4 B a row of degrees or a value), X read
-    once and the output (``out_item`` bytes) written once."""
+    once (4 B an index, plus 4 B a row of degrees or a value), X
+    (``x_rows`` rows, default the output's) read once and the output
+    (``out_item`` bytes) written once."""
     op_bytes = 4 * nnz + (4 * sell.n_rows if sell.binary else 4 * nnz)
-    return (op_bytes + sell.n_rows * k * (item + out_item),
+    x_rows = sell.n_rows if x_rows is None else x_rows
+    return (op_bytes + (x_rows * item + sell.n_rows * out_item) * k,
             (1 if sell.binary else 2) * nnz * k)
 
 
@@ -2553,7 +2543,6 @@ def phase_models(dev, levels, n: int, width: int, ml) -> tuple:
     log(f"phase 13 auto over D^-1/2 A D^-1/2: formats {exe.fmts}, built in "
         f"{time.perf_counter() - tic:.1f} s")
     for name, model in (("sgc", SGCModel(exe, k_in, k_out, hops=SGC_HOPS)),
-                        ("gcn", GCNModel(exe, dims)),
                         ("appnp", APPNPModel(exe, k_in, k_out,
                                              hops=APPNP_HOPS,
                                              alpha=APPNP_ALPHA))):
@@ -4926,6 +4915,620 @@ def phase_tune(dev, base: str, width: int, work: str) -> tuple:
     return out, entries
 
 
+# -- 20. the mesh executors ------------------------------------------------------
+
+#: Phase 20: ranks sharing the card over gloo (the main path and its
+#: variants at 2^20, MultiLevelArrow at 2^16), one rank a card over NCCL.
+MESH = dict(world=4, chain=3, n_small=1 << 16, reps=3)
+#: A rank's executors between phase 20's jobs (in the rank's process).
+_RANK = {}
+
+
+def mesh_counted(exe, k: int, steps: int, fn, tag: str) -> tuple:
+    """(result, launches) of ``fn`` in a rank, the counts set to 0 just
+    before it; fatal unless each kernel launched exactly
+    ``exe.launch_counts(k)`` x ``steps`` times on this rank."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(zip(KERNEL_NAMES, counters()))
+    want = {name: v * steps for name, v in exe.launch_counts(k).items()}
+    bad = {name: (got[name], v) for name, v in want.items()
+           if got[name] != v}
+    if bad or not any(got.values()):
+        raise SystemExit(f"phase 20 {tag}: launches (got, expected) {bad} "
+                         f"of {got}")
+    return out, got
+
+
+def mesh_rank_build(ctx, base: str, width: int, n_small: int) -> dict:
+    """Phase 20's host work in a rank, on the CPU while the earlier
+    phases run: phase 4's levels read back from its artifact and packed
+    into this rank's shards (``SellMultiLevel``, a2a, over the whole
+    world, and the 2.5D one on a (blocks, repl=2) grid), and phase 7's
+    graph (BA ``n_small`` m=8, width 2048, seed 7) decomposed."""
+    import torch
+
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_repl_mesh,
+    )
+    from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+
+    torch.set_num_threads(2)
+    out = {}
+    tic = time.perf_counter()
+    levels = as_levels_of(base, width)
+    # Gloo ranks pack with their collectives on the CPU and take the card
+    # when released; a NCCL rank's collectives need its card.
+    host = "cpu" if ctx.backend == "gloo" else ctx.device
+    mesh = make_mesh((ctx.world,), ("blocks",), device=host)
+    _RANK["exe"] = SellMultiLevel(levels, width, mesh, routing="a2a")
+    out["a2a_s"] = time.perf_counter() - tic
+    if ctx.backend == "gloo":
+        tic = time.perf_counter()
+        rmesh = make_repl_mesh(ctx.world, 2, device="cpu")
+        _RANK["repl"] = SellMultiLevel(levels, width, rmesh, routing="a2a",
+                                       repl_axis="repl")
+        out["repl_s"] = time.perf_counter() - tic
+        tic = time.perf_counter()
+        a = barabasi_albert(n_small, 8, seed=7)
+        _RANK["small"] = (a, arrow_decomposition(
+            a, width, max_levels=10, block_diagonal=True, seed=7))
+        out["small_s"] = time.perf_counter() - tic
+    _RANK.update(levels=levels, base=base, width=width)
+    exe = _RANK["exe"]
+    out.update(levels=len(levels), hops=[o.hops for o in exe.ops],
+               rows_local=exe.rows_local,
+               slots=[r.slots for r in exe.fwd + exe.bwd])
+    return out
+
+
+def mesh_rank_main(ctx) -> dict:
+    """Phase 20 (a) and (b) in a rank: the executor to the card, then
+    the f32 k=16 chain (the main path, counts set to 0 just before it),
+    and on the gloo ranks k=128, bf16, ``routing="gather"``, ``repl``
+    2 and ``overlap_slabs=2`` for one step each, every result gated by
+    rank 0 against phase 4's host golden; the bit identities; ms/iter
+    and the collective bytes of a step."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.utils import (
+        commstats,
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
+
+    exe = _RANK["exe"].to(ctx.device)
+    base, width, levels = _RANK["base"], _RANK["width"], _RANK["levels"]
+    first = ctx.rank == 0
+    n, chain = exe.n, MESH["chain"]
+    row_nnz = sum(int(lvl.matrix.nnz) for lvl in levels) / n
+    res = {"backend": ctx.backend, "world": ctx.world,
+           "cards": torch.cuda.device_count()}
+    gates = {}
+
+    def gate(tag, got, k, s, tol):
+        if not first:
+            return
+        err = relative_error(got, np.load(golden_path(base, k, s)))
+        gates[tag] = err
+        if not err <= tol:
+            raise SystemExit(f"phase 20 {tag}: rel err {err:.3e} > "
+                             f"gate {tol:.1e}")
+
+    x16 = random_dense(n, 16, seed=3)
+    c = exe.set_features(x16)
+    y, res["chain_launches"] = mesh_counted(
+        exe, 16, chain, lambda: exe.run(c, chain), "f32 k=16 chain")
+    gate("f32_k16_chain", exe.gather_result(y), 16, chain,
+         relative_tolerance(row_nnz, chain))
+    commstats.reset()
+    y1 = exe.step(c)
+    torch.cuda.synchronize()
+    res["step_comm"] = commstats.snapshot()
+    r1 = exe.gather_result(y1)
+    tol1 = relative_tolerance(row_nnz, 1)
+    gate("f32_k16_step", r1, 16, 1, tol1)
+    res["ideal_comm_bytes"] = exe.ideal_comm_bytes(16)
+    res["reduce_comm_bytes"] = exe.reduce_comm_bytes(16)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(MESH["reps"]):
+        tic = time.perf_counter()
+        exe.run(c, chain)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - tic) * 1e3 / chain)
+    res["ms_per_iter_runs"] = runs
+    res["ms_per_iter"] = statistics.median(runs)
+    same = {"repeat": exe.gather_result(exe.step(c))}
+    if ctx.backend == "gloo":
+        c128 = exe.set_features(random_dense(n, 128, seed=4))
+        y, _ = mesh_counted(exe, 128, 1, lambda: exe.step(c128), "k=128")
+        gate("f32_k128_step", exe.gather_result(y), 128, 1, tol1)
+        del c128, y
+        exe.feature_dtype = torch.bfloat16
+        cb = exe.set_features(x16)
+        y, _ = mesh_counted(exe, 16, 1, lambda: exe.step(cb), "bf16")
+        gate("bf16_k16_step", exe.gather_result(y), 16, 1, max(tol1, 2e-2))
+        exe.feature_dtype = torch.float32
+        g = exe.with_routing("gather")
+        y, _ = mesh_counted(g, 16, 1, lambda: g.step(c), "gather")
+        same["gather"] = g.gather_result(y)
+        del g
+        exe.overlap_slabs = 2
+        y, _ = mesh_counted(exe, 16, 1, lambda: exe.step(c), "overlap 2")
+        same["overlap_slabs=2"] = exe.gather_result(y)
+        exe.overlap_slabs = 1
+        rep = _RANK["repl"].to(ctx.device)
+        cr = rep.set_features(x16)
+        y, _ = mesh_counted(rep, 16, 1, lambda: rep.step(cr), "repl 2")
+        gate("repl2_k16_step", rep.gather_result(y), 16, 1, tol1)
+        del rep, cr, _RANK["repl"]
+    if first:
+        for tag, other in same.items():
+            if not np.array_equal(other, r1):
+                raise SystemExit(f"phase 20: {tag} differs from the a2a "
+                                 f"step (max {np.abs(other - r1).max()})")
+        res["bits_equal"] = sorted(same)
+    if first and ctx.backend == "gloo":
+        # (b) holds its NCCL rank to the golden; the fold is built once.
+        from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+
+        fold = MultiLevelArrow(levels, width, fmt="fold", device=ctx.device)
+        f1 = fold.gather_result(fold.step(fold.set_features(x16)))
+        gates["vs_fold"] = relative_error(r1, f1)
+        if not gates["vs_fold"] <= tol1:
+            raise SystemExit(f"phase 20: the mesh step and the fold differ "
+                             f"by {gates['vs_fold']:.3e} > {tol1:.1e}")
+        del fold
+    res["gates"] = gates
+    _RANK.update(x16=x16, row_nnz=row_nnz, launches=res["chain_launches"])
+    del c, y1
+    torch.cuda.empty_cache()
+    return res
+
+
+#: Elements a rank of phase 20's gloo probe moves in each collective.
+GLOO_PROBE_ELEMS = 1 << 20
+
+
+def mesh_rank_gloo_probe(ctx) -> dict:
+    """Phase 20's probe, on the gloo ranks sharing the card: which of
+    the collectives ``parallel/collectives.py`` stages through pinned
+    host buffers torch's gloo runs on CUDA tensors itself.  Each of
+    all-gather, all-to-all and gather (and broadcast and all-reduce,
+    which the port hands gloo on the card) is called directly on CUDA
+    tensors of :data:`GLOO_PROBE_ELEMS` f32 a rank, its result checked
+    against the values it must hold, and timed (median of 5) beside the
+    port's staged call of the same exchange.  The halo's send/recv is
+    not probed: torch's backend table does not list it for gloo on
+    CUDA.  Rank 0 returns ``{"torch": version, op: {"ok", "error",
+    "direct_ms", "staged_ms"}}``."""
+    import torch
+    import torch.distributed as dist
+
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((ctx.world,), ("blocks",), device=ctx.device)
+    p, r, n, dev = ctx.world, ctx.rank, GLOO_PROBE_ELEMS, ctx.device
+    ranks = torch.arange(p, device=dev, dtype=torch.float32)
+    mine = torch.full((n,), float(r), device=dev)
+    # All-to-all: rank r sends r * p + d to rank d, so receives s * p + r.
+    send = (r * p + ranks).repeat_interleave(n // p)
+    got_a2a = (ranks * p + r).repeat_interleave(n // p)
+    gathered = ranks.repeat_interleave(n)
+
+    def all_gather():
+        out = torch.empty(p * n, device=dev)
+        coll._ALL_GATHER(out, mine)
+        return out, gathered
+
+    def all_to_all():
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send)
+        return out, got_a2a
+
+    def gather():
+        parts = ([torch.empty(n, device=dev) for _ in range(p)]
+                 if r == 0 else None)
+        dist.gather(mine, gather_list=parts, dst=0)
+        return ((torch.cat(parts), gathered) if r == 0
+                else (mine, mine))
+
+    def broadcast():
+        t = mine.clone()
+        dist.broadcast(t, src=0)
+        return t, torch.zeros_like(t)
+
+    def all_reduce():
+        t = mine.clone()
+        dist.all_reduce(t)
+        return t, torch.full_like(t, float(sum(range(p))))
+
+    staged = {"all_gather": lambda: coll.all_gather(mine, mesh, "blocks"),
+              "all_to_all": lambda: coll.all_to_all(send, mesh, "blocks"),
+              "gather": lambda: coll.reduce_to_first(mine, mesh, "blocks")}
+
+    def ms(fn):
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - tic) * 1e3)
+        return statistics.median(runs)
+
+    out = {"torch": torch.__version__, "elements": n}
+    for name, fn in (("all_gather", all_gather), ("all_to_all", all_to_all),
+                     ("gather", gather), ("broadcast", broadcast),
+                     ("all_reduce", all_reduce)):
+        rec = {"ok": False, "error": None, "direct_ms": None,
+               "staged_ms": None}
+        try:
+            val, want = fn()
+            torch.cuda.synchronize()
+            rec["ok"] = bool(torch.equal(val, want))
+            rec["direct_ms"] = ms(fn)
+        except Exception as e:           # the probe's reading, not a fault
+            rec["error"] = f"{type(e).__name__}: {str(e)[:160]}"
+        if name in staged:
+            rec["staged_ms"] = ms(staged[name])
+        out[name] = rec
+    return out if r == 0 else None
+
+
+def mesh_rank_kernels(ctx):
+    """Phase 20 (d)'s K1 and K4 entries, on rank 0 while the card is
+    otherwise idle (:func:`mesh_kernel_entries`); the other ranks
+    return None."""
+    if ctx.rank != 0:
+        return None
+    exe = _RANK["exe"]
+    return mesh_kernel_entries(exe, exe.set_features(_RANK["x16"]),
+                               _RANK["row_nnz"], _RANK["launches"])
+
+
+def mesh_kernel_entries(exe, c, row_nnz: float, launches: dict) -> list:
+    """Phase 20 (d) on rank 0: K1 over every body and head operator of its
+    shards (one step's products, on random operands of their shapes)
+    against K1's plain version, and K4's pack and unpack of its first
+    exchange against ``index_select`` bit for bit; each timed beside its
+    bound, its plain version and one PyTorch call."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather
+    from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    dev, k = c.device, c.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    ops, xs = [], []
+    for o in exe.ops:
+        for name, rows in (("body", o.operand_rows), ("head", o.rows_out)):
+            ops.append(o.dev[name])
+            xs.append(torch.rand((rows, k), device=dev, generator=gen))
+    got = [sell_spmm_cuda(m, x) for m, x in zip(ops, xs)]
+    want = [sell_spmm(m, x) for m, x in zip(ops, xs)]
+    err = 0.0
+    for g, w in zip(got, want):
+        e, ok = compare(g, w, row_nnz, exact=False)
+        if not ok:
+            raise SystemExit(f"phase 20 (d): K1 on a shard operator differs "
+                             f"from its plain version (max {e:.3e})")
+        err = max(err, e)
+    csrs = [sorted_csr(m, torch.float32) for m in ops]
+    nnz = sum(int(a.values().numel()) for a in csrs)
+    work = [fold_work(m, int(a.values().numel()), k, x_rows=m.x_rows)
+            for a, m in zip(csrs, ops)]
+    bytes_, flops = (sum(w[i] for w in work) for i in (0, 1))
+    bound1 = max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    k1 = lambda: [sell_spmm_cuda(m, x) for m, x in zip(ops, xs)]
+    runs = cuda_runs(k1, 20)
+    g1, _ = graph_ms(k1, 20)
+    e1 = {"name": "sell_tier_spmm[mesh,f32,k=16]", "route": "cuda",
+          "source": SOURCES["K1"], "replaces": REPLACES["K1"],
+          "launches": launches["K1"], "max_abs_err": err,
+          "ms": statistics.median(runs), "graph_ms": g1,
+          "plain_ms": cuda_ms(lambda: [sell_spmm(m, x)
+                                       for m, x in zip(ops, xs)], 5),
+          "bound_ms": bound1, "bound_by": "bytes"
+          if bytes_ / HBM_BYTES_PER_S >= flops / F32_FLOPS
+          else "operations",
+          "library_ms": cuda_ms(lambda: [torch.sparse.mm(a, x)
+                                         for a, x in zip(csrs, xs)], 5)}
+    log(f"phase 20 (d) K1 on rank 0's shards: {len(ops)} products "
+        f"({nnz} nnz) {e1['ms']:.4f} ms a step eager (launch-bound: small "
+        f"products), {g1:.4f} ms from one CUDA graph, plain "
+        f"{e1['plain_ms']:.4f}, torch.sparse.mm {e1['library_ms']:.4f}, "
+        f"bound {bound1:.4f} ms; max abs err {err:.3e}")
+    del got, want, csrs
+    # K4: the pack and the unpack of the first exchange, each reading
+    # its source in two parts as routed_take passes it (the rank's rows,
+    # then the zero row and the received slots).
+    r = exe.fwd[0]
+    tail = torch.cat([c.new_zeros((1, k)),
+                      torch.rand((r.n_dev * r.slots, k), device=dev,
+                                 generator=gen)])
+    pairs = [(r.send, tail[:1]), (r.unpack, tail)]
+    for idx, x2 in pairs:
+        a = row_gather(c, idx, x2)
+        b = torch.cat([c, x2]).index_select(0, idx.long())
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise SystemExit("phase 20 (d): K4 pack/unpack differs from "
+                             "index_select")
+    rows = sum(int(idx.numel()) for idx, _ in pairs)
+    bytes4 = rows * (2 * k * 4 + 4)
+    k4 = lambda: [row_gather(c, i, x2) for i, x2 in pairs]
+    runs = cuda_runs(k4, 20)
+    g4, _ = graph_ms(k4, 20)
+    longs = [(torch.cat([c, x2]), i.long()) for i, x2 in pairs]
+    sel = cuda_ms(lambda: [x.index_select(0, i) for x, i in longs], 5)
+    e4 = {"name": "row_gather[mesh-route,f32,k=16]", "route": "cuda",
+          "source": SOURCES["K4"], "replaces": REPLACES["K4"],
+          "launches": launches["K4"] + launches["K4 add"],
+          "max_abs_err": 0.0, "ms": statistics.median(runs),
+          "graph_ms": g4, "plain_ms": sel,
+          "bound_ms": bytes4 / HBM_BYTES_PER_S * 1e3,
+          "bound_by": "bytes", "library_ms": sel}
+    log(f"phase 20 (d) K4 pack + unpack of rank 0's first exchange ({rows} "
+        f"rows, S={r.slots}): {e4['ms']:.4f} ms eager, {g4:.4f} ms from "
+        f"one CUDA graph, index_select {sel:.4f}, "
+        f"bound {e4['bound_ms']:.4f} ms; bit for bit")
+    return [e1, e4]
+
+
+def mesh_rank_small(ctx) -> dict:
+    """Phase 20 (c) in a rank: ``MultiLevelArrow(mesh=)`` over phase 7's
+    graph, auto (slim, a2a), dense banded, and the wide layout on an
+    (arm=2, blocks=2) grid, one k=16 step each with its launches, gated
+    by rank 0 against the host golden; rank 0 times K2 and K3 on its
+    dense banded shards."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.decomposition import decomposition_spmm
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+    from arrow_matrix_tpu_torch.utils import (
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
+
+    a, levels = _RANK.pop("small")
+    width, n = _RANK["width"], a.shape[0]
+    x = random_dense(n, 16, seed=3)
+    want = decomposition_spmm(levels, x) if ctx.rank == 0 else None
+    tol = relative_tolerance(a.nnz / n, 1)
+    out = {"levels": len(levels)}
+    slim = make_mesh((ctx.world,), ("blocks",), device=ctx.device)
+    wide = make_mesh((2, ctx.world // 2), ("arm", "blocks"),
+                     device=ctx.device)
+    for tag, mesh, kw in (
+            ("auto_a2a", slim, dict(fmt="auto", routing="a2a")),
+            ("dense_banded", slim, dict(fmt="dense", banded=True)),
+            ("wide", wide, dict(fmt="dense", layout="wide"))):
+        tic = time.perf_counter()
+        exe = MultiLevelArrow(levels, width, mesh=mesh, **kw)
+        t_build = time.perf_counter() - tic
+        c = exe.set_features(x)
+        y, got = mesh_counted(exe, 16, 1, lambda: exe.step(c), tag)
+        res = exe.gather_result(y)
+        rec = {"fmts": exe.fmts, "build_s": t_build, "launches": got}
+        if ctx.rank == 0:
+            rec["err"] = relative_error(res, want)
+            if not rec["err"] <= tol:
+                raise SystemExit(f"phase 20 (c) {tag}: rel err "
+                                 f"{rec['err']:.3e} > {tol:.1e}")
+            if tag == "dense_banded":
+                out["entries"] = mesh_block_entries(exe, c, got, tol)
+        out[tag] = rec
+        del exe, c, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_block_work(sb, k: int, kernel: str) -> tuple:
+    """(bytes, operations) the function of K2 or K3 needs on one rank's
+    dense shard of a level (:func:`block_work` for a shard): K2 the
+    blocks of its own block rows (the first rank's head row left out,
+    the last rank's missing right neighbour too), its operand read once
+    and its rows written once; K3 the head blocks, the rank's rows and
+    C_0; 2 w^2 k operations per block product."""
+    w = sb.width
+    item = sb.stacks["head"].element_size()
+    if kernel == "K3":
+        pairs, feats = sb.nb_local, sb.nb_local + 1
+    else:
+        rows = sb.column_rows
+        pairs = rows * sum(n in sb.stacks for n in ("diag", "col", "lo",
+                                                    "hi"))
+        pairs -= int(sb.banded and sb.last and rows > 0)
+        feats = (sb.column_operand + rows) if rows else 0
+    return (pairs * w * w * item + feats * w * k * 4,
+            2 * pairs * w * w * k)
+
+
+def mesh_block_entries(exe, c, launches: dict, tol: float) -> list:
+    """K2 and K3 over rank 0's dense banded shards (every level: its
+    column stacks over its extended operand, and its head blocks), as
+    the step calls them, held against their plain versions and timed
+    beside their bounds, their plain versions and cuBLAS."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import arrow_blocks
+    from arrow_matrix_tpu_torch.ops.cuda_blocks import (
+        column_rows_spmm,
+        head_spmm,
+    )
+    from arrow_matrix_tpu_torch.utils import relative_error
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    k, dev = c.shape[1], c.device
+    gen = torch.Generator(device=dev).manual_seed(21)
+    sbs = [sb for sb in exe.blocks if sb.column_rows]
+    # Each level's K2 operand (the extended one, less X_next on the last
+    # rank), its first row and its stacks, as column_blocks passes them.
+    xe = [torch.rand((sb.column_operand, sb.width, k), device=dev,
+                     generator=gen) for sb in sbs]
+    xo = [torch.rand((sb.nb_local, sb.width, k), device=dev, generator=gen)
+          for sb in exe.blocks]
+    f = [sb.first + sb.skip for sb in sbs]
+    s = [sb.stacks for sb in sbs]
+    h = [sb.stacks["head"] for sb in exe.blocks]
+    k2 = lambda: [column_rows_spmm(t["diag"], t["col"], x, a, t.get("lo"),
+                                   t.get("hi")) for t, x, a in zip(s, xe, f)]
+    p2 = lambda: [arrow_blocks.column_rows_spmm(t["diag"], t["col"], x, a,
+                                                t.get("lo"), t.get("hi"))
+                  for t, x, a in zip(s, xe, f)]
+    k3 = lambda: [head_spmm(t, x) for t, x in zip(h, xo)]
+    p3 = lambda: [arrow_blocks.head_spmm(t, x) for t, x in zip(h, xo)]
+    l3 = lambda: [torch.einsum("bij,bjk->ik", t, x) for t, x in zip(h, xo)]
+
+    def l2():
+        res = []
+        for t, x, a in zip(s, xe, f):
+            r = t["diag"].shape[0]
+            o = torch.baddbmm(torch.matmul(t["col"], x[0]), t["diag"],
+                              x[a:a + r])
+            if "lo" in t:
+                o.baddbmm_(t["lo"], x[a - 1:a + r - 1])
+                n_hi = min(r, x.shape[0] - a - 1)
+                o[:n_hi].baddbmm_(t["hi"][:n_hi], x[a + 1:a + 1 + n_hi])
+            res.append(o)
+        return res
+
+    entries = []
+    for name, fn, plain, lib, kname, idx, levels in (
+            ("K2", k2, p2, l2, "column_spmm", "K2", sbs),
+            ("K3", k3, p3, l3, "head_spmm", "K3", exe.blocks)):
+        err = 0.0
+        for g, w in zip(fn(), plain()):
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            if not relative_error(g, w) <= tol:
+                raise SystemExit(f"phase 20 (d): {name} on a shard differs "
+                                 f"from its plain version")
+            err = max(err, float(np.abs(g - w).max()))
+        work = [shard_block_work(sb, k, name) for sb in levels]
+        bytes_, ops = (sum(wk[i] for wk in work) for i in (0, 1))
+        t_b, t_o = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        runs = cuda_runs(fn, 20)
+        entries.append({
+            "name": f"{kname}[mesh,f32,k={k}]", "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[idx], "max_abs_err": err,
+            "ms": statistics.median(runs), "plain_ms": cuda_ms(plain, 5),
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": cuda_ms(lib, 5)})
+        log(f"phase 20 (d) {name} on rank 0's dense banded shards "
+            f"({len(levels)} levels): {entries[-1]['ms']:.4f} ms, "
+            f"plain {entries[-1]['plain_ms']:.4f}, library "
+            f"{entries[-1]['library_ms']:.4f}, bound "
+            f"{entries[-1]['bound_ms']:.4f} ms by {entries[-1]['bound_by']}")
+    return entries
+
+
+def start_mesh(base: str, width: int):
+    """Phase 20's gloo ranks, started once phase 4's artifact exists:
+    they pack on the host and wait (the card untouched)."""
+    from arrow_matrix_tpu_torch.parallel.launch import RankPool
+
+    pool = RankPool(MESH["world"], backend="gloo", threads=2)
+    pool.submit("chip_smoke", "mesh_rank_build", base, width,
+                MESH["n_small"])
+    return pool
+
+
+def phase_mesh(pool, base: str, width: int) -> tuple:
+    """Phase 20 (the module docstring): (results, kernel entries)."""
+    import torch
+
+    from arrow_matrix_tpu_torch.parallel.launch import RankPool
+
+    tic = time.perf_counter()
+    built = pool.collect(job_timeout_s=900)
+    log(f"phase 20: ranks built in processes of their own beside the "
+        f"earlier phases (waited {time.perf_counter() - tic:.1f} s): "
+        f"{built[0]}")
+    tic0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    nccl = RankPool(cards, backend="nccl", threads=2)
+    nccl.submit("chip_smoke", "mesh_rank_build", base, width, 0)
+    res = {"built": built}
+    # The probe, (a), (c) and (d) while the NCCL rank packs, then (b).
+    try:
+        try:
+            res["gloo_probe"] = probe = pool.run(
+                "chip_smoke", "mesh_rank_gloo_probe", job_timeout_s=120)[0]
+            log(f"phase 20 gloo probe (torch {probe['torch']}, "
+                f"{probe['elements']} f32 a rank, {pool.world} ranks on "
+                f"the card): " + "; ".join(
+                    f"{op} direct {'ok' if v['ok'] else v['error'] or 'wrong values'}"
+                    + (f" {v['direct_ms']:.3f} ms" if v["direct_ms"] else "")
+                    + (f", staged {v['staged_ms']:.3f} ms"
+                       if v["staged_ms"] else "")
+                    for op, v in probe.items() if isinstance(v, dict)))
+            main = pool.run("chip_smoke", "mesh_rank_main",
+                            job_timeout_s=600)
+            t_a = time.perf_counter() - tic0
+            small = pool.run("chip_smoke", "mesh_rank_small",
+                             job_timeout_s=600)
+            k_entries = pool.run("chip_smoke", "mesh_rank_kernels",
+                                 job_timeout_s=600)[0]
+        finally:
+            pool.close()
+        tic = time.perf_counter()
+        res["nccl_built"] = nccl.collect(job_timeout_s=600)[0]
+        res["nccl_wait_s"] = time.perf_counter() - tic
+        prod = nccl.run("chip_smoke", "mesh_rank_main", job_timeout_s=600)
+    finally:
+        nccl.close()
+    r0 = main[0]
+    res.update(gloo=r0, gloo_launches=[r["chain_launches"] for r in main],
+               nccl=prod[0], small={k: v for k, v in small[0].items()
+                                    if k != "entries"},
+               small_launches=[{k: v["launches"] for k, v in s.items()
+                                if isinstance(v, dict)} for s in small],
+               seconds=time.perf_counter() - tic0)
+    st = r0["step_comm"]
+    log(f"phase 20 (a): SellMultiLevel a2a on {r0['world']} gloo ranks "
+        f"sharing the card ({r0['cards']} card(s)): gates {r0['gates']}; "
+        f"bit for bit {r0['bits_equal']} against the a2a step; "
+        f"{r0['ms_per_iter']:.3f} ms/iter (median of {MESH['reps']} "
+        f"chains of {MESH['chain']}; a transport through pinned host "
+        f"buffers, not a speed of the executor); one step on rank 0: "
+        f"{ {k: v for k, v in st.items() if isinstance(v, dict) and v['count']} } "
+        f"total {st['total_bytes']} B, host staged {st['host_staged_bytes']} "
+        f"B; ideal {r0['ideal_comm_bytes']} B, reduce "
+        f"{r0['reduce_comm_bytes']} B; launches a rank "
+        f"{res['gloo_launches']}")
+    p0 = prod[0]
+    log(f"phase 20 (b): the same executor on {p0['world']} NCCL rank(s), "
+        f"one a card (packed in {res['nccl_built']['a2a_s']:.1f} s beside "
+        f"the gloo ranks' work, waited {res['nccl_wait_s']:.1f} s): gates "
+        f"{p0['gates']}, {p0['ms_per_iter']:.3f} ms/iter, launches "
+        f"{p0['chain_launches']}, step bytes "
+        f"{p0['step_comm']['total_bytes']}")
+    log(f"phase 20 (c): MultiLevelArrow(mesh=) at n={MESH['n_small']}: "
+        f"{res['small']}; launches a rank {res['small_launches']}")
+    log(f"phase 20: {res['seconds']:.1f} s of the script's wall ((a) "
+        f"{t_a:.1f} s)")
+    return res, k_entries + small[0]["entries"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -4946,6 +5549,10 @@ def main() -> int:
     parser.add_argument("--tune", action="store_true",
                         help="run phases 1, 2 and 19 only (graft-tune on "
                              "phase 4's decomposition, made here)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="run phases 1, 2 and 20 only (the mesh "
+                             "executors on ranks; phase 4's decomposition "
+                             "and goldens made here)")
     parser.add_argument("--serve", action="store_true",
                         help="run phases 1, 2, 15 and 16 only (the serving "
                              "runtime and its observability, on phase 4's "
@@ -5042,6 +5649,9 @@ def main() -> int:
         tune_res, entries = phase_tune(dev, base, 2048,
                                        os.path.join(keep, "tune"))
         return finish({"tune": tune_res, "card": smi}, entries)
+    if args.mesh:
+        mesh_res, entries = mesh_only(1 << args.log2n, keep)
+        return finish({"mesh": mesh_res, "card": smi}, entries)
     if args.serve:
         serve_res, entry, ctx = serve_only(dev, 1 << args.log2n, work)
         observe, observe_entry = phase_observe(ctx, serve_res,
@@ -5077,8 +5687,10 @@ def main() -> int:
     # -- 4. main path ----------------------------------------------------------
     tic = time.perf_counter()
     rec = join_host(*host4, "phase 4")
-    # Phase 17's graph, decomposed in a process of its own from here on.
+    # Phase 17's graph, decomposed in a process of its own from here on,
+    # and phase 20's ranks, packing on the host until they are released.
     host17 = start_host(fleet_host, fleet_cache)
+    mesh_pool = start_mesh(base, width)
     t_gen, t_dec = rec["t_gen"], rec["t_dec"]
     loaded = load_decomposition(base, width, block_diagonal=True)
     levels = as_levels(loaded, load_level_widths(base, width, True))
@@ -5261,6 +5873,10 @@ def main() -> int:
                                                os.path.join(keep, "tune"))
     kernels += tune_entries
 
+    # -- 20. the mesh executors on ranks sharing the card and over NCCL ------
+    results["mesh"], mesh_entries = phase_mesh(mesh_pool, base, width)
+    kernels += mesh_entries
+
     # -- 17. the fleet of worker processes on the card -----------------------
     results["fleet"], fleet_entry = phase_fleet(dev, work, host17,
                                                 fleet_cache)
@@ -5268,6 +5884,30 @@ def main() -> int:
 
     results["card"] = smi
     return finish(results, kernels)
+
+
+def mesh_only(n: int, keep: str) -> tuple:
+    """``--mesh``: phase 4's decomposition (made and saved here) and the
+    host goldens phase 20 gates against, then phase 20, whose ranks
+    pack while the goldens are computed."""
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    width = 2048
+    base, _ = decompose_phase4(n, keep)
+    pool = start_mesh(base, width)
+    tic = time.perf_counter()
+    levels = as_levels_of(base, width)
+    for k, xseed, steps in ((16, 3, MESH["chain"]), (128, 4, 1)):
+        g = random_dense(n, k, seed=xseed)
+        for s in range(steps):
+            g = host_golden(levels, g, max(1, (os.cpu_count() or 2) // 2))
+            np.save(golden_path(base, k, s + 1), g)
+    log(f"phase 4 (for phase 20): the host goldens in "
+        f"{time.perf_counter() - tic:.1f} s")
+    del levels
+    return phase_mesh(pool, base, width)
 
 
 def serve_only(dev, n: int, work: str) -> tuple:

@@ -194,6 +194,55 @@ def test_plain_products_match_jax_pallas_and_xla(w, k, banded):
                           golden) <= tol
 
 
+@pytest.mark.parametrize("n_dev", [2, 4])
+@pytest.mark.parametrize("banded", [False, True])
+def test_column_rows_over_rank_shards_match_the_level(n_dev, banded):
+    """K2's row range over each rank's operand ``[X_0; X_prev; own;
+    X_next]`` (block diagonal ``[X_0; own]``) with only its own blocks,
+    the first rank's head block left out and the last rank's operand
+    ending before ``X_next`` (the mesh layout of
+    ``parallel/arrow_layout.py``): equal to JAX's column product of the
+    whole level on those rows, through the plain twin and through the
+    wrapper on CPU tensors (no launch counted)."""
+    nb, w, k = 8, 16, 4
+    mats, x = _random_stacks(nb, w, k, seed=5 + n_dev)
+    j = {name: jnp.asarray(m) for name, m in mats.items()}
+    xj = jnp.asarray(x)
+    if banded:
+        x_lo, x_hi = _jax_shifted(xj)
+        want = column_spmm_pallas(j["diag"], j["col"], xj, xj[0], j["lo"],
+                                  j["hi"], x_lo, x_hi)
+    else:
+        want = column_spmm_pallas(j["diag"], j["col"], xj, xj[0])
+    want = np.asarray(want)
+    t = {name: torch.from_numpy(m) for name, m in mats.items()}
+    xt = torch.from_numpy(x)
+    nb_l = nb // n_dev
+    tol = relative_tolerance(w * (4 if banded else 2))
+    before = cuda_blocks.LAUNCHES_K2
+    for d in range(n_dev):
+        b0, skip = d * nb_l, int(d == 0)
+        own = xt[b0:b0 + nb_l]
+        if banded:
+            prev = xt[b0 - 1:b0] if d else torch.zeros((1, w, k))
+            nxt = [xt[b0 + nb_l:b0 + nb_l + 1]] if d < n_dev - 1 else []
+            operand, first = torch.cat([xt[:1], prev, own] + nxt), 2
+        else:
+            operand, first = torch.cat([xt[:1], own]), 1
+        rows = slice(b0 + skip, b0 + nb_l)
+        lohi = (t["lo"][rows], t["hi"][rows]) if banded else ()
+        got = arrow_blocks.column_rows_spmm(t["diag"][rows], t["col"][rows],
+                                            operand, first + skip, *lohi)
+        assert relative_error(got.numpy(), want[rows]) <= tol
+        out = torch.full((nb_l - skip, w, k), 7.0)
+        cuda_blocks.column_rows_spmm(t["diag"][rows], t["col"][rows],
+                                     operand, first + skip, *lohi, out=out)
+        assert torch.equal(out, got)
+    assert cuda_blocks.LAUNCHES_K2 == before
+    with pytest.raises(ValueError, match="outside the operand"):
+        arrow_blocks.column_rows_spmm(t["diag"][:3], t["col"][:3], xt[:3], 1)
+
+
 def test_wrappers_take_the_plain_version_on_cpu_without_counting():
     mats, x = _random_stacks(3, 16, 4, seed=9)
     t = {name: torch.from_numpy(m) for name, m in mats.items()}

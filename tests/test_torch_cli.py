@@ -43,6 +43,45 @@ def test_generate_decompose_fold_validate_on_cpu(tmp_path, extra):
     assert again.returncode == 0, again.stdout + again.stderr
 
 
+@pytest.mark.parametrize("extra", [
+    ["--fmt", "sell"], ["--repl", "2", "--features", "8", "--comm_report"]])
+def test_mesh_sell_validates_on_two_cpu_ranks(tmp_path, extra):
+    """``--devices 2 --device cpu --fmt sell --validate``: two gloo ranks
+    started by the CLI, every iteration within the gate; without
+    ``--fmt`` the format resolves to sell and the routing to a2a, as the
+    JAX CLI resolves them on more than one device."""
+    proc = _run(["--devices", "2", "--device", "cpu", "--vertices", "1024",
+                 "--width", "64", "--features", "16", "--iterations", "2",
+                 "--validate", *extra], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "over gloo (2 ranks on cpu)" in proc.stdout
+    errs = re.findall(r"rel err vs host (\S+) \(gate (\S+)\)", proc.stdout)
+    assert len(errs) == 2
+    for err, gate in errs:
+        assert float(err) <= float(gate)
+    assert "auto-selected --routing a2a" in proc.stdout
+    if "--comm_report" in extra:
+        assert "auto-selected --fmt sell" in proc.stdout
+        assert "2.5D mesh: 1 block shards x 2 replica groups" in proc.stdout
+        assert re.search(r"reduce \d+ B, host staged 0 B", proc.stdout)
+
+
+def test_mesh_refusals_exit_before_any_work(tmp_path, monkeypatch):
+    """The parts of the multi-device slice still to come exit naming the
+    ROADMAP item; flags that cannot go together exit before any work."""
+    from arrow_matrix_tpu_torch.cli.spmm_arrow import main
+
+    monkeypatch.chdir(tmp_path)
+    for args, words in (
+            (["--mode", "space"], "multi-device executors"),
+            (["--fmt", "fold"], "single-chip only"),
+            (["--carry", "--checkpoint", "ck"], "multi-device executors"),
+            (["--slim", "false"], "even --devices >= 4")):
+        with pytest.raises(SystemExit, match=words):
+            main(["--devices", "2", "--device", "cpu", *args])
+    assert not os.listdir(tmp_path)
+
+
 @pytest.mark.parametrize("blocked", ["true", "false"])
 def test_dense_format_validates_on_cpu(tmp_path, blocked):
     proc = _run(["--fmt", "dense", "--device", "cpu", "--vertices", "1024",

@@ -909,3 +909,107 @@ def test_pallas_sell_fold_with_a_schedule_on_the_card(cuda):
     assert cuda_sell.LAUNCHES - before >= 2
     assert np.array_equal(y, base.gather_result(base.step(
         base.set_features(x))))
+
+
+def test_mesh_shard_kernels_match_their_twins(cuda):
+    """K1 over a rank's body operator (its halo-extended operand ``[own
+    rows; X_0; lo halos; hi halos]``, two hops each side) and its head,
+    and K4's pack from ``[rows; zero row]`` and unpack from ``[rows;
+    zero row; received slots]``, each source in two parts as the
+    exchange passes it (its rows, then the zero row and the slots), on
+    the card against the plain versions (K4 bit for bit, bf16 rows
+    too)."""
+    from arrow_matrix_tpu_torch.parallel.routing import (
+        build_route,
+        rank_route,
+    )
+    from arrow_matrix_tpu_torch.parallel.sell_slim import build_slim_level
+
+    a = barabasi_albert(2048, 4, seed=13).astype(np.float32)
+    ops = build_slim_level(a, 64, 4, np.float32, True)
+    assert ops.hops >= 2
+    ops.to_rank(2, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for name, rows in (("body", ops.operand_rows), ("head", ops.rows_out)):
+        op = ops.dev[name]
+        x = torch.rand((rows, 16), device=cuda, generator=gen)
+        got = cuda_sell.sell_spmm_cuda(op, x)
+        want = sell.sell_spmm(op, x)
+        assert relative_error(got.cpu().numpy(), want.cpu().numpy()) \
+            <= relative_tolerance(a.nnz / a.shape[0])
+    rng = np.random.default_rng(1)
+    table = rng.integers(0, 3072, 4096)
+    rr = rank_route(build_route(table, 4, src_total=3072,
+                                pad_mask=rng.random(4096) < 0.1), 1, cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = torch.rand((768, 16), device=cuda, generator=gen).to(dtype)
+        tail = torch.cat([torch.zeros((1, 16), device=cuda),
+                          torch.rand((4 * rr.slots, 16), device=cuda,
+                                     generator=gen)]).to(dtype)
+        for idx, x2 in ((rr.send, tail[:1]), (rr.unpack, tail)):
+            got = cuda_gather.row_gather(rows, idx, x2)
+            want = torch.cat([rows, x2]).index_select(0, idx.long())
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("banded", [False, True])
+def test_k2_over_a_rank_shard_matches_its_twin(cuda, banded):
+    """K2 over a mesh rank's block rows (stacks of its own blocks only,
+    the operand ``[X_0; X_prev; own; X_next]`` or ``[X_0; own]``): the
+    first rank's form (its head block left out), a middle rank's and the
+    last rank's (its operand ending before ``X_next``), on the card
+    against the plain twin."""
+    rng = np.random.default_rng(4)
+    nb_l, w, k = 3, 128, 16
+    ext = nb_l + (3 if banded else 1)
+    first = 2 if banded else 1
+    x = torch.from_numpy(rng.standard_normal((ext, w, k))
+                         .astype(np.float32)).to(cuda)
+    for skip, end in ((1, ext), (0, ext), (0, ext - int(banded))):
+        st = {name: torch.from_numpy(
+            rng.standard_normal((nb_l - skip, w, w)).astype(np.float32))
+            .to(cuda) for name in ("diag", "col", "lo", "hi")}
+        lohi = (st["lo"], st["hi"]) if banded else ()
+        before = cuda_blocks.LAUNCHES_K2
+        got = cuda_blocks.column_rows_spmm(st["diag"], st["col"], x[:end],
+                                           first + skip, *lohi)
+        assert cuda_blocks.LAUNCHES_K2 == before + 1
+        want = arrow_blocks.column_rows_spmm(st["diag"], st["col"],
+                                             x[:end], first + skip, *lohi)
+        assert relative_error(got.cpu().numpy(), want.cpu().numpy()) \
+            <= relative_tolerance(4 * w)
+
+
+def _two_rank_step(ctx, levels, width, x):
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+    from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel
+
+    exe = SellMultiLevel(levels, width, make_mesh((ctx.world,), ("blocks",)))
+    before = (cuda_sell.LAUNCHES, cuda_gather.LAUNCHES)
+    c = exe.step(exe.set_features(x))
+    torch.cuda.synchronize()
+    launched = (cuda_sell.LAUNCHES - before[0],
+                cuda_gather.LAUNCHES - before[1])
+    want = exe.launch_counts(x.shape[1])
+    return exe.gather_result(c), launched, (want["K1"], want["K4"]), \
+        str(c.device)
+
+
+def test_two_gloo_ranks_step_on_one_card(cuda):
+    """SellMultiLevel on two gloo ranks sharing the card: their tensors
+    on the card, K1 and K4 launched as the executor counts them, the
+    result within the gate of the host golden."""
+    from arrow_matrix_tpu_torch.parallel.launch import spawn
+
+    a = barabasi_albert(4096, 4, seed=3)
+    levels = arrow_decomposition(a, 128, max_levels=4, block_diagonal=True,
+                                 seed=3)
+    x = random_dense(4096, 16, seed=1)
+    res = spawn(_two_rank_step, 2, args=(levels, 128, x), backend="gloo",
+                job_timeout_s=300)
+    out, launched, want, dev = res[0]
+    assert dev.startswith("cuda")
+    for r in res:
+        assert r[1] == r[2] and r[1][0] > 0
+    assert relative_error(out, decomposition_spmm(levels, x)) \
+        <= relative_tolerance(a.nnz / a.shape[0])

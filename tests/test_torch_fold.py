@@ -173,32 +173,37 @@ def test_carried_mask_marks_real_rows(levels):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"routing": "a2a"}, {"layout": "wide"},
+    {"mesh": object(), "fmt": "fold"}, {"routing": "a2a"},
+    {"layout": "wide"},
     {"kernel": "pallas_sell"}, {"plan": "auto"},
     {"kernel_opts": {"row_block": 64}}])
 def test_unported_options_raise_naming_the_roadmap(levels, kwargs,
                                                    tmp_path, monkeypatch):
-    """The multi-device options still raise naming ROADMAP.md; the fold
-    executor options are ported and answer as the JAX class does:
-    "pallas_sell" needs the fold, a plan miss warns, and a TPU knob
-    K1 has no use for raises."""
+    """The multi-device options are ported and refuse what the JAX class
+    refuses, with its ValueError: the fold on a mesh, "a2a" without a
+    mesh, "wide" without an arm axis; the fold executor options answer
+    as the JAX class does: "pallas_sell" needs the fold, a plan miss
+    warns, and a TPU knob K1 has no use for raises."""
     from arrow_matrix_tpu_torch.tune import TunePlanMiss
 
     monkeypatch.setenv("AMT_TUNE_PLAN_DIR", str(tmp_path))
-    if "kernel" in kwargs:
+    refused = {"mesh": "fmt='fold' is a single-chip whole-level kernel",
+               "routing": "routing='a2a' requires a mesh",
+               "layout": "layout='wide' needs a \\(arm=2, blocks\\) mesh"}
+    key = next(iter(kwargs))
+    if key in refused:
+        with pytest.raises(ValueError, match=refused[key]):
+            MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)
+    elif "kernel" in kwargs:
         with pytest.raises(ValueError, match="requires fmt='fold'"):
             MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)
     elif "plan" in kwargs:
         with pytest.warns(TunePlanMiss, match="no plan file"):
             MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)
-    elif "kernel_opts" in kwargs:
+    else:
         with pytest.raises(ValueError, match="TPU knobs"):
             MultiLevelArrow(levels, WIDTH, fmt="fold", device="cpu",
                             **kwargs)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue A"):
-            MultiLevelArrow(levels, WIDTH, device="cpu", **kwargs)
 
 
 def test_fold_needs_the_card_unless_asked_for_the_cpu(levels):

@@ -200,6 +200,34 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     assert empty.shape == (0, 20)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_part_source_reads_the_joined_rows(dtype):
+    """``row_gather(x, idx, x2)`` and the gather-add over the rows ``[x;
+    x2]`` read where they lie (a mesh exchange's own rows, then its zero
+    row and received slots): bit for bit ``[x; x2][idx]``."""
+    x, base, idx = _rows(300, 20, 777, seed=2)
+    xt = torch.from_numpy(x).to(dtype)
+    x2 = torch.from_numpy(_rows(41, 20, 1, seed=3)[0]).to(dtype)
+    it = torch.from_numpy(np.concatenate(
+        [idx[:700], np.arange(300, 341, dtype=np.int32),
+         np.full(36, 300, np.int32)]))
+    joined = torch.cat([xt, x2])
+    want = joined.index_select(0, it.long())
+    got = row_gather(xt, it, x2)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
+    if dtype == torch.float32:
+        bt = torch.from_numpy(base.copy())
+        assert row_gather_add_(bt, xt, it, x2) is bt
+        assert torch.equal(bt.view(torch.int32),
+                           (torch.from_numpy(base) + want).view(torch.int32))
+        rows = torch.cat([joined, torch.zeros((777, 20))])
+        with pytest.raises(ValueError, match="overlaps"):
+            row_gather_add_(rows[300:1077], xt, it, rows[300:341])
+
+
 def test_row_gather_wrappers_reject_what_the_kernel_does_not_take():
     x = torch.zeros(64, 8)
     idx = torch.zeros(40, dtype=torch.int32)

@@ -90,7 +90,14 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             os.path.join("cli", "graft_lens.py"),
             os.path.join("cli", "graft_ledger.py"),
             os.path.join("tools", "lens_gate.py"),
-            os.path.join("tools", "ledger_gate.py")} <= names
+            os.path.join("tools", "ledger_gate.py"),
+            os.path.join("analysis", "contracts.py"),
+            os.path.join("parallel", "mesh.py"),
+            os.path.join("parallel", "collectives.py"),
+            os.path.join("parallel", "launch.py"),
+            os.path.join("parallel", "sell_slim.py"),
+            os.path.join("parallel", "arrow_layout.py"),
+            os.path.join("utils", "commstats.py")} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -164,6 +171,26 @@ def test_port_runs_a_fold_step_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_port_runs_a_two_rank_mesh_step_with_jax_blocked(tmp_path):
+    """``spmm_arrow --devices 2 --device cpu --fmt sell --validate`` with
+    JAX and the JAX package unimportable in the launcher and in both of
+    the gloo ranks it starts (a ``sitecustomize`` on the path blocks
+    them in every process)."""
+    blocker = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")]
+    (tmp_path / "sitecustomize.py").write_text(blocker)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "arrow_matrix_tpu_torch.cli.spmm_arrow",
+         "--devices", "2", "--device", "cpu", "--fmt", "sell",
+         "--vertices", "512", "--width", "32", "--features", "4",
+         "--iterations", "1", "--validate"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "over gloo (2 ranks on cpu)" in proc.stdout
+    assert "rel err vs host" in proc.stdout
 
 
 SERVE_RUN = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")] + r"""

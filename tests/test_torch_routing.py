@@ -153,3 +153,138 @@ def test_routed_step_matches_jax(fmt, n, k, block_diagonal):
     tol = relative_tolerance(ours.nnz / n)
     assert relative_error(got, want) <= tol
     assert relative_error(got, decomposition_spmm(levels, x)) <= tol
+
+
+# -- the mesh's routed exchanges (parallel/routing.py) -------------------------
+
+import os as _os
+import sys as _sys
+
+from arrow_matrix_tpu.parallel import routing as _jrouting
+from arrow_matrix_tpu_torch.parallel import routing as _prouting
+from arrow_matrix_tpu_torch.parallel.launch import RankPool
+
+_sys.path.insert(0, _os.path.dirname(_os.path.abspath(__file__)))
+
+_TABLES = {
+    "random": lambda rng, n: rng.permutation(n),
+    "identity": lambda rng, n: np.arange(n),
+    "shift": lambda rng, n: np.roll(np.arange(n), n // 8),
+}
+
+
+@pytest.fixture(scope="module")
+def route_pool():
+    with RankPool(4, device="cpu", timeout_s=60) as pool:
+        yield pool
+
+
+def _rect_case(rng, total=1024, src_total=768):
+    table = rng.integers(0, src_total, total)
+    pad = rng.random(total) < 0.2
+    return table, src_total, pad
+
+
+def _assert_tables_equal(port, jax_rt):
+    for name in ("local_src", "local_dst", "send_idx", "recv_dst"):
+        got, want = getattr(port, name), np.asarray(getattr(jax_rt, name))
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    assert (port.rows_src, port.rows_dst, port.n_dev) == (
+        jax_rt.rows_src, jax_rt.rows_dst, jax_rt.n_dev)
+
+
+@pytest.mark.parametrize("case", sorted(_TABLES) + ["rectangular"])
+@pytest.mark.parametrize("chunk", [None, 100])
+def test_build_route_equals_jax(case, chunk):
+    rng = np.random.default_rng(7)
+    if case == "rectangular":
+        table, src_total, pad = _rect_case(rng)
+    else:
+        table, src_total, pad = _TABLES[case](rng, 1024), None, None
+    kw = dict(src_total=src_total, pad_mask=pad, stream_chunk=chunk)
+    _assert_tables_equal(_prouting.build_route(table, 4, **kw),
+                         _jrouting.build_route(table, 4, **kw))
+
+
+def test_build_route_rejects_what_jax_rejects():
+    with pytest.raises(ValueError, match="divisible"):
+        _prouting.build_route(np.arange(10), 8)
+    with pytest.raises(ValueError, match="outside"):
+        _prouting.build_route(np.full(16, 20), 4)
+
+
+def test_split_route_stages_equals_jax():
+    rng = np.random.default_rng(3)
+    table = rng.permutation(1024)
+    p = _prouting.split_route_stages(_prouting.build_route(table, 4), 8,
+                                     2 * 4 * 8 * 4 * 5)
+    j = _jrouting.split_route_stages(_jrouting.build_route(table, 4), 8,
+                                     2 * 4 * 8 * 4 * 5)
+    assert p.n_stages == j.n_stages > 1
+    for ps, js in zip(p.stages, j.stages):
+        _assert_tables_equal(ps, js)
+    assert p.device_bytes_per_exchange(8) == j.device_bytes_per_exchange(8)
+    with pytest.raises(ValueError, match="cannot carry one"):
+        _prouting.split_route_stages(_prouting.build_route(table, 4), 8, 8)
+
+
+@pytest.mark.parametrize("case", sorted(_TABLES) + ["rectangular"])
+@pytest.mark.parametrize("routing,add", [("a2a", False), ("a2a", True),
+                                         ("gather", False),
+                                         ("gather", True)])
+def test_routed_take_equals_the_table_bit_for_bit(route_pool, case,
+                                                  routing, add):
+    """Every exchange copies bits: ``x[table]`` exactly (plus a base of
+    ones for the backward form), the padding destinations zero, and an
+    identity route has no slot to send."""
+    rng = np.random.default_rng(11)
+    if case == "rectangular":
+        table, src_total, pad = _rect_case(rng)
+    else:
+        table, src_total, pad = _TABLES[case](rng, 1024), 1024, None
+    x = rng.standard_normal((src_total, 5)).astype(np.float32)
+    x[3, 1] = -0.0
+    got = route_pool.run("_torch_mesh_jobs", "routed", table, src_total,
+                         pad, x, routing, add)[0]
+    want = x[table]
+    if pad is not None and routing == "a2a":
+        want[pad] = 0.0
+    if add:
+        want = np.float32(1.0) + want
+    assert np.array_equal(got["out"].view(np.int32), want.view(np.int32))
+    if case == "identity" and routing == "a2a":
+        assert got["slots"] == 0
+        assert got["stats"]["total_bytes"] == 0     # no collective at all
+
+
+def test_staged_take_equals_the_one_shot(route_pool):
+    rng = np.random.default_rng(5)
+    table = rng.permutation(1024)
+    x = rng.standard_normal((1024, 8)).astype(np.float32)
+    one = route_pool.run("_torch_mesh_jobs", "routed", table, 1024, None, x,
+                         "a2a", False)[0]
+    staged = route_pool.run("_torch_mesh_jobs", "routed", table, 1024, None,
+                            x, "a2a", False, 8)[0]
+    assert np.array_equal(staged["out"], one["out"])
+    assert np.array_equal(one["out"], x[table])
+
+
+def test_route_tables_from_jax_arrays_drive_the_exchange():
+    """``convert.route_tables_from_numpy`` takes a JAX RouteTables's
+    arrays: the same tables as the port's build, the same rank tables."""
+    from arrow_matrix_tpu_torch.convert import route_tables_from_numpy
+
+    rng = np.random.default_rng(9)
+    table, src_total, pad = _rect_case(rng)
+    j = _jrouting.build_route(table, 4, src_total=src_total, pad_mask=pad)
+    got = route_tables_from_numpy(j.local_src, j.local_dst, j.send_idx,
+                                  j.recv_dst, j.rows_src, j.rows_dst,
+                                  j.n_dev)
+    want = _prouting.build_route(table, 4, src_total=src_total,
+                                 pad_mask=pad)
+    _assert_tables_equal(got, j)
+    for d in range(4):
+        a, b = (_prouting.rank_route(got, d, "cpu"),
+                _prouting.rank_route(want, d, "cpu"))
+        assert torch.equal(a.send, b.send) and torch.equal(a.unpack,
+                                                           b.unpack)
