@@ -1,4 +1,4 @@
-"""``spmm_arrow`` — the arrow SpMM benchmark on one device.
+"""``spmm_arrow`` — the arrow SpMM benchmark.
 
 The port's counterpart of ``arrow_matrix_tpu/cli/spmm_arrow.py`` on a
 single device: with no ``--path``, generate a Barabasi-Albert graph,
@@ -25,6 +25,16 @@ JAX CLI's flags: ``--watchdog`` seconds per iteration, ``--max_retries``
 with exponential backoff, ``--finite_check`` (NaN/Inf rolls back), and
 with ``--carry`` ``--checkpoint`` (every ``--checkpoint_every``
 iterations; a rerun resumes from it).
+
+With ``--devices P`` the ranks of a mesh run one process each
+(``parallel/launch.py``): ``--mode time`` (the default) runs the levels
+one after the other on the whole mesh (``--fmt sell``:
+``SellMultiLevel``; else ``MultiLevelArrow(mesh=)``), ``--mode space``
+runs them at once on disjoint rank groups of a (lvl, blocks) mesh
+(``--fmt sell``: ``SellSpaceShared``; else ``SpaceSharedArrow``):
+
+    python -m arrow_matrix_tpu_torch.cli.spmm_arrow --devices 4 \
+        --mode space --vertices 4096 --width 64 --validate
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch version.
 """
@@ -85,7 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["time", "space"],
                    help="Multi-matrix execution mode: time (the levels "
                         "one after the other on the whole mesh); space "
-                        "is not ported.")
+                        "(the levels at once on disjoint rank groups of "
+                        "a (lvl, blocks) mesh: SellSpaceShared with --fmt "
+                        "sell, the default, else SpaceSharedArrow; "
+                        "--devices a multiple of the level count).")
     p.add_argument("--routing", type=str, default=None,
                    choices=["gather", "a2a"],
                    help="Inter-level exchange on a mesh: a2a (explicit "
@@ -154,18 +167,39 @@ def check_mesh_flags(args) -> None:
     n_dev = args.devices
     if n_dev < 1:
         raise SystemExit("--devices must be >= 1")
-    if args.mode == "space":
-        raise SystemExit(
-            "spmm_arrow: --mode space (the space-shared executors) is not "
-            "ported yet; see ROADMAP.md Queue A, 'multi-device "
-            "executors'")
+    space = args.mode == "space"
+    if space:
+        # The JAX CLI's refusals of the space-shared mode, in its words.
+        if args.repl != "1":
+            raise SystemExit(
+                "--repl composes with --mode time; the space-shared "
+                "mesh spends its extra devices on level groups, not "
+                "replicas")
+        if not args.slim:
+            raise SystemExit(
+                "--slim false (wide layout) runs time-shared; "
+                "--mode space shards its per-level groups slim-style")
+        if args.fmt is not None and args.fmt in ("hyb", "fold"):
+            raise SystemExit(
+                f"--fmt {args.fmt} is a single-chip kernel; "
+                "--mode space runs levels on disjoint device groups — "
+                "use --fmt auto/dense/ell (stacked) or sell "
+                "(feature-major)")
+        if n_dev < 2:
+            raise SystemExit(
+                "--mode space runs the levels on disjoint rank groups; "
+                "pass --devices, a multiple of the level count")
+        if args.head_fmt != "auto":
+            print(f"warning: --head_fmt {args.head_fmt} applies only to "
+                  f"--mode time; the space-shared runtime pre-agrees "
+                  f"one head format across levels")
     if args.fmt is None:
-        args.fmt = "sell" if n_dev > 1 else "fold"
+        args.fmt = "sell" if (space or n_dev > 1) else "fold"
         print(f"auto-selected --fmt {args.fmt} for {n_dev} device(s) "
               f"(measured-best; override with --fmt)")
     if args.routing is None:
-        args.routing = "a2a" if (args.fmt == "sell" and n_dev > 1) \
-            else "gather"
+        args.routing = "a2a" if (args.fmt == "sell" and n_dev > 1
+                                 and not space) else "gather"
         if args.routing == "a2a":
             print("auto-selected --routing a2a (lowest collective "
                   "volume; override with --routing)")
@@ -174,7 +208,7 @@ def check_mesh_flags(args) -> None:
             f"--fmt {args.fmt} is single-chip only; rerun with "
             f"--devices 1 (or pick --fmt auto/dense/ell/sell "
             f"for the {n_dev}-device mesh)")
-    if args.fmt == "sell" and n_dev < 2:
+    if args.fmt == "sell" and n_dev < 2 and not space:
         raise SystemExit(
             "--fmt sell is the mesh orchestration; on one chip "
             "use --fmt fold (same layouts, zero routing)")
@@ -419,9 +453,6 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
     """One rank of ``spmm_arrow --devices P``: its mesh, its shards of the
     executor, the iteration loop (``--validate`` on every rank against
     the host golden; rank 0 prints), and ``--comm_report``."""
-    import torch
-
-    from arrow_matrix_tpu_torch.decomposition import decomposition_spmm
     from arrow_matrix_tpu_torch.io import (
         as_levels,
         load_decomposition,
@@ -434,12 +465,6 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
         make_repl_mesh,
     )
     from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel
-    from arrow_matrix_tpu_torch.utils import (
-        commstats,
-        random_dense,
-        relative_error,
-        relative_tolerance,
-    )
 
     say = print if ctx.rank == 0 else (lambda *a, **k: None)
     n_dev = ctx.world
@@ -448,6 +473,8 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
                                           block_diagonal=args.blocked),
                        width if widths is None else widths)
     n = num_rows(levels[0].matrix)
+    if args.mode == "space":
+        return space_rank(ctx, args, levels, width, say)
     repl_c = 1
     if args.repl == "auto":
         from arrow_matrix_tpu_torch.obs.comm import auto_repl
@@ -486,6 +513,61 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
     say(f"mesh: {dict(mesh.shape)} over {ctx.backend} ({ctx.world} ranks "
         f"on {ctx.device}); {what}, routing {args.routing} "
         f"({time.perf_counter() - tic:.3f} s)")
+    return drive_ranks(ctx, args, exe, levels, n, repl_c, say)
+
+
+def space_rank(ctx, args, levels, width: int, say) -> int:
+    """``--mode space`` in a rank: a (lvl, blocks) mesh with one level
+    group a level, ``SellSpaceShared`` (``--fmt sell``) or
+    ``SpaceSharedArrow``, then the iteration loop."""
+    from arrow_matrix_tpu_torch.io import num_rows
+    from arrow_matrix_tpu_torch.parallel import (
+        SellSpaceShared,
+        SpaceSharedArrow,
+    )
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+
+    n_dev, k_levels = ctx.world, len(levels)
+    if n_dev % k_levels:
+        say(f"--mode space needs the device count ({n_dev}) divisible "
+            f"by the level count ({k_levels}); rerun with --devices set "
+            f"accordingly")
+        return 2
+    if args.routing != "gather":
+        say(f"warning: --routing {args.routing} applies only to --mode "
+            f"time; space-shared exchanges are the composed tables and "
+            f"the sum over the level groups")
+    tic = time.perf_counter()
+    mesh = make_mesh((k_levels, n_dev // k_levels), ("lvl", "blocks"))
+    if args.fmt == "sell":
+        exe = SellSpaceShared(levels, width, mesh,
+                              feature_dtype=args.feature_dtype,
+                              ladder=args.ladder)
+        what = (f"sell space: {exe.rows_out} carried rows a rank, halo "
+                f"hops {exe.hops}")
+    else:
+        exe = SpaceSharedArrow(levels, width, mesh, fmt=args.fmt)
+        what = (f"space: {exe.fmt} blocks at banded width {exe.width}, "
+                f"{exe.rows_local} rows a rank")
+    say(f"mesh: {dict(mesh.shape)} over {ctx.backend} ({ctx.world} ranks "
+        f"on {ctx.device}); {what} ({time.perf_counter() - tic:.3f} s)")
+    return drive_ranks(ctx, args, exe, levels, num_rows(levels[0].matrix),
+                       1, say)
+
+
+def drive_ranks(ctx, args, exe, levels, n: int, repl_c: int, say) -> int:
+    """The iteration loop of a rank: warm-up, ``--comm_report``, the
+    timed steps, ``--validate`` against the host golden on every rank
+    (rank 0 prints)."""
+    import torch
+
+    from arrow_matrix_tpu_torch.decomposition import decomposition_spmm
+    from arrow_matrix_tpu_torch.utils import (
+        commstats,
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
 
     def sync():
         if ctx.device.type == "cuda":
@@ -506,7 +588,7 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
         rep = account_collectives(
             "spmm_arrow", lambda: (exe.step(x), sync()),
             ideal_bytes=ideal_bytes_for(exe, args.features, item),
-            overlap_slabs=exe.overlap_slabs, repl=repl_c,
+            overlap_slabs=getattr(exe, "overlap_slabs", 1), repl=repl_c,
             reduce_bytes=reduce_bytes_for(exe, args.features, item))
         say("per-iteration collective bytes on rank 0 (utils/commstats):")
         say(commstats.format_stats(rep["collectives"]))

@@ -102,31 +102,81 @@ def default_optimizer(params) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=1e-2)
 
 
+def _reduce_axes(multi):
+    """The mesh axes whose ranks split ``multi``'s carriage, or None for
+    an executor on one device."""
+    axes = getattr(multi, "reduce_axes", None)
+    return None if axes is None else axes()
+
+
+def mesh_sum(multi, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks that split ``multi``'s carriage, with
+    the same bits on every rank (``parallel/collectives.py:
+    all_reduce_sum``); ``t`` itself on one device.  The JAX package's
+    reductions of a sharded array are whole-array ones; on ranks each
+    holds its share, so a whole-array reduction ends here."""
+    axes = _reduce_axes(multi)
+    if axes is None:
+        return t
+    from arrow_matrix_tpu_torch.parallel.collectives import all_reduce_sum
+
+    return all_reduce_sum(t, multi.mesh, axes)
+
+
 def masked_mse(out: torch.Tensor, y: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
+               mask: torch.Tensor, multi=None) -> torch.Tensor:
     """Per-row squared error summed over features, times ``mask`` (one
     weight a row, any shape of ``rows`` elements), over
-    ``max(sum(mask), 1)``."""
+    ``max(sum(mask), 1)``.
+
+    On a mesh (``multi`` an executor with one) the count is the whole
+    mesh's and so is the value, equal on every rank; the gradient is
+    this rank's share of it (its rows' terms), which
+    :func:`_optimizer_step` sums over the mesh."""
     per_row = ((out - y) ** 2).sum(dim=-1)
     m = mask.reshape(-1)
-    return (per_row * m).sum() / torch.clamp(m.sum(), min=1.0)
+    if _reduce_axes(multi) is None:
+        return (per_row * m).sum() / torch.clamp(m.sum(), min=1.0)
+    den = torch.clamp(mesh_sum(multi, m.sum().detach()), min=1.0)
+    local = (per_row * m).sum() / den
+    # The whole mesh's value, with this rank's gradient: the added term
+    # is exactly zero.
+    return mesh_sum(multi, local.detach()) + (local - local.detach())
 
 
 def _optimizer_step(optimizer: torch.optim.Optimizer,
-                    loss_fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+                    loss_fn: Callable[[], torch.Tensor],
+                    multi=None) -> torch.Tensor:
     """One step of ``optimizer`` on ``loss_fn()``; returns the loss before
-    the update (as ``jax.value_and_grad`` then ``optax`` do)."""
+    the update (as ``jax.value_and_grad`` then ``optax`` do).  On a mesh
+    the gradients of the parameters (replicated: every rank holds the
+    same) are summed over the mesh first, in one ordered all-reduce, so
+    every rank takes the same step and the parameters stay equal bit for
+    bit (XLA's autodiff does this sum for the JAX package)."""
     optimizer.zero_grad()
     loss = loss_fn()
     loss.backward()
+    if _reduce_axes(multi) is not None:
+        params = [p for group in optimizer.param_groups
+                  for p in group["params"] if p.grad is not None]
+        if params:
+            flat = mesh_sum(multi, torch.cat(
+                [p.grad.reshape(-1) for p in params]))
+            at = 0
+            for p in params:
+                n = p.grad.numel()
+                p.grad.copy_(flat[at:at + n].view_as(p.grad))
+                at += n
     optimizer.step()
     return loss.detach()
 
 
 def _fit(module: nn.Module, loss_fn: Callable[[], torch.Tensor],
-         steps: int, optimizer: Optional[OptimizerFactory]) -> List[float]:
+         steps: int, optimizer: Optional[OptimizerFactory],
+         multi=None) -> List[float]:
     opt = (optimizer or default_optimizer)(module.parameters())
-    return [float(_optimizer_step(opt, loss_fn)) for _ in range(steps)]
+    return [float(_optimizer_step(opt, loss_fn, multi))
+            for _ in range(steps)]
 
 
 def sgc_init(generator: torch.Generator, k_in: int, k_out: int,
@@ -189,7 +239,7 @@ def make_train_step(multi, hops: int,
 
     def train_step(params, x, y, mask):
         return _optimizer_step(optimizer, lambda: masked_mse(
-            sgc_forward(params, x, multi, hops), y, mask))
+            sgc_forward(params, x, multi, hops), y, mask, multi), multi)
 
     return train_step
 
@@ -225,7 +275,7 @@ def make_gcn_train_step(multi, optimizer: torch.optim.Optimizer
 
     def train_step(params, x, y, mask):
         return _optimizer_step(optimizer, lambda: masked_mse(
-            gcn_forward(params, x, multi), y, mask))
+            gcn_forward(params, x, multi), y, mask, multi), multi)
 
     return train_step
 
@@ -295,8 +345,9 @@ class SGCCarried(nn.Module):
         xp = self.propagate(x_host)
         yt = self.multi.set_features(y_host.astype(np.float32))
         mask = self.multi.carried_mask()
-        return _fit(self, lambda: masked_mse(self(xp), yt, mask), steps,
-                    optimizer)
+        return _fit(self, lambda: masked_mse(self(xp), yt, mask,
+                                             self.multi), steps,
+                    optimizer, self.multi)
 
 
 class GCNCarried(nn.Module):
@@ -332,8 +383,8 @@ class GCNCarried(nn.Module):
         xt = m.set_features(x_host.astype(np.float32))
         yt = m.set_features(y_host.astype(np.float32))
         mask = m.carried_mask()
-        return _fit(self, lambda: masked_mse(self(xt), yt, mask), steps,
-                    optimizer)
+        return _fit(self, lambda: masked_mse(self(xt), yt, mask, m), steps,
+                    optimizer, m)
 
 
 def pagerank_carried(multi, damping: float = 0.85,
@@ -371,16 +422,23 @@ def label_propagation_carried(multi, labels: np.ndarray,
     return multi.gather_result(y)
 
 
-def _normalize(y: torch.Tensor, m) -> torch.Tensor:
+def _normalize(y: torch.Tensor, m, multi=None) -> torch.Tensor:
     """y / ||y * m|| in f32.  ``m`` is 1.0 for layouts whose pads are
-    zero, or the carried mask."""
-    return y.float() / torch.clamp(torch.linalg.vector_norm(y * m),
-                                   min=1e-30)
+    zero, or the carried mask; on a mesh the norm is the whole mesh's."""
+    v = y * m
+    if _reduce_axes(multi) is None:
+        norm = torch.linalg.vector_norm(v)
+    else:
+        norm = torch.sqrt(mesh_sum(multi, (v.float() ** 2).sum()))
+    return y.float() / torch.clamp(norm, min=1e-30)
 
 
-def _rayleigh(x: torch.Tensor, y: torch.Tensor, m) -> torch.Tensor:
+def _rayleigh(x: torch.Tensor, y: torch.Tensor, m,
+              multi=None) -> torch.Tensor:
     xm, ym = (x * m).reshape(-1), (y * m).reshape(-1)
-    return torch.dot(xm, ym) / torch.clamp(torch.dot(xm, xm), min=1e-30)
+    dots = mesh_sum(multi, torch.stack([torch.dot(xm, ym),
+                                        torch.dot(xm, xm)]))
+    return dots[0] / torch.clamp(dots[1], min=1e-30)
 
 
 def power_iteration(multi, x0: np.ndarray,
@@ -396,10 +454,10 @@ def power_iteration(multi, x0: np.ndarray,
     m = multi.carried_mask() if multi.carries_feature_major else 1.0
     x = multi.set_features(x0.astype(np.float32))
     for _ in range(iterations):
-        x = _normalize(multi.step(x), m)
+        x = _normalize(multi.step(x), m, multi)
     # One more multiply for the Rayleigh quotient x^T A x / x^T x.
     y = multi.step(x)
-    lam = float(_rayleigh(x, y, m))
+    lam = float(_rayleigh(x, y, m, multi))
     return multi.gather_result(x), lam
 
 
@@ -491,7 +549,8 @@ def make_appnp_train_step(multi, hops: int, alpha: float,
 
     def train_step(params, x, y, mask):
         return _optimizer_step(optimizer, lambda: masked_mse(
-            appnp_forward(params, x, multi, hops, alpha), y, mask))
+            appnp_forward(params, x, multi, hops, alpha), y, mask, multi),
+            multi)
 
     return train_step
 
@@ -529,8 +588,8 @@ class APPNPCarried(nn.Module):
         xt = m.set_features(x_host.astype(np.float32))
         yt = m.set_features(y_host.astype(np.float32))
         mask = m.carried_mask()
-        return _fit(self, lambda: masked_mse(self(xt), yt, mask), steps,
-                    optimizer)
+        return _fit(self, lambda: masked_mse(self(xt), yt, mask, m), steps,
+                    optimizer, m)
 
 
 # ---------------------------------------------------------------------
@@ -540,16 +599,18 @@ class APPNPCarried(nn.Module):
 
 def _cg_iter(multi, x, r, p, rz, shift: float, mask):
     """One CG iteration in carried layout; the reductions are masked by
-    ``carried_mask`` and summed in float32.  A bf16 ``p`` (the first
+    ``carried_mask`` and summed in float32 (on a mesh, over the whole
+    mesh: every rank gets the same scalars, so with ``tol > 0`` all
+    ranks stop at the same iteration).  A bf16 ``p`` (the first
     iteration's, on a bf16 carriage) is stepped as it is and promoted to
     f32 everywhere else, as the JAX package's f32 shift promotes it."""
     ap = shift * p.float() + multi.step(p).float()
     p = p.float()
-    denom = (p * ap * mask).sum(dtype=torch.float32)
+    denom = mesh_sum(multi, (p * ap * mask).sum(dtype=torch.float32))
     alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
     x = x + alpha * p
     r = r - alpha * ap
-    rz_new = (r * r * mask).sum(dtype=torch.float32)
+    rz_new = mesh_sum(multi, (r * r * mask).sum(dtype=torch.float32))
     beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
     p = r + beta * p
     return x, r, p, rz_new
@@ -582,7 +643,7 @@ def conjugate_gradient(multi, b: np.ndarray, *, shift: float,
     x = torch.zeros_like(bt)
     r = bt
     p = bt
-    rz = (r * r * mask).sum(dtype=torch.float32)
+    rz = mesh_sum(multi, (r * r * mask).sum(dtype=torch.float32))
     # Host syncs only in tol mode: the fixed-count path stays
     # asynchronous until the final gather.
     b_norm = float(torch.sqrt(rz)) if tol > 0.0 else None

@@ -301,10 +301,11 @@ def arrow_blocks_from_csr(matrix: CsrLike, width: int,
 
     Trailing all-zero block rows and columns are truncated;
     ``pad_blocks_to`` appends empty block-rows so every level of a
-    decomposition can share one flat row count.  Each stack is packed
-    on the host, moved to the device and dropped before the next, so
-    the host holds one stack at a time.  The packed arrays are the JAX
-    package's, byte for byte.
+    decomposition can share one flat row count.  A dense stack is
+    written on the device from its blocks' nonzeros; an ELL stack is
+    packed on the host, moved to the device and dropped before the
+    next, so the host holds one ELL stack at a time.  The packed arrays
+    are the JAX package's, byte for byte.
 
     ``fmt`` is "dense" (the port's default: ``(nb, w, w)`` stacks) or
     "ell"; under "ell" (only), ``head_fmt`` picks the head: "flat", "ell",
@@ -352,8 +353,8 @@ def arrow_blocks_from_csr(matrix: CsrLike, width: int,
         """The stack's arrays on the device: data (dense or weighted
         ELL), cols (ELL), deg (binary ELL)."""
         if fmt == "dense":
-            return {"data": dense_pack_stack(mats, dtype=dtype,
-                                             rows=width).to(dev)}
+            return {"data": dense_pack_stack(mats, dtype=dtype, rows=width,
+                                             device=dev)}
         if is_binary:
             cols, deg = ell_pack_stack_binary(mats, rows=width,
                                               index_dtype=idt)

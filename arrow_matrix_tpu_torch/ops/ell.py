@@ -154,18 +154,24 @@ def ell_tier_spmm(cols: torch.Tensor, x: torch.Tensor,
 
 def dense_pack_stack(mats: List[Optional[sparse.spmatrix]],
                      dtype: torch.dtype = torch.float32,
-                     rows: Optional[int] = None) -> torch.Tensor:
+                     rows: Optional[int] = None,
+                     device=None) -> torch.Tensor:
     """Pack sparse blocks (None = structurally empty) into one dense
-    ``(b, rows, rows)`` CPU tensor of ``dtype``.
+    ``(b, rows, rows)`` tensor of ``dtype``.
 
-    Densifies at float32 in numpy, then rounds once to ``dtype``
+    Every value is cut to float32 and then rounded once to ``dtype``
     (round to nearest even for bfloat16), as the JAX package's packer
-    does, so the stacks agree bit for bit.
+    does, so the stacks agree bit for bit.  Without ``device`` the
+    stack is densified in numpy and returned on the CPU; with it, only
+    the nonzeros cross to ``device`` and are scattered into a zeroed
+    stack there, so the host never holds the dense stack.
     """
     shapes = [m.shape for m in mats if m is not None]
     if not shapes and rows is None:
         raise ValueError("no non-empty blocks and no explicit row count")
     rows = rows if rows is not None else shapes[0][0]
+    if device is not None:
+        return _dense_scatter_stack(mats, dtype, rows, device)
     out = np.zeros((len(mats), rows, rows), dtype=np.float32)
     for i, m in enumerate(mats):
         if m is None or m.nnz == 0:
@@ -175,6 +181,30 @@ def dense_pack_stack(mats: List[Optional[sparse.spmatrix]],
         else:
             out[i] = m.toarray()
     return torch.from_numpy(out).to(dtype)
+
+
+def _dense_scatter_stack(mats, dtype: torch.dtype, rows: int,
+                         device) -> torch.Tensor:
+    """:func:`dense_pack_stack` on ``device``: the blocks' nonzeros at
+    their flat positions in the stack, written into zeros there."""
+    flat, vals = [], []
+    for i, m in enumerate(mats):
+        if m is None or m.nnz == 0:
+            continue
+        m = m.tocsr()
+        if not m.has_canonical_format:       # toarray sums duplicates
+            m = m.copy()
+            m.sum_duplicates()
+        r = np.repeat(np.arange(m.shape[0], dtype=np.int64),
+                      np.diff(m.indptr))
+        flat.append((i * rows + r) * rows + m.indices)
+        vals.append(np.asarray(m.data, dtype=np.float32))
+    out = torch.zeros((len(mats), rows, rows), dtype=dtype, device=device)
+    if flat:
+        idx = torch.from_numpy(np.concatenate(flat)).to(device)
+        v = torch.from_numpy(np.concatenate(vals)).to(dtype).to(device)
+        out.view(-1)[idx] = v
+    return out
 
 
 def dense_spmm_batched(data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -13,12 +13,20 @@ from arrow_matrix_tpu_torch.parallel.multi_level import (
     resolve_feature_dtype,
 )
 from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel, SellSlim
+from arrow_matrix_tpu_torch.parallel.sell_space import SellSpaceShared
+from arrow_matrix_tpu_torch.parallel.space_shared import (
+    SpaceSharedArrow,
+    space_shared_spmm,
+    stack_arrow_blocks,
+)
 
 __all__ = [
     "Mesh",
     "MultiLevelArrow",
     "SellMultiLevel",
     "SellSlim",
+    "SellSpaceShared",
+    "SpaceSharedArrow",
     "compose_routing",
     "largest_replication",
     "make_mesh",
@@ -27,4 +35,6 @@ __all__ = [
     "pad_permutation",
     "requantize",
     "resolve_feature_dtype",
+    "space_shared_spmm",
+    "stack_arrow_blocks",
 ]

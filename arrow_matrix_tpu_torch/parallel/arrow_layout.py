@@ -36,7 +36,10 @@ broadcast to arm 1 so the carriage stays replicated over the arm axis.
 row-major ``(total_rows / P, k)`` a rank in level-0 order (each level
 views it as ``(nb_i / P, w_i, k)``), routes it between levels by
 all-gather and K4 (``routing="gather"``) or by the a2a tables (K4 pack,
-all-to-all, K4 unpack), and aggregates backward in the JAX order.
+all-to-all, K4 unpack), and aggregates backward in the JAX order.  Its
+step is differentiable: the backward is the same step over each rank's
+shards of the transposed levels (``parallel/autograd.py``), packed by
+the forward's shard packer.
 """
 
 from __future__ import annotations
@@ -160,11 +163,12 @@ def build_shard_blocks(matrix, width: int, nb_padded: int, d: int,
             for name in ("head",) + COLUMN_STACKS if name in coords}
     if fmt == "dense":
         sb.stacks["head"] = dense_pack_stack(mine["head"], dtype=dtype,
-                                             rows=width).to(dev)
+                                             rows=width, device=dev)
         for name in COLUMN_STACKS:
             if name in mine:
                 sb.stacks[name] = dense_pack_stack(
-                    mine[name][sb.skip:], dtype=dtype, rows=width).to(dev)
+                    mine[name][sb.skip:], dtype=dtype, rows=width,
+                    device=dev)
         return sb
 
     idt = block_index_dtype(width)
@@ -387,8 +391,11 @@ class MeshMultiLevelArrow(MultiLevelArrow):
     mesh of ranks (module docstring).  Every rank builds it from the
     same levels and packs its own shards; ``set_features`` takes the
     global host array and keeps this rank's rows, ``step``/``run`` run
-    the local steps and their collectives (no gradient on a mesh), and
-    ``gather_result`` returns the global result on every rank."""
+    the local steps and their collectives, and ``gather_result`` returns
+    the global result on every rank.  The step is differentiable as on
+    one device (``parallel/autograd.py:StepFunction``: its collectives
+    run inside the Function, its backward is :meth:`transposed_step`
+    over this rank's transposed shards and the same routing)."""
 
     def __init__(self, levels, width: int, *, mesh, axis: str = "blocks",
                  banded: bool = False, dtype=np.float32, chunk="auto",
@@ -470,6 +477,8 @@ class MeshMultiLevelArrow(MultiLevelArrow):
         self.width, self.banded, self.chunk = width, banded, "auto"
         self.folded = False
         self._transposed = None
+        self.head_fmt = head_fmt
+        self._matrices = [lvl.matrix for lvl in levels]
         self.n = num_rows(levels[0].matrix)
         n_dev = mesh.shape[axis]
         if dense_budget is None:
@@ -547,15 +556,44 @@ class MeshMultiLevelArrow(MultiLevelArrow):
         self.fwd = [compile_route(t) for t in fwd]
         self.bwd = [compile_route(t) for t in bwd]
 
-    # The single-device members (the fold, the transposed operator, the
-    # packed operator on disk) have no mesh form yet.
+    # The single-device members (the fold, the packed operator on disk)
+    # have no mesh form yet.
     pack_level = _single_device("pack_level")
     launch_groups = _single_device("launch_groups")
     fold_product = _single_device("fold_product")
-    transposed = _single_device("transposed")
-    transposed_step = _single_device("transposed_step")
     export_folded = _single_device("export_folded")
     load_folded = staticmethod(_single_device("load_folded"))
+
+    def level_matrices(self) -> list:
+        """Each level's global matrix, which every rank holds."""
+        return self._matrices
+
+    def pack_transposed(self, i: int, matrix) -> ShardBlocks:
+        """This rank's share of ``matrix`` (level ``i``'s transpose) in
+        the level's format, width, tiling and layout; an ELL head laid
+        out flat or per block by the forward's rule, applied to
+        ``matrix``."""
+        sb = self.blocks[i]
+        w = self.widths[i]
+        nb_pad = self.total_rows // w
+        flat = False
+        if sb.fmt == "ell":
+            max_row, max_nnz = head_stats(matrix, w,
+                                          number_of_blocks(matrix, w))
+            flat = choose_flat_head_from_stats(
+                nb_pad, w, max_row, max_nnz, self.dtype, self.head_fmt)
+        is_bin = (sb.fmt == "ell"
+                  and resolve_blocks_binary(matrix, sb.fmt, self.binary))
+        return build_shard_blocks(matrix, w, nb_pad,
+                                  self.mesh.axis_index(self.axis),
+                                  self.mesh.shape[self.axis], sb.banded,
+                                  self.dtype, sb.fmt, flat, is_bin,
+                                  self.mesh.device)
+
+    def reduce_axes(self) -> tuple:
+        """The mesh axes a whole-carriage reduction sums over: the block
+        axis (the wide layout's carriage is a copy on each arm)."""
+        return (self.axis,)
 
     def head_layouts(self) -> list:
         """Each level's head layout on this rank: "flat" or "ell" for an
@@ -584,57 +622,40 @@ class MeshMultiLevelArrow(MultiLevelArrow):
         full = fetch_replicated(c.float(), self.mesh, self.axis)
         return full[self.inv_perm0][:self.n]
 
-    def _level(self, i: int, x: torch.Tensor) -> torch.Tensor:
+    def _level(self, sb: ShardBlocks, x: torch.Tensor) -> torch.Tensor:
         if self.layout == "wide":
-            return wide_block_step(self.blocks[i], x, self.mesh,
-                                   self.arm_axis, self.axis)
-        return slim_block_step(self.blocks[i], x, self.mesh, self.axis)
+            return wide_block_step(sb, x, self.mesh, self.arm_axis,
+                                   self.axis)
+        return slim_block_step(sb, x, self.mesh, self.axis)
 
-    def raw_step(self, x, *operands) -> torch.Tensor:
-        """The step's kernels and collectives on this rank's rows."""
+    def raw_step(self, x, fwd, bwd, blocks) -> torch.Tensor:
+        """The step's kernels and collectives on this rank's rows, over
+        ``blocks`` (the forward shards, or the transposed ones)."""
         from arrow_matrix_tpu_torch.parallel.multi_level import by_slabs
         from arrow_matrix_tpu_torch.parallel.routing import take
 
         def one(xs):
             partials = []
             x_cur = xs
-            for i in range(len(self.blocks)):
+            for i, sb in enumerate(blocks):
                 if i > 0:
-                    x_cur = take(x_cur, self.fwd[i - 1], self.mesh,
-                                 self.axis)
-                partials.append(self._level(i, x_cur))
+                    x_cur = take(x_cur, fwd[i - 1], self.mesh, self.axis)
+                partials.append(self._level(sb, x_cur))
             agg = partials[-1]
-            for i in range(len(self.blocks) - 1, 0, -1):
-                agg = take(agg, self.bwd[i - 1], self.mesh, self.axis,
+            for i in range(len(blocks) - 1, 0, -1):
+                agg = take(agg, bwd[i - 1], self.mesh, self.axis,
                            add_to=partials[i - 1])
             return agg
 
         return by_slabs(one, x.contiguous(), self.slabs(x.shape[1]))
 
-    def step(self, x: torch.Tensor) -> torch.Tensor:
-        """One iteration on this rank's rows, past the fault hook
-        ``multi_level.step``."""
-        from arrow_matrix_tpu_torch.faults import on_step as _fault_hook
-
-        return self.raw_step(_fault_hook("multi_level.step", x))
-
-    @property
-    def step_fn(self):
-        return lambda x, *operands: self.raw_step(x)
-
-    def run(self, x, iterations: int, donate: bool = False):
-        del donate
-        for _ in range(iterations):
-            x = self.raw_step(x)
-        return x
-
     def step_operands(self) -> tuple:
         return (self.fwd, self.bwd, self.blocks)
 
-    def launch_counts(self, k: int) -> dict:
-        """Kernel launches of one step on this rank at width ``k`` on the
-        card: K1, K2, K3, "K4" (gathers) and "K4 add" (backward
-        unpacks)."""
+    def launch_counts(self, k: int, transposed: bool = False) -> dict:
+        """Kernel launches of one step (``transposed``: of one transposed
+        step) on this rank at width ``k`` on the card: K1, K2, K3, "K4"
+        (gathers) and "K4 add" (backward unpacks)."""
         from arrow_matrix_tpu_torch.parallel.routing import RankRoute
 
         slabs = self.slabs(k)
@@ -644,7 +665,8 @@ class MeshMultiLevelArrow(MultiLevelArrow):
             role = "column" if self.mesh.axis_index(self.arm_axis) == 0 \
                 else "head"
         out = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4 add": 0}
-        for sb in self.blocks:
+        blocks = self.transposed().blocks if transposed else self.blocks
+        for sb in blocks:
             for name, v in shard_launch_counts(sb, ks, role).items():
                 out[name] += v
         for r in self.fwd + self.bwd:

@@ -27,6 +27,19 @@ packed into SELL tiers sorted by its own row degrees with its column ids
 kept as carriage positions; K1 over that pack is followed by one K4 row
 gather that puts its rows back into the carriage order.
 
+Mesh executors.  The algebra is the per-level one on every rank:
+``sum_i S_i B_iᵀ R_i`` over the same routing tables and K4 exchanges,
+with each rank's level shards transposed.  ``MultiLevelArrow(mesh=)``
+packs ``B_iᵀ``'s shard by its own shard packer (same slim or wide
+layout, width and tiling).  A ``SellMultiLevel`` level is a tiered
+packing in carried coordinates: ``Mᵀ``'s slim packing sorts its rows by
+its own degrees, so its carriage is another ordering of the same shard's
+rows, reached by a local K4 gather each way
+(``sell_slim.SlimTransposed``).  The space-shared executors' step is
+not time-shared; their transpose is in ``parallel/space_shared.py``.
+:func:`transpose_levels` decides symmetry from each level's global
+matrix, which every rank holds, so the ranks agree.
+
 Symmetric operators.  Where a level's matrix (the fold: ``S``) equals
 its transpose, values too, the backward runs the forward operator
 itself and packs nothing; every level of an undirected graph's
@@ -140,27 +153,44 @@ def transpose_fold(sell: SellMatrix, binary: bool) -> tuple:
     return sell_t, inv
 
 
+def transpose_levels(matrices, forward: list, pack, device) -> Transposed:
+    """``Transposed`` of a per-level operator (see the module
+    docstring): level i's forward operator ``forward[i]`` where its
+    global matrix ``matrices[i]`` is symmetric, values too, else
+    ``pack(i, Mᵀ)``, an operator with ``device_nbytes()``.  The decision
+    reads the global level matrix, so every rank of a mesh makes the
+    same one."""
+    tic = time.perf_counter()
+    out = Transposed(blocks=[])
+    for i, (matrix, op) in enumerate(zip(matrices, forward)):
+        m = as_csr(matrix)
+        if is_symmetric(m):
+            out.blocks.append(op)
+            continue
+        blk = pack(i, m.T.tocsr())
+        out.blocks.append(blk)
+        out.packed.append(i)
+        out.device_bytes += blk.device_nbytes()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    out.seconds = time.perf_counter() - tic
+    return out
+
+
 def build_transposed(exe) -> Transposed:
     """Build ``Aᵀ`` of the executor ``exe`` (see the module docstring),
-    timing the host work and the uploads."""
+    timing the host work and the uploads.  A per-level executor names
+    its level matrices and its packer of a transposed level
+    (``level_matrices()``, ``pack_transposed(i, Mᵀ)``)."""
+    if not exe.folded:
+        return transpose_levels(exe.level_matrices(), exe.blocks,
+                                exe.pack_transposed, exe.device)
     tic = time.perf_counter()
     out = Transposed()
-    if exe.folded:
-        out.sell, out.inv = transpose_fold(exe.sell, exe.binary)
-        if out.sell is not None:
-            out.packed = [0]
-            out.device_bytes = nbytes_of(out.sell, out.inv)
-    else:
-        out.blocks = []
-        for i, lvl in enumerate(exe.levels):
-            m = as_csr(lvl.matrix)
-            if is_symmetric(m):
-                out.blocks.append(exe.blocks[i])
-                continue
-            blk = exe.pack_level(i, m.T.tocsr())
-            out.blocks.append(blk)
-            out.packed.append(i)
-            out.device_bytes += blk.device_nbytes()
+    out.sell, out.inv = transpose_fold(exe.sell, exe.binary)
+    if out.sell is not None:
+        out.packed = [0]
+        out.device_bytes = nbytes_of(out.sell, out.inv)
     if exe.device.type == "cuda":
         torch.cuda.synchronize(exe.device)
     out.seconds = time.perf_counter() - tic

@@ -13,7 +13,11 @@ collective of the executors becomes:
 * the halo ``ppermute`` chains -> :func:`shift`: a send to each
   neighbour on the axis and a receive from each, the chain ends zero;
 * the routed ``lax.all_to_all`` -> :func:`all_to_all` over fixed slots;
-* the GSPMD gathers and ``fetch_replicated`` -> :func:`all_gather`.
+* the GSPMD gathers and ``fetch_replicated`` -> :func:`all_gather`;
+* the models' whole-array reductions, the gradients of replicated
+  parameters and the space-shared sum over level groups ->
+  :func:`all_reduce_sum`: an all-gather of the terms, added in rank
+  order on every rank (the same bits everywhere).
 
 A group of one rank calls no collective.  Non-reducing collectives move
 a bf16 tensor as float16 (the same bits: NCCL has no int16, and both
@@ -215,6 +219,39 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     _staged(mesh, "all_gather", [_wire(t.contiguous())], [_wire(out)], run)
     commstats.record("all-gather", _nbytes(t) * (len(line) - 1), len(line))
     return out
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: Mesh,
+                   axes=None) -> torch.Tensor:
+    """The sum of every rank's ``t`` over the lines of ``axes`` (one
+    axis name, a sequence of them taken in turn, or None for the whole
+    mesh), on every rank, with the same bits on every rank and backend:
+    an all-gather of the terms, added in rank order from the first
+    rank's term.  Summed over several axes in turn, every rank adds the
+    same partial sums in the same order.  Counted as one all-reduce an
+    axis."""
+    if axes is None or isinstance(axes, str):
+        axes = (axes,)
+    out = t.contiguous()
+    for axis in axes:
+        line = mesh.line(axis)
+        if len(line) == 1:
+            continue
+        flat = out.reshape(1, -1)
+        parts = torch.empty((len(line), flat.shape[1]), dtype=out.dtype,
+                            device=out.device)
+
+        def run(ins, outs):
+            _ALL_GATHER(outs[0], ins[0], group=mesh.group(axis))
+
+        _staged(mesh, "all_gather", [_wire(flat)], [_wire(parts)], run)
+        commstats.record("all-reduce", _nbytes(out) * (len(line) - 1),
+                         len(line))
+        acc = parts[0].clone()
+        for i in range(1, len(line)):
+            acc += parts[i]
+        out = acc.view(out.shape)
+    return out if out is not t else t.clone()
 
 
 def all_reduce_max(value: int, mesh: Mesh, axis: str) -> int:

@@ -638,6 +638,15 @@ class MultiLevelArrow:
             k1_operands(blk)
         return blk
 
+    def level_matrices(self) -> list:
+        """Each level's global matrix (what :meth:`transposed` reads)."""
+        return [lvl.matrix for lvl in self.levels]
+
+    def pack_transposed(self, i: int, matrix):
+        """Level ``i``'s operator for ``matrix``, a level's transpose:
+        :meth:`pack_level` on one device."""
+        return self.pack_level(i, matrix)
+
     def _init_folded(self, levels, growth: float,
                      slot_align: Optional[int]) -> None:
         """Compose all levels into one CSR in level-0 coordinates, pack

@@ -709,6 +709,52 @@ def slim_level_step(ops: SlimLevelOps, x: torch.Tensor, mesh: Mesh,
     return out
 
 
+@dataclass
+class SlimTransposed:
+    """This rank's share of a level's transpose (``parallel/autograd.py``):
+    ``ops`` the slim packing of ``Mᵀ`` (its own tier ordering), ``into``
+    the int32 rows of ``[forward carriage; a zero row]`` that give its
+    carriage, and ``back`` those of ``[its result; a zero row]`` that
+    give the forward ordering's rows.  Both orderings permute the rows
+    of one shard, so the two moves are local K4 gathers."""
+
+    ops: SlimLevelOps
+    into: torch.Tensor
+    back: torch.Tensor
+
+    def device_nbytes(self) -> int:
+        return self.ops.rank_nbytes() + nbytes_of(self.into, self.back)
+
+
+def slim_transposed(fwd: SlimLevelOps, t: SlimLevelOps,
+                    device) -> SlimTransposed:
+    """The moves between the forward level's carried ordering (share
+    ``fwd.rank`` of its packing) and that of its transpose ``t`` (share
+    ``t.rank``), one shard's rows both; tier padding reads the zero
+    row."""
+    d, e, L = fwd.rank, t.rank, fwd.shard_len
+    inv_f = _positions_inv(fwd.body_order[d:d + 1], L)[0]
+    inv_t = _positions_inv(t.body_order[e:e + 1], L)[0]
+    rows_t, rows_f = t.body_order[e], fwd.body_order[d]
+    into = np.where(rows_t >= 0, inv_f[np.maximum(rows_t, 0)], fwd.rows_out)
+    back = np.where(rows_f >= 0, inv_t[np.maximum(rows_f, 0)], t.rows_out)
+    dev = torch.device(device)
+    return SlimTransposed(
+        ops=t, into=torch.from_numpy(into.astype(np.int32)).to(dev),
+        back=torch.from_numpy(back.astype(np.int32)).to(dev))
+
+
+def level_step(op, x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """One level's step on this rank: the forward packing's
+    (:func:`slim_level_step`), or a transpose's in its own ordering
+    between two K4 row gathers."""
+    if isinstance(op, SlimLevelOps):
+        return slim_level_step(op, x, mesh, axis)
+    zero = x.new_zeros((1, x.shape[1]))
+    y = slim_level_step(op.ops, row_gather(x, op.into, zero), mesh, axis)
+    return row_gather(y, op.back, zero)
+
+
 def k1_launches(op: SellMatrix, k: int, dtype: torch.dtype) -> int:
     """K1's launches for one product of ``op`` at width ``k`` (1, or 2
     with rows split across CTAs), from its work list; 0 for no rows."""
@@ -771,6 +817,77 @@ class _MeshExecutor:
     rows_local: int
 
     carries_feature_major = True
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device (its mesh's)."""
+        return self.mesh.device
+
+    def reduce_axes(self) -> tuple:
+        """The mesh axes a whole-carriage reduction sums over: the ones
+        that split the carriage (the block axis, and ``feat_axis``)."""
+        return (self.axis,) + ((self.feat_axis,) if self.feat_axis
+                               else ())
+
+    def level_matrices(self) -> list:
+        """Each level's global matrix, which every rank holds."""
+        return self._matrices
+
+    def pack_transposed(self, i: int, matrix) -> SlimTransposed:
+        """This rank's share of ``matrix`` (level ``i``'s transpose):
+        the level's packer at its width, shard length, ladder and
+        carriage, over the block axis, with the moves between the two
+        orderings."""
+        o = self._level_ops()[i]
+        src = _SliceSource(matrix, o.n_dev, self.width,
+                           shard_len=o.shard_len)
+        t = rank_slim_level(src, self.width, self.mesh, self.axis,
+                            self._dtype, self.binary, ladder=self._ladder)
+        return slim_transposed(o, t, self.mesh.device)
+
+    def transposed(self):
+        """``Aᵀ`` on this rank, built at the first call
+        (``parallel/autograd.py:transpose_levels``): symmetric levels
+        reuse their forward shards and pack nothing."""
+        from arrow_matrix_tpu_torch.parallel.autograd import (
+            transpose_levels,
+        )
+
+        if getattr(self, "_transposed", None) is None:
+            self._transposed = transpose_levels(
+                self.level_matrices(), self._level_ops(),
+                self.pack_transposed, self.mesh.device)
+        return self._transposed
+
+    def transposed_step(self, g: torch.Tensor) -> torch.Tensor:
+        """``Aᵀ g`` on this rank's f32 carriage, with no autograd: the
+        step's routing over the transposed levels, under the same column
+        schedule."""
+        levels = self.transposed().blocks
+        return self._schedule(lambda gs: self._chain(gs, levels), g)
+
+    def step(self, x: torch.Tensor) -> torch.Tensor:
+        """One iteration ``X := A @ X`` on this rank's carriage, past the
+        fault hook ``sell_slim.step``, differentiable in ``x`` (its
+        backward is :meth:`transposed_step`; the collectives run inside
+        the autograd Function)."""
+        from arrow_matrix_tpu_torch.faults import on_step as _fault_hook
+        from arrow_matrix_tpu_torch.parallel.autograd import StepFunction
+
+        x = _fault_hook("sell_slim.step", x)
+        return StepFunction.apply(x, self, self.step_operands())
+
+    def raw_step(self, x: torch.Tensor, *operands) -> torch.Tensor:
+        """The step's kernels and collectives, with no autograd."""
+        levels = self._level_ops()
+        return self._schedule(lambda xs: self._chain(xs, levels), x)
+
+    @property
+    def step_fn(self):
+        """``step(x) == step_fn(x, *step_operands())``."""
+        from arrow_matrix_tpu_torch.parallel.autograd import StepFunction
+
+        return lambda x, *operands: StepFunction.apply(x, self, operands)
 
     def _feature_slice(self, k: int) -> slice:
         if self.feat_axis is None:
@@ -918,6 +1035,8 @@ class SellSlim(_MeshExecutor):
         self.axis = axis
         self.width = width
         self.ladder = resolve_ladder(ladder)
+        self._ladder, self._dtype = ladder, dtype
+        self._matrices = [matrix]
         ops = rank_slim_level(src, width, mesh, axis, dtype, is_binary,
                               ladder=ladder)
         self.ops = ops
@@ -933,22 +1052,35 @@ class SellSlim(_MeshExecutor):
         self.overlap_slabs = int(overlap_slabs)
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
-        """One distributed SpMM step on this rank's carriage."""
-        return self._schedule(
-            lambda xs: slim_level_step(self.ops, xs, self.mesh, self.axis),
-            x)
+        """One distributed SpMM step on this rank's carriage,
+        differentiable in ``x`` (its backward is the transposed step)."""
+        from arrow_matrix_tpu_torch.parallel.autograd import StepFunction
+
+        return StepFunction.apply(x, self, self.step_operands())
 
     step = spmm
+
+    def step_operands(self) -> tuple:
+        """This rank's operands of a step: its level."""
+        return (self.ops,)
+
+    def _level_ops(self) -> list:
+        return [self.ops]
+
+    def _chain(self, x: torch.Tensor, levels: list) -> torch.Tensor:
+        return level_step(levels[0], x, self.mesh, self.axis)
 
     def _local_stats(self) -> Tuple[int, int, int]:
         return _stats_of([self.ops])
 
-    def launch_counts(self, k: int) -> dict:
-        """Kernel launches of one step on this rank at width ``k`` on the
-        card: {"K1", "K4", "K4 add"}."""
-        return _launch_counts([self.ops], [], [], self.mesh, self.axis,
-                              self._slab_k(k), self.feature_dtype,
-                              self._products())
+    def launch_counts(self, k: int, transposed: bool = False) -> dict:
+        """Kernel launches of one step (``transposed``: of one transposed
+        step, in f32) on this rank at width ``k`` on the card: {"K1",
+        "K4", "K4 add"}."""
+        ops = self.transposed().blocks if transposed else [self.ops]
+        return _launch_counts(ops, [], [], self.mesh, self.axis,
+                              self._slab_k(k), torch.float32 if transposed
+                              else self.feature_dtype, self._products())
 
     def _slab_k(self, k: int) -> int:
         kc = k // max(self.repl, 1)
@@ -1014,6 +1146,9 @@ def _launch_counts(ops, fwd, bwd, mesh, axis, k: int, dtype,
     first = mesh.axis_index(axis) == 0
     k1 = k4 = k4_add = 0
     for o in ops:
+        if isinstance(o, SlimTransposed):   # its two ordering moves
+            o = o.ops
+            k4 += 2
         k1 += (k1_launches(o.dev["body"], k, dtype)
                + k1_launches(o.dev["head"], k, dtype))
         k4 += int(o.hops > 0) + int(first)
@@ -1118,6 +1253,8 @@ class SellMultiLevel(_MeshExecutor):
         self.axis = axis
         self.width = width
         self.ladder = resolve_ladder(ladder)
+        self._ladder, self._dtype = ladder, dtype
+        self._matrices = [lvl.matrix for lvl in levels]
         n_dev = mesh.shape[axis]
         self.n = num_rows(levels[0].matrix)
         shard_len = max(align_up(-(-self.n // n_dev), width), width)
@@ -1179,6 +1316,7 @@ class SellMultiLevel(_MeshExecutor):
         dev = torch.device(device)
         for o in self.ops:
             o.to_rank(o.rank, dev)
+        self._transposed = None
         for r in self.fwd + self.bwd:
             for name in ("send", "unpack", "idx"):
                 if hasattr(r, name):
@@ -1188,32 +1326,24 @@ class SellMultiLevel(_MeshExecutor):
         self.mesh.device = dev
         return self
 
-    def _step_slab(self, x: torch.Tensor) -> torch.Tensor:
+    def _level_ops(self) -> list:
+        return self.ops
+
+    def _chain(self, x: torch.Tensor, levels: list) -> torch.Tensor:
+        """The levels' steps chained by the routes (the forward levels,
+        or the transposed ones: the routing is its own transpose)."""
         mesh, axis = self.mesh, self.axis
         x_cur = x
         partials = []
-        for i, o in enumerate(self.ops):
+        for i, o in enumerate(levels):
             if i > 0:
                 x_cur = take(x_cur, self.fwd[i - 1], mesh, axis)
-            partials.append(slim_level_step(o, x_cur, mesh, axis))
+            partials.append(level_step(o, x_cur, mesh, axis))
         agg = partials[-1]
-        for i in range(len(self.ops) - 1, 0, -1):
+        for i in range(len(levels) - 1, 0, -1):
             agg = take(agg, self.bwd[i - 1], mesh, axis,
                        add_to=partials[i - 1])
         return agg
-
-    def step(self, x: torch.Tensor) -> torch.Tensor:
-        """One iteration ``X := A @ X`` on this rank's carriage, past the
-        fault hook ``sell_slim.step``."""
-        from arrow_matrix_tpu_torch.faults import on_step as _fault_hook
-
-        x = _fault_hook("sell_slim.step", x)
-        return self._schedule(self._step_slab, x)
-
-    @property
-    def step_fn(self):
-        """``step(x) == step_fn(x, *step_operands())``."""
-        return lambda x, *operands: self.step(x)
 
     def step_operands(self) -> tuple:
         """This rank's operands of a step: the levels, fwd and bwd."""
@@ -1222,16 +1352,21 @@ class SellMultiLevel(_MeshExecutor):
     def _local_stats(self) -> Tuple[int, int, int]:
         return _stats_of(self.ops)
 
-    def launch_counts(self, k: int) -> dict:
+    def launch_counts(self, k: int, transposed: bool = False) -> dict:
         """Kernel launches of one step on this rank at width ``k`` on the
         card: "K1" (body and head of every level, 1 or 2 a product),
         "K4" (each level's halo gather and, on the first rank, its head
         unsort; each a2a exchange's pack when it has slots and each
         forward unpack; each "gather" route's gather) and "K4 add" (each
-        backward unpack of an f32 carriage), times the overlap slabs."""
-        return _launch_counts(self.ops, self.fwd, self.bwd, self.mesh,
+        backward unpack of an f32 carriage), times the overlap slabs.
+        ``transposed``: of one transposed step (f32; a level packed
+        transposed adds its two ordering moves)."""
+        ops = self.transposed().blocks if transposed else self.ops
+        return _launch_counts(ops, self.fwd, self.bwd, self.mesh,
                               self.axis, self._slab_k(k),
-                              self.feature_dtype, max(self.overlap_slabs, 1))
+                              torch.float32 if transposed
+                              else self.feature_dtype,
+                              max(self.overlap_slabs, 1))
 
     def _slab_k(self, k: int) -> int:
         if self.feat_axis is not None:

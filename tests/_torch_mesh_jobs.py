@@ -96,15 +96,17 @@ def multi_level(ctx, levels, width, x, steps, kw, shape=None,
 def mesh_members(ctx, levels, width, kw):
     """The single-device members of ``MultiLevelArrow(mesh=)``: each
     one's ``NotImplementedError`` message (None where it runs), and the
-    members that work on a mesh."""
+    members that work on a mesh: the transposed operator (what it packed)
+    and the transposed step beside the step, bit for bit."""
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
 
     exe = MultiLevelArrow(levels, width, mesh=_mesh(None, ("blocks",)), **kw)
+    x = exe.set_features(np.random.default_rng(0).standard_normal(
+        (exe.n, 4)).astype(np.float32))
+    same = bool(torch.equal(exe.transposed_step(x), exe.step(x)))
     calls = {"pack_level": lambda: exe.pack_level(0, levels[0].matrix),
              "launch_groups": lambda: exe.launch_groups(None),
              "fold_product": lambda: exe.fold_product(None, None),
-             "transposed": exe.transposed,
-             "transposed_step": lambda: exe.transposed_step(None),
              "export_folded": lambda: exe.export_folded("unused"),
              "load_folded": lambda: type(exe).load_folded("unused")}
     refused = {}
@@ -115,6 +117,7 @@ def mesh_members(ctx, levels, width, kw):
         except NotImplementedError as e:
             refused[name] = str(e)
     return {"refused": refused, "head_layouts": exe.head_layouts(),
+            "packed": exe.transposed().packed, "transposed_is_step": same,
             "kernel_bytes": exe.kernel_bytes(16),
             "carriage": exe.carriage_hbm_bytes(16),
             "rows_local": exe.rows_local}
@@ -251,3 +254,217 @@ def jax_packing_step(ctx, fields, x_carried, steps):
         c = slim_level_step(ops, c, mesh, "blocks")
     full = coll.all_gather(c.contiguous(), mesh, "blocks")
     return full.numpy() if ctx.rank == 0 else None
+
+
+# -- training through the mesh executors and the space-shared modes -----------
+
+def _executor(kind, levels, width, kw, shape, names):
+    """A mesh executor of ``kind``: "sell" (SellMultiLevel), "slim"
+    (SellSlim over level 0's matrix), "arrow" (MultiLevelArrow(mesh=)),
+    "space" (SpaceSharedArrow) or "sell_space" (SellSpaceShared)."""
+    from arrow_matrix_tpu_torch.parallel import (
+        MultiLevelArrow,
+        SellMultiLevel,
+        SellSlim,
+        SellSpaceShared,
+        SpaceSharedArrow,
+    )
+
+    mesh = _mesh(shape, names)
+    if kind == "sell":
+        return SellMultiLevel(levels, width, mesh, **kw)
+    if kind == "slim":
+        return SellSlim(levels[0].matrix, width, mesh, **kw)
+    if kind == "arrow":
+        return MultiLevelArrow(levels, width, mesh=mesh, **kw)
+    if kind == "space":
+        return SpaceSharedArrow(levels, width, mesh, **kw)
+    return SellSpaceShared(levels, width, mesh, **kw)
+
+
+def all_reduce_sum(ctx, shape, names, axes):
+    """``collectives.all_reduce_sum`` of rank-dependent values over
+    ``axes``: every rank's result bits and its counts."""
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+    from arrow_matrix_tpu_torch.utils import commstats
+
+    mesh = _mesh(shape, names)
+    commstats.reset()
+    t = (torch.arange(6, dtype=torch.float32).view(2, 3) + 0.1) \
+        * np.float32(1.0 + ctx.rank / 3.0)
+    out = coll.all_reduce_sum(t, mesh, axes)
+    b = coll.all_reduce_sum(t.to(torch.bfloat16), mesh, axes)
+    return {"out": out.numpy(), "bf16": b.float().numpy(),
+            "stats": commstats.snapshot()}
+
+
+def space_step(ctx, kind, levels, width, x, steps, kw, shape, names):
+    """``steps`` steps of a space-shared executor: the global result and
+    the tables on rank 0, this rank's launch counts, its shard's packed
+    arrays (SellSpaceShared) and its collective counts of the steps."""
+    from arrow_matrix_tpu_torch.utils import commstats
+
+    exe = _executor(kind, levels, width, kw, shape, names)
+    c = exe.set_features(x)
+    commstats.reset()
+    c = exe.run(c, steps)
+    stats = commstats.snapshot()
+    out = exe.gather_result(c)
+    res = {"stats": stats, "launches": exe.launch_counts(x.shape[1]),
+           "dtype": str(c.dtype)}
+    if kind == "sell_space":
+        o = exe.ops
+        s = o.rank
+        res["share"] = {
+            "index": s,
+            "body": ([a[s] for a in o.body.cols], [a[s] for a in o.body.deg],
+                     None if o.body.data is None
+                     else [a[s] for a in o.body.data]),
+            "head": ([a[s] for a in o.head.cols], [a[s] for a in o.head.deg],
+                     None if o.head.data is None
+                     else [a[s] for a in o.head.data]),
+            "orig_pos": o.orig_pos[s], "body_order": o.body_order,
+            "head_unsort": exe.head_unsort, "rows_out": o.rows_out,
+            "hops": o.hops, "rem": o.rem}
+        res["binary"] = exe.binary
+        res["ideal"] = exe.ideal_comm_bytes(x.shape[1])
+        res["report"] = exe.shard_report()
+        res["mask"] = float(exe.carried_mask().sum())
+    else:
+        res["fmt"], res["width"] = exe.fmt, exe.width
+        res["head_flat"] = exe.head_flat
+    if ctx.rank == 0:
+        res.update(out=out, bwd0=exe.bwd0, fwd0=exe.fwd0)
+    return res
+
+
+def _slice(exe, kind):
+    """(start, rows) of this rank's rows in the global carried vector of
+    a space-shared executor (level-major, then block-major)."""
+    g = exe.mesh.axis_index(exe.lvl_axis)
+    d = exe.mesh.axis_index(exe.axis)
+    if kind == "space":
+        return g * exe.total_rows + d * exe.rows_local, exe.rows_local
+    return g * exe.total_out + d * exe.rows_out, exe.rows_out
+
+
+def space_dense(ctx, kind, levels, width, g_seed, k, kw, shape, names):
+    """The whole step of a space-shared executor as a dense matrix (its
+    forward step applied to the unit vectors of the global carried
+    vector, K copies included), and its transposed step of a seeded
+    global ``g``; rank 0 returns both with ``g`` and what was packed."""
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+    exe = _executor(kind, levels, width, kw, shape, names)
+    lo, rows = _slice(exe, kind)
+    N = rows * ctx.world
+    eye = torch.eye(N, dtype=torch.float32)[lo:lo + rows].contiguous()
+    with torch.no_grad():
+        s = exe.step(eye)
+    dense = coll.all_gather(s.contiguous(), exe.mesh, None)
+    g = torch.from_numpy(np.random.default_rng(g_seed).standard_normal(
+        (N, k)).astype(np.float32))
+    t = exe.transposed_step(g[lo:lo + rows].contiguous())
+    got = coll.all_gather(t.contiguous(), exe.mesh, None)
+    tr = exe.transposed()
+    res = {"packed": tr.packed, "bytes": tr.device_bytes}
+    if ctx.rank == 0:
+        res.update(dense=dense.numpy(), g=g.numpy(), got=got.numpy())
+    return res
+
+
+def transposed_step(ctx, kind, levels, width, g, kw, shape, names):
+    """``gather_result(transposed_step(set_features(g)))`` of a
+    time-shared mesh executor over an f32 carriage, the levels it
+    packed, and whether a second call reused the build."""
+    exe = _executor(kind, levels, width, kw, shape, names)
+    # A gradient is f32 whatever the carriage (StepFunction.backward):
+    # a bf16 executor's f32 carriage.
+    carriage = getattr(exe, "feature_dtype", torch.float32)
+    exe.feature_dtype = torch.float32
+    c = exe.set_features(g)
+    exe.feature_dtype = carriage
+    t = exe.transposed_step(c)
+    assert t.dtype == torch.float32
+    out = exe.gather_result(t)
+    tr = exe.transposed()
+    res = {"packed": tr.packed, "bytes": tr.device_bytes,
+           "seconds": tr.seconds, "same": exe.transposed() is tr}
+    if ctx.rank == 0:
+        res["out"] = out
+    return res
+
+
+def model_run(ctx, kind, levels, width, what, args, kw, shape, names):
+    """A model of ``models/propagation.py`` over a mesh executor, on every
+    rank (each rank returns what it computed, to be compared across
+    ranks): "power" (eigenvector, eigenvalue), "cg" (solution, residual),
+    "sgc_carried"/"gcn_carried" (prediction, fit losses, parameters
+    after the fit), "pagerank", "labelprop"."""
+    from arrow_matrix_tpu_torch.models import propagation as P
+
+    exe = _executor(kind, levels, width, kw, shape, names)
+    if what == "power":
+        v, lam = P.power_iteration(exe, *args)
+        return {"v": v, "lam": lam}
+    if what == "cg":
+        b, shift, iters, tol = args
+        x, rnorm = P.conjugate_gradient(exe, b, shift=shift,
+                                        iterations=iters, tol=tol)
+        return {"x": x, "rnorm": rnorm}
+    if what in ("sgc_carried", "gcn_carried"):
+        x, y, model_args, steps = args
+        cls = P.SGCCarried if what == "sgc_carried" else P.GCNCarried
+        m = cls(exe, *model_args, seed=0)
+        pred = m.predict(x)
+        losses = m.fit(x, y, steps=steps) if steps else []
+        return {"pred": pred, "losses": losses,
+                "params": [p.detach().numpy().copy()
+                           for p in m.parameters()]}
+    if what == "pagerank":
+        return {"out": (P.pagerank_carried(exe, *args)
+                        if exe.carries_feature_major
+                        else P.pagerank(exe, *args))}
+    labels, seeds, iters = args
+    fn = (P.label_propagation_carried if exe.carries_feature_major
+          else P.label_propagation)
+    return {"out": fn(exe, labels, seeds, iterations=iters)}
+
+
+def gcn_train(ctx, kind, levels, width, x, y, params, steps, kw, shape,
+              names):
+    """The flat GCN train step (``make_gcn_train_step``, Adam 1e-2) over a
+    mesh executor from the given parameters: the first step's loss and
+    gradients (summed over the mesh), then ``steps`` steps' losses and
+    the parameters after them, on every rank."""
+    from arrow_matrix_tpu_torch.convert import load_jax_params
+    from arrow_matrix_tpu_torch.models import propagation as P
+
+    exe = _executor(kind, levels, width, kw, shape, names)
+    model = P.GCNModel(exe, dims=[params[0][0].shape[0]]
+                       + [w.shape[1] for w, _ in params])
+    load_jax_params(model, params)
+    xs, ys = exe.set_features(x), exe.set_features(y)
+    mask = exe.real_row_mask()
+    opt = torch.optim.Adam(model.params.parameters(), lr=1e-2)
+    grads = {}
+    step = P.make_gcn_train_step(exe, opt)
+    losses = []
+    for i in range(steps):
+        if i == 0:
+            orig = opt.step
+
+            def first(*a, **k):
+                grads["g"] = [(h.w.grad.numpy().copy(),
+                               h.b.grad.numpy().copy())
+                              for h in model.params]
+                return orig(*a, **k)
+
+            opt.step = first
+        losses.append(float(step(model.params, xs, ys, mask)))
+        if i == 0:
+            opt.step = orig
+    return {"losses": losses, "grads": grads["g"],
+            "params": [p.detach().numpy().copy()
+                       for p in model.params.parameters()],
+            "transposed": exe.transposed().packed}

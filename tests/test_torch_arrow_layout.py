@@ -77,18 +77,23 @@ def test_slim_matches_jax(pool4, problem, fmt, head_fmt, block_diagonal,
 def test_single_device_members_refuse_on_a_mesh(pool4, problem, fmt,
                                                 head_fmt):
     """The members of the single-device executor that have no mesh form
-    (the fold's product and knobs, the transposed operator, the packed
-    operator on disk) raise naming the ROADMAP item on every rank; the
-    head layouts name each level's, and the carriage model prices this
-    rank's rows."""
+    (the fold's product and knobs, the packed operator on disk) raise
+    naming the ROADMAP item on every rank; the transposed operator has
+    one: over the symmetric BA levels it packs nothing and its step is
+    the step, bit for bit; the head layouts name each level's, and the
+    carriage model prices this rank's rows."""
     _, levels, _ = problem
     lv = levels[True]
     jm = JaxArrow(lv, 32, mesh=jax_mesh((4,), ("blocks",)), fmt=fmt,
                   head_fmt=head_fmt)
     for r in pool4.run(JOBS, "mesh_members", lv, 32,
                        dict(fmt=fmt, head_fmt=head_fmt)):
+        assert sorted(r["refused"]) == ["export_folded", "fold_product",
+                                        "launch_groups", "load_folded",
+                                        "pack_level"]
         assert all(msg and "multi-device executors" in msg
                    for msg in r["refused"].values()), r["refused"]
+        assert r["packed"] == [] and r["transposed_is_step"]
         assert r["head_layouts"] == [
             None if f != "ell" else head_fmt for f in jm.fmts]
         assert r["kernel_bytes"] == 0

@@ -114,6 +114,34 @@ def test_dense_pack_stack_rounds_to_nearest_even_like_jax():
                           jax_pack(mats, rows=8))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_pack_stack_on_a_device_matches_the_host_pack(dtype):
+    """The scatter onto ``device`` gives the host pack's bits: empty and
+    absent blocks, a float64 block (cut to float32 first) and one with
+    duplicate entries (summed, as ``toarray`` sums them)."""
+    rng = np.random.default_rng(11)
+    dup = sparse.csr_matrix((np.array([0.5, 0.25, 1.0 + 2**-8], np.float32),
+                             np.array([3, 3, 1]), np.array([0, 2, 3, 3, 3,
+                                                            3, 3, 3, 3])),
+                            shape=(8, 8))
+    assert not dup.has_canonical_format
+    mats = [None,
+            sparse.random(8, 8, density=0.5, random_state=rng,
+                          dtype=np.float32).tocsr(),
+            sparse.csr_matrix((8, 8), dtype=np.float32),
+            sparse.random(8, 8, density=0.3, random_state=rng,
+                          dtype=np.float64).tocsr(),
+            dup]
+    mats[1].data[:2] = np.array([1 + 2**-8, -(1 + 3 * 2**-8)], np.float32)
+    want = dense_pack_stack(mats, dtype=dtype, rows=8)
+    got = dense_pack_stack(mats, dtype=dtype, rows=8, device="cpu")
+    assert got.dtype == dtype and got.shape == (5, 8, 8)
+    assert np.array_equal(_bits(got), _bits(want))
+    empty = dense_pack_stack([None, None], dtype=dtype, rows=4,
+                             device="cpu")
+    assert empty.shape == (2, 4, 4) and not empty.any()
+
+
 def test_tiling_check_catches_entries_outside_the_pattern():
     a = arrow_csr(4, 16, banded=True, seed=5)
     with pytest.raises(ValueError, match="captured"):

@@ -68,18 +68,42 @@ def test_mesh_sell_validates_on_two_cpu_ranks(tmp_path, extra):
 
 def test_mesh_refusals_exit_before_any_work(tmp_path, monkeypatch):
     """The parts of the multi-device slice still to come exit naming the
-    ROADMAP item; flags that cannot go together exit before any work."""
+    ROADMAP item; flags that cannot go together (the JAX CLI's refusals
+    of ``--mode space`` among them) exit before any work."""
     from arrow_matrix_tpu_torch.cli.spmm_arrow import main
 
     monkeypatch.chdir(tmp_path)
     for args, words in (
-            (["--mode", "space"], "multi-device executors"),
+            (["--mode", "space", "--repl", "2"],
+             "--repl composes with --mode time"),
+            (["--mode", "space", "--slim", "false"], "runs time-shared"),
+            (["--mode", "space", "--fmt", "hyb"], "single-chip kernel"),
             (["--fmt", "fold"], "single-chip only"),
             (["--carry", "--checkpoint", "ck"], "multi-device executors"),
             (["--slim", "false"], "even --devices >= 4")):
         with pytest.raises(SystemExit, match=words):
             main(["--devices", "2", "--device", "cpu", *args])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("fmt", ["sell", "dense"])
+def test_space_mode_validates_on_cpu_ranks(tmp_path, fmt):
+    """``--mode space --devices 3``: one rank group a level of the
+    3-level decomposition (SellSpaceShared for sell, SpaceSharedArrow
+    otherwise), every carried iteration within the gate."""
+    proc = _run(["--devices", "3", "--device", "cpu", "--mode", "space",
+                 "--fmt", fmt, "--vertices", "1024", "--width", "64",
+                 "--features", "8", "--iterations", "2", "--carry",
+                 "--validate", "--comm_report"], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "mesh: {'lvl': 3, 'blocks': 1} over gloo" in proc.stdout
+    assert ("sell space:" if fmt == "sell" else "space: dense") \
+        in proc.stdout
+    errs = re.findall(r"rel err vs host (\S+) \(gate (\S+)\)", proc.stdout)
+    assert len(errs) == 2
+    for err, gate in errs:
+        assert float(err) <= float(gate)
+    assert re.search(r"all-reduce\s+1\s", proc.stdout)
 
 
 @pytest.mark.parametrize("blocked", ["true", "false"])

@@ -314,6 +314,25 @@ def test_dense_executor_on_the_card_matches_the_cpu(cuda, banded):
     assert relative_error(got, golden) <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_stack_packed_on_the_card_equals_the_host_pack(cuda, dtype):
+    """The dense stacks scattered on the card carry the host pack's
+    bits, for a whole level's arrow tiling."""
+    from arrow_matrix_tpu_torch.ops.ell import dense_pack_stack
+
+    a = barabasi_albert(2048, 4, seed=3)
+    level = arrow_decomposition(a, 64, max_levels=10, block_diagonal=True,
+                                seed=0)[0].matrix.tocsr()
+    mats = [level[i * 64:(i + 1) * 64, 0:64] for i in range(32)] + [None]
+    want = dense_pack_stack(mats, dtype=dtype, rows=64)
+    got = dense_pack_stack(mats, dtype=dtype, rows=64, device=cuda)
+    assert got.device.type == "cuda" and got.dtype == dtype
+    assert torch.equal(got.cpu().view(torch.int16 if dtype == torch.bfloat16
+                                      else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
+
+
 def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda):
     a = torch.zeros((3, 16, 16), device=cuda)
     x = torch.zeros((3, 16, 4), device=cuda)
@@ -1013,3 +1032,93 @@ def test_two_gloo_ranks_step_on_one_card(cuda):
         assert r[1] == r[2] and r[1][0] > 0
     assert relative_error(out, decomposition_spmm(levels, x)) \
         <= relative_tolerance(a.nnz / a.shape[0])
+
+
+def _launches():
+    from arrow_matrix_tpu_torch.ops import cuda_blocks
+
+    return {"K1": cuda_sell.LAUNCHES, "K2": cuda_blocks.LAUNCHES_K2,
+            "K3": cuda_blocks.LAUNCHES_K3, "K4": cuda_gather.LAUNCHES,
+            "K4 add": cuda_gather.LAUNCHES_ADD}
+
+
+def _card_and_plain(ctx, kind, levels, width, x, g, kw, shape, names):
+    """One mesh executor built twice in each rank, over a mesh on the
+    card (its kernels) and over one on the CPU (their plain versions):
+    the forward step, its launches beside ``launch_counts``, and the
+    transposed step, each gathered on every rank."""
+    from arrow_matrix_tpu_torch.parallel import (
+        MultiLevelArrow,
+        SellMultiLevel,
+        SellSpaceShared,
+        SpaceSharedArrow,
+    )
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for where in ("card", "cpu"):
+        mesh = make_mesh(shape, names, device=None if where == "card"
+                         else "cpu")
+        exe = {"sell": lambda: SellMultiLevel(levels, width, mesh, **kw),
+               "arrow": lambda: MultiLevelArrow(levels, width, mesh=mesh,
+                                                **kw),
+               "space": lambda: SpaceSharedArrow(levels, width, mesh, **kw),
+               "sell_space": lambda: SellSpaceShared(levels, width, mesh,
+                                                     **kw)}[kind]()
+        c = exe.set_features(x)
+        exe.transposed()
+        torch.cuda.synchronize()
+        before = _launches()
+        y = exe.step(c)
+        torch.cuda.synchronize()
+        after = _launches()
+        t = exe.transposed_step(exe.set_features(g).float())
+        out[where] = {"step": exe.gather_result(y),
+                      "t": exe.gather_result(t),
+                      "launched": {name: after[name] - before[name]
+                                   for name in after},
+                      "device": str(y.device)}
+        if where == "card":
+            out["want"] = exe.launch_counts(x.shape[1])
+    return out
+
+
+@pytest.mark.parametrize("kind,kw,shape,names", [
+    ("sell", {}, (4,), ("blocks",)),
+    ("arrow", {"fmt": "ell"}, (4,), ("blocks",)),
+    ("arrow", {"fmt": "dense", "routing": "a2a"}, (4,), ("blocks",)),
+    ("space", {"fmt": "dense"}, (2, 2), ("lvl", "blocks")),
+    ("space", {"fmt": "ell"}, (2, 2), ("lvl", "blocks")),
+    ("sell_space", {}, (2, 2), ("lvl", "blocks"))])
+def test_mesh_backward_and_space_steps_on_the_card(cuda, kind, kw, shape,
+                                                   names):
+    """On 4 gloo ranks sharing the card, over ``D⁻¹A`` of a directed graph
+    (every level packed transposed): each mesh executor's step and
+    transposed step on the card against the same executor over a CPU
+    mesh (the kernels' plain versions), within the gate; the forward
+    step launched its kernels exactly as ``launch_counts`` says."""
+    from arrow_matrix_tpu_torch.parallel.launch import spawn
+
+    n = 2048
+    a = barabasi_albert(n, 4, seed=43, directed=True).astype(np.float32)
+    deg = np.maximum(np.asarray(a.sum(axis=1)).ravel(), 1.0)
+    a = (sparse.diags(1.0 / deg) @ a).tocsr().astype(np.float32)
+    levels = arrow_decomposition(a, 64, max_levels=2, block_diagonal=True,
+                                 seed=3)
+    x, g = random_dense(n, 16, seed=1), random_dense(n, 16, seed=2)
+    res = spawn(_card_and_plain, 4, args=(kind, levels, 64, x, g, kw,
+                                          shape, names),
+                backend="gloo", job_timeout_s=600)
+    tol = relative_tolerance(a.nnz / n)
+    for r in res:
+        card, plain = r["card"], r["cpu"]
+        assert card["device"].startswith("cuda")
+        assert relative_error(card["step"], plain["step"]) <= tol
+        assert relative_error(card["t"], plain["t"]) <= tol
+        for name, v in r["want"].items():
+            assert card["launched"][name] == v, (name, card["launched"])
+        assert not any(plain["launched"].values())
+    assert relative_error(res[0]["card"]["step"],
+                          decomposition_spmm(levels, x)) <= tol
+    if kind in ("sell", "arrow"):
+        assert relative_error(res[0]["card"]["t"], a.T @ g) <= tol

@@ -97,6 +97,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             os.path.join("parallel", "launch.py"),
             os.path.join("parallel", "sell_slim.py"),
             os.path.join("parallel", "arrow_layout.py"),
+            os.path.join("parallel", "autograd.py"),
+            os.path.join("parallel", "space_shared.py"),
+            os.path.join("parallel", "sell_space.py"),
+            os.path.join("models", "propagation.py"),
             os.path.join("utils", "commstats.py")} <= names
     bad = []
     for path in files:
@@ -152,6 +156,8 @@ assert all(r["exact"] for r in gather_probe.gather_rates(
 assert gather_probe.fold_gate(gather_probe.fold_step(16, ml, iters=1),
                               ml.nnz / ml.n)
 import arrow_matrix_tpu_torch.bench, arrow_matrix_tpu_torch.cli.arrow_decompose
+from arrow_matrix_tpu_torch.parallel import space_shared, sell_space
+from arrow_matrix_tpu_torch.models import propagation
 from arrow_matrix_tpu_torch.utils import artifacts, logging, platform
 native_levels = arrow_decomposition(a, 32, max_levels=4, seed=0,
                                     backend="auto")
