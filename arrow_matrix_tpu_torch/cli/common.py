@@ -6,9 +6,10 @@ The port's copy of ``arrow_matrix_tpu/cli/common.py``: ``str2bool``,
 the default, or ``cpu``; there is no silent fallback), ``add_heal_args``
 / ``make_supervisor`` (the supervised iteration loop's flags),
 ``load_sparse_matrix`` (``.npz``, ``.mtx``, ``.mat`` including MATLAB
-v7.3 through h5py), ``random_adjacency`` and ``normalize_scale``.  The
-JAX module's multi-process launch flags wait for the multi-device
-executors.
+v7.3 through h5py), ``random_adjacency`` and ``normalize_scale``; and
+``add_rank_args`` / ``launch_ranks``, the port's multi-process launch
+(one process a rank on ``torch.distributed``), in place of the JAX
+module's multi-host flags.
 """
 
 from __future__ import annotations
@@ -40,6 +41,59 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
         choices=["cuda", "cpu"],
         help="Where the product runs (default: the card; 'cpu' runs the "
              "plain PyTorch versions of the kernels).")
+
+
+def add_rank_args(parser: argparse.ArgumentParser) -> None:
+    """``--devices`` (ranks of the mesh, one process each) and
+    ``--backend`` (nccl: one card a rank; gloo: the CPU, or ranks that
+    share a card)."""
+    parser.add_argument(
+        "--devices", type=int, default=1,
+        help="Ranks of the mesh, one process each (started here unless "
+             "the env already holds a torchrun-style WORLD_SIZE).")
+    parser.add_argument(
+        "--backend", type=str, default=None, choices=["nccl", "gloo"],
+        help="Process-group backend of the ranks: nccl (one card a rank, "
+             "the default on the card) or gloo (the CPU, or ranks "
+             "sharing a card).")
+
+
+def launch_ranks(args: argparse.Namespace, fn, *fn_args) -> int:
+    """Run ``fn(ctx, args, *fn_args)`` on ``args.devices`` ranks and
+    return the largest of their exit codes: this process as one rank of
+    a ``torchrun``-style job when the env holds ``WORLD_SIZE``, else that
+    many ranks started here (``parallel/launch.spawn``), on the card
+    unless ``--device cpu``."""
+    from arrow_matrix_tpu_torch.parallel.launch import (
+        RankContext,
+        resolve_launch,
+        spawn,
+    )
+
+    if args.devices < 1:
+        raise SystemExit("--devices must be >= 1")
+    try:
+        backend, _ = resolve_launch(args.devices, args.backend, args.device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"{e}") from None
+    if "WORLD_SIZE" in os.environ:
+        from arrow_matrix_tpu_torch.parallel.mesh import (
+            initialize_multihost,
+            rank_device,
+            set_rank_device,
+        )
+
+        if int(os.environ["WORLD_SIZE"]) != args.devices:
+            raise SystemExit(f"--devices {args.devices} but the env's "
+                             f"WORLD_SIZE is {os.environ['WORLD_SIZE']}")
+        rank = initialize_multihost(backend=backend, device=args.device)
+        dev = rank_device(int(os.environ.get("LOCAL_RANK", rank)),
+                          args.device)
+        set_rank_device(dev)
+        return fn(RankContext(rank, args.devices, dev, backend), args,
+                  *fn_args)
+    return max(spawn(fn, args.devices, args=(args,) + fn_args,
+                     backend=backend, device=args.device))
 
 
 def setup_platform(args: argparse.Namespace):
@@ -193,3 +247,29 @@ def normalize_scale(a: sparse.csr_matrix) -> sparse.csr_matrix:
     feed the output back as the next input)."""
     s = max(abs(a).sum(axis=1).max(), 1.0)
     return (a / s).tocsr().astype(a.dtype)
+
+
+def report_memory(algorithm: str, exe, step, x, k: int, say,
+                  itemsize: int = 4, registry=None) -> None:
+    """``--mem_report``: the device memory of one ``step(x, *operands)``
+    of ``exe`` against its own model at width ``k``, and its
+    load-imbalance report (on a mesh every rank runs both, the step and
+    the report being collective; ``say`` prints on the first rank)."""
+    from arrow_matrix_tpu_torch.obs.imbalance import (
+        account_imbalance,
+        format_imbalance_report,
+    )
+    from arrow_matrix_tpu_torch.obs.memview import (
+        account_memory,
+        format_memory_report,
+        predicted_bytes_for,
+    )
+
+    mem = account_memory(
+        algorithm, step, x, *exe.step_operands(),
+        predicted_bytes=predicted_bytes_for(exe, k, itemsize=itemsize),
+        registry=registry)
+    say(format_memory_report(mem))
+    imb = account_imbalance(algorithm, exe, registry=registry)
+    if imb is not None:
+        say(format_imbalance_report(imb))

@@ -26,6 +26,12 @@ with exponential backoff, ``--finite_check`` (NaN/Inf rolls back), and
 with ``--carry`` ``--checkpoint`` (every ``--checkpoint_every``
 iterations; a rerun resumes from it).
 
+``--mem_report`` prints one step's device memory against the
+executor's model and its load-imbalance report, ``--trace DIR`` writes a
+``torch.profiler`` trace of the iteration loop, ``--obs_dir DIR`` the
+loop's span trace and ``metrics.jsonl`` (on one device and under
+``--devices P``).
+
 With ``--devices P`` the ranks of a mesh run one process each
 (``parallel/launch.py``): ``--mode time`` (the default) runs the levels
 one after the other on the whole mesh (``--fmt sell``:
@@ -47,7 +53,12 @@ import time
 
 import numpy as np
 
-from arrow_matrix_tpu_torch.cli.common import add_heal_args, str2bool
+from arrow_matrix_tpu_torch.cli.common import (
+    add_heal_args,
+    add_rank_args,
+    report_memory,
+    str2bool,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,15 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "through the SELL kernel; auto (dense while the "
                         "levels fit half the free device memory, then "
                         "ell).")
-    p.add_argument("--devices", type=int, default=1,
-                   help="Ranks of the mesh, one process each (started "
-                        "here unless the env already holds a "
-                        "torchrun-style WORLD_SIZE).")
-    p.add_argument("--backend", type=str, default=None,
-                   choices=["nccl", "gloo"],
-                   help="Process-group backend of the ranks: nccl (one "
-                        "card a rank, the default on the card) or gloo "
-                        "(the CPU, or ranks sharing a card).")
+    add_rank_args(p)
     p.add_argument("--mode", type=str, default="time",
                    choices=["time", "space"],
                    help="Multi-matrix execution mode: time (the levels "
@@ -126,6 +129,24 @@ def build_parser() -> argparse.ArgumentParser:
                    const=True,
                    help="Print one step's collective bytes by kind "
                         "(utils/commstats) beside the executor's ideal.")
+    p.add_argument("--mem_report", type=str2bool, nargs="?", default=False,
+                   const=True,
+                   help="Report one step's device memory (arguments, "
+                        "outputs, temporaries) against the format "
+                        "model's prediction, plus the load-imbalance "
+                        "report (obs/memview, obs/imbalance).")
+    p.add_argument("--trace", type=str, default=None,
+                   help="Write a torch.profiler trace of the iteration "
+                        "loop to this directory (Chrome trace JSON, one "
+                        "file a rank; the kernels' device time beside "
+                        "the host spans).")
+    p.add_argument("--obs_dir", type=str, default=None,
+                   help="Write this run's observability artifacts to "
+                        "this directory: a Perfetto-loadable trace of the "
+                        "iteration loop (spmm_arrow.trace.json) and "
+                        "metrics.jsonl (each step's time, the memory and "
+                        "imbalance reports); rank 0 writes them under "
+                        "--devices.")
     p.add_argument("--head_fmt", type=str, default="auto",
                    choices=["auto", "flat", "ell", "gell"],
                    help="Head layout of ELL levels (--fmt ell/auto): "
@@ -323,6 +344,9 @@ def main(argv=None) -> int:
     x = multi.set_features(random_dense(n, args.features, seed=args.seed))
     multi.step(x)
     sync()
+    reg, tracer = open_obs(args)
+    if args.mem_report:
+        mem_report(args, multi, x, reg, print)
 
     rng = np.random.default_rng(args.seed)
     tol = relative_tolerance(
@@ -351,10 +375,15 @@ def main(argv=None) -> int:
                                   seed=int(rng.integers(2**31)))
             x = multi.set_features(x_host)
         sync()
-        tic = time.perf_counter()
-        y = multi.step(x)
-        sync()
-        times.append(time.perf_counter() - tic)
+        with step_span(tracer, it):
+            tic = time.perf_counter()
+            y = multi.step(x)
+            sync()
+            dt = time.perf_counter() - tic
+        times.append(dt)
+        if reg is not None:
+            reg.record("iteration_time_ms", dt * 1e3,
+                       algorithm="spmm_arrow")
         if args.validate:
             got = multi.gather_result(y)
             want = decomposition_spmm(levels, x_host)
@@ -367,7 +396,9 @@ def main(argv=None) -> int:
                 raise Abort(f"validation gate failed at iteration {it}")
         return y
 
-    _, ok = sup.run(body, x, start, args.iterations)
+    with traced(args, device):
+        _, ok = sup.run(body, x, start, args.iterations)
+    close_obs(args, reg, tracer, print)
     if not ok:
         print("the supervised loop failed (validation gate, or retries "
               "exhausted)")
@@ -380,6 +411,62 @@ def main(argv=None) -> int:
         print(f"spmm_time mean {ms.mean():.3f} ms over {len(ms)} "
               f"iterations (min {ms.min():.3f}) on {device}")
     return 0
+
+
+def open_obs(args) -> tuple:
+    """(registry, tracer) of the run's observability (``--obs_dir``):
+    a metrics registry and a span tracer named ``spmm_arrow``; (None,
+    None) without the flag, and the loop then opens no span and records
+    nothing."""
+    if not args.obs_dir:
+        return None, None
+    from arrow_matrix_tpu_torch.obs import MetricsRegistry, Tracer
+
+    reg = MetricsRegistry(run_dir=args.obs_dir)
+    return reg, Tracer("spmm_arrow", registry=reg)
+
+
+def step_span(tracer, it: int):
+    """The tracer's span of iteration ``it``, or a context that does
+    nothing without ``--obs_dir``."""
+    import contextlib
+
+    if tracer is None:
+        return contextlib.nullcontext()
+    return tracer.span("step", iteration=it)
+
+
+def mem_report(args, exe, x, reg, say) -> None:
+    """``--mem_report`` over ``exe``'s step at the run's width and
+    feature dtype (``common.report_memory``)."""
+    report_memory("spmm_arrow", exe, exe.step_fn, x, args.features, say,
+                  itemsize=2 if args.feature_dtype == "bf16" else 4,
+                  registry=reg)
+
+
+def traced(args, device):
+    """``--trace``: a ``torch.profiler`` context over the iteration loop
+    (``utils/logging.trace``, its Chrome trace under the directory), or
+    a context that does nothing."""
+    import contextlib
+
+    from arrow_matrix_tpu_torch.utils.logging import trace
+
+    if not args.trace:
+        return contextlib.nullcontext()
+    return trace(args.trace, device=device)
+
+
+def close_obs(args, reg, tracer, say, writer: bool = True) -> None:
+    """``--obs_dir``: the tracer's Chrome trace and the registry's
+    ``metrics.jsonl`` (``writer``: this process writes them)."""
+    if not args.obs_dir or not writer:
+        return
+    os.makedirs(args.obs_dir, exist_ok=True)
+    tracer.save(os.path.join(args.obs_dir, "spmm_arrow.trace.json"))
+    reg.write_jsonl(os.path.join(args.obs_dir, "metrics.jsonl"))
+    say(f"observability artifacts in {args.obs_dir} (spmm_arrow.trace.json, "
+        f"metrics.jsonl)")
 
 
 def prepare_artifact(args) -> tuple:
@@ -406,47 +493,25 @@ def prepare_artifact(args) -> tuple:
 
 
 def mesh_main(args) -> int:
-    """``--devices P > 1``: the artifact made once, then the ranks — this
-    process as one rank of a ``torchrun``-style job when the env holds
-    ``WORLD_SIZE``, else P ranks started here (:func:`mesh_rank`), on
-    the card unless ``--device cpu``."""
-    from arrow_matrix_tpu_torch.parallel.launch import (
-        RankContext,
-        resolve_launch,
-        spawn,
-    )
+    """``--devices P > 1``: the ranks (``cli/common.launch_ranks``), on
+    the card unless ``--device cpu``; rank 0 makes the artifact and
+    hands its path to the others (:func:`mesh_entry`)."""
+    from arrow_matrix_tpu_torch.cli.common import launch_ranks
 
     try:
-        backend, kind = resolve_launch(args.devices, args.backend,
-                                       args.device)
-    except (RuntimeError, ValueError) as e:
+        return launch_ranks(args, mesh_entry)
+    except SystemExit as e:
         raise SystemExit(f"spmm_arrow: {e}") from None
-    if "WORLD_SIZE" in os.environ:
-        import torch.distributed as dist
 
-        from arrow_matrix_tpu_torch.parallel.mesh import (
-            initialize_multihost,
-            rank_device,
-            set_rank_device,
-        )
 
-        if int(os.environ["WORLD_SIZE"]) != args.devices:
-            raise SystemExit(f"--devices {args.devices} but the env's "
-                             f"WORLD_SIZE is {os.environ['WORLD_SIZE']}")
-        rank = initialize_multihost(backend=backend, device=args.device)
-        path, width = (prepare_artifact(args) if rank == 0
-                       else (None, None))
-        box = [path, width]
-        dist.broadcast_object_list(box, src=0)
-        dev = rank_device(int(os.environ.get("LOCAL_RANK", rank)),
-                          args.device)
-        set_rank_device(dev)
-        return mesh_rank(RankContext(rank, args.devices, dev, backend),
-                         args, *box)
-    path, width = prepare_artifact(args)
-    codes = spawn(mesh_rank, args.devices, args=(args, path, width),
-                  backend=backend, device=args.device)
-    return max(codes)
+def mesh_entry(ctx, args) -> int:
+    """A rank's start: the artifact made once, on rank 0, its path
+    broadcast, then :func:`mesh_rank`."""
+    import torch.distributed as dist
+
+    box = list(prepare_artifact(args)) if ctx.rank == 0 else [None, None]
+    dist.broadcast_object_list(box, src=0)
+    return mesh_rank(ctx, args, *box)
 
 
 def mesh_rank(ctx, args, path: str, width: int) -> int:
@@ -577,6 +642,9 @@ def drive_ranks(ctx, args, exe, levels, n: int, repl_c: int, say) -> int:
     x = exe.set_features(x_host)
     exe.step(x)                 # warm-up: builds and first launches
     sync()
+    reg, tracer = open_obs(args)
+    if args.mem_report:
+        mem_report(args, exe, x, reg, say)
     if args.comm_report:
         from arrow_matrix_tpu_torch.obs.comm import (
             account_collectives,
@@ -604,26 +672,33 @@ def drive_ranks(ctx, args, exe, levels, n: int, repl_c: int, say) -> int:
         tol = max(tol, 2e-2)
     rng = np.random.default_rng(args.seed)
     times = []
-    for it in range(args.iterations):
-        if not args.carry:
-            x_host = random_dense(n, args.features,
-                                  seed=int(rng.integers(2**31)))
-            x = exe.set_features(x_host)
-        elif args.validate:
-            x_host = exe.gather_result(x)
-        sync()
-        tic = time.perf_counter()
-        x = exe.step(x)
-        sync()
-        times.append(time.perf_counter() - tic)
-        if args.validate:
-            err = relative_error(exe.gather_result(x),
-                                 decomposition_spmm(levels, x_host))
-            say(f"iteration {it}: rel err vs host {err:.3e} "
-                f"(gate {tol:.1e})")
-            if not np.isfinite(err) or err > tol:
-                say(f"validation gate failed at iteration {it}")
-                return 1
+    with traced(args, ctx.device):
+        for it in range(args.iterations):
+            if not args.carry:
+                x_host = random_dense(n, args.features,
+                                      seed=int(rng.integers(2**31)))
+                x = exe.set_features(x_host)
+            elif args.validate:
+                x_host = exe.gather_result(x)
+            sync()
+            with step_span(tracer, it):
+                tic = time.perf_counter()
+                x = exe.step(x)
+                sync()
+                dt = time.perf_counter() - tic
+            times.append(dt)
+            if reg is not None:
+                reg.record("iteration_time_ms", dt * 1e3,
+                           algorithm="spmm_arrow")
+            if args.validate:
+                err = relative_error(exe.gather_result(x),
+                                     decomposition_spmm(levels, x_host))
+                say(f"iteration {it}: rel err vs host {err:.3e} "
+                    f"(gate {tol:.1e})")
+                if not np.isfinite(err) or err > tol:
+                    say(f"validation gate failed at iteration {it}")
+                    return 1
+    close_obs(args, reg, tracer, say, writer=ctx.rank == 0)
     if times:
         ms = np.asarray(times) * 1e3
         say(f"spmm_time mean {ms.mean():.3f} ms over {len(ms)} iterations "

@@ -45,6 +45,7 @@ from scipy import sparse
 
 from arrow_matrix_tpu_torch.io.graphio import (
     CsrLike,
+    csr_row_range,
     load_block,
     num_nonzeros,
     num_rows,
@@ -609,3 +610,79 @@ def block_row_stats(blocks: ArrowBlocks) -> dict:
             slots[0] += int(st[1].sum())
     rows = np.full(nb, blocks.width, dtype=np.int64)
     return {"rows": rows, "nnz": nnz, "slots": slots}
+
+
+def block_row_stats_from_csr(matrix: CsrLike, width: int,
+                             banded: bool = False,
+                             pad_blocks_to: Optional[int] = None,
+                             fmt: str = "dense", head_flat: bool = False,
+                             binary: bool = False, dtype=torch.float32,
+                             chunk_rows: int = 1 << 16) -> dict:
+    """:func:`block_row_stats` of the level :func:`arrow_blocks_from_csr`
+    packs from ``matrix`` (its head an ELL or flat stack; ``head_flat``
+    and ``binary`` as it resolved them), counted from the CSR
+    ``chunk_rows`` rows at a time without packing a stack: a dense or
+    ELL entry holds ``w*w`` or ``w*m`` slots (m the stack's longest row,
+    aligned), a flat head ``nb`` budgets of its fullest block."""
+    dtype = resolve_block_dtype(dtype)
+    nb = number_of_blocks(matrix, width)
+    nb_pad = max(pad_blocks_to or nb, nb)
+    n = num_rows(matrix)
+    head, diag, col, lo, hi = range(len(STACKS))
+    longest = np.zeros(len(STACKS), dtype=np.int64)
+    head_block = np.zeros(nb_pad, dtype=np.int64)
+    nnz = np.zeros(nb_pad, dtype=np.int64)
+    for r0 in range(0, min(n, nb * width), chunk_rows):
+        r1 = min(r0 + chunk_rows, n, nb * width)
+        part = csr_row_range(matrix, r0, r1, n)
+        rows = np.repeat(np.arange(r0, r1, dtype=np.int64),
+                         np.diff(part.indptr))
+        bi = rows // width
+        bj = part.indices.astype(np.int64) // width
+        cat = np.full(rows.size, -1, dtype=np.int64)
+        body = bi > 0
+        cat[bi == 0] = head
+        cat[body & (bj == bi)] = diag
+        cat[body & (bj == 0)] = col
+        if banded:
+            cat[(bi >= 2) & (bj == bi - 1)] = lo
+            cat[body & (bj == bi + 1)] = hi
+        keep = cat >= 0
+        in_head = cat == head
+        body_kept = keep & ~in_head
+        per_row = np.bincount(
+            (rows[body_kept] - r0) * len(STACKS) + cat[body_kept],
+            minlength=(r1 - r0) * len(STACKS))
+        longest = np.maximum(longest,
+                             per_row.reshape(r1 - r0, -1).max(axis=0))
+        # The head's rows are cut at its blocks' edges.
+        if in_head.any():
+            _, counts = np.unique(rows[in_head] * nb_pad + bj[in_head],
+                                  return_counts=True)
+            longest[head] = max(int(longest[head]), int(counts.max()))
+        head_block += np.bincount(bj[in_head], minlength=nb_pad)
+        # A degree counts every stored entry, a value array (dense,
+        # weighted ELL) its values nonzero in the storage dtype, a flat
+        # head every entry below its dummy row.
+        counted = keep
+        if not binary:
+            live = torch.from_numpy(part.data.astype(np.float32)).to(
+                dtype).ne(0).numpy()
+            counted = keep & (live | (in_head & head_flat))
+        nnz += np.bincount(bi[counted], minlength=nb_pad)
+    stacks = [diag, col] + ([lo, hi] if banded else [])
+    if fmt == "dense":
+        per_entry = len(stacks) * width * width
+        head_slots = nb_pad * width * width
+    else:
+        per_entry = sum(width * align_up(int(longest[s]), SLOT_ALIGN)
+                        for s in stacks)
+        fullest = int(head_block.max()) if nb_pad else 0
+        head_slots = (nb_pad * align_up(fullest, SLOT_ALIGN) if head_flat
+                      else nb_pad * width
+                      * align_up(int(longest[head]), SLOT_ALIGN))
+    slots = np.full(nb_pad, per_entry, dtype=np.int64)
+    if nb_pad:
+        slots[0] += head_slots
+    return {"rows": np.full(nb_pad, width, dtype=np.int64), "nnz": nnz,
+            "slots": slots}

@@ -14,6 +14,11 @@ from arrow_matrix_tpu_torch.parallel.multi_level import (
 )
 from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel, SellSlim
 from arrow_matrix_tpu_torch.parallel.sell_space import SellSpaceShared
+from arrow_matrix_tpu_torch.parallel.spmm_1d import (
+    MatrixSlice1D,
+    equal_slices,
+)
+from arrow_matrix_tpu_torch.parallel.spmm_15d import SpMM15D
 from arrow_matrix_tpu_torch.parallel.space_shared import (
     SpaceSharedArrow,
     space_shared_spmm,
@@ -21,13 +26,16 @@ from arrow_matrix_tpu_torch.parallel.space_shared import (
 )
 
 __all__ = [
+    "MatrixSlice1D",
     "Mesh",
     "MultiLevelArrow",
     "SellMultiLevel",
     "SellSlim",
     "SellSpaceShared",
+    "SpMM15D",
     "SpaceSharedArrow",
     "compose_routing",
+    "equal_slices",
     "largest_replication",
     "make_mesh",
     "make_repl_mesh",

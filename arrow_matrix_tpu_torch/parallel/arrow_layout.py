@@ -509,6 +509,9 @@ class MeshMultiLevelArrow(MultiLevelArrow):
                 "dense_budget or pass fmt='dense')")
         d = mesh.axis_index(axis)
         self.blocks = []
+        # Each level's global packing (width, padded blocks, banded, fmt,
+        # flat head, binary): what its load report counts.
+        self._packing = []
         captured = 0
         for lvl, w, bd, f in zip(levels, widths, bandeds, self.fmts):
             nb_pad = self.total_rows // w
@@ -522,6 +525,7 @@ class MeshMultiLevelArrow(MultiLevelArrow):
                       and resolve_blocks_binary(lvl.matrix, f, self.binary))
             sb = build_shard_blocks(lvl.matrix, w, nb_pad, d, n_dev, bd,
                                     dtype, f, flat, is_bin, mesh.device)
+            self._packing.append((w, nb_pad, bd, f, flat, is_bin))
             captured += sb.captured
             self.blocks.append(sb)
         # The tiling must capture every nonzero: the ranks' counts add up.
@@ -677,12 +681,10 @@ class MeshMultiLevelArrow(MultiLevelArrow):
         return {name: v * len(slabs) for name, v in out.items()}
 
     def ideal_comm_bytes(self, k: int, itemsize: int = 4) -> int:
-        """Paper cost model: the routed rows that change device (both
-        directions) plus each level's O(width) head exchange."""
-        n_dev = self.mesh.shape[self.axis]
-        per_level = max(n_dev - 1, 0) * self.width
-        return (self._ideal_route_units + len(self.blocks) * per_level) \
-            * k * itemsize
+        """Paper cost model, the JAX package's: the routed rows that
+        change device, both directions (the levels' O(width) head
+        exchanges are counted by the collective layer, not modelled)."""
+        return self._ideal_route_units * k * itemsize
 
     def reduce_comm_bytes(self, k: int, itemsize: int = 4) -> int:
         return 0
@@ -720,14 +722,27 @@ class MeshMultiLevelArrow(MultiLevelArrow):
         return base * max(int(repl), 1)
 
     def shard_report(self) -> dict:
+        """Load report over the block rows of every level (the JAX
+        package's units, ``obs/imbalance.py`` schema), counted from each
+        level's CSR as its global packing would hold it, without packing
+        it: the same on every rank, with no collective."""
         from arrow_matrix_tpu_torch.obs.imbalance import summarize_units
+        from arrow_matrix_tpu_torch.ops.arrow_blocks import (
+            block_row_stats_from_csr,
+        )
 
-        mine = torch.tensor(
-            [[self.rows_local, sum(b.captured for b in self.blocks)]],
-            dtype=torch.int64, device=self.mesh.device)
-        got = coll.all_gather(mine, self.mesh, self.axis).cpu().numpy()
-        return summarize_units(got[:, 0], got[:, 1], got[:, 1],
-                               units="device")
+        rows: list = []
+        nnz: list = []
+        slots: list = []
+        for m, (w, nb_pad, bd, f, flat, is_bin) in zip(self._matrices,
+                                                      self._packing):
+            st = block_row_stats_from_csr(
+                m, w, banded=bd, pad_blocks_to=nb_pad, fmt=f,
+                head_flat=flat, binary=is_bin, dtype=self.dtype)
+            rows.extend(int(v) for v in st["rows"])
+            nnz.extend(int(v) for v in st["nnz"])
+            slots.extend(int(v) for v in st["slots"])
+        return summarize_units(rows, nnz, slots, units="block-row")
 
     def real_row_mask(self, dtype=np.float32) -> torch.Tensor:
         """(total_rows / P, 1) mask of this rank's rows: 1 for rows

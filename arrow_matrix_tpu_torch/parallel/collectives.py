@@ -4,8 +4,9 @@ Every collective of the port runs through this module, which counts it
 (``utils/commstats.py``: kind, group size, wire bytes).  What each JAX
 collective of the executors becomes:
 
-* the masked-psum X_0 broadcast -> :func:`broadcast` from the group's
-  first rank;
+* the masked-psum broadcasts -> :func:`broadcast` from one rank of the
+  line (the arrow executors' X_0 from the first; the 1.5D round ``q``
+  from grid row ``q``);
 * the head psum -> :func:`reduce_to_first`: a gather of the partials to
   the group's first rank, summed there in rank order (rank 0 first), so
   a result has the same bits on gloo and NCCL and in every repeat (it
@@ -92,10 +93,15 @@ def _staged(mesh: Mesh, op: str, ins: List[torch.Tensor],
                             + sum(_nbytes(t) for t in outs))
 
 
-def broadcast(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """``t`` of the first rank on this rank's ``axis`` line, on every
-    rank of it (in place into ``t``, which must be contiguous)."""
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: str,
+              root: int = 0) -> torch.Tensor:
+    """``t`` of the rank at position ``root`` of this rank's ``axis``
+    line (``mesh.line(axis)[root]``), on every rank of it (in place into
+    ``t``, which must be contiguous)."""
     line = mesh.line(axis)
+    if not 0 <= root < len(line):
+        raise ValueError(f"broadcast root {root} is not a position of a "
+                         f"line of {len(line)} ranks")
     if len(line) == 1:
         return t
     w = _wire(t)
@@ -103,7 +109,7 @@ def broadcast(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     def run(ins, outs):
         if outs[0] is not ins[0]:
             outs[0].copy_(ins[0])
-        dist.broadcast(outs[0], src=line[0], group=mesh.group(axis))
+        dist.broadcast(outs[0], src=line[root], group=mesh.group(axis))
 
     _staged(mesh, "broadcast", [w], [w], run)
     commstats.record("broadcast", _nbytes(t), len(line))

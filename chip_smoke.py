@@ -323,15 +323,48 @@ Phases, each fatal on failure:
    K4 over its space routes, against their plain versions, timed
    beside bound, plain version and one PyTorch call.
 
+22. the paper's two comparison baselines and the five-algorithm smoke,
+   in phase 20's rank pools (BASE22): (a) on the NCCL rank after phase
+   21 (a), at full width, the CLIs' own graph
+   ``normalize_scale(random_adjacency(2^20, 2^24, seed 42))`` (16
+   nonzeros a row, the main path's count; made, with its float64 host
+   goldens, by a host process from the start), ``MatrixSlice1D`` over
+   one slice and ``SpMM15D`` over a (1, 1) grid at k=16 and k=128: one
+   step within ``relative_tolerance(16, 1)`` and a chain of 3 within
+   ``(16, 3)``, each run's K1 (and K4) launches equal to
+   ``launch_counts`` with the counts set to 0 just before it, a repeat
+   bit for bit, ms/iter the median of 7 chains, and K1 over each one's
+   operator against its plain version, timed beside its bytes bound and
+   ``torch.sparse.mm`` on the same CSR; (b) on phase 20's 4 gloo ranks,
+   beside phase 19, the same graph at k=16: ``MatrixSlice1D`` over 4
+   slices and ``SpMM15D`` over (4, 1) and (2, 2), each one step and a
+   chain of 3 against the goldens with its launches, each rank's
+   counted bytes a step beside ``ideal_comm_bytes(16)``, the 1D pack
+   (K4) bit for bit equal to ``index_select``, the (2, 2) replicas bit
+   for bit equal; then the paper's comparison at phase 7's BA 2^16
+   graph: the counted bytes of one step of 1D, 1.5D c=1, 1.5D c=2 and
+   ``SellMultiLevel`` a2a over its decomposition beside each one's
+   ideal, on one line; after phase 21 (d), with the card otherwise
+   idle, K1 over one step's operators of gloo rank 0 (the 1D local and
+   nonlocal stacks; the four (4, 1) round blocks) and K4's pack, each
+   timed beside its bound (the feature rows it references read once),
+   plain version and one PyTorch call, with (b)'s launches; (c) beside phase 19, as subprocesses:
+   ``graft_trace smoke --devices 4`` on the card at the smoke's
+   defaults (its run directory valid, ``summarize``, ``export`` and
+   ``diff run run`` exit 0), and ``spmm_arrow --obs_dir --mem_report
+   --trace`` over phase 4's saved 2^20 artifact on one card for 3
+   iterations (its profiler trace names K1).
+
 The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 11, 13, 15, 16, 10,
-18, 19, 20, 21, 17: the host work of phase 4 (generating the 2^20 graph,
+18, 19, 20, 21, 22, 17: the host work of phase 4 (generating the 2^20 graph,
 decomposing it with the numpy decomposer, the host goldens of its
 inputs, beside the decomposition) and of phase 14 (the native
-decomposition) runs in two processes of their own from the start,
-beside the build and phases 3, 6-9, 12 and 14;
+decomposition) and of phase 22 (its graph and goldens) runs in three
+processes of their own from the start, beside the build and phases 3,
+6-9, 12 and 14;
 that of phase 17 (decomposing the fleet's graph) in a third, and that of
 phase 20 (each rank packing its shards) in its four ranks, from phase 4
-on; phases 20 and 21's work that times no kernel runs beside phase 19.
+on; phases 20-22's work that times no kernel runs beside phase 19.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
@@ -340,7 +373,7 @@ phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first),
 ``--fleet`` phases 1, 2 and 17, ``--lens`` phases 1, 2 and 18 (phase
 4's decomposition made first; (d) then has no bench record to export),
 ``--tune`` phases 1, 2 and 19 (phase 4's decomposition made first),
-``--mesh`` phases 1, 2, 20 and 21 (phase 4's decomposition and the
+``--mesh`` phases 1, 2, 20, 21 and 22 (phase 4's decomposition and the
 goldens phase 20 gates against made first).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -5001,7 +5034,8 @@ MESH = dict(world=4, chain=3, n_small=1 << 16, reps=3)
 _RANK = {}
 
 
-def mesh_counted(exe, k: int, steps: int, fn, tag: str) -> tuple:
+def mesh_counted(exe, k: int, steps: int, fn, tag: str,
+                 phase: str = "phase 20") -> tuple:
     """(result, launches) of ``fn`` in a rank, the counts set to 0 just
     before it; fatal unless each kernel launched exactly
     ``exe.launch_counts(k)`` x ``steps`` times on this rank."""
@@ -5016,7 +5050,7 @@ def mesh_counted(exe, k: int, steps: int, fn, tag: str) -> tuple:
     bad = {name: (got[name], v) for name, v in want.items()
            if got[name] != v}
     if bad or not any(got.values()):
-        raise SystemExit(f"phase 20 {tag}: launches (got, expected) {bad} "
+        raise SystemExit(f"{phase} {tag}: launches (got, expected) {bad} "
                          f"of {got}")
     return out, got
 
@@ -5565,12 +5599,15 @@ def mesh_rank_chain(ctx) -> dict:
     return out
 
 
-def start_mesh_work(pool, base: str, width: int, solvers=None) -> dict:
-    """Start what phases 20 and 21 do without timing a kernel, once phase
+def start_mesh_work(pool, base: str, width: int, host22: tuple,
+                    solvers=None) -> dict:
+    """Start what phases 20-22 do without timing a kernel, once phase
     4's artifact and goldens exist: the gloo ranks' chain
-    (:func:`mesh_rank_chain`, queued behind their packing), phase 21
-    (a)'s float64 host goldens in a thread (``solvers``: phase 13's, as
-    :func:`mesh_train_goldens` takes them), and the NCCL rank, packing.
+    (:func:`mesh_rank_chain`, queued behind their packing) and phase 22
+    (b) (:func:`base22_ranks`, behind it), phase 22 (c)'s subprocesses,
+    phase 21 (a)'s float64 host goldens in a thread (``solvers``: phase
+    13's, as :func:`mesh_train_goldens` takes them), and the NCCL rank,
+    packing.  ``host22`` is phase 22's host process (:func:`start_host`).
     :func:`phase_mesh` collects them."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5578,12 +5615,16 @@ def start_mesh_work(pool, base: str, width: int, solvers=None) -> dict:
 
     from arrow_matrix_tpu_torch.parallel.launch import RankPool
 
+    keep = os.path.dirname(base)
     pool.submit("chip_smoke", "mesh_rank_chain")
+    pool.submit("chip_smoke", "base22_ranks", keep)
+    clis = start_base22_clis(keep, base)
     goldens = ThreadPoolExecutor(1)
     gold_a = goldens.submit(mesh_train_goldens, base, width, solvers)
     nccl = RankPool(torch.cuda.device_count(), backend="nccl", threads=2)
     nccl.submit("chip_smoke", "mesh_rank_build", base, width, 0)
     return dict(pool=pool, nccl=nccl, goldens=goldens, gold_a=gold_a,
+                keep=keep, clis=clis, host22=host22,
                 started=time.perf_counter())
 
 
@@ -5599,6 +5640,7 @@ def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
         try:
             built = pool.collect(job_timeout_s=900)
             chain = pool.collect(job_timeout_s=900)
+            b22 = pool.collect(job_timeout_s=900)
             waited = time.perf_counter() - tic0
             log(f"phase 20: ranks built in processes of their own beside "
                 f"the earlier phases, and their chain (the probe, (a), (c) "
@@ -5624,6 +5666,10 @@ def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
                                  job_timeout_s=600)[0]
             entries21 = pool.run("chip_smoke", "mesh_rank_space_kernels",
                                  job_timeout_s=300)[0]
+            tic22 = time.perf_counter()
+            entries22 = pool.run("chip_smoke", "base22_kernels",
+                                 job_timeout_s=300)[0]
+            t22 = time.perf_counter() - tic22
         finally:
             pool.close()
         tic = time.perf_counter()
@@ -5645,6 +5691,10 @@ def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
         nccl_train = nccl.run("chip_smoke", "mesh_rank_train_nccl",
                               gold["shift"], job_timeout_s=600)[0]
         t21_nccl = time.perf_counter() - tic21a
+        tic22 = time.perf_counter()
+        a22 = nccl.run("chip_smoke", "base22_nccl", work["keep"],
+                       job_timeout_s=600)[0]
+        t22 += time.perf_counter() - tic22
         if regold is not None:
             gold["gcn"] = regold.result(timeout=900)
     finally:
@@ -5681,11 +5731,19 @@ def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
                       **check_gloo_train(train, space),
                       "gloo_s": t21_gloo, "nccl_s": t21_nccl,
                       "golden_wait_s": t_gold_wait}
+    tic22 = time.perf_counter()
+    host22 = join_host(*work["host22"], "phase 22")
+    res["phase22"] = phase_baselines(b22, a22, entries22 + a22["entries"],
+                                     work["clis"], host22)
+    t22 += time.perf_counter() - tic22
+    res["phase22"]["main_s"] = t22
     log(f"phase 20: {res['seconds']:.1f} s of the script's wall ((a) "
         f"{t_a:.1f} s), of which phase 21 {t21_gloo:.1f} s on the gloo "
         f"ranks and {t21_nccl:.1f} s on the NCCL rank (waited "
-        f"{t_gold_wait:.1f} s for its host goldens)")
-    return res, k_entries + entries21
+        f"{t_gold_wait:.1f} s for its host goldens); phase 22 {t22:.1f} s "
+        f"of the main process's wall (its graph made in {host22['t_gen']:.1f}"
+        f" s and goldens in {host22['t_gold']:.1f} s by a host process)")
+    return res, k_entries + entries21 + entries22 + a22["entries"]
 
 
 # -- 21. training through the mesh executors, and the space-shared modes -----
@@ -6417,6 +6475,530 @@ def check_ranks_equal(results: list, key: str, tag: str) -> None:
         if not same:
             raise SystemExit(f"phase 21 {tag}: {key} differ between ranks")
 
+# -- 22. the comparison baselines, and the smoke ------------------------------
+
+#: Phase 22: the CLIs' own uniform graph at the main path's nonzero count
+#: (2^20 rows, 16 a row), its inputs' seeds, the chains and their reps.
+BASE22 = dict(n=1 << 20, edges=1 << 24, seed=42, xseeds={16: 1, 128: 2},
+              chain=3, reps=7)
+
+
+def base22_file(keep: str, what: str) -> str:
+    """A file of phase 22's graph or goldens under ``keep``."""
+    return os.path.join(keep, f"base22_{what}.npy")
+
+
+def phase22_host(keep: str, out: str) -> None:
+    """Phase 22's host work in a process of its own: the graph
+    ``normalize_scale(random_adjacency(2^20, 2^24, seed 42))`` saved as
+    an npy CSR triplet, and the host goldens ``A^s x`` (s = 1 and the
+    chain's) of its k=16 and k=128 inputs, in float64, saved as f32; a
+    ``done`` marker last, which the ranks wait for."""
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.cli.common import (
+        normalize_scale,
+        random_adjacency,
+    )
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    tic = time.perf_counter()
+    a = normalize_scale(random_adjacency(BASE22["n"], BASE22["edges"],
+                                         BASE22["seed"]))
+    t_gen = time.perf_counter() - tic
+    for name in ("data", "indices", "indptr"):
+        np.save(base22_file(keep, name), getattr(a, name))
+    tic = time.perf_counter()
+    a64 = a.astype(np.float64)
+    for k, xseed in BASE22["xseeds"].items():
+        g = random_dense(BASE22["n"], k, seed=xseed).astype(np.float64)
+        for s in range(1, BASE22["chain"] + 1):
+            g = a64 @ g
+            if s in (1, BASE22["chain"]):
+                np.save(base22_file(keep, f"gold_k{k}_s{s}"),
+                        g.astype(np.float32))
+    rec = {"t_gen": t_gen, "t_gold": time.perf_counter() - tic,
+           "nnz": int(a.nnz), "max_row": int(np.diff(a.indptr).max())}
+    with open(base22_file(keep, "done")[:-4] + ".json", "w") as fh:
+        json.dump(rec, fh)
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+
+
+def base22_graph(keep: str, timeout_s: float = 900.0):
+    """Phase 22's graph as a scipy CSR, once :func:`phase22_host` is
+    done (waits for its marker)."""
+    import numpy as np
+    from scipy import sparse
+
+    marker = base22_file(keep, "done")[:-4] + ".json"
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(marker):
+        if time.monotonic() > deadline:
+            raise SystemExit("phase 22: the graph's host process did not "
+                             "finish")
+        time.sleep(0.5)
+    n = BASE22["n"]
+    parts = [np.load(base22_file(keep, name))
+             for name in ("data", "indices", "indptr")]
+    return sparse.csr_matrix(tuple(parts), shape=(n, n))
+
+
+def base22_gate(tag: str, got, keep: str, k: int, s: int) -> float:
+    """The relative error of ``got`` against ``A^s x`` (k-wide input);
+    fatal beyond ``relative_tolerance(16, s)``."""
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.utils import relative_error, relative_tolerance
+
+    err = relative_error(got, np.load(base22_file(keep, f"gold_k{k}_s{s}")))
+    tol = relative_tolerance(BASE22["edges"] / BASE22["n"], s)
+    if not err <= tol:
+        raise SystemExit(f"phase 22 {tag}: rel err {err:.3e} > gate "
+                         f"{tol:.1e}")
+    return err
+
+
+def base22_build(kind: str, a, shape: tuple, device=None):
+    """A baseline over a mesh of ``shape``: ``MatrixSlice1D`` ("1d", a
+    ``slices`` axis) or ``SpMM15D`` ("15d", a (rows, repl) grid)."""
+    from arrow_matrix_tpu_torch.parallel import MatrixSlice1D, SpMM15D
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+
+    if kind == "1d":
+        return MatrixSlice1D(a, make_mesh(shape, ("slices",), device=device))
+    return SpMM15D(a, make_mesh(shape, ("rows", "repl"), device=device))
+
+
+def live_rows(op) -> int:
+    """Rows of its features that the one-tier weighted operator ``op``
+    reads: the distinct columns of its nonzero slots (padding slots,
+    weight 0, read nothing the function needs)."""
+    import torch
+
+    cols = op.cols[0]
+    return int(torch.unique(cols[op.data[0] != 0]).numel())
+
+
+def base22_k1_entry(pairs, tag: str, launches: int, row_nnz: float) -> dict:
+    """K1 over the baseline operators of one step, ``pairs`` of
+    (operator, features) -- a 1D rank's local and nonlocal stacks or a
+    1.5D rank's round blocks --, against its plain version: the step's
+    products timed together (median of 20) beside their bytes bound
+    (each operator's referenced feature rows read once,
+    :func:`live_rows`), the plain version's time and ``torch.sparse.mm``
+    over the same CSRs; ``launches`` is the driven run's count."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    k = pairs[0][1].shape[1]
+    err = 0.0
+    for op, x in pairs:
+        e, ok = compare(sell_spmm_cuda(op, x), sell_spmm(op, x), row_nnz,
+                        exact=False)
+        if not ok:
+            raise SystemExit(f"phase 22 K1 {tag} k={k}: kernel != plain "
+                             f"(max abs err {e:.3e})")
+        err = max(err, e)
+    csrs = [sorted_csr(op, torch.float32) for op, _ in pairs]
+    nnz = sum(int(c.values().numel()) for c in csrs)
+    work = [fold_work(op, int(c.values().numel()), k, x_rows=live_rows(op))
+            for c, (op, _) in zip(csrs, pairs)]
+    bytes_, flops = (sum(w[i] for w in work) for i in (0, 1))
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    runs = cuda_runs(lambda: [sell_spmm_cuda(op, x) for op, x in pairs], 20)
+    e = {"name": f"sell_tier_spmm[{tag},f32,k={k}]", "route": "cuda",
+         "source": SOURCES["K1"], "replaces": REPLACES["K1"],
+         "launches": launches, "max_abs_err": err,
+         "ms": statistics.median(runs),
+         "plain_ms": cuda_ms(lambda: [sell_spmm(op, x) for op, x in pairs],
+                             3),
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": cuda_ms(lambda: [torch.sparse.mm(c, x) for c, (_, x)
+                                        in zip(csrs, pairs)], 5)}
+    shapes = ", ".join(f"{op.n_rows}x{op.cols[0].shape[0]}"
+                       for op, _ in pairs)
+    log(f"phase 22 K1 {tag} k={k}: {len(pairs)} products (rows x slots "
+        f"{shapes}), {nnz} nnz: {e['ms']:.4f} ms a step (median of 20, min "
+        f"{min(runs):.4f}), bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+        f"plain {e['plain_ms']:.4f}, torch.sparse.mm {e['library_ms']:.4f}; "
+        f"{launches} launches in the driven run; max abs err {err:.3e}")
+    del csrs
+    return e
+
+
+def base22_nccl(ctx, keep: str) -> dict:
+    """Phase 22 (a) on one NCCL rank, at full width: ``MatrixSlice1D``
+    (one slice) and ``SpMM15D`` ((1, 1) grid) over the 2^20 graph, at
+    k=16 and k=128: one step and a chain against the host goldens, their
+    launches equal to ``launch_counts`` (the counts set to 0 just
+    before), a repeat bit for bit, ms/iter (median of 7 chains), and K1
+    over each executor's operator timed beside its bound."""
+    import torch
+
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_runs
+
+    a = base22_graph(keep)
+    row_nnz = a.nnz / a.shape[0]
+    chain = BASE22["chain"]
+    res, entries = {}, []
+    for kind, shape in (("1d", (1,)), ("15d", (1, 1))):
+        tic = time.perf_counter()
+        exe = base22_build(kind, a, shape)
+        torch.cuda.synchronize()
+        rec = {"build_s": time.perf_counter() - tic}
+        op = exe.local_op if kind == "1d" else exe.ops[0]
+        for k, xseed in BASE22["xseeds"].items():
+            tag = f"{kind} k={k}"
+            x = exe.set_features(random_dense(BASE22["n"], k, seed=xseed))
+            y1, launched1 = mesh_counted(exe, k, 1, lambda: exe.spmm(x),
+                                         tag, phase="phase 22 (a)")
+            err1 = base22_gate(f"(a) {tag} step", exe.gather_result(y1),
+                               keep, k, 1)
+            if not torch.equal(exe.spmm(x), y1):
+                raise SystemExit(f"phase 22 (a) {tag}: a repeat differs")
+            y3, launched = mesh_counted(exe, k, chain,
+                                        lambda: exe.run(x, chain), tag,
+                                        phase="phase 22 (a)")
+            err3 = base22_gate(f"(a) {tag} chain", exe.gather_result(y3),
+                               keep, k, chain)
+            del y1, y3
+            runs = [t / chain for t in
+                    cuda_runs(lambda: exe.run(x, chain), BASE22["reps"])]
+            rec[f"k{k}"] = {"err1": err1, f"err{chain}": err3,
+                            "ms_per_iter": statistics.median(runs),
+                            "ms_per_iter_runs": runs,
+                            "launches": launched}
+            log(f"phase 22 (a) {tag} on one NCCL rank: step {err1:.3e}, "
+                f"{chain}-step chain {err3:.3e}, repeat bit for bit; "
+                f"{rec[f'k{k}']['ms_per_iter']:.4f} ms/iter (median of "
+                f"{BASE22['reps']} chains of {chain}, min {min(runs):.4f}); "
+                f"launches of the chain {launched}")
+            entries.append(base22_k1_entry(
+                [(op, x)], "1d-local" if kind == "1d" else "15d-round",
+                launched["K1"], row_nnz))
+            del x
+            torch.cuda.empty_cache()
+        res[kind] = rec
+        del exe, op
+        torch.cuda.empty_cache()
+    return {"a": res, "entries": entries}
+
+
+def base22_ranks(ctx, keep: str) -> dict:
+    """Phase 22 (b) on phase 20's gloo ranks sharing the card, at k=16:
+    ``MatrixSlice1D`` over 4 slices and ``SpMM15D`` over (4, 1) and (2, 2)
+    on the 2^20 graph, each one step and a chain against the goldens
+    (rank 0 gates), its launches equal to ``launch_counts``, this rank's
+    counted bytes a step beside ``ideal_comm_bytes(16)``; the 1D pack
+    bit-equal to ``index_select``, the (2, 2) replicas bit-equal; then
+    the paper's comparison over phase 7's graph (BA 2^16): one step's
+    counted bytes of 1D, 1.5D c=1 and c=2 and ``SellMultiLevel`` a2a
+    over its decomposition, beside each one's ideal."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+    from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel
+    from arrow_matrix_tpu_torch.utils import (
+        commstats,
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
+
+    first = ctx.rank == 0
+    chain = BASE22["chain"]
+    a = base22_graph(keep)
+    x16 = random_dense(BASE22["n"], 16, seed=BASE22["xseeds"][16])
+    res = {}
+
+    def step_bytes(exe, x) -> dict:
+        torch.cuda.synchronize()
+        commstats.reset()
+        y = exe.step(x)
+        torch.cuda.synchronize()
+        return y, commstats.snapshot()
+
+    for kind, shape in (("1d", (4,)), ("15d", (4, 1)), ("15d", (2, 2))):
+        tag = f"{kind} {shape}"
+        exe = base22_build(kind, a, shape)
+        x = exe.set_features(x16)
+        y1, _ = mesh_counted(exe, 16, 1, lambda: exe.spmm(x), tag,
+                             phase="phase 22 (b)")
+        out1 = exe.gather_result(y1)
+        y3, launched = mesh_counted(exe, 16, chain,
+                                    lambda: exe.run(x, chain), tag,
+                                    phase="phase 22 (b)")
+        out3 = exe.gather_result(y3)
+        _, st = step_bytes(exe, x)
+        rec = {"launches": launched, "bytes": st["total_bytes"],
+               "by_kind": {kk: v for kk, v in st.items()
+                           if isinstance(v, dict) and v["count"]},
+               "staged": st["host_staged_bytes"],
+               "ideal": exe.ideal_comm_bytes(16)}
+        if first:
+            rec["err1"] = base22_gate(f"(b) {tag} step", out1, keep, 16, 1)
+            rec[f"err{chain}"] = base22_gate(f"(b) {tag} chain", out3, keep,
+                                             16, chain)
+        if kind == "1d":
+            got = row_gather(x, exe.send_dev)
+            want = x.index_select(0, exe.send_dev.long())
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise SystemExit("phase 22 (b): the K4 pack differs from "
+                                 "index_select")
+            rec["slot"] = exe.slot
+            _RANK["b22_1d"] = (exe, x, launched)
+        elif shape == (4, 1):
+            _RANK["b22_15d"] = (exe, x, launched)
+        else:
+            blocks = coll.all_gather(y1.contiguous(), exe.mesh, None)
+            parts = blocks.view(4, -1, 16)
+            if not (torch.equal(parts[0], parts[1])
+                    and torch.equal(parts[2], parts[3])):
+                raise SystemExit("phase 22 (b): the (2, 2) replicas differ")
+            rec["replicas_bit_equal"] = True
+            del exe, x
+        res[tag] = rec
+        del y1, y3, out1, out3
+    torch.cuda.empty_cache()
+
+    # The paper's comparison over phase 7's graph and its decomposition.
+    a_s, levels = _RANK["small"]
+    n_s = a_s.shape[0]
+    xs = random_dense(n_s, 16, seed=6)
+    want = np.asarray(a_s @ xs) if first else None
+    tol = relative_tolerance(a_s.nnz / n_s)
+    comp = {}
+    for tag, build in (
+            ("1d", lambda: base22_build("1d", a_s, (4,))),
+            ("15d c=1", lambda: base22_build("15d", a_s, (4, 1))),
+            ("15d c=2", lambda: base22_build("15d", a_s, (2, 2))),
+            ("sell a2a", lambda: SellMultiLevel(
+                levels, 2048, make_mesh((4,), ("blocks",)),
+                routing="a2a"))):
+        exe = build()
+        y, st = step_bytes(exe, exe.set_features(xs))
+        out = exe.gather_result(y)
+        comp[tag] = {"bytes": st["total_bytes"],
+                     "ideal": exe.ideal_comm_bytes(16)}
+        if first:
+            comp[tag]["err"] = err = relative_error(out, want)
+            if not err <= tol:
+                raise SystemExit(f"phase 22 (b) comparison {tag}: rel err "
+                                 f"{err:.3e} > {tol:.1e}")
+        del exe, y
+        torch.cuda.empty_cache()
+    res["comparison"] = comp
+    return res
+
+
+def base22_kernels(ctx) -> list:
+    """Phase 22's kernel timings on gloo rank 0 of (b), the card
+    otherwise idle: K1 over a step's operators -- the 1D local and
+    nonlocal stacks, the four (4, 1) round blocks --, and K4's 1D pack
+    against ``index_select``, each beside its bound, its plain version
+    and one PyTorch call, with the launches of (b)'s driven chain; the
+    other ranks return None.  (b)'s executors are dropped after it."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    d1, x, l1 = _RANK.pop("b22_1d")
+    d15, x15, l15 = _RANK.pop("b22_15d")
+    try:
+        if ctx.rank != 0:
+            return None
+        row_nnz = BASE22["edges"] / BASE22["n"]
+        gen = torch.Generator(device=x.device).manual_seed(22)
+        recv = torch.rand((d1.n_dev * d1.slot, 16), device=x.device,
+                          generator=gen)
+        # Each round of the step reads its own broadcast block: distinct
+        # buffers, so no round finds its features in L2.
+        rounds = [(op, x15 if r == 0 else torch.rand(
+            x15.shape, device=x.device, generator=gen))
+            for r, op in enumerate(d15.ops)]
+        entries = [
+            base22_k1_entry([(d1.local_op, x), (d1.nonlocal_op, recv)],
+                            "1d-step-of-4", l1["K1"], row_nnz),
+            base22_k1_entry(rounds, "15d-step-of-4x1", l15["K1"], row_nnz)]
+        del recv, rounds
+        idx = d1.send_dev
+        rows = int(idx.numel())
+        src = int(torch.unique(idx).numel())
+        runs = cuda_runs(lambda: row_gather(x, idx), 20)
+        sel = cuda_ms(lambda: x.index_select(0, idx.long()), 5)
+        # The source rows it references read once, the index read and
+        # the packed rows written once.
+        bound = (src * 16 * 4 + rows * (16 * 4 + 4)) / HBM_BYTES_PER_S * 1e3
+        e4 = {"name": "row_gather[1d-pack,f32,k=16]", "route": "cuda",
+              "source": SOURCES["K4"], "replaces": REPLACES["K4"],
+              "launches": l1["K4"], "max_abs_err": 0.0,
+              "ms": statistics.median(runs), "plain_ms": sel,
+              "bound_ms": bound, "bound_by": "bytes", "library_ms": sel}
+        log(f"phase 22 K4 1D pack on gloo rank 0 ({rows} rows of {src} "
+            f"distinct, slot {d1.slot}): {e4['ms']:.4f} ms (median of 20), "
+            f"index_select {sel:.4f}, bound {bound:.4f} ms; bit for bit in "
+            f"(b)")
+        return entries + [e4]
+    finally:
+        del d1, d15, x, x15
+        torch.cuda.empty_cache()
+
+
+def start_base22_clis(keep: str, base: str) -> dict:
+    """Phase 22 (c)'s subprocesses, which time nothing, started beside
+    phase 19: ``graft_trace smoke --devices 4`` on the card at the
+    smoke's defaults, and ``spmm_arrow --obs_dir --mem_report --trace``
+    over phase 4's saved 2^20 artifact on one card for 3 iterations."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(keep, "smoke22")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = {}
+    for name, argv in (
+            ("smoke", ["-m", "arrow_matrix_tpu_torch.obs", "smoke",
+                       os.path.join(work, "run"), "--devices", "4"]),
+            ("spmm_arrow", ["-m", "arrow_matrix_tpu_torch.cli.spmm_arrow",
+                            "--path", base, "--width", "2048",
+                            "--features", "16", "--iterations", "3",
+                            "--obs_dir", os.path.join(work, "obs"),
+                            "--mem_report", "--trace",
+                            os.path.join(work, "trace")])):
+        log_path = os.path.join(work, f"{name}.log")
+        fh = open(log_path, "w")
+        procs[name] = (subprocess.Popen([sys.executable, *argv], cwd=root,
+                                        env=env, stdout=fh,
+                                        stderr=subprocess.STDOUT),
+                       fh, log_path, time.perf_counter())
+    return {"work": work, "procs": procs}
+
+
+def finish_base22_clis(clis: dict) -> dict:
+    """Phase 22 (c): both subprocesses exit 0; the smoke's run directory
+    is valid (``validate_run_dir`` empty) and ``graft_trace summarize``,
+    ``export`` and ``diff run run`` exit 0 on it; ``spmm_arrow`` left its
+    span trace and ``metrics.jsonl``, its memory and imbalance reports,
+    and a profiler trace whose kernel events name K1."""
+    import contextlib
+    import io
+
+    from arrow_matrix_tpu_torch.obs.__main__ import main as trace_main
+    from arrow_matrix_tpu_torch.obs.smoke import validate_run_dir
+
+    work, res = clis["work"], {}
+    for name, (proc, fh, log_path, started) in clis["procs"].items():
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            fh.close()
+        with open(log_path) as f:
+            text = f.read()
+        res[name] = {"rc": rc,
+                     "collected_after_s": time.perf_counter() - started}
+        if rc != 0:
+            raise SystemExit(f"phase 22 (c) {name} exited {rc}:\n"
+                             f"{text[-3000:]}")
+        res[name]["text"] = text
+    run = os.path.join(work, "run")
+    problems = validate_run_dir(run)
+    rcs = {}
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rcs["summarize"] = trace_main(["summarize", run])
+        rcs["export"] = trace_main(["export", run, "--out",
+                                    os.path.join(work, "merged.json")])
+        rcs["diff"] = trace_main(["diff", run, run])
+    if problems or any(rcs.values()):
+        raise SystemExit(f"phase 22 (c) smoke: problems {problems}, exit "
+                         f"codes {rcs}")
+    res["smoke"].update(cli_rcs=rcs, summary=buf.getvalue().splitlines())
+    obs = os.path.join(work, "obs")
+    for f in ("spmm_arrow.trace.json", "metrics.jsonl"):
+        if not os.path.getsize(os.path.join(obs, f)):
+            raise SystemExit(f"phase 22 (c): spmm_arrow left an empty {f}")
+    text = res["spmm_arrow"].pop("text")
+    res["smoke"].pop("text")
+    traces = sorted(os.listdir(os.path.join(work, "trace")))
+    k1 = kernels = 0
+    for t in traces:
+        with open(os.path.join(work, "trace", t)) as f:
+            events = json.load(f).get("traceEvents", [])
+        names = [e.get("name", "") for e in events
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        kernels += len(names)
+        k1 += sum(any(s in nm for s in K1_NAMES) for nm in names)
+    if not traces or not k1:
+        raise SystemExit(f"phase 22 (c): the profiler trace of spmm_arrow "
+                         f"({traces}) names no K1 kernel ({kernels} "
+                         f"kernels)")
+    reports = [line for line in text.splitlines()
+               if line.startswith(("measured vs format-model",
+                                   "per-shard load balance"))]
+    if len(reports) != 2:
+        raise SystemExit(f"phase 22 (c): spmm_arrow printed no memory and "
+                         f"imbalance report:\n{text[-3000:]}")
+    res["spmm_arrow"].update(trace_files=traces, kernel_events=kernels,
+                             k1_events=k1, reports=reports)
+    return res
+
+
+def phase_baselines(b22: list, a22: dict, kernels: list, clis: dict,
+                    host: dict) -> dict:
+    """Phase 22's results (module docstring) gathered and logged: (a) from
+    the NCCL rank, (b) from the gloo ranks, the kernel entries, (c)'s
+    subprocesses."""
+    tic = time.perf_counter()
+    res = {"host": host, "a": a22["a"]}
+    r0 = b22[0]
+    per_rank = {tag: [r[tag]["bytes"] for r in b22]
+                for tag in r0 if tag != "comparison"}
+    res["b"] = {tag: dict(rec, bytes_per_rank=per_rank[tag])
+                for tag, rec in r0.items() if tag != "comparison"}
+    for tag, rec in res["b"].items():
+        log(f"phase 22 (b) {tag} on 4 gloo ranks sharing the card: step "
+            f"{rec['err1']:.3e}, chain {rec['err' + str(BASE22['chain'])]:.3e}; "
+            f"counted bytes a step by rank {rec['bytes_per_rank']} "
+            f"({ {kk: v['bytes'] for kk, v in rec['by_kind'].items()} } on "
+            f"rank 0, host staged {rec['staged']}) beside "
+            f"ideal_comm_bytes(16) {rec['ideal']}; launches a rank "
+            f"{[r[tag]['launches'] for r in b22]}")
+    comp = {tag: {"ideal": rec["ideal"], "err": rec["err"],
+                  "bytes_per_rank": [r["comparison"][tag]["bytes"]
+                                     for r in b22]}
+            for tag, rec in r0["comparison"].items()}
+    res["comparison"] = comp
+    log("phase 22 (b) the paper's comparison at BA 2^16 (phase 7's graph), "
+        "k=16, 4 ranks, counted bytes a step summed over the ranks "
+        "(ideal_comm_bytes(16)): " + "; ".join(
+            f"{tag} {sum(v['bytes_per_rank'])} ({v['ideal']})"
+            for tag, v in comp.items()))
+    res["c"] = finish_base22_clis(clis)
+    sm = res["c"]["smoke"]
+    log(f"phase 22 (c): graft_trace smoke --devices 4 on the card (done "
+        f"within {sm['collected_after_s']:.1f} s of its start), valid, "
+        f"summarize/export/diff exit 0: " + " | ".join(sm["summary"][1:7]))
+    sa = res["c"]["spmm_arrow"]
+    log(f"phase 22 (c): spmm_arrow --obs_dir --mem_report --trace over the "
+        f"2^20 artifact (done within {sa['collected_after_s']:.1f} s of its "
+        f"start): {sa['k1_events']} K1 events of {sa['kernel_events']} "
+        f"kernel events in {sa['trace_files']}; {sa['reports']}")
+    res["kernels"] = [e["name"] for e in kernels]
+    res["wrapup_s"] = time.perf_counter() - tic
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -6438,9 +7020,10 @@ def main() -> int:
                         help="run phases 1, 2 and 19 only (graft-tune on "
                              "phase 4's decomposition, made here)")
     parser.add_argument("--mesh", action="store_true",
-                        help="run phases 1, 2, 20 and 21 only (the mesh "
-                             "executors on ranks, and training through "
-                             "them and the space-shared modes; phase 4's "
+                        help="run phases 1, 2, 20, 21 and 22 only (the "
+                             "mesh executors on ranks, training through "
+                             "them and the space-shared modes, the two "
+                             "baselines and the smoke; phase 4's "
                              "decomposition and goldens made here)")
     parser.add_argument("--serve", action="store_true",
                         help="run phases 1, 2, 15 and 16 only (the serving "
@@ -6514,6 +7097,7 @@ def main() -> int:
         base = os.path.join(keep, f"ba_{n}_{m}")
         host4 = start_host(phase4_host, n, base)
         host14 = start_host(phase14_host, n)
+        host22 = start_host(phase22_host, keep)
 
     # -- 2. build ------------------------------------------------------------
     tic = time.perf_counter()
@@ -6770,8 +7354,8 @@ def main() -> int:
     kernels += lens_entries
 
     # -- 19. graft-tune on the card, on phase 4's levels ---------------------
-    # Beside it, the ranks' work of phases 20 and 21 that times no kernel.
-    mesh_work = start_mesh_work(mesh_pool, base, width, solvers)
+    # Beside it, the ranks' work of phases 20-22 that times no kernel.
+    mesh_work = start_mesh_work(mesh_pool, base, width, host22, solvers)
     del solvers
     results["tune"], tune_entries = phase_tune(dev, base, width,
                                                os.path.join(keep, "tune"))
@@ -6794,13 +7378,15 @@ def main() -> int:
 
 def mesh_only(n: int, keep: str) -> tuple:
     """``--mesh``: phase 4's decomposition (made and saved here) and the
-    host goldens phase 20 gates against, then phase 20, whose ranks
-    pack while the goldens are computed."""
+    host goldens phase 20 gates against, then phases 20-22, whose ranks
+    pack while the goldens are computed (phase 22's graph in a host
+    process from the start)."""
     import numpy as np
 
     from arrow_matrix_tpu_torch.utils import random_dense
 
     width = 2048
+    host22 = start_host(phase22_host, keep)
     base, _ = decompose_phase4(n, keep)
     pool = start_mesh(base, width)
     tic = time.perf_counter()
@@ -6813,7 +7399,7 @@ def mesh_only(n: int, keep: str) -> tuple:
     log(f"phase 4 (for phase 20): the host goldens in "
         f"{time.perf_counter() - tic:.1f} s")
     del levels
-    return phase_mesh(start_mesh_work(pool, base, width))
+    return phase_mesh(start_mesh_work(pool, base, width, host22))
 
 
 def serve_only(dev, n: int, work: str) -> tuple:

@@ -90,7 +90,8 @@ def multi_level(ctx, levels, width, x, steps, kw, shape=None,
     c = exe.set_features(x)
     commstats.reset()
     c = exe.run(c, steps)
-    return _finish(ctx, exe, c, lambda: {"fmts": exe.fmts})
+    return _finish(ctx, exe, c, lambda: {"fmts": exe.fmts,
+                                         "report": exe.shard_report()})
 
 
 def mesh_members(ctx, levels, width, kw):
@@ -189,6 +190,30 @@ def collectives(ctx):
             else red.numpy(), "prev": prev.numpy(), "next": nxt.numpy(),
             "a2a": got.numpy(), "gather": gath.float().numpy(), "max": mx,
             "stats": commstats.snapshot(), "world_line": mesh.line(None)}
+
+
+def broadcast_roots(ctx, shape, names, axis):
+    """``collectives.broadcast(root=q)`` from every position ``q`` of this
+    rank's ``axis`` line (rank r holds ``r + 1``); the values received and
+    this rank's counts; a root off the line refused."""
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+    from arrow_matrix_tpu_torch.utils import commstats
+
+    mesh = _mesh(shape, names)
+    line = mesh.line(axis)
+    commstats.reset()
+    got = []
+    for q in range(len(line)):
+        t = torch.full((2, 3), float(ctx.rank + 1))
+        coll.broadcast(t, mesh, axis, root=q)
+        got.append(t.numpy())
+    try:
+        coll.broadcast(torch.zeros(1), mesh, axis, root=len(line))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {"line": line, "got": got, "refused": refused,
+            "stats": commstats.snapshot()}
 
 
 def grid(ctx, shape, names):

@@ -66,6 +66,8 @@ def test_slim_matches_jax(pool4, problem, fmt, head_fmt, block_diagonal,
     want = jm.gather_result(jm.step(jm.set_features(x)))
     got = pool4.run(JOBS, "multi_level", lv, 32, x, 1, kw)[0]
     assert got["fmts"] == list(jm.fmts)
+    # The load report, counted from the levels' CSR, is JAX's.
+    assert got["report"] == jm.shard_report()
     assert relative_error(got["out"], want) <= _tol(a)
     assert relative_error(got["out"], decomposition_spmm(lv, x)) <= _tol(a)
     if routing == "a2a":

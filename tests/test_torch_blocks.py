@@ -23,6 +23,7 @@ from arrow_matrix_tpu_torch.ops.arrow_blocks import (
     arrow_blocks_from_csr,
     block_features,
     block_row_stats,
+    block_row_stats_from_csr,
     resolve_block_dtype,
     unblock_features,
 )
@@ -78,6 +79,41 @@ def test_stacks_are_byte_equal_to_jax(banded, dtype):
     stats, jstats = block_row_stats(ours), jax_blocks.block_row_stats(theirs)
     for key in ("rows", "nnz", "slots"):
         assert np.array_equal(stats[key], jstats[key]), key
+
+
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("fmt,head_fmt,values", [
+    ("dense", "ell", "weighted"), ("ell", "ell", "weighted"),
+    ("ell", "flat", "weighted"), ("ell", "ell", "ones"),
+    ("ell", "flat", "ones")])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_block_row_stats_from_csr_match_the_packed_level(banded, fmt,
+                                                         head_fmt, values,
+                                                         dtype):
+    """The load report counted from the CSR equals the one read off the
+    packed level, for every stack layout: explicit zeros, a padded block
+    grid and row chunks that cut block rows included."""
+    if values == "ones":
+        a = arrow_csr(6, 16, banded=banded, seed=4)
+        a.data[:] = 1.0
+        binary = "auto"
+    else:
+        a = _weighted_arrow(6, 16, banded, seed=4)
+        a.data[::7] = 0.0
+        binary = False
+    blk = arrow_blocks_from_csr(a, 16, banded=banded, pad_blocks_to=8,
+                                dtype=dtype, fmt=fmt, head_fmt=head_fmt,
+                                binary=binary, device="cpu")
+    assert blk.head_flat == (head_fmt == "flat")
+    assert fmt == "dense" or blk.binary == (values == "ones")
+    want = block_row_stats(blk)
+    for source in (a, (a.data, a.indices, a.indptr)):
+        got = block_row_stats_from_csr(
+            source, 16, banded=banded, pad_blocks_to=8, fmt=fmt,
+            head_flat=blk.head_flat, binary=fmt == "ell" and blk.binary,
+            dtype=dtype, chunk_rows=11)
+        for key in ("rows", "nnz", "slots"):
+            assert np.array_equal(got[key], want[key]), key
 
 
 def test_load_block_cuts_the_same_blocks_from_csr_and_triplet():

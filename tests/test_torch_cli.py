@@ -1,7 +1,8 @@
-"""The port's command lines end to end on the CPU: ``spmm_arrow``,
-``graft_serve --pulse``, and the lens's and the ledger's operator
-surfaces ``graft_lens`` and ``graft_ledger`` (every subcommand, beside
-the JAX CLIs' outputs where they compute the same thing)."""
+"""The port's command lines end to end on the CPU: ``spmm_arrow`` (with
+its observability flags), the baselines ``spmm_petsc`` and ``spmm_15d``
+on gloo ranks, ``graft_serve --pulse``, and the lens's and the ledger's
+operator surfaces ``graft_lens`` and ``graft_ledger`` (every subcommand,
+beside the JAX CLIs' outputs where they compute the same thing)."""
 
 import json
 import os
@@ -9,6 +10,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -478,3 +480,156 @@ def test_graft_ledger_subcommands_on_a_store(tmp_path, cli):
     lines[0] = json.dumps(rec, separators=(",", ":"))
     path.write_text("\n".join(lines) + "\n")
     assert cli(LEDGER, *store, "check").returncode == 1
+
+
+# -- the baselines' CLIs and spmm_arrow's observability flags --------------
+
+def _run_module(module, args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    return subprocess.run(
+        [sys.executable, "-m", f"arrow_matrix_tpu_torch.{module}", *args],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+
+
+BASE_ARGS = ["--device", "cpu", "--devices", "4", "--columns", "4"]
+
+
+def test_spmm_15d_random_validates(tmp_path):
+    proc = _run_module("cli.spmm_15d", [
+        *BASE_ARGS, "--vertices", "256", "--edges", "1024",
+        "--iterations", "2", "--validate", "true",
+        "--logdir", str(tmp_path / "logs")], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "grid 2 x 2 on 4 gloo rank(s)" in proc.stdout
+    assert "validation: ok=True" in proc.stdout
+    assert "spmm_time mean" in proc.stdout
+    assert os.listdir(tmp_path / "logs")
+
+
+def test_spmm_15d_memmap_triplet_validates(tmp_path):
+    """``--memmap`` builds from a memmapped npy CSR triplet, slab by slab,
+    and validates against the streamed golden."""
+    from arrow_matrix_tpu_torch.utils.graphs import barabasi_albert
+
+    a = barabasi_albert(128, 3, seed=7).astype(np.float32).tocsr()
+    np.save(tmp_path / "t_data.npy", a.data)
+    np.save(tmp_path / "t_indices.npy", a.indices)
+    np.save(tmp_path / "t_indptr.npy", a.indptr)
+    proc = _run_module("cli.spmm_15d", [
+        *BASE_ARGS, "--file", str(tmp_path / "t"), "--memmap", "true",
+        "-r", "1", "--iterations", "1", "--validate", "true",
+        "--logdir", str(tmp_path / "logs")], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "grid 4 x 1" in proc.stdout
+    assert "validation: ok=True" in proc.stdout
+
+
+def test_spmm_petsc_random_validates(tmp_path):
+    proc = _run_module("cli.spmm_petsc", [
+        *BASE_ARGS, "--vertices", "256", "--edges", "1024",
+        "--iterations", "2", "--validate", "true", "--carry",
+        "--logdir", str(tmp_path / "logs")], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "4 slices of <= 64 rows" in proc.stdout
+    assert "validation: allclose=True" in proc.stdout
+
+
+def test_spmm_petsc_dryrun_and_slices(tmp_path):
+    """The reference's slice-file scheme, 4 files on 2 ranks: the slices
+    are reassembled and the partition recomputed; ``--dryrun`` stops
+    after the tables."""
+    from scipy import sparse
+
+    from arrow_matrix_tpu_torch.utils.graphs import barabasi_albert
+
+    a = barabasi_albert(64, 2, seed=3).astype(np.float32)
+    bounds = np.linspace(0, 64, 5).astype(int)
+    for r in range(4):
+        sparse.save_npz(tmp_path / f"g.part.4.slice.{r}.npz",
+                        a[bounds[r]:bounds[r + 1]])
+    proc = _run_module("cli.spmm_petsc", [
+        "--file", str(tmp_path / "g.part.4.slice.0.npz"), "--dryrun",
+        "true", "--device", "cpu", "--devices", "2",
+        "--logdir", str(tmp_path / "logs")], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "2 slices of <= 32 rows" in proc.stdout
+    assert "validation" not in proc.stdout
+
+
+def test_spmm_petsc_per_slice_ingest_validates(tmp_path):
+    """As many slice files as ranks: each rank loads only its own slice
+    and validates its rows against its own golden."""
+    from scipy import sparse
+
+    from arrow_matrix_tpu_torch.utils.graphs import barabasi_albert
+
+    n = 64
+    a = barabasi_albert(n, 2, seed=5).astype(np.float32)
+    bounds = np.linspace(0, n, 5).astype(int)
+    for r in range(4):
+        sparse.save_npz(tmp_path / f"g.part.4.slice.{r}.npz",
+                        a[bounds[r]:bounds[r + 1]])
+    proc = _run_module("cli.spmm_petsc", [
+        *BASE_ARGS, "--file", str(tmp_path / "g.part.4.slice.0.npz"),
+        "--iterations", "1", "--validate", "true",
+        "--logdir", str(tmp_path / "logs")], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert ("validation (each rank its own slice): allclose=True"
+            in proc.stdout)
+
+
+@pytest.mark.parametrize("module", ["cli.spmm_15d", "cli.spmm_petsc"])
+def test_baseline_comm_reports(tmp_path, module):
+    """``--comm_report`` on both baselines: one step's counted bytes by
+    kind, the total and the ratio to the paper model's ideal."""
+    proc = _run_module(module, [
+        *BASE_ARGS, "--vertices", "256", "--edges", "1024",
+        "--iterations", "1", "--validate", "true", "--comm_report",
+        "--mem_report", "--logdir", str(tmp_path / "logs")], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "collective" in proc.stdout and "TOTAL" in proc.stdout
+    assert "measured vs paper-model ideal" in proc.stdout
+    assert "per-device call memory" in proc.stdout
+    assert "per-shard load balance (4 device units)" in proc.stdout
+
+
+def test_baseline_refusals_exit_before_any_work(tmp_path, monkeypatch):
+    """A checkpoint of a multi-process run exits with spmm_arrow's words;
+    a replication whose square does not divide the rank count, and a
+    memmap without a file, exit before any rank starts."""
+    from arrow_matrix_tpu_torch.cli import spmm_15d, spmm_petsc
+
+    monkeypatch.chdir(tmp_path)
+    for main, args, words in (
+            (spmm_petsc.main, ["--carry", "--checkpoint", "ck"],
+             "multi-device executors"),
+            (spmm_15d.main, ["--carry", "--checkpoint", "ck"],
+             "multi-device executors"),
+            (spmm_15d.main, ["-r", "2"], "not divisible by c\\^2"),
+            (spmm_15d.main, ["--memmap"], "--memmap requires --file"),
+            (spmm_15d.main, ["--repl", "2", "-r", "2"], "give one")):
+        with pytest.raises(SystemExit, match=words):
+            main(["--devices", "2", "--device", "cpu", *args])
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("devices", ["1", "2"])
+def test_spmm_arrow_observability_flags_on_cpu(tmp_path, devices):
+    """``--obs_dir``, ``--mem_report`` and ``--trace`` on one device and on
+    two gloo ranks: the memory and imbalance reports, the span trace and
+    ``metrics.jsonl`` (rank 0's), one profiler trace a rank."""
+    proc = _run(["--device", "cpu", "--devices", devices, "--vertices",
+                 "512", "--width", "32", "--features", "4", "--iterations",
+                 "2", "--validate", "--mem_report", "--obs_dir", "obs",
+                 "--trace", "tr"], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "per-device call memory" in proc.stdout
+    assert "per-shard load balance" in proc.stdout
+    trace = json.load(open(tmp_path / "obs" / "spmm_arrow.trace.json"))
+    steps = [e for e in trace["traceEvents"] if e.get("name") == "step"]
+    assert len(steps) == 2
+    events = [json.loads(line) for line in
+              open(tmp_path / "obs" / "metrics.jsonl") if line.strip()]
+    assert sum(e["name"] == "iteration_time_ms" for e in events) == 2
+    assert any(e["name"] == "hbm_measured_bytes" for e in events)
+    assert len(os.listdir(tmp_path / "tr")) == int(devices)

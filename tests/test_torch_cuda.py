@@ -1122,3 +1122,102 @@ def test_mesh_backward_and_space_steps_on_the_card(cuda, kind, kw, shape,
                           decomposition_spmm(levels, x)) <= tol
     if kind in ("sell", "arrow"):
         assert relative_error(res[0]["card"]["t"], a.T @ g) <= tol
+
+
+def _baseline_card_and_plain(ctx, kind, a, x, kw, shape, names, steps):
+    """One baseline built twice in each rank, over a mesh on the card (K1
+    and K4) and over one on the CPU (their plain versions): ``steps``
+    chained steps, the launches of the first beside ``launch_counts``,
+    and the results gathered on every rank."""
+    from arrow_matrix_tpu_torch.parallel import MatrixSlice1D, SpMM15D
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for where in ("card", "cpu"):
+        mesh = make_mesh(shape, names, device=None if where == "card"
+                         else "cpu")
+        exe = (MatrixSlice1D(a, mesh, **kw) if kind == "1d"
+               else SpMM15D(a, mesh, **kw))
+        c = exe.set_features(x)
+        torch.cuda.synchronize()
+        before = _launches()
+        c = exe.spmm(c)
+        torch.cuda.synchronize()
+        after = _launches()
+        for _ in range(steps - 1):
+            c = exe.spmm(c)
+        again = exe.spmm(exe.set_features(x))
+        out[where] = {"y": exe.gather_result(c),
+                      "repeat": exe.gather_result(again),
+                      "launched": {name: after[name] - before[name]
+                                   for name in after},
+                      "device": str(c.device)}
+        if where == "card":
+            out["want"] = exe.launch_counts(x.shape[1])
+    return out
+
+
+@pytest.mark.parametrize("kind,shape,names,kw", [
+    ("1d", (4,), ("slices",), {}),
+    ("1d", (4,), ("slices",), {"slices": [(0, 0), (0, 700), (700, 1500),
+                                          (1500, 2048)]}),
+    ("15d", (4, 1), ("rows", "repl"), {}),
+    ("15d", (2, 2), ("rows", "repl"), {})])
+def test_baseline_steps_on_the_card_match_their_plain_versions(
+        cuda, kind, shape, names, kw):
+    """MatrixSlice1D and SpMM15D on 4 gloo ranks sharing the card: a step
+    and a chain of 3 against the same executor over a CPU mesh (the
+    kernels' plain versions) and against the host, within the gate; K1
+    (and the 1D pack, K4) launched as ``launch_counts`` says, nothing
+    else; a repeat bit-equal (an empty slice among the ranks)."""
+    from arrow_matrix_tpu_torch.parallel.launch import spawn
+    from arrow_matrix_tpu_torch.utils.graphs import random_csr
+
+    n = 2048
+    a = random_csr(n, n, 16, seed=42).astype(np.float32)
+    a = (a / max(abs(a).sum(axis=1).max(), 1.0)).tocsr().astype(np.float32)
+    x = random_dense(n, 16, seed=1)
+    res = spawn(_baseline_card_and_plain, 4,
+                args=(kind, a, x, kw, shape, names, 3), backend="gloo",
+                job_timeout_s=600)
+    tol3 = relative_tolerance(a.nnz / n, 3)
+    want = x
+    for _ in range(3):
+        want = a @ want
+    for r in res:
+        card, plain = r["card"], r["cpu"]
+        assert card["device"].startswith("cuda")
+        assert relative_error(card["y"], plain["y"]) <= tol3
+        assert relative_error(card["y"], want) <= tol3
+        assert np.array_equal(card["repeat"], res[0]["card"]["repeat"])
+        for name in ("K2", "K3", "K4 add"):
+            assert card["launched"][name] == 0
+        for name, v in r["want"].items():
+            assert card["launched"][name] == v, (name, card["launched"])
+        assert card["launched"]["K1"] > 0
+        assert not any(plain["launched"].values())
+    assert relative_error(res[0]["card"]["repeat"], a @ x) \
+        <= relative_tolerance(a.nnz / n)
+
+
+@pytest.mark.parametrize("which", ["identity", "zero"])
+def test_a_baseline_stack_with_no_slots_launches_nothing(cuda, which):
+    """The identity has no nonlocal part: no exchange, no pack, one K1
+    launch a step; a matrix with no nonzeros has no slots at all and
+    launches nothing (an empty grid is never launched); both exact."""
+    from arrow_matrix_tpu_torch.parallel.launch import spawn
+
+    n = 512
+    a = (sparse.identity(n, format="csr", dtype=np.float32)
+         if which == "identity" else sparse.csr_matrix((n, n),
+                                                       dtype=np.float32))
+    x = random_dense(n, 8, seed=3)
+    res = spawn(_baseline_card_and_plain, 2,
+                args=("1d", a, x, {}, (2,), ("slices",), 1),
+                backend="gloo", job_timeout_s=300)
+    for r in res:
+        card = r["card"]
+        assert np.array_equal(card["y"], np.asarray(a @ x))
+        assert card["launched"]["K4"] == 0 == r["want"]["K4"]
+        assert card["launched"]["K1"] == r["want"]["K1"] \
+            == (1 if which == "identity" else 0)

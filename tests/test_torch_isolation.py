@@ -100,6 +100,12 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             os.path.join("parallel", "autograd.py"),
             os.path.join("parallel", "space_shared.py"),
             os.path.join("parallel", "sell_space.py"),
+            os.path.join("parallel", "spmm_1d.py"),
+            os.path.join("parallel", "spmm_15d.py"),
+            os.path.join("obs", "smoke.py"),
+            os.path.join("obs", "__main__.py"),
+            os.path.join("cli", "spmm_petsc.py"),
+            os.path.join("cli", "spmm_15d.py"),
             os.path.join("models", "propagation.py"),
             os.path.join("utils", "commstats.py")} <= names
     bad = []
@@ -157,6 +163,9 @@ assert gather_probe.fold_gate(gather_probe.fold_step(16, ml, iters=1),
                               ml.nnz / ml.n)
 import arrow_matrix_tpu_torch.bench, arrow_matrix_tpu_torch.cli.arrow_decompose
 from arrow_matrix_tpu_torch.parallel import space_shared, sell_space
+from arrow_matrix_tpu_torch.parallel import spmm_1d, spmm_15d
+import arrow_matrix_tpu_torch.obs.smoke, arrow_matrix_tpu_torch.obs.__main__
+import arrow_matrix_tpu_torch.cli.spmm_petsc, arrow_matrix_tpu_torch.cli.spmm_15d
 from arrow_matrix_tpu_torch.models import propagation
 from arrow_matrix_tpu_torch.utils import artifacts, logging, platform
 native_levels = arrow_decomposition(a, 32, max_levels=4, seed=0,
@@ -197,6 +206,31 @@ def test_port_runs_a_two_rank_mesh_step_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "over gloo (2 ranks on cpu)" in proc.stdout
     assert "rel err vs host" in proc.stdout
+
+
+def test_baselines_and_the_smoke_run_with_jax_blocked(tmp_path):
+    """``spmm_15d --devices 2 --device cpu --validate`` and ``graft_trace
+    smoke --devices 2 --device cpu`` over the two baselines, with JAX and
+    the JAX package unimportable in the launchers and in every rank."""
+    blocker = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")]
+    (tmp_path / "sitecustomize.py").write_text(blocker)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "arrow_matrix_tpu_torch.cli.spmm_15d",
+         "--devices", "2", "--device", "cpu", "--vertices", "256",
+         "--edges", "1024", "--columns", "4", "--iterations", "1",
+         "--validate", "true", "--logdir", str(tmp_path / "logs")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "validation: ok=True" in proc.stdout
+    proc = subprocess.run(
+        [sys.executable, "-m", "arrow_matrix_tpu_torch.obs", "smoke",
+         str(tmp_path / "run"), "--devices", "2", "--device", "cpu",
+         "--n", "64", "--iters", "1", "--algorithms", "spmm_1d,spmm_15d"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "spmm_15d" in proc.stdout and "INVALID" not in proc.stderr
 
 
 SERVE_RUN = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")] + r"""

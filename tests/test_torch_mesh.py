@@ -129,6 +129,24 @@ def test_collectives_on_gloo(pool4):
     assert np.all(got[0]["reduce"] == acc)
 
 
+@pytest.mark.parametrize("shape,names,axis", [
+    ((4,), ("rows",), "rows"), ((2, 2), ("rows", "repl"), "rows"),
+    ((2, 2), ("rows", "repl"), "repl")])
+def test_broadcast_from_every_root(pool4, shape, names, axis):
+    """``broadcast(root=q)`` sends the value of the rank at position q of
+    the line (the 1.5D round's grid row), for every q of a 4-rank line
+    and of both axes of a (2, 2) grid; counted once a call."""
+    got = pool4.run(JOBS, "broadcast_roots", shape, names, axis)
+    for g in got:
+        line = g["line"]
+        assert len(g["got"]) == len(line)
+        for q, vals in enumerate(g["got"]):
+            assert np.all(vals == line[q] + 1.0), (line, q)
+        assert g["stats"]["broadcast"]["count"] == len(line)
+        assert g["stats"]["broadcast"]["bytes"] == len(line) * 6 * 4
+        assert "is not a position" in g["refused"]
+
+
 def test_a_failing_rank_ends_the_job():
     """A rank that raises makes the pool stop every rank and raise, at
     once, while its siblings wait in a collective."""
