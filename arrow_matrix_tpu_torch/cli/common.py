@@ -147,9 +147,12 @@ def add_heal_args(parser: argparse.ArgumentParser,
 
 def make_supervisor(args: argparse.Namespace, name: str, *,
                     carry: bool, layout: Optional[str] = None,
-                    registry=None, canonicalize=None):
+                    registry=None, canonicalize=None, mesh=None,
+                    mesh_axis: str = "blocks"):
     """The supervised loop of a CLI run, from its ``add_heal_args``
-    flags."""
+    flags (``mesh``: the mesh of ranks whose ``mesh_axis`` shards the
+    carriage's rows; its checkpoints and attempt outcomes are shared
+    over its ranks)."""
     from arrow_matrix_tpu_torch.faults import RetryPolicy, Supervisor
 
     return Supervisor(
@@ -158,7 +161,8 @@ def make_supervisor(args: argparse.Namespace, name: str, *,
         checkpoint_path=getattr(args, "checkpoint", None),
         checkpoint_every=getattr(args, "checkpoint_every", 0),
         finite_check=bool(getattr(args, "finite_check", True)) and carry,
-        layout=layout, registry=registry, canonicalize=canonicalize)
+        layout=layout, registry=registry, canonicalize=canonicalize,
+        mesh=mesh, mesh_axis=mesh_axis)
 
 
 def load_sparse_matrix(path: str, dtype=np.float32) -> sparse.csr_matrix:

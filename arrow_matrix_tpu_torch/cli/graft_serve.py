@@ -27,8 +27,17 @@ gets ``pulse_ring.json``, ``pulse_metrics.prom`` and
 ``/metrics``, ``/pulse.json`` and ``/healthz`` while the run lasts.
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions.
 Exits non-zero only when a request FAILED (shed and rejected are
-explicit, policy-level outcomes).  ``--fmt ell`` (a mesh) is not ported
-yet and exits with the ROADMAP.md item that ports it.
+explicit, policy-level outcomes).
+
+``--fmt ell`` serves ``MultiLevelArrow(mesh=, fmt="ell")`` rungs over a
+mesh of ``--devices`` ranks (``cli/common.launch_ranks``; one rank is a
+mesh of one): every rank runs the server on the same trace, rank 0
+decides the batches, and rank 0 prints the report and writes the
+summary, ``--results_out`` and the observability artifacts.  Checkpoints
+are written by rank 0 and read by every rank.
+
+    python -m arrow_matrix_tpu_torch.cli.graft_serve --fmt ell \
+        --devices 2 --backend gloo --checkpoint ck --results_out r.npz
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     from arrow_matrix_tpu_torch.cli.common import (
         add_device_args,
         add_heal_args,
+        add_rank_args,
     )
 
     p = argparse.ArgumentParser(
@@ -62,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["fold", "ell"],
                    help="resident executor format: 'fold' (one SELL "
                         "operator, the full degradation ladder); 'ell' "
-                        "shards level blocks over a mesh (not ported "
-                        "yet)")
+                        "shards level blocks over a mesh of --devices "
+                        "ranks")
     p.add_argument("--kernel", type=str, default="xla", choices=["xla"],
                    help="base rung kernel: 'xla' is the hand-written K1 "
                         "on the card")
@@ -109,6 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(one array per request id): the replay "
                         "artifact")
     add_device_args(p)
+    add_rank_args(p)
     add_heal_args(p, checkpoint_every_default=2)
     return p
 
@@ -116,14 +127,34 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.fmt == "ell":
-        raise SystemExit("graft_serve: --fmt ell serves over a mesh, "
-                         "which is not ported yet; see ROADMAP.md Queue "
-                         "A, 'multi-device executors'")
+        from arrow_matrix_tpu_torch.cli.common import launch_ranks
+
+        try:
+            return launch_ranks(args, serve_rank)
+        except SystemExit as e:
+            raise SystemExit(f"graft_serve: {e}") from None
+    if args.devices != 1:
+        raise SystemExit("graft_serve: --devices serves --fmt ell over a "
+                         "mesh; the fold is one device's")
 
     from arrow_matrix_tpu_torch.cli.common import setup_platform
 
-    device = setup_platform(args)
+    return serve(args, setup_platform(args))
 
+
+def serve_rank(ctx, args) -> int:
+    """One rank of ``--fmt ell``: its mesh of every rank, then
+    :func:`serve` on it (rank 0 reports and writes)."""
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+
+    return serve(args, ctx.device, mesh=make_mesh((ctx.world,),
+                                                  ("blocks",)),
+                 writer=ctx.rank == 0)
+
+
+def serve(args, device, mesh=None, writer: bool = True) -> int:
+    """Build the rungs, serve the trace, report; ``writer``: this
+    process prints the report and writes the run's files."""
     import numpy as np
 
     from arrow_matrix_tpu_torch.faults import RetryPolicy
@@ -138,20 +169,22 @@ def main(argv=None) -> int:
         write_serve_artifacts,
     )
 
-    registry = MetricsRegistry(run_dir=args.obs_dir)
-    if args.obs_dir:
+    say = print if writer else (lambda *a, **k: None)
+    registry = MetricsRegistry(run_dir=args.obs_dir if writer else None)
+    if args.obs_dir and writer:
         os.makedirs(args.obs_dir, exist_ok=True)
         flight.install(os.path.join(args.obs_dir, "flight.json"))
 
     factory, n_rows = ba_executor_factory(
-        args.vertices, args.width, args.seed, fmt=args.fmt, device=device)
+        args.vertices, args.width, args.seed, fmt=args.fmt, mesh=mesh,
+        device=device)
     base_cfg = ExecConfig(kernel=args.kernel, repl=args.repl,
                           overlap_slabs=args.overlap_slabs)
     policy = RetryPolicy.from_args(args)
     budget = (int(args.hbm_budget_mb * 2**20)
               if args.hbm_budget_mb > 0 else None)
     monitor, endpoint, tracer = None, None, None
-    if args.pulse:
+    if args.pulse and writer:
         from arrow_matrix_tpu_torch.obs import Tracer, pulse as pulse_mod
 
         tracer = Tracer("graft-serve", registry=registry)
@@ -171,7 +204,7 @@ def main(argv=None) -> int:
         max_batch_k=args.max_batch_k,
         degrade_after=args.degrade_after,
         registry=registry, tracer=tracer, name="graft-serve",
-        verbose=True)
+        verbose=writer)
     if monitor is not None:
         server.attach_pulse(monitor)
         if args.pulse_port >= 0:
@@ -193,33 +226,33 @@ def main(argv=None) -> int:
     summary = slo_summary(server, tickets, wall, pulse=monitor)
 
     lat = summary["latency_ms"]
-    print(f"graft-serve: {summary['requests']} requests over "
-          f"{args.tenants} tenants — {summary['completed']} completed,"
-          f" {summary['shed']} shed, {summary['rejected']} rejected, "
-          f"{summary['failed']} failed in {wall:.2f}s "
-          f"({(summary['requests_per_s'] or 0):.2f} req/s) on {device}")
+    say(f"graft-serve: {summary['requests']} requests over "
+        f"{args.tenants} tenants — {summary['completed']} completed,"
+        f" {summary['shed']} shed, {summary['rejected']} rejected, "
+        f"{summary['failed']} failed in {wall:.2f}s "
+        f"({(summary['requests_per_s'] or 0):.2f} req/s) on {device}")
     if lat["count"]:
-        print(f"graft-serve: latency p50={lat['p50']:.1f}ms "
-              f"p90={lat['p90']:.1f}ms p99={lat['p99']:.1f}ms")
+        say(f"graft-serve: latency p50={lat['p50']:.1f}ms "
+            f"p90={lat['p90']:.1f}ms p99={lat['p99']:.1f}ms")
     hbm = summary["hbm"]
-    print(f"graft-serve: hbm peak {hbm['peak_in_use_bytes']} / "
-          f"{hbm['budget_bytes']} B "
-          f"(peak occupancy {hbm['peak_occupancy']:.2e}; resident "
-          f"operator {hbm['resident_bytes']} B)")
+    say(f"graft-serve: hbm peak {hbm['peak_in_use_bytes']} / "
+        f"{hbm['budget_bytes']} B "
+        f"(peak occupancy {hbm['peak_occupancy']:.2e}; resident "
+        f"operator {hbm['resident_bytes']} B)")
     if summary["faults_seen"]:
-        print(f"graft-serve: {summary['faults_seen']} fault(s) seen, "
-              f"{summary['recoveries']} recover(ies), "
-              f"{summary['checkpoint_corruptions']} checkpoint "
-              f"corruption(s) discarded")
+        say(f"graft-serve: {summary['faults_seen']} fault(s) seen, "
+            f"{summary['recoveries']} recover(ies), "
+            f"{summary['checkpoint_corruptions']} checkpoint "
+            f"corruption(s) discarded")
     if monitor is not None:
         pt = summary["pulse"]
         burns = [e for e in pt["burn_events"]
                  if e["event"] == "slo_burn"]
-        print(f"graft-serve: pulse — {len(pt['windows'])} windows of "
-              f"{pt['window_s']}s, {len(burns)} SLO burn(s)"
-              + (": " + ", ".join(sorted({b['rule'] for b in burns}))
+        say(f"graft-serve: pulse — {len(pt['windows'])} windows of "
+            f"{pt['window_s']}s, {len(burns)} SLO burn(s)"
+            + (": " + ", ".join(sorted({b['rule'] for b in burns}))
                  if burns else ""), flush=True)
-    if args.results_out:
+    if args.results_out and writer:
         done = {t.request.request_id: t.result for t in tickets
                 if t.result is not None}
         if monitor is not None:
@@ -230,13 +263,13 @@ def main(argv=None) -> int:
                 json.dumps(summary["pulse"]["windows"]).encode(),
                 dtype=np.uint8)
         np.savez(args.results_out, **done)
-        print(f"graft-serve: wrote {len(done)} result(s) to "
-              f"{args.results_out}")
-    if args.obs_dir:
+        say(f"graft-serve: wrote {len(done)} result(s) to "
+            f"{args.results_out}")
+    if args.obs_dir and writer:
         if tracer is not None:
             tp = tracer.save(os.path.join(args.obs_dir,
                                           "serve_trace.json"))
-            print(f"graft-serve: wrote request-correlated trace {tp}")
+            say(f"graft-serve: wrote request-correlated trace {tp}")
         if monitor is not None:
             with open(os.path.join(args.obs_dir, "pulse_metrics.prom"),
                       "w", encoding="utf-8") as fh:
@@ -247,12 +280,13 @@ def main(argv=None) -> int:
         if rec is not None:
             rec.seal("graft-serve run complete")
             flight.set_recorder(None)
-        print(f"graft-serve: wrote {path}")
+        say(f"graft-serve: wrote {path}")
     if endpoint is not None:
         endpoint.stop()
     if summary["failed"]:
-        print(f"graft-serve: {summary['failed']} request(s) FAILED",
-              file=sys.stderr)
+        if writer:
+            print(f"graft-serve: {summary['failed']} request(s) FAILED",
+                  file=sys.stderr)
         return 1
     return 0
 

@@ -37,7 +37,6 @@ from arrow_matrix_tpu_torch.cli.common import (
     report_memory,
     str2bool,
 )
-from arrow_matrix_tpu_torch.cli.spmm_petsc import MESH_CHECKPOINT_REFUSAL
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,8 +109,6 @@ def main(argv=None) -> int:
         raise SystemExit("--checkpoint requires --carry (there is no "
                          "iteration state to resume when X is the "
                          "same input every iteration)")
-    if args.checkpoint and args.devices > 1:
-        raise SystemExit(f"spmm_15d: {MESH_CHECKPOINT_REFUSAL}")
     if args.memmap and not args.file:
         raise SystemExit("--memmap requires --file BASE (npy triplet: "
                          "BASE_indptr.npy, ...)")
@@ -292,8 +289,11 @@ def rank_15d(ctx, args) -> int:
             f"{dist.shape}")
         finish()
         return 2
+    # The carriage is block ``row`` of the grid, equal on the replicas:
+    # checkpoints gather it over the grid rows.  The tag names the grid.
     sup = make_supervisor(args, "spmm_15d", carry=args.carry,
-                          layout=f"15d/c{c}/blocked_input")
+                          layout=f"15d/c{c}/blocked_input/ranks{n_dev}",
+                          mesh=mesh, mesh_axis="rows")
     start_it = 0
     if args.carry and args.checkpoint:
         state = sup.resume(like=x)

@@ -166,6 +166,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fold_align", type=int, default=None,
                    help="Slot alignment of the tiers (default 8; 1 = "
                         "none).")
+    p.add_argument("--memmap", type=str2bool, nargs="?", default=False,
+                   const=True,
+                   help="Load the artifact memory-mapped and build the "
+                        "executor from the mapped triplets, reading only "
+                        "the blocks each rank packs; the host golden of "
+                        "--validate materializes the levels.")
     p.add_argument("--validate", type=str2bool, nargs="?", default=False,
                    const=True,
                    help="Compare each iteration against the host golden.")
@@ -254,11 +260,6 @@ def check_mesh_flags(args) -> None:
         if args.fmt == "sell" or args.routing == "a2a":
             raise SystemExit("--slim false needs a stacked format "
                              "(auto/dense/ell) and --routing gather")
-    if n_dev > 1 and args.checkpoint:
-        raise SystemExit(
-            "spmm_arrow: checkpoints of a multi-process run are not "
-            "ported yet; see ROADMAP.md Queue A, 'multi-device "
-            "executors'")
 
 
 def main(argv=None) -> int:
@@ -275,20 +276,13 @@ def main(argv=None) -> int:
     import torch
 
     from arrow_matrix_tpu_torch.decomposition import decomposition_spmm
-    from arrow_matrix_tpu_torch.io import (
-        ArtifactIntegrityError,
-        as_levels,
-        load_decomposition,
-        load_level_widths,
-        num_rows,
-    )
+    from arrow_matrix_tpu_torch.io import ArtifactIntegrityError, num_rows
     from arrow_matrix_tpu_torch.cli.common import make_supervisor
     from arrow_matrix_tpu_torch.faults import Abort
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
         random_dense,
         relative_error,
-        relative_tolerance,
         resolve_device,
     )
 
@@ -303,13 +297,10 @@ def main(argv=None) -> int:
 
     path, width = prepare_artifact(args)
     try:
-        loaded = load_decomposition(path, width,
-                                    block_diagonal=args.blocked)
+        levels, golden_levels = load_levels(args, path, width)
     except ArtifactIntegrityError as e:
         print(f"artifact integrity check failed: {e}")
         return 1
-    widths = load_level_widths(path, width, block_diagonal=args.blocked)
-    levels = as_levels(loaded, width if widths is None else widths)
     n = num_rows(levels[0].matrix)
 
     tic = time.perf_counter()
@@ -349,10 +340,7 @@ def main(argv=None) -> int:
         mem_report(args, multi, x, reg, print)
 
     rng = np.random.default_rng(args.seed)
-    tol = relative_tolerance(
-        sum(lvl.matrix.nnz for lvl in levels) / max(n, 1), iters=1)
-    if args.feature_dtype == "bf16":
-        tol = max(tol, 2e-2)
+    tol = gate_tolerance(args, levels, n)
     # Layout tag: how X is carried.  A checkpoint written under another
     # executor configuration refuses to resume instead of silently
     # permuting rows.
@@ -386,7 +374,7 @@ def main(argv=None) -> int:
                        algorithm="spmm_arrow")
         if args.validate:
             got = multi.gather_result(y)
-            want = decomposition_spmm(levels, x_host)
+            want = decomposition_spmm(golden_levels, x_host)
             err = relative_error(got, want)
             print(f"iteration {it}: rel err vs host {err:.3e} "
                   f"(gate {tol:.1e})")
@@ -411,6 +399,39 @@ def main(argv=None) -> int:
         print(f"spmm_time mean {ms.mean():.3f} ms over {len(ms)} "
               f"iterations (min {ms.min():.3f}) on {device}")
     return 0
+
+
+def load_levels(args, path: str, width: int) -> tuple:
+    """``(levels, golden levels)`` of the artifact: CSR levels, or under
+    ``--memmap`` the memory-mapped triplets the executors read block by
+    block, with the host golden's CSR levels made only when
+    ``--validate`` needs them (None otherwise)."""
+    from arrow_matrix_tpu_torch.io import (
+        as_levels,
+        load_decomposition,
+        load_level_widths,
+    )
+
+    loaded = load_decomposition(path, width, block_diagonal=args.blocked,
+                                mem_map=args.memmap)
+    widths = load_level_widths(path, width, block_diagonal=args.blocked)
+    widths = width if widths is None else widths
+    levels = as_levels(loaded, widths, materialize=not args.memmap)
+    if not args.memmap:
+        return levels, levels
+    return levels, (as_levels(loaded, widths) if args.validate else None)
+
+
+def gate_tolerance(args, levels, n: int) -> float:
+    """The one-step ``--validate`` gate: ``relative_tolerance`` at the
+    decomposition's nonzeros a row (bf16 carriage: at least 2e-2)."""
+    from arrow_matrix_tpu_torch.io import num_nonzeros
+    from arrow_matrix_tpu_torch.utils import relative_tolerance
+
+    tol = relative_tolerance(
+        sum(num_nonzeros(lvl.matrix) for lvl in levels) / max(n, 1),
+        iters=1)
+    return max(tol, 2e-2) if args.feature_dtype == "bf16" else tol
 
 
 def open_obs(args) -> tuple:
@@ -518,12 +539,7 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
     """One rank of ``spmm_arrow --devices P``: its mesh, its shards of the
     executor, the iteration loop (``--validate`` on every rank against
     the host golden; rank 0 prints), and ``--comm_report``."""
-    from arrow_matrix_tpu_torch.io import (
-        as_levels,
-        load_decomposition,
-        load_level_widths,
-        num_rows,
-    )
+    from arrow_matrix_tpu_torch.io import num_nonzeros, num_rows
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.parallel.mesh import (
         make_mesh,
@@ -533,18 +549,15 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
 
     say = print if ctx.rank == 0 else (lambda *a, **k: None)
     n_dev = ctx.world
-    widths = load_level_widths(path, width, block_diagonal=args.blocked)
-    levels = as_levels(load_decomposition(path, width,
-                                          block_diagonal=args.blocked),
-                       width if widths is None else widths)
+    levels, golden = load_levels(args, path, width)
     n = num_rows(levels[0].matrix)
     if args.mode == "space":
-        return space_rank(ctx, args, levels, width, say)
+        return space_rank(ctx, args, levels, golden, width, say)
     repl_c = 1
     if args.repl == "auto":
         from arrow_matrix_tpu_torch.obs.comm import auto_repl
 
-        nnz = sum(lvl.matrix.nnz for lvl in levels)
+        nnz = sum(num_nonzeros(lvl.matrix) for lvl in levels)
         base = nnz * 8 // n_dev + 2 * (-(-n // n_dev)) * args.features * 4
         exch = max(n_dev - 1, 0) * width * args.features * 4 * len(levels)
         repl_c = auto_repl(n_dev, args.features, base,
@@ -578,10 +591,10 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
     say(f"mesh: {dict(mesh.shape)} over {ctx.backend} ({ctx.world} ranks "
         f"on {ctx.device}); {what}, routing {args.routing} "
         f"({time.perf_counter() - tic:.3f} s)")
-    return drive_ranks(ctx, args, exe, levels, n, repl_c, say)
+    return drive_ranks(ctx, args, exe, levels, golden, n, repl_c, say)
 
 
-def space_rank(ctx, args, levels, width: int, say) -> int:
+def space_rank(ctx, args, levels, golden, width: int, say) -> int:
     """``--mode space`` in a rank: a (lvl, blocks) mesh with one level
     group a level, ``SellSpaceShared`` (``--fmt sell``) or
     ``SpaceSharedArrow``, then the iteration loop."""
@@ -616,22 +629,26 @@ def space_rank(ctx, args, levels, width: int, say) -> int:
                 f"{exe.rows_local} rows a rank")
     say(f"mesh: {dict(mesh.shape)} over {ctx.backend} ({ctx.world} ranks "
         f"on {ctx.device}); {what} ({time.perf_counter() - tic:.3f} s)")
-    return drive_ranks(ctx, args, exe, levels, num_rows(levels[0].matrix),
-                       1, say)
+    return drive_ranks(ctx, args, exe, levels, golden,
+                       num_rows(levels[0].matrix), 1, say)
 
 
-def drive_ranks(ctx, args, exe, levels, n: int, repl_c: int, say) -> int:
+def drive_ranks(ctx, args, exe, levels, golden, n: int, repl_c: int,
+                say) -> int:
     """The iteration loop of a rank: warm-up, ``--comm_report``, the
-    timed steps, ``--validate`` against the host golden on every rank
-    (rank 0 prints)."""
+    timed steps under a supervisor on the executor's mesh (``--carry
+    --checkpoint``: every rank resumes from the one shared checkpoint,
+    the mesh's first rank writes it), ``--validate`` against the host
+    golden on every rank (rank 0 prints)."""
     import torch
 
+    from arrow_matrix_tpu_torch.cli.common import make_supervisor
     from arrow_matrix_tpu_torch.decomposition import decomposition_spmm
+    from arrow_matrix_tpu_torch.faults import Abort
     from arrow_matrix_tpu_torch.utils import (
         commstats,
         random_dense,
         relative_error,
-        relative_tolerance,
     )
 
     def sync():
@@ -666,39 +683,60 @@ def drive_ranks(ctx, args, exe, levels, n: int, repl_c: int, say) -> int:
             f"{rep['reduce_bytes']} B, host staged "
             f"{rep['host_staged_bytes']} B, exposed "
             f"{rep['exposed_comm_ms']} ms at the modeled link rate")
-    tol = relative_tolerance(
-        sum(lvl.matrix.nnz for lvl in levels) / max(n, 1), iters=1)
-    if args.feature_dtype == "bf16":
-        tol = max(tol, 2e-2)
+    tol = gate_tolerance(args, levels, n)
     rng = np.random.default_rng(args.seed)
     times = []
-    with traced(args, ctx.device):
-        for it in range(args.iterations):
-            if not args.carry:
-                x_host = random_dense(n, args.features,
-                                      seed=int(rng.integers(2**31)))
-                x = exe.set_features(x_host)
-            elif args.validate:
-                x_host = exe.gather_result(x)
+    # The layout tag names the mode, format, carriage and rank count: a
+    # resume on another mesh fails loudly.
+    layout = (f"spmm_arrow/{args.mode}/{args.fmt}/"
+              f"{args.feature_dtype or 'f32'}/ranks{ctx.world}"
+              + (f"/repl{repl_c}" if repl_c > 1 else ""))
+    sup = make_supervisor(
+        args, "spmm_arrow", carry=args.carry, layout=layout,
+        canonicalize=getattr(exe, "merge_carries", None)
+        if repl_c > 1 else None, mesh=exe.mesh)
+    start = 0
+    if args.carry and args.checkpoint:
+        state = sup.resume(like=x)
+        if state is not None:
+            x, start = state
+            say(f"resumed from {args.checkpoint} at iteration {start}")
+
+    def body(x, it):
+        if not args.carry:
+            x_host = random_dense(n, args.features,
+                                  seed=int(rng.integers(2**31)))
+            x = exe.set_features(x_host)
+        elif args.validate:
+            x_host = exe.gather_result(x)
+        sync()
+        with step_span(tracer, it):
+            tic = time.perf_counter()
+            y = exe.step(x)
             sync()
-            with step_span(tracer, it):
-                tic = time.perf_counter()
-                x = exe.step(x)
-                sync()
-                dt = time.perf_counter() - tic
-            times.append(dt)
-            if reg is not None:
-                reg.record("iteration_time_ms", dt * 1e3,
-                           algorithm="spmm_arrow")
-            if args.validate:
-                err = relative_error(exe.gather_result(x),
-                                     decomposition_spmm(levels, x_host))
-                say(f"iteration {it}: rel err vs host {err:.3e} "
-                    f"(gate {tol:.1e})")
-                if not np.isfinite(err) or err > tol:
-                    say(f"validation gate failed at iteration {it}")
-                    return 1
+            dt = time.perf_counter() - tic
+        times.append(dt)
+        if reg is not None:
+            reg.record("iteration_time_ms", dt * 1e3,
+                       algorithm="spmm_arrow")
+        if args.validate:
+            err = relative_error(exe.gather_result(y),
+                                 decomposition_spmm(golden, x_host))
+            say(f"iteration {it}: rel err vs host {err:.3e} "
+                f"(gate {tol:.1e})")
+            if not np.isfinite(err) or err > tol:
+                # A policy failure: never retried, and no checkpoint of
+                # this state is written.
+                raise Abort(f"validation gate failed at iteration {it}")
+        return y
+
+    with traced(args, ctx.device):
+        _, ok = sup.run(body, x, start, args.iterations)
     close_obs(args, reg, tracer, say, writer=ctx.rank == 0)
+    if not ok:
+        say("the supervised loop failed (validation gate, or retries "
+            "exhausted)")
+        return 1
     if times:
         ms = np.asarray(times) * 1e3
         say(f"spmm_time mean {ms.mean():.3f} ms over {len(ms)} iterations "

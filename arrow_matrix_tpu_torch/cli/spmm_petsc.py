@@ -44,12 +44,6 @@ from arrow_matrix_tpu_torch.cli.common import (
 #: ingest and the reassembly.
 SLICE_RE = re.compile(r"(.*)\.part\.(\d+)\.slice\.(\d+)\.npz$")
 
-#: The words of ``spmm_arrow``'s refusal of a multi-process checkpoint.
-MESH_CHECKPOINT_REFUSAL = (
-    "checkpoints of a multi-process run are not ported yet; see "
-    "ROADMAP.md Queue A, 'multi-device executors'")
-
-
 def load_slices_or_matrix(path: str) -> sparse.csr_matrix:
     """One matrix file, or any slice of the ``{name}.part.{P}.slice.{r}
     .npz`` scheme (all slices are then reassembled)."""
@@ -115,8 +109,6 @@ def main(argv=None) -> int:
         raise SystemExit("--checkpoint requires --carry (there is no "
                          "iteration state to resume when X is the "
                          "same input every iteration)")
-    if args.checkpoint and args.devices > 1:
-        raise SystemExit(f"spmm_petsc: {MESH_CHECKPOINT_REFUSAL}")
     slice_paths = None
     if args.file:
         m = SLICE_RE.match(args.file)
@@ -248,8 +240,11 @@ def petsc_rank(ctx, args, slice_paths) -> int:
     if args.mem_report:
         report_memory("spmm_1d", dist, lambda v, *ops: dist.spmm(v), x,
                       args.columns, say)
+    # The layout tag names the rank count: the blocked carriage of
+    # another slicing must not resume here.
     sup = make_supervisor(args, "spmm_petsc", carry=args.carry,
-                          layout="petsc/1d_sliced")
+                          layout=f"petsc/1d_sliced/ranks{n_dev}",
+                          mesh=mesh, mesh_axis="slices")
     start_it = 0
     if args.carry and args.checkpoint:
         state = sup.resume(like=x)

@@ -120,8 +120,16 @@ class Supervisor:
                  registry=None,
                  tracer=None,
                  verbose: bool = True,
-                 canonicalize: Optional[Callable[[Any], Any]] = None):
+                 canonicalize: Optional[Callable[[Any], Any]] = None,
+                 mesh=None, mesh_axis: str = "blocks"):
         self.name = name
+        #: A mesh of ranks the carriage is sharded over (rows over
+        #: ``mesh_axis``): checkpoints are saved and loaded on it
+        #: (utils/checkpoint.py), and every attempt's outcome is agreed
+        #: over its ranks, so a fault on one rank is a fault on all and
+        #: their collectives stay in step.
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.carry = carry
         # The retry/backoff/watchdog knobs live in one shared
         # RetryPolicy (faults/policy.py) so the batch CLI and the
@@ -208,7 +216,8 @@ class Supervisor:
         with self._span("resume", path=self.checkpoint_path):
             meta = checkpoint_meta(self.checkpoint_path)
             state = load_state(self.checkpoint_path, like=like,
-                               layout=self.layout)
+                               layout=self.layout, mesh=self.mesh,
+                               axis=self.mesh_axis)
         if state is not None:
             self.last_checkpoint_step = state[1]
             legacy = meta is None or int(meta.get("version") or 0) < 1
@@ -232,7 +241,8 @@ class Supervisor:
             if self.canonicalize is not None:
                 x = self.canonicalize(x)
             save_state(self.checkpoint_path, x, step,
-                       layout=self.layout)
+                       layout=self.layout, mesh=self.mesh,
+                       axis=self.mesh_axis)
         self.last_checkpoint_step = step
         self._event("heal", "checkpointed", step=step)
 
@@ -312,6 +322,7 @@ class Supervisor:
         it = start_it
         consecutive = 0
         while it < stop_it:
+            err = None
             try:
                 # The attempt span carries iteration + retry ordinal
                 # (and, under the server, the ambient request id), so
@@ -325,26 +336,29 @@ class Supervisor:
                         raise NonFiniteState(
                             f"carried X contains NaN/Inf after "
                             f"iteration {it}")
-            except Abort as e:
-                self._event("fault", "aborted", iteration=it,
-                            error=str(e))
-                return x, False
             except WatchdogStalled as e:
                 rec = flight.get_recorder()
                 if rec is not None:
                     rec.seal(f"watchdog stalled: {e}")
                 raise
             except Exception as e:
+                err = e
+            err = self._agree(err, it)
+            if isinstance(err, Abort):
+                self._event("fault", "aborted", iteration=it,
+                            error=str(err))
+                return x, False
+            if err is not None:
                 reason = ("nan_detected"
-                          if isinstance(e, NonFiniteState) else
+                          if isinstance(err, NonFiniteState) else
                           "watchdog_timeout"
-                          if isinstance(e, WatchdogTimeout) else
+                          if isinstance(err, WatchdogTimeout) else
                           "iteration_error")
-                if not isinstance(e, WatchdogTimeout):
+                if not isinstance(err, WatchdogTimeout):
                     # watchdog faults were already recorded at expiry
                     # (before the grace join, so a subsequent SIGKILL
                     # still leaves the fault in the blackbox).
-                    self._fault(reason, it, e)
+                    self._fault(reason, it, err)
                 consecutive += 1
                 if consecutive > self.max_retries:
                     self._event("fault", "retries_exhausted",
@@ -369,6 +383,25 @@ class Supervisor:
             # point for a longer rerun.
             self._save(x, stop_it)
         return x, True
+
+    def _agree(self, err: Optional[Exception], it: int
+               ) -> Optional[Exception]:
+        """On a mesh, the attempt's outcome agreed over every rank (the
+        worst wins: an abort, then a fault, then success); the rank's
+        own ``err`` off a mesh."""
+        if self.mesh is None:
+            return err
+        from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+        mine = 0 if err is None else 2 if isinstance(err, Abort) else 1
+        worst = coll.all_reduce_max(mine, self.mesh, None)
+        if worst == mine:
+            return err
+        if worst == 2:
+            return Abort(f"iteration {it} aborted on another rank of "
+                         f"the mesh")
+        return RuntimeError(f"iteration {it} failed on another rank of "
+                            f"the mesh")
 
     def summary(self) -> dict:
         return {"supervisor": self.name, "faults_seen": self.faults_seen,

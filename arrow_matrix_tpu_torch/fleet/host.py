@@ -14,8 +14,8 @@ rides raw framing, exactly the split a real deployment has.
 one global job (``AMT_FLEET_COORDINATOR`` / ``AMT_FLEET_NUM_PROCESSES``
 / ``AMT_FLEET_PROCESS_ID``, with ``AMT_HOST_ID`` stamped per rank),
 the same dicts as the JAX package's.  A worker spawned with such an
-env raises in ``fleet.worker.maybe_init_distributed``: one global job
-across processes waits for the multi-device executors.
+env joins that one ``torch.distributed`` job as its rank
+(``fleet.worker.maybe_init_distributed``).
 
 :class:`RouterQuorum` is the shared-nothing router story: N routers
 run the SAME deterministic placement machinery (sha256 consistent-hash
@@ -72,8 +72,8 @@ def plan_host_mesh(num_hosts: int, procs_per_host: int, *,
     job over the ``AMT_FLEET_*`` env hooks.  Rank r of the one global
     job lives in domain ``host-{r // procs_per_host}``; every rank
     shares the coordinator (rank 0's host in real life).  Pure: the
-    caller spawns one process per entry (a port worker given such an
-    env raises naming the multi-device executors)."""
+    caller spawns one process per entry, and each joins the one job
+    (``fleet.worker.maybe_init_distributed``)."""
     if num_hosts < 1 or procs_per_host < 1:
         raise ValueError("num_hosts and procs_per_host must be >= 1")
     total = num_hosts * procs_per_host

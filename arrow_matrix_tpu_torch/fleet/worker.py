@@ -35,9 +35,9 @@ sha256-verified checkpoint instead of recomputing.
 
 :func:`maybe_init_distributed` reads the ``AMT_FLEET_COORDINATOR`` /
 ``AMT_FLEET_NUM_PROCESSES`` / ``AMT_FLEET_PROCESS_ID`` triple that
-``fleet/host.plan_host_mesh`` writes: unset it is a no-op; set, it
-raises (one global job across processes is the multi-device
-executors' work, not ported yet).
+``fleet/host.plan_host_mesh`` writes: unset it is a no-op; set, the
+worker joins one ``torch.distributed`` job at the coordinator's address
+as that rank.
 """
 
 from __future__ import annotations
@@ -72,18 +72,40 @@ DISTRIBUTED_ENV = ("AMT_FLEET_COORDINATOR", "AMT_FLEET_NUM_PROCESSES",
                    "AMT_FLEET_PROCESS_ID")
 
 
-def maybe_init_distributed(verbose: bool = False) -> bool:
-    """A no-op returning False unless the ``AMT_FLEET_COORDINATOR`` /
-    ``AMT_FLEET_NUM_PROCESSES`` / ``AMT_FLEET_PROCESS_ID`` triple is
-    set; with it set, raises ``NotImplementedError``: one global job
-    across worker processes is not ported yet."""
-    del verbose
-    if not all(os.environ.get(k) for k in DISTRIBUTED_ENV):
+def maybe_init_distributed(verbose: bool = False, device=None) -> bool:
+    """Join one ``torch.distributed`` job when the
+    ``AMT_FLEET_COORDINATOR`` (``host:port``) / ``AMT_FLEET_NUM_PROCESSES``
+    / ``AMT_FLEET_PROCESS_ID`` triple is set (``fleet/host.plan_host_mesh``
+    writes it); a no-op returning False otherwise.  The rendezvous is the
+    coordinator's TCP address (``parallel/mesh.init_distributed``); the
+    backend comes from the rank's device (``device``: the card unless
+    "cpu"): NCCL only when the machine has a card for every rank, else
+    gloo.  Returns True once joined."""
+    coord = os.environ.get("AMT_FLEET_COORDINATOR")
+    nproc = os.environ.get("AMT_FLEET_NUM_PROCESSES")
+    pid = os.environ.get("AMT_FLEET_PROCESS_ID")
+    if not (coord and nproc and pid):
         return False
-    raise NotImplementedError(
-        "a fleet worker joining one global job (AMT_FLEET_COORDINATOR / "
-        "AMT_FLEET_NUM_PROCESSES / AMT_FLEET_PROCESS_ID) is not ported "
-        "yet; see ROADMAP.md Queue A, 'multi-device executors'")
+    import torch
+
+    from arrow_matrix_tpu_torch.parallel.mesh import (
+        init_distributed,
+        rank_device,
+        set_rank_device,
+    )
+
+    world, rank = int(nproc), int(pid)
+    dev = rank_device(rank, device)
+    one_card_a_rank = (dev.type == "cuda"
+                       and torch.cuda.device_count() >= world)
+    backend = "nccl" if one_card_a_rank else "gloo"
+    set_rank_device(dev)
+    init_distributed(rank, world, backend, dev,
+                     init_method=f"tcp://{coord}")
+    if verbose:
+        print(f"[graft-fleet] torch.distributed up: rank {rank}/{world} "
+              f"via {coord} over {backend} on {dev}", flush=True)
+    return True
 
 
 def kernel_launches() -> dict:
@@ -428,7 +450,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    maybe_init_distributed(verbose=args.verbose)
+    maybe_init_distributed(verbose=args.verbose, device=args.device)
     if args.obs_dir:
         # The flight ring flushes eagerly per event, so when this
         # process dies by SIGKILL mid-batch its completed spans are

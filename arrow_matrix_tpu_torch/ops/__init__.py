@@ -1,6 +1,7 @@
 from arrow_matrix_tpu_torch.ops.arrow_blocks import (
     ArrowBlocks,
     arrow_blocks_from_csr,
+    arrow_blocks_streamed,
     arrow_spmm,
     block_features,
     block_row_stats,
@@ -59,6 +60,7 @@ __all__ = [
     "SellMatrix",
     "align_up",
     "arrow_blocks_from_csr",
+    "arrow_blocks_streamed",
     "arrow_spmm",
     "arrow_spmm_cuda",
     "arrow_spmm_ell_cuda",

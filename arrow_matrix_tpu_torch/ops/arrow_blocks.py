@@ -405,6 +405,138 @@ def arrow_blocks_from_csr(matrix: CsrLike, width: int,
                        **kw)
 
 
+def load_stack_blocks(matrix: CsrLike, width: int,
+                      cs: List[Optional[Tuple[int, int]]]
+                      ) -> List[Optional[sparse.csr_matrix]]:
+    """The blocks at coordinates ``cs`` (None for a structurally empty
+    slot), each cut from the CSR or triplet at float32 (scipy cannot
+    hold bf16; the packers round once): only these blocks are read."""
+    return [None if ij is None else load_block(
+        matrix, ij[0] * width, (ij[0] + 1) * width, ij[1] * width,
+        (ij[1] + 1) * width, width, dtype=np.float32) for ij in cs]
+
+
+def shard_range(nb_padded: int, mesh, axis: str) -> Tuple[int, int]:
+    """``(first block row, block rows)`` of this rank's contiguous share
+    of ``nb_padded`` block rows over the mesh's ``axis``."""
+    n_dev = mesh.shape[axis]
+    if nb_padded % n_dev:
+        raise ValueError(f"{nb_padded} blocks not divisible by {n_dev} "
+                         f"devices on axis {axis!r}; pass pad_blocks_to "
+                         f"a multiple of the device count")
+    per = nb_padded // n_dev
+    return mesh.axis_index(axis) * per, per
+
+
+def arrow_blocks_streamed(matrix: CsrLike, width: int, mesh,
+                          axis: str = "blocks",
+                          n_blocks: Optional[int] = None,
+                          pad_blocks_to: Optional[int] = None,
+                          banded: bool = False,
+                          dtype=torch.float32,
+                          check: bool = True,
+                          fmt: str = "ell",
+                          head_fmt: str = "auto",
+                          binary="auto") -> ArrowBlocks:
+    """This rank's block rows of one level, packed as the JAX package's
+    ``arrow_blocks_streamed`` packs the whole level and shards it over
+    ``axis``: every array of the result equals the matching rows of the
+    JAX global arrays, byte for byte.  ``matrix`` is a CSR or a
+    (memmapped) ``(data, indices, indptr)`` triplet, and the rank reads
+    only its own blocks; its host memory is one stack of its shard.
+
+    Pass 1 loads the rank's blocks one stack at a time and keeps, of
+    each stack, its longest row (and of the head, its fullest block);
+    the ranks then agree the stacks' slot budgets (the longest row of
+    the whole stack, aligned) and the captured-nonzero sum through
+    ``parallel/collectives.py``, both counted.  The capture check then
+    raises on every rank alike.  Pass 2 packs the rank's rows at the
+    agreed budgets and moves each stack to ``mesh.device`` before the
+    next is packed.  ``n_blocks`` of the result is the rank's block-row
+    count (its first block row is :func:`shard_range`'s).  Collective:
+    every rank of ``axis`` calls it with the same arguments."""
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+    if fmt not in ("ell", "dense"):
+        raise ValueError(f"unknown block format {fmt!r}")
+    dev = torch.device(mesh.device)
+    dtype = resolve_block_dtype(dtype)
+    nb = n_blocks if n_blocks is not None else number_of_blocks(matrix,
+                                                                width)
+    nb_padded = max(pad_blocks_to or nb, nb)
+    b0, nb_l = shard_range(nb_padded, mesh, axis)
+    coords = {name: cs[b0:b0 + nb_l] for name, cs in
+              stack_coords(nb, nb_padded, banded).items()}
+    is_binary = resolve_blocks_binary(matrix, fmt, binary)
+    idt = block_index_dtype(width)
+
+    # Pass 1: the rank's needs, one stack's blocks at a time.
+    need: Dict[str, int] = {}
+    captured = head_nnz = 0
+    for name, cs in coords.items():
+        need[name] = 0
+        for b in load_stack_blocks(matrix, width, cs):
+            if b is None:
+                continue
+            captured += b.nnz
+            counts = np.diff(b.indptr)
+            if counts.size:
+                need[name] = max(need[name], int(counts.max()))
+            if name == "head":
+                head_nnz = max(head_nnz, int(b.nnz))
+    # The whole stack's budgets, agreed over the ranks.
+    for name in coords:
+        need[name] = coll.all_reduce_max(need[name], mesh, axis)
+    head_nnz = coll.all_reduce_max(head_nnz, mesh, axis)
+    captured = coll.all_reduce_int_sum(captured, mesh, axis)
+    slots = {name: align_up(v, SLOT_ALIGN) if v else 0
+             for name, v in need.items()}
+    # The flat-or-ELL head by the eager pack's own rule.
+    head_flat = fmt == "ell" and choose_flat_head_from_stats(
+        nb_padded, width, need["head"], head_nnz, dtype, head_fmt)
+    if check:
+        total = num_nonzeros(matrix)
+        if captured != total:
+            raise ValueError(
+                f"arrow tiling captured {captured} of {total} nonzeros: "
+                f"the matrix has entries outside the "
+                f"{'banded' if banded else 'block-diagonal'} arrow "
+                f"pattern at width {width} / {nb} blocks")
+
+    def put(a, values=False):
+        t = torch.from_numpy(a)
+        return (t.to(dtype) if values else t).to(dev)
+
+    # Pass 2: the rank's rows at the agreed budgets.
+    kw = {}
+    for name, cs in coords.items():
+        mats = load_stack_blocks(matrix, width, cs)
+        if name == "head" and head_flat:
+            budget = align_up(head_nnz, SLOT_ALIGN) if head_nnz else 0
+            rows, cols, data = flat_pack_stack(mats, rows=width,
+                                               index_dtype=idt,
+                                               budget=budget)
+            kw.update(head_rows=put(rows), head_cols=put(cols),
+                      head_data=None if is_binary
+                      else put(data, values=True))
+        elif fmt == "dense":
+            kw[f"{name}_data"] = dense_pack_stack(mats, dtype=dtype,
+                                                  rows=width, device=dev)
+        elif is_binary:
+            cols, deg = ell_pack_stack_binary(mats, rows=width,
+                                              index_dtype=idt,
+                                              slots=slots[name])
+            kw.update({f"{name}_cols": put(cols), f"{name}_deg": put(deg)})
+        else:
+            cols, data = ell_pack_stack(mats, rows=width, index_dtype=idt,
+                                        slots=slots[name])
+            kw.update({f"{name}_cols": put(cols),
+                       f"{name}_data": put(data, values=True)})
+        del mats
+    return ArrowBlocks(width=width, n_blocks=nb_l, banded=banded, fmt=fmt,
+                       head_flat=head_flat, **kw)
+
+
 # -- the plain product -------------------------------------------------------
 
 def column_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,

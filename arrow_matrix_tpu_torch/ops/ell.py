@@ -266,12 +266,14 @@ def ell_pack(m: sparse.spmatrix, max_nnz: Optional[int] = None,
 
 def ell_pack_stack(mats: List[Optional[sparse.spmatrix]], dtype=np.float32,
                    align: int = SLOT_ALIGN, rows: Optional[int] = None,
-                   index_dtype=np.int32) -> Tuple[np.ndarray, np.ndarray]:
+                   index_dtype=np.int32, slots: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Equal-shaped sparse blocks (None = empty) -> stacked ELL ``(cols,
     data)``, each ``(b, rows, m)`` with one slot count m (the longest
-    row of any block, aligned)."""
+    row of any block, aligned; ``slots`` when given: a budget agreed
+    over a whole stack of which ``mats`` is a part)."""
     rows = _stack_rows(mats, rows)
-    m_slots = _stack_slots(mats, align)
+    m_slots = _stack_slots(mats, align) if slots is None else int(slots)
     cols = np.zeros((len(mats), rows, m_slots), dtype=index_dtype)
     data = np.zeros((len(mats), rows, m_slots), dtype=dtype)
     for i, m in enumerate(mats):
@@ -285,13 +287,13 @@ def ell_pack_stack(mats: List[Optional[sparse.spmatrix]], dtype=np.float32,
 def ell_pack_stack_binary(mats: List[Optional[sparse.spmatrix]],
                           rows: Optional[int] = None,
                           align: int = SLOT_ALIGN,
-                          index_dtype=np.int32
+                          index_dtype=np.int32, slots: Optional[int] = None
                           ) -> Tuple[np.ndarray, np.ndarray]:
     """Binary twin of :func:`ell_pack_stack`: ``(cols (b, rows, m), deg
     (b, rows) int32)``, no value array (the caller has checked that
     every value is one)."""
     rows = _stack_rows(mats, rows)
-    m_slots = _stack_slots(mats, align)
+    m_slots = _stack_slots(mats, align) if slots is None else int(slots)
     cols = np.zeros((len(mats), rows, m_slots), dtype=index_dtype)
     deg = np.zeros((len(mats), rows), dtype=np.int32)
     for i, m in enumerate(mats):
@@ -331,15 +333,17 @@ def csr_flat_pack(m: sparse.spmatrix, pad_to: Optional[int] = None,
 
 def flat_pack_stack(mats: List[Optional[sparse.spmatrix]], dtype=np.float32,
                     align: int = SLOT_ALIGN, rows: Optional[int] = None,
-                    index_dtype=np.int32
+                    index_dtype=np.int32, budget: Optional[int] = None
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Equal-shaped sparse blocks -> stacked flat COO ``(rows, cols,
     data)``, each ``(b, B)`` with one nonzero budget B (the fullest
-    block's, aligned); padding entries point at the dummy row
-    ``rows``."""
+    block's, aligned, or ``budget`` when given); padding entries point
+    at the dummy row ``rows``."""
     n_rows = _stack_rows(mats, rows)
-    need = max((int(m.nnz) for m in mats if m is not None), default=0)
-    budget = align_up(need, align) if need else 0
+    if budget is None:
+        need = max((int(m.nnz) for m in mats if m is not None),
+                   default=0)
+        budget = align_up(need, align) if need else 0
     r = np.full((len(mats), budget), n_rows, dtype=index_dtype)
     c = np.zeros((len(mats), budget), dtype=index_dtype)
     d = np.zeros((len(mats), budget), dtype=dtype)

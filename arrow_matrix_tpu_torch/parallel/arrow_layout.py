@@ -44,13 +44,13 @@ the forward's shard packer.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from arrow_matrix_tpu_torch.io.graphio import (
-    load_block,
     num_nonzeros,
     num_rows,
     number_of_blocks,
@@ -59,6 +59,7 @@ from arrow_matrix_tpu_torch.ops.arrow_blocks import (
     ArrowBlocks,
     head_stats,
     choose_flat_head_from_stats,
+    load_stack_blocks,
     resolve_block_dtype,
     resolve_blocks_binary,
     stack_coords,
@@ -134,7 +135,11 @@ def build_shard_blocks(matrix, width: int, nb_padded: int, d: int,
                        device) -> ShardBlocks:
     """Rank ``d``'s share of one level on ``device``: its block rows
     ``[d nb/P, (d + 1) nb/P)`` and the head blocks of those block
-    columns, packed as ``ops/arrow_blocks.py`` packs them."""
+    columns, packed as ``ops/arrow_blocks.py`` packs them.  Only those
+    blocks are read (``ops/arrow_blocks.load_stack_blocks``, the streamed
+    pack's loader), from a CSR or a memmapped triplet alike; each
+    stack's ELL slots are the rank's own longest row (the K1 operators
+    need no global budget, unlike ``arrow_blocks_streamed``'s arrays)."""
     dev = torch.device(device)
     dtype = resolve_block_dtype(dtype)
     nb = number_of_blocks(matrix, width)
@@ -150,17 +155,11 @@ def build_shard_blocks(matrix, width: int, nb_padded: int, d: int,
                      first=first, ext=ext, skip=int(d == 0),
                      last=d == n_dev - 1, head_flat=head_flat)
 
-    def blk(ij):
-        if ij is None:
-            return None
-        i, j = ij
-        b = load_block(matrix, i * width, (i + 1) * width,
-                       j * width, (j + 1) * width, width, dtype=np.float32)
-        sb.captured += b.nnz
-        return b
-
-    mine = {name: [blk(ij) for ij in coords[name][b0:b0 + nb_l]]
+    mine = {name: load_stack_blocks(matrix, width,
+                                    coords[name][b0:b0 + nb_l])
             for name in ("head",) + COLUMN_STACKS if name in coords}
+    sb.captured = sum(b.nnz for mats in mine.values() for b in mats
+                      if b is not None)
     if fmt == "dense":
         sb.stacks["head"] = dense_pack_stack(mine["head"], dtype=dtype,
                                              rows=width, device=dev)
@@ -376,12 +375,14 @@ def check_mesh_options(mesh, fmt: str, routing: str, layout: str,
 
 
 def _single_device(name: str):
-    """A single-device member of ``MultiLevelArrow`` that has no mesh
-    form yet: it raises, naming the ROADMAP item."""
+    """A member of the single-device executor with no mesh form: it
+    raises, naming the single-device fold it belongs to."""
     def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"MultiLevelArrow(mesh=).{name} is not ported yet; see "
-            f"ROADMAP.md Queue A, 'multi-device executors'")
+        raise ValueError(
+            f"MultiLevelArrow(mesh=).{name} belongs to the single-device "
+            f"executor (the fold and its one-device packing); a mesh "
+            f"packs each rank's shards (pack_transposed) and steps them "
+            f"with collectives")
     refuse.__name__ = name
     return refuse
 
@@ -507,11 +508,20 @@ class MeshMultiLevelArrow(MultiLevelArrow):
                 "kernel='pallas' but no level resolved to the dense block "
                 "format (the pallas kernels cover dense only; raise "
                 "dense_budget or pass fmt='dense')")
-        d = mesh.axis_index(axis)
+        self.nnz = sum(num_nonzeros(lvl.matrix) for lvl in levels)
+        self.perm0 = pad_permutation(np.asarray(levels[0].permutation),
+                                     self.total_rows)
+        self.inv_perm0 = np.argsort(self.perm0)
         self.blocks = []
+        self._packing = []
+        if not mesh.member:
+            # A rank outside the mesh holds no shard: it keeps the
+            # carriage's layout (reshard_layout, perm0) and nothing else.
+            self.fwd, self.bwd, self._ideal_route_units = [], [], 0
+            return
+        d = mesh.axis_index(axis)
         # Each level's global packing (width, padded blocks, banded, fmt,
         # flat head, binary): what its load report counts.
-        self._packing = []
         captured = 0
         for lvl, w, bd, f in zip(levels, widths, bandeds, self.fmts):
             nb_pad = self.total_rows // w
@@ -529,19 +539,14 @@ class MeshMultiLevelArrow(MultiLevelArrow):
             captured += sb.captured
             self.blocks.append(sb)
         # The tiling must capture every nonzero: the ranks' counts add up.
-        got = coll.all_gather(torch.tensor([captured], dtype=torch.int64,
-                                           device=mesh.device), mesh, axis)
-        self.nnz = sum(num_nonzeros(lvl.matrix) for lvl in levels)
-        if int(got.sum()) != self.nnz:
+        got = coll.all_reduce_int_sum(captured, mesh, axis)
+        if got != self.nnz:
             raise ValueError(
-                f"arrow tiling captured {int(got.sum())} of {self.nnz} "
+                f"arrow tiling captured {got} of {self.nnz} "
                 f"nonzeros: a level has entries outside its arrow "
                 f"pattern")
         fwd, bwd = compose_routing([lvl.permutation for lvl in levels],
                                    self.total_rows)
-        self.perm0 = pad_permutation(np.asarray(levels[0].permutation),
-                                     self.total_rows)
-        self.inv_perm0 = np.argsort(self.perm0)
         padded = [pad_permutation(np.asarray(lvl.permutation),
                                   self.total_rows) for lvl in levels]
         self._ideal_route_units = commstats.ideal_routing_bytes(
@@ -560,13 +565,33 @@ class MeshMultiLevelArrow(MultiLevelArrow):
         self.fwd = [compile_route(t) for t in fwd]
         self.bwd = [compile_route(t) for t in bwd]
 
-    # The single-device members (the fold, the packed operator on disk)
-    # have no mesh form yet.
+    # The single-device fold's members have no mesh form;
+    # ``export_folded`` refuses as the JAX package's does (the level
+    # formats have no packed operator on disk).
     pack_level = _single_device("pack_level")
     launch_groups = _single_device("launch_groups")
     fold_product = _single_device("fold_product")
-    export_folded = _single_device("export_folded")
-    load_folded = staticmethod(_single_device("load_folded"))
+
+    @staticmethod
+    def load_folded(in_dir: str, **kwargs) -> MultiLevelArrow:
+        """The single-device fold of an ``export_folded`` directory (a
+        packed fold has no mesh form)."""
+        return MultiLevelArrow.load_folded(in_dir, **kwargs)
+
+    def reshard_layout(self, repl: int = 1,
+                       tag_base: str = "multi_level"):
+        """This executor's carriage as a :class:`~.reshard.Layout`: the
+        padded rows in level-0 order, sharded over the mesh's block
+        axis, with the JAX package's tag (``layout_tag``)."""
+        from arrow_matrix_tpu_torch.parallel.reshard import (
+            Layout,
+            layout_tag,
+        )
+
+        lay = Layout(total_rows=int(self.total_rows),
+                     n_dev=int(self.mesh.shape[self.axis]),
+                     repl=max(int(repl), 1))
+        return dataclasses.replace(lay, tag=layout_tag(tag_base, lay))
 
     def level_matrices(self) -> list:
         """Each level's global matrix, which every rank holds."""
@@ -718,8 +743,17 @@ class MeshMultiLevelArrow(MultiLevelArrow):
                             repl: int = 1) -> int:
         """This rank's blocks and route tables plus its carried input and
         output at width ``k``."""
+        if not self.mesh.member:
+            return 0
         base = self.operator_bytes() + 2 * self.rows_local * k * itemsize
         return base * max(int(repl), 1)
+
+    def carriage_hbm_bytes(self, k: int, itemsize: int = 4,
+                           repl: int = 1) -> int:
+        """What a width ``k`` adds to this rank's model: one request's
+        admission price on this rank."""
+        return (self.predicted_hbm_bytes(k, itemsize, repl)
+                - self.predicted_hbm_bytes(0, itemsize, repl))
 
     def shard_report(self) -> dict:
         """Load report over the block rows of every level (the JAX

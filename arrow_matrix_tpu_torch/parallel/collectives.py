@@ -260,14 +260,72 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh,
     return out if out is not t else t.clone()
 
 
-def all_reduce_max(value: int, mesh: Mesh, axis: str) -> int:
+def _line(mesh: Optional[Mesh], axis):
+    """(global ranks, group, host-side device) of ``mesh``'s ``axis``
+    line, or of the whole default group when ``mesh`` is None; the
+    device is the rank's card under NCCL, else the CPU (gloo moves host
+    tensors)."""
+    if mesh is None:
+        line = tuple(range(dist.get_world_size()))
+        group, backend = None, dist.get_backend()
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if backend == "nccl" else torch.device("cpu"))
+        return line, group, dev
+    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+    return mesh.line(axis), mesh.group(axis), dev
+
+
+def all_reduce_max(value: int, mesh: Optional[Mesh], axis=None) -> int:
     """The largest of every rank's integer ``value`` along ``axis`` (a
-    host-side agreement: the builds' halo reach)."""
-    line = mesh.line(axis)
+    host-side agreement: the builds' halo reach, the streamed pack's
+    slot budgets, a checkpoint write's outcome); ``mesh`` None: over the
+    whole default group."""
+    line, group, dev = _line(mesh, axis)
     if len(line) == 1:
         return int(value)
-    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
     t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     commstats.record("all-reduce", 8, len(line))
     return int(t.item())
+
+
+def all_reduce_int_sum(value: int, mesh: Optional[Mesh], axis=None) -> int:
+    """The sum of every rank's integer ``value`` along ``axis`` (exact:
+    integers; the streamed pack's captured-nonzero count)."""
+    line, group, dev = _line(mesh, axis)
+    if len(line) == 1:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    commstats.record("all-reduce", 8, len(line))
+    return int(t.item())
+
+
+def broadcast_object(obj, mesh: Optional[Mesh] = None, axis=None,
+                     root: int = 0):
+    """The JSON value ``obj`` of the rank at position ``root`` of the
+    line, on every rank of it (``mesh`` None: the whole default group):
+    its length, then its UTF-8 bytes, two counted broadcasts.  The other
+    ranks pass anything (None); what they pass is not read."""
+    import json
+
+    line, group, dev = _line(mesh, axis)
+    if len(line) == 1:
+        return obj
+    me = dist.get_rank()
+    payload = (json.dumps(obj).encode() if me == line[root] else b"")
+    n = torch.tensor([len(payload)], dtype=torch.int64, device=dev)
+    dist.broadcast(n, src=line[root], group=group)
+    buf = (torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(dev)
+           if me == line[root]
+           else torch.empty(int(n.item()), dtype=torch.uint8, device=dev))
+    if buf.numel():
+        dist.broadcast(buf, src=line[root], group=group)
+    commstats.record("broadcast", 8 + buf.numel(), len(line))
+    return json.loads(bytes(buf.cpu().numpy()).decode())
+
+
+def barrier(mesh: Optional[Mesh] = None, axis=None) -> None:
+    """Every rank of the line (``mesh`` None: the default group) waits
+    for the others: a counted one-integer all-reduce."""
+    all_reduce_max(0, mesh, axis)

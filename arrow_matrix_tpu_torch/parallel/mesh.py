@@ -131,20 +131,36 @@ class Mesh:
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  rank: int, device: torch.device, backend: str,
-                 groups: Dict[str, object], lines: Dict[str, Tuple[int, ...]]):
+                 groups: Dict[str, object], lines: Dict[str, Tuple[int, ...]],
+                 ranks: Optional[Sequence[int]] = None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         self.rank = int(rank)
         self.world = int(np.prod(shape))
-        self.coords = tuple(int(c) for c in np.unravel_index(
-            self.rank, tuple(shape)))
+        #: The global ranks of the mesh, in grid order; ``member`` says
+        #: whether this process is one of them.  A process outside the
+        #: mesh holds no shard: it has no coordinates and no groups.
+        self.ranks = tuple(int(r) for r in (ranks if ranks is not None
+                                            else range(self.world)))
+        self.member = self.rank in self.ranks
+        self.coords = (tuple(int(c) for c in np.unravel_index(
+            self.ranks.index(self.rank), tuple(shape)))
+            if self.member else None)
         self.device = device
         self.backend = backend
         self._groups = groups
         self._lines = lines
 
     def axis_index(self, axis: str) -> int:
+        self.require_member()
         return self.coords[self.axis_names.index(axis)]
+
+    def require_member(self) -> None:
+        """Raise unless this process is one of the mesh's ranks."""
+        if not self.member:
+            raise ValueError(
+                f"rank {self.rank} is not one of this mesh's ranks "
+                f"{self.ranks}: it holds no shard of the mesh")
 
     def group(self, axis: str):
         return self._groups[axis]
@@ -153,54 +169,73 @@ class Mesh:
         return self._lines[axis]
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape}, rank={self.rank}, "
-                f"device={self.device}, backend={self.backend!r})")
+        return (f"Mesh({self.shape}, rank={self.rank}"
+                + ("" if self.member else " (not a member)")
+                + f", device={self.device}, backend={self.backend!r})")
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None,
               axis_names: Sequence[str] = ("blocks",),
-              device=None, timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+              device=None, timeout_s: float = DEFAULT_TIMEOUT_S,
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
     """This rank's :class:`Mesh` over the default process group (which
-    must be initialized): ``shape`` defaults to ``(world,)``, a 1-D mesh
-    named ``blocks``.  Collective: every rank calls it with the same
-    arguments.  ``device`` is this rank's device (default: its card, or
-    the CPU under a gloo group started for the CPU)."""
+    must be initialized): ``shape`` defaults to ``(len(ranks),)``, a 1-D
+    mesh named ``blocks``.  ``ranks`` are the global ranks the grid
+    holds, in grid order (default: the whole world); a process outside
+    them gets a mesh with ``member`` False and no shard.  Collective:
+    every rank of the world calls it with the same arguments (each
+    line's group is created on every rank, in the same order).
+    ``device`` is this rank's device (default: its card, or the CPU
+    under a gloo group started for the CPU)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(init_distributed / initialize_multihost, or "
                            "a rank started by parallel/launch.py)")
     world = dist.get_world_size()
     rank = dist.get_rank()
+    ranks = tuple(range(world)) if ranks is None else tuple(
+        int(r) for r in ranks)
+    if len(set(ranks)) != len(ranks) or not all(
+            0 <= r < world for r in ranks):
+        raise ValueError(f"mesh ranks {ranks} must be distinct ranks of "
+                         f"the world of {world}")
     if shape is None:
-        shape = (world,)
+        shape = (len(ranks),)
     shape = tuple(int(s) for s in shape)
     if len(axis_names) != len(shape):
         raise ValueError(
             f"mesh shape {shape} has {len(shape)} dimension(s) "
             f"but axis_names {tuple(axis_names)} names "
             f"{len(axis_names)} — one name per mesh dimension required")
-    if int(np.prod(shape)) != world:
+    if int(np.prod(shape)) != len(ranks):
         raise ValueError(f"mesh shape {shape} needs {int(np.prod(shape))} "
-                         f"ranks, the process group has {world}")
+                         f"ranks, the mesh has {len(ranks)} (the process "
+                         f"group {world})")
     backend = dist.get_backend()
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if backend == "nccl" else _gloo_device())
     device = torch.device(device)
-    grid = np.arange(world).reshape(shape)
+    grid = np.asarray(ranks, dtype=np.int64).reshape(shape)
     groups, lines = {}, {}
     timeout = datetime.timedelta(seconds=timeout_s)
     for a, name in enumerate(axis_names):
         moved = np.moveaxis(grid, a, -1).reshape(-1, shape[a])
-        for ranks in moved:
-            ranks = tuple(int(r) for r in ranks)
+        for line in moved:
+            line = tuple(int(r) for r in line)
             # Collective: every rank creates every line's group, in order.
-            g = dist.new_group(list(ranks), timeout=timeout)
-            if rank in ranks:
-                groups[name], lines[name] = g, ranks
-    # The whole mesh (the default group): ``line(None)``.
-    groups[None], lines[None] = None, tuple(range(world))
-    return Mesh(shape, axis_names, rank, device, backend, groups, lines)
+            g = dist.new_group(list(line), timeout=timeout)
+            if rank in line:
+                groups[name], lines[name] = g, line
+    # The whole mesh: ``line(None)`` (the default group when the mesh
+    # is the world).
+    whole = None
+    if len(ranks) != world:
+        whole = dist.new_group(list(ranks), timeout=timeout)
+    if rank in ranks:
+        groups[None], lines[None] = whole, ranks
+    return Mesh(shape, axis_names, rank, device, backend, groups, lines,
+                ranks=ranks)
 
 
 _RANK_DEVICE = [None]

@@ -993,6 +993,24 @@ class MultiLevelArrow:
         return (self.predicted_hbm_bytes(k, itemsize, repl)
                 - self.predicted_hbm_bytes(0, itemsize, repl))
 
+    def reshard_layout(self, repl: int = 1,
+                       tag_base: str = "multi_level"):
+        """This executor's carriage as a :class:`~.reshard.Layout`: the
+        padded rows in level-0 order (``perm0``) on one device, with the
+        JAX package's tag.  ``repl`` is the replica-expanded view of a
+        planned 2.5D growth; the fold's column schedule carries one
+        copy, so the layout it runs is ``repl=1``."""
+        import dataclasses
+
+        from arrow_matrix_tpu_torch.parallel.reshard import (
+            Layout,
+            layout_tag,
+        )
+
+        lay = Layout(total_rows=int(self.total_rows), n_dev=1,
+                     repl=max(int(repl), 1))
+        return dataclasses.replace(lay, tag=layout_tag(tag_base, lay))
+
     def shard_report(self) -> dict:
         """Load report over the executor's compute units
         (``obs/imbalance.py`` schema): the SELL tiers of the fold

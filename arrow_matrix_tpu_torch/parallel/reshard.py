@@ -17,8 +17,9 @@ package's for the same layouts and budgets.
     verified): load, apply, save atomically under the destination tag;
   * :func:`plan_route_table` is the plan's global gather table and pad
     mask.  Its consumers in the JAX package (``routing.build_route``,
-    ``StagedRoute``) compile it for a mesh; in the port they wait for
-    the multi-device executors.
+    ``StagedRoute``) compile it for a mesh, for the reshard gate's
+    bounded-scratch half, which in the port waits for the collective
+    prover (ROADMAP.md Queue A, "Proof and tuning layers").
 
 ``FleetRouter.migrate`` (``fleet/router.py``) hands a tenant's
 checkpoints between workers through :func:`handoff_plan` and
@@ -439,8 +440,7 @@ def plan_route_table(plan: ReshardPlan
     """A plan's global gather view for on-device execution: the
     (stored_dst,) table ``out[j] = x[table[j]]`` plus the pad mask of
     zero-fill rows — the pair the JAX package's ``routing.build_route``
-    compiles for a mesh (rectangular src/dst supported).  The port's
-    mesh consumers wait for the multi-device executors."""
+    compiles for a mesh (rectangular src/dst supported)."""
     table = np.zeros(plan.dst.stored_rows, dtype=np.int64)
     mask = np.ones(plan.dst.stored_rows, dtype=bool)
     for c in plan.local_ops:

@@ -172,18 +172,16 @@ def ba_executor_factory(n: int, width: int, seed: int,
     rung: the rung's ExecConfig still wins on kernel/overlap/repl (the
     ladder must be able to step a tuned knob down), while the plan gives
     the structural knobs (tier split, carriage) and K1's knobs.
-    ``mesh`` is not ported yet and raises.
+    ``mesh`` (a ``parallel/mesh.py`` mesh of ranks) builds every rung as
+    ``MultiLevelArrow(levels, width, mesh=mesh, ...)`` on the mesh's
+    device: each rank of the job calls the factory, and packs its shard.
 
     With ``AMT_BA_CACHE_DIR`` set, the decomposition is the one saved
     there (``tools/gather_probe.cached_levels``: computed and saved on
     the first call, loaded after), so that the processes of a fleet load
     one decomposition instead of each computing it; its executors give
     the same bits as the computed decomposition's."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh is not ported yet; see ROADMAP.md Queue A, "
-            "'multi-device executors'")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     cache = os.environ.get("AMT_BA_CACHE_DIR")
     if cache:
         from arrow_matrix_tpu_torch.tools.gather_probe import cached_levels
@@ -221,7 +219,8 @@ def ba_executor_factory(n: int, width: int, seed: int,
         # executor.
         if getattr(cfg, "feature_dtype", None) is not None:
             kwargs["feature_dtype"] = cfg.feature_dtype
-        return MultiLevelArrow(levels, width, kernel=cfg.kernel,
+        return MultiLevelArrow(levels, width, mesh=mesh,
+                               kernel=cfg.kernel,
                                overlap_slabs=cfg.overlap_slabs,
                                repl=cfg.repl, kernel_opts=kernel_opts,
                                device=dev, **kwargs)

@@ -41,8 +41,21 @@ Tune plans: ``tune_plan=`` (a ``TunePlan``, its dict) becomes the base
 rung (its kernel, repl, overlap), its certificate joins the approx
 class's admission, and the server logs ``tune_plan_applied``.
 
-Not ported yet, raising with its ROADMAP.md Queue A item: ``grow``
-("multi-device executors").
+Growing: ``grow_config``/``grow_factory`` declare a grown layout (more
+ranks of a mesh); :meth:`ArrowServer.grow` cuts the base rung over to
+it and migrates every per-request checkpoint through a staged plan of
+``parallel/reshard.py`` (host numpy, each stage a ``reshard.stage``
+fault seam), idempotently on a rerun.
+
+On a mesh of ranks (an executor with a ``mesh``, under a process group
+of several ranks) the server runs in every rank of the job, and every
+step is collective, so the ranks must never disagree.  Rank 0 alone
+decides: it admits, batches, sheds, degrades and grows, and sends each
+decision to the other ranks through ``parallel/collectives.py``
+(counted); they carry it out.  Every rank submits the same requests and
+builds each rung's executor once, in the same order, in its serving
+thread.  A batch's supervisor shares its checkpoints and the outcome
+of every step over the executor's mesh.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from arrow_matrix_tpu_torch.classes import (
     TRAFFIC_CLASSES,
@@ -69,15 +83,31 @@ from arrow_matrix_tpu_torch.obs.memview import predicted_bytes_for
 from arrow_matrix_tpu_torch.serve import request as rq
 from arrow_matrix_tpu_torch.serve.admission import (
     HBMAccountant,
+    ServeCapacityError,
     request_price_bytes,
 )
 from arrow_matrix_tpu_torch.sync import guarded_by, witnessed
 from arrow_matrix_tpu_torch.utils.checkpoint import CheckpointIntegrityError
 
 
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md Queue A, '{item}'")
+#: Seconds rank 0 of an idle mesh server waits before it sends the
+#: other ranks a decision to do nothing (their receive stays far under
+#: the group's timeout).
+MESH_HEARTBEAT_S = 1.0
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return (dist.get_rank()
+            if dist.is_available() and dist.is_initialized() else 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +179,7 @@ class _Tenant:
            "_latencies_s", "_tenant_latencies_s",
            "_class_latencies_s", "batches", "batched_requests",
            "faults_seen", "recoveries", "checkpoint_corruptions",
+           "checkpoints_resharded", "_grown", "grows", "_outbox",
            "_stop"))
 class ArrowServer:
     """Long-lived multi-tenant server over one resident arrow operator.
@@ -204,10 +235,6 @@ class ArrowServer:
             if resolved is not None:
                 self.tune_plan = resolved
                 base_config = resolved.exec_config()
-        if grow_config is not None or grow_factory is not None:
-            raise _todo("grow_config / grow_factory (live resharding)",
-                        "multi-device executors")
-        del reshard_budget_bytes
         if base_config.feature_dtype is not None:
             # The BASE rung serves the exact class; a carriage dtype
             # on it is a class
@@ -279,7 +306,26 @@ class ArrowServer:
         self.faults_seen = 0
         self.recoveries = 0
         self.checkpoint_corruptions = 0
+        # The grow direction: a declared target (a config and/or a
+        # factory of the grown layout, e.g. more ranks) that
+        # note_slo_pressure can cut over to without a cold restart,
+        # migrating checkpoints through staged plans whose per-stage
+        # scratch is at most ``reshard_budget_bytes``.
+        self.grow_config = grow_config
+        self.grow_factory = grow_factory
+        self.reshard_budget_bytes = int(reshard_budget_bytes)
+        self._grown: Optional[Tuple[Any, ExecConfig]] = None
+        self.grows = 0
+        self.checkpoints_resharded = 0
         base = self._build_executor(base_config)
+        # On a mesh of ranks: rank 0 decides, the others follow (module
+        # docstring); tickets rank 0 finishes outside a batch wait in
+        # ``_outbox`` for its next decision.
+        self.mesh = getattr(base, "mesh", None)
+        self.lockstep = self.mesh is not None and _world() > 1
+        self.leader = not self.lockstep or _rank() == 0
+        self._outbox: List[list] = []
+        self._pending_grow: Optional[str] = None
         #: The device the executors run on (None for an executor that
         #: does not say); the pulse monitor's ledger record names it.
         self.device = getattr(base, "device", None)
@@ -314,7 +360,13 @@ class ArrowServer:
     # -- plumbing ----------------------------------------------------------
 
     def _log(self, msg: str) -> None:
-        if self.verbose:
+        if self.verbose and self.leader:
+            print(f"[graft-serve {self.name}] {msg}", flush=True)
+
+    def _say(self, msg: str) -> None:
+        """A line printed whatever the verbosity (the gates grep it),
+        once a job: by rank 0 on a mesh."""
+        if self.leader:
             print(f"[graft-serve {self.name}] {msg}", flush=True)
 
     def _event(self, event: str, **data) -> None:
@@ -442,6 +494,8 @@ class ArrowServer:
     def _submit(self, request: rq.Request) -> rq.Ticket:
         ticket = rq.Ticket(request)
         ticket.submitted_s = time.monotonic()
+        if not self.leader:
+            return self._submit_follower(ticket)
         # Keep the submit-time correlation context (trace_id and
         # friends) on the ticket: _process_batch runs on the worker
         # thread, where the submitting thread's contextvars are out of
@@ -450,8 +504,8 @@ class ArrowServer:
         ticket.trace = dict(ctx) if ctx else None
         self._count("submitted", request.tenant)
         if request.traffic_class not in TRAFFIC_CLASSES:
-            ticket._finish(
-                rq.REJECTED, reason="unknown_class",
+            self._end(
+                ticket, rq.REJECTED, reason="unknown_class",
                 error=f"unknown traffic class "
                       f"{request.traffic_class!r} (expected one of "
                       f"{TRAFFIC_CLASSES})")
@@ -485,7 +539,7 @@ class ArrowServer:
         ticket.predicted_bytes = price
         with self._cond:
             if self._stop:
-                ticket._finish(rq.SHED, reason="server_stopped")
+                self._end(ticket, rq.SHED, reason="server_stopped")
                 self._count("shed", request.tenant,
                             reason="server_stopped")
                 self._event("shed", request=request.request_id,
@@ -493,8 +547,8 @@ class ArrowServer:
                             reason="server_stopped")
                 return ticket
             if not self.accountant.reserve(price):
-                ticket._finish(
-                    rq.REJECTED, reason="hbm_budget",
+                self._end(
+                    ticket, rq.REJECTED, reason="hbm_budget",
                     error=f"predicted {price} B exceeds remaining HBM "
                           f"headroom "
                           f"{self.accountant.headroom_bytes()} B")
@@ -512,8 +566,8 @@ class ArrowServer:
                 return ticket
             if len(self._queue) >= self.queue_capacity:
                 self.accountant.release(price)
-                ticket._finish(
-                    rq.SHED, reason="queue_full",
+                self._end(
+                    ticket, rq.SHED, reason="queue_full",
                     error=f"queue at capacity {self.queue_capacity}")
                 self._count("shed", request.tenant,
                             reason="queue_full")
@@ -534,6 +588,82 @@ class ArrowServer:
             self._cond.notify_all()
         return ticket
 
+    def _end(self, ticket: rq.Ticket, status: str,
+             reason: Optional[str] = None,
+             error: Optional[str] = None) -> None:
+        """Finish a ticket outside a completed batch; on a mesh rank 0
+        relays it, and the other ranks finish their copy alike."""
+        ticket._finish(status, reason=reason, error=error)
+        if self.lockstep and self.leader:
+            with self._lock:
+                self._outbox.append([ticket.request.request_id, status,
+                                     reason, error])
+
+    # -- the ranks of a mesh -------------------------------------------------
+
+    def _submit_follower(self, ticket: rq.Ticket) -> rq.Ticket:
+        """A rank other than 0 queues the request as rank 0's copy will
+        be admitted or refused: rank 0's decisions finish it."""
+        ticket.predicted_bytes = 0
+        ticket.status = rq.ADMITTED
+        with self._cond:
+            self._queue.append(ticket)
+            self._cond.notify_all()
+        return ticket
+
+    def _take_by_id(self, request_id: str,
+                    timeout_s: float = 300.0) -> rq.Ticket:
+        """The queued ticket of ``request_id`` (a follower waits for its
+        own submission of it)."""
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            while True:
+                for t in self._queue:
+                    if t.request.request_id == request_id:
+                        self._queue.remove(t)
+                        return t
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise RuntimeError(
+                        f"rank 0 decided on request {request_id}, which "
+                        f"this rank has not been given: every rank of a "
+                        f"mesh server submits the same requests")
+                self._cond.wait(min(left, 0.05))
+
+    def _decide(self, op: str, batch=(), cfg=None) -> dict:
+        """Rank 0's decision, sent to every rank (and returned)."""
+        from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+        with self._lock:
+            finished, self._outbox = self._outbox, []
+            grow, self._pending_grow = self._pending_grow, None
+        msg = {"op": op, "finish": finished, "grow": grow,
+               "run": [t.request.request_id for t in batch],
+               "cfg": None if cfg is None else dataclasses.asdict(cfg)}
+        return coll.broadcast_object(msg)
+
+    def _follow(self) -> str:
+        """A follower's turn: receive rank 0's decision and carry it
+        out; returns its op ("batch", "idle" or "end")."""
+        from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+        msg = coll.broadcast_object(None)
+        self._apply(msg)
+        if msg["op"] == "batch":
+            batch = [self._take_by_id(rid) for rid in msg["run"]]
+            self._process_batch(batch, ExecConfig(**msg["cfg"]))
+        return msg["op"]
+
+    def _apply(self, msg: dict) -> None:
+        """The parts of a decision every rank carries out before its
+        batch: the tickets rank 0 finished, and a grow."""
+        if not self.leader:
+            for rid, status, reason, error in msg["finish"]:
+                self._take_by_id(rid)._finish(status, reason=reason,
+                                              error=error)
+        if msg["grow"] is not None:
+            self._grow(msg["grow"])
+
     # -- scheduling --------------------------------------------------------
 
     def _shed_expired(self, ticket: rq.Ticket) -> bool:
@@ -543,8 +673,8 @@ class ArrowServer:
         if time.monotonic() - ticket.submitted_s <= dl:
             return False
         self.accountant.release(ticket.predicted_bytes)
-        ticket._finish(rq.SHED, reason="deadline",
-                       error=f"queued past the {dl:.3f}s deadline")
+        self._end(ticket, rq.SHED, reason="deadline",
+                  error=f"queued past the {dl:.3f}s deadline")
         self._count("shed", ticket.request.tenant, reason="deadline")
         self._event("shed", request=ticket.request.request_id,
                     tenant=ticket.request.tenant, reason="deadline")
@@ -590,8 +720,17 @@ class ArrowServer:
                 self._queue = collections.deque(keep)
             return batch, cfg
 
-    def _pump_once(self) -> bool:
+    def _pump_once(self, last_op: str = "end") -> bool:
+        """One batch, or nothing when the queue is empty.  On a mesh:
+        rank 0 decides and sends its decision (``last_op`` when there is
+        no batch); another rank follows one decision and returns whether
+        it was a batch."""
+        if not self.leader:
+            return self._follow() == "batch"
         batch, cfg = self._take_batch()
+        if self.lockstep:
+            self._apply(self._decide("batch" if batch else last_op,
+                                     batch, cfg))
         if not batch:
             return False
         self._process_batch(batch, cfg)
@@ -599,12 +738,17 @@ class ArrowServer:
 
     def drain(self) -> None:
         """Synchronously process the queue to empty in the caller's
-        thread (the deterministic test/gate mode)."""
+        thread (the deterministic test/gate mode).  On a mesh every rank
+        calls it: rank 0's queue decides when it ends."""
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError(
                 "drain() is the synchronous mode; a worker thread is "
                 "already running — use shutdown(wait=True)")
-        while self._pump_once():
+        if self.leader:
+            while self._pump_once():
+                pass
+            return
+        while self._follow() != "end":
             pass
 
     def start(self) -> None:
@@ -619,14 +763,29 @@ class ArrowServer:
             self._thread.start()
 
     def _serve_loop(self) -> None:
+        if not self.leader:
+            while self._follow() != "end":
+                pass
+            return
         while True:
+            idle_since = time.monotonic()
             with self._cond:
                 while not self._queue and not self._stop:
                     self._cond.wait(0.05)
-                if self._stop and not self._queue:
-                    return
+                    if (self.lockstep and time.monotonic() - idle_since
+                            > MESH_HEARTBEAT_S):
+                        break
+                stop = self._stop and not self._queue
+            if self.lockstep and (stop or not self._queue):
+                # Idle: a heartbeat keeps the other ranks' receive under
+                # their group's timeout; the last decision ends them.
+                self._decide("end" if stop else "idle")
+            if stop:
+                return
+            if not self._queue:
+                continue
             try:
-                self._pump_once()
+                self._pump_once(last_op="idle")
             except Exception as e:  # noqa: BLE001 — the serving loop
                 # must survive anything a batch throws; the batch's
                 # tickets were already failed explicitly.
@@ -651,6 +810,13 @@ class ArrowServer:
         """Build (or fetch) the executor for a rung, walking further
         down the ladder when a rung's build itself fails; returns
         ``(executor, actual_cfg)`` or ``(None, cfg)``."""
+        with self._lock:
+            grown = self._grown
+        if grown is not None and cfg in (self.base_config, grown[1]):
+            # After a grow, base-rung traffic runs the grown layout (its
+            # checkpoints were migrated); degraded rungs and
+            # class-stamped configs keep their own executors.
+            return grown
         if cfg in self.ladder:
             rungs = list(self.ladder[self.ladder.index(cfg):])
         else:
@@ -742,6 +908,14 @@ class ArrowServer:
         if executor is None:
             self._fail_batch(batch, "no executor rung could be built")
             return
+        mesh = getattr(executor, "mesh", None)
+        if mesh is not None and not mesh.member:
+            # A rank outside the rung's mesh holds no shard: the mesh's
+            # ranks serve the batch, and this rank keeps no result.
+            for t in batch:
+                t.exec_config = cfg
+                t._finish(rq.COMPLETED, reason="no_shard_on_this_rank")
+            return
         x_cat = np.concatenate([t.request.x for t in batch], axis=1)
         ck = self._ck_path(key)
         layout = f"serve/{key}/k{k_total}/it{iters}"
@@ -750,7 +924,9 @@ class ArrowServer:
                          checkpoint_every=(self.checkpoint_every
                                            if ck else 0),
                          layout=layout, registry=self.registry,
-                         tracer=self.tracer, verbose=False)
+                         tracer=self.tracer, verbose=False,
+                         mesh=getattr(executor, "mesh", None),
+                         mesh_axis=getattr(executor, "axis", "blocks"))
         with self._span("set_features", k_total=k_total):
             x0 = executor.set_features(x_cat)
         start = 0
@@ -773,8 +949,7 @@ class ArrowServer:
                 self._event("resumed_request", request=key, step=start)
                 # The chaos kill scenario greps this line in the CLI's
                 # stdout; print it regardless of verbosity.
-                print(f"[graft-serve {self.name}] resumed request "
-                      f"{key} at iteration {start}", flush=True)
+                self._say(f"resumed request {key} at iteration {start}")
         y, ok, err = None, False, None
         body = lambda x, it: executor.step(x)   # noqa: E731
         try:
@@ -869,6 +1044,14 @@ class ArrowServer:
         explicitly."""
         detail = (f"{type(err).__name__}: {err}" if err is not None
                   else "supervised run exhausted its retries")
+        if not self.leader:
+            # Rank 0 decides whether the batch degrades or fails; its
+            # next decisions run or finish these tickets.
+            with self._cond:
+                for t in reversed(batch):
+                    t.status = rq.ADMITTED
+                    self._queue.appendleft(t)
+            return
         degraded = False
         with self._lock:
             for tenant in {t.request.tenant for t in batch}:
@@ -892,7 +1075,7 @@ class ArrowServer:
     def _fail_batch(self, batch: List[rq.Ticket], detail: str) -> None:
         for t in batch:
             self.accountant.release(t.predicted_bytes)
-            t._finish(rq.FAILED, reason="exhausted", error=detail)
+            self._end(t, rq.FAILED, reason="exhausted", error=detail)
             self._count("failed", t.request.tenant)
             self._event("failed", request=t.request.request_id,
                         tenant=t.request.tenant, error=detail)
@@ -973,9 +1156,21 @@ class ArrowServer:
         """Feed measured SLO pressure into the degradation ladder: each
         named tenant (default: every known tenant) takes ``score``
         fault-score points (default: enough to force one rung at once).
-        Returns the tenants that degraded.  ``direction="grow"`` (cut
-        over to a grown layout) is not ported yet and raises."""
+        Returns the tenants that degraded.
+
+        ``direction="grow"`` spends pressure the other way: the base
+        rung cuts over to the declared grow target (:meth:`grow`);
+        returns ``["*"]`` when it did.  On a mesh the grow is a
+        collective of every rank: rank 0 sends it with its next
+        decision (returning ``["*"]`` once queued), and the other ranks
+        ignore pressure of their own."""
         if direction == "grow":
+            if self.lockstep:
+                if not self.leader or self._grown is not None:
+                    return []
+                with self._lock:
+                    self._pending_grow = reason
+                return ["*"]
             return ["*"] if self.grow(reason=reason) else []
         if direction != "drop":
             raise ValueError(f"unknown pressure direction "
@@ -990,10 +1185,214 @@ class ArrowServer:
                     degraded.append(tenant)
         return degraded
 
+    # -- live elasticity: the grow direction -------------------------------
+
     def grow(self, reason: str = "slo_pressure") -> bool:
-        """Cut the base rung over to a grown (more devices) layout:
-        not ported yet."""
-        raise _todo("grow (live resharding)", "multi-device executors")
+        """Cut the base rung over to the grown layout without a cold
+        restart: build the grow target, swap the resident HBM charge,
+        migrate every per-request checkpoint onto its carriage through a
+        staged plan (per-stage scratch <= ``reshard_budget_bytes``;
+        ``parallel/reshard.py``), then route base-rung traffic to the
+        grown executor.  Idempotent: a second call (a rerun resuming
+        after a kill mid-migration) migrates only the checkpoints still
+        on the old layout.  Returns whether the server serves the grown
+        layout afterwards.
+
+        On a mesh it is collective: every rank calls it at the same
+        point, with no worker thread running (``note_slo_pressure``
+        routes a grow through rank 0's decisions instead)."""
+        if self._thread is not None and self._thread.is_alive() \
+                and self.lockstep:
+            raise RuntimeError(
+                "grow() on a mesh is a collective of every rank; with "
+                "the worker thread running, use note_slo_pressure(..., "
+                "direction='grow')")
+        return self._grow(reason)
+
+    def _grow(self, reason: str) -> bool:
+        if self._grown is not None:
+            return True
+        if self.grow_config is None and self.grow_factory is None:
+            self._event("grow_unavailable", reason=reason)
+            self._log(f"grow requested ({reason}) but no grow target "
+                      f"is declared")
+            return False
+        cfg = self.grow_config or self.base_config
+        factory = self.grow_factory or self._factory
+        new_exec, err = None, None
+        try:
+            new_exec = factory(cfg)
+        except Exception as e:  # noqa: BLE001 — a grow target that
+            # cannot build must not take the serving rung down with it.
+            err = f"{type(e).__name__}: {e}"
+        err = self._agreed_error(err, "the grow target failed to build")
+        if err is not None:
+            self._event("grow_failed", reason=reason, error=err)
+            self._log(f"grow target failed to build ({err}); staying put")
+            return False
+        old_exec = self._build_executor(self.base_config)
+        old_res = predicted_bytes_for(
+            old_exec, 0, itemsize=self.itemsize,
+            repl=self.base_config.repl) or 0
+        new_res = predicted_bytes_for(
+            new_exec, 0, itemsize=self.itemsize, repl=cfg.repl) or 0
+        err = None
+        try:
+            self.accountant.swap_resident(old_res, new_res)
+        except ServeCapacityError as e:
+            err = str(e)
+        if self._agreed_error(err, "the grow was refused on another "
+                                   "rank") is not None:
+            if err is None:       # refused elsewhere: undo the swap here
+                self.accountant.swap_resident(new_res, old_res)
+            self._event("grow_failed", reason=reason, error=err)
+            self._log(f"grow refused: {err}")
+            return False
+        try:
+            migrated, stages = self._migrate_on_ranks(old_exec, new_exec)
+        except Exception:
+            # Leave the ledger honest before surfacing the failure.
+            self.accountant.swap_resident(new_res, old_res)
+            raise
+        with self._lock:
+            self._grown = (new_exec, cfg)
+            self.grows += 1
+        self._event("grown", reason=reason,
+                    config=dataclasses.asdict(cfg),
+                    resident_bytes={"old": old_res, "new": new_res},
+                    checkpoints_migrated=migrated, plan_stages=stages)
+        # The reshard gate greps this line; printed whatever the
+        # verbosity (like the resumed-request line).
+        self._say(f"grew to {cfg} ({reason}): {migrated} checkpoint(s) "
+                  f"migrated through {stages} staged plan step(s)")
+        return True
+
+    def _agreed_error(self, err: Optional[str], elsewhere: str
+                      ) -> Optional[str]:
+        """On a mesh, an error of any rank is every rank's (this rank's
+        own text where it has one); off a mesh, ``err``."""
+        if not self.lockstep:
+            return err
+        from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+        if coll.all_reduce_max(int(err is not None), None):
+            return err or elsewhere
+        return None
+
+    def _migrate_on_ranks(self, old_exec, new_exec) -> Tuple[int, int]:
+        """:meth:`_migrate_checkpoints` by rank 0 alone on a mesh (the
+        files are shared); its outcome is sent to every rank, so a
+        failed migration raises on all of them."""
+        if not self.lockstep:
+            return self._migrate_checkpoints(old_exec, new_exec)
+        from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+        out = None
+        if self.leader:
+            try:
+                out = {"done": list(self._migrate_checkpoints(old_exec,
+                                                              new_exec))}
+            except Exception as e:  # noqa: BLE001 — shared, then raised
+                coll.broadcast_object(
+                    {"error": f"{type(e).__name__}: {e}"})
+                raise
+        out = coll.broadcast_object(out)
+        if "error" in out:
+            raise RuntimeError(f"checkpoint migration failed on rank 0: "
+                               f"{out['error']}")
+        return tuple(out["done"])
+
+    def _migrate_checkpoints(self, old_exec, new_exec) -> Tuple[int, int]:
+        """Replay every per-request checkpoint still on the old layout
+        through a staged plan onto the grown layout, in place (atomic
+        save: a SIGKILL mid-migration leaves each checkpoint on the old
+        or the new layout, never torn; the rerun's grow finishes the
+        stragglers).  Returns (migrated, total stages)."""
+        import os
+
+        if not self.checkpoint_dir \
+                or not os.path.isdir(self.checkpoint_dir):
+            return 0, 0
+        src_fn = getattr(old_exec, "reshard_layout", None)
+        dst_fn = getattr(new_exec, "reshard_layout", None)
+        if src_fn is None or dst_fn is None:
+            self._event("grow_migration_skipped",
+                        error="executor pair exposes no reshard_layout")
+            return 0, 0
+        from arrow_matrix_tpu_torch.parallel.reshard import (
+            apply_plan_host,
+            redistribution_plan,
+        )
+        from arrow_matrix_tpu_torch.utils.checkpoint import (
+            checkpoint_layout_tag,
+            list_checkpoints,
+            load_state,
+            save_state,
+        )
+
+        src_lay, dst_lay = src_fn(), dst_fn()
+        ps = np.asarray(old_exec.perm0)
+        pd = np.asarray(new_exec.perm0)
+        if (src_lay.stored_rows == dst_lay.stored_rows
+                and np.array_equal(ps, pd)):
+            return 0, 0   # the same carriage: nothing to migrate
+        if src_lay.stored_rows == dst_lay.stored_rows:
+            # An equal-size relayout cannot be told from an already
+            # migrated file by its shape: refusing beats permuting a
+            # checkpoint twice on a rerun.
+            raise ValueError(
+                "grow between equal-size layouts with different row "
+                "orders is not idempotently resumable; grow must "
+                "change total_rows/n_dev/repl")
+        inv_s = np.asarray(old_exec.inv_perm0)
+        n = int(new_exec.n)
+        perm_map = np.where(pd < n, inv_s[np.minimum(pd, len(inv_s) - 1)],
+                            np.int64(-1))
+        migrated = stages = 0
+        for stem in list_checkpoints(self.checkpoint_dir):
+            key = os.path.basename(stem)[len("ck_"):]
+            tag = checkpoint_layout_tag(stem)
+            try:
+                got = load_state(stem, layout=tag)
+            except Exception as e:  # noqa: BLE001 — an unreadable
+                # file: the resume path discards it loudly.
+                self._event("grow_migration_skipped", request=key,
+                            error=f"{type(e).__name__}: {e}")
+                continue
+            if got is None:
+                continue
+            x, step = got
+            if x.dim() != 2:
+                self._event("grow_migration_skipped", request=key,
+                            error=f"unmigratable carriage shape "
+                                  f"{tuple(x.shape)}")
+                continue
+            if x.shape[0] == dst_lay.stored_rows:
+                continue   # already on the grown layout (a rerun)
+            if x.shape[0] != src_lay.stored_rows:
+                self._event("grow_migration_skipped", request=key,
+                            error=f"carriage shape {tuple(x.shape)} "
+                                  f"matches neither layout")
+                continue
+            bf16 = x.dtype == torch.bfloat16
+            host = (x.view(torch.int16) if bf16 else x).numpy()
+            plan = redistribution_plan(src_lay, dst_lay,
+                                       self.reshard_budget_bytes,
+                                       k=int(x.shape[1]),
+                                       perm_map=perm_map)
+            y = torch.from_numpy(apply_plan_host(plan, host))
+            save_state(stem, y.view(torch.bfloat16) if bf16 else y, step,
+                       layout=tag)
+            migrated += 1
+            stages += plan.n_stages
+            with self._lock:
+                self.checkpoints_resharded += 1
+            self._event("checkpoint_resharded", request=key, step=step,
+                        stages=plan.n_stages,
+                        max_stage_scratch_bytes=
+                        plan.max_stage_scratch_bytes,
+                        budget_bytes=plan.scratch_budget_bytes)
+        return migrated, stages
 
     # -- reporting ---------------------------------------------------------
 

@@ -16,9 +16,20 @@ The JAX writer uses orbax when it is installed; an orbax directory
 raises here with a message naming the format.  A bfloat16 carriage is
 stored as the reference stores it, its 16-bit patterns as 2-byte void
 (``|V2``); the older port form (int16 patterns and an ``x_dtype`` key)
-still loads.  One process
-only: under a ``torch.distributed`` group of several processes the
-functions raise (the multi-device executors are not ported).
+still loads.
+
+On a mesh of ranks (``mesh=``, one process a shard) the carriage is
+sharded by rows over the mesh's block axis.  Saving all-gathers it
+over that axis (the collective of ``parallel/mesh.fetch_replicated``,
+kept on the device so a bf16 carriage keeps its bits); the mesh's first
+rank writes the
+npz and its sidecar, and the write's outcome is shared with every rank
+through a counted collective, so a failed writer fails every rank and
+no rank is left waiting.  Loading reads the file on every rank (a
+shared filesystem is assumed, as in the JAX package) and keeps the
+rank's own rows; the ranks agree that each found the same file.  The
+callers' layout tags name the rank count, so a resume on another mesh
+fails loudly.
 """
 
 from __future__ import annotations
@@ -207,17 +218,6 @@ def _check_meta(path: str, meta: Optional[dict],
             f"delete the checkpoint")
 
 
-def _single_process(what: str) -> None:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what} across {dist.get_world_size()} processes is not "
-            f"ported yet; see ROADMAP.md Queue A, 'multi-device "
-            f"executors'")
-
-
 def _orbax_dir(path: str) -> None:
     if os.path.isdir(path):
         raise RuntimeError(
@@ -231,25 +231,10 @@ def _orbax_dir(path: str) -> None:
 _BF16_VOID = np.dtype("V2")
 
 
-def save_state(path: str, x: torch.Tensor, step: int,
-               layout: Optional[str] = None) -> None:
-    """Write ``{x, step}`` to ``path + ".npz"`` atomically, then its
-    sha256 sidecar.  ``layout`` tags how X is carried (e.g.
-    ``"serve/r0001/k16/it10"``); :func:`load_state` verifies it."""
-    if isinstance(x, tuple):
-        raise ValueError("the int8 (q, scale) carriage has no checkpoint "
-                         "form; checkpoint an f32 or bf16 carriage")
-    _single_process("a checkpoint")
-    path = os.path.abspath(path)
-    _orbax_dir(path)
+def _write_npz(path: str, arr: np.ndarray, step: int,
+               layout: Optional[str]) -> None:
+    """The npz, atomically, then its sha256 sidecar."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    t = x.detach()
-    if t.dtype == torch.bfloat16:
-        # The reference's on-disk form of a bf16 array: its 16-bit
-        # patterns as 2-byte void, which no loader casts to numbers.
-        arr = t.view(torch.int16).cpu().numpy().view(_BF16_VOID)
-    else:
-        arr = t.cpu().numpy()
     tmp = path + ".tmp.npz"
     np.savez(tmp, x=arr, step=np.int64(step),
              version=np.int64(CHECKPOINT_VERSION),
@@ -261,21 +246,56 @@ def save_state(path: str, x: torch.Tensor, step: int,
     _write_sha(path + ".npz")
 
 
-def load_state(path: str, like: Optional[torch.Tensor] = None,
-               layout: Optional[str] = None):
-    """Read ``(x, step)`` from ``path``; None when there is none.
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        # The reference's on-disk form of a bf16 array: its 16-bit
+        # patterns as 2-byte void, which no loader casts to numbers.
+        return t.view(torch.int16).cpu().numpy().view(_BF16_VOID)
+    return t.cpu().numpy()
 
-    ``like`` (the resuming executor's fresh carriage) gives the expected
-    shape, dtype and device: a different shape raises (an executor built
-    differently, or a fold checkpoint of the other package, must not
-    reinterpret rows).  ``layout`` is verified against the saved tag;
-    untagged checkpoints skip the check.  Without ``like`` the state
-    comes back as a CPU tensor."""
-    _single_process("a checkpoint")
+
+def save_state(path: str, x: torch.Tensor, step: int,
+               layout: Optional[str] = None, mesh=None,
+               axis: str = "blocks") -> None:
+    """Write ``{x, step}`` to ``path + ".npz"`` atomically, then its
+    sha256 sidecar.  ``layout`` tags how X is carried (e.g.
+    ``"serve/r0001/k16/it10"``); :func:`load_state` verifies it.
+
+    ``mesh``: ``x`` is this rank's rows of a carriage sharded over
+    ``axis`` (module docstring); every rank of the mesh calls it."""
+    if isinstance(x, tuple):
+        raise ValueError("the int8 (q, scale) carriage has no checkpoint "
+                         "form; checkpoint an f32 or bf16 carriage")
     path = os.path.abspath(path)
     _orbax_dir(path)
-    if not os.path.exists(path + ".npz"):
-        return None
+    if mesh is None:
+        _write_npz(path, _host_array(x), step, layout)
+        return
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+    mesh.require_member()
+    full = coll.all_gather(x.detach().contiguous(), mesh, axis)
+    write_err: Optional[BaseException] = None
+    if mesh.rank == mesh.ranks[0]:                 # one writer
+        try:
+            _write_npz(path, _host_array(full), step, layout)
+        except Exception as e:   # noqa: BLE001 — any failure of the
+            # writer must still reach the agreement below, or every
+            # other rank waits in a collective the writer never joins.
+            write_err = e
+    # The outcome, shared: it doubles as the barrier after which any
+    # rank may read the file.
+    if coll.all_reduce_max(int(write_err is not None), mesh, None):
+        raise RuntimeError(
+            f"checkpoint write of {path} (step {step}) failed on rank "
+            f"{mesh.ranks[0]}, the mesh's writer"
+            + (f": {type(write_err).__name__}: {write_err}"
+               if write_err is not None else "")) from write_err
+
+
+def _read_npz(path: str, layout: Optional[str]):
+    """``(array, step, bf16)`` of the npz at ``path``, verified."""
     _verify_sha(path + ".npz")
     with np.load(path + ".npz") as z:
         meta = None
@@ -290,6 +310,35 @@ def load_state(path: str, like: Optional[torch.Tensor] = None,
     bf16 = legacy or arr.dtype == _BF16_VOID
     if arr.dtype == _BF16_VOID:
         arr = arr.view(np.int16)
+    return arr, step, bf16
+
+
+def load_state(path: str, like: Optional[torch.Tensor] = None,
+               layout: Optional[str] = None, mesh=None,
+               axis: str = "blocks"):
+    """Read ``(x, step)`` from ``path``; None when there is none.
+
+    ``like`` (the resuming executor's fresh carriage) gives the expected
+    shape, dtype and device: a different shape raises (an executor built
+    differently, or a fold checkpoint of the other package, must not
+    reinterpret rows).  ``layout`` is verified against the saved tag;
+    untagged checkpoints skip the check.  Without ``like`` the state
+    comes back as a CPU tensor.
+
+    ``mesh``: every rank of the mesh reads the file and keeps its own
+    rows over ``axis`` (``like`` is its rows); a rank that finds no file
+    or fails while the others read one raises on every rank."""
+    path = os.path.abspath(path)
+    _orbax_dir(path)
+    if mesh is not None:
+        return _load_on_mesh(path, like, layout, mesh, axis)
+    if not os.path.exists(path + ".npz"):
+        return None
+    arr, step, bf16 = _read_npz(path, layout)
+    return _as_state(path, arr, step, bf16, like, layout)
+
+
+def _as_state(path, arr, step, bf16, like, layout):
     x = torch.from_numpy(arr)
     if bf16:
         x = x.view(torch.bfloat16)
@@ -311,3 +360,47 @@ def load_state(path: str, like: Optional[torch.Tensor] = None,
 
     flight.record("heal", "resumed", path=path, step=step, layout=layout)
     return x, step
+
+
+def _load_on_mesh(path, like, layout, mesh, axis):
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+
+    mesh.require_member()
+    n_dev = mesh.shape[axis]
+    got, err = None, None
+    try:
+        if os.path.exists(path + ".npz"):
+            arr, step, bf16 = _read_npz(path, layout)
+            rows = (like.shape[0] if like is not None
+                    else arr.shape[0] // n_dev)
+            if like is not None and (arr.shape[0] != rows * n_dev
+                                     or arr.shape[1:] != like.shape[1:]):
+                raise ValueError(
+                    f"checkpoint X has shape {arr.shape}, the executor "
+                    f"carries {rows * n_dev} rows of {tuple(like.shape[1:])}"
+                    f" over {n_dev} ranks ({tuple(like.shape)} a rank) — "
+                    f"a carriage of another mesh or mode; resume with the "
+                    f"rank count and format it was written with")
+            i = mesh.axis_index(axis)
+            got = (np.ascontiguousarray(arr[i * rows:(i + 1) * rows]),
+                   step, bf16)
+    except Exception as e:   # noqa: BLE001 — shared below, then raised
+        err = e
+    # 0: found, 1: none, 2: failed; the ranks must agree.
+    mine = 2 if err is not None else 0 if got is not None else 1
+    worst = coll.all_reduce_max(mine, mesh, None)
+    least = -coll.all_reduce_max(-mine, mesh, None)
+    if err is not None:
+        raise err
+    if worst == 2:
+        raise RuntimeError(f"checkpoint {path} failed to load on another "
+                           f"rank of the mesh")
+    if worst != least:
+        raise RuntimeError(
+            f"checkpoint {path} is present on some ranks of the mesh and "
+            f"absent on others: the ranks need one shared filesystem")
+    if got is None:
+        return None
+    part = (None if like is None else
+            torch.empty(like.shape, dtype=like.dtype, device=like.device))
+    return _as_state(path, got[0], got[1], got[2], part, layout)

@@ -355,16 +355,60 @@ Phases, each fatal on failure:
    --trace`` over phase 4's saved 2^20 artifact on one card for 3
    iterations (its profiler trace names K1).
 
+23. serving and state on a mesh of ranks, in phase 20's rank pools
+   (STATE): (a) on the NCCL rank after phase 22 (a), phase 15's
+   deployment (32 requests, 4 tenants, k = 16, 10 iterations, batched
+   to k = 128, its first request phase 4's k=16 input) through
+   ``ArrowServer`` over ``MultiLevelArrow(mesh=the one NCCL rank,
+   fmt="ell")`` at phase 4's 2^20 levels (built on that rank beside the
+   earlier phases): every ticket completed, K1's and K4's launches
+   exactly ``launch_counts(128)`` x batches x iterations (the counts set
+   to 0 just before the trace), each batch's first request served alone
+   equal to its slice bit for bit, phase 4's input within the 10-step
+   gate of phase 4's golden; requests/s, p50/p99 and per-batch device
+   and host ms beside phase 15's; then K1 over one step's shard
+   operators and K4 over one step's routing at k = 128 against their
+   plain versions, timed beside bound and one PyTorch call; (b) on
+   phase 20's 4 gloo ranks beside phase 19 (they time no kernel), the
+   same trace at phase 7's graph served in lockstep (rank 0 decides)
+   over ``MultiLevelArrow(mesh=, fmt="ell", routing="a2a")``, every rank's results equal
+   bit for bit, each within ``relative_tolerance`` of the host golden,
+   each rank's launches its executor's count; ``grow`` from ranks (0, 1)
+   to all 4 (``fmt="auto"``) with 8 step-2 checkpoints (phase 15's
+   gate: 8 requests of 4 iterations), every request resumed at 2 and
+   equal bit for bit to a never-grown 4-rank server resuming the same
+   states; and the port's ``tools/reshard_gate.py`` (kill mid-migration)
+   on gloo ranks on the card; (c) ``spmm_arrow --devices 2 --fmt sell
+   --carry --checkpoint --checkpoint_every 1 --validate`` on gloo ranks,
+   2 then 4 iterations, the second resuming at 2; (d) ``spmm_arrow
+   --memmap --validate --carry --checkpoint`` over phase 4's artifact on
+   1 rank (the fold) and 4 gloo ranks (sell), each final carriage equal
+   bit for bit to the same executor's over the loaded levels from the
+   same input (phase 4's fold; phase 20's ``SellMultiLevel`` on the
+   gloo ranks); after (a) on the
+   NCCL rank, ``arrow_blocks_streamed`` of level 0 byte for byte equal
+   to the eager pack; the peak host RSS of that pack (sampled from
+   ``/proc/self/statm``: a spawned process's ``ru_maxrss`` starts at its
+   parent's) streamed from the memmapped artifact and from the artifact
+   loaded whole, each in a process of its own;
+   (e) the two processes of ``plan_host_mesh(2, 1)`` joining one gloo
+   group on the card host (an all-reduce over it sums both).  The
+   subprocesses of (b)-(e) run one after the other in a thread from
+   phase 4 on (beside phase 19 alone they starved its race) and are
+   collected after phase 22; (d)'s one-rank reference is phase 4's
+   fold's.
+
 The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 11, 13, 15, 16, 10,
-18, 19, 20, 21, 22, 17: the host work of phase 4 (generating the 2^20 graph,
+18, 19, 20, 21, 22, 23, 17: the host work of phase 4 (generating the 2^20 graph,
 decomposing it with the numpy decomposer, the host goldens of its
 inputs, beside the decomposition) and of phase 14 (the native
 decomposition) and of phase 22 (its graph and goldens) runs in three
 processes of their own from the start, beside the build and phases 3,
 6-9, 12 and 14;
 that of phase 17 (decomposing the fleet's graph) in a third, and that of
-phase 20 (each rank packing its shards) in its four ranks, from phase 4
-on; phases 20-22's work that times no kernel runs beside phase 19.
+phase 20 (each rank packing its shards) in its four ranks, and phase
+23's subprocesses one after the other, from phase 4 on; phases 20-23's
+rank work that times no kernel runs beside phase 19.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
@@ -373,8 +417,9 @@ phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first),
 ``--fleet`` phases 1, 2 and 17, ``--lens`` phases 1, 2 and 18 (phase
 4's decomposition made first; (d) then has no bench record to export),
 ``--tune`` phases 1, 2 and 19 (phase 4's decomposition made first),
-``--mesh`` phases 1, 2, 20, 21 and 22 (phase 4's decomposition and the
-goldens phase 20 gates against made first).
+``--mesh`` phases 1, 2 and 20-23 (phase 4's decomposition and the
+goldens phases 20 and 23 gate against made first), ``--state`` phases
+1, 2 and 23 (the same, on rank pools of its own).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 2 and prints no result.
@@ -5600,15 +5645,19 @@ def mesh_rank_chain(ctx) -> dict:
 
 
 def start_mesh_work(pool, base: str, width: int, host22: tuple,
-                    solvers=None) -> dict:
+                    solvers=None, subs23=None,
+                    fold_ref_on_rank: bool = True) -> dict:
     """Start what phases 20-22 do without timing a kernel, once phase
     4's artifact and goldens exist: the gloo ranks' chain
     (:func:`mesh_rank_chain`, queued behind their packing) and phase 22
     (b) (:func:`base22_ranks`, behind it), phase 22 (c)'s subprocesses,
     phase 21 (a)'s float64 host goldens in a thread (``solvers``: phase
     13's, as :func:`mesh_train_goldens` takes them), and the NCCL rank,
-    packing.  ``host22`` is phase 22's host process (:func:`start_host`).
-    :func:`phase_mesh` collects them."""
+    packing.  ``host22`` is phase 22's host process (:func:`start_host`),
+    ``subs23`` phase 23's subprocesses where they were started earlier
+    (:func:`start_state23`; else from here); ``fold_ref_on_rank`` builds
+    (d)'s one-rank reference on the NCCL rank (a run with phase 4's fold
+    takes it from there).  :func:`phase_mesh` collects them."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -5618,20 +5667,28 @@ def start_mesh_work(pool, base: str, width: int, host22: tuple,
     keep = os.path.dirname(base)
     pool.submit("chip_smoke", "mesh_rank_chain")
     pool.submit("chip_smoke", "base22_ranks", keep)
+    pool.submit("chip_smoke", "state23_ranks", keep)
     clis = start_base22_clis(keep, base)
     goldens = ThreadPoolExecutor(1)
     gold_a = goldens.submit(mesh_train_goldens, base, width, solvers)
+    if subs23 is None:
+        subs23 = start_state23(keep, base)
     nccl = RankPool(torch.cuda.device_count(), backend="nccl", threads=2)
     nccl.submit("chip_smoke", "mesh_rank_build", base, width, 0)
+    nccl.submit("chip_smoke", "state23_nccl_build", width,
+                fold_ref_on_rank)
     return dict(pool=pool, nccl=nccl, goldens=goldens, gold_a=gold_a,
-                keep=keep, clis=clis, host22=host22,
-                started=time.perf_counter())
+                subs23=subs23, keep=keep, base=base, clis=clis,
+                host22=host22, started=time.perf_counter())
 
 
-def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
-    """Phases 20 and 21 (the module docstring) on :func:`start_mesh_work`'s
+def phase_mesh(work: dict, fold_gcn_ms=None, serve15=None,
+               fold_ref=None) -> tuple:
+    """Phases 20-23 (the module docstring) on :func:`start_mesh_work`'s
     ranks: (results, kernel entries); ``fold_gcn_ms`` is phase 13's
-    GCNCarried fold step, where this run has it."""
+    GCNCarried fold step, ``serve15`` phase 15's results and ``fold_ref``
+    phase 23 (d)'s one-rank reference from phase 4's fold, where this run
+    has them."""
     import numpy as np
 
     pool, nccl, goldens = work["pool"], work["nccl"], work["goldens"]
@@ -5641,6 +5698,7 @@ def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
             built = pool.collect(job_timeout_s=900)
             chain = pool.collect(job_timeout_s=900)
             b22 = pool.collect(job_timeout_s=900)
+            b23 = pool.collect(job_timeout_s=900)
             waited = time.perf_counter() - tic0
             log(f"phase 20: ranks built in processes of their own beside "
                 f"the earlier phases, and their chain (the probe, (a), (c) "
@@ -5674,6 +5732,7 @@ def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
             pool.close()
         tic = time.perf_counter()
         res["nccl_built"] = nccl.collect(job_timeout_s=600)[0]
+        built23 = nccl.collect(job_timeout_s=600)[0]
         res["nccl_wait_s"] = time.perf_counter() - tic
         prod = nccl.run("chip_smoke", "mesh_rank_main", job_timeout_s=600)
         tic = time.perf_counter()
@@ -5695,6 +5754,12 @@ def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
         a22 = nccl.run("chip_smoke", "base22_nccl", work["keep"],
                        job_timeout_s=600)[0]
         t22 += time.perf_counter() - tic22
+        tic23 = time.perf_counter()
+        a23 = nccl.run("chip_smoke", "state23_nccl", work["base"],
+                       job_timeout_s=900)[0]
+        d23 = nccl.run("chip_smoke", "state23_streamed", work["base"], 2048,
+                       job_timeout_s=600)[0]
+        t23 = time.perf_counter() - tic23
         if regold is not None:
             gold["gcn"] = regold.result(timeout=900)
     finally:
@@ -5737,13 +5802,23 @@ def phase_mesh(work: dict, fold_gcn_ms=None) -> tuple:
                                      work["clis"], host22)
     t22 += time.perf_counter() - tic22
     res["phase22"]["main_s"] = t22
+    tic23 = time.perf_counter()
+    subs = work["subs23"].result(timeout=STATE["timeout_s"])
+    t23_wait = time.perf_counter() - tic23
+    res["phase23"] = phase_state(a23, d23, b23, built23, subs, serve15,
+                                 fold_ref)
+    res["phase23"]["main_s"] = t23 = t23 + time.perf_counter() - tic23
+    res["phase23"]["subprocess_wait_s"] = t23_wait
     log(f"phase 20: {res['seconds']:.1f} s of the script's wall ((a) "
         f"{t_a:.1f} s), of which phase 21 {t21_gloo:.1f} s on the gloo "
         f"ranks and {t21_nccl:.1f} s on the NCCL rank (waited "
         f"{t_gold_wait:.1f} s for its host goldens); phase 22 {t22:.1f} s "
         f"of the main process's wall (its graph made in {host22['t_gen']:.1f}"
-        f" s and goldens in {host22['t_gold']:.1f} s by a host process)")
-    return res, k_entries + entries21 + entries22 + a22["entries"]
+        f" s and goldens in {host22['t_gold']:.1f} s by a host process); "
+        f"phase 23 {t23:.1f} s of it (waited {t23_wait:.1f} s for its "
+        f"subprocesses)")
+    return res, (k_entries + entries21 + entries22 + a22["entries"]
+                 + a23["entries"])
 
 
 # -- 21. training through the mesh executors, and the space-shared modes -----
@@ -6999,6 +7074,798 @@ def phase_baselines(b22: list, a22: dict, kernels: list, clis: dict,
     return res
 
 
+# -- 23. serving and state on a mesh of ranks ---------------------------------
+
+#: Phase 23: the step-2 checkpoints' migration budget of (b)'s grow (bytes
+#: a stage), (c)'s graph (the CLI generates it), (d)'s run over phase 4's
+#: artifact (its input the CLI's ``random_dense(n, 4, seed=42)``), and
+#: the seconds any of its subprocesses may take.
+STATE_ITERS = 2
+STATE = dict(reshard_budget=1 << 20,
+             cli=["--vertices", "16384", "--ba_neighbors", "8", "--width",
+                  "512", "--features", "4"],
+             memmap=["--width", "2048", "--features", "4", "--iterations",
+                     str(STATE_ITERS), "--carry", "--validate"],
+             timeout_s=900)
+
+
+def state23_prepare(ctx, base: str, width: int, n_small: int) -> None:
+    """``--state``'s ranks, as phases 20-22 leave them for phase 23: the
+    NCCL rank holds phase 4's levels, the gloo ranks phase 20's
+    ``SellMultiLevel`` a2a over them (on the card), phase 7's graph and
+    its decomposition."""
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+    from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel
+    from arrow_matrix_tpu_torch.utils import barabasi_albert
+
+    levels = as_levels_of(base, width)
+    if ctx.backend == "nccl":
+        _RANK.update(levels=levels, width=width)
+        return
+    mesh = make_mesh((ctx.world,), ("blocks",), device="cpu")
+    _RANK["exe"] = SellMultiLevel(levels, width, mesh,
+                                  routing="a2a").to(ctx.device)
+    a = barabasi_albert(n_small, 8, seed=7)
+    _RANK["small"] = (a, arrow_decomposition(a, width, max_levels=10,
+                                             block_diagonal=True, seed=7))
+
+
+def state23_fold_ref(fold):
+    """(d)'s reference on one rank: the carriage the CLI's fold (its
+    default format there) checkpoints after its iterations from its
+    input, as a host array, here from a fold over the loaded levels."""
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    c = fold.run(fold.set_features(random_dense(fold.n, 4, seed=42)),
+                 STATE_ITERS)
+    return c.cpu().numpy()
+
+
+def state23_nccl_build(ctx, width: int, fold_ref: bool) -> dict:
+    """Phase 23 (a)'s executor on the NCCL rank, built beside the earlier
+    phases: ``MultiLevelArrow(mesh=, fmt="ell")`` over phase 4's levels on
+    the mesh of this one rank, the one rung (the base) of the server's
+    factory; and the trace it serves (phase 15's, its first request
+    phase 4's k=16 input); with ``fold_ref`` (a run without phase 4's
+    fold) (d)'s reference on one rank."""
+    import dataclasses
+
+    import torch
+
+    from arrow_matrix_tpu_torch import serve
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    tic = time.perf_counter()
+    mesh = make_mesh((ctx.world,), ("blocks",))
+    exe = MultiLevelArrow(_RANK["levels"], width, mesh=mesh, fmt="ell")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - tic
+    trace = serve.synthetic_trace(exe.n, tenants=SERVE["tenants"],
+                                  requests=SERVE["requests"], k=SERVE["k"],
+                                  iterations=SERVE["iterations"],
+                                  seed=SERVE["seed"])
+    trace[0] = dataclasses.replace(trace[0],
+                                   x=random_dense(exe.n, 16, seed=3))
+    _RANK.update(serve23=exe, trace23=trace)
+    if fold_ref:
+        fold = MultiLevelArrow(_RANK["levels"], width, fmt="fold",
+                               device=ctx.device)
+        _RANK["fold_ref23"] = state23_fold_ref(fold)
+        del fold
+        torch.cuda.empty_cache()
+    return {"build_s": t_build, "fmts": exe.fmts,
+            "heads": exe.head_layouts(), "rows_local": exe.rows_local,
+            "operator_bytes": exe.operator_bytes()}
+
+
+def state23_nccl(ctx, base: str) -> dict:
+    """Phase 23 (a) on the NCCL rank: phase 15's deployment served over
+    the ELL mesh executor (module docstring), then K1 over one step's
+    shard operators and K4 over one step's routing at the batch shape
+    against their plain versions; returns the results and the two kernel
+    entries."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch import faults, serve
+    from arrow_matrix_tpu_torch.utils import relative_error, relative_tolerance
+
+    exe = TimedExecutor(_RANK.pop("serve23"))
+    trace = _RANK.pop("trace23")
+    n, it, kmax = exe.n, SERVE["iterations"], SERVE["max_batch_k"]
+    row_nnz = exe.nnz / n
+    builds = {}
+
+    def factory(cfg):
+        builds[str(cfg)] = builds.get(str(cfg), 0) + 1
+        return exe
+
+    policy = faults.RetryPolicy(max_retries=2, backoff_s=0.01, jitter=0.2,
+                                seed=SERVE["seed"])
+    srv = serve.ArrowServer(factory, serve.ExecConfig(), policy=policy,
+                            queue_capacity=SERVE["queue"], max_batch_k=kmax,
+                            name="phase23")
+    exe.log.clear()
+    torch.cuda.synchronize()
+    reset_counters()
+    tic = time.perf_counter()
+    tickets = serve.run_trace(srv, trace)
+    wall = time.perf_counter() - tic
+    got = dict(zip(KERNEL_NAMES, counters()))
+    s = srv.summary()
+    bad = [t.request.request_id for t in tickets if t.status != "completed"]
+    if bad or s["faults_seen"] or srv.lockstep:
+        raise SystemExit(f"phase 23 (a): not completed {bad}, faults "
+                         f"{s['faults_seen']}, lockstep {srv.lockstep}")
+    if s["batches"] != SERVE["requests"] * SERVE["k"] // kmax:
+        raise SystemExit(f"phase 23 (a): {s['batches']} batches")
+    want = {name: v * s["batches"] * it
+            for name, v in exe.launch_counts(kmax).items()}
+    if got != want or not got["K1"] or not got["K4"]:
+        raise SystemExit(f"phase 23 (a): launches {got}, expected "
+                         f"{want} (launch_counts x {s['batches']} batches "
+                         f"x {it} iterations)")
+    per_batch = kmax // SERVE["k"]
+    for b in range(s["batches"]):
+        t = tickets[b * per_batch]
+        if serve_alone(serve, factory, t.request, policy).tobytes() != \
+                t.result.tobytes():
+            raise SystemExit(f"phase 23 (a): {t.request.request_id} batched "
+                             f"!= alone")
+    err = relative_error(tickets[0].result,
+                         np.load(golden_path(base, 16, it)))
+    tol = relative_tolerance(row_nnz, it)
+    if not err <= tol:
+        raise SystemExit(f"phase 23 (a): phase 4's input after {it} served "
+                         f"steps: rel err {err:.3e} > {tol:.1e}")
+    if builds != {str(serve.ExecConfig()): 1 + s["batches"]}:
+        raise SystemExit(f"phase 23 (a): factory calls {builds}")
+    batches = [rec for rec in exe.log if rec["k"] == kmax]
+    res = {"requests": len(tickets), "wall_s": wall,
+           "requests_per_s": len(tickets) / wall,
+           "latency_ms": serve.latency_summary_ms(tickets),
+           "batches": s["batches"], "launches": got,
+           "batch_device_ms": [r["device_ms"] for r in batches],
+           "batch_loop_wall_ms": [r["loop_wall_ms"] for r in batches],
+           "set_features_ms": [r["set_features_ms"] for r in batches],
+           "gather_result_ms": [r["gather_ms"] for r in batches],
+           "phase4_input_err": err, "phase4_input_gate": tol,
+           "fmts": exe.fmts, "heads": exe.head_layouts()}
+    del tickets, trace
+    entries = state23_kernel_entries(exe.ex, kmax, row_nnz, got)
+    res["entries"] = entries
+    res["fold_ref"] = _RANK.pop("fold_ref23", None)
+    del exe
+    torch.cuda.empty_cache()
+    return res
+
+
+def state23_kernel_entries(exe, k: int, row_nnz: float, got: dict) -> list:
+    """Phase 23 (a)'s K1 over one step's shard operators (every ELL stack
+    and head of every level, on random operands of their shapes) and K4
+    over one step's routing (the forward gathers and the backward
+    gather-adds), each against its plain version (K4 bit for bit), timed
+    beside its bound, its plain version and one PyTorch call."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops.cuda_gather import (
+        row_gather,
+        row_gather_add_,
+    )
+    from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    dev = exe.mesh.device
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shared = {}
+
+    def operand(rows):
+        if rows not in shared:
+            shared[rows] = torch.rand((rows, k), device=dev, generator=gen)
+        return shared[rows]
+
+    ops = [op for sb in exe.blocks for name, op in sb.ops.items()
+           if name != "head_inv"]
+    xs = [operand(op.x_rows) for op in ops]
+    err = 0.0
+    for m, x in zip(ops, xs):
+        e, ok = compare(sell_spmm_cuda(m, x), sell_spmm(m, x), row_nnz,
+                        exact=False)
+        if not ok:
+            raise SystemExit(f"phase 23 (a): K1 on a shard operator differs "
+                             f"from its plain version (max {e:.3e})")
+        err = max(err, e)
+    csrs = [sorted_csr(m, torch.float32) for m in ops]
+    work = [fold_work(m, int(a.values().numel()), k, x_rows=m.x_rows)
+            for a, m in zip(csrs, ops)]
+    bytes1, flops1 = (sum(w[i] for w in work) for i in (0, 1))
+    t_b, t_o = bytes1 / HBM_BYTES_PER_S * 1e3, flops1 / F32_FLOPS * 1e3
+    runs = cuda_runs(lambda: [sell_spmm_cuda(m, x)
+                              for m, x in zip(ops, xs)], 10)
+    e1 = {"name": f"sell_tier_spmm[serve-mesh,f32,k={k}]", "route": "cuda",
+          "source": SOURCES["K1"], "replaces": REPLACES["K1"],
+          "launches": got["K1"], "max_abs_err": err,
+          "ms": statistics.median(runs),
+          "plain_ms": cuda_ms(lambda: [sell_spmm(m, x)
+                                       for m, x in zip(ops, xs)], 3),
+          "bound_ms": max(t_b, t_o),
+          "bound_by": "bytes" if t_b >= t_o else "operations",
+          "library_ms": cuda_ms(lambda: [torch.sparse.mm(a, x)
+                                         for a, x in zip(csrs, xs)], 3)}
+    log(f"phase 23 (a) K1 on the NCCL rank's shards at k={k}: {len(ops)} "
+        f"products {e1['ms']:.4f} ms a step, plain {e1['plain_ms']:.4f}, "
+        f"torch.sparse.mm {e1['library_ms']:.4f}, bound "
+        f"{e1['bound_ms']:.4f} ms; max abs err {err:.3e}")
+    del csrs, shared, xs
+    # K4: one step's routing as the step runs it on one rank (the
+    # all-gather of one rank is a copy): a gather a level boundary
+    # forward, a gather-add backward.
+    x = torch.rand((exe.rows_local, k), device=dev, generator=gen)
+    acc = torch.rand((exe.rows_local, k), device=dev, generator=gen)
+    fwd = [t.idx for t in exe.fwd]
+    bwd = [t.idx for t in exe.bwd]
+    for i in fwd:
+        if not torch.equal(row_gather(x, i).view(torch.int32),
+                           x.index_select(0, i.long()).view(torch.int32)):
+            raise SystemExit("phase 23 (a): K4 gather != index_select")
+    for i in bwd:
+        a = row_gather_add_(acc.clone(), x, i)
+        b = acc + x.index_select(0, i.long())
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise SystemExit("phase 23 (a): K4 gather-add != index_select "
+                             "then add")
+    rows_f = sum(int(i.numel()) for i in fwd)
+    rows_b = sum(int(i.numel()) for i in bwd)
+    bytes4 = rows_f * (2 * k * 4 + 4) + rows_b * (3 * k * 4 + 4)
+    longs_f, longs_b = [i.long() for i in fwd], [i.long() for i in bwd]
+    runs = cuda_runs(lambda: ([row_gather(x, i) for i in fwd],
+                              [row_gather_add_(acc, x, i) for i in bwd]), 10)
+    plain = cuda_ms(lambda: ([x.index_select(0, i) for i in longs_f],
+                             [acc.add_(x.index_select(0, i))
+                              for i in longs_b]), 5)
+    e4 = {"name": f"row_gather[serve-mesh-route,f32,k={k}]", "route": "cuda",
+          "source": SOURCES["K4"], "replaces": REPLACES["K4"],
+          "launches": got["K4"] + got["K4 add"], "max_abs_err": 0.0,
+          "ms": statistics.median(runs), "plain_ms": plain,
+          "bound_ms": bytes4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+          "library_ms": cuda_ms(lambda: (
+              [x.index_select(0, i) for i in longs_f],
+              [acc.index_add_(0, i, x) for i in longs_b]), 5)}
+    log(f"phase 23 (a) K4 over one step's routing at k={k} ({len(fwd)} "
+        f"gathers, {len(bwd)} gather-adds, {rows_f + rows_b} rows): "
+        f"{e4['ms']:.4f} ms, plain {plain:.4f}, library "
+        f"{e4['library_ms']:.4f}, bound {e4['bound_ms']:.4f} ms; bit for "
+        f"bit")
+    return [e1, e4]
+
+
+def state23_streamed(ctx, base: str, width: int) -> dict:
+    """Phase 23 (d) on the NCCL rank: ``arrow_blocks_streamed`` of phase
+    4's memmapped level 0 on the mesh of this rank against the eager
+    pack of the same level, every array byte for byte."""
+    import torch
+
+    from arrow_matrix_tpu_torch.io import load_decomposition
+    from arrow_matrix_tpu_torch.ops.arrow_blocks import (
+        arrow_blocks_from_csr,
+        arrow_blocks_streamed,
+    )
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+
+    triplet = load_decomposition(base, width, mem_map=True)[0][0]
+    mesh = make_mesh((ctx.world,), ("blocks",))
+    tic = time.perf_counter()
+    got = arrow_blocks_streamed(triplet, width, mesh, fmt="ell")
+    t_stream = time.perf_counter() - tic
+    tic = time.perf_counter()
+    want = arrow_blocks_from_csr(_RANK["levels"][0].matrix, width, fmt="ell",
+                                 device=ctx.device)
+    t_eager = time.perf_counter() - tic
+    a, b = got.tensors(), want.tensors()
+
+    def same(x, y):
+        return (x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(x.contiguous().view(torch.uint8),
+                                y.contiguous().view(torch.uint8)))
+
+    if sorted(a) != sorted(b) or got.head_flat != want.head_flat or \
+            not all(same(a[k], b[k]) for k in a):
+        raise SystemExit(f"phase 23 (d): the streamed pack of level 0 "
+                         f"differs from the eager one ({sorted(a)} against "
+                         f"{sorted(b)})")
+    out = {"arrays": sorted(a), "head_flat": got.head_flat,
+           "bytes": got.device_nbytes(), "streamed_s": t_stream,
+           "eager_s": t_eager}
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def state23_ranks(ctx, keep: str) -> dict:
+    """Phase 23 (b) on the gloo ranks sharing the card, beside phase 19
+    (they time no kernel): phase 15's trace at phase 7's graph served in
+    lockstep over ``MultiLevelArrow(mesh=4 ranks, fmt="ell")``, then the
+    grow from ranks (0, 1) to all 4 with 8 step-2 checkpoints against a
+    never-grown 4-rank server resuming the same states."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch import faults, serve
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.parallel import collectives as coll
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+    from arrow_matrix_tpu_torch.utils import (
+        random_dense,
+        relative_error,
+        relative_tolerance,
+    )
+    from arrow_matrix_tpu_torch.utils.checkpoint import load_state, save_state
+
+    a, levels = _RANK["small"]
+    n, width, it, kmax = a.shape[0], 2048, SERVE["iterations"], \
+        SERVE["max_batch_k"]
+    out = {}
+    # (d)'s reference on 4 ranks: the carriage the CLI's SellMultiLevel
+    # a2a (its default on a mesh) checkpoints after its iterations,
+    # from phase 20's executor over the loaded levels.
+    sell = _RANK["exe"]
+    c = sell.run(sell.set_features(random_dense(sell.n, 4, seed=42)),
+                 STATE_ITERS)
+    ref = coll.all_gather(c.contiguous(), sell.mesh, sell.axis)
+    out["sell_ref"] = ref.cpu().numpy() if ctx.rank == 0 else None
+    del sell, c, ref
+    mesh4 = make_mesh((ctx.world,), ("blocks",))
+    mesh2 = make_mesh((2,), ("blocks",), ranks=(0, 1))
+    policy = faults.RetryPolicy(max_retries=2, backoff_s=0.01, jitter=0.2,
+                                seed=SERVE["seed"])
+
+    def rungs(mesh, fmt):
+        built = {}
+
+        def factory(cfg):
+            key = str(cfg)
+            if key not in built:
+                built[key] = MultiLevelArrow(levels, width, mesh=mesh,
+                                             fmt=fmt, routing="a2a")
+            return built[key]
+        return factory, built
+
+    def digest(tickets):
+        return {t.request.request_id: hashlib.sha256(
+            t.result.tobytes()).hexdigest() for t in tickets}
+
+    # Serving: the trace, rank 0 deciding the batches.
+    tic = time.perf_counter()
+    fac, built = rungs(mesh4, "ell")
+    exe = fac(serve.ExecConfig())
+    trace = serve.synthetic_trace(n, tenants=SERVE["tenants"],
+                                  requests=SERVE["requests"], k=SERVE["k"],
+                                  iterations=it, seed=SERVE["seed"])
+    srv = serve.ArrowServer(fac, serve.ExecConfig(), policy=policy,
+                            queue_capacity=SERVE["queue"], max_batch_k=kmax,
+                            name="phase23b")
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    tickets = serve.run_trace(srv, trace)
+    wall = time.perf_counter() - t0
+    got = dict(zip(KERNEL_NAMES, counters()))
+    want = {name: v * srv.batches * it
+            for name, v in exe.launch_counts(kmax).items()}
+    if [t.status for t in tickets] != ["completed"] * len(trace) \
+            or got != want or len(built) != 1:
+        raise SystemExit(f"phase 23 (b) rank {ctx.rank}: statuses "
+                         f"{[t.status for t in tickets]}, launches {got} "
+                         f"against {want}, rungs built {sorted(built)}")
+    out["serve"] = {"digest": digest(tickets), "batches": srv.batches,
+                    "wall_s": wall, "requests_per_s": len(trace) / wall,
+                    "latency_ms": serve.latency_summary_ms(tickets),
+                    "launches": got, "leader": srv.leader,
+                    "seconds": time.perf_counter() - tic}
+    served = golden = None
+    if ctx.rank == 0:
+        # The host goldens in a thread beside the grow's collectives.
+        from concurrent.futures import ThreadPoolExecutor
+
+        served = {t.request.request_id: (t.request.x, t.result)
+                  for t in tickets}
+        ids = sorted(served)
+
+        def goldens(xs):
+            for _ in range(it):
+                xs = host_golden(levels, xs, 2)
+            return xs
+
+        gold_pool = ThreadPoolExecutor(1)
+        golden = gold_pool.submit(goldens, np.concatenate(
+            [served[i][0] for i in ids], axis=1))
+    del tickets, srv, built, exe
+
+    # The grow: step-2 checkpoints of GATE's requests on ranks (0, 1).
+    tic = time.perf_counter()
+    root = os.path.join(keep, "state23")
+    dirs = {name: os.path.join(root, name) for name in ("grow", "never")}
+    if ctx.rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+        for d in dirs.values():
+            os.makedirs(d)
+    coll.barrier()
+    fac2, _ = rungs(mesh2, "auto")
+    fac4, _ = rungs(mesh4, "auto")
+    ex2, ex4 = fac2(serve.ExecConfig()), fac4(serve.ExecConfig())
+    gate_trace = serve.synthetic_trace(n, tenants=SERVE["tenants"],
+                                       requests=GATE["requests"],
+                                       k=SERVE["k"],
+                                       iterations=GATE["iterations"],
+                                       seed=SERVE["seed"])
+    for r in gate_trace:
+        tag = f"serve/{r.request_id}/k{r.k}/it{r.iterations}"
+        stem = f"ck_{r.request_id}"
+        if mesh2.member:
+            x = ex2.set_features(r.x)
+            for _ in range(2):
+                x = ex2.step(x)
+            save_state(os.path.join(dirs["grow"], stem), x, 2, layout=tag,
+                       mesh=mesh2)
+        coll.barrier()
+        # The never-grown server's state: the same carriage moved by hand
+        # (through the original row order), not by a staged plan.
+        full, _ = load_state(os.path.join(dirs["grow"], stem), layout=tag)
+        orig = full.numpy()[ex2.inv_perm0][:n]
+        save_state(os.path.join(dirs["never"], stem), ex4.set_features(orig),
+                   2, layout=tag, mesh=mesh4)
+    grown = serve.ArrowServer(fac2, serve.ExecConfig(), name="phase23grow",
+                              checkpoint_dir=dirs["grow"], checkpoint_every=2,
+                              grow_factory=fac4,
+                              reshard_budget_bytes=STATE["reshard_budget"])
+    if not grown.grow(reason="phase 23"):
+        raise SystemExit(f"phase 23 (b) rank {ctx.rank}: grow refused")
+    g_tickets = [grown.submit(r) for r in gate_trace]
+    grown.drain()
+    never = serve.ArrowServer(fac4, serve.ExecConfig(), name="phase23never",
+                              checkpoint_dir=dirs["never"],
+                              checkpoint_every=2)
+    n_tickets = serve.run_trace(never, gate_trace)
+    for ts in (g_tickets, n_tickets):
+        if [t.resumed_step for t in ts] != [2] * len(gate_trace):
+            raise SystemExit(f"phase 23 (b) rank {ctx.rank}: resumed at "
+                             f"{[t.resumed_step for t in ts]}")
+    if digest(g_tickets) != digest(n_tickets):
+        raise SystemExit(f"phase 23 (b) rank {ctx.rank}: the grown "
+                         f"server's results differ from the never-grown "
+                         f"one's")
+    # Layouts of equal stored rows (and row order) have nothing to
+    # migrate: the checkpoint holds the same global carriage.
+    stored = (ex2.reshard_layout().stored_rows,
+              ex4.reshard_layout().stored_rows)
+    out["grow"] = {"digest": digest(g_tickets), "migrated":
+                   grown.checkpoints_resharded, "grows": grown.grows,
+                   "stored_rows": stored,
+                   "expect_migrated": (len(gate_trace)
+                                       if stored[0] != stored[1] else 0),
+                   "fmts2": ex2.fmts, "fmts4": ex4.fmts,
+                   "member2": mesh2.member,
+                   "seconds": time.perf_counter() - tic}
+    del grown, never, ex2, ex4, g_tickets, n_tickets
+    torch.cuda.empty_cache()
+    if ctx.rank == 0:
+        # Every served request against its host golden.
+        tic = time.perf_counter()
+        xs = golden.result()
+        gold_pool.shutdown()
+        tol = relative_tolerance(a.nnz / n, it)
+        errs = [relative_error(served[i][1],
+                               xs[:, j * SERVE["k"]:(j + 1) * SERVE["k"]])
+                for j, i in enumerate(ids)]
+        if not max(errs) <= tol:
+            raise SystemExit(f"phase 23 (b): a served request's rel err "
+                             f"{max(errs):.3e} > gate {tol:.1e}")
+        out["serve"].update(max_err=max(errs), gate=tol,
+                            golden_wait_s=time.perf_counter() - tic)
+    return out
+
+
+def sampled_peak_rss(fn, every_s: float = 0.002) -> tuple:
+    """``(fn(), peak)``: the peak resident bytes of this process's own
+    address space while ``fn`` runs, sampled from ``/proc/self/statm``
+    every ``every_s`` by a thread.  ``ru_maxrss`` is no measure of a
+    spawned process here: it starts at its parent's resident bytes, so a
+    child of this script reads the script's own gigabytes."""
+    page = os.sysconf("SC_PAGE_SIZE")
+    peak, stop = [0], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            with open("/proc/self/statm") as fh:
+                peak[0] = max(peak[0], int(fh.read().split()[1]) * page)
+            stop.wait(every_s)
+
+    watcher = threading.Thread(target=sample, daemon=True)
+    watcher.start()
+    try:
+        out = fn()
+    finally:
+        stop.set()
+        watcher.join()
+    return out, peak[0]
+
+
+def state23_rss(base: str, width: int, memmap: bool, out: str) -> None:
+    """Phase 23 (d)'s peak host RSS of one pack, in a process of its own:
+    level 0 of phase 4's artifact as ELL stacks on the card, streamed
+    from the memmapped artifact (``arrow_blocks_streamed`` on a mesh of
+    one gloo rank) or packed from the artifact loaded whole
+    (``arrow_blocks_from_csr``, as a run without ``--memmap`` loads it);
+    the peak is :func:`sampled_peak_rss`'s over the load and the pack,
+    the process's resident bytes before them beside it."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from arrow_matrix_tpu_torch.io import load_decomposition
+    from arrow_matrix_tpu_torch.ops.arrow_blocks import (
+        arrow_blocks_from_csr,
+        arrow_blocks_streamed,
+    )
+    from arrow_matrix_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)        # the context, before the window
+    mesh = None
+    if memmap:
+        store = dist.FileStore(tempfile.mktemp(prefix="rss23_"), 1)
+        init_distributed(0, 1, "gloo", dev, store=store)
+        mesh = make_mesh(device=dev)
+    _, before = sampled_peak_rss(lambda: None)
+
+    def pack():
+        loaded = load_decomposition(base, width, mem_map=memmap)
+        if memmap:
+            blk = arrow_blocks_streamed(loaded[0][0], width, mesh, fmt="ell")
+        else:
+            blk = arrow_blocks_from_csr(loaded[0][0], width, fmt="ell",
+                                        device=dev)
+        torch.cuda.synchronize()
+        return blk
+
+    tic = time.perf_counter()
+    blk, peak = sampled_peak_rss(pack)
+    rec = {"memmap": memmap, "pack_s": time.perf_counter() - tic,
+           "peak_rss_bytes": peak, "rss_before_bytes": before,
+           "device_bytes": blk.device_nbytes()}
+    if memmap:
+        dist.destroy_process_group()
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+
+
+JOIN23 = r"""
+import sys
+sys.path.insert(0, {root!r})
+import torch
+import torch.distributed as dist
+from arrow_matrix_tpu_torch.fleet.worker import maybe_init_distributed
+joined = maybe_init_distributed(verbose=True)
+t = torch.ones(1, device="cuda")
+dist.all_reduce(t)
+print("JOINED", joined, dist.get_world_size(), dist.get_rank(),
+      int(t.item()), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def start_state23(keep: str, base: str):
+    """Phase 23's subprocesses (:func:`state23_subprocesses`) in a thread
+    of their own, started once phase 4's artifact exists; the future."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(state23_subprocesses, keep, base)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def state23_subprocesses(keep: str, base: str) -> dict:
+    """Phase 23's subprocesses, which time no kernel, one after the other
+    in a thread from phase 4 on (beside phase 19 alone they starved its
+    race):
+    (b) the port's reshard gate on gloo ranks on the card, (d) the two
+    ``spmm_arrow --memmap`` runs over phase 4's artifact (1 and 4 ranks;
+    their final carriages are returned), (c) ``spmm_arrow --devices 2``
+    run twice over one checkpoint, (e) the two processes of
+    ``plan_host_mesh(2, 1)``, then (d)'s two RSS packs; each one's gate
+    and its seconds."""
+    import socket
+    import subprocess
+
+    import numpy as np
+
+    from arrow_matrix_tpu_torch.fleet.host import plan_host_mesh
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(keep, "state23_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("AMT_FAULT_PLAN", None)
+    res = {}
+
+    def start(name, argv, extra_env=None):
+        fh = open(os.path.join(work, f"{name}.log"), "w")
+        p = subprocess.Popen([sys.executable, *argv], cwd=work,
+                             env=dict(env, **(extra_env or {})), stdout=fh,
+                             stderr=subprocess.STDOUT)
+        return name, p, fh, time.perf_counter()
+
+    def wait(started):
+        name, p, fh, t0 = started
+        try:
+            rc = p.wait(timeout=STATE["timeout_s"])
+        finally:
+            fh.close()
+        with open(os.path.join(work, f"{name}.log")) as f:
+            text = f.read()
+        if rc != 0:
+            raise SystemExit(f"phase 23 {name} exited {rc}:\n"
+                             f"{text[-3000:]}")
+        return text, time.perf_counter() - t0
+
+    def run(name, argv):
+        return wait(start(name, argv))
+
+    spmm = ["-m", "arrow_matrix_tpu_torch.cli.spmm_arrow"]
+    text, t = run("reshard_gate", ["-m",
+                                   "arrow_matrix_tpu_torch.tools.reshard_gate",
+                                   os.path.join(work, "gate")])
+    if "RESHARD GATE: OK" not in text:
+        raise SystemExit(f"phase 23 (b) reshard gate:\n{text[-3000:]}")
+    res["gate"] = {"seconds": t, "line": [ln for ln in text.splitlines()
+                                         if "kill_mid_migration" in ln]}
+    # (d): each final carriage is held to the same executor over the
+    # loaded levels (phase_state).
+    res["d"] = {}
+    for devices in ("1", "4"):
+        text, t = run(f"memmap{devices}",
+                      spmm + ["--path", base, *STATE["memmap"], "--devices",
+                              devices, "--backend", "gloo", "--checkpoint",
+                              f"ck{devices}", "--memmap"])
+        errs = [ln for ln in text.splitlines() if ln.startswith("iteration ")]
+        if len(errs) != STATE_ITERS:
+            raise SystemExit(f"phase 23 (d): --devices {devices}: {errs}")
+        with np.load(os.path.join(work, f"ck{devices}.npz")) as z:
+            x, step = np.array(z["x"]), int(z["step"])
+        res["d"][devices] = {"errors": errs, "seconds": t, "x": x,
+                             "step": step}
+    resume = ["--devices", "2", "--backend", "gloo", "--fmt", "sell",
+              "--carry", "--checkpoint", "ck", "--checkpoint_every", "1",
+              "--validate", *STATE["cli"]]
+    _, t1 = run("resume_first", spmm + resume + ["--iterations", "2"])
+    text, t2 = run("resume_second", spmm + resume + ["--iterations", "4"])
+    if "resumed from ck at iteration 2" not in text:
+        raise SystemExit(f"phase 23 (c): the second run did not resume at "
+                         f"iteration 2:\n{text[-3000:]}")
+    res["c"] = {"seconds": [t1, t2],
+                "errors": [ln for ln in text.splitlines()
+                           if ln.startswith("iteration ")]}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    joins = [start(f"join{r}", ["-c", JOIN23.format(root=root)], plan)
+             for r, plan in enumerate(plan_host_mesh(2, 1, port=port))]
+    res["e"] = []
+    for r, j in enumerate(joins):
+        text_j, t_j = wait(j)
+        if f"JOINED True 2 {r} 2" not in text_j or "over gloo" not in text_j:
+            raise SystemExit(f"phase 23 (e): rank {r} printed {text_j}")
+        res["e"].append(t_j)
+    res["d"]["rss"] = {("memmap" if mm else "eager"): join_host(
+        *start_host(state23_rss, base, 2048, mm), "phase 23 (d) rss")
+        for mm in (True, False)}
+    return res
+
+
+def phase_state(a: dict, d: dict, b: list, built: dict, subs: dict,
+                serve15=None, fold_ref=None) -> dict:
+    """Phase 23's results (module docstring) gathered, checked across the
+    ranks and logged: (a) and (d)'s streamed pack from the NCCL rank, (b)
+    from the gloo ranks, the subprocesses' (b)-(e)."""
+    b0 = b[0]
+    for tag in ("serve", "grow"):
+        digests = [r[tag]["digest"] for r in b]
+        if any(dg != digests[0] for dg in digests):
+            raise SystemExit(f"phase 23 (b) {tag}: the ranks' results "
+                             f"differ")
+    if [r["serve"]["leader"] for r in b] != [True] + [False] * (len(b) - 1) \
+            or b0["grow"]["migrated"] != b0["grow"]["expect_migrated"] \
+            or b0["grow"]["grows"] != 1:
+        raise SystemExit(f"phase 23 (b): leaders "
+                         f"{[r['serve']['leader'] for r in b]}, grows "
+                         f"{b0['grow']['grows']}, migrated "
+                         f"{b0['grow']['migrated']} (stored rows "
+                         f"{b0['grow']['stored_rows']})")
+    fold_ref = a["fold_ref"] if fold_ref is None else fold_ref
+    for devices, ref in (("1", fold_ref), ("4", b0["sell_ref"])):
+        run = subs["d"][devices]
+        if run["step"] != STATE_ITERS or run["x"].dtype != ref.dtype \
+                or run["x"].tobytes() != ref.tobytes():
+            raise SystemExit(f"phase 23 (d): --devices {devices} --memmap "
+                             f"ended at step {run['step']} in another "
+                             f"carriage than the same executor built from "
+                             f"the loaded levels")
+        del run["x"]
+    rss = subs["d"]["rss"]
+    for rec in rss.values():
+        rec["growth_bytes"] = rec["peak_rss_bytes"] - rec["rss_before_bytes"]
+    ratio = rss["memmap"]["growth_bytes"] / max(rss["eager"]["growth_bytes"],
+                                                1)
+    lat = a["latency_ms"]
+    log(f"phase 23 (a): {a['requests']} requests (phase 15's trace) over "
+        f"MultiLevelArrow(mesh=1 NCCL rank, fmt='ell') (built "
+        f"{built['build_s']:.1f} s beside the earlier phases; formats "
+        f"{a['fmts']}, heads {a['heads']}) in {a['batches']} batches of "
+        f"k={SERVE['max_batch_k']}: {a['requests_per_s']:.2f} req/s, p50 "
+        f"{lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms"
+        + (f" (phase 15's fold: {serve15['requests_per_s']:.2f} req/s, p50 "
+           f"{serve15['latency_ms']['p50']:.1f}, p99 "
+           f"{serve15['latency_ms']['p99']:.1f} ms, batch device ms "
+           f"{[round(v, 3) for v in serve15['batch_device_ms']]})"
+           if serve15 else "")
+        + f"; launches {a['launches']} (launch_counts x batches x "
+        f"iterations); batch device ms "
+        f"{[round(v, 3) for v in a['batch_device_ms']]}, host ms: "
+        f"set_features {[round(v, 1) for v in a['set_features_ms']]}, "
+        f"gather_result {[round(v, 1) for v in a['gather_result_ms']]}; "
+        f"every batch's first request alone equals its slice; phase 4's "
+        f"input after {SERVE['iterations']} steps "
+        f"{a['phase4_input_err']:.3e} (gate {a['phase4_input_gate']:.1e})")
+    sv, gr = b0["serve"], b0["grow"]
+    log(f"phase 23 (b): the trace at 2^16 on {len(b)} gloo ranks sharing "
+        f"the card, rank 0 deciding: {sv['batches']} batches, results "
+        f"equal on every rank bit for bit, worst {sv['max_err']:.3e} "
+        f"against the host golden (gate {sv['gate']:.1e}), "
+        f"{sv['requests_per_s']:.2f} req/s (host transport); grow from "
+        f"ranks (0, 1) ({gr['fmts2']}) to 4 ({gr['fmts4']}): "
+        f"{gr['migrated']} step-2 checkpoints migrated (stored rows "
+        f"{gr['stored_rows']}), every request "
+        f"resumed at 2, results equal to the never-grown 4-rank server's "
+        f"bit for bit ({gr['seconds']:.1f} s); the reshard gate: "
+        f"{subs['gate']['line']} ({subs['gate']['seconds']:.1f} s)")
+    log(f"phase 23 (c): spmm_arrow --devices 2 --carry --checkpoint over 2 "
+        f"then 4 iterations: resumed at 2, {subs['c']['errors']}")
+    log(f"phase 23 (d): spmm_arrow --memmap over phase 4's artifact, its "
+        f"final carriage equal bit for bit to the same executor's built "
+        f"from the loaded levels (the fold on one rank, phase 20's "
+        f"SellMultiLevel on 4): "
+        f"{ {k: v for k, v in subs['d'].items() if k != 'rss'} }; the "
+        f"streamed pack of level 0 equal to the eager one ({d['arrays']}, "
+        f"{d['bytes']} B; {d['streamed_s']:.1f} / {d['eager_s']:.1f} s); "
+        f"host RSS over level 0's load and pack, streamed from the "
+        f"memmapped artifact: peak {rss['memmap']['peak_rss_bytes']} B, "
+        f"{rss['memmap']['growth_bytes']} B above the process before it; "
+        f"from the artifact loaded whole: {rss['eager']['peak_rss_bytes']} "
+        f"B, {rss['eager']['growth_bytes']} B above (growth ratio "
+        f"{ratio:.3f})")
+    log(f"phase 23 (e): plan_host_mesh(2, 1)'s two processes joined one "
+        f"gloo group on the card host ({subs['e']} s)")
+    return {"a": {k: v for k, v in a.items()
+                  if k not in ("entries", "fold_ref")},
+            "a_built": built, "b": [{t: {k: v for k, v in r[t].items()
+                                          if k != "digest"}
+                                      for t in r if t != "sell_ref"}
+                                     for r in b],
+            "streamed": d, "subprocesses": subs, "rss_ratio": ratio}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -7020,10 +7887,15 @@ def main() -> int:
                         help="run phases 1, 2 and 19 only (graft-tune on "
                              "phase 4's decomposition, made here)")
     parser.add_argument("--mesh", action="store_true",
-                        help="run phases 1, 2, 20, 21 and 22 only (the "
-                             "mesh executors on ranks, training through "
-                             "them and the space-shared modes, the two "
-                             "baselines and the smoke; phase 4's "
+                        help="run phases 1, 2 and 20-23 only (the mesh "
+                             "executors on ranks, training through them "
+                             "and the space-shared modes, the two "
+                             "baselines and the smoke, serving and state "
+                             "on a mesh; phase 4's decomposition and "
+                             "goldens made here)")
+    parser.add_argument("--state", action="store_true",
+                        help="run phases 1, 2 and 23 only (serving and "
+                             "state on a mesh of ranks; phase 4's "
                              "decomposition and goldens made here)")
     parser.add_argument("--serve", action="store_true",
                         help="run phases 1, 2, 15 and 16 only (the serving "
@@ -7087,7 +7959,7 @@ def main() -> int:
     os.makedirs(keep)
     store = os.path.join(keep, "ledger")
     full = not (args.dense or args.bench or args.fleet or args.lens
-                or args.tune or args.mesh or args.serve)
+                or args.tune or args.mesh or args.serve or args.state)
     if full:
         # Phase 4's host work (the graph, its numpy decomposition saved as
         # an artifact, the host goldens) and phase 14's (the native
@@ -7139,6 +8011,9 @@ def main() -> int:
     if args.mesh:
         mesh_res, entries = mesh_only(1 << args.log2n, keep)
         return finish({"mesh": mesh_res, "card": smi}, entries)
+    if args.state:
+        state_res, entries = state_only(1 << args.log2n, keep)
+        return finish({"state": state_res, "card": smi}, entries)
     if args.serve:
         serve_res, entry, ctx = serve_only(dev, 1 << args.log2n, work)
         observe, observe_entry = phase_observe(ctx, serve_res,
@@ -7176,6 +8051,7 @@ def main() -> int:
     # and phase 20's ranks, packing on the host until they are released.
     host17 = start_host(fleet_host, fleet_cache)
     mesh_pool = start_mesh(base, width)
+    subs23 = start_state23(keep, base)
     t_gen, t_dec = rec["t_gen"], rec["t_dec"]
     loaded = load_decomposition(base, width, block_diagonal=True)
     levels = as_levels(loaded, load_level_widths(base, width, True))
@@ -7308,6 +8184,9 @@ def main() -> int:
         ladder=ladder(ml.sell), ladder_tight=ladder(tight.sell),
         host_generate_s=t_gen, host_decompose_s=t_dec, host_fold_s=t_fold,
         peak_device_bytes=int(torch.cuda.max_memory_allocated()))
+    # Phase 23 (d)'s reference on one rank, after the main path's count.
+    ml.feature_dtype = torch.float32
+    fold_ref23 = state23_fold_ref(ml)
 
     # -- 5. per-kernel numbers at the main path's shapes -----------------------
     kernels += phase_k1_numbers(ml, tight, launches, n, row_nnz,
@@ -7355,7 +8234,8 @@ def main() -> int:
 
     # -- 19. graft-tune on the card, on phase 4's levels ---------------------
     # Beside it, the ranks' work of phases 20-22 that times no kernel.
-    mesh_work = start_mesh_work(mesh_pool, base, width, host22, solvers)
+    mesh_work = start_mesh_work(mesh_pool, base, width, host22, solvers,
+                                subs23, fold_ref_on_rank=False)
     del solvers
     results["tune"], tune_entries = phase_tune(dev, base, width,
                                                os.path.join(keep, "tune"))
@@ -7364,7 +8244,8 @@ def main() -> int:
     # -- 20. the mesh executors on ranks sharing the card and over NCCL ------
     results["mesh"], mesh_entries = phase_mesh(
         mesh_work,
-        results["models"].get("gcn_carried fold", {}).get("step_ms"))
+        results["models"].get("gcn_carried fold", {}).get("step_ms"),
+        results["serve"], fold_ref23)
     kernels += mesh_entries
 
     # -- 17. the fleet of worker processes on the card -----------------------
@@ -7391,7 +8272,9 @@ def mesh_only(n: int, keep: str) -> tuple:
     pool = start_mesh(base, width)
     tic = time.perf_counter()
     levels = as_levels_of(base, width)
-    for k, xseed, steps in ((16, 3, MESH["chain"]), (128, 4, 1)):
+    for k, xseed, steps in ((16, 3, max(MESH["chain"],
+                                        SERVE["iterations"])),
+                            (128, 4, 1)):
         g = random_dense(n, k, seed=xseed)
         for s in range(steps):
             g = host_golden(levels, g, max(1, (os.cpu_count() or 2) // 2))
@@ -7400,6 +8283,57 @@ def mesh_only(n: int, keep: str) -> tuple:
         f"{time.perf_counter() - tic:.1f} s")
     del levels
     return phase_mesh(start_mesh_work(pool, base, width, host22))
+
+
+def state_only(n: int, keep: str) -> tuple:
+    """``--state``: phase 4's decomposition (made and saved here) and its
+    k=16 input's host goldens, then phase 23 on rank pools of its own (4
+    gloo ranks holding phase 7's graph, the NCCL rank phase 4's levels),
+    its subprocesses beside the ranks' work."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.parallel.launch import RankPool
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    width = 2048
+    base, _ = decompose_phase4(n, keep)
+    pool = RankPool(MESH["world"], backend="gloo", threads=2)
+    nccl = RankPool(torch.cuda.device_count(), backend="nccl", threads=2)
+    subs = ThreadPoolExecutor(1)
+    try:
+        for ranks, n_small in ((pool, MESH["n_small"]), (nccl, 0)):
+            ranks.submit("chip_smoke", "state23_prepare", base, width,
+                         n_small)
+        tic = time.perf_counter()
+        levels = as_levels_of(base, width)
+        g = random_dense(n, 16, seed=3)
+        for step in range(SERVE["iterations"]):
+            g = host_golden(levels, g)
+            np.save(golden_path(base, 16, step + 1), g)
+        del levels
+        log(f"phase 4 (for phase 23): the k=16 input's host goldens in "
+            f"{time.perf_counter() - tic:.1f} s")
+        pool.collect(job_timeout_s=900)
+        nccl.collect(job_timeout_s=900)
+        pool.submit("chip_smoke", "state23_ranks", keep)
+        nccl.submit("chip_smoke", "state23_nccl_build", width, True)
+        sub = subs.submit(state23_subprocesses, keep, base)
+        b23 = pool.collect(job_timeout_s=900)
+        built = nccl.collect(job_timeout_s=900)[0]
+        a23 = nccl.run("chip_smoke", "state23_nccl", base,
+                       job_timeout_s=900)[0]
+        d23 = nccl.run("chip_smoke", "state23_streamed", base, width,
+                       job_timeout_s=600)[0]
+        res = phase_state(a23, d23, b23, built,
+                          sub.result(timeout=STATE["timeout_s"]))
+    finally:
+        pool.close()
+        nccl.close()
+        subs.shutdown(wait=False)
+    return res, a23["entries"]
 
 
 def serve_only(dev, n: int, work: str) -> tuple:

@@ -96,9 +96,12 @@ def multi_level(ctx, levels, width, x, steps, kw, shape=None,
 
 def mesh_members(ctx, levels, width, kw):
     """The single-device members of ``MultiLevelArrow(mesh=)``: each
-    one's ``NotImplementedError`` message (None where it runs), and the
+    one's ``ValueError`` message (None where it runs), what
+    ``load_folded`` builds from a fold exported by one device, and the
     members that work on a mesh: the transposed operator (what it packed)
     and the transposed step beside the step, bit for bit."""
+    import tempfile
+
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
 
     exe = MultiLevelArrow(levels, width, mesh=_mesh(None, ("blocks",)), **kw)
@@ -108,16 +111,21 @@ def mesh_members(ctx, levels, width, kw):
     calls = {"pack_level": lambda: exe.pack_level(0, levels[0].matrix),
              "launch_groups": lambda: exe.launch_groups(None),
              "fold_product": lambda: exe.fold_product(None, None),
-             "export_folded": lambda: exe.export_folded("unused"),
-             "load_folded": lambda: type(exe).load_folded("unused")}
+             "export_folded": lambda: exe.export_folded("unused")}
     refused = {}
     for name, call in calls.items():
         try:
             call()
             refused[name] = None
-        except NotImplementedError as e:
+        except ValueError as e:
             refused[name] = str(e)
+    with tempfile.TemporaryDirectory() as d:
+        MultiLevelArrow(levels, width, fmt="fold",
+                        device="cpu").export_folded(d)
+        fold = type(exe).load_folded(d, device="cpu")
     return {"refused": refused, "head_layouts": exe.head_layouts(),
+            "loaded": (type(fold).__name__, fold.folded,
+                       fold.device.type),
             "packed": exe.transposed().packed, "transposed_is_step": same,
             "kernel_bytes": exe.kernel_bytes(16),
             "carriage": exe.carriage_hbm_bytes(16),

@@ -78,23 +78,27 @@ def test_slim_matches_jax(pool4, problem, fmt, head_fmt, block_diagonal,
                                           ("ell", "flat")])
 def test_single_device_members_refuse_on_a_mesh(pool4, problem, fmt,
                                                 head_fmt):
-    """The members of the single-device executor that have no mesh form
-    (the fold's product and knobs, the packed operator on disk) raise
-    naming the ROADMAP item on every rank; the transposed operator has
-    one: over the symmetric BA levels it packs nothing and its step is
-    the step, bit for bit; the head layouts name each level's, and the
-    carriage model prices this rank's rows."""
+    """The members of the single-device fold that have no mesh form (its
+    product, knobs and per-level packing) raise naming the single-device
+    executor on every rank, ``export_folded`` in the JAX package's words,
+    and ``load_folded`` keeps its single-device meaning; the transposed
+    operator has a mesh form: over the symmetric BA levels it packs
+    nothing and its step is the step, bit for bit; the head layouts name
+    each level's, and the carriage model prices this rank's rows."""
     _, levels, _ = problem
     lv = levels[True]
     jm = JaxArrow(lv, 32, mesh=jax_mesh((4,), ("blocks",)), fmt=fmt,
                   head_fmt=head_fmt)
     for r in pool4.run(JOBS, "mesh_members", lv, 32,
                        dict(fmt=fmt, head_fmt=head_fmt)):
-        assert sorted(r["refused"]) == ["export_folded", "fold_product",
-                                        "launch_groups", "load_folded",
-                                        "pack_level"]
-        assert all(msg and "multi-device executors" in msg
-                   for msg in r["refused"].values()), r["refused"]
+        refused = r["refused"]
+        assert sorted(refused) == ["export_folded", "fold_product",
+                                   "launch_groups", "pack_level"]
+        assert refused.pop("export_folded") == \
+            "export_folded requires fmt='fold'"
+        assert all(msg and "belongs to the single-device executor" in msg
+                   for msg in refused.values()), refused
+        assert r["loaded"] == ("MultiLevelArrow", True, "cpu")
         assert r["packed"] == [] and r["transposed_is_step"]
         assert r["head_layouts"] == [
             None if f != "ell" else head_fmt for f in jm.fmts]

@@ -179,10 +179,17 @@ def test_bf16_legacy_int16_file_still_loads(tmp_path):
 def test_several_processes_raise_naming_the_roadmap(tmp_path, monkeypatch):
     import torch.distributed as dist
 
+    """Under a job of several processes a checkpoint without a mesh is
+    the process's own state: written and read back with no collective
+    (a carriage sharded over a mesh passes ``mesh=``, whose path
+    tests/test_torch_mesh_state.py holds on gloo ranks)."""
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        pck.save_state(str(tmp_path / "ck"), torch.ones(2, 2), 1)
+    x = torch.arange(6, dtype=torch.float32).view(3, 2)
+    pck.save_state(str(tmp_path / "ck"), x, 1, layout="local")
+    got, step = pck.load_state(str(tmp_path / "ck"), like=x,
+                               layout="local")
+    assert step == 1 and torch.equal(got, x)
 
 
 def _cli(tmp_path, monkeypatch, *extra):

@@ -69,9 +69,9 @@ def test_mesh_sell_validates_on_two_cpu_ranks(tmp_path, extra):
 
 
 def test_mesh_refusals_exit_before_any_work(tmp_path, monkeypatch):
-    """The parts of the multi-device slice still to come exit naming the
-    ROADMAP item; flags that cannot go together (the JAX CLI's refusals
-    of ``--mode space`` among them) exit before any work."""
+    """Flags that cannot go together (the JAX CLI's refusals of ``--mode
+    space`` among them, and a checkpoint without ``--carry``) exit
+    before any work on a mesh of ranks."""
     from arrow_matrix_tpu_torch.cli.spmm_arrow import main
 
     monkeypatch.chdir(tmp_path)
@@ -81,7 +81,7 @@ def test_mesh_refusals_exit_before_any_work(tmp_path, monkeypatch):
             (["--mode", "space", "--slim", "false"], "runs time-shared"),
             (["--mode", "space", "--fmt", "hyb"], "single-chip kernel"),
             (["--fmt", "fold"], "single-chip only"),
-            (["--carry", "--checkpoint", "ck"], "multi-device executors"),
+            (["--checkpoint", "ck"], "--checkpoint requires --carry"),
             (["--slim", "false"], "even --devices >= 4")):
         with pytest.raises(SystemExit, match=words):
             main(["--devices", "2", "--device", "cpu", *args])
@@ -594,17 +594,17 @@ def test_baseline_comm_reports(tmp_path, module):
 
 
 def test_baseline_refusals_exit_before_any_work(tmp_path, monkeypatch):
-    """A checkpoint of a multi-process run exits with spmm_arrow's words;
-    a replication whose square does not divide the rank count, and a
-    memmap without a file, exit before any rank starts."""
+    """A checkpoint without ``--carry``, a replication whose square does
+    not divide the rank count, and a memmap without a file, exit before
+    any rank starts."""
     from arrow_matrix_tpu_torch.cli import spmm_15d, spmm_petsc
 
     monkeypatch.chdir(tmp_path)
     for main, args, words in (
-            (spmm_petsc.main, ["--carry", "--checkpoint", "ck"],
-             "multi-device executors"),
-            (spmm_15d.main, ["--carry", "--checkpoint", "ck"],
-             "multi-device executors"),
+            (spmm_petsc.main, ["--checkpoint", "ck"],
+             "--checkpoint requires --carry"),
+            (spmm_15d.main, ["--checkpoint", "ck"],
+             "--checkpoint requires --carry"),
             (spmm_15d.main, ["-r", "2"], "not divisible by c\\^2"),
             (spmm_15d.main, ["--memmap"], "--memmap requires --file"),
             (spmm_15d.main, ["--repl", "2", "-r", "2"], "give one")):

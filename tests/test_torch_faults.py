@@ -304,5 +304,9 @@ def test_killed_server_resumes_to_the_never_killed_results(tmp_path):
 
 
 def test_cli_flags_of_parts_not_ported_exit_naming_them(tmp_path):
-    r = _serve_cli(tmp_path, ["--fmt", "ell"])
-    assert r.returncode != 0 and "multi-device" in r.stderr
+    """``--devices`` serves the mesh format: the fold on two ranks exits
+    naming it, before any work (``--fmt ell`` on a mesh is held in
+    tests/test_torch_mesh_cli.py)."""
+    r = _serve_cli(tmp_path, ["--devices", "2"])
+    assert r.returncode != 0
+    assert "--devices serves --fmt ell over a mesh" in r.stderr

@@ -157,15 +157,25 @@ def test_a_global_job_env_raises_naming_the_multi_device_executors(
     for key in worker_mod.DISTRIBUTED_ENV:
         monkeypatch.delenv(key, raising=False)
     assert worker_mod.maybe_init_distributed() is False
-    env = host.plan_host_mesh(2, 1)[1]
+    env = host.plan_host_mesh(2, 1, port=2345)[1]
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError,
-                       match="multi-device executors"):
-        worker_mod.maybe_init_distributed(verbose=True)
-    with pytest.raises(NotImplementedError,
-                       match="multi-device executors"):
-        worker_mod.main(["--worker_id", "w", "--device", "cpu"])
+    # With the triple set the worker joins the one job as its rank (the
+    # join itself is held in tests/test_torch_mesh_cli.py): over gloo on
+    # the CPU, at the coordinator's TCP address; with no card and none
+    # asked for, it raises instead of running on the CPU.
+    from arrow_matrix_tpu_torch.parallel import mesh as mesh_mod
+
+    joined = []
+    monkeypatch.setattr(mesh_mod, "_RANK_DEVICE", [None])
+    monkeypatch.setattr(mesh_mod, "init_distributed",
+                        lambda *a, **k: joined.append((a, k)))
+    assert worker_mod.maybe_init_distributed(verbose=True, device="cpu")
+    (rank, world, backend, dev), kw = joined[0]
+    assert (rank, world, backend, dev.type) == (1, 2, "gloo", "cpu")
+    assert kw == {"init_method": "tcp://127.0.0.1:2345"}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker_mod.maybe_init_distributed()
     # Two of the three set is not a global job.
     monkeypatch.delenv("AMT_FLEET_PROCESS_ID")
     assert worker_mod.maybe_init_distributed() is False

@@ -233,6 +233,36 @@ def test_baselines_and_the_smoke_run_with_jax_blocked(tmp_path):
     assert "spmm_15d" in proc.stdout and "INVALID" not in proc.stderr
 
 
+def test_mesh_serving_and_state_run_with_jax_blocked(tmp_path):
+    """``graft_serve --fmt ell --devices 2 --checkpoint`` (a lockstep
+    server on a mesh of gloo ranks, its checkpoints written by rank 0)
+    and ``spmm_arrow --devices 2 --memmap --carry --checkpoint`` (the
+    memmapped levels, a checkpoint of the sharded carriage), at once,
+    with JAX and the JAX package unimportable in the launchers and in
+    every rank."""
+    blocker = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")]
+    (tmp_path / "sitecustomize.py").write_text(blocker)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
+    env.pop("AMT_FAULT_PLAN", None)
+    runs = [["arrow_matrix_tpu_torch.cli.graft_serve", "--fmt", "ell",
+             "--vertices", "128", "--width", "16", "--requests", "4",
+             "--iterations", "2", "--checkpoint", str(tmp_path / "ck")],
+            ["arrow_matrix_tpu_torch.cli.spmm_arrow", "--vertices", "512",
+             "--width", "32", "--features", "4", "--iterations", "2",
+             "--memmap", "--carry", "--checkpoint", "ckpt", "--validate"]]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", *run, "--devices", "2", "--device", "cpu"],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for run in runs]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, out + err
+    assert "4 completed" in outs[0][0]
+    assert "iteration 1: rel err vs host" in outs[1][0]
+    assert os.path.exists(tmp_path / "ckpt.npz")
+
+
 SERVE_RUN = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")] + r"""
 import json, os, tempfile
 import arrow_matrix_tpu_torch.sync, arrow_matrix_tpu_torch.classes
@@ -297,6 +327,7 @@ import arrow_matrix_tpu_torch.cli.graft_fleet
 import arrow_matrix_tpu_torch.cli.graft_pulse
 import arrow_matrix_tpu_torch.cli.graft_xray
 import arrow_matrix_tpu_torch.tools.fleet_gate
+import arrow_matrix_tpu_torch.tools.reshard_gate
 from arrow_matrix_tpu_torch.fleet import FleetRouter, WorkerHandle
 from arrow_matrix_tpu_torch.fleet.host import RouterQuorum, plan_host_mesh
 from arrow_matrix_tpu_torch.fleet.worker import FleetWorker, serve_worker

@@ -347,24 +347,36 @@ def test_policy_equals_jax_and_validates():
             PPolicy(**bad)
 
 
-def test_unported_parts_raise_naming_their_roadmap_item(pkgs, tmp_path):
-    """Live resharding still raises naming its item; a tune plan is
-    ported, and one the port cannot apply (no backend, no structure)
-    is a loud miss, never a silent default."""
+def test_unported_parts_raise_naming_their_roadmap_item(pkgs, tmp_path,
+                                                       capsys):
+    """A tune plan the port cannot apply (no backend, no structure) is a
+    loud miss, never a silent default.  Live resharding on one device
+    behaves as the JAX package's: a grow target of another replication
+    grows with nothing to migrate (the fold carries one copy whatever
+    ``repl``), the base rung then runs the grown executor, a second grow
+    is a no-op, and pressure toward a server with no target grows
+    nothing (grows on a mesh of ranks: tests/test_torch_mesh_serve.py)."""
     from arrow_matrix_tpu_torch.tune import TunePlanMiss
 
     p = pkgs["port"]
     with pytest.warns(TunePlanMiss, match="backend"):
         srv = _server(p, tune_plan={"candidate": "fold"})
     assert srv.tune_plan is None
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        _server(p, grow_config=pserve.ExecConfig(repl=2))
-    srv = _server(p)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        srv.note_slo_pressure("test", direction="grow")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        pserve.ba_executor_factory(N, WIDTH, SEED, mesh=object(),
-                                   device="cpu")
+    lines = []
+    for name in ("jax", "port"):
+        q = pkgs[name]
+        srv = _server(q, grow_config=q.serve.ExecConfig(repl=2),
+                      checkpoint_dir=str(tmp_path / name))
+        assert srv.note_slo_pressure("test", direction="grow") == ["*"]
+        assert srv.grow() and srv.grows == 1
+        assert srv._executor_for(q.serve.ExecConfig())[1] == \
+            q.serve.ExecConfig(repl=2)
+        assert _server(q).note_slo_pressure("t", direction="grow") == []
+        lines.append([ln for ln in capsys.readouterr().out.splitlines()
+                      if "grew to" in ln])
+    assert lines[0] == lines[1] and len(lines[0]) == 1
+    assert "0 checkpoint(s) migrated through 0 staged plan step(s)" in \
+        lines[1][0]
 
 
 def test_attach_pulse_feeds_the_monitor_like_jax(pkgs):
