@@ -176,7 +176,7 @@ class HealthMonitor:
             flight.record("fleet", "worker_readmitted",
                           worker=worker_id,
                           readmissions=h.readmissions)
-        except Exception:  # noqa: BLE001 — telemetry
+        except Exception:  # graft-lint: disable=R8 — telemetry
             pass
         return h
 

@@ -280,7 +280,7 @@ class SegmentPool:
 
                 flight.record("shm", "close_problems",
                               problems=problems)
-            except Exception:  # noqa: BLE001 — telemetry
+            except Exception:  # graft-lint: disable=R8 — telemetry
                 pass
             if strict:
                 raise ShmLeakError("; ".join(problems))
@@ -302,7 +302,7 @@ def _attach(name: str, *,
             from multiprocessing import resource_tracker
 
             resource_tracker.unregister(seg._name, "shared_memory")
-        except Exception:  # noqa: BLE001 — best-effort
+        except Exception:  # graft-lint: disable=R8 — best-effort
             pass
     return seg
 

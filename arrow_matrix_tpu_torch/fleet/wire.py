@@ -155,7 +155,7 @@ def _account(stats: Dict[str, Any], role: Optional[str]) -> None:
                    **labels)
         reg.record("wire_serialize_ms", stats["serialize_ms"], **labels)
         reg.record("wire_ms", stats["wire_ms"], **labels)
-    except Exception:  # noqa: BLE001 — telemetry
+    except Exception:  # graft-lint: disable=R8 — telemetry
         pass
 
 
@@ -330,7 +330,7 @@ def _near_limit_check(nbytes: int, kind: str) -> None:
                           frame_bytes=nbytes, limit=MAX_FRAME_BYTES)
             metrics_mod.get_registry().counter(
                 "wire_near_limit_total", op=kind).inc()
-        except Exception:  # noqa: BLE001 — telemetry
+        except Exception:  # graft-lint: disable=R8 — telemetry
             pass
 
 

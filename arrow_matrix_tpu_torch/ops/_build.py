@@ -23,6 +23,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Sequence
 
+from arrow_matrix_tpu_torch.utils.buildstats import bump
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -105,6 +107,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
+        bump("library_loads")
         lib = ctypes.CDLL(build(name))
         _LIBS[name] = lib
     return lib

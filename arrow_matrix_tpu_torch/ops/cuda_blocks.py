@@ -33,6 +33,7 @@ from arrow_matrix_tpu_torch.ops import _build
 from arrow_matrix_tpu_torch.ops import arrow_blocks as plain
 from arrow_matrix_tpu_torch.ops.arrow_blocks import ArrowBlocks
 from arrow_matrix_tpu_torch.ops.cuda_sell import check_operand
+from arrow_matrix_tpu_torch.ops.kernel_span import kernel_call
 
 #: K2 launches made by this process (one per level product with nb > 1).
 LAUNCHES_K2 = 0
@@ -153,6 +154,7 @@ def _raise_on(code: int, what: str) -> None:
             f"{lib.arrow_blocks_error_string(code).decode()} (code {code})")
 
 
+@kernel_call
 def column_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
                 lo: Optional[torch.Tensor] = None,
                 hi: Optional[torch.Tensor] = None,
@@ -190,6 +192,7 @@ def column_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
     return out
 
 
+@kernel_call
 def column_rows_spmm(diag: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
                      first: int, lo: Optional[torch.Tensor] = None,
                      hi: Optional[torch.Tensor] = None,
@@ -249,6 +252,7 @@ def _column_launch(code_dtype: int, vec: int, stacks: dict,
     LAUNCHES_K2 += 1
 
 
+@kernel_call
 def head_spmm(head: torch.Tensor, x: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: ``out = sum_b A_0b X_b`` into ``out`` (w, k) float32.
@@ -287,6 +291,7 @@ def head_spmm(head: torch.Tensor, x: torch.Tensor,
     return out
 
 
+@kernel_call
 def arrow_spmm_cuda(blocks: ArrowBlocks, x: torch.Tensor) -> torch.Tensor:
     """One level's product through K3 and K2: x ``(nb, w, k)`` float32
     -> ``(nb, w, k)`` float32, one launch of each (K2 none when nb = 1).

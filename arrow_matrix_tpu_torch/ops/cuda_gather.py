@@ -40,6 +40,7 @@ from arrow_matrix_tpu_torch.ops.gather import (
     row_gather_add_plain,
     row_gather_plain,
 )
+from arrow_matrix_tpu_torch.ops.kernel_span import kernel_call
 
 #: Row gather launches made by this process (one per call on the card).
 LAUNCHES = 0
@@ -108,6 +109,7 @@ def _launch(x: torch.Tensor, x2, idx: torch.Tensor, out: torch.Tensor,
             f"S={slots} k={k} add={add})")
 
 
+@kernel_call
 def row_gather(x: torch.Tensor, idx: torch.Tensor,
                x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[s] = x[idx[s]]``: ``(S, k)`` from ``x (n, k)`` and ``idx
@@ -139,6 +141,7 @@ def row_gather(x: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+@kernel_call
 def row_gather_add_(base: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
                     x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``base[s] += x[idx[s]]`` in place, one f32 addition with the base
@@ -165,6 +168,7 @@ def _joined(x: torch.Tensor, x2: Optional[torch.Tensor]) -> torch.Tensor:
     return x if x2 is None else torch.cat([x, x2])
 
 
+@kernel_call
 def granule_gather(x_packed: torch.Tensor, idx: torch.Tensor
                    ) -> torch.Tensor:
     """The probe's entry: ``out.reshape(S, 16)[s] = x[idx[s]]``, returned

@@ -36,6 +36,7 @@ import torch
 
 from arrow_matrix_tpu_torch.ops import _build
 from arrow_matrix_tpu_torch.ops.ell import ell_tier_spmm, out_dtype_for
+from arrow_matrix_tpu_torch.ops.kernel_span import kernel_call
 from arrow_matrix_tpu_torch.ops.sell import SellMatrix, sell_spmm
 from arrow_matrix_tpu_torch.ops.worklist import (
     CHUNK_SLOTS,
@@ -47,6 +48,7 @@ from arrow_matrix_tpu_torch.ops.worklist import (
     build_worklist,
     sell_spmm_worklist,
 )
+from arrow_matrix_tpu_torch.utils.buildstats import bump
 
 #: Kernel launches made by this process: one per product, two when the
 #: operator has split rows.
@@ -130,6 +132,7 @@ def build_plan(m: SellMatrix, k: int, dtype: torch.dtype,
     """Check the operator's tensors and put the work list of ``m`` at
     ``k`` features of ``dtype`` with the knobs ``opts`` on its device."""
     dev = m.device
+    bump("plans")
     _check_tiers(m, dev)
     wl = build_worklist([tuple(c.shape) for c in m.cols], m.row_starts, k,
                         dtype.itemsize, vecload=vecload, opts=opts)
@@ -219,6 +222,7 @@ def launch(plan: DevicePlan, binary: bool, x: torch.Tensor,
     return out
 
 
+@kernel_call
 def sell_spmm_cuda(m: SellMatrix, x: torch.Tensor,
                    opts: Optional[LaunchOpts] = None) -> torch.Tensor:
     """``m @ x`` row-major through K1: ``x`` (x_rows, k) -> (n_rows, k)
@@ -372,6 +376,7 @@ def tier_subset(m: SellMatrix, tiers: Tuple[int, ...]) -> SellMatrix:
     return sub
 
 
+@kernel_call
 def sell_spmm_k1(m: SellMatrix, x: torch.Tensor,
                  groups: Sequence[LaunchGroup]) -> torch.Tensor:
     """``m @ x`` through the K1 launches ``groups`` (:func:`launch_groups`)
@@ -405,6 +410,7 @@ def sell_spmm_k1(m: SellMatrix, x: torch.Tensor,
     return out
 
 
+@kernel_call
 def sell_tier_spmm(cols: torch.Tensor, x: torch.Tensor, out: torch.Tensor,
                    data: Optional[torch.Tensor] = None,
                    deg: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -552,7 +558,8 @@ def kcert_witness():
                       torch.from_numpy(rng.integers(-127, 128, (n, k))
                                        .astype(np.int8))):
                 for opts in (DEFAULT_OPTS, LaunchOpts(chunk_slots=64)):
-                    wl = build_worklist(
+                    # The certifier's witness: one list per probed point.
+                    wl = build_worklist(  # graft-lint: disable=R2
                         [tuple(c.shape) for c in m.cols], m.row_starts, k,
                         x.element_size(),
                         vecload=k * x.element_size() % 16 == 0, opts=opts)

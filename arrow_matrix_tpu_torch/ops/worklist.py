@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from arrow_matrix_tpu_torch.ops.ell import ell_tier_sums, out_dtype_for
+from arrow_matrix_tpu_torch.utils.buildstats import bump
 
 #: Threads of a K1 CTA (``csrc/sell_tier_spmm.cu:kThreads``).
 THREADS = 256
@@ -192,6 +193,7 @@ def build_worklist(shapes: Sequence[Tuple[int, int]],
     if len(shapes) != len(row_starts):
         raise ValueError("one row start per tier")
     opts.check(len(shapes))
+    bump("worklists")
     _, group, col_blocks = lanes(k, itemsize, vecload)
     p = THREADS // group
     tiers = np.zeros((len(shapes), 5), np.int64)

@@ -715,6 +715,13 @@ class MeshMultiLevelArrow(MultiLevelArrow):
         return 0
 
     def collective_contract(self, k: int, itemsize: int = 4):
+        """Static communication promise: the routed exchanges
+        (all-to-all; all-gather under ``routing="gather"``), each
+        level's head reduction (a gather to rank 0), X_0 broadcast and
+        halos.  The band is the JAX executor's under a2a; the gather
+        routing all-gathers the whole carriage and has a wider one.
+        ``run`` holds each step's input only until the next step has
+        read it (``donated_params``)."""
         from arrow_matrix_tpu_torch.analysis.contracts import (
             CollectiveContract,
         )
@@ -726,8 +733,13 @@ class MeshMultiLevelArrow(MultiLevelArrow):
             step_bytes=self.ideal_comm_bytes(k, itemsize),
             reduce_bytes=0, repl=1, overlap_slabs=self.overlap_slabs,
             dtype="f32", lowered_kinds=kinds, compiled_kinds=kinds,
-            ratio_band=(0.25, 64.0),
-            notes="routing='gather' all-gathers the whole carriage")
+            ratio_band=(0.25, 4.0) if self.routing == "a2a"
+            else (0.25, 64.0),
+            donated_params=(0,),
+            hot_copy_budget=16 * self.overlap_slabs,
+            notes="flat row-major carriage: the routed a2a moves "
+                  "(rows, k) slices, so the ÷c slab law lives in the "
+                  "SELL feature-major executors")
 
     def operator_bytes(self) -> int:
         """Device bytes of this rank's blocks and route tables."""

@@ -42,6 +42,7 @@ card, and a NCCL group is never swapped for gloo.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -57,6 +58,16 @@ _ALL_GATHER = (getattr(dist, "all_gather_single", None)
 #: Collectives handed to gloo on CUDA tensors (torch's backend table);
 #: the others are staged (module docstring).
 GLOO_CUDA_OPS = ("broadcast", "all_reduce")
+
+
+def _layer(fn):
+    """Run ``fn`` inside :func:`commstats.issuing`: the span in which
+    the layer's own ``torch.distributed`` calls and copies run."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with commstats.issuing():
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
@@ -93,6 +104,7 @@ def _staged(mesh: Mesh, op: str, ins: List[torch.Tensor],
                             + sum(_nbytes(t) for t in outs))
 
 
+@_layer
 def broadcast(t: torch.Tensor, mesh: Mesh, axis: str,
               root: int = 0) -> torch.Tensor:
     """``t`` of the rank at position ``root`` of this rank's ``axis``
@@ -112,10 +124,11 @@ def broadcast(t: torch.Tensor, mesh: Mesh, axis: str,
         dist.broadcast(outs[0], src=line[root], group=mesh.group(axis))
 
     _staged(mesh, "broadcast", [w], [w], run)
-    commstats.record("broadcast", _nbytes(t), len(line))
+    commstats.record("broadcast", _nbytes(t), len(line), t)
     return t
 
 
+@_layer
 def reduce_to_first(t: torch.Tensor, mesh: Mesh, axis: str
                     ) -> Optional[torch.Tensor]:
     """The sum over the ``axis`` line of every rank's ``t``, on the
@@ -136,7 +149,7 @@ def reduce_to_first(t: torch.Tensor, mesh: Mesh, axis: str
 
     _staged(mesh, "gather", [src], [_wire(parts)] if first else [], run)
     commstats.record("gather", _nbytes(t) * ((len(line) - 1) if first
-                                             else 1), len(line))
+                                             else 1), len(line), t)
     if not first:
         return None
     acc = parts[0].clone()
@@ -145,6 +158,7 @@ def reduce_to_first(t: torch.Tensor, mesh: Mesh, axis: str
     return acc
 
 
+@_layer
 def shift(to_next: Optional[torch.Tensor], to_prev: Optional[torch.Tensor],
           mesh: Mesh, axis: str, shape_from_prev: Tuple[int, ...],
           shape_from_next: Tuple[int, ...], dtype: torch.dtype,
@@ -185,10 +199,12 @@ def shift(to_next: Optional[torch.Tensor], to_prev: Optional[torch.Tensor],
     _staged(mesh, "collective-permute", ins, outs, run)
     commstats.record("collective-permute",
                      max(sum(_nbytes(t) for t in ins),
-                         sum(_nbytes(t) for t in outs)), len(line))
+                         sum(_nbytes(t) for t in outs)), len(line),
+                     from_prev, _nbytes(from_prev) + _nbytes(from_next))
     return from_prev, from_next
 
 
+@_layer
 def all_to_all(send: torch.Tensor, mesh: Mesh, axis: str,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fixed-slot exchange along ``axis``: ``send`` (P * S, ...) holds S
@@ -206,10 +222,12 @@ def all_to_all(send: torch.Tensor, mesh: Mesh, axis: str,
     _staged(mesh, "all_to_all", [_wire(send.contiguous())], [_wire(recv)],
             run)
     commstats.record("all-to-all",
-                     _nbytes(send) * (len(line) - 1) // len(line), len(line))
+                     _nbytes(send) * (len(line) - 1) // len(line), len(line),
+                     send)
     return recv
 
 
+@_layer
 def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Every rank's ``t`` (same shape) along ``axis``, concatenated on
     dim 0 in rank order, on every rank of the line."""
@@ -223,10 +241,12 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
         _ALL_GATHER(outs[0], ins[0], group=mesh.group(axis))
 
     _staged(mesh, "all_gather", [_wire(t.contiguous())], [_wire(out)], run)
-    commstats.record("all-gather", _nbytes(t) * (len(line) - 1), len(line))
+    commstats.record("all-gather", _nbytes(t) * (len(line) - 1), len(line),
+                     t)
     return out
 
 
+@_layer
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh,
                    axes=None) -> torch.Tensor:
     """The sum of every rank's ``t`` over the lines of ``axes`` (one
@@ -252,7 +272,7 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh,
 
         _staged(mesh, "all_gather", [_wire(flat)], [_wire(parts)], run)
         commstats.record("all-reduce", _nbytes(out) * (len(line) - 1),
-                         len(line))
+                         len(line), out)
         acc = parts[0].clone()
         for i in range(1, len(line)):
             acc += parts[i]
@@ -275,6 +295,7 @@ def _line(mesh: Optional[Mesh], axis):
     return mesh.line(axis), mesh.group(axis), dev
 
 
+@_layer
 def all_reduce_max(value: int, mesh: Optional[Mesh], axis=None) -> int:
     """The largest of every rank's integer ``value`` along ``axis`` (a
     host-side agreement: the builds' halo reach, the streamed pack's
@@ -285,10 +306,11 @@ def all_reduce_max(value: int, mesh: Optional[Mesh], axis=None) -> int:
         return int(value)
     t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    commstats.record("all-reduce", 8, len(line))
+    commstats.record("all-reduce", 8, len(line), t)
     return int(t.item())
 
 
+@_layer
 def all_reduce_int_sum(value: int, mesh: Optional[Mesh], axis=None) -> int:
     """The sum of every rank's integer ``value`` along ``axis`` (exact:
     integers; the streamed pack's captured-nonzero count)."""
@@ -297,10 +319,11 @@ def all_reduce_int_sum(value: int, mesh: Optional[Mesh], axis=None) -> int:
         return int(value)
     t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    commstats.record("all-reduce", 8, len(line))
+    commstats.record("all-reduce", 8, len(line), t)
     return int(t.item())
 
 
+@_layer
 def broadcast_object(obj, mesh: Optional[Mesh] = None, axis=None,
                      root: int = 0):
     """The JSON value ``obj`` of the rank at position ``root`` of the
@@ -321,7 +344,8 @@ def broadcast_object(obj, mesh: Optional[Mesh] = None, axis=None,
            else torch.empty(int(n.item()), dtype=torch.uint8, device=dev))
     if buf.numel():
         dist.broadcast(buf, src=line[root], group=group)
-    commstats.record("broadcast", 8 + buf.numel(), len(line))
+    commstats.record("broadcast", 8 + buf.numel(), len(line), buf,
+                     8 + buf.numel())
     return json.loads(bytes(buf.cpu().numpy()).decode())
 
 

@@ -900,6 +900,53 @@ class MultiLevelArrow:
             x = self._step_fn(x, *self.step_operands())
         return x
 
+    # -- the communication contract -----------------------------------------
+
+    def ideal_comm_bytes(self, k: int, itemsize: int = 4) -> int:
+        """Paper cost model for one step at width ``k``: one device
+        exchanges nothing (the mesh executor, ``parallel/arrow_layout``,
+        prices its routing)."""
+        return 0
+
+    def reduce_comm_bytes(self, k: int, itemsize: int = 4) -> int:
+        """2.5D merge bytes: 0 (the fold's ``repl`` column groups
+        concatenate disjoint slabs)."""
+        return 0
+
+    def collective_contract(self, k: int, itemsize: int = None):
+        """Static communication promise (the JAX executor's, field by
+        field): one device issues no collective; the carriage is
+        argument 0 of ``run``, which holds each step's input only until
+        the next step has read it (``donated_params``); the copy budget
+        grows by one 8-copy set per scheduled tier."""
+        from arrow_matrix_tpu_torch.analysis.contracts import (
+            CollectiveContract,
+        )
+
+        if itemsize is None:
+            itemsize = self.feature_dtype.itemsize
+        repl = getattr(self, "repl", 1)
+        slabs = getattr(self, "overlap_slabs", 1)
+        schedule = self.kernel_opts.get("schedule") or ()
+        return CollectiveContract(
+            algorithm="multi_level",
+            step_bytes=self.ideal_comm_bytes(k, itemsize),
+            reduce_bytes=self.reduce_comm_bytes(k, itemsize),
+            repl=repl, overlap_slabs=slabs,
+            dtype={torch.float32: "f32", torch.bfloat16: "bf16",
+                   torch.int8: "int8"}[self.feature_dtype],
+            lowered_kinds=(), compiled_kinds=(),
+            ratio_band=(0.25, 4.0),
+            donated_params=(0,),
+            hot_copy_budget=(16 + 8 * len(schedule)) * slabs,
+            h3_exempt=("single-chip fold repl is a column-group "
+                       "schedule over ZERO collectives: there is no "
+                       "exchange to carry a slab and no merge to price "
+                       "(disjoint slabs concatenate)" if repl > 1 else ""),
+            notes="flat row-major carriage: the routed a2a moves "
+                  "(rows, k) slices, so the ÷c slab law lives in the "
+                  "SELL feature-major executors")
+
     # -- the HBM model -------------------------------------------------------
 
     def operator_bytes(self) -> int:
@@ -936,7 +983,8 @@ class MultiLevelArrow:
             m = self.sell if g is None else tier_subset(self.sell, g.tiers)
             item = itemsize if g is None or g.carriage is None \
                 else g.carriage.itemsize
-            widest = build_worklist(
+            # The HBM model's host sizing, once per launch group.
+            widest = build_worklist(  # graft-lint: disable=R2
                 [tuple(c.shape) for c in m.cols], m.row_starts,
                 32 * (16 // item), item,
                 opts=LaunchOpts() if g is None else g.opts)

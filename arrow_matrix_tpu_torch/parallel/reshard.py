@@ -16,10 +16,10 @@ package's for the same layouts and budgets.
     checkpoint of the port's ``utils/checkpoint.py`` (npz, sha256
     verified): load, apply, save atomically under the destination tag;
   * :func:`plan_route_table` is the plan's global gather table and pad
-    mask.  Its consumers in the JAX package (``routing.build_route``,
-    ``StagedRoute``) compile it for a mesh, for the reshard gate's
-    bounded-scratch half, which in the port waits for the collective
-    prover (ROADMAP.md Queue A, "Proof and tuning layers").
+    mask.  ``parallel/routing.build_route`` compiles it for a mesh and
+    ``split_route_stages`` bounds each stage's scratch, which the
+    collective prover's H7 (``analysis/prove.py``) and the reshard
+    gate's ``reshard_h7`` hold.
 
 ``FleetRouter.migrate`` (``fleet/router.py``) hands a tenant's
 checkpoints between workers through :func:`handoff_plan` and

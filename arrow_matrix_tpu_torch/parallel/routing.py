@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from arrow_matrix_tpu_torch.ops.cuda_gather import row_gather, row_gather_add_
+from arrow_matrix_tpu_torch.utils.buildstats import bump
 
 
 @dataclass
@@ -227,6 +228,7 @@ def build_route(table: np.ndarray, n_dev: int,
     from arrow_matrix_tpu_torch.faults import inject as _fault_hook
 
     _fault_hook("routing.build_route")
+    bump("routes")
     table = np.asarray(table, dtype=np.int64)
     total = table.size
     if src_total is None:

@@ -27,7 +27,9 @@ slices, the body's column remap and the route tables.
 ``gather_result`` gives JAX's global result.
 
 **A level step on a rank** (:func:`slim_level_step`): X_0 broadcast
-from the first rank; the halo chains (``hops`` hops to each side, the
+from the first rank (none when the level's body has no slot: the JAX
+step's product then reads nothing of X_0, and XLA drops that psum); the
+halo chains (``hops`` hops to each side, the
 inner ones relaying whole shards, the farthest only the ``rem`` rows
 the region can reference; chain ends zero); the body product through
 K1 over ``[x; X_0; lo...; hi...]`` (one ``torch.cat``); the head
@@ -678,8 +680,13 @@ def slim_level_step(ops: SlimLevelOps, x: torch.Tensor, mesh: Mesh,
     w, L, k = ops.width, ops.shard_len, x.shape[1]
     first = mesh.axis_index(axis) == 0
     x = x.contiguous()
-    x0 = x[:w].clone() if first else x.new_empty((w, k))
-    coll.broadcast(x0, mesh, axis)
+    # The body's shapes are every device's, so the ranks of the line
+    # agree on whether any slot reads X_0.
+    if ops.body.n_slots:
+        x0 = x[:w].clone() if first else x.new_empty((w, k))
+        coll.broadcast(x0, mesh, axis)
+    else:
+        x0 = x.new_zeros((w, k))
     parts = [x, x0]
     if ops.hops:
         mine = row_gather(x, ops.dev["orig_pos"])           # (L, k)

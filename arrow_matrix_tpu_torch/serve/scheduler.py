@@ -377,8 +377,8 @@ class ArrowServer:
         if self.pulse is not None:
             try:
                 self.pulse.observe(event, **data)
-            except Exception:  # noqa: BLE001 — telemetry must never
-                # take down the server it observes.
+            except Exception:  # graft-lint: disable=R8 — telemetry
+                # must never take down the server it observes.
                 pass
 
     def _span(self, name: str, **attrs):

@@ -22,15 +22,21 @@ to completion in lockstep, rank 0 deciding.
   2 (the ``resumed request`` line), none is lost, and every f32 result
   equals run A's bit for bit.
 
-The JAX gate's other half, ``reshard_h7`` (every lowered stage of a
-split route within its scratch budget), needs the port's collective
-prover, which is still to come (ROADMAP.md Queue A item 2.1); it is not
-run here.
+The gate's other half, ``reshard_h7`` (the JAX gate's, at its
+constants ``H7_N``, ``H7_NDEV``, ``H7_K``, ``H7_BUDGET``), holds the
+bounded-scratch law H7 of the collective prover (``analysis/prove.py``):
+the checked-in ``analysis/collective_manifest.json`` must hold two
+reshard entries with H7 passing, one of them a replication change; then
+on ``H7_NDEV`` gloo ranks every stage of a split route, observed through
+the counted collective layer, passes ``check_h7``, and the one-shot
+route (the planted violation) must exceed the budget.
 
 Run::
 
     python -m arrow_matrix_tpu_torch.tools.reshard_gate [workdir] \\
-        [--device cpu]
+        [--device cpu] [--fast]
+
+(``--fast``: ``reshard_h7`` only.)
 """
 
 from __future__ import annotations
@@ -57,6 +63,12 @@ RUN_BUDGET = 256
 KILL_AFTER = 9
 #: The ranks of a run's world.
 WORLD = 4
+
+# The H7 scenario's scale (the JAX gate's).
+H7_N, H7_NDEV, H7_K = 64, 4, 2
+#: Small enough that the one-shot route's send+recv overflows it (the
+#: planted violation) while every split stage stays within it.
+H7_BUDGET = 256
 
 
 def gate_rank(ctx, run_dir: str, results_npz: str) -> int:
@@ -245,6 +257,108 @@ def scenario_kill_mid_migration(workdir: str, device=None) -> dict:
     return report
 
 
+def h7_rank(ctx) -> dict:
+    """One rank of ``reshard_h7``: the counted payload of the one-shot
+    route and of each stage of its split, on this rank."""
+    import torch
+
+    from arrow_matrix_tpu_torch.analysis.prove import observe
+    from arrow_matrix_tpu_torch.parallel import routing as routing_mod
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+    from arrow_matrix_tpu_torch.parallel.reshard import (
+        Layout,
+        plan_route_table,
+        redistribution_plan,
+    )
+
+    mesh = make_mesh((H7_NDEV,), ("blocks",))
+    rng = np.random.default_rng(29)
+    src = Layout(H7_N, n_dev=H7_NDEV, tag="gate_src")
+    dst = Layout(H7_N, n_dev=H7_NDEV, tag="gate_dst")
+    plan = redistribution_plan(src, dst, H7_BUDGET, k=H7_K,
+                               perm_map=rng.permutation(H7_N)
+                               .astype(np.int64))
+    tbl, mask = plan_route_table(plan)
+    route = routing_mod.build_route(tbl, H7_NDEV,
+                                    src_total=src.stored_rows,
+                                    pad_mask=mask)
+    sroute = routing_mod.split_route_stages(route, H7_K, H7_BUDGET)
+    rows = src.stored_rows // H7_NDEV
+    d = mesh.axis_index("blocks")
+    x_all = rng.standard_normal((src.stored_rows, H7_K)).astype(np.float32)
+    x = torch.from_numpy(x_all[d * rows:(d + 1) * rows].copy()).to(
+        mesh.device)
+
+    def payload(rt):
+        r = routing_mod.shard_route(rt, mesh, "blocks")
+        return observe(lambda: routing_mod.routed_take(
+            x, r, mesh, "blocks"))[1]["payload_bytes"]
+
+    return {"one_shot": payload(route),
+            "one_shot_bytes": route.device_bytes_per_exchange(H7_K, 4),
+            "stages": [payload(st) for st in sroute.stages]}
+
+
+def scenario_reshard_h7(device=None) -> list:
+    """``reshard_h7`` (module docstring); returns its problems."""
+    from arrow_matrix_tpu_torch.analysis.contracts import (
+        CollectiveContract,
+    )
+    from arrow_matrix_tpu_torch.analysis.prove import (
+        DEFAULT_MANIFEST,
+        check_h7,
+    )
+    from arrow_matrix_tpu_torch.parallel.launch import spawn
+
+    problems = []
+    # 1) The proved H7 record the package ships.
+    try:
+        with open(DEFAULT_MANIFEST, encoding="utf-8") as fh:
+            man = json.load(fh)
+    except (OSError, ValueError) as e:
+        man = {}
+        problems.append(f"reshard_h7: no readable {DEFAULT_MANIFEST} "
+                        f"({e}) — run `python -m arrow_matrix_tpu_torch."
+                        f"analysis prove --device cpu`")
+    passed = [e for e in man.get("entries", [])
+              if e.get("entry", "").startswith("reshard[")
+              and e.get("rules", {}).get("H7", {}).get("status") == "pass"]
+    if man and len(passed) < 2:
+        problems.append(f"reshard_h7: manifest has {len(passed)} reshard "
+                        f"entr(ies) with H7 pass, need >= 2")
+    if man and not any("repl" in e["entry"] for e in passed):
+        problems.append("reshard_h7: no H7-passing reshard entry covers a "
+                        "replication (repl c) change")
+
+    # 2) Live: the split stages must pass, the one-shot route must fail
+    #    the same checker (the planted violation).
+    per_rank = spawn(h7_rank, H7_NDEV, backend="gloo", device=device,
+                     timeout_s=120, job_timeout_s=300, threads=1)
+    contract = CollectiveContract(
+        algorithm="gate_shuffle",
+        step_bytes=per_rank[0]["one_shot_bytes"],
+        reduce_bytes=0, repl=1, overlap_slabs=1, dtype="f32",
+        lowered_kinds=("all-to-all",), compiled_kinds=("all-to-all",),
+        ratio_band=(0.99, 1.01), scratch_budget_bytes=H7_BUDGET)
+    for r, res in enumerate(per_rank):
+        staged = check_h7(res["stages"], contract)
+        if staged["status"] != "pass":
+            problems.append(f"reshard_h7: rank {r}: the split route failed "
+                            f"the checker it was built to satisfy: "
+                            f"{staged['detail']}")
+        one_shot = check_h7([res["one_shot"]], contract)
+        if one_shot["status"] != "fail":
+            problems.append(f"reshard_h7: rank {r}: the one-shot route "
+                            f"({res['one_shot']} B) did NOT trip H7 at "
+                            f"budget {H7_BUDGET} B — the checker cannot "
+                            f"see the memory cliff ({one_shot['detail']})")
+        if len(res["stages"]) < 2:
+            problems.append(f"reshard_h7: the split produced "
+                            f"{len(res['stages'])} stage(s) — the gate "
+                            f"scale no longer exercises staging")
+    return problems
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = None
@@ -254,15 +368,24 @@ def main(argv=None) -> int:
         del argv[i:i + 2]
     if argv and argv[0] == "--run":
         return gate_world(argv[1], argv[2], device)
-    workdir = argv[0] if argv else tempfile.mkdtemp(prefix="reshard_gate_")
-    os.makedirs(workdir, exist_ok=True)
-    report = scenario_kill_mid_migration(workdir, device)
-    print(f"reshard gate: kill_mid_migration migrated "
-          f"{report['migrated'][0]} (run A, {report['stages']} stages) then "
-          f"{report['migrated'][1]} (run C) of {REQUESTS} checkpoints")
-    if report["problems"]:
+    fast = "--fast" in argv
+    argv = [a for a in argv if a != "--fast"]
+    problems = scenario_reshard_h7(device)
+    print(f"reshard gate: reshard_h7 "
+          f"{'ok' if not problems else 'FAILED'}")
+    if not fast:
+        workdir = argv[0] if argv else tempfile.mkdtemp(
+            prefix="reshard_gate_")
+        os.makedirs(workdir, exist_ok=True)
+        report = scenario_kill_mid_migration(workdir, device)
+        print(f"reshard gate: kill_mid_migration migrated "
+              f"{report['migrated'][0]} (run A, {report['stages']} stages) "
+              f"then {report['migrated'][1]} (run C) of {REQUESTS} "
+              f"checkpoints")
+        problems += report["problems"]
+    if problems:
         print("RESHARD GATE: FAIL")
-        for p in report["problems"]:
+        for p in problems:
             print(f"  - {p}")
         return 1
     print("RESHARD GATE: OK")

@@ -256,8 +256,10 @@ def _program_witness(prog: dict):
 
             opts = dataclasses.replace(opts, chunk_slots=opts.chunk_slots[0])
         xc = x if g.carriage is None else x.to(g.carriage)
-        wl = build_worklist([tuple(c.shape) for c in m.cols], m.row_starts,
-                            16, xc.element_size(), opts=opts)
+        # Validation at synthesis time, once per launch group.
+        shapes = [tuple(c.shape) for c in m.cols]
+        wl = build_worklist(  # graft-lint: disable=R2
+            shapes, m.row_starts, 16, xc.element_size(), opts=opts)
         got = sell_spmm_worklist(m, xc, wl).float()
         if not bool(torch.isfinite(got).all()) or not torch.allclose(
                 got, sell_spmm(m, xc).float(), rtol=1e-2, atol=1e-2):

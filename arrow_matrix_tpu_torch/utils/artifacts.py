@@ -153,7 +153,7 @@ def flock_acquire(handle, *, shared: bool = False,
     if nonblocking:
         flags |= fcntl.LOCK_NB
     try:
-        fcntl.flock(handle, flags)
+        fcntl.flock(handle, flags)  # graft-sync: flock-primitive
     except OSError:
         if nonblocking:
             return False

@@ -16,13 +16,23 @@ one elsewhere).  ``host_staged_bytes`` counts apart the bytes the layer
 copied between the card and pinned host buffers, the transport of ranks
 that share one card over gloo; they are not wire bytes.
 
+The collective prover (``analysis/prove.py``) reads two more things
+here.  :func:`start_log` keeps, until :func:`stop_log`, one record of
+each collective: its kind, the shape and dtype of the operand this rank
+handed it, and that operand's bytes (``payload``: what XLA's accountant
+reads off each collective's shape in the JAX package).  And
+:func:`issuing` marks the span in which the collective layer itself
+runs, so a ``torch.distributed`` call made outside it can be told
+apart as one that bypasses the count.
+
 ``ideal_routing_bytes`` (the O(moved rows) bound of the inter-level
 routing) and ``format_stats`` are the JAX module's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextlib
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -41,6 +51,9 @@ COLLECTIVE_OPS = (
 
 _STATS: Dict[str, Dict[str, int]] = {}
 _STAGED = [0]
+#: The operand log (None: not logging) and the collective layer's depth.
+_LOG: List[Optional[list]] = [None]
+_ISSUING = [0]
 
 
 def reset() -> None:
@@ -54,13 +67,49 @@ def reset() -> None:
 reset()
 
 
-def record(kind: str, nbytes: int, group_size: int) -> None:
+def record(kind: str, nbytes: int, group_size: int, operand=None,
+           payload: Optional[int] = None) -> None:
     """Count one collective of ``kind`` over a group of ``group_size``
-    ranks that moved ``nbytes`` wire bytes on this rank."""
+    ranks that moved ``nbytes`` wire bytes on this rank; ``operand`` is
+    the tensor this rank handed it (logged while :func:`start_log` is
+    on), ``payload`` its bytes when they are not the operand's own."""
     entry = _STATS[kind]
     entry["count"] += 1
     entry["bytes"] += int(nbytes)
     entry["group"] = max(entry["group"], int(group_size))
+    log = _LOG[0]
+    if log is not None and operand is not None:
+        log.append({"kind": kind, "shape": tuple(operand.shape),
+                    "dtype": str(operand.dtype).replace("torch.", ""),
+                    "payload": int(operand.numel() * operand.element_size()
+                                   if payload is None else payload),
+                    "wire": int(nbytes)})
+
+
+def start_log() -> None:
+    """Start a fresh operand log (module docstring)."""
+    _LOG[0] = []
+
+
+def stop_log() -> list:
+    """Stop the operand log and return its records in issue order."""
+    log, _LOG[0] = _LOG[0], None
+    return log or []
+
+
+@contextlib.contextmanager
+def issuing():
+    """The span of one call of the collective layer (module docstring)."""
+    _ISSUING[0] += 1
+    try:
+        yield
+    finally:
+        _ISSUING[0] -= 1
+
+
+def in_layer() -> bool:
+    """Whether the collective layer is running now."""
+    return _ISSUING[0] > 0
 
 
 def record_staged(nbytes: int) -> None:

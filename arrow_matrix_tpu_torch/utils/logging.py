@@ -273,7 +273,7 @@ def log_local_runs(log_dir: str = "./logs") -> list[str]:
             finally:
                 try:
                     wandb.finish()
-                except Exception:   # best-effort close of a reported upload
+                except Exception:  # graft-lint: disable=R8 — best effort
                     pass
             with open(indicator, "w"):
                 pass

@@ -398,8 +398,24 @@ Phases, each fatal on failure:
    collected after phase 22; (d)'s one-rank reference is phase 4's
    fold's.
 
+24. the analysis family and the doctor on the card (ANALYSIS), as
+   subprocesses one after the other in a thread of their own from phase
+   4 on, beside phase 23's, at the lowest CPU priority (they time no
+   kernel, and take only the cores the phases leave idle), collected
+   last, after phase 17: (a) ``python -m arrow_matrix_tpu_torch.analysis prove --device
+   cuda --check``: the 20 entries on 4 gloo ranks sharing the card, each
+   ok, the 4 skips, no drift from the CPU-made manifest, and each rank's
+   K1/K4 launches in a step equal to its executor's ``launch_counts``
+   (14 entries; the folds and the reshard routes have none); (b)
+   ``analysis audit --device cuda --check``: the four entry points'
+   second calls load, build and keep nothing, launch what the first did,
+   and leave ``memory_allocated`` where it was; (c) ``analysis lint``
+   and ``analysis sync --check`` over the port's tree; (d)
+   ``amt_doctor_torch`` on the card: every core check passes and the
+   card answers.  Each exits 0; their seconds are logged.
+
 The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 11, 13, 15, 16, 10,
-18, 19, 20, 21, 22, 23, 17: the host work of phase 4 (generating the 2^20 graph,
+18, 19, 20, 21, 22, 23, 17, 24: the host work of phase 4 (generating the 2^20 graph,
 decomposing it with the numpy decomposer, the host goldens of its
 inputs, beside the decomposition) and of phase 14 (the native
 decomposition) and of phase 22 (its graph and goldens) runs in three
@@ -407,8 +423,9 @@ processes of their own from the start, beside the build and phases 3,
 6-9, 12 and 14;
 that of phase 17 (decomposing the fleet's graph) in a third, and that of
 phase 20 (each rank packing its shards) in its four ranks, and phase
-23's subprocesses one after the other, from phase 4 on; phases 20-23's
-rank work that times no kernel runs beside phase 19.
+23's subprocesses one after the other, from phase 4 on, and phase 24's
+beside them;
+phases 20-23's rank work that times no kernel runs beside phase 19.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
@@ -419,7 +436,8 @@ phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first),
 ``--tune`` phases 1, 2 and 19 (phase 4's decomposition made first),
 ``--mesh`` phases 1, 2 and 20-23 (phase 4's decomposition and the
 goldens phases 20 and 23 gate against made first), ``--state`` phases
-1, 2 and 23 (the same, on rank pools of its own).
+1, 2 and 23 (the same, on rank pools of its own), ``--analysis`` phases
+1, 2 and 24.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 2 and prints no result.
@@ -7866,6 +7884,122 @@ def phase_state(a: dict, d: dict, b: list, built: dict, subs: dict,
             "streamed": d, "subprocesses": subs, "rss_ratio": ratio}
 
 
+# -- 24. the analysis family and the doctor -----------------------------------
+
+#: Phase 24: its subprocesses in order, (name, argv after ``python -m``,
+#: the line its output must hold).
+ANALYSIS = (
+    ("prove", ["arrow_matrix_tpu_torch.analysis", "prove", "--device",
+               "cuda", "--check"], "proof passed"),
+    ("audit", ["arrow_matrix_tpu_torch.analysis", "audit", "--device",
+               "cuda", "--check"], "audit passed"),
+    ("lint", ["arrow_matrix_tpu_torch.analysis", "lint"], None),
+    ("sync", ["arrow_matrix_tpu_torch.analysis", "sync", "--check"],
+     "sync proof passed"),
+    ("doctor", ["arrow_matrix_tpu_torch.cli.doctor"], "core checks passed"),
+)
+#: Proved entries, skips, and entries whose launches are checked.
+PROVE_ENTRIES, PROVE_SKIPS, PROVE_LAUNCH_CHECKS = 20, 4, 14
+ANALYSIS_TIMEOUT_S = 900.0
+
+
+def start_analysis24(keep: str):
+    """Phase 24's subprocesses (:func:`analysis24_subprocesses`) in a
+    thread of their own; the future."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(analysis24_subprocesses, keep)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def analysis24_subprocesses(keep: str) -> dict:
+    """Phase 24's subprocesses one after the other, each at niceness 19
+    (its ranks and probes inherit it): each one's exit code, output and
+    seconds."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(keep, "analysis24")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("AMT_FAULT_PLAN", None)
+    res = {"started_s": time.perf_counter() - T0}
+    for name, argv, _ in ANALYSIS:
+        log_path = os.path.join(work, f"{name}.log")
+        tic = time.perf_counter()
+        with open(log_path, "w") as fh:
+            p = subprocess.Popen([sys.executable, "-m", *argv], cwd=root,
+                                 env=env, stdout=fh,
+                                 stderr=subprocess.STDOUT,
+                                 preexec_fn=lambda: os.nice(19))
+            try:
+                rc = p.wait(timeout=ANALYSIS_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rc = p.wait()
+        with open(log_path) as f:
+            res[name] = {"rc": rc, "text": f.read(),
+                         "seconds": time.perf_counter() - tic}
+    res["ended_s"] = time.perf_counter() - T0
+    return res
+
+
+def phase_analysis(fut) -> dict:
+    """Phase 24's results (module docstring) collected and gated; its
+    seconds in the main process."""
+    tic = time.perf_counter()
+    subs = fut.result(timeout=ANALYSIS_TIMEOUT_S * len(ANALYSIS)
+                      + STATE["timeout_s"])
+    waited = time.perf_counter() - tic
+    out = {}
+    for name, _, must in ANALYSIS:
+        r = subs[name]
+        text = r["text"]
+        if r["rc"] != 0 or (must is not None and must not in text):
+            raise SystemExit(f"phase 24 {name} exited {r['rc']}:\n"
+                             f"{text[-4000:]}")
+        out[name] = {"seconds": r["seconds"]}
+    lines = subs["prove"]["text"].splitlines()
+    ok = [ln for ln in lines if ln.startswith("[ok  ] ")]
+    skips = [ln for ln in lines if ln.startswith("[skip] ")]
+    passed = [ln for ln in ok if "| launches:pass" in ln]
+    if (len(ok) != PROVE_ENTRIES or len(skips) != PROVE_SKIPS
+            or len(passed) != PROVE_LAUNCH_CHECKS
+            or any("launches:fail" in ln for ln in lines)):
+        raise SystemExit(f"phase 24 (a): {len(ok)} entries ok, "
+                         f"{len(skips)} skipped, {len(passed)} with their "
+                         f"launches checked:\n" + "\n".join(lines[-40:]))
+    out["prove"]["entries"] = [ln[len("[ok  ] "):].split(":")[0]
+                               for ln in ok]
+    audit_ok = [ln for ln in subs["audit"]["text"].splitlines()
+                if ln.startswith("[ok  ] ")]
+    if len(audit_ok) != 4:
+        raise SystemExit("phase 24 (b): "
+                         + subs["audit"]["text"][-3000:])
+    doctor = subs["doctor"]["text"].splitlines()
+    if not any(ln.startswith("[ok  ] card") for ln in doctor):
+        raise SystemExit("phase 24 (d): the doctor did not see the card:\n"
+                         + "\n".join(doctor[:20]))
+    out["doctor"]["checks"] = [ln for ln in doctor if ln.startswith("[")]
+    out["audit"]["lines"] = audit_ok
+    out["subprocess_window_s"] = [subs["started_s"], subs["ended_s"]]
+    out["main_s"] = time.perf_counter() - tic
+    log(f"phase 24: prove {out['prove']['seconds']:.1f} s ({len(ok)} "
+        f"entries ok, {len(skips)} skipped, {len(passed)} with each rank's "
+        f"launches equal to launch_counts), audit "
+        f"{out['audit']['seconds']:.1f} s, lint "
+        f"{out['lint']['seconds']:.1f} s, sync {out['sync']['seconds']:.1f}"
+        f" s, doctor {out['doctor']['seconds']:.1f} s, as subprocesses from "
+        f"{subs['started_s']:.1f} s to {subs['ended_s']:.1f} s of the run; "
+        f"{out['main_s']:.1f} s of the main process (waited {waited:.1f} s)")
+    for ln in out["doctor"]["checks"]:
+        print(f"    doctor {ln[:160]}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -7897,6 +8031,9 @@ def main() -> int:
                         help="run phases 1, 2 and 23 only (serving and "
                              "state on a mesh of ranks; phase 4's "
                              "decomposition and goldens made here)")
+    parser.add_argument("--analysis", action="store_true",
+                        help="run phases 1, 2 and 24 only (the analysis "
+                             "family and the doctor on the card)")
     parser.add_argument("--serve", action="store_true",
                         help="run phases 1, 2, 15 and 16 only (the serving "
                              "runtime and its observability, on phase 4's "
@@ -7959,7 +8096,8 @@ def main() -> int:
     os.makedirs(keep)
     store = os.path.join(keep, "ledger")
     full = not (args.dense or args.bench or args.fleet or args.lens
-                or args.tune or args.mesh or args.serve or args.state)
+                or args.tune or args.mesh or args.serve or args.state
+                or args.analysis)
     if full:
         # Phase 4's host work (the graph, its numpy decomposition saved as
         # an artifact, the host goldens) and phase 14's (the native
@@ -8014,6 +8152,9 @@ def main() -> int:
     if args.state:
         state_res, entries = state_only(1 << args.log2n, keep)
         return finish({"state": state_res, "card": smi}, entries)
+    if args.analysis:
+        return finish({"analysis": phase_analysis(start_analysis24(keep)),
+                       "card": smi}, [])
     if args.serve:
         serve_res, entry, ctx = serve_only(dev, 1 << args.log2n, work)
         observe, observe_entry = phase_observe(ctx, serve_res,
@@ -8052,6 +8193,7 @@ def main() -> int:
     host17 = start_host(fleet_host, fleet_cache)
     mesh_pool = start_mesh(base, width)
     subs23 = start_state23(keep, base)
+    subs24 = start_analysis24(keep)
     t_gen, t_dec = rec["t_gen"], rec["t_dec"]
     loaded = load_decomposition(base, width, block_diagonal=True)
     levels = as_levels(loaded, load_level_widths(base, width, True))
@@ -8252,6 +8394,9 @@ def main() -> int:
     results["fleet"], fleet_entry = phase_fleet(dev, work, host17,
                                                 fleet_cache)
     kernels.append(fleet_entry)
+
+    # -- 24. the analysis family and the doctor, run from phase 4 on ---------
+    results["analysis"] = phase_analysis(subs24)
 
     results["card"] = smi
     return finish(results, kernels)

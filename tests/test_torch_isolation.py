@@ -107,7 +107,21 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             os.path.join("cli", "spmm_petsc.py"),
             os.path.join("cli", "spmm_15d.py"),
             os.path.join("models", "propagation.py"),
-            os.path.join("utils", "commstats.py")} <= names
+            os.path.join("utils", "commstats.py"),
+            os.path.join("utils", "buildstats.py"),
+            os.path.join("ops", "kernel_span.py"),
+            os.path.join("analysis", "core.py"),
+            os.path.join("analysis", "rules.py"),
+            os.path.join("analysis", "audit.py"),
+            os.path.join("analysis", "prove.py"),
+            os.path.join("analysis", "sync.py"),
+            os.path.join("analysis", "__main__.py"),
+            os.path.join("cli", "graft_lint.py"),
+            os.path.join("cli", "doctor.py"),
+            os.path.join("tools", "proof_gate.py"),
+            os.path.join("tools", "lint_gate.py"),
+            os.path.join("tools", "sync_gate.py"),
+            os.path.join("tools", "reshard_gate.py")} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -440,3 +454,35 @@ def test_lens_and_ledger_run_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+ANALYSIS_RUN = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")] + r"""
+import os
+import arrow_matrix_tpu_torch
+import arrow_matrix_tpu_torch.cli.doctor, arrow_matrix_tpu_torch.cli.graft_lint
+from arrow_matrix_tpu_torch.analysis import audit, lint_paths, prove
+from arrow_matrix_tpu_torch.analysis import sync as graft_sync
+from arrow_matrix_tpu_torch.tools import (lint_gate, proof_gate,
+                                          reshard_gate, sync_gate)
+pkg = os.path.dirname(arrow_matrix_tpu_torch.__file__)
+findings, _ = lint_paths([pkg])
+assert not findings, findings[:3]
+assert prove.selftest()
+assert graft_sync.selftest()[0]
+assert graft_sync.run_sync(write=False)["ok"]
+assert not any(m.split(".")[0] in {"jax", "flax", "arrow_matrix_tpu"}
+               for m in sys.modules)
+print("ok")
+"""
+
+
+def test_analysis_family_runs_with_jax_blocked():
+    """The lint over the port's tree, the prover's selftest (its live
+    planted ``dist.all_gather`` on a one-rank group), the sync analyzer
+    and every analysis CLI, gate and the doctor imported, with JAX and
+    the JAX package unimportable."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", ANALYSIS_RUN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ok", proc.stdout

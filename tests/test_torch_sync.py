@@ -175,3 +175,67 @@ def test_threaded_server_stress_under_witness(monkeypatch):
     snap = registry.snapshot()
     assert snap["violations"] == [], snap["violations"]
     assert len(snap["threads"]) >= 3
+
+
+# -- the lock-discipline analyzer (analysis/sync.py) --------------------------
+
+import glob
+import os
+
+from arrow_matrix_tpu.analysis import sync as jgraft_sync
+from arrow_matrix_tpu_torch.analysis import sync as graft_sync
+
+FIXTURES = sorted(glob.glob(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "fixtures", "sync",
+    "rc*_*.py")))
+
+
+@pytest.mark.parametrize("path", FIXTURES, ids=os.path.basename)
+def test_analyzer_findings_equal_jax_on_each_fixture(path):
+    """Both analyzers give the same (rule, line) findings on every
+    planted-violation fixture, and the port's fires the fixture's rule."""
+    ours = graft_sync.analyze_paths([path])
+    theirs = jgraft_sync.analyze_paths([path])
+    key = lambda rep: sorted((f.rule, f.line) for f in rep.findings)
+    assert key(ours) == key(theirs)
+    assert graft_sync.verify_fixture(path)[0]
+
+
+def _contracts(report, prefix):
+    return sorted(
+        (c["path"].split(prefix + os.sep, 1)[-1], c["class"], c["node"],
+         c["lock"], tuple(c["attrs"]), tuple(c["callbacks"]))
+        for c in graft_sync.build_manifest(report)["contracts"])
+
+
+def test_contracts_and_lock_graph_equal_jax():
+    """The port's ``@guarded_by`` contracts and lock-graph edges are the
+    JAX package's over its own tree, the path prefix aside; the one
+    difference is the server's decision outbox (``_outbox``), guarded
+    like the rest of its state: rank 0's decisions sent to the other
+    ranks of a mesh in lockstep."""
+    ours = graft_sync.analyze_package()
+    theirs = jgraft_sync.analyze_package()
+    mine = _contracts(ours, "arrow_matrix_tpu_torch")
+    ref = _contracts(theirs, "arrow_matrix_tpu")
+    assert len(mine) == len(ref) == 10
+    for a, b in zip(mine, ref):
+        if a[1] == "ArrowServer":
+            assert set(a[4]) - set(b[4]) == {"_outbox"}
+            assert set(b[4]) <= set(a[4])
+            a, b = a[:4] + a[5:], b[:4] + b[5:]
+        assert a == b
+    om = graft_sync.build_manifest(ours)
+    tm = jgraft_sync.build_manifest(theirs)
+    assert om["lock_graph"] == tm["lock_graph"]
+    assert om["ok"] and ours.findings == []
+
+
+def test_sync_manifest_check_and_selftest(capsys):
+    assert graft_sync.main(["--check"]) == 0
+    assert "sync proof passed" in capsys.readouterr().out
+    ok, lines = graft_sync.selftest()
+    assert ok, lines
+    rep = graft_sync.analyze_package()
+    scheduler = [c for c in rep.contracts if c.cls == "ArrowServer"]
+    assert scheduler and "_outbox" in scheduler[0].attrs
