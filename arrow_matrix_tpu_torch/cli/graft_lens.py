@@ -2,10 +2,12 @@
 
 The port's copy of ``arrow_matrix_tpu/cli/graft_lens.py``, run as
 ``python -m arrow_matrix_tpu_torch.cli.graft_lens``.  ``profile`` runs
-on the card unless ``--device cpu``; ``--kernel pallas`` and
-``--ring-sweep`` exit naming the fold executor options (K1 is the
-fold's kernel and has no DMA ring).  Subcommands close the profile →
-fit → predict loop:
+on the card unless ``--device cpu``.  ``--kernel pallas`` profiles K1
+with its launch knobs (``MultiLevelArrow(kernel="pallas_sell")``), and
+``--ring-sweep`` adds K1's load-depth sweep under it: each tier alone
+at batch 4 against the profile's batch, the analogue of the reference's
+``ring=1`` (``obs/lens.py``).  ``predict --ring 1`` prices the shallow
+point.  Subcommands close the profile → fit → predict loop:
 
 * ``profile`` — per-degree-ladder-level chained timing of one
   structure's fold step (``obs/lens.py:profile_fold``) per carriage
@@ -91,8 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--iters", type=int, default=100,
                     help="chained iterations per measurement")
     pr.add_argument("--ring-sweep", action="store_true",
-                    help="the reference's ring=1 re-timing (exits: K1 "
-                         "has no DMA ring)")
+                    help="re-time each tier at batch=4 (pallas only): "
+                         "the excess is the load wait a deeper batch "
+                         "hides (the reference's ring=1 sweep)")
     pr.add_argument("--out", type=str, default=None,
                     help="write the profile document here")
     pr.add_argument("--device", choices=("cuda", "cpu"), default=None,
@@ -125,8 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
     pd.add_argument("--dtype", type=str, default="f32",
                     help="carriage dtype (f32 / bf16)")
     pd.add_argument("--ring", type=int, default=None,
-                    help="ring depth: 1 adds the per-level DMA wait "
-                         "the deep ring would hide")
+                    help="1 prices K1 at the shallow load depth "
+                         "(batch=4): adds the per-level wait the deep "
+                         "batch hides")
 
     e = sub.add_parser("explain", help="attribute a dtype pair's "
                                        "full-iteration gap per level")
@@ -163,16 +167,6 @@ def _levels(args):
     return load_levels_from_source(_source_from_args(args))
 
 
-def _unported(args) -> Optional[str]:
-    """The message of an option the port does not run, or None."""
-    if getattr(args, "kernel", None) == "pallas" or getattr(
-            args, "ring_sweep", False):
-        from arrow_matrix_tpu_torch.parallel.multi_level import _todo
-        return str(_todo("--kernel pallas / --ring-sweep",
-                         "fold executor options"))
-    return None
-
-
 def cmd_profile(args) -> int:
     from arrow_matrix_tpu_torch.obs import lens
 
@@ -204,6 +198,8 @@ def cmd_profile(args) -> int:
                    for fd, entry in profile["dtypes"].items()},
         "records": len(record_ids),
     }
+    if "sweep" in profile:
+        summary["sweep"] = profile["sweep"]
     if args.out:
         summary["profile"] = args.out
     if args.fit:
@@ -287,12 +283,6 @@ def cmd_check(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    msg = _unported(args)
-    if msg:
-        print(f"graft_lens: {msg}", file=sys.stderr)
-        print(json.dumps({"ok": False, "cmd": args.cmd, "error": msg},
-                         sort_keys=True))
-        return 2
     return {"profile": cmd_profile, "fit": cmd_fit,
             "predict": cmd_predict, "explain": cmd_explain,
             "check": cmd_check}[args.cmd](args)

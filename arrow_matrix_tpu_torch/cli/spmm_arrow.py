@@ -30,7 +30,10 @@ iterations; a rerun resumes from it).
 executor's model and its load-imbalance report, ``--trace DIR`` writes a
 ``torch.profiler`` trace of the iteration loop, ``--obs_dir DIR`` the
 loop's span trace and ``metrics.jsonl`` (on one device and under
-``--devices P``).
+``--devices P``).  ``--logdir DIR`` (default ``./logs``) receives the
+run's log in the JAX package's form (``<run>.<dataset>.<id>.json`` and
+``.txt``: the build time, each iteration's time and error), written by
+rank 0 on a mesh; ``log_upload`` lists or uploads it.
 
 With ``--devices P`` the ranks of a mesh run one process each
 (``parallel/launch.py``): ``--mode time`` (the default) runs the levels
@@ -135,6 +138,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "outputs, temporaries) against the format "
                         "model's prediction, plus the load-imbalance "
                         "report (obs/memview, obs/imbalance).")
+    p.add_argument("--logdir", type=str, default="./logs",
+                   help="Write the run's log here (the JAX package's "
+                        "form: <run>.<dataset>.<id>.json and .txt; "
+                        "log_upload_torch lists or uploads it).  On a "
+                        "mesh rank 0 writes it.")
     p.add_argument("--trace", type=str, default=None,
                    help="Write a torch.profiler trace of the iteration "
                         "loop to this directory (Chrome trace JSON, one "
@@ -285,6 +293,7 @@ def main(argv=None) -> int:
         relative_error,
         resolve_device,
     )
+    from arrow_matrix_tpu_torch.utils import logging as wb
 
     # The device first: a missing card fails before any host work.
     try:
@@ -302,25 +311,29 @@ def main(argv=None) -> int:
         print(f"artifact integrity check failed: {e}")
         return 1
     n = num_rows(levels[0].matrix)
+    wb.init(run_name(args), os.path.basename(path), config=vars(args))
 
     tic = time.perf_counter()
     if args.fmt != "fold":
         if args.feature_dtype is not None:
             raise SystemExit(f"spmm_arrow: --feature_dtype is a --fmt fold "
                              f"option; the {args.fmt} carriage is f32")
-        multi = MultiLevelArrow(levels, width, fmt=args.fmt,
-                                head_fmt=args.head_fmt,
-                                banded=not args.blocked, device=device)
+        with wb.segment("build_time"):
+            multi = MultiLevelArrow(levels, width, fmt=args.fmt,
+                                    head_fmt=args.head_fmt,
+                                    banded=not args.blocked, device=device)
         print(f"{args.fmt}: {len(levels)} levels, widths {multi.widths}, "
               f"formats {multi.fmts}, heads {multi.head_layouts()}, "
               f"{multi.total_rows} rows, "
               f"{sum(b.device_nbytes() for b in multi.blocks)} B on the "
               f"device ({time.perf_counter() - tic:.3f} s)")
     else:
-        multi = MultiLevelArrow(levels, width, fmt="fold",
-                                feature_dtype=args.feature_dtype,
-                                fold_growth=args.fold_growth,
-                                fold_align=args.fold_align, device=device)
+        with wb.segment("build_time"):
+            multi = MultiLevelArrow(levels, width, fmt="fold",
+                                    feature_dtype=args.feature_dtype,
+                                    fold_growth=args.fold_growth,
+                                    fold_align=args.fold_align,
+                                    device=device)
         print(f"fold: {len(multi.sell.cols)} tiers, "
               f"{len(multi.sell.live_tiers())} launched per step, "
               f"{multi.sell.n_slots} slots for {multi.nnz} nnz "
@@ -356,6 +369,7 @@ def main(argv=None) -> int:
     times = []
 
     def body(x, it):
+        wb.set_iteration_data({"iteration": it})
         if args.carry:
             x_host = multi.gather_result(x) if args.validate else None
         else:
@@ -369,6 +383,7 @@ def main(argv=None) -> int:
             sync()
             dt = time.perf_counter() - tic
         times.append(dt)
+        wb.log({"spmm_time": dt})
         if reg is not None:
             reg.record("iteration_time_ms", dt * 1e3,
                        algorithm="spmm_arrow")
@@ -376,6 +391,7 @@ def main(argv=None) -> int:
             got = multi.gather_result(y)
             want = decomposition_spmm(golden_levels, x_host)
             err = relative_error(got, want)
+            wb.log({"frobenius_err": float(err)})
             print(f"iteration {it}: rel err vs host {err:.3e} "
                   f"(gate {tol:.1e})")
             if not np.isfinite(err) or err > tol:
@@ -387,6 +403,9 @@ def main(argv=None) -> int:
     with traced(args, device):
         _, ok = sup.run(body, x, start, args.iterations)
     close_obs(args, reg, tracer, print)
+    out = wb.finish(args.logdir)
+    if out:
+        print(f"log written to {out}.json")
     if not ok:
         print("the supervised loop failed (validation gate, or retries "
               "exhausted)")
@@ -399,6 +418,16 @@ def main(argv=None) -> int:
         print(f"spmm_time mean {ms.mean():.3f} ms over {len(ms)} "
               f"iterations (min {ms.min():.3f}) on {device}")
     return 0
+
+
+def run_name(args) -> str:
+    """The run's name in its log: the JAX CLI's version string, named by
+    what runs (banded or block-diagonal tiling, slim or wide, time- or
+    space-shared levels; space always tiles banded)."""
+    banded = args.mode == "space" or not args.blocked
+    return (f"ArrowTPU_v{'Banded' if banded else 'BlockDiagonal'}"
+            f"_{'Slim' if args.slim else 'Wide'}"
+            f"_{args.mode.capitalize()}Shared")
 
 
 def load_levels(args, path: str, width: int) -> tuple:
@@ -547,10 +576,13 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
     )
     from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel
 
+    from arrow_matrix_tpu_torch.utils import logging as wb
+
     say = print if ctx.rank == 0 else (lambda *a, **k: None)
     n_dev = ctx.world
     levels, golden = load_levels(args, path, width)
     n = num_rows(levels[0].matrix)
+    wb.init(run_name(args), os.path.basename(path), config=vars(args))
     if args.mode == "space":
         return space_rank(ctx, args, levels, golden, width, say)
     repl_c = 1
@@ -588,6 +620,7 @@ def mesh_rank(ctx, args, path: str, width: int) -> int:
                               layout="slim" if args.slim else "wide",
                               routing=args.routing)
         what = f"{args.fmt}: formats {exe.fmts}, widths {exe.widths}"
+    wb.log({"build_time": time.perf_counter() - tic})
     say(f"mesh: {dict(mesh.shape)} over {ctx.backend} ({ctx.world} ranks "
         f"on {ctx.device}); {what}, routing {args.routing} "
         f"({time.perf_counter() - tic:.3f} s)")
@@ -650,6 +683,7 @@ def drive_ranks(ctx, args, exe, levels, golden, n: int, repl_c: int,
         random_dense,
         relative_error,
     )
+    from arrow_matrix_tpu_torch.utils import logging as wb
 
     def sync():
         if ctx.device.type == "cuda":
@@ -703,6 +737,7 @@ def drive_ranks(ctx, args, exe, levels, golden, n: int, repl_c: int,
             say(f"resumed from {args.checkpoint} at iteration {start}")
 
     def body(x, it):
+        wb.set_iteration_data({"iteration": it})
         if not args.carry:
             x_host = random_dense(n, args.features,
                                   seed=int(rng.integers(2**31)))
@@ -716,12 +751,14 @@ def drive_ranks(ctx, args, exe, levels, golden, n: int, repl_c: int,
             sync()
             dt = time.perf_counter() - tic
         times.append(dt)
+        wb.log({"spmm_time": dt})
         if reg is not None:
             reg.record("iteration_time_ms", dt * 1e3,
                        algorithm="spmm_arrow")
         if args.validate:
             err = relative_error(exe.gather_result(y),
                                  decomposition_spmm(golden, x_host))
+            wb.log({"frobenius_err": float(err)})
             say(f"iteration {it}: rel err vs host {err:.3e} "
                 f"(gate {tol:.1e})")
             if not np.isfinite(err) or err > tol:
@@ -733,6 +770,9 @@ def drive_ranks(ctx, args, exe, levels, golden, n: int, repl_c: int,
     with traced(args, ctx.device):
         _, ok = sup.run(body, x, start, args.iterations)
     close_obs(args, reg, tracer, say, writer=ctx.rank == 0)
+    out = wb.finish(args.logdir) if ctx.rank == 0 else None
+    if out:
+        say(f"log written to {out}.json")
     if not ok:
         say("the supervised loop failed (validation gate, or retries "
             "exhausted)")

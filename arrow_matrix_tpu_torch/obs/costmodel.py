@@ -22,13 +22,23 @@ per slot, so its streamed bytes count ``granule = 1``, the same count
 as K1's gathered-bytes bound.  ``"pallas"`` (the reference's name for
 its fused tier kernel; ``kernel="pallas_sell"`` executors) is K1 with
 its launch knobs: the same streamed bytes, families refined by the
-knob that sets a launch's register use (``@b<batch>``), and per tier
-K1's launch counters from its work list (items, CTAs, split partials).
-The reference's ``meta_*`` counters over a TPU call description become
-Hopper counters over K1's launch meta (``ops/worklist.py:k1_meta``):
-CTAs, gathered bytes, shared memory, rows, split partials.  The DMA
-ring's (``meta_wave_count``, ``meta_dma_copies``) have no counterpart:
-K1 has no ring.
+knob that sets a launch's register use (``@b<batch>``, the batch the
+launch runs at), and per tier K1's launch counters from its work list
+(items, CTAs, split partials).  The reference's ``meta_*`` counters
+over a TPU call description become Hopper counters over K1's launch
+meta (``ops/worklist.py:k1_meta``): CTAs, gathered bytes, shared
+memory, rows, split partials.  K1 has no DMA ring; the ring's two
+counters become its gathered loads: ``meta_wave_count`` the batches of
+independent row loads a launch issues (``batch`` loads in flight a
+lane), ``meta_dma_copies`` the row loads themselves (one a slot).
+
+The reference's ring sweep re-times a tier at ``ring=1`` and stores
+the excess over the deep ring as its DMA wait.  K1's analogue is its
+load depth: the lens re-times a tier at ``batch=4``
+(:data:`SHALLOW_BATCH`) against the profile's batch, and the excess is
+the wait the deeper batch hides (``dma_wait_ms``, the reference's key).
+``predict_iter_ms`` adds it back for a tier priced at the shallow
+point: ``ring=1``, or a batch of 4.
 """
 
 from __future__ import annotations
@@ -54,6 +64,10 @@ _FAMILY_BOUNDS = ((0, "zero"), (GRANULE, "tail"), (64, "mid"))
 #: with its launch knobs ("pallas").
 KERNELS = ("xla", "pallas")
 
+#: K1's shallow load depth, the analogue of the reference's ``ring=1``:
+#: the least ``batch`` it takes (``ops/worklist.py:BATCH_CHOICES``).
+SHALLOW_BATCH = 4
+
 
 def check_kernel(kernel: str) -> str:
     """``kernel`` if the port prices it, else a ValueError."""
@@ -76,6 +90,24 @@ def meta_stream_bytes(meta: Dict[str, Any]) -> int:
     slot (padding slots included)."""
     return sum(int(m_t) * int(n_t) for _, m_t, n_t, _, _ in meta["tiers"]) \
         * int(meta["k"]) * int(meta["itemsize"])
+
+
+def meta_wave_count(meta: Dict[str, Any]) -> int:
+    """Batches of gathered row loads one K1 launch issues: a thread
+    group walks each chunk of a row in batches of ``batch`` slot loads,
+    so a tier issues ``rows x chunks x ceil(chunk slots / batch)`` (the
+    rows x ``ceil(slots / batch)`` of a tier whose rows are one chunk),
+    once for each CTA along the features."""
+    batch = int(meta["batch"])
+    waves = sum(int(n_t) * int(s) * -(-int(length) // batch)
+                for _, m_t, n_t, length, s in meta["tiers"] if int(m_t))
+    return waves * int(meta["col_blocks"])
+
+
+def meta_dma_copies(meta: Dict[str, Any]) -> int:
+    """Gathered row loads one K1 launch issues: one X row a slot
+    (padding slots included), the slots of its tiers."""
+    return sum(int(m_t) * int(n_t) for _, m_t, n_t, _, _ in meta["tiers"])
 
 
 def meta_smem_bytes(meta: Dict[str, Any]) -> int:
@@ -203,9 +235,17 @@ def tier_counters(fp: Dict[str, Any], k: int, *,
     return out
 
 
+def k1_family(slot_width: int, batch: int) -> str:
+    """Family key of one tier under K1's knobs: the width family refined
+    by the batch the launch runs at (``pallas:tail@b8``)."""
+    return f"pallas:{tier_family(int(slot_width))}@b{int(batch)}"
+
+
 def _k1_counters(fp: Dict[str, Any], k: int, feature_dtype: Optional[str],
                  schedule: Optional[List[Dict[str, Any]]],
                  opts: Dict[str, Any]) -> List[Dict[str, Any]]:
+    from arrow_matrix_tpu_torch.ops.worklist import default_batch
+
     sched = {int(e["tier"]): e for e in (schedule or [])
              if isinstance(e, dict) and "tier" in e}
     ladder = fp["ladder"]
@@ -217,14 +257,16 @@ def _k1_counters(fp: Dict[str, Any], k: int, feature_dtype: Optional[str],
         fd_t = ov.get("carriage", feature_dtype)
         item = ITEMSIZE.get(fd_t, 4)
         batch = ov.get("batch", opts.get("batch"))
-        family = f"pallas:{tier_family(int(w))}"
-        if batch is not None:
-            family += f"@b{int(batch)}"
+        batch = default_batch(item) if batch is None else int(batch)
         chunk = int(ov.get("chunk_slots", opts.get("chunk_slots", 128)))
+        ring = ov.get("ring", opts.get("ring"))
         out.append({
-            "tier": t, "family": family, "rows": int(rows),
+            "tier": t, "family": k1_family(int(w), batch),
+            "rows": int(rows),
             "nnz": int(nnz), "slots": int(slots), "slot_width": int(w),
-            "padded_slots": int(slots) - int(nnz), "ring": None,
+            "padded_slots": int(slots) - int(nnz),
+            "ring": None if ring is None else int(ring), "batch": batch,
+            "deep_batch": default_batch(item),
             "streamed_bytes": tier_stream_bytes(int(w), int(rows), k,
                                                 itemsize=item),
             **_k1_tier_counters(int(w), int(rows), k, item, chunk)})
@@ -248,7 +290,9 @@ class CostModel:
 
     ``coeffs[family]`` maps each regressor to its ms-per-unit
     coefficient (all >= 0); ``dma_wait_ms[family]`` is a profile's
-    measured ring wait per tier, empty for K1 (it has no DMA ring).
+    measured wait of one tier of that family at the shallow load depth
+    (K1 at ``batch=4`` against the profile's batch; the reference's
+    ``ring=1`` against its deep ring).
     """
 
     structure_hash: str
@@ -356,13 +400,32 @@ def predict_iter_ms(fp: Dict[str, Any], k: int, model: CostModel, *,
                     ) -> float:
     """Predicted fold-iteration ms for one (structure, k) point: the
     sum of the per-tier family predictions over the static counters.
-    ``ring`` is the reference's DMA-ring depth; K1 has no ring, so it
-    adds nothing here."""
-    del ring
+    Under "pallas" a tier at the shallow load depth (``ring=1``, the
+    reference's name, or a uniform or scheduled ``batch`` of
+    :data:`SHALLOW_BATCH` below the carriage's default) is priced at its
+    deep family, unless the model fitted the shallow one, plus the
+    fitted wait of that family (the family key, then the key without
+    its ``@`` suffix): the load overlap the deep batch buys."""
     tiers = tier_counters(fp, k, kernel=kernel,
                           feature_dtype=feature_dtype,
                           schedule=schedule, kernel_opts=kernel_opts)
-    return model.predict_tiers(tiers)
+    if kernel != "pallas":
+        return model.predict_tiers(tiers)
+    total = 0.0
+    for t in tiers:
+        family = t["family"]
+        shallow = (ring == 1 or t.get("ring") == 1
+                   or SHALLOW_BATCH == t["batch"] < t["deep_batch"])
+        if shallow and family not in model.coeffs:
+            family = k1_family(t["slot_width"], t["deep_batch"])
+        total += model.predict_point(family, t["nnz"], t["rows"],
+                                     t["streamed_bytes"])
+        if shallow and t["slot_width"] > 0:
+            wait = model.dma_wait_ms.get(family)
+            if wait is None:
+                wait = model.dma_wait_ms.get(family.split("@", 1)[0], 0.0)
+            total += float(wait)
+    return total
 
 
 def predict_candidate_ms(model: CostModel, fp: Dict[str, Any], k: int,

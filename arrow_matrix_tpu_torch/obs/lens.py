@@ -22,10 +22,31 @@ differences telescope to the full step instead of counting the fixed
 cost once per tier.  Every number is a chained measurement
 (``obs/tracer.chained_sampler``: ``iters`` launches ending in one
 ``.item()``, the round trip subtracted), the per-program minimum over
-interleaved sweeps.  K1 has no DMA ring, so a profile's
-``dma_wait_ms`` is empty, and the port adds the K1 launches each chain
-made (counted by the wrapper) as ``launches``: a tier's prefix chain,
-and a dtype's two full-step chains.
+interleaved sweeps.  The port adds the K1 launches each chain made
+(counted by the wrapper) as ``launches``: a tier's prefix chain, and a
+dtype's two full-step chains.
+
+Kernels.  ``"xla"`` (and ``"auto"``) is the fold's own path, K1 at its
+default knobs.  ``"pallas"`` (the reference's name for its fused tier
+kernel) is K1 with ``kernel_opts``, through
+``MultiLevelArrow(kernel="pallas_sell")``: every prefix and the full
+step launch at the profile's knobs, which are checked against the
+contract and certified before anything is built.
+
+The load-depth sweep (``ring_sweep``).  The reference re-times every
+tier alone at ``ring=1`` against its deep DMA ring.  K1 has no ring;
+its analogue is the depth of independent gathered row loads a lane
+keeps in flight, the ``batch`` knob.  Each non-empty tier is re-timed
+alone at the profile's batch (``deep{t}``) and at batch 4
+(``ring1_{t}``), under the reference's keys: ``ring1_ms`` and
+``dma_wait_ms`` a tier (the excess at batch 4, the wait the deeper
+batch hides), the mean wait a family, and ``sweep`` names what was
+swept.  Batch keeps every sum's order, so each tier's result at batch
+4 must equal its result at the profile's batch bit for bit: the sweep
+checks it and raises if not.  A scheduled profile skips the sweep (its
+knobs are per tier already), as does one already at batch 4.  The
+sweep's launches (its two chains and the bit check) are a tier's
+``sweep_launches``.
 """
 
 from __future__ import annotations
@@ -36,10 +57,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from arrow_matrix_tpu_torch.obs.costmodel import (
+    SHALLOW_BATCH,
     CostModel,
     ITEMSIZE,
     check_kernel,
     fit_cost_model,
+    k1_family,
     schedule_family,
     tier_family,
     tier_stream_bytes,
@@ -67,22 +90,31 @@ LENS_DTYPES = ("f32", "bf16")
 
 
 def _resolve_kernel(kernel: str) -> str:
-    """"auto" is the fold's own path, K1 ("xla"); "pallas" (K1's
-    knobs under the lens) raises naming the fold executor options."""
-    if kernel == "pallas":
-        from arrow_matrix_tpu_torch.parallel.multi_level import _todo
-
-        raise _todo("the lens's 'pallas' kernel", "fold executor options")
+    """"auto" is the fold's own path, K1 at its defaults ("xla");
+    "pallas" is K1 with the profile's knobs."""
     return check_kernel("xla" if kernel == "auto" else kernel)
+
+
+def _uniform_opts(kopts: Dict[str, Any]):
+    """The profile's uniform K1 knobs as a checked ``LaunchOpts``."""
+    from arrow_matrix_tpu_torch.ops.worklist import KNOBS, LaunchOpts
+
+    knobs = {kk: (tuple(v) if isinstance(v, list) else v)
+             for kk, v in kopts.items() if kk in KNOBS}
+    return LaunchOpts(**knobs).check()
 
 
 def _tier_static(sell, t: int, k: int, *, kernel: str,
                  feature_dtype: Optional[str],
-                 schedule=None) -> Dict[str, Any]:
+                 schedule=None, batch: Optional[int] = None
+                 ) -> Dict[str, Any]:
     """Static counter row of one realized SELL tier: the fields
     :func:`~.costmodel.tier_counters` derives from the fingerprint, read
-    off the operator the profile ran (a ``schedule`` override for tier
-    ``t`` refines the family and the priced carriage)."""
+    off the operator the profile ran.  Under "pallas" the family is
+    refined by the batch tier ``t`` launches at (``pallas:tail@b8``,
+    the key ``tier_counters`` prices); under "xla" a ``schedule``
+    override for tier ``t`` refines the family by its row block and
+    prices its carriage."""
     cols = sell.cols[t]
     m_t, n_t = int(cols.shape[0]), int(cols.shape[1])
     if sell.deg is not None:
@@ -96,12 +128,19 @@ def _tier_static(sell, t: int, k: int, *, kernel: str,
         if int(e.get("tier", -1)) == t:
             ov = e
             break
-    if ov is None:
+    if ov is not None:
+        feature_dtype = ov.get("carriage", feature_dtype)
+    if kernel == "pallas":
+        from arrow_matrix_tpu_torch.ops.worklist import default_batch
+
+        b = (ov or {}).get("batch", batch)
+        family = k1_family(m_t, default_batch(ITEMSIZE.get(
+            feature_dtype, 4)) if b is None else int(b))
+    elif ov is None:
         family = f"{kernel}:{tier_family(m_t)}"
     else:
         family = schedule_family(kernel, m_t,
                                  int(ov.get("row_block", 256)))
-        feature_dtype = ov.get("carriage", feature_dtype)
     return {
         "tier": t,
         "family": family,
@@ -113,6 +152,73 @@ def _tier_static(sell, t: int, k: int, *, kernel: str,
         "streamed_bytes": tier_stream_bytes(
             m_t, n_t, k, itemsize=ITEMSIZE.get(feature_dtype, 4)),
     }
+
+
+def _prefix_opts(kopts: Dict[str, Any], j: int) -> Dict[str, Any]:
+    """``kopts`` restricted to tiers ``0..j`` (a schedule's later
+    entries and per-tier chunks dropped)."""
+    out = dict(kopts)
+    if out.get("schedule"):
+        out["schedule"] = [e for e in out["schedule"]
+                           if int(e.get("tier", -1)) <= j]
+    if isinstance(out.get("chunk_slots"), (list, tuple)):
+        out["chunk_slots"] = tuple(out["chunk_slots"][:j + 1])
+    return out
+
+
+def _single_tier(sell, t: int):
+    """Tier ``t`` of ``sell`` alone: its ``n_t`` output rows, reading
+    every row of the carriage."""
+    from arrow_matrix_tpu_torch.ops.sell import SellMatrix
+
+    return SellMatrix(
+        cols=(sell.cols[t],),
+        data=(sell.data[t],) if sell.data is not None else None,
+        deg=(sell.deg[t],) if sell.deg is not None else None,
+        n_rows=int(sell.cols[t].shape[1]), row_starts=(0,),
+        x_rows=int(sell.n_rows))
+
+
+def _tier_launches(sell, *, kernel: str, kernel_opts: Dict[str, Any],
+                   dtype, sweep: bool):
+    """Yield ``(tier, prefix_fn, deep_fn, shallow_fn)`` per non-empty
+    tier: ``prefix_fn`` runs K1 over tiers ``0..tier`` through
+    ``ops/cuda_sell.py`` as the fold step launches them (the default
+    knobs under "xla", the profile's launch groups under "pallas");
+    under ``sweep`` ``deep_fn`` and ``shallow_fn`` run the tier alone
+    at the profile's batch and at :data:`~.costmodel.SHALLOW_BATCH`
+    (else both None)."""
+    import dataclasses
+
+    from arrow_matrix_tpu_torch.ops.cuda_sell import (
+        launch_groups,
+        sell_spmm_cuda,
+        sell_spmm_k1,
+    )
+
+    uniform = _uniform_opts(kernel_opts) if kernel == "pallas" else None
+    for t, cols in enumerate(sell.cols):
+        if cols.shape[0] == 0:
+            continue
+        prefix = tier_prefix(sell, t)
+        if kernel == "pallas":
+            groups = launch_groups(_prefix_opts(kernel_opts, t), t + 1,
+                                   dtype)
+            prefix_fn = (lambda c, p=prefix, g=groups:
+                         sell_spmm_k1(p, c, g))
+        else:
+            prefix_fn = lambda c, p=prefix: sell_spmm_cuda(p, c)  # noqa
+        deep_fn = shallow_fn = None
+        if sweep:
+            single = _single_tier(sell, t)
+            deep = dataclasses.replace(uniform,
+                                       chunk_slots=uniform.chunk_of(t))
+            shallow = dataclasses.replace(deep, batch=SHALLOW_BATCH)
+            deep_fn = (lambda c, s=single, o=deep:
+                       sell_spmm_cuda(s, c, o))
+            shallow_fn = (lambda c, s=single, o=shallow:
+                          sell_spmm_cuda(s, c, o))
+        yield t, prefix_fn, deep_fn, shallow_fn
 
 
 def tier_prefix(sell, j: int):
@@ -201,18 +307,22 @@ def profile_fold(levels, width: int, k: int, *,
     bump costs a prefix chain: the full step's chain with the bump less
     the one without.  (The reference times the bump alone; here its
     launches alone are bound by the host, while the prefix chains it
-    rides on are bound by the device.)  Every prefix operator and its work list are built
-    and warmed before the sweeps.  ``kernel`` other than "auto"/"xla",
-    ``ring_sweep`` and ``kernel_opts`` raise naming the fold executor
-    options.  ``clock`` is the seconds clock every sample reads.  Returns
-    the lens profile document (schema 1).
+    rides on are bound by the device.)  Every prefix operator and its
+    work list are built and warmed before the sweeps.  Under
+    ``kernel="pallas"`` every launch runs at ``kernel_opts``, checked
+    (``LaunchOpts.check``) and certified
+    (``analysis/kernels.certify_candidate_opts``) first: a knob point
+    that does not certify raises.  ``ring_sweep`` adds the load-depth
+    sweep (module docstring) under "pallas".  ``clock`` is the seconds
+    clock every sample reads.  Returns the lens profile document
+    (schema 1).
     """
     import torch
 
     from arrow_matrix_tpu_torch.ledger.store import device_stamp
     from arrow_matrix_tpu_torch.parallel.multi_level import (
         MultiLevelArrow,
-        _todo,
+        resolve_feature_dtype,
     )
     from arrow_matrix_tpu_torch.tune.fingerprint import (
         fingerprint_hash,
@@ -221,12 +331,24 @@ def profile_fold(levels, width: int, k: int, *,
     from arrow_matrix_tpu_torch.utils import random_dense, resolve_device
 
     kernel = _resolve_kernel(kernel)
-    if ring_sweep or kernel_opts:
-        raise _todo("ring_sweep / kernel_opts", "fold executor options")
+    kopts = dict(kernel_opts or {})
     for fd in feature_dtypes:
         if fd not in LENS_DTYPES:
             raise ValueError(f"the lens profiles the carriages "
                              f"{LENS_DTYPES}, got {fd!r}")
+    if kernel == "pallas":
+        from arrow_matrix_tpu_torch.analysis.kernels import (
+            certify_candidate_opts,
+        )
+
+        uniform = _uniform_opts(kopts)
+        for fd in feature_dtypes:
+            why = certify_candidate_opts(
+                {kk: v for kk, v in kopts.items()
+                 if kk != "feature_dtype"}, k, feature_dtype=fd)
+            if why is not None:
+                raise ValueError(f"kernel_opts {kopts} at k={k} {fd}: "
+                                 f"{why}")
     dev = resolve_device(device)
     stamp = device_stamp(dev)
     fp = structure_fingerprint(levels, width, np.float32,
@@ -241,13 +363,21 @@ def profile_fold(levels, width: int, k: int, *,
         "k": int(k),
         "kernel": kernel,
         "iters": int(iters),
-        "kernel_opts": {},
+        "kernel_opts": kopts,
         "dtypes": {},
     }
     for fd in feature_dtypes:
+        feature_dtype = None if fd == "f32" else fd
+        dtype = resolve_feature_dtype(feature_dtype)
+        deep_batch = (uniform.batch_for(dtype.itemsize)
+                      if kernel == "pallas" else None)
+        do_ring = (ring_sweep and kernel == "pallas"
+                   and not kopts.get("schedule")
+                   and deep_batch != SHALLOW_BATCH)
         multi = MultiLevelArrow(
             levels, width, fmt="fold",
-            feature_dtype=None if fd == "f32" else fd,
+            kernel="pallas_sell" if kernel == "pallas" else "xla",
+            kernel_opts=kopts or None, feature_dtype=feature_dtype,
             fold_growth=growth, fold_align=fold_align, device=dev)
         doc["n"] = int(multi.n)
         sell = multi.sell
@@ -266,12 +396,26 @@ def profile_fold(levels, width: int, k: int, *,
             "bumped": _chain_sampler(step, x, iters, launches, "bumped",
                                      clock, bump=True),
         }
-        live = [t for t, c in enumerate(sell.cols) if c.shape[0] > 0]
-        for t in live:
-            prefix = tier_prefix(sell, t)
+        tier_fns = list(_tier_launches(sell, kernel=kernel,
+                                       kernel_opts=kopts, dtype=dtype,
+                                       sweep=do_ring))
+        equal = 0
+        for t, prefix_fn, deep_fn, shallow_fn in tier_fns:
             samplers[f"prefix{t}"] = _chain_sampler(
-                lambda c, p=prefix: _k1(p, c), x, iters, launches,
-                f"prefix{t}", clock)
+                prefix_fn, x, iters, launches, f"prefix{t}", clock)
+            if not do_ring:
+                continue
+            if not _same_bits(deep_fn, shallow_fn, x, launches,
+                              f"check{t}"):
+                raise RuntimeError(
+                    f"tier {t}: K1 at batch {SHALLOW_BATCH} differs from "
+                    f"batch {deep_batch} ({fd}, k={k}); batch keeps every "
+                    f"sum's order, so this is a kernel fault")
+            equal += 1
+            samplers[f"deep{t}"] = _chain_sampler(
+                deep_fn, x, iters, launches, f"deep{t}", clock)
+            samplers[f"ring1_{t}"] = _chain_sampler(
+                shallow_fn, x, iters, launches, f"ring1_{t}", clock)
         best = _sweep_min(samplers)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -282,10 +426,13 @@ def profile_fold(levels, width: int, k: int, *,
                             call=f"lens_full_{fd}", dtype=fd)
         tiers: List[Dict[str, Any]] = [
             _tier_static(sell, t, k, kernel=kernel,
-                         feature_dtype=None if fd == "f32" else fd)
+                         feature_dtype=feature_dtype,
+                         schedule=kopts.get("schedule"),
+                         batch=deep_batch)
             for t in range(len(sell.cols))]
+        dma_wait: Dict[str, List[float]] = {}
         prev_ms = floor_ms
-        for t in live:
+        for t, *_ in tier_fns:
             cur = best[f"prefix{t}"]
             ms = max(cur - prev_ms, 0.0)
             prev_ms = max(cur, prev_ms)
@@ -294,6 +441,15 @@ def profile_fold(levels, width: int, k: int, *,
             if registry is not None:
                 registry.record("call_time_ms", ms,
                                 call=f"lens_tier{t}_{fd}", dtype=fd)
+            if do_ring:
+                ms1 = best[f"ring1_{t}"]
+                tiers[t]["ring1_ms"] = float(ms1)
+                wait = max(float(ms1) - float(best[f"deep{t}"]), 0.0)
+                tiers[t]["dma_wait_ms"] = wait
+                tiers[t]["sweep_launches"] = int(
+                    launches[f"deep{t}"] + launches[f"ring1_{t}"]
+                    + launches[f"check{t}"])
+                dma_wait.setdefault(tiers[t]["family"], []).append(wait)
         attributed = sum(t.get("measured_ms", 0.0) for t in tiers)
         resolution_ms = max(float(floor_ms),
                             LENS_RESOLUTION_FRAC * float(full_ms))
@@ -308,17 +464,32 @@ def profile_fold(levels, width: int, k: int, *,
             "attributed_ms": float(attributed),
             "coverage": float(attributed / full_ms) if full_ms else 0.0,
             "tiers": tiers,
-            "dma_wait_ms": {},
+            "dma_wait_ms": {f: float(np.mean(v))
+                            for f, v in sorted(dma_wait.items())},
             "launches": int(launches["full"] + launches["bumped"]),
         }
+        if do_ring:
+            doc["sweep"] = {"knob": "batch", "deep": int(deep_batch),
+                            "shallow": SHALLOW_BATCH,
+                            "bit_equal_tiers": equal}
         del multi, sell, x, samplers
     return doc
 
 
-def _k1(prefix, x):
-    from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+def _same_bits(deep_fn, shallow_fn, x, launches: Dict[str, int],
+               name: str) -> bool:
+    """Whether one tier's K1 result at the deep and the shallow batch
+    agree bit for bit on ``x``; their launches add to
+    ``launches[name]``."""
+    import torch
 
-    return sell_spmm_cuda(prefix, x)
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+
+    before = cuda_sell.LAUNCHES
+    try:
+        return torch.equal(deep_fn(x), shallow_fn(x))
+    finally:
+        launches[name] = cuda_sell.LAUNCHES - before
 
 
 # ---------------------------------------------------------------------------
@@ -408,8 +579,8 @@ def explain_gap(profile: Dict[str, Any], *, base: str = "f32",
 
     Names the dominant per-tier delta and, with a model, its segment:
     the gather term (the byte coefficient times the change in streamed
-    bytes) against the decode/accumulate residual, or DMA wait (never
-    on K1, which has no ring).
+    bytes) against the decode/accumulate residual, or the wait of the
+    load-depth sweep (``dma_wait_ms``).
     """
     eb = profile["dtypes"][base]
     eo = profile["dtypes"][other]

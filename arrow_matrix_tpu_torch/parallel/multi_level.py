@@ -179,11 +179,6 @@ def alloc_bytes(nbytes: int) -> int:
     return -(-int(nbytes) // ALLOC_BLOCK) * ALLOC_BLOCK
 
 
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md Queue A, '{item}'")
-
-
 def resolve_feature_dtype(feature_dtype) -> torch.dtype:
     """Carriage dtype of a request: None/"f32" -> float32, "bf16",
     "int8" (the quantized pair), or a torch dtype among those."""

@@ -1147,7 +1147,7 @@ class ArrowServer:
         self.note_slo_pressure(f"slo_burn:{rule.name}",
                                tenants=tenants or None)
 
-    # -- not ported yet ----------------------------------------------------
+    # -- measured pressure on the ladder -----------------------------------
 
     def note_slo_pressure(self, reason: str,
                           tenants: Optional[List[str]] = None,

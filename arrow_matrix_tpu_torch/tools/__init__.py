@@ -1,3 +1,7 @@
-"""Probes of the port on the card: the gather roofline
-(``granule_gather_probe``, ``gather_probe``), counterparts of the JAX
-package's ``tools/pallas_gather_probe.py`` and ``tools/gather_probe.py``."""
+"""The port's tools: the probes of the gather roofline
+(``granule_gather_probe``, ``gather_probe``) and the gates of the JAX
+package's root ``tools/`` (``chaos_gate``, ``serve_gate``, ``obs_gate``,
+``kernel_gate``, ``fleet_gate``, ``reshard_gate``, ``lens_gate``,
+``ledger_gate``, ``lint_gate``, ``proof_gate``, ``sync_gate``,
+``tune_gate``) and its ``comm_report``, each run as ``python -m
+arrow_matrix_tpu_torch.tools.<name>``."""

@@ -148,10 +148,11 @@ Phases, each fatal on failure:
    each rung of the ladder from repl=2, overlap_slabs=2, each equal to
    the base bit for bit with K1 launched c x S products a step, then an
    error plan exhausting the retries that walks the tenant down every
-   rung to the same bits; (c) ``tools/serve_gate.py``'s in-process
-   scenarios (hang, a corrupt checkpoint, overflow, an HBM budget of one
-   request) and a NaN rollback, each ending equal to the fault-free
-   replay; (d) ``graft_serve`` as a subprocess at BA n = 2^16, SIGKILLed
+   rung to the same bits; (c) the port's ``tools/serve_gate.py``
+   (``run_serve_scenarios`` over this phase's factory and trace): its
+   in-process scenarios (hang, a corrupt checkpoint, overflow, an HBM
+   budget of one request) and its NaN rollback, each ending equal to
+   the fault-free replay; (d) ``graft_serve`` as a subprocess at BA n = 2^16, SIGKILLed
    by a kill plan and rerun from its checkpoints, equal to a never-killed
    run, in a thread beside (b) and (c) (its subprocesses time nothing);
    then K1 at the batch shape against its plain version with its
@@ -223,7 +224,18 @@ Phases, each fatal on failure:
    ``graft_ledger`` rebaseline, check (exit 0) and report on the
    run-local ledger, ``export --round 99`` whose ``parsed`` is stamped
    "gpu" and the card's name (when phase 14 wrote its record), and
-   ``graft_lens check`` on (a)'s profile and model (exit 0).
+   ``graft_lens check`` on (a)'s profile and model (exit 0); (e) right
+   after (a), the lens at K1's knob points with its load-depth sweep,
+   ``profile_fold(kernel="pallas", ring_sweep=True)`` at f32 k=128:
+   coverage within 10%, every fitted ratio in [0.5, 2.0],
+   ``check_profile`` clean, every tier alone bit for bit equal at batch
+   4 and batch 8, K1's launches as the profile counts them; its full
+   step beside (a)'s, the wait a family and the model's batch-4
+   prediction beside the fold step at batch 4 through
+   ``MultiLevelArrow(kernel="pallas_sell", kernel_opts={"batch": 4})``
+   (reported), and K1 at batch 4 over the fold against its plain version
+   and equal to batch 8, with its time, bounds and ``torch.sparse.mm``
+   (the ``sell_tier_spmm[lens-batch4]`` entry, its launches the step's).
 
 19. graft-tune on the card, after phase 18 on phase 4's levels (a
    ``"dir"`` source): (a) ``tune.search`` at k = 16 over the restricted
@@ -412,7 +424,15 @@ Phases, each fatal on failure:
    and leave ``memory_allocated`` where it was; (c) ``analysis lint``
    and ``analysis sync --check`` over the port's tree; (d)
    ``amt_doctor_torch`` on the card: every core check passes and the
-   card answers.  Each exits 0; their seconds are logged.
+   card answers; and (e), in a second thread beside the first, at the
+   same priority, from a working directory of its own (GATES24): the
+   port's ``tools.chaos_gate --fast``, ``tools.obs_gate``,
+   ``tools.kernel_gate`` (K1 at every certified knob point on the card
+   after the certification), ``tools.comm_report`` on 4 gloo ranks,
+   ``spmm_arrow --logdir`` then ``log_upload`` listing its run, and
+   ``graft_lens profile --kernel pallas --ring-sweep`` at BA 2^16 (m=8,
+   width 2048, seed 7), each with ``--device cuda``.  Each exits 0;
+   their seconds are logged.
 
 The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 11, 13, 15, 16, 10,
 18, 19, 20, 21, 22, 23, 17, 24: the host work of phase 4 (generating the 2^20 graph,
@@ -3136,107 +3156,29 @@ def phase_serve_ladder(serve, faults, factory, trace, policy) -> dict:
             "k1_launches": launches, "walk_faults": s["faults_seen"]}
 
 
-def phase_serve_gate(serve, faults, factory, trace, work: str,
-                     policy) -> dict:
-    """Phase 15 step 3: tools/serve_gate.py's in-process scenarios on
-    the card, each ending bit-equal to the fault-free replay."""
+def phase_serve_gate(factory, trace, work: str) -> dict:
+    """Phase 15 step 3: the port's ``tools/serve_gate.py`` in-process
+    scenarios (``serve_hang``, ``serve_corrupt``, ``serve_overflow``,
+    ``serve_hbm``, and its ``serve_nan``) over phase 15's factory on the
+    card and the first :data:`GATE` requests of its trace, each ending
+    bit-equal to the fault-free replay."""
     import dataclasses
+
+    from arrow_matrix_tpu_torch.tools import serve_gate
 
     gate = [dataclasses.replace(r, iterations=GATE["iterations"])
             for r in trace[:GATE["requests"]]]
-    n_req = len(gate)
-
-    def server(**kw):
-        kw.setdefault("policy", policy)
-        kw.setdefault("queue_capacity", 16)
-        return serve.ArrowServer(factory, serve.ExecConfig(), name="gate",
-                                 **kw)
-
-    def run(srv, plan=None):
-        if plan is not None:
-            faults.set_plan(plan)
-        try:
-            return serve.run_trace(srv, gate)
-        finally:
-            faults.clear_plan()
-
-    ref = result_bytes(run(server()))
-    out = {}
-    checks = []
-
-    srv = server(policy=dataclasses.replace(policy, watchdog_s=0.3,
-                                            watchdog_grace_s=60.0))
-    got = run(srv, {"scenario": "hang", "site": "multi_level.step",
-                    "after": 3, "hang_s": 1.0})
-    checks.append(("serve_hang", srv.faults_seen >= 1
-                   and srv.recoveries >= 1 and result_bytes(got) == ref))
-    out["hang"] = {"faults": srv.faults_seen, "recoveries": srv.recoveries}
-
-    ck = os.path.join(work, "serve_ck_corrupt")
-    os.makedirs(ck, exist_ok=True)
-    victim = os.path.join(ck, "ck_r0000.npz")
-    with open(victim, "wb") as fh:
-        fh.write(b"\x00corrupt\xff" * 64)
-    with open(victim + ".sha256", "w", encoding="utf-8") as fh:
-        fh.write("0" * 64 + "\n")
-    srv = server(checkpoint_dir=ck, checkpoint_every=2)
-    got = run(srv)
-    from arrow_matrix_tpu_torch.utils.checkpoint import load_state
-
-    final = load_state(victim[:-len(".npz")])
-    checks.append(("serve_corrupt", srv.checkpoint_corruptions >= 1
-                   and result_bytes(got) == ref and final is not None
-                   and final[1] == GATE["iterations"]))
-    out["corrupt"] = {"corruptions": srv.checkpoint_corruptions}
-    shutil.rmtree(ck, ignore_errors=True)
-
-    def burst(capacity):
-        srv = server(queue_capacity=capacity)
-        tickets = [srv.submit(r) for r in gate]
-        srv.drain()
-        return srv, tickets
-
-    (srv, got), (_, again) = burst(3), burst(3)
-    s = srv.summary()
-    census = [(t.status, t.reason) for t in got]
-    checks.append(("serve_overflow", s["completed"] == 3
-                   and s["shed"] == n_req - 3
-                   and census == [(t.status, t.reason) for t in again]
-                   and all(ref[k] == v for k, v in result_bytes(got).items())
-                   and all(t.reason == "queue_full" for t in got
-                           if t.status == "shed")))
-    out["overflow"] = {"completed": s["completed"], "shed": s["shed"]}
-
-    ex = factory(serve.ExecConfig())
-    from arrow_matrix_tpu_torch.obs.memview import predicted_bytes_for
-
-    resident = predicted_bytes_for(ex, 0)
-    price = serve.request_price_bytes(ex, gate[0].k)
-    srv = server(hbm_budget_bytes=resident + price)
-    tickets = [srv.submit(r) for r in gate]
-    srv.drain()
-    s = srv.summary()
-    checks.append(("serve_hbm", s["admitted"] == 1
-                   and s["rejected"] == n_req - 1
-                   and s["hbm"]["peak_in_use_bytes"] <= resident + price
-                   and all(ref[k] == v
-                           for k, v in result_bytes(tickets).items())))
-    out["hbm"] = {"admitted": s["admitted"], "rejected": s["rejected"],
-                  "budget_bytes": resident + price}
-
-    ck = os.path.join(work, "serve_ck_nan")
-    srv = server(checkpoint_dir=ck, checkpoint_every=2)
-    got = run(srv, {"scenario": "nan", "site": "multi_level.step",
-                    "after": 5, "burst": 4, "seed": 0})
-    checks.append(("nan", srv.faults_seen >= 1 and srv.recoveries >= 1
-                   and result_bytes(got) == ref))
-    out["nan"] = {"faults": srv.faults_seen, "recoveries": srv.recoveries}
-    shutil.rmtree(ck, ignore_errors=True)
-    failed = [name for name, ok in checks if not ok]
-    if failed:
-        raise SystemExit(f"phase 15 gate scenarios failed: {failed} ({out})")
-    log(f"phase 15 gate: {[name for name, _ in checks]} each recovered to "
-        f"the fault-free replay's bits ({json.dumps(out)})")
+    names = ("serve_hang", "serve_corrupt", "serve_overflow", "serve_hbm",
+             "serve_nan")
+    tic = time.perf_counter()
+    problems, ran = serve_gate.run_serve_scenarios(
+        work, fast=True, factory=factory, trace=gate, scenarios=names)
+    if problems or list(ran) != list(names):
+        raise SystemExit(f"phase 15 gate scenarios failed: {problems} "
+                         f"(ran {ran})")
+    out = {"scenarios": list(ran), "seconds": time.perf_counter() - tic}
+    log(f"phase 15 gate (tools/serve_gate.py): {list(ran)} each recovered "
+        f"to the fault-free replay's bits ({out['seconds']:.1f} s)")
     return out
 
 
@@ -3370,8 +3312,7 @@ def phase_serve(dev, levels, n: int, width: int, row_nnz: float, x16,
         killed = kill.submit(phase_serve_kill, work)
         results["ladder"] = phase_serve_ladder(serve, faults, factory, trace,
                                                policy)
-        results["gate"] = phase_serve_gate(serve, faults, factory, trace,
-                                           work, policy)
+        results["gate"] = phase_serve_gate(factory, trace, work)
         ctx = {"factory": factory, "policy": policy,
                "trace": [t.request for t in tickets],
                "results": {t.request.request_id: t.result for t in tickets}}
@@ -4409,6 +4350,142 @@ def lens_prefix_entry(sell, carriage: str, launches: int, row_nnz: float,
             "library_ms": library_ms, "gather_bound_ms": gathered}
 
 
+def phase_lens_sweep(dev, levels, width: int, full_a) -> tuple:
+    """Phase 18 (e): the lens at K1's knob points with its load-depth
+    sweep (``profile_fold(kernel="pallas", ring_sweep=True)``, f32
+    k=128) on phase 4's levels, every gate fatal; then the fold step at
+    batch 4 through ``MultiLevelArrow(kernel="pallas_sell",
+    kernel_opts={"batch": 4})``, its launches counted from 0 just before
+    it, and K1 at batch 4 against its plain version, equal bit for bit
+    to batch 8, timed beside its bounds and ``torch.sparse.mm`` (a
+    kernels-line entry).  ``full_a``: (a)'s f32 ``full_ms``."""
+    import torch
+
+    from arrow_matrix_tpu_torch.obs import lens
+    from arrow_matrix_tpu_torch.obs.costmodel import predict_iter_ms
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+    from arrow_matrix_tpu_torch.ops.sell import sell_spmm
+    from arrow_matrix_tpu_torch.ops.worklist import LaunchOpts
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.tune import structure_fingerprint
+    from arrow_matrix_tpu_torch.utils import random_dense
+    from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
+
+    k = LENS["k"]
+    reset_counters()
+    tic = time.perf_counter()
+    prof = lens.profile_fold(levels, width, k, kernel="pallas",
+                             ring_sweep=True, feature_dtypes=("f32",),
+                             iters=LENS["iters"], device=dev)
+    torch.cuda.synchronize()
+    out = {"profile_s": time.perf_counter() - tic}
+    counts = counters()
+    e = prof["dtypes"]["f32"]
+    live = [t for t in e["tiers"] if t["slot_width"] > 0]
+    want = e["launches"] + sum(t["launches"] + t["sweep_launches"]
+                               for t in live)
+    model = lens.fit_from_profile(prof)
+    problems = lens.check_profile(prof, model)
+    ratios = lens.ratio_points(prof, model)
+    problems += [f"tier {p['tier']} ratio {p['ratio']:.3f}" for p in ratios
+                 if p["tier"] is not None and not
+                 lens.LENS_RATIO_MIN <= p["ratio"] <= lens.LENS_RATIO_MAX]
+    if abs(e["coverage"] - 1.0) > lens.LENS_COVERAGE_TOL:
+        problems.append(f"coverage {e['coverage']:.4f}")
+    if counts[0] != want or any(counts[1:]):
+        problems.append(f"launches {counts} != the profile's K1 count "
+                        f"{want}")
+    sweep = prof.get("sweep") or {}
+    if sweep.get("bit_equal_tiers") != len(live) or sweep.get("deep") != 8:
+        problems.append(f"sweep {sweep} over {len(live)} tiers")
+    if problems:
+        raise SystemExit(f"phase 18 (e): {problems}")
+    waits = e["dma_wait_ms"]
+    for t in live:
+        log(f"    tier {t['tier']:2d} m_t={t['slot_width']:5d} "
+            f"({t['family']}): {t['measured_ms']:.4f} ms; alone at batch 4 "
+            f"{t['ring1_ms']:.4f} ms, wait {t['dma_wait_ms']:.4f} ms"
+            f"{' (below resolution)' if t.get('below_resolution') else ''}")
+    fp = structure_fingerprint(levels, width)
+    pred8 = predict_iter_ms(fp, k, model, kernel="pallas")
+    pred4 = predict_iter_ms(fp, k, model, kernel="pallas",
+                            kernel_opts={"batch": 4})
+
+    # The fold step at batch 4 through the executor a user builds.
+    tic = time.perf_counter()
+    ml4 = MultiLevelArrow(levels, width, fmt="fold", kernel="pallas_sell",
+                          kernel_opts={"batch": 4}, device=dev)
+    out["fold_build_s"] = time.perf_counter() - tic
+    x = ml4.set_features(random_dense(ml4.n, k, seed=3))
+    ml4.step(x)
+    torch.cuda.synchronize()
+    reset_counters()
+    y = ml4.step(x)
+    torch.cuda.synchronize()
+    launches = counters()
+    step_ms = statistics.median(cuda_runs(lambda: ml4.step(x), 20))
+    opts = LaunchOpts(batch=4)
+    got = cuda_sell.sell_spmm_cuda(ml4.sell, x, opts)
+    deep = cuda_sell.sell_spmm_cuda(ml4.sell, x, LaunchOpts(batch=8))
+    plain = sell_spmm(ml4.sell, x)
+    torch.cuda.synchronize()
+    row_nnz = ml4.nnz / ml4.n
+    err, ok = compare(got, plain, row_nnz, exact=False)
+    if not (ok and torch.equal(got, deep) and torch.equal(got, y)) \
+            or launches[0] < 1 or any(launches[1:]):
+        raise SystemExit(f"phase 18 (e): K1 at batch 4: max abs err "
+                         f"{err:.3e} against plain, equal to batch 8 "
+                         f"{torch.equal(got, deep)}, to the step "
+                         f"{torch.equal(got, y)}; launches {launches}")
+    del got, deep, plain, y
+    ms = statistics.median(cuda_runs(
+        lambda: cuda_sell.sell_spmm_cuda(ml4.sell, x, opts), 20))
+    plain_ms = cuda_ms(lambda: sell_spmm(ml4.sell, x), 3)
+    a_csr = sorted_csr(ml4.sell, x.dtype)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 5)
+    nnz = int(a_csr.values().numel())
+    read = int(torch.unique(a_csr.col_indices()).numel())
+    del a_csr
+    n_rows, item = ml4.sell.n_rows, x.element_size()
+    t_bytes = (4 * nnz + 4 * n_rows + (read + n_rows) * k * item) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = nnz * k / F32_FLOPS * 1e3
+    gathered = (nnz * (k * item + 4) + n_rows * k * item) \
+        / HBM_BYTES_PER_S * 1e3
+    out.update(full_ms=e["full_ms"], full_a_ms=full_a,
+               coverage=e["coverage"], sweep=sweep, waits=waits,
+               k1_launches=counts[0], predicted_batch8_ms=pred8,
+               predicted_batch4_ms=pred4, step_batch4_ms=step_ms,
+               step_launches=launches[0], ratios=ratios,
+               tiers=[[t["tier"], t["slot_width"], t["measured_ms"],
+                       t["ring1_ms"], t["dma_wait_ms"],
+                       bool(t.get("below_resolution"))] for t in live])
+    log(f"phase 18 (e) lens pallas f32 k={k} with the load-depth sweep "
+        f"(batch 8 against 4): full {e['full_ms']:.4f} ms/iter ((a)'s "
+        f"{'not run' if full_a is None else f'{full_a:.4f} ms'}), "
+        f"coverage {e['coverage']:.4f}, every tier bit-equal at batch 4 "
+        f"and 8 ({sweep['bit_equal_tiers']} tiers), {counts[0]} K1 "
+        f"launches as the profile counts; wait by family "
+        f"{ {f: round(w, 4) for f, w in waits.items()} } ms; model: "
+        f"batch 8 {pred8:.4f}, batch 4 {pred4:.4f} ms/iter beside the "
+        f"measured step at batch 4 {step_ms:.4f} ms ({launches[0]} K1 "
+        f"launches a step; reported, not gated); K1 at batch 4 "
+        f"{ms:.4f} ms/product, plain {plain_ms:.4f}, torch.sparse.mm "
+        f"{library_ms:.4f}, bound {max(t_bytes, t_ops):.4f}, "
+        f"gathered-bytes bound {gathered:.4f} ms, max abs err {err:.3e}; "
+        f"profile {out['profile_s']:.1f} s, fold {out['fold_build_s']:.1f}"
+        f" s")
+    del ml4, x
+    torch.cuda.empty_cache()
+    entry = {"name": "sell_tier_spmm[lens-batch4]", "route": "cuda",
+             "source": SOURCES["K1"], "replaces": REPLACES["K1"],
+             "launches": launches[0], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms, "gather_bound_ms": gathered}
+    return out, entry
+
+
 def phase_lens(dev, base: str, width: int, store: str, run_dir: str,
                main: dict) -> tuple:
     """Phase 18: the lens, the memory report, the probe and the ledger's
@@ -4527,6 +4604,10 @@ def phase_lens(dev, base: str, width: int, store: str, run_dir: str,
     out["lens_records"] = len(lens.record_profile(prof, model,
                                                   directory=store))
 
+    # (e) the lens at K1's knob points with its load-depth sweep.
+    out["sweep"], sweep_entry = phase_lens_sweep(
+        dev, levels, width, prof["dtypes"].get("f32", {}).get("full_ms"))
+
     # (b) one fold step's device memory beside the executor's model.
     tic = time.perf_counter()
     ml = MultiLevelArrow(levels, width, fmt="fold", device=dev)
@@ -4547,7 +4628,7 @@ def phase_lens(dev, base: str, width: int, store: str, run_dir: str,
         f"{out['fold_build_s']:.1f} s")
     row_nnz = ml.nnz / ml.n
     entries = [lens_prefix_entry(ml.sell, fd, per_dtype[fd], row_nnz, dev)
-               for fd in LENS["dtypes"]]
+               for fd in LENS["dtypes"]] + [sweep_entry]
     del ml, x
     torch.cuda.empty_cache()
 
@@ -7903,38 +7984,74 @@ PROVE_ENTRIES, PROVE_SKIPS, PROVE_LAUNCH_CHECKS = 20, 4, 14
 ANALYSIS_TIMEOUT_S = 900.0
 
 
-def start_analysis24(keep: str):
-    """Phase 24's subprocesses (:func:`analysis24_subprocesses`) in a
-    thread of their own; the future."""
+#: Phase 24's second thread: the reference's last gates and CLIs, each
+#: (name, argv after ``python -m``, the text its output must hold), run
+#: in the thread's working directory (``{work}``).
+GATES24 = (
+    ("chaos", ["arrow_matrix_tpu_torch.tools.chaos_gate", "--fast",
+               "--device", "cuda", "{work}/chaos"], "chaos gate: ok"),
+    ("obs", ["arrow_matrix_tpu_torch.tools.obs_gate", "--device", "cuda",
+             "{work}/obs"], "obs gate: ok"),
+    ("kernel", ["arrow_matrix_tpu_torch.tools.kernel_gate", "--device",
+                "cuda"], "kernel gate: ok (K1 at every certified"),
+    ("comm", ["arrow_matrix_tpu_torch.tools.comm_report", "4096", "128",
+              "16", "4", "--device", "cuda"], '"ideal_routing"'),
+    ("spmm_logdir", ["arrow_matrix_tpu_torch.cli.spmm_arrow", "--device",
+                     "cuda", "--vertices", "16384", "--width", "512",
+                     "--features", "16", "--iterations", "3", "--validate",
+                     "--logdir", "{work}/logs"], "log written to"),
+    ("log_upload", ["arrow_matrix_tpu_torch.cli.log_upload", "-f",
+                    "{work}/logs"], "1 run(s) handled"),
+    ("lens", ["arrow_matrix_tpu_torch.cli.graft_lens", "profile", "--ba",
+              "65536,2048,7", "--ba_m", "8", "--k", "128", "--dtypes", "f32",
+              "--kernel", "pallas", "--ring-sweep", "--iters", "20",
+              "--device", "cuda", "--out", "{work}/lens_profile.json"],
+     '"sweep"'),
+)
+
+
+def start_analysis24(keep: str) -> tuple:
+    """Phase 24's two lists of subprocesses (:data:`ANALYSIS` from the
+    checkout's root, :data:`GATES24` from a working directory of its
+    own), each in a thread of its own; their futures."""
     from concurrent.futures import ThreadPoolExecutor
 
-    pool = ThreadPoolExecutor(1)
-    fut = pool.submit(analysis24_subprocesses, keep)
+    pool = ThreadPoolExecutor(2)
+    futs = (pool.submit(analysis24_subprocesses, keep, ANALYSIS,
+                        "analysis24", False),
+            pool.submit(analysis24_subprocesses, keep, GATES24, "gates24",
+                        True))
     pool.shutdown(wait=False)
-    return fut
+    return futs
 
 
-def analysis24_subprocesses(keep: str) -> dict:
-    """Phase 24's subprocesses one after the other, each at niceness 19
-    (its ranks and probes inherit it): each one's exit code, output and
-    seconds."""
+def analysis24_subprocesses(keep: str, cmds: tuple, tag: str,
+                            in_work: bool) -> dict:
+    """``cmds`` one after the other, each at niceness 19 (its ranks and
+    probes inherit it), from ``keep/tag`` when ``in_work`` (``{work}`` in
+    an argument names it) else from the checkout's root: each one's exit
+    code, output and seconds."""
     import subprocess
 
     root = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(keep, "analysis24")
+    work = os.path.join(keep, tag)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("AMT_FAULT_PLAN", None)
-    res = {"started_s": time.perf_counter() - T0}
-    for name, argv, _ in ANALYSIS:
+    if in_work:
+        # The card machine has wandb but no account: log_upload's runs
+        # go through wandb with every call a no-op and nothing sent.
+        env["WANDB_MODE"] = "disabled"
+    res = {"started_s": time.perf_counter() - T0, "work": work}
+    for name, argv, _ in cmds:
         log_path = os.path.join(work, f"{name}.log")
         tic = time.perf_counter()
         with open(log_path, "w") as fh:
-            p = subprocess.Popen([sys.executable, "-m", *argv], cwd=root,
-                                 env=env, stdout=fh,
-                                 stderr=subprocess.STDOUT,
-                                 preexec_fn=lambda: os.nice(19))
+            p = subprocess.Popen(
+                [sys.executable, "-m", *(a.format(work=work) for a in argv)],
+                cwd=work if in_work else root, env=env, stdout=fh,
+                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
             try:
                 rc = p.wait(timeout=ANALYSIS_TIMEOUT_S)
             except subprocess.TimeoutExpired:
@@ -7947,21 +8064,24 @@ def analysis24_subprocesses(keep: str) -> dict:
     return res
 
 
-def phase_analysis(fut) -> dict:
+def phase_analysis(futs) -> dict:
     """Phase 24's results (module docstring) collected and gated; its
     seconds in the main process."""
     tic = time.perf_counter()
-    subs = fut.result(timeout=ANALYSIS_TIMEOUT_S * len(ANALYSIS)
-                      + STATE["timeout_s"])
+    subs, gates = (f.result(timeout=ANALYSIS_TIMEOUT_S * len(cmds)
+                            + STATE["timeout_s"])
+                   for f, cmds in zip(futs, (ANALYSIS, GATES24)))
     waited = time.perf_counter() - tic
-    out = {}
-    for name, _, must in ANALYSIS:
-        r = subs[name]
-        text = r["text"]
-        if r["rc"] != 0 or (must is not None and must not in text):
-            raise SystemExit(f"phase 24 {name} exited {r['rc']}:\n"
-                             f"{text[-4000:]}")
-        out[name] = {"seconds": r["seconds"]}
+    out = {"gates": {}}
+    for done, cmds, into in ((subs, ANALYSIS, out),
+                             (gates, GATES24, out["gates"])):
+        for name, _, must in cmds:
+            r = done[name]
+            text = r["text"]
+            if r["rc"] != 0 or (must is not None and must not in text):
+                raise SystemExit(f"phase 24 {name} exited {r['rc']}:\n"
+                                 f"{text[-4000:]}")
+            into[name] = {"seconds": r["seconds"]}
     lines = subs["prove"]["text"].splitlines()
     ok = [ln for ln in lines if ln.startswith("[ok  ] ")]
     skips = [ln for ln in lines if ln.startswith("[skip] ")]
@@ -7986,6 +8106,19 @@ def phase_analysis(fut) -> dict:
     out["doctor"]["checks"] = [ln for ln in doctor if ln.startswith("[")]
     out["audit"]["lines"] = audit_ok
     out["subprocess_window_s"] = [subs["started_s"], subs["ended_s"]]
+    out["gates_window_s"] = [gates["started_s"], gates["ended_s"]]
+    logs = os.path.join(gates["work"], "logs")
+    runs = sorted(f for f in os.listdir(logs) if f.endswith(".json"))
+    if len(runs) != 1 or not os.path.exists(
+            os.path.join(logs, runs[0][:-len(".json")] + ".logged")):
+        raise SystemExit(f"phase 24 (e): log_upload did not take the "
+                         f"spmm_arrow run: {sorted(os.listdir(logs))}")
+    lens_doc = json.loads(gates["lens"]["text"].strip().splitlines()[-1])
+    sweep = lens_doc.get("sweep") or {}
+    if not sweep.get("bit_equal_tiers"):
+        raise SystemExit(f"phase 24 (e): graft_lens profile --kernel pallas "
+                         f"--ring-sweep: {lens_doc}")
+    out["gates"]["lens"]["summary"] = lens_doc
     out["main_s"] = time.perf_counter() - tic
     log(f"phase 24: prove {out['prove']['seconds']:.1f} s ({len(ok)} "
         f"entries ok, {len(skips)} skipped, {len(passed)} with each rank's "
@@ -7997,6 +8130,12 @@ def phase_analysis(fut) -> dict:
         f"{out['main_s']:.1f} s of the main process (waited {waited:.1f} s)")
     for ln in out["doctor"]["checks"]:
         print(f"    doctor {ln[:160]}")
+    secs = ", ".join(f"{name} {r['seconds']:.1f} s"
+                     for name, r in out["gates"].items())
+    log(f"phase 24 (e): the reference's last gates and CLIs on the card "
+        f"({secs}), each exit 0, as subprocesses from {gates['started_s']:.1f} s "
+        f"to {gates['ended_s']:.1f} s of the run; graft_lens's sweep "
+        f"{sweep}, full {lens_doc['dtypes']}")
     return out
 
 

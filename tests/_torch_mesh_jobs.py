@@ -501,3 +501,48 @@ def gcn_train(ctx, kind, levels, width, x, y, params, steps, kw, shape,
             "params": [p.detach().numpy().copy()
                        for p in model.params.parameters()],
             "transposed": exe.transposed().packed}
+
+
+def comm_by_mode(ctx, n, width, k):
+    """Each execution mode of ``tools/comm_report.py`` built here by its
+    constructor and stepped once after a warm-up, the counts set to 0
+    just before: this rank's collective counts by mode."""
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.parallel import (
+        MultiLevelArrow,
+        SellSpaceShared,
+        SpaceSharedArrow,
+    )
+    from arrow_matrix_tpu_torch.parallel.sell_slim import SellMultiLevel
+    from arrow_matrix_tpu_torch.utils import (
+        barabasi_albert,
+        commstats,
+        random_dense,
+    )
+
+    levels = arrow_decomposition(barabasi_albert(n, 4, seed=7),
+                                 arrow_width=width, max_levels=4,
+                                 block_diagonal=True, seed=7)
+    blocks = _mesh((ctx.world,), ("blocks",))
+    exes = {f"time-shared/{r}": lambda r=r: MultiLevelArrow(
+                levels, width, mesh=blocks, routing=r)
+            for r in ("gather", "a2a")}
+    exes.update({f"sell/{r}": lambda r=r: SellMultiLevel(
+                     levels, width, blocks, routing=r)
+                 for r in ("gather", "a2a")})
+    if ctx.world % len(levels) == 0:
+        grid = _mesh((len(levels), ctx.world // len(levels)),
+                     ("lvl", "blocks"))
+        exes["space-shared"] = lambda: SpaceSharedArrow(levels, width, grid)
+        exes["sell/space-shared"] = lambda: SellSpaceShared(levels, width,
+                                                            grid)
+    x_host = random_dense(n, k, seed=1)
+    out = {}
+    for mode, build in exes.items():
+        exe = build()
+        x = exe.set_features(x_host)
+        exe.step(x)
+        commstats.reset()
+        exe.step(x)
+        out[mode] = commstats.snapshot()
+    return out

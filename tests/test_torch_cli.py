@@ -62,6 +62,9 @@ def test_mesh_sell_validates_on_two_cpu_ranks(tmp_path, extra):
     for err, gate in errs:
         assert float(err) <= float(gate)
     assert "auto-selected --routing a2a" in proc.stdout
+    # Rank 0 alone writes the run's log (``--logdir``, default ./logs).
+    runs = [f for f in os.listdir(tmp_path / "logs") if f.endswith(".json")]
+    assert len(runs) == 1 and "log written to" in proc.stdout
     if "--comm_report" in extra:
         assert "auto-selected --fmt sell" in proc.stdout
         assert "2.5D mesh: 1 block shards x 2 replica groups" in proc.stdout
@@ -423,12 +426,55 @@ def test_graft_lens_profile_fit_predict_explain_check(tmp_path, cli,
     assert b.returncode == 1 and not b.last_json()["ok"]
 
 
-@pytest.mark.parametrize("flags", [["--kernel", "pallas"], ["--ring-sweep"]])
-def test_graft_lens_reference_options_exit_naming_the_item(cli, flags):
-    r = cli(LENS, "profile", "--ba", "64,16,0", "--device", "cpu", *flags)
-    assert r.returncode == 2
-    assert "fold executor options" in r.stderr
-    assert "ROADMAP.md Queue A" in r.last_json()["error"]
+@pytest.mark.parametrize("flags", [["--kernel", "pallas"],
+                                   ["--kernel", "pallas", "--ring-sweep"]])
+def test_graft_lens_reference_options_exit_naming_the_item(
+        cli, flags, monkeypatch, tmp_path):
+    """``--kernel pallas`` and ``--ring-sweep`` once exited naming a
+    ROADMAP item; now they profile K1 at its knob points (the sweep: each
+    tier alone at batch 4 against the profile's batch 8), the profile
+    checks, and ``predict --ring 1`` adds the fitted waits, as the JAX
+    CLI's ``predict`` does on the same documents."""
+    import functools
+
+    from arrow_matrix_tpu_torch.obs import lens
+    from test_torch_lens import SimulatedCard
+
+    monkeypatch.setattr(lens, "profile_fold", functools.partial(
+        lens.profile_fold, clock=SimulatedCard(monkeypatch,
+                                               shallow_extra=0.5)))
+    r = cli(LENS, "profile", "--ba", "64,16,0", "--device", "cpu",
+            "--k", "8", "--iters", "2", "--dtypes", "f32",
+            "--out", "p.json", "--fit", "m.json", *flags)
+    assert r.returncode == 0, r.stderr
+    out = r.last_json()
+    assert out["ok"] and out["kernel"] == "pallas"
+    with open(tmp_path / "p.json") as fh:
+        doc = json.load(fh)
+    tiers = [t for t in doc["dtypes"]["f32"]["tiers"] if t["slot_width"]]
+    assert all(t["family"].endswith("@b8") for t in tiers)
+    if "--ring-sweep" in flags:
+        assert out["sweep"]["knob"] == "batch"
+        assert out["sweep"]["bit_equal_tiers"] == len(tiers)
+        assert all("ring1_ms" in t and "dma_wait_ms" in t for t in tiers)
+    else:
+        assert "sweep" not in out and doc["dtypes"]["f32"]["dma_wait_ms"] \
+            == {}
+    deep = cli(LENS, "predict", "m.json", "--ba", "64,16,0", "--k", "8",
+               "--kernel", "pallas")
+    shallow = cli(LENS, "predict", "m.json", "--ba", "64,16,0", "--k", "8",
+                  "--kernel", "pallas", "--ring", "1")
+    assert deep.returncode == shallow.returncode == 0
+    gap = shallow.last_json()["predicted_ms"] - deep.last_json()[
+        "predicted_ms"]
+    with open(tmp_path / "m.json") as fh:
+        waits = json.load(fh)["dma_wait_ms"]
+    assert abs(gap - sum(waits[t["family"]] for t in tiers
+                         if t["family"] in waits)) < 1e-5
+    assert (gap > 0) == ("--ring-sweep" in flags)
+    # Each package's graft_lens reads the other's profile.
+    jc = cli(JLENS, "check", "p.json")
+    assert jc.returncode == 0, jc.stdout + jc.stderr
 
 
 def test_graft_ledger_subcommands_on_a_store(tmp_path, cli):

@@ -121,7 +121,13 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             os.path.join("tools", "proof_gate.py"),
             os.path.join("tools", "lint_gate.py"),
             os.path.join("tools", "sync_gate.py"),
-            os.path.join("tools", "reshard_gate.py")} <= names
+            os.path.join("tools", "reshard_gate.py"),
+            os.path.join("tools", "chaos_gate.py"),
+            os.path.join("tools", "serve_gate.py"),
+            os.path.join("tools", "obs_gate.py"),
+            os.path.join("tools", "kernel_gate.py"),
+            os.path.join("tools", "comm_report.py"),
+            os.path.join("cli", "log_upload.py")} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -486,3 +492,44 @@ def test_analysis_family_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.splitlines()[-1] == "ok", proc.stdout
+
+
+def test_the_reference_gates_run_with_jax_blocked(tmp_path):
+    """The port's chaos (``--fast``), obs and kernel gates, ``comm_report``
+    on 4 gloo ranks, and ``spmm_arrow --logdir`` with ``log_upload``
+    listing its run, each with ``--device cpu``, at once, with JAX and
+    the JAX package unimportable in every process they start."""
+    blocker = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")]
+    (tmp_path / "sitecustomize.py").write_text(blocker)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
+    env.pop("AMT_FAULT_PLAN", None)
+    logs = str(tmp_path / "logs")
+    runs = {
+        "chaos": ["arrow_matrix_tpu_torch.tools.chaos_gate", "--fast",
+                  "--device", "cpu", str(tmp_path / "chaos")],
+        "obs": ["arrow_matrix_tpu_torch.tools.obs_gate", "--device", "cpu",
+                str(tmp_path / "obs")],
+        "kernel": ["arrow_matrix_tpu_torch.tools.kernel_gate", "--selftest"],
+        "comm": ["arrow_matrix_tpu_torch.tools.comm_report", "512", "32",
+                 "4", "4", "--device", "cpu"],
+        "logdir": ["arrow_matrix_tpu_torch.cli.spmm_arrow", "--device",
+                   "cpu", "--vertices", "256", "--width", "16",
+                   "--iterations", "1", "--logdir", logs]}
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=tmp_path, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, argv in runs.items()}
+    out = {name: p.communicate(timeout=600)[0] for name, p in procs.items()}
+    for name, p in procs.items():
+        assert p.returncode == 0, (name, out[name][-3000:])
+    assert "chaos gate: ok" in out["chaos"]
+    assert "obs gate: ok" in out["obs"]
+    assert "selftest passed" in out["kernel"]
+    assert '"ideal_routing"' in out["comm"]
+    up = subprocess.run(
+        [sys.executable, "-m", "arrow_matrix_tpu_torch.cli.log_upload",
+         "-f", logs], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert up.returncode == 0 and "1 run(s) handled" in up.stdout, \
+        up.stdout + up.stderr

@@ -6,9 +6,11 @@ counters, the fit and the predictions equal the reference's (within
 fold's realized tier rows equal the JAX fold's; a profile on the CPU
 checks clean with the committed profile's static tiers; attribution,
 the gap explanation and the ratios equal the reference's on one
-document; the reference's ``pallas`` kernel and ring sweep raise with
-the ROADMAP title; the constants are the gate's; the port's lens gate
-passes the committed pairs and trips on the planted fixture."""
+document; the ``pallas`` kernel (K1 at its knob points) and its
+load-depth sweep carry the JAX document's keys and statics, and the
+sweep's waits price the shallow point as the JAX model prices
+``ring=1``; the constants are the gate's; the port's lens gate passes
+the committed pairs and trips on the planted fixture."""
 
 import copy
 import json
@@ -35,9 +37,10 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LENS = os.path.join(REPO, "bench_results", "lens")
-TITLE = "fold executor options"
 BA_256_3 = {"kind": "ba", "n": 256, "m": 3, "width": 32, "seed": 0,
             "max_levels": 10}
+BA_64 = {"kind": "ba", "n": 64, "m": 3, "width": 16, "seed": 0,
+         "max_levels": 10}
 
 
 def _load(name):
@@ -156,10 +159,12 @@ def test_unseen_family_and_version_skew_as_jax():
         pcm.CostModel.from_dict(dict(model.to_dict(), version=2))
 
 
-def test_pallas_and_ring_sweep_raise_with_the_title():
-    """The lens's 'pallas' kernel and ring sweep still raise with the
-    title; the cost model prices K1 with its knobs ("pallas") since the
-    fold executor options were ported."""
+def test_pallas_and_ring_sweep_raise_with_the_title(monkeypatch):
+    """The lens's 'pallas' kernel and its load-depth sweep no longer
+    raise with a ROADMAP title: they profile K1 at its knob points.
+    What raises is a knob point K1's contract refuses, before anything
+    is built.  The cost model prices K1 with its knobs ("pallas"), each
+    tier's family refined by the batch it runs at."""
     fp = structure_fingerprint(_levels(), 64)
     model = pcm.CostModel("h", "cpu", coeffs={
         "xla:tail": {"nnz": 1e-6, "rows": 1e-6, "streamed_bytes": 1e-9}})
@@ -170,26 +175,172 @@ def test_pallas_and_ring_sweep_raise_with_the_title():
         [c["streamed_bytes"] for c in xla]
     assert all(c["family"].startswith("pallas:") and "@b4" in c["family"]
                for c in k1)
+    assert all(c["family"].endswith("@b8")
+               for c in pcm.tier_counters(fp, 16, kernel="pallas"))
     assert all(c["k1_ctas"] >= c["k1_items"]
                >= (c["rows"] > 0 and c["slot_width"] > 0)
                for c in k1)
     assert pcm.predict_iter_ms(fp, 16, model, kernel="pallas") > 0.0
     assert pcm.predict_candidate_ms(
         model, fp, 16, {"kernel": "pallas_sell"}) > 0.0
-    for call in (lambda: plens.profile_fold(_levels(), 64, 8,
-                                            kernel="pallas",
-                                            device="cpu"),
-                 lambda: plens.profile_fold(_levels(), 64, 8,
-                                            ring_sweep=True,
-                                            device="cpu")):
-        with pytest.raises(NotImplementedError, match=TITLE) as exc:
+    levels, width = load_levels_from_source(BA_64)
+    doc = plens.profile_fold(levels, width, 8, kernel="pallas",
+                             ring_sweep=True, iters=2, device="cpu",
+                             clock=SimulatedCard(monkeypatch))
+    assert doc["kernel"] == "pallas"
+    sweep = dict(doc["sweep"])
+    assert sweep.pop("bit_equal_tiers") > 0
+    assert sweep == {"knob": "batch", "deep": 8, "shallow": 4}
+    for call, words in (
+            (lambda: plens.profile_fold(levels, width, 8, kernel="pallas",
+                                        kernel_opts={"batch": 3},
+                                        device="cpu"), "batch=3"),
+            (lambda: plens.profile_fold(levels, width, 8, kernel="pallas",
+                                        kernel_opts={"ring": 1},
+                                        device="cpu"), "ring"),
+            (lambda: plens.profile_fold(levels, width, 8,
+                                        kernel="mosaic", device="cpu"),
+             "unknown kernel")):
+        with pytest.raises(ValueError, match=words):
             call()
-        assert "ROADMAP.md Queue A" in str(exc.value)
     with pytest.raises(ValueError, match="unknown kernel"):
         pcm.tier_counters(fp, 16, kernel="mosaic")
     with pytest.raises(ValueError, match="carriages"):
         plens.profile_fold(_levels(), 64, 8, feature_dtypes=("int8",),
                            device="cpu")
+
+
+def _keys_of(doc):
+    """(document, dtype entry, tier) key sets of a profile."""
+    entry = doc["dtypes"]["f32"]
+    return (set(doc), set(entry),
+            set().union(*(set(t) for t in entry["tiers"])))
+
+
+def test_pallas_sweep_profile_has_the_jax_keys_and_statics(monkeypatch):
+    """A 'pallas' profile with the sweep at BA 64 (width 16) carries
+    every key of the JAX package's document (``ring1_ms`` and
+    ``dma_wait_ms`` a tier, the family waits), adds only ``sweep`` and
+    the launch counts, and its tiers' static counters equal JAX's
+    ``_tier_static`` over the same SELL operator; each tier alone gave
+    the same bits at batch 4 and 8."""
+    from arrow_matrix_tpu.parallel.multi_level import (
+        MultiLevelArrow as JMultiLevelArrow,
+    )
+
+    levels, width = load_levels_from_source(BA_64)
+    ours = plens.profile_fold(levels, width, 8, kernel="pallas",
+                              ring_sweep=True, iters=2, device="cpu",
+                              clock=SimulatedCard(monkeypatch))
+    theirs = jlens.profile_fold(levels, width, 8, kernel="pallas",
+                                ring_sweep=True, iters=2)
+    for mine, ref, extra in zip(_keys_of(ours), _keys_of(theirs),
+                                ({"sweep"}, {"launches"},
+                                 {"launches", "sweep_launches"})):
+        assert ref <= mine and mine - ref <= extra, (mine, ref)
+    jsell = JMultiLevelArrow(levels, width, fmt="fold").blocks[0]
+    tiers = ours["dtypes"]["f32"]["tiers"]
+    assert len(tiers) == len(jsell.cols)
+    static = ("rows", "nnz", "slots", "slot_width", "padded_slots")
+    for t, row in enumerate(tiers):
+        ref = jlens._tier_static(jsell, t, 8, kernel="pallas",
+                                 feature_dtype=None)
+        assert {f: row[f] for f in static} == {f: ref[f] for f in static}
+        assert row["family"] == ref["family"] + "@b8"
+        if row["slot_width"]:
+            assert row["dma_wait_ms"] >= 0.0
+            assert row["ring1_ms"] > 0.0
+            assert row["sweep_launches"] >= 0
+    assert ours["sweep"]["bit_equal_tiers"] == sum(
+        1 for t in tiers if t["slot_width"])
+    assert set(ours["dtypes"]["f32"]["dma_wait_ms"]) == {
+        t["family"] for t in tiers if t["slot_width"]}
+    # A scheduled profile, or one already at batch 4, skips the sweep.
+    for opts in ({"batch": 4}, {"schedule": [{"tier": 0, "batch": 4}]}):
+        doc = plens.profile_fold(levels, width, 8, kernel="pallas",
+                                 kernel_opts=opts, ring_sweep=True,
+                                 iters=2, device="cpu")
+        assert "sweep" not in doc
+        assert doc["dtypes"]["f32"]["dma_wait_ms"] == {}
+        assert doc["dtypes"]["f32"]["tiers"][0]["family"].endswith("@b4")
+
+
+def test_the_sweep_waits_fit_and_price_the_shallow_point(monkeypatch):
+    """On a clock where batch 4 costs a planted share more, the sweep's
+    waits come out of the fit per family and ``predict_iter_ms`` at
+    ``ring=1`` or ``batch=4`` adds them to the deep prediction."""
+    levels, width = load_levels_from_source(BA_64)
+    card = SimulatedCard(monkeypatch, shallow_extra=0.25)
+    doc = plens.profile_fold(levels, width, 8, kernel="pallas",
+                             ring_sweep=True, iters=2, device="cpu",
+                             clock=card)
+    model = plens.fit_from_profile(doc)
+    assert model.dma_wait_ms == doc["dtypes"]["f32"]["dma_wait_ms"]
+    assert all(w > 0.0 for w in model.dma_wait_ms.values())
+    fp = structure_fingerprint(levels, width)
+    deep = pcm.predict_iter_ms(fp, 8, model, kernel="pallas")
+    waits = sum(model.dma_wait_ms[t["family"]]
+                for t in doc["dtypes"]["f32"]["tiers"] if t["slot_width"])
+    for kw in ({"ring": 1}, {"kernel_opts": {"batch": 4}}):
+        assert _close(pcm.predict_iter_ms(fp, 8, model, kernel="pallas",
+                                          **kw), deep + waits)
+    assert _close(pcm.predict_candidate_ms(
+        model, fp, 8, {"kernel": "pallas_sell"}, {"batch": 4}),
+        deep + waits)
+    assert pcm.predict_iter_ms(fp, 8, model, ring=1) == \
+        pcm.predict_iter_ms(fp, 8, model)
+
+
+def test_predict_ring1_adds_the_planted_wait_as_jax():
+    """On one model document with planted waits, ``ring=1`` (and a
+    scheduled tier at ring 1 or batch 4) adds to the prediction exactly
+    what the JAX package's ``predict_iter_ms`` adds."""
+    fp = structure_fingerprint(_levels(), 64)
+    doc = {"version": 1, "kind": "lens_cost_model", "structure_hash": "h",
+           "platform": "cpu",
+           "coeffs": {f"pallas:{fam}": {"nnz": 1e-6, "rows": 2e-6,
+                                        "streamed_bytes": 0.0}
+                      for fam in ("tail", "mid", "head")},
+           "dma_wait_ms": {"pallas:tail": 0.125, "pallas:mid": 0.5}}
+    ours, theirs = pcm.CostModel.from_dict(doc), jcm.CostModel.from_dict(doc)
+
+    def added(cm, model, **kw):
+        return (cm.predict_iter_ms(fp, 16, model, kernel="pallas", **kw)
+                - cm.predict_iter_ms(fp, 16, model, kernel="pallas"))
+
+    want = added(jcm, theirs, ring=1)
+    assert want > 0.0
+    assert _close(added(pcm, ours, ring=1), want)
+    assert _close(added(pcm, ours, kernel_opts={"batch": 4}), want)
+    assert _close(pcm.predict_iter_ms(fp, 16, ours, kernel="pallas"),
+                  jcm.predict_iter_ms(fp, 16, theirs, kernel="pallas"))
+    tier = next(t for t, w in enumerate(fp["ladder"]["slot_width"])
+                if 0 < w <= 8)
+    one = added(jcm, theirs, schedule=[{"tier": tier, "ring": 1}])
+    assert one == 0.125
+    assert _close(added(pcm, ours, schedule=[{"tier": tier, "ring": 1}]),
+                  one)
+    assert _close(added(pcm, ours, schedule=[{"tier": tier, "batch": 4}]),
+                  one)
+    assert added(pcm, ours, kernel_opts={"batch": 8}) == 0.0
+
+
+def test_meta_wave_count_and_dma_copies_count_by_hand():
+    """K1's gathered-load counters over its launch meta, against a count
+    made by hand: tier (3 slots x 5 rows) is one chunk, 5 x ceil(3/8)
+    batches; tier (200 x 2) is two chunks of 100, 2 x 2 x ceil(100/8);
+    a zero-slot tier issues none."""
+    from arrow_matrix_tpu_torch.ops.worklist import LaunchOpts, k1_meta
+
+    shapes, starts = [(3, 5), (200, 2), (0, 4)], [0, 5, 7]
+    for batch, waves in ((8, 5 + 2 * 2 * 13), (4, 5 + 2 * 2 * 25)):
+        meta = k1_meta(shapes, starts, 11, 11, 16, "f32", True, True,
+                       LaunchOpts(batch=batch))
+        assert pcm.meta_wave_count(meta) == waves
+        assert pcm.meta_dma_copies(meta) == 3 * 5 + 200 * 2
+    wide = k1_meta(shapes, starts, 11, 11, 256, "f32", True, True)
+    assert wide["col_blocks"] == 2
+    assert pcm.meta_wave_count(wide) == 2 * (5 + 2 * 2 * 13)
 
 
 def test_constants_equal_the_gate_and_jax():
@@ -248,19 +399,22 @@ def test_tier_prefix_is_the_fold_restricted_to_its_rows():
 class SimulatedCard:
     """A clock that advances only with K1's products, by the bytes each
     gathers (slots x k x itemsize at 1e12 B/s) plus 2 us a product: the
-    lens's bookkeeping on the CPU without the host's timing noise."""
+    lens's bookkeeping on the CPU without the host's timing noise.  A
+    product at batch 4 takes ``shallow_extra`` more of that time."""
 
-    def __init__(self, monkeypatch):
+    def __init__(self, monkeypatch, shallow_extra=0.0):
         from arrow_matrix_tpu_torch.ops import cuda_sell
         from arrow_matrix_tpu_torch.parallel import multi_level
 
         self.t = 0.0
         real = cuda_sell.sell_spmm_cuda
 
-        def k1(m, x):
-            self.t += m.n_slots * x.shape[1] * x.element_size() * 1e-12 \
-                + 2e-6
-            return real(m, x)
+        def k1(m, x, opts=None):
+            dt = m.n_slots * x.shape[1] * x.element_size() * 1e-12 + 2e-6
+            if opts is not None and opts.batch == 4:
+                dt *= 1.0 + shallow_extra
+            self.t += dt
+            return real(m, x, opts)
 
         monkeypatch.setattr(cuda_sell, "sell_spmm_cuda", k1)
         monkeypatch.setattr(multi_level, "sell_spmm_cuda", k1)
