@@ -376,6 +376,36 @@ def check_h2(measured_bytes: int, source: str,
                 f"[{lo}, {hi}]")
 
 
+def check_host_bytes(contract: CollectiveContract, num_hosts: int,
+                     num_devices: int, measured_bytes: int,
+                     pattern: str = "ring",
+                     band: Optional[Tuple[float, float]] = None) -> dict:
+    """H2 across hosts: the measured bytes that cross a host boundary
+    match the contract's inter-host slice
+    (``CollectiveContract.inter_host_bytes``) within ``band`` (default
+    the contract's own ``ratio_band``).  Not in :data:`RULE_IDS`: H1-H7
+    hold at the manifest's one fixed scale, while the inter-host slice
+    depends on how the deployment splits its ranks over hosts, which
+    only the fleet and host gates know."""
+    ideal = contract.inter_host_bytes(num_hosts, num_devices,
+                                      pattern=pattern)
+    if ideal == 0:
+        if measured_bytes == 0:
+            return _res("pass",
+                        f"hosts={num_hosts}: no inter-host slice "
+                        f"promised, none measured")
+        return _res("fail",
+                    f"hosts={num_hosts} promises zero inter-host "
+                    f"bytes but {measured_bytes} B crossed a domain "
+                    f"boundary")
+    lo, hi = band if band is not None else contract.ratio_band
+    ratio = measured_bytes / ideal
+    detail = (f"{measured_bytes} B inter-host / ideal {ideal} B "
+              f"({pattern}, hosts={num_hosts}, devices={num_devices})"
+              f" = {ratio:.3f} vs [{lo}, {hi}]")
+    return _res("pass" if lo <= ratio <= hi else "fail", detail)
+
+
 def check_h3(obs: dict, contract: CollectiveContract, k: int,
              merge_bytes: Optional[int] = None) -> dict:
     """The ÷c law: repl=c exchanges carry k/(c·S) feature columns, and

@@ -9,6 +9,7 @@ from arrow_matrix_tpu_torch.decomposition.linearize import (
     bfs_order,
     random_forest_order,
 )
+from arrow_matrix_tpu_torch.decomposition import native
 
 __all__ = [
     "ArrowLevel",
@@ -16,6 +17,7 @@ __all__ = [
     "arrow_decomposition",
     "bfs_order",
     "decomposition_spmm",
+    "native",
     "random_forest_order",
     "reconstruct",
 ]

@@ -69,6 +69,12 @@ class ArrowLevel:
         sym = self.matrix + self.matrix.T
         return int(np.count_nonzero(np.diff(sym.tocsr().indptr)))
 
+    @property
+    def inverse_permutation(self) -> np.ndarray:
+        """``inverse_permutation[v]`` is the row of ``matrix`` that holds
+        original vertex ``v``."""
+        return np.argsort(self.permutation)
+
 
 def achieved_width(coo_rows: np.ndarray, coo_cols: np.ndarray,
                    width: int) -> int:

@@ -504,3 +504,19 @@ def number_of_blocks(matrix: CsrLike, width: int) -> int:
         if chunk.size:
             extent = max(extent, int(chunk.max()) + 1)
     return max(1, -(-extent // width))
+
+
+def arrow_block_coords(n_blocks: int, banded: bool) -> List[Tuple[int, int]]:
+    """Coordinates of the structurally nonzero blocks of an arrow matrix:
+    the head row ``(0, j)``, the head column ``(i, 0)``, the diagonal
+    ``(i, i)`` and, when banded, the off-diagonals ``(i, i +- 1)`` (not
+    into the head), in the JAX package's order."""
+    coords = [(0, j) for j in range(n_blocks)]
+    for i in range(1, n_blocks):
+        coords += [(i, 0), (i, i)]
+        if banded:
+            if i - 1 >= 1:
+                coords.append((i, i - 1))
+            if i + 1 < n_blocks:
+                coords.append((i, i + 1))
+    return coords

@@ -115,25 +115,26 @@ def error_curves_for_source(source: Dict[str, Any], *, k: int = 4,
     levels, width = load_levels_from_source(source)
     shash = structure_hash(levels, width)
 
+    from arrow_matrix_tpu_torch.parallel.multi_level import (
+        resolve_feature_dtype,
+    )
+
     rng = np.random.default_rng(seed)
     # The row count comes from the golden executor; build it first, then
-    # draw the seeded input at its shape.
-    golden_exec = _build(levels, width, None, dev)
-    n_rows = golden_exec.n
+    # draw the seeded input at its shape.  The fold's packing does not
+    # depend on the carriage, so every curve reuses this one executor
+    # with its carriage switched.
+    multi = _build(levels, width, None, dev)
+    n_rows = multi.n
     x0 = rng.standard_normal((n_rows, k)).astype(np.float32)
-    golden = _trajectory(golden_exec, x0, iterations)
-    del golden_exec
+    golden = _trajectory(multi, x0, iterations)
 
     records: List[Dict[str, Any]] = []
     for dtype in dtypes:
         emulated = dtype == "int8" and emulate_int8
-        if emulated:
-            probed = _trajectory(_build(levels, width, None, dev), x0,
-                                 iterations, quantize=True)
-        else:
-            feature_dtype = None if dtype == "f32" else dtype
-            probed = _trajectory(_build(levels, width, feature_dtype, dev),
-                                 x0, iterations)
+        multi.feature_dtype = resolve_feature_dtype(
+            None if emulated or dtype == "f32" else dtype)
+        probed = _trajectory(multi, x0, iterations, quantize=emulated)
         curve = error_curve(golden, probed)
         knobs = {"dtype": dtype, "k": k, "iterations": iterations,
                  "seed": seed, "emulated": emulated, "fmt": "fold"}

@@ -21,10 +21,18 @@
 * :mod:`~arrow_matrix_tpu_torch.obs.lens` and
   :mod:`~arrow_matrix_tpu_torch.obs.costmodel` — K1's time per tier of
   the fold and the per-family cost model fitted from it;
-* :mod:`~arrow_matrix_tpu_torch.obs.comm` — the device's HBM budget.
+* :mod:`~arrow_matrix_tpu_torch.obs.comm` — each executor's counted
+  collective bytes against its ideal, its replica merge, the replication
+  a budget allows, and the device's HBM budget.
 """
 
-from arrow_matrix_tpu_torch.obs.comm import hbm_budget_bytes
+from arrow_matrix_tpu_torch.obs.comm import (
+    account_collectives,
+    auto_repl,
+    hbm_budget_bytes,
+    ideal_bytes_for,
+    reduce_bytes_for,
+)
 from arrow_matrix_tpu_torch.obs.costmodel import (
     CostModel,
     fit_cost_model,
@@ -95,9 +103,11 @@ __all__ = [
     "PulseMonitor",
     "SloWatchdog",
     "Tracer",
+    "account_collectives",
     "account_imbalance",
     "account_memory",
     "attribution_fractions",
+    "auto_repl",
     "call_time_ms",
     "chained_iteration_ms",
     "critical_path",
@@ -109,6 +119,7 @@ __all__ = [
     "format_memory_report",
     "get_registry",
     "hbm_budget_bytes",
+    "ideal_bytes_for",
     "init_registry",
     "iteration_time_ms",
     "memory_report",
@@ -123,6 +134,7 @@ __all__ = [
     "ratio_points",
     "record_profile",
     "recover_from_flight",
+    "reduce_bytes_for",
     "request_context",
     "set_registry",
     "shard_report_for",

@@ -98,6 +98,21 @@ def resolve_block_dtype(dtype) -> torch.dtype:
                          f"or 'bf16')") from None
 
 
+def scipy_safe_dtype(dtype):
+    """The dtype a block passes through scipy.sparse at: ``dtype`` when
+    scipy can hold it, else float32 (scipy has no bf16; the packers
+    round to the storage dtype once).  Takes numpy or torch dtypes."""
+    if isinstance(dtype, torch.dtype):
+        if dtype == torch.bfloat16:
+            return np.float32
+        dtype = torch.empty(0, dtype=dtype).numpy().dtype.type
+    try:
+        sparse.csr_matrix((0, 0), dtype=dtype)
+        return dtype
+    except (TypeError, ValueError):
+        return np.float32
+
+
 @dataclass
 class ArrowBlocks:
     """The stacks of one arrow level on a device, in the JAX package's
@@ -337,10 +352,11 @@ def arrow_blocks_from_csr(matrix: CsrLike, width: int,
         if ij is None:
             return None
         i, j = ij
-        # Cut at float32 whatever the storage dtype (scipy cannot hold
+        # Cut at float32 for either storage dtype (scipy cannot hold
         # bf16); the packers round once.
         b = load_block(matrix, i * width, (i + 1) * width,
-                       j * width, (j + 1) * width, width, dtype=np.float32)
+                       j * width, (j + 1) * width, width,
+                       dtype=scipy_safe_dtype(dtype))
         captured += b.nnz
         return b
 

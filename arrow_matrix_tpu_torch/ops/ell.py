@@ -152,6 +152,43 @@ def ell_tier_spmm(cols: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def ell_spmm_t(cols: torch.Tensor, x_t: torch.Tensor,
+               data: Optional[torch.Tensor] = None,
+               deg: Optional[torch.Tensor] = None,
+               chunk: Optional[int] = None) -> torch.Tensor:
+    """Slot-major, feature-major ELL product with the JAX package's
+    signature: ``out_t[:, r] = sum_j w[j, r] * x_t[:, cols[j, r]]``.
+
+    :param cols: (m, rows) integer column indices, 0 in padding slots.
+    :param x_t:  (k, n_cols) features, feature-major.
+    :param data: (m, rows) weights (0 in padding), or None for binary.
+    :param deg:  (rows,) valid-slot counts (binary only).
+    :param chunk: slots gathered at a time by the plain version.
+    :returns: (k, rows), feature-major.
+
+    A CUDA ``x_t`` runs K1 over the tier (``ops/cuda_ell.py:one_tier``,
+    one launch; ``chunk`` does not apply); a CPU one the plain
+    :func:`ell_tier_spmm`."""
+    m, rows = cols.shape
+    if data is None and deg is None and m > 0:
+        raise ValueError("binary ELL (data=None) requires deg")
+    x = x_t.T.contiguous()
+    if x.device.type == "cpu":
+        return ell_tier_spmm(cols, x, data=data, deg=deg,
+                             chunk=chunk).T.contiguous()
+    if m == 0:
+        # An empty tier is not launched (CUDA refuses an empty grid).
+        return torch.zeros((x_t.shape[0], rows),
+                           dtype=out_dtype_for(x.dtype), device=x.device)
+    from arrow_matrix_tpu_torch.ops.cuda_ell import one_tier
+    from arrow_matrix_tpu_torch.ops.cuda_sell import sell_spmm_cuda
+
+    op = one_tier(cols.to(torch.int32).contiguous(), data,
+                  None if deg is None else deg.to(torch.int32),
+                  x_rows=x.shape[0])
+    return sell_spmm_cuda(op, x).T.contiguous()
+
+
 def dense_pack_stack(mats: List[Optional[sparse.spmatrix]],
                      dtype: torch.dtype = torch.float32,
                      rows: Optional[int] = None,

@@ -190,6 +190,23 @@ def hyb_spmm(level: HybLevel, x: torch.Tensor,
     return out
 
 
+def hyb_spmm_t(level: HybLevel, x_t: torch.Tensor,
+               chunk: Optional[int] = None,
+               heavy_chunk: Optional[int] = None) -> torch.Tensor:
+    """``(level @ x_t.T).T`` on feature-major ``(k, n_rows)`` features,
+    the JAX package's signature.  A CUDA ``x_t`` runs the level's two K1
+    operators (``ops/cuda_ell.py:hyb_spmm_k1``); a CPU one the plain
+    :func:`hyb_spmm` (``chunk``/``heavy_chunk`` bound its gathers)."""
+    x = x_t.T.contiguous()
+    if x.device.type == "cpu":
+        out = hyb_spmm(level, x, chunk=chunk, heavy_chunk=heavy_chunk)
+    else:
+        from arrow_matrix_tpu_torch.ops.cuda_ell import hyb_spmm_k1
+
+        out = hyb_spmm_k1(level, x)
+    return out.T.contiguous()
+
+
 def hyb_stats(h: HybLevel) -> dict:
     """(rows, nnz, slots) of the light and heavy partitions: the two
     products the layout launches."""

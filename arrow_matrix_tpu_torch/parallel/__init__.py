@@ -1,8 +1,12 @@
 from arrow_matrix_tpu_torch.parallel.mesh import (
     Mesh,
+    fetch_replicated,
+    initialize_multihost,
     largest_replication,
+    make_hybrid_mesh,
     make_mesh,
     make_repl_mesh,
+    shard_blocked,
 )
 from arrow_matrix_tpu_torch.parallel.multi_level import (
     MultiLevelArrow,
@@ -36,13 +40,17 @@ __all__ = [
     "SpaceSharedArrow",
     "compose_routing",
     "equal_slices",
+    "fetch_replicated",
+    "initialize_multihost",
     "largest_replication",
+    "make_hybrid_mesh",
     "make_mesh",
     "make_repl_mesh",
     "multi_level_spmm",
     "pad_permutation",
     "requantize",
     "resolve_feature_dtype",
+    "shard_blocked",
     "space_shared_spmm",
     "stack_arrow_blocks",
 ]

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -57,6 +58,7 @@ from arrow_matrix_tpu_torch.io.graphio import (
 )
 from arrow_matrix_tpu_torch.ops.arrow_blocks import (
     ArrowBlocks,
+    block_row_stats,
     head_stats,
     choose_flat_head_from_stats,
     load_stack_blocks,
@@ -320,6 +322,32 @@ def shard_launch_counts(sb: ShardBlocks, k: int, role: str = "slim"
         out["K1"] += k1_launches(sb.ops["head"], k, torch.float32)
         out["K4"] += int(sb.head_flat)
     return out
+
+
+def arrow_blocks_shard_report(blocks: ArrowBlocks,
+                              n_dev: Optional[int] = None) -> dict:
+    """Load report of one arrow level under the contiguous block-row
+    sharding (``obs/imbalance.py`` schema).  With ``n_dev`` the block
+    rows add up into the equal contiguous shares the ranks hold, so the
+    max/mean ratio is the ranks' compute skew; without it each unit is
+    one block row (the paper's imbalance bound: the block width caps
+    every unit)."""
+    from arrow_matrix_tpu_torch.obs.imbalance import summarize_units
+
+    st = block_row_stats(blocks)
+    rows, nnz, slots = st["rows"], st["nnz"], st["slots"]
+    units = "block-row"
+    if n_dev and n_dev > 1:
+        per = -(-len(nnz) // n_dev)
+
+        def agg(a):
+            a = np.asarray(a, dtype=np.int64)
+            return [int(a[d * per:(d + 1) * per].sum())
+                    for d in range(n_dev)]
+
+        rows, nnz, slots = agg(rows), agg(nnz), agg(slots)
+        units = "device"
+    return summarize_units(rows, nnz, slots, units=units)
 
 
 def check_mesh_options(mesh, fmt: str, routing: str, layout: str,
@@ -751,13 +779,28 @@ class MeshMultiLevelArrow(MultiLevelArrow):
                     tables += t.numel() * t.element_size()
         return sum(b.device_nbytes() for b in self.blocks) + tables
 
+    def exchange_scratch_bytes(self, k: int, itemsize: int = 4) -> int:
+        """Peak send + receive scratch of one routing exchange at width
+        ``k`` on this rank: a one-shot exchange holds its padded send
+        payload and the received copy at once; a :class:`~arrow_matrix_
+        tpu_torch.parallel.routing.StagedRoute` bounds it to one stage's.
+        Zero under ``routing="gather"`` (the all-gather's buffer is
+        judged by ``obs/comm``, not priced here) and with no exchange
+        (one rank: every row is local)."""
+        if self.routing != "a2a" or not self.fwd:
+            return 0
+        return max(2 * r.device_bytes_per_exchange(k, itemsize)
+                   for r in self.fwd + self.bwd)
+
     def predicted_hbm_bytes(self, k: int, itemsize: int = 4,
                             repl: int = 1) -> int:
-        """This rank's blocks and route tables plus its carried input and
-        output at width ``k``."""
+        """This rank's blocks and route tables, its carried input and
+        output at width ``k``, and the peak exchange scratch
+        (:meth:`exchange_scratch_bytes`)."""
         if not self.mesh.member:
             return 0
-        base = self.operator_bytes() + 2 * self.rows_local * k * itemsize
+        base = (self.operator_bytes() + 2 * self.rows_local * k * itemsize
+                + self.exchange_scratch_bytes(k, itemsize))
         return base * max(int(repl), 1)
 
     def carriage_hbm_bytes(self, k: int, itemsize: int = 4,

@@ -89,6 +89,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -208,6 +209,22 @@ def pad_permutation(perm: np.ndarray, total: int) -> np.ndarray:
                          f"{total}")
     return np.concatenate([perm.astype(np.int64),
                            np.arange(n, total, dtype=np.int64)])
+
+
+def gather_host_rows(x: np.ndarray, index: np.ndarray) -> torch.Tensor:
+    """``x[index]`` on the host as a CPU tensor, the rows whose index is
+    ``len(x)`` or more zero (padding), through torch's threaded row
+    gather (numpy's fancy indexing copies on one core)."""
+    with warnings.catch_warnings():
+        # A read-only array (a memmap, a broadcast) is only read here.
+        warnings.simplefilter("ignore", UserWarning)
+        src = torch.from_numpy(np.ascontiguousarray(x))
+    idx = torch.from_numpy(np.ascontiguousarray(index, dtype=np.int64))
+    pad = idx >= src.shape[0]
+    out = src.index_select(0, idx.clamp(max=src.shape[0] - 1))
+    if bool(pad.any()):
+        out[pad] = 0
+    return out
 
 
 def compose_routing(perms: Sequence[np.ndarray], total: int
@@ -719,11 +736,9 @@ class MultiLevelArrow:
         n, k = x_original.shape
         if n != self.n:
             raise ValueError(f"expected {self.n} rows, got {n}")
-        padded = np.zeros((self.total_rows, k), dtype=x_original.dtype)
-        padded[:n] = x_original
-        feat = padded[self.perm0]
+        feat = gather_host_rows(x_original, self.perm0)
         if self.int8:
-            xf = feat.astype(np.float32)
+            xf = feat.float().numpy()
             amax = np.max(np.abs(xf), axis=0, keepdims=True)
             safe = np.where(amax > 0.0, amax, 1.0)
             q = np.clip(np.rint(xf * (127.0 / safe)),
@@ -733,8 +748,7 @@ class MultiLevelArrow:
             return (torch.from_numpy(q).to(self.device),
                     torch.from_numpy(scale).to(self.device))
         # Converted on the host: the card holds only the carriage.
-        t = torch.from_numpy(np.ascontiguousarray(feat, dtype=np.float32))
-        return t.to(self.feature_dtype).to(self.device)
+        return feat.float().to(self.feature_dtype).to(self.device)
 
     def gather_result(self, c) -> np.ndarray:
         """Device carriage -> host (n, k) f32 array in original order."""
@@ -744,7 +758,7 @@ class MultiLevelArrow:
         else:
             # Copied to the host first: no float32 copy on the card.
             arr = c.detach().cpu().float().numpy()
-        return arr[self.inv_perm0][:self.n]
+        return gather_host_rows(arr, self.inv_perm0[:self.n]).numpy()
 
     def _row_mask(self, dtype=np.float32) -> torch.Tensor:
         return torch.from_numpy(

@@ -322,6 +322,10 @@ class RankRoute:
     slots: int
     _init: dict = field(default_factory=dict, repr=False)
 
+    def device_bytes_per_exchange(self, k: int, itemsize: int = 4) -> int:
+        """all_to_all payload bytes of this rank (the padded volume)."""
+        return self.n_dev * self.slots * k * itemsize
+
     def unpack_onto_init(self) -> torch.Tensor:
         """The unpack table over ``[local; zero; received; init rows]``:
         rows no slot writes keep the init carriage's row."""

@@ -1,7 +1,7 @@
 """Synthetic graph / matrix generators (host side, numpy/scipy).
 
-The port's own copy of ``arrow_matrix_tpu/utils/graphs.py`` (the
-subset the main path needs).  Same numpy generator, same draws: a seed
+The port's own copy of ``arrow_matrix_tpu/utils/graphs.py``.  Same numpy
+generator, same draws: a seed
 gives byte-identical arrays in both packages, which is what lets the
 tests feed one input to both.
 """
@@ -83,6 +83,24 @@ def barabasi_albert(n: int, m: int, seed: int | None = None,
     return a
 
 
+def erdos_renyi(n: int, p: float, seed: int | None = None,
+                directed: bool = False) -> sparse.csr_matrix:
+    """G(n, p) random graph as CSR adjacency (no self loops)."""
+    rng = np.random.default_rng(seed)
+    a = sparse.random(n, n, density=p, format="coo", random_state=rng,
+                      data_rvs=lambda k: np.ones(k, dtype=np.float32))
+    mask = a.row != a.col
+    a = sparse.csr_matrix((a.data[mask], (a.row[mask], a.col[mask])),
+                          shape=(n, n))
+    if not directed:
+        a = a + a.T
+        a = a.tocsr()
+        a.data[:] = 1.0
+    a.sum_duplicates()
+    a.sort_indices()
+    return a
+
+
 def random_csr(rows: int, cols: int, nnz_per_row: int,
                seed: int | None = None, dtype=np.float32) -> sparse.csr_matrix:
     """Random CSR with a fixed number of nonzeros per row, uniform
@@ -105,3 +123,19 @@ def random_dense(rows: int, cols: int, seed: int | None = None,
     """Uniform [-1, 1) dense matrix."""
     rng = np.random.default_rng(seed)
     return rng.uniform(-1.0, 1.0, size=(rows, cols)).astype(dtype)
+
+
+def grid_graph(side: int, dtype=np.float32) -> sparse.csr_matrix:
+    """``side`` x ``side`` 2-D lattice adjacency (4 neighbours), the
+    canonical planar graph, the class the paper's communication bound is
+    proved for.  Under a row-major order the adjacency is banded with
+    bandwidth ``side``, so the arrow decomposition ends after one level
+    at width >= ``side``."""
+    eye = sparse.identity(side, dtype=dtype, format="csr")
+    line = sparse.diags([1, 1], [-1, 1], shape=(side, side),
+                        dtype=dtype, format="csr")
+    a = sparse.kron(eye, line) + sparse.kron(line, eye)
+    a = a.tocsr()
+    a.sum_duplicates()
+    a.sort_indices()
+    return a.astype(dtype)

@@ -18,7 +18,7 @@ Phases, each fatal on failure:
    levels, seed 7), saved and loaded as an artifact, folded into one
    SELL operator on the card (its tier ladder logged), stepped through
    ``MultiLevelArrow`` at k=16 and k=128 (f32; every step and the chain
-   of 10 iterations at k=16, of 3 at k=128, validated against the host
+   of 10 iterations at k=16, of 2 at k=128, validated against the host
    golden ``A^s x`` over the graph itself), one bf16 and one int8 step, and the tight packing (growth
    1.1, align 1) for 3 iterations; ms/iter is the median of 7 timed
    chains of 10; the host goldens are kept for phase 11; K1's
@@ -76,7 +76,7 @@ Phases, each fatal on failure:
    the levels fit half the card's free memory, then ELL), ell (the head
    resolved as on the card) and hyb, each built, stepped once at k=16
    and k=128 and for a 3-step chain at k=16 against the host golden,
-   timed (median of 7 chains of 10 steps, eager and from one CUDA
+   timed (median of 3 chains of 10 steps, eager and from one CUDA
    graph; the levels' products and the routing apart, the routing as
    the step runs it (K4) beside the ``index_select`` routing it
    replaced, with its bound), its K1, K2, K3 and K4 launches equal to
@@ -107,8 +107,10 @@ Phases, each fatal on failure:
    packs, ``GCNModel`` on ``hyb``, ``GCNCarried`` on its fold and
    ``GCNModel`` on ``dense`` at phase 7's shape; every first-step
    forward and gradient against a float64 host golden (scipy with the
-   explicit transpose, numpy for the dense layers; computed in a thread
-   beside the card's work), the losses finite and falling; one ``Aᵀ g``
+   explicit transpose, numpy for the dense layers; at 2^20 computed by
+   a host process from the start over phase 4's graph as its host saves
+   it, whose digest must be the levels' sum's), the losses finite and
+   falling; one ``Aᵀ g``
    against scipy for every format family; the solvers (power iteration
    and CG on phase 4's fold, label propagation over ``D⁻¹A`` and
    PageRank over ``A D⁻¹`` on hyb) against their float64 host
@@ -122,7 +124,8 @@ Phases, each fatal on failure:
    reconstruct A exactly; every level within its width) and saved under
    the bench's cache key; (b) ``python -m arrow_matrix_tpu_torch.bench``
    as a subprocess on that cache (kernel comparison off: phase 12 covers
-   its variants; the race fold, hyb and auto: phase 4 times fold_tight),
+   its variants; the race fold and auto: phase 4 times fold_tight and
+   phase 11 hyb),
    whose last line must carry the card's platform and
    name, a finite ``value`` within ``frobenius_gate``, ``k128_ms``
    within ``k128_gate``, ``roofline_frac`` at most 1 and a ``fmt_used``,
@@ -133,8 +136,9 @@ Phases, each fatal on failure:
    ``kind="bench"`` record in phase 18's run-local ledger.
 
 15. the serving runtime, run right after phase 13 on phase 4's
-   decomposition (its fold built per ladder rung by a closure over the
-   levels), with the card's own HBM budget: (a) 32 requests (4 tenants,
+   decomposition (its fold built once by a closure over the levels, the
+   ladder's rungs that fold with their column schedule), with the card's
+   own HBM budget: (a) 32 requests (4 tenants,
    k = 16, 10 iterations, seed 7; the first request's X phase 4's k=16
    input) through ``ArrowServer`` batched to k = 128 (4 batches; queue
    64): every ticket completed with no fault, K1's launches exactly
@@ -180,10 +184,13 @@ Phases, each fatal on failure:
    socket pair inline and as a shared-memory descriptor, bit-equal, and
    ``measure_transports`` (the inline frame carries the result's first
    quarter of rows).
-17. the fleet, last: (a) ``graft_fleet`` as a subprocess, 2 worker
+17. the fleet, right after phase 19, while the ranks finish their work
+   of phases 20-23 (so (a)'s requests/s and latencies are taken beside
+   their host transports), its K1 after phase 20 on the card otherwise
+   idle: (a) ``graft_fleet`` as a subprocess, 2 worker
    processes on the card each over ``ba_executor_factory(2^20, 2048,
    seed 11)`` (the fold, K1; the graph decomposed once, in a process
-   of its own from phase 4 on, and loaded by the workers and the replay
+   of its own from the start, and loaded by the workers and the replay
    through ``AMT_BA_CACHE_DIR``), ring placement, the wire over shared
    memory, 4 tenants, 8 requests at k = 16, 10 iterations: every
    request completed, bit-equal to a single-process replay built in a
@@ -385,7 +392,11 @@ Phases, each fatal on failure:
    same trace at phase 7's graph served in lockstep (rank 0 decides)
    over ``MultiLevelArrow(mesh=, fmt="ell", routing="a2a")``, every rank's results equal
    bit for bit, each within ``relative_tolerance`` of the host golden,
-   each rank's launches its executor's count; ``grow`` from ranks (0, 1)
+   each rank's launches its executor's count, and on each rank a
+   request's admission price (``carriage_hbm_bytes``, with the a2a
+   exchange scratch) beside the rank's measured growth of
+   ``max_memory_allocated`` over one k=128 step (reported, not gated);
+   ``grow`` from ranks (0, 1)
    to all 4 (``fmt="auto"``) with 8 step-2 checkpoints (phase 15's
    gate: 8 requests of 4 iterations), every request resumed at 2 and
    equal bit for bit to a never-grown 4-rank server resuming the same
@@ -434,18 +445,40 @@ Phases, each fatal on failure:
    width 2048, seed 7), each with ``--device cuda``.  Each exits 0;
    their seconds are logged.
 
-The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 11, 13, 15, 16, 10,
-18, 19, 20, 21, 22, 23, 17, 24: the host work of phase 4 (generating the 2^20 graph,
-decomposing it with the numpy decomposer, the host goldens of its
-inputs, beside the decomposition) and of phase 14 (the native
-decomposition) and of phase 22 (its graph and goldens) runs in three
-processes of their own from the start, beside the build and phases 3,
-6-9, 12 and 14;
-that of phase 17 (decomposing the fleet's graph) in a third, and that of
-phase 20 (each rank packing its shards) in its four ranks, and phase
-23's subprocesses one after the other, from phase 4 on, and phase 24's
-beside them;
-phases 20-23's rank work that times no kernel runs beside phase 19.
+25. the planar class (PLANAR), after phase 5: ``tools/planar_bench.py``'s
+   graph through the port's own code, ``grid_graph(1024)`` (n = 2^20,
+   4,190,208 nonzeros; the JAX default side 4096 is cut for the time
+   limit) scrambled by ``default_rng(3).permutation``, decomposed at
+   width 1280 (side x 5/4; max_levels 10, seed 7) in a process of its
+   own from the start into exactly one level (the RCM fast
+   path); the fold and the tight packing (growth 1.1, align 1), their
+   tier ladders logged, stepped at f32 k = 16 and 128 from inputs
+   permuted on the card as ``set_features`` permutes them (the host
+   goldens, made and saved by its host process, are read back one by
+   one): every step from the host golden's input within
+   ``relative_tolerance(nnz/n, 1)`` of the next host golden, and a
+   10-step ``run`` within ``(nnz/n, 10)``, K1's launches its launches a
+   product x products with the counts set to 0 just before; then
+   ``hyb_spmm_t`` and ``ell_spmm_t`` over the level's HYB form at k=16,
+   each K1 against its plain version and repeated bit for bit; then K1
+   on both packings at both k against its plain version, repeated bit
+   for bit, timed (median of 20) beside its bytes bound, its
+   gathered-bytes bound, the plain version and ``torch.sparse.mm``.
+
+The phases run in the order 1-3, 6-9, 12, 14, 4, 5, 25, 11, 13, 15, 16, 10,
+18, 19, 17, 20, 21, 22, 23, 24: the host work of phase 4
+(generating the 2^20 graph, decomposing it with the numpy decomposer,
+the host goldens of its inputs, beside the decomposition) and of phase
+14 (the native decomposition) runs in processes of their own from the
+start, beside the build and phases 3, 6-9, 12 and 14; so, at niceness
+19 (they take the cores the phases leave idle; their readers come
+later), does that of phase 22 (its graph and goldens), phase 13 (its
+float64 goldens, once phase 4's graph is saved), phase 25 (the grid,
+its decomposition and goldens) and phase 17 (decomposing the fleet's
+graph); phase 20's ranks pack their shards from the moment phase 4's
+artifact is saved; phase 23's subprocesses run one after the other from
+phase 4 on, at niceness 19, and phase 24's beside them; phases 20-23's
+rank work that times no kernel runs beside phases 19 and 17.
 
 ``--dense`` runs phases 1, 2 and 6-8 alone (the dense path and its
 kernels K2 and K3), ``--bench`` phases 1, 2 and 14 (its kernels line is
@@ -457,10 +490,15 @@ phases 1, 2, 15 and 16 (phase 4's decomposition and golden made first),
 ``--mesh`` phases 1, 2 and 20-23 (phase 4's decomposition and the
 goldens phases 20 and 23 gate against made first), ``--state`` phases
 1, 2 and 23 (the same, on rank pools of its own), ``--analysis`` phases
-1, 2 and 24.
+1, 2 and 24, ``--planar`` phases 1, 2 and 25.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 2 and prints no result.
+
+Every 5 s a thread writes where the host's cores went (the cores of
+this process's main thread, of its other threads and of each process
+it started) as a JSON line to ``AMT_SMOKE_CPU_TRACE`` (by default
+``arrow_matrix_tpu_torch/_build/smoke_cpu_trace.jsonl``).
 
 The script stops every process it starts.  It makes itself the reaper
 of its descendants' orphans (``PR_SET_CHILD_SUBREAPER``), and at its end,
@@ -504,10 +542,16 @@ ROW_SHAPES = ((5000, 20_011, 1, False), (5000, 20_011, 3, False),
               (5000, 20_011, 36, True), (1 << 20, 1 << 21, 16, False),
               (1 << 20, 1 << 20, 16, False), (1 << 20, 1 << 20, 128, False))
 REPS = 7                       # timed runs of each main-path chain
+#: Timed runs of each of phase 11's chains, eager and from a graph, and
+#: phase 10's of each gather rate: fewer than REPS, for the script's time
+#: limit (PERF.md lists each cut with its seconds).
+FORMAT_REPS = 3
+RATE_REPS = 5
 #: Steps of phase 4's fold validated one by one against the host golden
-#: and then as one chain, by k (the host golden at k=128 costs about 12
-#: s a step at n = 2^20, so its chain is cut to 3 steps).
-VALIDATED = {16: 10, 128: 3}
+#: and then as one chain, by k (a validated step at k=128 costs seconds
+#: of host work at n = 2^20, so its chain is cut to 2 steps for the time
+#: limit).
+VALIDATED = {16: 10, 128: 2}
 #: Phase 4's inputs: (k, seed of ``random_dense``).
 GOLDEN_INPUTS = ((16, 3), (128, 4))
 #: K1's carriage dtypes by name (resolved when torch is imported).
@@ -570,6 +614,29 @@ def graph_ms(fn, reps: int) -> tuple:
     return cuda_ms(graph.replay, reps), out
 
 
+def device_relative_error(got, want) -> float:
+    """``relative_error`` (float64 Frobenius norms) of two card tensors,
+    taken on the card."""
+    import torch
+
+    diff = torch.linalg.vector_norm(got.double() - want.double())
+    return float(diff / torch.linalg.vector_norm(want.double()).clamp_min(
+        1e-30))
+
+
+def card_relative_error(got, want) -> float:
+    """``relative_error`` of two host arrays, taken on the card: the
+    float64 norms of a 2^20 x 128 result cost seconds of the host's
+    cores, which the phases' host processes keep busy."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    return device_relative_error(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (got, want)))
+
+
 def compare(got, want, row_nnz: float, exact: bool) -> tuple:
     """(max abs error, pass) of a kernel result against the plain one:
     bitwise for exact int8 sums, one ulp in bf16, else the relative
@@ -589,11 +656,8 @@ def compare(got, want, row_nnz: float, exact: bool) -> tuple:
         return err, bool(torch.equal(got, want))
     if got.dtype == torch.bfloat16:
         return err, bf16_within_one_ulp(got, want, row_nnz)
-    # relative_error's float64 Frobenius norms, taken on the device.
-    diff = torch.linalg.vector_norm(got.double() - want.double())
-    rel = float(diff / torch.linalg.vector_norm(want.double()).clamp_min(
-        1e-30))
-    return err, rel <= relative_tolerance(row_nnz)
+    return err, device_relative_error(got, want) <= relative_tolerance(
+        row_nnz)
 
 
 def random_tier(rng, m_t: int, n_t: int, n_table: int) -> tuple:
@@ -809,41 +873,42 @@ def ptxas_registers(text: str) -> list:
     return out
 
 
-def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
-                     main: dict) -> list:
+def phase_k1_numbers(exes: dict, launches: dict, n: int, row_nnz: float,
+                     main: dict, phase: str = "phase 5") -> list:
     """Phase 5: K1 at the main path's shapes, one entry of the kernels
-    line per (operator, carriage, k) the main path ran."""
+    line per (operator, carriage, k) the main path ran (``exes`` the
+    fold executors by operator name), each held against its plain
+    version and repeated bit for bit."""
     import torch
 
-    from arrow_matrix_tpu_torch.ops import _build, cuda_sell
+    from arrow_matrix_tpu_torch.ops import cuda_sell
     from arrow_matrix_tpu_torch.ops.sell import sell_spmm
     from arrow_matrix_tpu_torch.utils import random_dense
     from arrow_matrix_tpu_torch.utils.timing import cuda_ms, cuda_runs
 
-    regs = ptxas_registers(_build.BUILD_LOG.get("sell_tier_spmm", {}).get(
-        "ptxas", ""))
-    for entry, used, spill in regs:
-        log(f"phase 5 K1 ptxas: {used} registers, {spill} B spilled: "
-            f"{entry}")
-    main["k1_registers"] = regs
     kernels = []
-    lib_ops = {}
+    lib_ops, inputs = {}, {}
     for key in launches:
         op_name, carriage, k = key
-        exe = ml if op_name == "fold" else tight
+        exe = exes[op_name]
         sell = exe.sell
         exe.feature_dtype = CARRIAGE_DTYPES[carriage]
-        xt = exe.set_features(random_dense(n, k, seed=5))
+        if k not in inputs:
+            inputs[k] = random_dense(n, k, seed=5)
+        xt = exe.set_features(inputs[k])
         x = xt[0] if carriage == "int8" else xt
         got = cuda_sell.sell_spmm_cuda(sell, x)
+        again = cuda_sell.sell_spmm_cuda(sell, x)
         want = sell_spmm(sell, x)
         torch.cuda.synchronize()
         err, ok = compare(got, want, row_nnz,
                           exact=carriage == "int8" and sell.binary)
         if not ok:
-            raise SystemExit(f"{key}: kernel != plain on the real "
+            raise SystemExit(f"{phase} {key}: kernel != plain on the real "
                              f"operator (max abs err {err:.3e})")
-        del got, want
+        if not torch.equal(got, again):
+            raise SystemExit(f"{phase} {key}: a repeat differs")
+        del got, again, want
         runs = cuda_runs(lambda: cuda_sell.sell_spmm_cuda(sell, x), 20)
         ms = statistics.median(runs)
         tag = f"{op_name}_{carriage}_k{k}"
@@ -878,7 +943,7 @@ def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "gather_bound_ms": gather_ms})
         per = k1_per_product(sell, k, x.dtype)
-        log(f"phase 5 {op_name} {carriage} k={k}: K1 {ms:.4f} ms/product "
+        log(f"{phase} {op_name} {carriage} k={k}: K1 {ms:.4f} ms/product "
             f"eager (median of 20, min {min(runs):.4f}, max "
             f"{max(runs):.4f}; {per} launch{'es' if per > 1 else ''}); "
             f"bound {bound:.4f} ms with X read once ({bytes_} B; "
@@ -888,7 +953,7 @@ def phase_k1_numbers(ml, tight, launches: dict, n: int, row_nnz: float,
             f"{plain_ms:.4f} ms, "
             f"torch.sparse.mm "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}; "
-            f"kernel vs plain max abs err {err:.3e}")
+            f"kernel vs plain max abs err {err:.3e}, repeated bit for bit")
     return kernels
 
 
@@ -1198,14 +1263,14 @@ def dense_path(dev, n: int, work: str):
         for it in range(iters):
             y = count(key, lambda: ml.step(ml.set_features(g)), 1)
             g_next = host_golden(levels, g)
-            err = relative_error(ml.gather_result(y), g_next)
+            err = card_relative_error(ml.gather_result(y), g_next)
             worst = max(worst, err)
             if not err <= tol1:
                 raise SystemExit(f"dense k={k} step {it}: rel err "
                                  f"{err:.3e} > gate {tol1:.1e}")
             g = g_next
         y = count(key, lambda: ml.run(x, iters), iters)
-        err10 = relative_error(ml.gather_result(y), g)
+        err10 = card_relative_error(ml.gather_result(y), g)
         tol10 = relative_tolerance(row_nnz, iters)
         if not err10 <= tol10:
             raise SystemExit(f"dense k={k} 10-step chain: rel err "
@@ -1624,19 +1689,17 @@ def drive_format(exe, tag: str, goldens: dict, row_nnz: float,
     """One format's main path, every count at 0 just before it and read
     just after: one validated step at each k of ``goldens`` ({k: (x,
     want)}), the 3-step chain at k=16 against ``goldens["chain"]`` (when
-    ``chain``), and (when ``timed``) ms/iter over 7 timed chains of
-    :data:`CHAIN` steps, eager and from one CUDA graph.  Launch counts
-    must be the formats' (:func:`step_launches`).  After the counts are
+    ``chain``), and (when ``timed``) ms/iter over :data:`FORMAT_REPS`
+    timed chains of :data:`CHAIN` steps, eager and from one CUDA graph.
+    Launch counts must be the formats' (:func:`step_launches`).  After
+    the counts are
     read, one step at each k must equal the step routed by
     ``index_select`` bit for bit, and (when ``timed``) the step is timed
     apart (:func:`split_ms`).  Returns (results, {k: (K1, K2, K3, K4
     gathers, K4 gather-adds) launches})."""
     import torch
 
-    from arrow_matrix_tpu_torch.utils import (
-        relative_error,
-        relative_tolerance,
-    )
+    from arrow_matrix_tpu_torch.utils import relative_tolerance
     from arrow_matrix_tpu_torch.utils.timing import cuda_runs
 
     ks = [k for k in goldens if k != "chain"]
@@ -1661,7 +1724,7 @@ def drive_format(exe, tag: str, goldens: dict, row_nnz: float,
     for k in ks:
         g, want = goldens[k]
         y = count(k, lambda: exe.step(exe.set_features(g)), 1)
-        err = relative_error(exe.gather_result(y), want)
+        err = card_relative_error(exe.gather_result(y), want)
         if not err <= tol1:
             raise SystemExit(f"{tag} k={k}: one step rel err {err:.3e} > "
                              f"gate {tol1:.1e}")
@@ -1669,7 +1732,7 @@ def drive_format(exe, tag: str, goldens: dict, row_nnz: float,
     if chain:
         g, want = goldens["chain"]
         y = count(16, lambda: exe.run(exe.set_features(g), 3), 3)
-        err3 = relative_error(exe.gather_result(y), want)
+        err3 = card_relative_error(exe.gather_result(y), want)
         tol3 = relative_tolerance(row_nnz, 3)
         if not err3 <= tol3:
             raise SystemExit(f"{tag} 3-step chain: rel err {err3:.3e} > "
@@ -1683,17 +1746,19 @@ def drive_format(exe, tag: str, goldens: dict, row_nnz: float,
         for k in ks:
             x = exe.set_features(goldens[k][0])
             runs = [t / CHAIN for t in count(
-                k, lambda: cuda_runs(lambda: exe.run(x, CHAIN), REPS),
-                (1 + REPS) * CHAIN)]
+                k, lambda: cuda_runs(lambda: exe.run(x, CHAIN),
+                                     FORMAT_REPS),
+                (1 + FORMAT_REPS) * CHAIN)]
             # graph_ms runs the chain once to warm up and once to capture.
             g_ms = count(k, lambda: graph_ms(lambda: exe.run(x, CHAIN),
-                                             REPS)[0], 2 * CHAIN) / CHAIN
+                                             FORMAT_REPS)[0],
+                         2 * CHAIN) / CHAIN
             ms = statistics.median(runs)
             res.update({f"k{k}_ms_per_iter": ms,
                         f"k{k}_ms_per_iter_runs": runs,
                         f"k{k}_graph_ms_per_iter": g_ms})
             log(f"{tag} f32 k={k}: {ms:.4f} ms/iter eager, median of "
-                f"{REPS} chains of {CHAIN} (min {min(runs):.4f}, max "
+                f"{FORMAT_REPS} chains of {CHAIN} (min {min(runs):.4f}, max "
                 f"{max(runs):.4f}); {g_ms:.4f} ms/iter from one CUDA "
                 f"graph")
     totals = counters()
@@ -1975,13 +2040,15 @@ def phase_probes(dev, ml, k4_err: float) -> tuple:
     # The main path: every count at 0 just before, read just after.
     reset_counters()
     probe = granule_gather_probe.run_probe(dev)
-    rates = gather_probe.gather_rates(device=dev)
+    rates = gather_probe.gather_rates(device=dev, reps=RATE_REPS)
     folds = [gather_probe.fold_step(k, ml) for k in (16, 128)]
     torch.cuda.synchronize()
     k4_launches, k1_launches = cuda_gather.LAUNCHES, cuda_sell.LAUNCHES
     # The granule probe: 1 checked call + 1 warm-up + 20 timed; the f32
-    # gather rates: per k and index order 1 checked + 1 warm-up + 10.
-    k4_expected = 22 + 12 * sum(1 for r in rates if "k4_ms" in r)
+    # gather rates: per k and index order 1 checked + 1 warm-up +
+    # RATE_REPS.
+    k4_expected = 22 + (2 + RATE_REPS) * sum(1 for r in rates
+                                             if "k4_ms" in r)
     if k4_launches != k4_expected or cuda_gather.LAUNCHES_ADD:
         raise SystemExit(f"phase 10: {k4_launches} K4 launches, expected "
                          f"{k4_expected}, and no gather-add")
@@ -2479,6 +2546,176 @@ def host_solvers(name: str, a, **kw):
     return x
 
 
+#: Phase 13's float64 host goldens, in the order :func:`models_host`
+#: starts them (three at a time), and phase 21 (a)'s GCN over A.
+MODEL_GOLDENS = (("sgc", "sym"), ("gcn", "sym"), ("appnp", "sym"),
+                 "power_iteration", "conjugate_gradient", ("gcn", "asym"),
+                 "label_propagation", "pagerank", "gcn_a")
+
+
+def model_golden_path(base: str, key) -> str:
+    """The pickle of one of :data:`MODEL_GOLDENS` (or ``"digest"``)."""
+    slug = key if isinstance(key, str) else "_".join(key)
+    return f"{base}_m13_{slug}.pkl"
+
+
+def model_operators(a, names=("a", "a_hat", "a_hat_t", "a_rn", "a_rn_t",
+                              "a_cn")) -> tuple:
+    """(degrees, {name: HostOp}) of phase 13's host operators over the
+    float64 CSR ``a``: A, D^-1/2 A D^-1/2 and D^-1 A with their explicit
+    transposes, and A D^-1; only those in ``names``."""
+    import numpy as np
+
+    deg = np.maximum(np.asarray(a.sum(axis=1)).ravel(), 1.0)
+    inv_sqrt = 1.0 / np.sqrt(deg)
+    made = {"a": lambda: a}
+    made["a_hat"] = lambda: a.multiply(inv_sqrt[:, None]).multiply(
+        inv_sqrt[None, :]).tocsr()
+    made["a_rn"] = lambda: a.multiply(1.0 / deg[:, None]).tocsr()
+    made["a_cn"] = lambda: a.multiply(1.0 / deg[None, :]).tocsr()
+    ops, mats = {}, {}
+    for name in names:
+        src = name[:-2] if name.endswith("_t") else name
+        if src not in mats:
+            mats[src] = made[src]()
+        ops[name] = HostOp(mats[src].T.tocsr() if name.endswith("_t")
+                           else mats[src])
+    return deg, ops
+
+
+def model_inputs(n: int) -> dict:
+    """Phase 13's seeded host inputs at ``n`` rows: the features ``x``
+    and targets ``y``, CG's right-hand sides ``b``, power iteration's
+    start ``x0``, label propagation's ``labels`` and ``seed_mask``, and
+    the models' initial parameters (seed 0) as float64 ``init``."""
+    import numpy as np
+    import torch
+
+    from arrow_matrix_tpu_torch.models import gcn_init, sgc_init
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    k_in, _, k_out = MODEL_DIMS
+    x, y = train_inputs(n)
+    draw = torch.Generator
+    init = {"sgc": model_params(sgc_init(draw().manual_seed(0), k_in,
+                                         k_out)),
+            "gcn": model_params(gcn_init(draw().manual_seed(0),
+                                         MODEL_DIMS))}
+    init["appnp"] = init["sgc"]
+    return {"x": x, "y": y, "b": random_dense(n, 4, seed=23),
+            "x0": np.ones((n, 1), np.float32),
+            "labels": np.eye(4, dtype=np.float32)[
+                np.random.default_rng(24).integers(0, 4, n)],
+            "seed_mask": np.random.default_rng(25).random(n) < 0.1,
+            "init": init}
+
+
+def graph_digest(a) -> str:
+    """A digest of a CSR's structure (``indptr`` and ``indices``)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha1(np.ascontiguousarray(a.indptr, np.int64).tobytes())
+    h.update(np.ascontiguousarray(a.indices, np.int64).tobytes())
+    return h.hexdigest()
+
+
+def models_host(base: str, n: int, out: str) -> None:
+    """Phase 13's float64 host goldens (and phase 21 (a)'s GCN over A) in
+    a process of its own from the start, over phase 4's graph as
+    :func:`phase4_host` saves it: each of :data:`MODEL_GOLDENS` pickled
+    as ``(result, seconds)`` to :func:`model_golden_path` when it is
+    done, three at a time, so that phase 13 reads them instead of
+    computing them beside its own work; the graph's digest first."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from scipy import sparse
+
+    deadline = time.monotonic() + 1800
+    while not os.path.exists(graph_path(base, "ready")):
+        if time.monotonic() > deadline:
+            raise SystemExit("models_host: phase 4's graph never came")
+        time.sleep(0.5)
+    indptr = np.load(graph_path(base, "indptr"))
+    indices = np.load(graph_path(base, "indices"))
+    a = sparse.csr_matrix((np.ones(indices.size), indices, indptr),
+                          shape=(n, n))
+
+    def save(key, value) -> None:
+        path = model_golden_path(base, key)
+        with open(path + ".tmp", "wb") as fh:
+            pickle.dump(value, fh, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(path + ".tmp", path)
+
+    save("digest", graph_digest(a))
+    deg, ops = model_operators(a)
+    inp = model_inputs(n)
+    x64, y64 = inp["x"].astype(np.float64), inp["y"].astype(np.float64)
+    init = inp["init"]
+    jobs = {("sgc", "sym"): (host_model, "sgc", ops["a_hat"],
+                             ops["a_hat_t"], x64, y64, init["sgc"]),
+            ("gcn", "sym"): (host_model, "gcn", ops["a_hat"],
+                             ops["a_hat_t"], x64, y64, init["gcn"]),
+            ("appnp", "sym"): (host_model, "appnp", ops["a_hat"],
+                               ops["a_hat_t"], x64, y64, init["appnp"]),
+            ("gcn", "asym"): (host_model, "gcn", ops["a_rn"], ops["a_rn_t"],
+                              x64, y64, init["gcn"]),
+            "gcn_a": (host_model, "gcn", ops["a"], ops["a"], x64, y64,
+                      init["gcn"])}
+    solver_kw = {"power_iteration": ("a", dict(x0=inp["x0"])),
+                 "conjugate_gradient": ("a", dict(
+                     b=inp["b"], shift=float(deg.max()) + 1.0)),
+                 "label_propagation": ("a_rn", dict(
+                     labels=inp["labels"], seed_mask=inp["seed_mask"])),
+                 "pagerank": ("a_cn", dict(damping=0.85))}
+
+    def one(key) -> float:
+        tic = time.perf_counter()
+        if key in jobs:
+            fn, *args = jobs[key]
+            value = fn(*args)
+        else:
+            op, kw = solver_kw[key]
+            value = host_solvers(key, ops[op], **kw)
+        seconds = time.perf_counter() - tic
+        save(key, (value, seconds))
+        return seconds
+
+    with ThreadPoolExecutor(3) as pool:
+        seconds = dict(zip(map(str, MODEL_GOLDENS),
+                           pool.map(one, MODEL_GOLDENS)))
+    with open(out, "w") as fh:
+        json.dump({"seconds": seconds}, fh)
+
+
+class HostGolden:
+    """One of :func:`models_host`'s goldens: ``result()`` waits for its
+    pickle (fatal if the process ended without it) and returns
+    ``(result, seconds)``, loaded once."""
+
+    def __init__(self, host: tuple, base: str, key):
+        self.proc, self.path = host[0], model_golden_path(base, key)
+        self.key, self.value = key, None
+
+    def result(self):
+        import pickle
+
+        while self.value is None:
+            if os.path.exists(self.path):
+                with open(self.path, "rb") as fh:
+                    self.value = pickle.load(fh)
+            elif not self.proc.is_alive() and not os.path.exists(self.path):
+                raise SystemExit(f"phase 13: the host goldens' process "
+                                 f"exited {self.proc.exitcode} without "
+                                 f"{self.key}")
+            else:
+                time.sleep(0.2)
+        return self.value
+
+
 def check_solver(name: str, got, want, row_nnz: float) -> float:
     """A solver's result against its float64 host iteration within
     ``relative_tolerance(nnz/n, iterations)`` (the chain rule: f32 sums
@@ -2556,20 +2793,21 @@ def fold_transposed_numbers(exe, k: int, launches: tuple, n: int) -> list:
     return entries
 
 
-def phase_models(dev, levels, n: int, width: int, ml) -> tuple:
+def phase_models(dev, levels, n: int, width: int, ml, host13: tuple,
+                 base: str) -> tuple:
     """Phase 13: the model families at full size on phase 4's
     decomposition (and, for the dense format, phase 7's shape), trained
-    through K1-K4 with the transposed-operator backward.  Every count at
-    0 just before, read just after.  Returns (results, kernel entries,
-    its host power iteration and CG over A: ``{"n", "shift", "power",
-    "cg"}``, the last two futures of (result, seconds), which phase 21
-    (a) reuses)."""
+    through K1-K4 with the transposed-operator backward, against the
+    float64 host goldens of ``host13`` (:func:`models_host`'s process
+    over phase 4's graph at ``base``).  Every count at 0 just before,
+    read just after.  Returns (results, kernel entries, its host power
+    iteration, CG and GCN over A: ``{"n", "shift", "power", "cg",
+    "gcn"}``, the last three :class:`HostGolden`, which phase 21 (a)
+    reuses)."""
     import numpy as np
     import torch
 
     from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
-    from concurrent.futures import ThreadPoolExecutor
-
     from arrow_matrix_tpu_torch.models import (
         APPNPCarried,
         APPNPModel,
@@ -2578,11 +2816,9 @@ def phase_models(dev, levels, n: int, width: int, ml) -> tuple:
         SGCCarried,
         SGCModel,
         conjugate_gradient,
-        gcn_init,
         label_propagation,
         pagerank,
         power_iteration,
-        sgc_init,
     )
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.utils import (
@@ -2615,69 +2851,32 @@ def phase_models(dev, levels, n: int, width: int, ml) -> tuple:
     # moment overflows and no step moves.  The asymmetric one is D^-1 A.
     tic = time.perf_counter()
     a = host_matrix(levels, n)
-    deg = np.maximum(np.asarray(a.sum(axis=1)).ravel(), 1.0)
+    deg, ops = model_operators(a, ("a_hat_t", "a_rn_t"))
     inv_sqrt = 1.0 / np.sqrt(deg)
-    a_hat = a.multiply(inv_sqrt[:, None]).multiply(inv_sqrt[None, :]).tocsr()
-    a_rn = a.multiply(1.0 / deg[:, None]).tocsr()
-    ops = {"a": HostOp(a), "a_hat": HostOp(a_hat),
-           "a_hat_t": HostOp(a_hat.T.tocsr()), "a_rn": HostOp(a_rn),
-           "a_rn_t": HostOp(a_rn.T.tocsr())}
-    del a_hat
     row_nnz = a.nnz / n
-    x = random_dense(n, k_in, seed=21)
-    y = random_dense(n, k_out, seed=22)
-    x64, y64 = x.astype(np.float64), y.astype(np.float64)
-    log(f"phase 13: host operators A, D^-1/2 A D^-1/2, D^-1 A and the "
-        f"explicit transposes ({a.nnz} nnz, max degree {int(deg.max())}) "
-        f"in {time.perf_counter() - tic:.1f} s")
-
-    # The float64 host goldens run in three threads beside the card's work
-    # (scipy's and numpy's products release the GIL), from the initial
-    # parameters the models draw (seed 0; checked against each model).
-    b = random_dense(n, 4, seed=23)
+    inp = model_inputs(n)
+    x, y, b, x0 = inp["x"], inp["y"], inp["b"], inp["x0"]
+    labels, seed_mask, init = inp["labels"], inp["seed_mask"], inp["init"]
     shift = float(deg.max()) + 1.0
-    x0 = np.ones((n, 1), np.float32)
-    labels = np.eye(4, dtype=np.float32)[
-        np.random.default_rng(24).integers(0, 4, n)]
-    seed_mask = np.random.default_rng(25).random(n) < 0.1
-    ops["a_cn"] = HostOp(a.multiply(1.0 / deg[None, :]).tocsr())
-    draw = torch.Generator
-    init = {"sgc": model_params(sgc_init(draw().manual_seed(0), k_in,
-                                         k_out)),
-            "gcn": model_params(gcn_init(draw().manual_seed(0), dims))}
-    init["appnp"] = init["sgc"]
+    log(f"phase 13: host operator A and the explicit transposes of "
+        f"D^-1/2 A D^-1/2 and D^-1 A ({a.nnz} nnz, max degree "
+        f"{int(deg.max())}) in {time.perf_counter() - tic:.1f} s")
 
-    def timed(fn, *args, **kw):
-        tic = time.perf_counter()
-        return fn(*args, **kw), time.perf_counter() - tic
-
-    pool = ThreadPoolExecutor(3)
-    host = {}
-    for name, kind in (("sgc", "sym"), ("gcn", "sym"), ("appnp", "sym")):
-        host[(name, kind)] = pool.submit(timed, host_model, name,
-                                         ops["a_hat"], ops["a_hat_t"], x64,
-                                         y64, init[name])
-    host["power_iteration"] = pool.submit(timed, host_solvers,
-                                          "power_iteration", ops["a"],
-                                          x0=x0)
-    host["conjugate_gradient"] = pool.submit(
-        timed, host_solvers, "conjugate_gradient", ops["a"], b=b,
-        shift=shift)
-    host[("gcn", "asym")] = pool.submit(timed, host_model, "gcn",
-                                        ops["a_rn"], ops["a_rn_t"], x64, y64,
-                                        init["gcn"])
-    host["label_propagation"] = pool.submit(
-        timed, host_solvers, "label_propagation", ops["a_rn"],
-        labels=labels, seed_mask=seed_mask)
-    host["pagerank"] = pool.submit(timed, host_solvers, "pagerank",
-                                   ops["a_cn"], damping=0.85)
+    # The float64 host goldens, made from the initial parameters the
+    # models draw (seed 0; checked against each model) by a process of
+    # their own from the start, over phase 4's graph: its digest must be
+    # this A's.
+    host = {key: HostGolden(host13, base, key) for key in MODEL_GOLDENS}
+    if HostGolden(host13, base, "digest").result() != graph_digest(a):
+        raise SystemExit("phase 13: the host goldens' graph is not the "
+                         "decomposition's A")
 
     def host_result(key):
         tic = time.perf_counter()
         out, seconds = host[key].result()
         results.setdefault("host_golden_s", {})[str(key)] = seconds
         log(f"phase 13 host float64 {key}: {seconds:.1f} s in the golden "
-            f"thread, {time.perf_counter() - tic:.1f} s waited for")
+            f"process, {time.perf_counter() - tic:.1f} s waited for")
         return out
 
     def golden(name, kind, model):
@@ -2834,8 +3033,7 @@ def phase_models(dev, levels, n: int, width: int, ml) -> tuple:
     log(f"phase 13 pagerank (hyb over A D^-1, built in {t_build:.1f} s, "
         f"{SOLVER_ITERS['pagerank']} iterations): rel err {err:.3e}; "
         f"{t_dev:.2f} s")
-    pool.shutdown()
-    del exe, cn_levels, ops, a, a_rn
+    del exe, cn_levels, ops, a
     torch.cuda.empty_cache()
 
     # -- dense at phase 7's shape: K2/K3 over transposed blocks -------------
@@ -2891,9 +3089,10 @@ def phase_models(dev, levels, n: int, width: int, ml) -> tuple:
     results["launches"] = dict(zip(KERNEL_NAMES, totals))
     results["backward_asymmetric_launches"] = dict(zip(KERNEL_NAMES,
                                                        backward_asym))
-    # Phase 21 (a) iterates the same solvers over the same A and inputs.
+    # Phase 21 (a) iterates the same solvers and trains the same GCN over
+    # the same A and inputs.
     solvers = {"n": n, "shift": shift, "power": host["power_iteration"],
-               "cg": host["conjugate_gradient"]}
+               "cg": host["conjugate_gradient"], "gcn": host["gcn_a"]}
     return results, kernels, solvers
 
 
@@ -2962,16 +3161,28 @@ class TimedExecutor:
 def serve_factory(levels, width: int, dev, built: dict):
     """The phase's executor factory: a closure over phase 4's levels
     that builds the fold ``MultiLevelArrow`` of a ladder rung once (the
-    server caches it too; later servers of the phase reuse it)."""
+    server caches it too; later servers of the phase reuse it).  A rung
+    that differs from a built one only in its column schedule (``repl``,
+    ``overlap_slabs``: how the fold runs, not how it is packed) is that
+    executor with its schedule set, sharing its packed operator."""
+    import copy
+
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
 
     def factory(cfg):
         key = (cfg.kernel, cfg.repl, cfg.overlap_slabs, cfg.feature_dtype)
         if key not in built:
-            built[key] = TimedExecutor(MultiLevelArrow(
-                levels, width, fmt="fold", kernel=cfg.kernel, repl=cfg.repl,
-                overlap_slabs=cfg.overlap_slabs,
-                feature_dtype=cfg.feature_dtype, device=dev))
+            packed = next((t.ex for k, t in built.items()
+                           if (k[0], k[3]) == (key[0], key[3])), None)
+            if packed is None:
+                ex = MultiLevelArrow(
+                    levels, width, fmt="fold", kernel=cfg.kernel,
+                    repl=cfg.repl, overlap_slabs=cfg.overlap_slabs,
+                    feature_dtype=cfg.feature_dtype, device=dev)
+            else:
+                ex = copy.copy(packed)
+                ex.repl, ex.overlap_slabs = cfg.repl, cfg.overlap_slabs
+            built[key] = TimedExecutor(ex)
         return built[key]
 
     return factory
@@ -4240,8 +4451,8 @@ def phase_fleet(dev, work: str, host: tuple, cache: str) -> tuple:
     """Phase 17: the fleet on the card.  (a) the baseline at the Serve
     cell's size, its graph decomposed into ``cache`` by ``host``
     (:func:`fleet_host`'s process), (b)-(e) the gate's fault scenarios
-    at 2^16, then K1 at the fleet's shape.  Returns (results, K1's
-    entry)."""
+    at 2^16.  Returns (results, the replay), whose executor
+    :func:`fleet_k1_entry` times K1 on."""
     import torch
 
     t_phase = time.perf_counter()
@@ -4255,13 +4466,10 @@ def phase_fleet(dev, work: str, host: tuple, cache: str) -> tuple:
     results, replay = fleet_baseline(dev, work, cache)
     results["graph_build_s"] = rec["t_build"]
     results["scenarios"] = fleet_scenarios(work)
-    entry = fleet_k1_entry(replay, results["k1_launches"])
-    del replay
-    torch.cuda.empty_cache()
     results["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 17: {results['phase_s']:.1f} s (budget "
         f"{FLEET_GATE['budget_s']:.0f} s)")
-    return results, entry
+    return results, replay
 
 
 # -- 18. the lens and the ledger -----------------------------------------------
@@ -5207,6 +5415,7 @@ def mesh_rank_build(ctx, base: str, width: int, n_small: int) -> dict:
     graph (BA ``n_small`` m=8, width 2048, seed 7) decomposed."""
     import torch
 
+    name_process(f"{ctx.backend}-rank{ctx.rank}")
     from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
     from arrow_matrix_tpu_torch.parallel.mesh import (
         make_mesh,
@@ -6060,8 +6269,8 @@ def mesh_train_goldens(base: str, width: int, solvers=None) -> dict:
     """Phase 21 (a)'s float64 host goldens, computed in a thread of the
     script from phase 19 on: over phase 4's operator A (its levels
     summed, symmetric), the GCN's first step, power iteration and CG as
-    the port runs them (the last two from phase 13's ``solvers``, where
-    they are over the same A and shift)."""
+    the port runs them (from phase 13's ``solvers``, where they are over
+    the same A and shift)."""
     import numpy as np
 
     from arrow_matrix_tpu_torch.utils import random_dense
@@ -6074,13 +6283,14 @@ def mesh_train_goldens(base: str, width: int, solvers=None) -> dict:
     del levels
     op = HostOp(a)
     x, y = train_inputs(n)
-    out = {"gcn": gcn_golden(op, x, y), "n": n, "row_nnz": a.nnz / n,
-           "shift": float(deg.max()) + 1.0,
+    out = {"n": n, "row_nnz": a.nnz / n, "shift": float(deg.max()) + 1.0,
            "regold": lambda m: gcn_golden(op, x, y, masks=m)}
     if solvers and (solvers["n"], solvers["shift"]) == (n, out["shift"]):
+        out["gcn"] = solvers["gcn"].result()[0]
         out["power"] = solvers["power"].result()[0]
         out["cg"] = solvers["cg"].result()[0]
     else:
+        out["gcn"] = gcn_golden(op, x, y)
         out["power"] = host_solvers("power_iteration", op,
                                     x0=np.ones((n, 1), np.float32))
         out["cg"] = host_solvers("conjugate_gradient", op,
@@ -7496,6 +7706,7 @@ def state23_ranks(ctx, keep: str) -> dict:
     import torch
 
     from arrow_matrix_tpu_torch import faults, serve
+    from arrow_matrix_tpu_torch.obs.memview import request_bytes_for
     from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
     from arrow_matrix_tpu_torch.parallel import collectives as coll
     from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
@@ -7567,6 +7778,23 @@ def state23_ranks(ctx, keep: str) -> dict:
                     "latency_ms": serve.latency_summary_ms(tickets),
                     "launches": got, "leader": srv.leader,
                     "seconds": time.perf_counter() - tic}
+    # A request's admission price (with the a2a exchange scratch) beside
+    # this rank's measured device-memory growth over one k=128 batch
+    # step: recorded, not gated (a price below the peak is a fault of
+    # the model, which follows the JAX package's).
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    y = exe.step(exe.set_features(random_dense(n, kmax, seed=3)))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del y
+    out["price"] = {"request_bytes": request_bytes_for(exe, SERVE["k"]),
+                    "request_k": SERVE["k"],
+                    "batch_k": kmax,
+                    "batch_price_bytes": exe.carriage_hbm_bytes(kmax),
+                    "scratch_bytes": exe.exchange_scratch_bytes(kmax),
+                    "measured_peak_bytes": peak}
     served = golden = None
     if ctx.rank == 0:
         # The host goldens in a thread beside the grow's collectives.
@@ -7777,7 +8005,7 @@ def start_state23(keep: str, base: str):
 def state23_subprocesses(keep: str, base: str) -> dict:
     """Phase 23's subprocesses, which time no kernel, one after the other
     in a thread from phase 4 on (beside phase 19 alone they starved its
-    race):
+    race), each at niceness 19:
     (b) the port's reshard gate on gloo ranks on the card, (d) the two
     ``spmm_arrow --memmap`` runs over phase 4's artifact (1 and 4 ranks;
     their final carriages are returned), (c) ``spmm_arrow --devices 2``
@@ -7803,7 +8031,8 @@ def state23_subprocesses(keep: str, base: str) -> dict:
         fh = open(os.path.join(work, f"{name}.log"), "w")
         p = subprocess.Popen([sys.executable, *argv], cwd=work,
                              env=dict(env, **(extra_env or {})), stdout=fh,
-                             stderr=subprocess.STDOUT)
+                             stderr=subprocess.STDOUT,
+                             preexec_fn=lambda: os.nice(19))
         return name, p, fh, time.perf_counter()
 
     def wait(started):
@@ -7939,6 +8168,16 @@ def phase_state(a: dict, d: dict, b: list, built: dict, subs: dict,
         f"resumed at 2, results equal to the never-grown 4-rank server's "
         f"bit for bit ({gr['seconds']:.1f} s); the reshard gate: "
         f"{subs['gate']['line']} ({subs['gate']['seconds']:.1f} s)")
+    for rank, r in enumerate(b):
+        pr = r["price"]
+        log(f"phase 23 (b) rank {rank}: a k={pr['request_k']} request's "
+            f"admission price {pr['request_bytes']} B; a k={pr['batch_k']} "
+            f"batch's {pr['batch_price_bytes']} B (of it the a2a exchange "
+            f"scratch {pr['scratch_bytes']} B) against the rank's measured "
+            f"growth of max_memory_allocated over one k={pr['batch_k']} "
+            f"step {pr['measured_peak_bytes']} B"
+            + ("" if pr["batch_price_bytes"] >= pr["measured_peak_bytes"]
+               else " (the price is below the peak: a fault of the model)"))
     log(f"phase 23 (c): spmm_arrow --devices 2 --carry --checkpoint over 2 "
         f"then 4 iterations: resumed at 2, {subs['c']['errors']}")
     log(f"phase 23 (d): spmm_arrow --memmap over phase 4's artifact, its "
@@ -8139,6 +8378,262 @@ def phase_analysis(futs) -> dict:
     return out
 
 
+# -- 25. the planar class --------------------------------------------------------
+
+#: Phase 25: ``tools/planar_bench.py``'s cell, the scrambled 2-D grid (the
+#: planar class the paper's bound is proved for) at side 1024, n = 2^20
+#: (the JAX default side is 4096: cut for the script's time limit); its
+#: inputs are ``(k, seed)``.
+PLANAR = dict(side=1024, width=1280, max_levels=10, scramble_seed=3,
+              seed=7, steps=10, inputs=((16, 5), (128, 6)), hyb_k=16)
+
+
+def planar_base(keep: str) -> str:
+    """Phase 25's artifact base under ``keep``."""
+    return os.path.join(keep, f"grid_{PLANAR['side']}")
+
+
+def planar_golden_path(keep: str, k: int, s: int) -> str:
+    """The file of ``A^s x`` for phase 25's k-wide input."""
+    return f"{planar_base(keep)}_gold_k{k}_s{s}.npy"
+
+
+def planar_host(keep: str, out: str) -> None:
+    """Phase 25's host work in a process of its own: ``grid_graph(side)``
+    scrambled by ``default_rng(3).permutation`` (as
+    ``tools/planar_bench.py`` builds it), decomposed by the numpy
+    decomposer at width ``side * 5 / 4`` and saved as an artifact, the
+    scrambled graph saved beside it, and the host goldens of the inputs
+    over the graph itself (``A^s x``, every step, on half the cores),
+    each saved as :func:`planar_golden_path`; its seconds in ``out``."""
+    import numpy as np
+    from scipy import sparse
+
+    from arrow_matrix_tpu_torch.decomposition import arrow_decomposition
+    from arrow_matrix_tpu_torch.io import save_decomposition
+    from arrow_matrix_tpu_torch.utils import grid_graph, random_dense
+
+    c = PLANAR
+    base = planar_base(keep)
+    tic = time.perf_counter()
+    shuf = np.random.default_rng(c["scramble_seed"]).permutation(
+        c["side"] ** 2)
+    a = grid_graph(c["side"])[shuf][:, shuf].tocsr()
+    t_gen = time.perf_counter() - tic
+    tic = time.perf_counter()
+    levels = arrow_decomposition(a, c["width"], max_levels=c["max_levels"],
+                                 block_diagonal=True, seed=c["seed"])
+    t_dec = time.perf_counter() - tic
+    save_decomposition(levels, base, block_diagonal=True)
+    sparse.save_npz(base + "_graph.npz", a, compressed=False)
+    tic = time.perf_counter()
+    cores = max(1, (os.cpu_count() or 2) // 2)
+    for k, xseed in c["inputs"]:
+        g = random_dense(a.shape[0], k, seed=xseed)
+        for s in range(c["steps"]):
+            g = host_golden(a, g, cores)
+            np.save(planar_golden_path(keep, k, s + 1), g)
+    with open(out, "w") as fh:
+        json.dump({"t_gen": t_gen, "t_dec": t_dec,
+                   "t_gold": time.perf_counter() - tic}, fh)
+
+
+def counted(launches: dict, key: tuple, fn, iters: int, sell):
+    """``fn()``, its K1 launches added to ``launches[key]``; fatal unless
+    they are ``k1_per_product`` of ``sell`` at ``key``'s (carriage, k)
+    times ``iters`` products."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_sell
+
+    per = k1_per_product(sell, key[2], CARRIAGE_DTYPES[key[1]])
+    before = cuda_sell.LAUNCHES
+    out = fn()
+    torch.cuda.synchronize()
+    delta = cuda_sell.LAUNCHES - before
+    if delta != per * iters:
+        raise SystemExit(f"{key}: {delta} launches, expected {per} per "
+                         f"product x {iters} products")
+    launches[key] = launches.get(key, 0) + delta
+    return out
+
+
+def planar_transposes(dev, level, row_nnz: float) -> dict:
+    """Phase 25's feature-major products on the card: ``hyb_spmm_t`` over
+    the planar level's HYB form and ``ell_spmm_t`` over its light ELL,
+    each one K1 product of the launches K1's contract gives it, against
+    its plain version on the same card tensors, repeated bit for bit."""
+    import torch
+
+    from arrow_matrix_tpu_torch.ops import cuda_ell, cuda_sell
+    from arrow_matrix_tpu_torch.ops.ell import ell_spmm_t, ell_tier_spmm
+    from arrow_matrix_tpu_torch.ops.hyb import (
+        hyb_from_csr,
+        hyb_spmm,
+        hyb_spmm_t,
+    )
+    from arrow_matrix_tpu_torch.utils import random_dense
+
+    k = PLANAR["hyb_k"]
+    hyb = hyb_from_csr(level.matrix, device=dev)
+    x_t = torch.from_numpy(random_dense(k, hyb.n_rows, seed=8)).to(dev)
+    light = (hyb.light_cols, hyb.light_data, hyb.light_deg)
+    ops = cuda_ell.hyb_operands(hyb)
+    runs = {
+        "hyb_spmm_t": (lambda: hyb_spmm_t(hyb, x_t),
+                       lambda: hyb_spmm(hyb, x_t.T.contiguous()).T,
+                       [ops[p] for p in ("light", "heavy") if p in ops]),
+        "ell_spmm_t": (lambda: ell_spmm_t(light[0], x_t, data=light[1],
+                                          deg=light[2]),
+                       lambda: ell_tier_spmm(light[0], x_t.T.contiguous(),
+                                             data=light[1],
+                                             deg=light[2]).T,
+                       [cuda_ell.one_tier(*light, x_rows=hyb.n_rows)])}
+    out = {"heavy_rows": int(hyb.heavy_idx.shape[0])}
+    for name, (fn, plain, k1_ops) in runs.items():
+        per = sum(k1_per_product(op, k, torch.float32) for op in k1_ops)
+        before = cuda_sell.LAUNCHES
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        if cuda_sell.LAUNCHES - before != 2 * per:
+            raise SystemExit(f"phase 25 {name}: "
+                             f"{cuda_sell.LAUNCHES - before} K1 launches "
+                             f"for two products, expected {2 * per}")
+        err, ok = compare(got, plain(), row_nnz, exact=False)
+        if not ok or not torch.equal(got, again):
+            raise SystemExit(f"phase 25 {name}: K1 != plain (max abs err "
+                             f"{err:.3e}) or a repeat differs")
+        out[name] = {"max_abs_err": err, "launches": 2 * per}
+    return out
+
+
+def phase_planar(dev, host25, keep: str) -> tuple:
+    """Phase 25 (module docstring): (its results, its kernels entries)."""
+    import numpy as np
+    import torch
+    from scipy import sparse
+
+    from arrow_matrix_tpu_torch.ops import cuda_blocks, cuda_gather, cuda_sell
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.utils import random_dense, relative_tolerance
+
+    c = PLANAR
+    tic = time.perf_counter()
+    rec = join_host(*host25, "phase 25")
+    waited = time.perf_counter() - tic
+    base = planar_base(keep)
+    levels = as_levels_of(base, c["width"])
+    a = sparse.load_npz(base + "_graph.npz").tocsr()
+    n = a.shape[0]
+    if len(levels) != 1:
+        raise SystemExit(f"phase 25: the scrambled grid decomposed into "
+                         f"{len(levels)} levels; the RCM fast path makes "
+                         f"one")
+    nnz = int(levels[0].matrix.nnz)
+    if nnz != a.nnz:
+        raise SystemExit(f"phase 25: the level holds {nnz} of {a.nnz} "
+                         f"nonzeros")
+    row_nnz = nnz / n
+    log(f"phase 25: grid {c['side']} x {c['side']} scrambled (n={n}, {nnz} "
+        f"nnz), one level of width {levels[0].arrow_width} (the RCM fast "
+        f"path); generate {rec['t_gen']:.1f} s, decompose "
+        f"{rec['t_dec']:.1f} s, the host goldens {rec['t_gold']:.1f} s, in "
+        f"a process of its own (waited {waited:.1f} s)")
+    res = {"n": n, "nnz": nnz, "levels": len(levels),
+           "arrow_width": int(levels[0].arrow_width),
+           "host_generate_s": rec["t_gen"], "host_decompose_s": rec["t_dec"]}
+    exes = {}
+    for name, kw in (("planar_fold", {}),
+                     ("planar_fold_tight", dict(fold_growth=1.1,
+                                                fold_align=1))):
+        tic = time.perf_counter()
+        exe = exes[name] = MultiLevelArrow(levels, c["width"], fmt="fold",
+                                           device=dev, **kw)
+        res[f"{name}_ladder"] = ladder(exe.sell)
+        log(f"phase 25 {name}: {len(exe.sell.cols)} tiers "
+            f"({len(exe.sell.live_tiers())} live), {exe.sell.n_slots} "
+            f"slots / {exe.nnz} nnz ({exe.sell.n_slots / exe.nnz:.3f}x), "
+            f"built in {time.perf_counter() - tic:.1f} s; ladder (m_t, n_t): "
+            f"{ladder(exe.sell)}")
+
+    # The main path, the counts set to 0 just before it.
+    torch.cuda.synchronize()
+    reset_counters()
+    launches = {}
+    tol1 = relative_tolerance(row_nnz, 1)
+    tol_chain = relative_tolerance(row_nnz, c["steps"])
+    maps = {name: (torch.from_numpy(e.perm0).long().to(dev),
+                   torch.from_numpy(e.inv_perm0[:n]).long().to(dev))
+            for name, e in exes.items()}
+    for k, xseed in c["inputs"]:
+        tic = time.perf_counter()
+        x0 = random_dense(n, k, seed=xseed)
+        g, worst = x0, dict.fromkeys(exes, 0.0)
+        # Every step from the golden input (permuted on the card, as
+        # set_features does on the host), against the next golden.
+        for s in range(c["steps"]):
+            path = planar_golden_path(keep, k, s + 1)
+            g_next = np.load(path)
+            os.remove(path)
+            gd, want = (torch.from_numpy(v).to(dev) for v in (g, g_next))
+            for name, exe in exes.items():
+                perm, inv = maps[name]
+                xin = gd.new_zeros((exe.total_rows, k))
+                xin[:n] = gd
+                y = counted(launches, (name, "f32", k),
+                            lambda: exe.step(xin[perm]), 1, exe.sell)
+                err = device_relative_error(y[inv], want)
+                worst[name] = max(worst[name], err)
+                if not err <= tol1:
+                    raise SystemExit(f"phase 25 {name} k={k} step {s}: rel "
+                                     f"err {err:.3e} > gate {tol1:.1e}")
+            g = g_next
+        del gd, want, xin, y
+        chain = {}
+        x0d, gd = (torch.from_numpy(v).to(dev) for v in (x0, g))
+        for name, exe in exes.items():
+            perm, inv = maps[name]
+            x = x0d.new_zeros((exe.total_rows, k))
+            x[:n] = x0d
+            x = x[perm]
+            y = counted(launches, (name, "f32", k),
+                        lambda: exe.run(x, c["steps"]), c["steps"], exe.sell)
+            chain[name] = device_relative_error(y[inv], gd)
+            if not chain[name] <= tol_chain:
+                raise SystemExit(f"phase 25 {name} k={k} {c['steps']}-step "
+                                 f"chain: rel err {chain[name]:.3e} > gate "
+                                 f"{tol_chain:.1e}")
+        res[f"k{k}"] = {"worst_step": worst, "chain": chain,
+                        "seconds": time.perf_counter() - tic}
+        log(f"phase 25 f32 k={k}: every step of both packings within "
+            f"{tol1:.1e} (worst {max(worst.values()):.3e}); "
+            f"{c['steps']}-step chains {chain} (gate {tol_chain:.1e}); "
+            f"{time.perf_counter() - tic:.1f} s")
+    del x, y, x0d, gd
+    res["transposes"] = planar_transposes(dev, levels[0], row_nnz)
+    total = cuda_sell.LAUNCHES
+    want_total = sum(launches.values()) + sum(
+        v["launches"] for v in res["transposes"].values()
+        if isinstance(v, dict))
+    if total != want_total:
+        raise SystemExit(f"phase 25: K1.LAUNCHES = {total}, its parts "
+                         f"{want_total}")
+    if (cuda_blocks.LAUNCHES_K2 or cuda_blocks.LAUNCHES_K3
+            or cuda_gather.LAUNCHES or cuda_gather.LAUNCHES_ADD):
+        raise SystemExit("phase 25: the fold launched a dense-block or a "
+                         "gather kernel")
+    log(f"phase 25 main path: K1.LAUNCHES = {total} "
+        f"({', '.join(f'{k}: {v}' for k, v in launches.items())}); "
+        f"hyb_spmm_t and ell_spmm_t on the card {res['transposes']}")
+    res["launches"] = {",".join(map(str, key)): v
+                       for key, v in launches.items()}
+    kernels = phase_k1_numbers(exes, launches, n, row_nnz, res,
+                               phase="phase 25")
+    del exes, maps
+    torch.cuda.empty_cache()
+    return res, kernels
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=20,
@@ -8173,6 +8668,10 @@ def main() -> int:
     parser.add_argument("--analysis", action="store_true",
                         help="run phases 1, 2 and 24 only (the analysis "
                              "family and the doctor on the card)")
+    parser.add_argument("--planar", action="store_true",
+                        help="run phases 1, 2 and 25 only (the planar "
+                             "class: a scrambled 2-D grid, one level, "
+                             "through the fold)")
     parser.add_argument("--serve", action="store_true",
                         help="run phases 1, 2, 15 and 16 only (the serving "
                              "runtime and its observability, on phase 4's "
@@ -8236,17 +8735,32 @@ def main() -> int:
     store = os.path.join(keep, "ledger")
     full = not (args.dense or args.bench or args.fleet or args.lens
                 or args.tune or args.mesh or args.serve or args.state
-                or args.analysis)
+                or args.analysis or args.planar)
+    fleet_cache = os.path.join(keep, "fleet_cache")
     if full:
         # Phase 4's host work (the graph, its numpy decomposition saved as
         # an artifact, the host goldens) and phase 14's (the native
         # decomposition) run in processes of their own from here, beside
-        # the build and phases 3, 6-9, 12 and 14, which do not need them.
+        # the build and phases 3, 6-9, 12 and 14, which do not need them;
+        # and, at the lowest priority (their readers come much later),
+        # that of phase 22 (its graph and goldens), phase 13 (its host
+        # goldens, over phase 4's graph once it is made), phase 25 (the
+        # planar graph and its goldens) and phase 17 (the fleet's graph).
         n, m, width, seed = 1 << args.log2n, 8, 2048, 7
         base = os.path.join(keep, f"ba_{n}_{m}")
         host4 = start_host(phase4_host, n, base)
         host14 = start_host(phase14_host, n)
-        host22 = start_host(phase22_host, keep)
+        host22 = start_host(phase22_host, keep, nice=19)
+        host13 = start_host(models_host, base, n, nice=19)
+        host25 = start_host(planar_host, keep, nice=19)
+        host17 = start_host(fleet_host, fleet_cache, nice=19)
+        # Phase 20's ranks start packing on the host as soon as phase 4's
+        # artifact is saved, beside phase 14's bench.
+        early4 = {}
+        watch4 = threading.Thread(target=after_host, daemon=True,
+                                  args=(host4, "phase 4", early4,
+                                        lambda: start_mesh(base, width)))
+        watch4.start()
 
     # -- 2. build ------------------------------------------------------------
     tic = time.perf_counter()
@@ -8269,12 +8783,12 @@ def main() -> int:
                             start_host(phase14_host, 1 << args.log2n), None,
                             ledger_dir=store)
         return finish({"bench": bench, "card": smi}, [])
-    fleet_cache = os.path.join(keep, "fleet_cache")
     if args.fleet:
-        fleet, entry = phase_fleet(dev, work,
-                                   start_host(fleet_host, fleet_cache),
-                                   fleet_cache)
-        return finish({"fleet": fleet, "card": smi}, [entry])
+        fleet, replay = phase_fleet(dev, work,
+                                    start_host(fleet_host, fleet_cache),
+                                    fleet_cache)
+        return finish({"fleet": fleet, "card": smi},
+                      [fleet_k1_entry(replay, fleet["k1_launches"])])
     if args.lens:
         base, _ = decompose_phase4(1 << args.log2n, keep)
         lens_res, entries = phase_lens(dev, base, 2048, store,
@@ -8294,6 +8808,10 @@ def main() -> int:
     if args.analysis:
         return finish({"analysis": phase_analysis(start_analysis24(keep)),
                        "card": smi}, [])
+    if args.planar:
+        planar, entries = phase_planar(dev, start_host(planar_host, keep),
+                                       keep)
+        return finish({"planar": planar, "card": smi}, entries)
     if args.serve:
         serve_res, entry, ctx = serve_only(dev, 1 << args.log2n, work)
         observe, observe_entry = phase_observe(ctx, serve_res,
@@ -8326,11 +8844,10 @@ def main() -> int:
 
     # -- 4. main path ----------------------------------------------------------
     tic = time.perf_counter()
-    rec = join_host(*host4, "phase 4")
-    # Phase 17's graph, decomposed in a process of its own from here on,
-    # and phase 20's ranks, packing on the host until they are released.
-    host17 = start_host(fleet_host, fleet_cache)
-    mesh_pool = start_mesh(base, width)
+    watch4.join()
+    if "error" in early4:
+        raise early4["error"]
+    rec, mesh_pool = early4["rec"], early4["then"]
     subs23 = start_state23(keep, base)
     subs24 = start_analysis24(keep)
     t_gen, t_dec = rec["t_gen"], rec["t_dec"]
@@ -8349,16 +8866,7 @@ def main() -> int:
     launches = {}
 
     def count(key, fn, iters, sell):
-        per = k1_per_product(sell, key[2], CARRIAGE_DTYPES[key[1]])
-        before = cuda_sell.LAUNCHES
-        out = fn()
-        torch.cuda.synchronize()
-        delta = cuda_sell.LAUNCHES - before
-        if delta != per * iters:
-            raise SystemExit(f"{key}: {delta} launches, expected {per} "
-                             f"per product x {iters} products")
-        launches[key] = launches.get(key, 0) + delta
-        return out
+        return counted(launches, key, fn, iters, sell)
 
     tic = time.perf_counter()
     ml = MultiLevelArrow(levels, width, fmt="fold", device=dev)
@@ -8384,7 +8892,7 @@ def main() -> int:
         for it in range(VALIDATED[k]):
             y = count(key, lambda: ml.step(ml.set_features(g)), 1, ml.sell)
             g_next = gold[(k, it + 1)] = np.load(golden_path(base, k, it + 1))
-            err = relative_error(ml.gather_result(y), g_next)
+            err = card_relative_error(ml.gather_result(y), g_next)
             worst = max(worst, err)
             if not err <= tol1:
                 raise SystemExit(f"k={k} step {it}: rel err {err:.3e} > "
@@ -8392,7 +8900,7 @@ def main() -> int:
             g = g_next
         steps = VALIDATED[k]
         y = count(key, lambda: ml.run(x, steps), steps, ml.sell)
-        err10 = relative_error(ml.gather_result(y), g)
+        err10 = card_relative_error(ml.gather_result(y), g)
         tol10 = relative_tolerance(row_nnz, steps)
         if not err10 <= tol10:
             raise SystemExit(f"k={k} {steps}-step chain: rel err "
@@ -8414,7 +8922,7 @@ def main() -> int:
         ml.feature_dtype = torch.bfloat16
         y = count(("fold", "bf16", k),
                   lambda: ml.step(ml.set_features(g)), 1, ml.sell)
-        err = relative_error(ml.gather_result(y), want)
+        err = card_relative_error(ml.gather_result(y), want)
         if not err <= max(tol1, 2e-2):
             raise SystemExit(f"bf16 k={k}: rel err {err:.3e} > 2e-2")
         log(f"bf16 k={k}: rel err {err:.3e} (gate 2e-2)")
@@ -8470,10 +8978,20 @@ def main() -> int:
     fold_ref23 = state23_fold_ref(ml)
 
     # -- 5. per-kernel numbers at the main path's shapes -----------------------
-    kernels += phase_k1_numbers(ml, tight, launches, n, row_nnz,
-                                results["main"])
+    regs = ptxas_registers(_build.BUILD_LOG.get("sell_tier_spmm", {}).get(
+        "ptxas", ""))
+    for entry, used, spill in regs:
+        log(f"phase 5 K1 ptxas: {used} registers, {spill} B spilled: "
+            f"{entry}")
+    results["main"]["k1_registers"] = regs
+    kernels += phase_k1_numbers({"fold": ml, "fold_tight": tight}, launches,
+                                n, row_nnz, results["main"])
     del tight
     torch.cuda.empty_cache()
+
+    # -- 25. the planar class, its graph made beside the earlier phases ------
+    results["planar"], planar_kernels = phase_planar(dev, host25, keep)
+    kernels += planar_kernels
 
     # -- 11. the other formats at full size, on phase 4's decomposition ------
     results["formats"], format_kernels = phase_formats(dev, levels, n, width,
@@ -8485,7 +9003,7 @@ def main() -> int:
 
     # -- 13. the models at full size, on phase 4's decomposition -------------
     results["models"], model_kernels, solvers = phase_models(
-        dev, levels, n, width, ml)
+        dev, levels, n, width, ml, host13, base)
     kernels += model_kernels
 
     # -- 15. the serving runtime, on phase 4's decomposition -----------------
@@ -8522,6 +9040,10 @@ def main() -> int:
                                                os.path.join(keep, "tune"))
     kernels += tune_entries
 
+    # -- 17. the fleet of worker processes on the card, while the ranks
+    # finish their work of phases 20-23 (its K1 is timed after them) ------
+    results["fleet"], replay17 = phase_fleet(dev, work, host17, fleet_cache)
+
     # -- 20. the mesh executors on ranks sharing the card and over NCCL ------
     results["mesh"], mesh_entries = phase_mesh(
         mesh_work,
@@ -8529,10 +9051,10 @@ def main() -> int:
         results["serve"], fold_ref23)
     kernels += mesh_entries
 
-    # -- 17. the fleet of worker processes on the card -----------------------
-    results["fleet"], fleet_entry = phase_fleet(dev, work, host17,
-                                                fleet_cache)
-    kernels.append(fleet_entry)
+    # -- 17. K1 at the fleet's shape, the card otherwise idle ----------------
+    kernels.append(fleet_k1_entry(replay17, results["fleet"]["k1_launches"]))
+    del replay17
+    torch.cuda.empty_cache()
 
     # -- 24. the analysis family and the doctor, run from phase 4 on ---------
     results["analysis"] = phase_analysis(subs24)
@@ -8660,6 +9182,11 @@ def phase4_host(n: int, base: str, out: str) -> None:
     tic = time.perf_counter()
     a = barabasi_albert(n, 8, seed=7)
     t_gen = time.perf_counter() - tic
+    # The graph for phase 13's host goldens (:func:`models_host`).
+    np.save(graph_path(base, "indptr"), a.indptr)
+    np.save(graph_path(base, "indices"), a.indices)
+    with open(graph_path(base, "ready"), "w"):
+        pass
 
     def goldens() -> float:
         tic = time.perf_counter()
@@ -8706,9 +9233,35 @@ def golden_path(base: str, k: int, s: int) -> str:
     return f"{base}_gold_k{k}_s{s}.npy"
 
 
-def start_host(target, *args) -> tuple:
+def graph_path(base: str, part: str) -> str:
+    """A file of phase 4's graph as :func:`phase4_host` saves it for
+    :func:`models_host`: its CSR ``indptr`` and ``indices`` (.npy), and
+    ``ready`` once both are there."""
+    return f"{base}_graph_{part}" + ("" if part == "ready" else ".npy")
+
+
+def name_process(name: str) -> None:
+    """Set the calling thread's name: the process's (``/proc/<pid>/comm``,
+    as :func:`cpu_trace` reads it) when called from its main thread."""
+    import ctypes
+
+    PR_SET_NAME = 15
+    ctypes.CDLL(None).prctl(PR_SET_NAME, name[:15].encode(), 0, 0, 0)
+
+
+def named_host(target, nice: int, *args) -> None:
+    """A host process's body: named after ``target``, at niceness
+    ``nice``, then ``target(*args)``."""
+    name_process(target.__name__)
+    os.nice(nice)
+    target(*args)
+
+
+def start_host(target, *args, nice: int = 0) -> tuple:
     """Start a phase's host work, ``target(*args, out)``, in a spawned
-    process; (the process, ``out``, a JSON file the target writes)."""
+    process at niceness ``nice`` (19 for work whose result waits long
+    for its reader: it then takes only the cores the phases leave
+    idle); (the process, ``out``, a JSON file the target writes)."""
     import multiprocessing
     import tempfile
 
@@ -8720,7 +9273,8 @@ def start_host(target, *args) -> tuple:
     os.close(fd)
     # A daemon: a run that fails before joining it does not wait for it.
     proc = multiprocessing.get_context("spawn").Process(
-        target=target, args=(*args, out), name=target.__name__, daemon=True)
+        target=named_host, args=(target, nice, *args, out),
+        name=target.__name__, daemon=True)
     proc.start()
     return proc, out
 
@@ -8737,6 +9291,18 @@ def join_host(proc, out: str, phase: str) -> dict:
             return json.load(fh)
     finally:
         os.remove(out)
+
+
+def after_host(host: tuple, phase: str, out: dict, then) -> None:
+    """Wait for :func:`start_host`'s process ``host`` (:func:`join_host`),
+    then call ``then()``: their results as ``out["rec"]`` and
+    ``out["then"]``, or the exception as ``out["error"]`` (a thread's
+    body; its reader raises it)."""
+    try:
+        out["rec"] = join_host(*host, phase)
+        out["then"] = then()
+    except BaseException as e:      # re-raised by the reader
+        out["error"] = e
 
 
 def decompose_phase4(n: int, directory: str) -> tuple:
@@ -8787,8 +9353,9 @@ def dense_phases(dev, n: int, work: str) -> tuple:
 #: The kernels each bench candidate's step must launch (phase 14).
 BENCH_KERNELS = {"fold": ("K1",), "hyb": ("K1", "K4", "K4 add"),
                  "auto": ("K1", "K2", "K3", "K4", "K4 add")}
-#: Phase 14's race.
-BENCH_RACE = tuple(BENCH_KERNELS)
+#: Phase 14's race: fold and auto, whose steps launch every kernel
+#: (phase 11 drives and times hyb at the same graph and width).
+BENCH_RACE = ("fold", "auto")
 
 
 def check_levels(a, levels, width: int) -> None:
@@ -8873,8 +9440,9 @@ def phase_bench(dev, n: int, host14: tuple, t_numpy, ledger_dir: str
            "numpy_decompose_s": t_numpy, "native_levels": len(rec["widths"])}
     torch.cuda.empty_cache()
 
-    # The race without fold_tight: phase 4 times that packing on the same
-    # graph, and a candidate costs a subprocess of 20-30 s.
+    # The race without fold_tight and hyb: phase 4 times that packing and
+    # phase 11 that format on the same graph, and a candidate costs a
+    # subprocess of 20-30 s.
     env = dict(os.environ, AMT_BENCH_COMPARE="0", AMT_BENCH_CACHE_DIR=cache,
                AMT_BENCH_N=str(n), AMT_BENCH_DEADLINE="1500",
                AMT_BENCH_FMT=",".join(BENCH_RACE))
@@ -9062,9 +9630,74 @@ def stop_descendants(grace_s: float = 10.0) -> list:
     return list(stopped.values())
 
 
+def proc_ticks(path: str) -> tuple:
+    """(utime + stime clock ticks, parent pid, name) of the
+    ``/proc/<pid>[/task/<tid>]/stat`` at ``path``; None if it is gone."""
+    try:
+        with open(path) as fh:
+            head, tail = fh.read().rsplit(")", 1)
+        f = tail.split()
+        return int(f[11]) + int(f[12]), int(f[1]), head.split("(", 1)[1]
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def cpu_trace(path: str, every_s: float = 5.0) -> None:
+    """Write, every ``every_s`` until the run ends, one JSON line to
+    ``path``: the seconds since the start, the cores this run's
+    processes kept busy over the interval, of them this process's main
+    thread and its other threads, and each descendant's cores (a
+    descendant's parent, name and command line on the first line that
+    names it).  A record of where the host's cores went, read after a
+    run."""
+    tick = os.sysconf("SC_CLK_TCK")
+    prev, seen, then = {}, set(), time.perf_counter()
+    me = os.getpid()
+    with open(path, "w") as out:
+        while True:
+            time.sleep(every_s)
+            now = time.perf_counter()
+            cur, about = {}, {}
+            for tid in os.listdir(f"/proc/{me}/task"):
+                got = proc_ticks(f"/proc/{me}/task/{tid}/stat")
+                if got is not None:
+                    cur[("thread", int(tid))] = got[0]
+            for pid, state in descendants():
+                got = proc_ticks(f"/proc/{pid}/stat")
+                if got is not None and state != "Z":
+                    cur[("proc", pid)] = got[0]
+                    about[pid] = f"{got[1]} ({got[2]})"
+            dt = now - then
+            cores = {key: (v - prev.get(key, v)) / tick / dt
+                     for key, v in cur.items()}
+            rec = {"t": round(now - T0, 1),
+                   "run_cores": round(sum(cores.values()), 2),
+                   "main": round(cores.get(("thread", me), 0.0), 2),
+                   "main_threads": round(sum(
+                       c for (kind, i), c in cores.items()
+                       if kind == "thread" and i != me), 2),
+                   "procs": {str(i): round(c, 2)
+                             for (kind, i), c in cores.items()
+                             if kind == "proc" and c >= 0.05}}
+            for kind, i in cur:
+                if kind == "proc" and i not in seen:
+                    seen.add(i)
+                    rec.setdefault("new", {})[str(i)] = (
+                        f"{about[i]} {command_line(i)[:160]}")
+            out.write(json.dumps(rec) + "\n")
+            out.flush()
+            prev, then = cur, now
+
+
 def run() -> int:
     """:func:`main`, and every process it started stopped at its end."""
     adopt_orphans()
+    trace = os.environ.get("AMT_SMOKE_CPU_TRACE", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "arrow_matrix_tpu_torch",
+        "_build", "smoke_cpu_trace.jsonl"))
+    os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+    threading.Thread(target=cpu_trace, args=(trace,), daemon=True,
+                     name="cpu-trace").start()
     try:
         return main()
     finally:

@@ -94,6 +94,21 @@ def multi_level(ctx, levels, width, x, steps, kw, shape=None,
                                          "report": exe.shard_report()})
 
 
+def hbm_price(ctx, levels, width, kw, ks, ranks=None):
+    """``MultiLevelArrow(mesh=)``'s HBM model on every rank (a mesh of
+    ``ranks``, default the world): ``{k: (exchange_scratch_bytes,
+    carriage_hbm_bytes, predicted_hbm_bytes)}``."""
+    from arrow_matrix_tpu_torch.parallel import MultiLevelArrow
+    from arrow_matrix_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(None, ("blocks",), ranks=ranks)
+    if not mesh.member:
+        return None
+    exe = MultiLevelArrow(levels, width, mesh=mesh, **kw)
+    return {k: (exe.exchange_scratch_bytes(k), exe.carriage_hbm_bytes(k),
+                exe.predicted_hbm_bytes(k)) for k in ks}
+
+
 def mesh_members(ctx, levels, width, kw):
     """The single-device members of ``MultiLevelArrow(mesh=)``: each
     one's ``ValueError`` message (None where it runs), what

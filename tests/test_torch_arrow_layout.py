@@ -193,3 +193,50 @@ def test_a_mesh_builds_the_mesh_executor():
     with pytest.raises(ValueError, match="requires a mesh"):
         check_mesh_options(None, "auto", "a2a", "slim", "auto", 1, "xla",
                            "arm")
+
+
+def _gcn_levels():
+    """``tests/test_torch_models_mesh.py::_gcn_case``'s levels (BA n=320,
+    m=4, seed 21, width 32, 3 levels)."""
+    a = barabasi_albert(320, 4, seed=21)
+    return jax_decomp(a, 32, max_levels=3, block_diagonal=True, seed=2)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fmt="ell", routing="a2a"),
+    dict(fmt="dense", routing="a2a"),
+    dict(fmt="ell", routing="a2a", exchange_k=128,
+         exchange_scratch_budget=2 * 4 * 128 * 4 * 3),
+    dict(fmt="dense", routing="a2a", exchange_k=16,
+         exchange_scratch_budget=2 * 4 * 16 * 4 * 5),
+    dict(fmt="ell", routing="gather")],
+    ids=["ell-a2a", "dense-a2a", "ell-staged", "dense-staged", "gather"])
+def test_request_price_holds_the_exchange_scratch(pool4, kw):
+    """A request's admission price (``carriage_hbm_bytes``) and the a2a
+    send + receive scratch in it (``exchange_scratch_bytes``) equal the
+    JAX executor's on every rank at k = 16 and 128, one-shot and staged;
+    zero scratch under gather routing."""
+    lv = _gcn_levels()
+    jm = JaxArrow(lv, 32, mesh=jax_mesh((4,), ("blocks",)), **kw)
+    got = pool4.run(JOBS, "hbm_price", lv, 32, kw, (16, 128))
+    for k in (16, 128):
+        want = (jm.exchange_scratch_bytes(k), jm.carriage_hbm_bytes(k))
+        assert [r[k][:2] for r in got] == [want] * 4
+        if kw["routing"] == "gather":
+            assert want[0] == 0
+    if "exchange_k" not in kw and kw["routing"] == "a2a":
+        # ROADMAP's record of the reference on this case.
+        assert [got[0][k][1] for k in (16, 128)] == [36_352, 290_816]
+
+
+def test_one_rank_has_no_exchange_scratch(pool4):
+    """On a mesh of one rank every row is local: no scratch, and the
+    price is the carriage alone (the JAX executor's on one device)."""
+    lv = _gcn_levels()
+    kw = dict(fmt="ell", routing="a2a")
+    jm = JaxArrow(lv, 32, mesh=jax_mesh((1,), ("blocks",)), **kw)
+    got = pool4.run(JOBS, "hbm_price", lv, 32, kw, (16, 128), (0,))
+    assert got[1:] == [None] * 3
+    for k in (16, 128):
+        assert got[0][k][:2] == (0, jm.carriage_hbm_bytes(k))
+        assert jm.exchange_scratch_bytes(k) == 0

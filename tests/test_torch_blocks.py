@@ -442,3 +442,38 @@ def test_ctypes_signatures_match_the_kernel_source(name):
     kinds = ["ptr" if "*" in p else "int" for p in params.split(",")]
     ptrs, ints = cuda_blocks._ARGS[name]
     assert kinds == ["int"] * 2 + ["ptr"] * ptrs + ["int"] * ints + ["ptr"]
+
+
+@pytest.mark.parametrize("jax_dtype,torch_dtype", [
+    (np.float32, torch.float32), (np.float64, torch.float64),
+    (ml_dtypes.bfloat16, torch.bfloat16)], ids=["f32", "f64", "bf16"])
+def test_scipy_safe_dtype_follows_jax(jax_dtype, torch_dtype):
+    """The dtype a block passes through scipy at: itself where scipy
+    holds it, float32 for bf16; numpy and torch dtypes alike."""
+    want = jax_blocks.scipy_safe_dtype(jax_dtype)
+    assert arrow_blocks.scipy_safe_dtype(jax_dtype) is want
+    assert arrow_blocks.scipy_safe_dtype(torch_dtype) is want
+
+
+@pytest.mark.parametrize("fmt", ["dense", "ell"])
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("n_dev", [None, 1, 2, 3, 4])
+def test_arrow_blocks_shard_report_equals_jax(fmt, banded, n_dev):
+    """One level's load report per block row, and per device share with
+    ``n_dev``, equal to JAX's ``arrow_blocks_shard_report``."""
+    from arrow_matrix_tpu.parallel.arrow_layout import (
+        arrow_blocks_shard_report as jax_report,
+    )
+    from arrow_matrix_tpu_torch.parallel.arrow_layout import (
+        arrow_blocks_shard_report,
+    )
+
+    a = _weighted_arrow(6, 16, banded, seed=4)
+    ours = arrow_blocks_from_csr(a, 16, banded=banded, pad_blocks_to=7,
+                                 fmt=fmt, device="cpu")
+    theirs = jax_blocks.arrow_blocks_from_csr(a, 16, banded=banded,
+                                              pad_blocks_to=7, fmt=fmt)
+    got = arrow_blocks_shard_report(ours, n_dev)
+    assert got == jax_report(theirs, n_dev)
+    assert got["units"] == ("device" if n_dev and n_dev > 1
+                            else "block-row")

@@ -27,7 +27,7 @@ from arrow_matrix_tpu_torch.ops import (
     sell,
     worklist,
 )
-from arrow_matrix_tpu_torch.ops.hyb import hyb_from_csr, hyb_spmm
+from arrow_matrix_tpu_torch.ops.hyb import hyb_from_csr, hyb_spmm, hyb_spmm_t
 from arrow_matrix_tpu_torch.ops.gather import (
     granule_gather_plain,
     pack_granules,
@@ -36,6 +36,7 @@ from arrow_matrix_tpu_torch.ops.gather import (
 )
 from arrow_matrix_tpu_torch.ops.ell import (
     ell_spmm_batched,
+    ell_spmm_t,
     ell_stack_tier,
     ell_tier_spmm,
     out_dtype_for,
@@ -552,6 +553,39 @@ def test_ell_executor_on_the_card_matches_the_cpu(cuda, head_fmt, banded):
     assert relative_error(got, golden) <= tol
     again = gpu.run(gpu.set_features(x), 3)
     assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_feature_major_products_run_k1(cuda, binary):
+    """``ell_spmm_t`` and ``hyb_spmm_t`` on the card are K1 launches,
+    within the tolerance of their plain versions on the same tensors."""
+    rng = np.random.default_rng(7)
+    cols, deg, vals = _tier(rng, 24, 5000, 6000)
+    x_t = torch.from_numpy(random_dense(128, 6000, seed=2)).to(cuda)
+    args = (torch.from_numpy(cols).to(cuda), x_t)
+    kw = (dict(deg=torch.from_numpy(deg).to(cuda)) if binary
+          else dict(data=torch.from_numpy(vals).to(cuda)))
+    before = cuda_sell.LAUNCHES
+    got = ell_spmm_t(*args, **kw)
+    assert cuda_sell.LAUNCHES > before
+    want = ell_spmm_t(*(t.cpu() for t in args),
+                      **{n: t.cpu() for n, t in kw.items()})
+    assert relative_error(got.cpu().numpy(), want.numpy()) <= \
+        relative_tolerance(24)
+    a = barabasi_albert(4000, 3, seed=3).tolil()
+    a[0, 1:801] = 1
+    a[1:801, 0] = 1
+    a = a.tocsr()
+    if not binary:
+        a.data = rng.uniform(0.5, 1.5, a.nnz).astype(np.float32)
+    level = hyb_from_csr(a, pad_rows_to=4096, device=cuda)
+    x_t = torch.from_numpy(random_dense(16, 4096, seed=4)).to(cuda)
+    before = cuda_sell.LAUNCHES
+    got = hyb_spmm_t(level, x_t)
+    assert cuda_sell.LAUNCHES > before
+    want = hyb_spmm(level, x_t.T.contiguous()).T
+    assert relative_error(got.cpu().numpy(), want.cpu().numpy()) <= \
+        relative_tolerance(800)
 
 
 def test_hyb_level_on_the_card_matches_plain(cuda):

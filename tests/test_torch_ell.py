@@ -457,3 +457,49 @@ def test_level_k1_forms_match_the_plain_products():
             assert blk.device_nbytes() > sum(
                 t.numel() * t.element_size()
                 for t in blk.tensors().values())
+
+
+def _slot_major_tier(seed, m=12, rows=300, n_cols=400):
+    """A slot-major ``(m, rows)`` tier: degrees 0..m, padding slots at
+    column 0 with weight 0."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, m + 1, rows).astype(np.int32)
+    pad = np.arange(m)[:, None] >= deg[None, :]
+    cols = np.where(pad, 0, rng.integers(0, n_cols, (m, rows))).astype(
+        np.int32)
+    data = np.where(pad, 0, rng.uniform(-1, 1, (m, rows))).astype(np.float32)
+    return cols, data, deg
+
+
+@pytest.mark.parametrize("k", [16, 128])
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("chunk", [None, 5])
+def test_ell_spmm_t_matches_jax(k, binary, chunk):
+    """The feature-major slot-major product, binary (``deg``) and
+    weighted (``data``), against JAX's ``ell_spmm_t`` on the same
+    arrays."""
+    cols, data, deg = _slot_major_tier(k + binary)
+    x_t = random_dense(k, 400, seed=k).astype(np.float32)
+    want = np.asarray(jax_ell.ell_spmm_t(
+        jnp.asarray(cols), jnp.asarray(x_t),
+        data=None if binary else jnp.asarray(data),
+        deg=jnp.asarray(deg) if binary else None, chunk=chunk))
+    got = ell.ell_spmm_t(torch.from_numpy(cols), torch.from_numpy(x_t),
+                         data=None if binary else torch.from_numpy(data),
+                         deg=torch.from_numpy(deg) if binary else None,
+                         chunk=chunk)
+    assert tuple(got.shape) == want.shape == (k, 300)
+    assert relative_error(got.numpy(), want) <= relative_tolerance(12)
+
+
+def test_ell_spmm_t_edges_follow_jax():
+    """No slots gives zeros; binary without ``deg`` raises as JAX's."""
+    x_t = torch.ones((4, 10))
+    empty = torch.zeros((0, 7), dtype=torch.int32)
+    got = ell.ell_spmm_t(empty, x_t)
+    want = jax_ell.ell_spmm_t(jnp.zeros((0, 7), jnp.int32), jnp.ones((4, 10)))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="requires deg"):
+        ell.ell_spmm_t(torch.zeros((2, 7), dtype=torch.int32), x_t)
+    with pytest.raises(ValueError, match="requires deg"):
+        jax_ell.ell_spmm_t(jnp.zeros((2, 7), jnp.int32), jnp.ones((4, 10)))

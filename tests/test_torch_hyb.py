@@ -158,3 +158,24 @@ def test_hyb_executor_matches_jax_over_two_steps(n, width, k,
     assert relative_error(got, run(theirs)) <= tol
     golden = decomposition_spmm(levels, decomposition_spmm(levels, x))
     assert relative_error(got, golden) <= tol
+
+
+@pytest.mark.parametrize("k", [16, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_hyb_spmm_t_matches_jax(k, weighted):
+    """The feature-major HYB product ``(level @ x_t.T).T`` against JAX's
+    ``hyb_spmm_t``, with heavy rows, binary and weighted."""
+    a = _hub_graph(900, seed=5, weighted=weighted)
+    ours = hyb.hyb_from_csr(a, pad_rows_to=1024, device="cpu")
+    theirs = jax_hyb.hyb_from_csr(a, pad_rows_to=1024)
+    assert ours.heavy_idx.shape[0] > 0 and ours.binary == (not weighted)
+    x_t = random_dense(k, 1024, seed=k)
+    want = np.asarray(jax_hyb.hyb_spmm_t(theirs, jnp.asarray(x_t)))
+    tol = relative_tolerance(300)
+    for chunk in (None, 8):
+        got = hyb.hyb_spmm_t(ours, torch.from_numpy(x_t), chunk=chunk,
+                             heavy_chunk=chunk)
+        assert tuple(got.shape) == want.shape == (k, 1024)
+        assert relative_error(got.numpy(), want) <= tol
+    assert relative_error(got[:, :900].numpy().T,
+                          a @ x_t[:, :900].T) <= tol

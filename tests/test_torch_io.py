@@ -105,3 +105,14 @@ def test_convert_rejects_what_it_cannot_do(tmp_path):
         convert_decomposition(str(tmp_path / "g"), 32, to="mat")
     with pytest.raises(FileNotFoundError, match="npz"):
         convert_decomposition(str(tmp_path / "g"), 32, to="npy")
+
+
+@pytest.mark.parametrize("n_blocks", range(1, 9))
+@pytest.mark.parametrize("banded", [False, True])
+def test_arrow_block_coords_equal_jax(n_blocks, banded):
+    from arrow_matrix_tpu.io import arrow_block_coords as jax_coords
+    from arrow_matrix_tpu_torch.io import arrow_block_coords
+
+    got = arrow_block_coords(n_blocks, banded)
+    assert got == jax_coords(n_blocks, banded)
+    assert len(set(got)) == len(got)

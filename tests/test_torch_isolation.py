@@ -497,8 +497,9 @@ def test_analysis_family_runs_with_jax_blocked():
 def test_the_reference_gates_run_with_jax_blocked(tmp_path):
     """The port's chaos (``--fast``), obs and kernel gates, ``comm_report``
     on 4 gloo ranks, and ``spmm_arrow --logdir`` with ``log_upload``
-    listing its run, each with ``--device cpu``, at once, with JAX and
-    the JAX package unimportable in every process they start."""
+    listing its run, each with ``--device cpu``, one after another (at
+    once they hold some 20 processes beside the suite's workers), with
+    JAX and the JAX package unimportable in every process they start."""
     blocker = BLOCKED_RUN[:BLOCKED_RUN.index("import numpy as np")]
     (tmp_path / "sitecustomize.py").write_text(blocker)
     env = dict(os.environ, OMP_NUM_THREADS="1",
@@ -516,12 +517,13 @@ def test_the_reference_gates_run_with_jax_blocked(tmp_path):
         "logdir": ["arrow_matrix_tpu_torch.cli.spmm_arrow", "--device",
                    "cpu", "--vertices", "256", "--width", "16",
                    "--iterations", "1", "--logdir", logs]}
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-m", *argv], cwd=tmp_path, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, argv in runs.items()}
-    out = {name: p.communicate(timeout=600)[0] for name, p in procs.items()}
-    for name, p in procs.items():
+    out = {}
+    for name, argv in runs.items():
+        p = subprocess.run(
+            [sys.executable, "-m", *argv], cwd=tmp_path, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=600)
+        out[name] = p.stdout
         assert p.returncode == 0, (name, out[name][-3000:])
     assert "chaos gate: ok" in out["chaos"]
     assert "obs gate: ok" in out["obs"]

@@ -314,3 +314,30 @@ def test_fold_contract_is_the_jax_executors():
         assert ours.collective_contract(8).to_json() == \
             theirs.collective_contract(8).to_json()
     np.testing.assert_equal(ours.ideal_comm_bytes(8), 0)
+
+
+@pytest.mark.parametrize("hosts,devices,measured,pattern,band", [
+    (2, 8, "ideal", "ring", None),            # tests/test_host.py:95-99
+    (2, 8, "3x", "ring", None),
+    (1, 8, 0, "ring", None),
+    (1, 8, 100, "ring", None),
+    (4, 8, "ideal", "alltoall", None),
+    (4, 8, "3x", "alltoall", (0.1, 4.0)),
+    (8, 8, 0, "alltoall", None)])             # a slice of zero measured
+def test_check_host_bytes_follows_jax(hosts, devices, measured, pattern,
+                                      band):
+    """graft-host's H2 across hosts (``check_host_bytes``, kept out of
+    ``RULE_IDS``): the JAX function's verdict and words on the same
+    contract and bytes."""
+    ours, theirs = prove.fixture_contract(), jprove.fixture_contract()
+    ideal = ours.inter_host_bytes(hosts, devices, pattern=pattern)
+    assert ideal == theirs.inter_host_bytes(hosts, devices, pattern=pattern)
+    m = {"ideal": ideal, "3x": 3 * ideal}.get(measured, measured)
+    got = prove.check_host_bytes(ours, hosts, devices, m, pattern, band)
+    assert got == jprove.check_host_bytes(theirs, hosts, devices, m,
+                                          pattern, band)
+    want = {(2, "ideal"): "pass", (2, "3x"): "fail", (1, 0): "pass",
+            (1, 100): "fail", (4, "ideal"): "pass", (4, "3x"): "pass",
+            (8, 0): "fail" if ideal else "pass"}[(hosts, measured)]
+    assert got["status"] == want, got
+    assert prove.RULE_IDS == jprove.RULE_IDS
